@@ -1,0 +1,483 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU: the quickest proof that
+the port still starts on the card.
+
+    python3 chip_smoke.py             # what CI runs on the H100
+    python3 chip_smoke.py --profile   # + a torch.profiler breakdown of one round
+
+Phases (any failure exits non-zero; nothing is caught and turned into a pass):
+
+1. device: the card's name and power limit (nvidia-smi), torch/CUDA
+   versions, and TF32 switched off for cuDNN convolutions and matmuls;
+2. kernels: build the CUDA kernels from ``src/repro_torch/csrc`` (and the
+   Triton one on first launch), hold each against its plain PyTorch version
+   on the card at the main path's shapes, time both (CUDA events) and the
+   library call computing the same function where there is one;
+3. main path: ``repro_torch.fl.FederatedTrainer.run_scanned(5)`` with the
+   paper's full-width FMNIST CNN (D = 1,630,090), N = 50 clients and the
+   ``benchmarks/fl_experiments.build`` data recipe, on ``cuda``; every
+   kernel's launch count must rise and params, energies and accuracy must
+   be finite;
+4. card against CPU: ``solve_round`` at the main path's setting (N = 50,
+   full-width payload, default solver config) for 5 rounds, then the smoke
+   CNN with N = 8 for 2 rounds of the trainer, each on ``cuda`` and on
+   ``cpu`` from the same inputs: equal selection masks, energies to rtol
+   1e-5 and 1e-4.
+
+Output: one JSON line per kernel check, a ``{"kernels": [...]}`` line, the
+nvidia-smi line, and as the last line
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+Without a visible GPU, or without the rest of the repository beside it, the
+script exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HERE = Path(__file__).resolve().parent
+
+# H100 SXM published peaks (NVIDIA data sheet; 700 W): HBM bytes/s and
+# fp32 (non-tensor-core) operations/s
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
+
+GRID = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
+N_CLIENTS = 50
+ROUNDS = 5
+DATA_KW = dict(confusion=0.55, label_noise=0.05, noise=0.9)
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA
+    events; for launch-bound work this is the launch rate)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_FP32_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-identical float32 tensors (any NaN payload counts as NaN)."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a[~nan].view(torch.int32),
+                                b[~nan].view(torch.int32)))
+
+
+def diff_report(got: torch.Tensor, want: torch.Tensor, ks: torch.Tensor) -> str:
+    """Per-row summary of the lanes where two [N, D] outputs differ."""
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    bad = (nan_g != nan_w) | (~nan_g & ~nan_w
+                               & (got.view(torch.int32) != want.view(torch.int32)))
+    lines = []
+    for r in torch.nonzero(bad.any(dim=1)).flatten().tolist()[:8]:
+        idx = torch.nonzero(bad[r]).flatten()
+        i = idx[:4].tolist()
+        lines.append(f"row {r} k={int(ks[r])}: {idx.numel()} lanes differ, "
+                     f"first {i}: kernel {got[r, i].tolist()} "
+                     f"plain {want[r, i].tolist()}")
+    return "\n".join(lines)
+
+
+# ------------------------------------------------------------ phase 2 ----
+def check_dual_solve(dev) -> dict:
+    from repro_torch.kernels.dual_solve import ops, ref
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    kw = dict(gamma_grid=GRID, eta=f(1e-3), b_tot=f(1e7), s_bits=f(32 * 1_630_090.0),
+              i_bits=f(1_630_090.0), n0=f(4e-21), b_lo=f(1e-4))
+    gen = torch.Generator().manual_seed(1)
+    err = 0.0
+    for n in (50, 513):
+        P = (1e-4 + 2e-4 * torch.rand(n, generator=gen)).to(dev)
+        h = (1e-3 * (50 + 450 * torch.rand(n, generator=gen)) ** -3.0
+             * torch.empty(n).exponential_(generator=gen)).to(dev)
+        u = (0.1 + 5.0 * torch.rand(n, generator=gen)).to(dev)
+        e_cmp = torch.zeros(n, device=dev)
+        for lam in (0.0, 1e-5, 1e-4, 3e-3, 0.2):
+            got = ops.dual_solve(P, h, u, f(lam), **kw, e_cmp=e_cmp)
+            want = ref.dual_solve_ref(P, h, u, f(lam), **kw, e_cmp=e_cmp)
+            if not torch.equal(got[0], want[0]):
+                raise AssertionError(f"dual_solve gamma* differs (n={n}, lam={lam})")
+            for g, w, name in zip(got[1:], want[1:], ("b*", "e*", "phi*")):
+                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-8,
+                                           msg=lambda m: f"dual_solve {name}: {m}")
+                err = max(err, float((g - w).abs().max()))
+    n = N_CLIENTS
+    P, h, u, e_cmp = P[:n].contiguous(), h[:n].contiguous(), u[:n].contiguous(), e_cmp[:n]
+    lam = f(1e-4)
+    ms = cuda_ms(lambda: ops.dual_solve(P, h, u, lam, **kw, e_cmp=e_cmp), 500)
+    plain = cuda_ms(lambda: ref.dual_solve_ref(P, h, u, lam, **kw, e_cmp=e_cmp), 100)
+    # 4 inputs + 7 scalars read, 4 outputs written; fp32 operations counted
+    # from the source (each libm call as one): ~110 per (client, level)
+    b_ms, b_by = bound(4 * n * 4 + 7 * 4 + 4 * n * 4, n * (len(GRID) * 110 + 10))
+    return dict(name="dual_solve", route="cuda",
+                source="src/repro_torch/csrc/dual_solve.cu",
+                replaces="src/repro/kernels/dual_solve/kernel.py:84",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def _tricky_rows(dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rows with ties, NaN, +-Inf, -0.0, k = 1 and k = block (one of them
+    holding NaN and Inf, which the mask at k = block drops and keeps), over
+    a D that is not a multiple of 4096."""
+    gen = torch.Generator().manual_seed(2)
+    d = 3 * 4096 + 100
+    rows = torch.randn(9, d, generator=gen)
+    rows[1, ::7] = float("nan")
+    rows[2, ::5] = float("inf")
+    rows[2, 1::5] = float("-inf")
+    rows[3] = torch.round(rows[3] * 2) / 2
+    rows[4] = -0.0
+    rows[4, ::3] = 1.0
+    rows[5] = 0.5
+    rows[6, :5000] = float("nan")
+    rows[7, ::2] = -0.0
+    rows[8, ::3] = float("nan")
+    rows[8, 1::7] = float("-inf")
+    rows[8, 2::5] = -0.0
+    ks = torch.tensor([1, 2, 409, 4096, 17, 3000, 50, 1, 4096], dtype=torch.int32)
+    return rows.to(dev), ks.to(dev)
+
+
+def check_topk(dev, mat: torch.Tensor) -> dict:
+    from repro_torch.kernels.topk_sparsify import ops, ref
+    gen = torch.Generator().manual_seed(3)
+    n, d = mat.shape
+    levels = torch.tensor([max(1, min(4096, math.ceil(g * 4096))) for g in GRID]
+                          + [1], dtype=torch.int32)
+    ks = levels[torch.randint(0, len(levels), (n,), generator=gen)].to(dev)
+    ks[0], ks[1] = 4096, 1
+    rows, tks = _tricky_rows(dev)
+    # why the plain version takes |x| on the bits: the card's abs does not
+    # keep a NaN's payload
+    nan = torch.tensor([float("nan")], device=dev)
+    log(f"torch.abs(nan) bits on the card: "
+        f"{int(torch.abs(nan).view(torch.int32)) & 0xFFFFFFFF:#010x} "
+        f"(input {int(nan.view(torch.int32)) & 0xFFFFFFFF:#010x})")
+    full = torch.full_like(tks, 4096)
+    for m, k, what in ((mat, ks, "main-path rows"), (rows, tks, "tie/NaN/Inf rows"),
+                       (rows, full, "all-full rows (copy through)")):
+        got = ops.block_topk_rows(m, k)
+        want = ref.block_topk_rows(m, k)
+        if not same_bits(got, want):
+            raise AssertionError(f"top-k kernel differs from the plain version "
+                                 f"on the {what}:\n{diff_report(got, want, k)}")
+    ms = cuda_ms(lambda: ops.block_topk_rows(mat, ks), 20)
+    plain = cuda_ms(lambda: ref.block_topk_rows(mat, ks), 3, warmup=1)
+    nb = -(-d // 4096)
+    sparsified = int((ks < 4096).sum()) * nb
+    # read + write every element once; per sparsified block 31 counting
+    # passes (compare + add per element) and ~8 operations per element
+    # for the tests, the tie scan and the product
+    b_ms, b_by = bound(2 * n * d * 4 + n * 4, sparsified * 4096 * (31 * 2 + 8))
+    return dict(name="topk_rows", route="cuda",
+                source="src/repro_torch/csrc/topk_rows.cu",
+                replaces="src/repro/kernels/topk_sparsify/kernel.py:32",
+                max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def check_row_norms(dev, mat: torch.Tensor) -> dict:
+    from repro_torch.kernels.score_norm import ops, ref
+    got = ops.row_l2_norms(mat)
+    want = ref.row_l2_norms_ref(mat, ops.BLOCK)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    err = float((got - want).abs().max())
+    ms = cuda_ms(lambda: ops.row_l2_norms(mat), 50)
+    plain = cuda_ms(lambda: ref.row_l2_norms_ref(mat, ops.BLOCK), 10)
+    library = cuda_ms(lambda: torch.linalg.vector_norm(mat, dim=1), 50)
+    n, d = mat.shape
+    b_ms, b_by = bound(n * d * 4 + n * -(-d // ops.BLOCK) * 4, 2 * n * d)
+    return dict(name="row_sq_sum", route="triton",
+                source="src/repro_torch/kernels/score_norm/kernel.py",
+                replaces="src/repro/kernels/score_norm/kernel.py:18",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library)
+
+
+# ------------------------------------------------------------ phase 3 ----
+def counters():
+    from repro_torch.kernels.dual_solve.ops import dual_solve
+    from repro_torch.kernels.score_norm.ops import row_l2_norms
+    from repro_torch.kernels.topk_sparsify.ops import block_topk_rows
+    return {"dual_solve": dual_solve, "topk_rows": block_topk_rows,
+            "row_sq_sum": row_l2_norms}
+
+
+def paper_trainer(dev):
+    """The fl_experiments.build recipe at N = 50 with the full CNN."""
+    from repro_torch.configs import ChannelConfig, FairEnergyConfig, FLConfig
+    from repro_torch.configs.fmnist_cnn import CONFIG
+    from repro_torch.data import ClientDataset, dirichlet_partition, make_fmnist_like
+    from repro_torch.fl import FederatedTrainer
+    from repro_torch.models import CNN, cnn_loss
+
+    imgs, labels = make_fmnist_like(12000, seed=0, **DATA_KW)
+    ti, tl = make_fmnist_like(2000, seed=999, **dict(DATA_KW, label_noise=0.0))
+    parts = dirichlet_partition(labels, N_CLIENTS, 0.3, seed=0)
+    fl_cfg = FLConfig(rounds=ROUNDS, local_batch=64, local_steps=2, lr=0.05,
+                      dirichlet_beta=0.3)
+    datasets = [ClientDataset(imgs[p], labels[p], fl_cfg.local_batch, seed=i)
+                for i, p in enumerate(parts)]
+    model = CNN(CONFIG, torch.Generator().manual_seed(0)).to(dev)
+    ti_t = torch.as_tensor(ti, device=dev)
+    tl_t = torch.as_tensor(tl, device=dev).long()
+
+    def eval_fn(p):
+        logits = torch.func.functional_call(model, p, (ti_t,))
+        return torch.mean((torch.argmax(logits, -1) == tl_t).to(torch.float32))
+
+    return FederatedTrainer(
+        model_loss=cnn_loss(model), model_params=dict(model.named_parameters()),
+        client_datasets=datasets, eval_fn=eval_fn, fl_cfg=fl_cfg,
+        fe_cfg=FairEnergyConfig(), ch_cfg=ChannelConfig(n_clients=N_CLIENTS),
+        seed=0, device=dev)
+
+
+def main_path(dev) -> dict:
+    t0 = time.perf_counter()
+    tr = paper_trainer(dev)
+    log(f"main path: {tr.n_clients} clients, D={tr.n_params}, set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    tr.run_scanned(ROUNDS, verbose=False)
+    launches = {name: fn.launches for name, fn in fns.items()}
+    for lg in tr.history:
+        sel = lg.selected
+        log(json.dumps({"round": lg.round, "selected": int(sel.sum()),
+                        "mean_gamma": float(lg.gamma[sel].mean()) if sel.any() else None,
+                        "energy_J": lg.total_energy, "accuracy": lg.accuracy,
+                        "wall_ms": lg.wall_s * 1e3}))
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the main path")
+    # the top-k launches must have sparsified something: some selected
+    # client sent gamma < 1, i.e. k = ceil(gamma * 4096) < 4096
+    if not any((lg.gamma[lg.selected] < 1.0).any() for lg in tr.history):
+        raise AssertionError("no selected client had gamma < 1: the top-k "
+                             "kernel copied every row through")
+    if not all(bool(torch.isfinite(p).all()) for p in tr.params.values()):
+        raise AssertionError("non-finite params after the main path")
+    if not all(np.isfinite(lg.energy).all() and np.isfinite(lg.accuracy)
+               for lg in tr.history):
+        raise AssertionError("non-finite energy or accuracy on the main path")
+    steady = [lg.wall_s for lg in tr.history[1:]]
+    log(json.dumps({"main_path": {
+        "rounds": ROUNDS, "launches": launches,
+        "dual_solve_launches_per_round": launches["dual_solve"] / ROUNDS,
+        "round_ms_first": tr.history[0].wall_s * 1e3,
+        "round_ms_steady_mean": 1e3 * sum(steady) / len(steady),
+        "rounds_per_s_steady": len(steady) / sum(steady),
+        "peak_mem_GB": torch.cuda.max_memory_allocated(dev) / 1e9}}))
+    return dict(trainer=tr, launches=launches)
+
+
+def profile_round(tr, r: int):
+    """torch.profiler over one more round: device time by kernel and the
+    device's busy share of the round's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.run_round(r)
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    log(json.dumps({"profile_round": r, "wall_ms": wall * 1e3,
+                    "device_busy_ms": busy_us / 1e3,
+                    "device_idle_share": 1.0 - busy_us / 1e3 / (wall * 1e3),
+                    "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                                     "ms": e.self_device_time_total / 1e3}
+                                    for e in top]}))
+
+
+# ------------------------------------------------------------ phase 4 ----
+def solver_card_against_cpu(dev):
+    """solve_round on the card and on the CPU at the main path's setting:
+    N = 50 on the paper channel, S = 32 D and I = D bits for the full CNN,
+    the default FairEnergyConfig (alpha_lambda = 2e-4, where the price
+    iteration runs to its cap) with eta from eta_auto, 5 warm-started
+    rounds. Masks, gammas and n_inner exactly equal; lam and energies to
+    rtol 1e-5."""
+    from repro_torch.configs import ChannelConfig, FairEnergyConfig
+    from repro_torch.core.channel import WirelessNetwork
+    from repro_torch.core.controllers import ControllerContext, make_controller
+    from repro_torch.core.fairenergy import solve_round
+
+    ch = ChannelConfig(n_clients=N_CLIENTS)
+    d = 1_630_090
+    ctx = ControllerContext(n_clients=N_CLIENTS, b_tot=ch.bandwidth_total,
+                            s_bits=32.0 * d, i_bits=float(d),
+                            n0=ch.noise_density, fe_cfg=FairEnergyConfig(),
+                            device="cpu")
+    ctrl = make_controller("fairenergy", ctx)
+    net = WirelessNetwork(ch, seed=0)
+    P = torch.as_tensor(net.power, dtype=torch.float32)
+    hs = [torch.as_tensor(net.gains(r), dtype=torch.float32) for r in range(5)]
+    gen = torch.Generator().manual_seed(50)
+    us = [0.05 + 0.45 * torch.rand(N_CLIENTS, generator=gen) for _ in range(5)]
+    ctrl.calibrate(us[0].numpy(), hs[0].numpy(), P.numpy())
+    def to(state, dv):                     # a (nested) NamedTuple of tensors
+        return type(state)(*[to(v, dv) if isinstance(v, tuple) else v.to(dv)
+                             for v in state])
+
+    states = {"cpu": ctrl.init(N_CLIENTS)}
+    states["cuda"] = to(states["cpu"], dev)
+    for r in range(5):
+        dec = {}
+        for name in ("cuda", "cpu"):
+            dv = dev if name == "cuda" else torch.device("cpu")
+            dec[name], states[name] = solve_round(
+                us[r].to(dv), hs[r].to(dv), P.to(dv), states[name],
+                fe_cfg=ctrl.fe_cfg)
+        a, b = dec["cuda"], dec["cpu"]
+        x_a, x_b = a.x.cpu(), b.x
+        if not torch.equal(x_a, x_b):
+            raise AssertionError(f"solver round {r}: masks differ, cuda "
+                                 f"{x_a.int().tolist()} cpu {x_b.int().tolist()}")
+        if not torch.equal(a.gamma.cpu(), b.gamma) or int(a.n_inner) != int(b.n_inner):
+            raise AssertionError(f"solver round {r}: gamma or n_inner differ")
+        for name in ("lam", "energy", "bandwidth"):
+            torch.testing.assert_close(getattr(a, name).cpu(), getattr(b, name),
+                                       rtol=1e-5, atol=1e-12)
+        log(json.dumps({"solver_card_vs_cpu_round": r, "n_inner": int(b.n_inner),
+                        "selected": int(x_b.sum()),
+                        "mean_gamma": float(b.gamma[x_b].mean()) if x_b.any() else None,
+                        "lam_rel_diff": abs(float(a.lam) - float(b.lam))
+                        / max(abs(float(b.lam)), 1e-30)}))
+
+
+def card_against_cpu(dev):
+    from repro_torch.configs import ChannelConfig, FairEnergyConfig, FLConfig
+    from repro_torch.configs.fmnist_cnn import SMOKE
+    from repro_torch.data import dirichlet_partition, make_fmnist_like
+    from repro_torch.fl import FederatedTrainer
+    from repro_torch.models import CNN, cnn_loss
+
+    n = 8
+    imgs, labels = make_fmnist_like(640, seed=1, **DATA_KW)
+    ti, tl = make_fmnist_like(256, seed=1000, **dict(DATA_KW, label_noise=0.0))
+    parts = dirichlet_partition(labels, n, 0.3, seed=1)
+    shards = [{"images": imgs[p], "labels": labels[p]} for p in parts]
+    params0 = {k: v.detach().clone() for k, v in
+               CNN(SMOKE, torch.Generator().manual_seed(1)).named_parameters()}
+    hist = {}
+    for name in ("cuda", "cpu"):
+        d = torch.device(name)
+        model = CNN(SMOKE).to(d)
+        ti_d, tl_d = torch.as_tensor(ti, device=d), torch.as_tensor(tl, device=d).long()
+
+        def eval_fn(p, model=model, ti_d=ti_d, tl_d=tl_d):
+            lg = torch.func.functional_call(model, p, (ti_d,))
+            return torch.mean((torch.argmax(lg, -1) == tl_d).to(torch.float32))
+
+        # a grid without 1.0 sparsifies every selected update; the smaller
+        # dual step keeps the price iteration from oscillating on this
+        # small model (see tests/test_torch_trainer.py)
+        tr = FederatedTrainer(
+            model_loss=cnn_loss(model), model_params=params0,
+            client_datasets=shards, eval_fn=eval_fn,
+            fl_cfg=FLConfig(local_steps=2, local_batch=32, lr=0.05),
+            fe_cfg=FairEnergyConfig(gamma_grid=(0.1, 0.25, 0.5), alpha_lambda=5e-5),
+            ch_cfg=ChannelConfig(n_clients=n), seed=1, device=d)
+        tr.run_scanned(2, verbose=False)
+        hist[name] = tr.history
+    for a, b in zip(hist["cuda"], hist["cpu"]):
+        if not np.array_equal(a.selected, b.selected):
+            raise AssertionError(f"round {a.round}: masks differ, cuda "
+                                 f"{a.selected.astype(int)} cpu {b.selected.astype(int)}")
+        np.testing.assert_array_equal(a.gamma, b.gamma)
+        np.testing.assert_allclose(a.energy, b.energy, rtol=1e-4, atol=0)
+        log(json.dumps({"card_vs_cpu_round": a.round,
+                        "selected": a.selected.astype(int).tolist(),
+                        "energy_max_rel": float(np.max(np.abs(a.energy - b.energy)
+                                                       / np.maximum(np.abs(b.energy), 1e-30))),
+                        "accuracy_cuda": a.accuracy, "accuracy_cpu": b.accuracy}))
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(HERE / "src"))
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from repro_torch.kernels import _build
+
+    # ---- phase 1: device
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    kind = torch.cuda.get_device_name(0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
+        f"count {torch.cuda.device_count()} "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    log(smi)
+
+    # ---- phase 2: build + kernels against their plain versions
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"built {_build.BUILD_DIR / _build.LIB_NAME} in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mat = torch.randn(N_CLIENTS, 1_630_090, device=dev, generator=gen) * 1e-3
+    kernels = [check_dual_solve(dev), check_topk(dev, mat), check_row_norms(dev, mat)]
+    del mat
+    for k in kernels:
+        log(json.dumps(k))
+
+    # ---- phase 3: the main path
+    run = main_path(dev)
+    for k in kernels:
+        k["launches"] = run["launches"][k["name"]]
+    if "--profile" in argv:
+        profile_round(run["trainer"], ROUNDS)
+    del run
+
+    # ---- phase 4: card against CPU
+    solver_card_against_cpu(dev)
+    card_against_cpu(dev)
+
+    log(json.dumps({"kernels": kernels}))
+    log(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,90 @@
+"""Config dataclasses of the FL/FairEnergy system (the port's copy).
+
+``ChannelConfig``, ``FairEnergyConfig`` and ``FLConfig`` are copied field
+for field from the JAX package, defaults included, so a config built for
+one package means the same run in the other. ``ModelConfig`` keeps only
+the fields the FMNIST CNN reads; the LLM model zoo's fields arrive with
+its port.
+
+``FairEnergyConfig.use_pallas_solver`` stays for field parity and is
+ignored here: in the port the tensors' device picks the path (the CUDA
+kernel for CUDA tensors, the plain PyTorch version for CPU tensors).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # cnn (the only family ported so far)
+    n_layers: int
+    d_model: int
+
+    # --- CNN (paper's FMNIST model) ---
+    cnn_channels: Tuple[int, ...] = ()
+    cnn_dense: int = 0
+    input_hw: Tuple[int, int, int] = (28, 28, 1)
+    n_classes: int = 10
+
+    dtype: str = "bfloat16"
+    source: str = ""             # citation
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ChannelConfig:
+    """Wireless uplink parameters (paper Sec. VII)."""
+    n_clients: int = 50
+    bandwidth_total: float = 10e6          # B_tot = 10 MHz
+    power_min: float = 0.1e-3              # 0.1 mW
+    power_max: float = 0.3e-3              # 0.3 mW
+    noise_density: float = 4e-21           # N0 (W/Hz) — thermal, -174 dBm/Hz
+    index_overhead_bits: float = 0.0       # I, set per-model (log2 indices)
+    pathloss_exp: float = 3.0
+    cell_radius_m: float = 500.0
+    rayleigh: bool = True
+
+
+@dataclass(frozen=True)
+class FairEnergyConfig:
+    """Controller hyper-parameters (paper Sec. III-VII)."""
+    eta: float = 1e-4               # score weight (calibrated: eta*||u|| ~ E scale)
+    eta_auto: bool = True           # calibrate eta on round 0 so that
+                                    # eta*median(s(0.5)) == median(E(0.5, B_tot/N))
+    eta_rel: float = 6.0            # relative benefit multiplier for eta_auto
+    rho: float = 0.6                # EMA memory
+    pi_min: float = 0.2             # min participation rate
+    gamma_min: float = 0.1
+    gamma_grid: Tuple[float, ...] = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
+    q0: float = 1.0                 # "initialize q_i^0 sufficiently large"
+    alpha_lambda: float = 2e-4      # bandwidth dual step (normalized b units)
+    alpha_mu: float = 1e-2          # fairness dual step
+    inner_iters: int = 30           # dual ascent iteration cap per round
+    gss_tol: float = 1e-3           # relative tol on bandwidth
+    gss_max_iters: int = 60
+    b_min_frac: float = 1e-4        # per-device min bandwidth fraction for GSS bracket
+    bw_solver: str = "newton"       # "newton" (ported) | "gss" (not yet ported)
+    newton_iters: int = 3           # Newton steps on the SNR stationarity
+    use_pallas_solver: bool = False  # field parity only: ignored by the port
+    dual_tol: float = 1e-3          # dual-ascent early-exit residual (0 disables)
+    solver_fallback: bool = False   # graceful-degradation guard (not yet ported)
+    bits_grid: Tuple[float, ...] = (32.0,)  # joint (gamma, bits) grid
+                                            # (only (32.0,) is ported)
+
+
+@dataclass(frozen=True)
+class FLConfig:
+    rounds: int = 150
+    local_steps: int = 1            # 1 => update == gradient (paper)
+    local_batch: int = 64
+    lr: float = 0.01
+    dirichlet_beta: float = 0.3
+    seed: int = 0
+    target_accuracy: float = 0.80
+    server_lr: float = 1.0

@@ -1,0 +1,33 @@
+"""Weights from the JAX package's parameter trees.
+
+``params_from_numpy(tree, device)`` turns a nested dict of numpy arrays
+(``jax.device_get`` of a JAX package params tree) into the port's params
+dict: dotted names in the JAX package's sorted leaf order, values copied
+unchanged. It is the identity on values because the port keeps the
+reference's layouts (HWIO convolutions, ``[in, out]`` dense weights; see
+``models.module``). It is how tests give both packages the same weights.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .fl.updates import leaf_order
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def params_from_numpy(tree: dict, device=None) -> dict:
+    """{"conv0": {"w": array, "b": array}, ...} -> {"conv0.b": tensor, ...}."""
+    flat = _flatten(tree)
+    return {name: torch.tensor(np.asarray(flat[name]), device=device)
+            for name in leaf_order(flat)}

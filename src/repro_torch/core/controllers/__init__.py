@@ -1,0 +1,16 @@
+"""Registry-based per-round controllers (selection + bandwidth + compression).
+
+    from repro_torch.core.controllers import ControllerContext, make_controller
+    ctx = ControllerContext(n_clients=50, b_tot=10e6, s_bits=6.4e7,
+                            i_bits=2e6, n0=4e-21, fe_cfg=FairEnergyConfig())
+    ctrl = make_controller("fairenergy", ctx)
+    state = ctrl.init(50)
+    dec, state = ctrl.decide(obs, state)
+
+Registered: ``fairenergy`` (paper Algorithm 1).
+"""
+from .base import (Controller, ControllerContext, RoundDecision,  # noqa: F401
+                   RoundObservation, available_controllers, make_controller,
+                   register_controller)
+from . import fairenergy  # noqa: F401  (registration side effect)
+from .fairenergy import FairEnergy  # noqa: F401

@@ -1,0 +1,131 @@
+"""Controller API: observation type, context, and the registry.
+
+A *controller* is the per-round decision maker of the FL system: given a
+``RoundObservation`` (update norms, channel gains, transmit powers, round
+index, PRNG key) it returns a ``RoundDecision`` (selection x, sparsity
+gamma, bandwidth B, per-client energy) plus its carried state:
+
+    init(n_clients) -> state
+    decide(obs: RoundObservation, state) -> (RoundDecision, state)
+
+Randomness comes from ``obs.key`` (a ``repro_torch.random`` key), never
+from a host generator, so a round is pure in (seed, round). Controllers
+register under a name with ``@register_controller("name")`` and are built
+from a ``ControllerContext`` — the static per-run constants shared by
+every strategy. Only ``fairenergy`` is ported so far; the baselines wait
+(ROADMAP A-7).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional, Protocol, runtime_checkable
+
+import torch
+
+from ..fairenergy import RoundDecision
+
+Tensor = torch.Tensor
+
+__all__ = ["Controller", "ControllerContext", "RoundDecision",
+           "RoundObservation", "available_controllers", "make_controller",
+           "register_controller"]
+
+
+class RoundObservation(NamedTuple):
+    """Everything a controller may look at in round r."""
+    u_norms: Tensor   # [N] — ||u_i^r||_2 reported by each client
+    h: Tensor         # [N] — instantaneous channel gains h_i^r
+    P: Tensor         # [N] — transmit powers P_i
+    round: int        # round index r
+    key: Tensor       # PRNG key for this round (stochastic controllers)
+    alive: Any = None  # [N] bool — battery not depleted (None = all alive)
+
+
+@dataclasses.dataclass(frozen=True)
+class ControllerContext:
+    """Static per-run constants controllers are constructed from.
+
+    ``fe_cfg`` is the FairEnergy hyper-parameter dataclass; ``e_cmp`` the
+    per-client per-round computation energy as a length-N tuple (None:
+    the communication-only energy model); ``device`` the device the
+    controller's state lives on."""
+    n_clients: int
+    b_tot: float                       # total uplink bandwidth B_tot (Hz)
+    s_bits: float                      # full-precision payload S (bits)
+    i_bits: float                      # index/mask overhead I (bits)
+    n0: float                          # noise density N0 (W/Hz)
+    fe_cfg: Any = None
+    e_cmp: Optional[tuple] = None      # [N] J/round computation energy
+    device: Any = None
+
+    def __post_init__(self):
+        # shannon_rate clamps bandwidth to a 1 Hz floor: a bracket whose
+        # lower end b_min_frac * B_tot probes below it would price rates
+        # at another B than it charges for, so such configs are rejected
+        if self.fe_cfg is not None:
+            b_min = getattr(self.fe_cfg, "b_min_frac", None)
+            if b_min is not None and b_min * self.b_tot < 1.0:
+                raise ValueError(
+                    f"b_min_frac * b_tot = {b_min * self.b_tot:.3g} Hz is "
+                    f"below the 1 Hz rate floor of shannon_rate; raise "
+                    f"b_min_frac (>= {1.0 / self.b_tot:.3g}) or b_tot")
+        if self.e_cmp is not None:
+            object.__setattr__(self, "e_cmp", tuple(float(v)
+                                                    for v in self.e_cmp))
+            if len(self.e_cmp) != self.n_clients:
+                raise ValueError(
+                    f"e_cmp has {len(self.e_cmp)} entries for "
+                    f"{self.n_clients} clients")
+
+    def e_cmp_array(self) -> Tensor:
+        """[N] f32 computation energy (zeros without a device profile)."""
+        if self.e_cmp is None:
+            return torch.zeros(self.n_clients, dtype=torch.float32,
+                               device=self.device)
+        return torch.tensor(self.e_cmp, dtype=torch.float32,
+                            device=self.device)
+
+
+@runtime_checkable
+class Controller(Protocol):
+    """Structural type every strategy implements."""
+
+    def init(self, n_clients: int) -> Any: ...
+
+    def decide(self, obs: RoundObservation, state: Any) -> tuple[RoundDecision, Any]: ...
+
+
+_REGISTRY: dict[str, Callable[[ControllerContext], Controller]] = {}
+
+
+def register_controller(name: str):
+    """Class decorator: ``@register_controller("fairenergy")``. The class
+    must be constructible as ``cls(ctx: ControllerContext)``."""
+
+    def deco(cls):
+        if name in _REGISTRY:
+            raise ValueError(f"controller {name!r} already registered")
+        _REGISTRY[name] = cls
+        cls.name = name
+        return cls
+
+    return deco
+
+
+def available_controllers() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def make_controller(spec: "str | Controller", ctx: ControllerContext) -> Controller:
+    """Resolve a registry name or pass through a ready instance."""
+    if isinstance(spec, str):
+        try:
+            cls = _REGISTRY[spec]
+        except KeyError:
+            raise KeyError(f"unknown controller {spec!r}; available: "
+                           f"{available_controllers()}") from None
+        return cls(ctx)
+    if not isinstance(spec, Controller):
+        raise TypeError(f"controller must be a registry name or implement "
+                        f"init/decide, got {type(spec).__name__}")
+    return spec

@@ -1,0 +1,249 @@
+"""FairEnergy per-round controller (paper Sec. IV-VI, Algorithm 1).
+
+Jointly decides selection x_i, sparsity gamma_i and bandwidth B_i by
+Lagrangian relaxation:
+
+  min  sum_i x_i (E_i(gamma_i, B_i) - eta s_i(gamma_i))
+  s.t. sum_i x_i B_i <= B_tot,  gamma in grid,  q_i >= pi_min
+
+* dualize bandwidth (lambda) and fairness (mu_i); the partial Lagrangian
+  separates per device, and is affine in x => threshold rule
+      x_i = 1  iff  E_i + lambda B_i < eta s_i + mu_i (1 - rho);
+* per device, gamma on a grid and B by the analytic bandwidth
+  best-response (a 3-step Newton solve in the SNR variable), fused over
+  the grid in ``kernels.dual_solve`` — the CUDA kernel for CUDA tensors,
+  its plain version for CPU tensors;
+* duals by projected subgradient ascent, warm-started from the previous
+  round's ``ControllerState``, with a residual early exit;
+* greedy repair restores primal bandwidth feasibility after rounding.
+
+This is the port of ``repro.core.fairenergy`` for the legacy
+configuration: the Newton solver on the gamma-only grid. Bandwidth is
+normalized to fractions b = B/B_tot; every float knob rides in ``FEParams``
+as float32 0-d tensors on the solver's device, so the arithmetic is the
+reference's float32 arithmetic.
+
+The dual ascent is a host loop: the exit test reads the residual on the
+host once per iteration (at most ``inner_iters`` synchronizations a
+round). The first iteration always runs — the residual starts at inf.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..kernels.dual_solve.ops import dual_solve
+from .fairness import contribution_score
+
+Tensor = torch.Tensor
+
+
+class RoundDecision(NamedTuple):
+    x: Tensor          # [N] bool — selected
+    gamma: Tensor      # [N] — sparsity ratio (valid where selected)
+    bandwidth: Tensor  # [N] Hz — allocated bandwidth (0 where unselected)
+    energy: Tensor     # [N] J — total (comm + comp) energy (0 where unselected)
+    lam: Tensor        # scalar dual (normalized-bandwidth price)
+    mu: Tensor         # [N] fairness duals
+    n_inner: Tensor    # inner dual-ascent iterations actually run
+    bw_used: Tensor    # sum of allocated bandwidth (Hz)
+
+
+class FEParams(NamedTuple):
+    """Solver scalars — hyper-parameters and channel constants — as
+    float32 0-d tensors."""
+    eta: Tensor
+    rho: Tensor
+    pi_min: Tensor
+    alpha_lambda: Tensor
+    alpha_mu: Tensor
+    b_min_frac: Tensor
+    dual_tol: Tensor
+    b_tot: Tensor
+    s_bits: Tensor
+    i_bits: Tensor
+    n0: Tensor
+
+
+class FEStatic(NamedTuple):
+    """Solver structure: the grid and the iteration caps."""
+    gamma_grid: tuple
+    inner_iters: int
+    newton_iters: int
+
+
+class ControllerState(NamedTuple):
+    lam: Tensor
+    mu: Tensor
+    q: Tensor            # EMA participation metric
+    params: FEParams
+    e_cmp: Tensor        # [N] per-round computation energy (J); zeros =
+                         # the communication-only objective
+
+
+def make_params(cfg, *, b_tot: float, s_bits: float, i_bits: float,
+                n0: float, device=None) -> FEParams:
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
+    return FEParams(eta=f(cfg.eta), rho=f(cfg.rho), pi_min=f(cfg.pi_min),
+                    alpha_lambda=f(cfg.alpha_lambda), alpha_mu=f(cfg.alpha_mu),
+                    b_min_frac=f(cfg.b_min_frac),
+                    dual_tol=f(getattr(cfg, "dual_tol", 0.0)),
+                    b_tot=f(b_tot), s_bits=f(s_bits), i_bits=f(i_bits),
+                    n0=f(n0))
+
+
+def static_of(cfg) -> FEStatic:
+    """The solver structure of ``cfg``; options the port does not have
+    yet raise, naming the ROADMAP item that brings them."""
+    solver = str(getattr(cfg, "bw_solver", "newton"))
+    if solver == "gss":
+        raise NotImplementedError(
+            "bw_solver='gss' (the golden-section oracle) is not ported yet: "
+            "ROADMAP A-6")
+    if solver != "newton":
+        raise ValueError(f"bw_solver must be 'newton' or 'gss', got "
+                         f"{solver!r}")
+    if getattr(cfg, "solver_fallback", False):
+        raise NotImplementedError(
+            "solver_fallback (graceful degradation) is not ported yet: "
+            "ROADMAP A-13")
+    if tuple(float(b) for b in getattr(cfg, "bits_grid", (32.0,))) != (32.0,):
+        raise NotImplementedError(
+            "a joint (gamma, bits) grid is not ported yet: ROADMAP A-17")
+    return FEStatic(gamma_grid=tuple(float(g) for g in cfg.gamma_grid),
+                    inner_iters=int(cfg.inner_iters),
+                    newton_iters=int(getattr(cfg, "newton_iters", 3)))
+
+
+def init_state(cfg, n_clients: int, *, b_tot: float, s_bits: float,
+               i_bits: float, n0: float, e_cmp=None,
+               device=None) -> ControllerState:
+    """Fresh duals and participation EMA, with the solver scalars
+    embedded. ``e_cmp`` is the [N] per-round computation energy (omitted:
+    zeros, the communication-only objective)."""
+    e_cmp = (torch.zeros(n_clients, dtype=torch.float32, device=device)
+             if e_cmp is None
+             else torch.as_tensor(e_cmp, dtype=torch.float32, device=device))
+    if tuple(e_cmp.shape) != (n_clients,):
+        raise ValueError(f"e_cmp must be [{n_clients}], got {tuple(e_cmp.shape)}")
+    return ControllerState(
+        lam=torch.zeros((), dtype=torch.float32, device=device),
+        mu=torch.zeros(n_clients, dtype=torch.float32, device=device),
+        q=torch.full((n_clients,), cfg.q0, dtype=torch.float32, device=device),
+        params=make_params(cfg, b_tot=b_tot, s_bits=s_bits, i_bits=i_bits,
+                           n0=n0, device=device),
+        e_cmp=e_cmp)
+
+
+def cumsum_blocked(x: Tensor, base: int = 16) -> Tensor:
+    """Inclusive prefix sum of a 1-D float tensor in the association order
+    of XLA:CPU's ``jnp.cumsum``: sequential sums inside blocks of
+    ``base``, plus the exclusive prefix of the block totals (computed the
+    same way, recursively). The greedy repair compares this sum with the
+    budget 1.0, which the dual ascent drives it close to, so the order of
+    the additions has to be the reference's for the two packages to keep
+    the same clients."""
+    n = x.shape[0]
+    nb = -(-n // base)
+    m = torch.nn.functional.pad(x, (0, nb * base - n)).reshape(nb, base)
+    cols = [m[:, 0]]
+    for j in range(1, base):
+        cols.append(cols[-1] + m[:, j])
+    inner = torch.stack(cols, dim=1)                        # [nb, base]
+    if nb > 1:
+        totals = cumsum_blocked(inner[:, -1], base)
+        excl = torch.cat([totals.new_zeros(1), totals[:-1]])
+        inner = inner + excl[:, None]
+    return inner.reshape(-1)[:n]
+
+
+def solve_round(u_norms: Tensor, h: Tensor, P: Tensor, state: ControllerState,
+                *, fe_cfg, alive: Tensor = None, e_scale: Tensor = None
+                ) -> tuple[RoundDecision, ControllerState]:
+    """One round of Algorithm 1. All client quantities are [N] float32
+    tensors on one device; the solver scalars come from ``state.params``.
+    ``alive`` ([N] bool, default all true) hard-masks clients out of
+    selection and waives their fairness duals."""
+    if e_scale is not None:
+        raise NotImplementedError(
+            "outage-aware pricing (e_scale) is not ported yet: ROADMAP A-16")
+    if alive is None:
+        alive = torch.ones(u_norms.shape, dtype=torch.bool, device=u_norms.device)
+    return _solve_round(u_norms, h, P, alive, state, static_of(fe_cfg))
+
+
+def _solve_round(u_norms, h, P, alive, state: ControllerState,
+                 static: FEStatic) -> tuple[RoundDecision, ControllerState]:
+    N = u_norms.shape[0]
+    p = state.params
+    e_cmp = state.e_cmp
+    alive_f = alive.to(torch.float32)
+    rho, eta = p.rho, p.eta
+
+    def best_response(lam):
+        return dual_solve(P, h, u_norms, lam, gamma_grid=static.gamma_grid,
+                          eta=eta, b_tot=p.b_tot, s_bits=p.s_bits,
+                          i_bits=p.i_bits, n0=p.n0, b_lo=p.b_min_frac,
+                          newton_iters=static.newton_iters, e_cmp=e_cmp)
+
+    def dual_step(lam, mu):
+        gamma_i, b_i, e_i, _ = best_response(lam)
+        x = (e_i + lam * b_i < eta * contribution_score(u_norms, gamma_i)
+             + mu * (1.0 - rho)) & alive
+        xf = x.to(torch.float32)
+        # Algorithm 1 line 11: bandwidth dual (normalized budget = 1)
+        new_lam = torch.clamp(
+            lam + p.alpha_lambda * (torch.sum(xf * b_i) - 1.0), min=0.0)
+        # Algorithm 1 line 9: fairness dual, waived for dead clients
+        new_mu = torch.clamp(
+            mu + p.alpha_mu * alive_f
+            * (p.pi_min - rho * state.q - (1.0 - rho) * xf), min=0.0)
+        return new_lam, new_mu
+
+    def residual(new_lam, lam, new_mu, mu):
+        # max(|d lam|/alpha_lambda, |d mu|/alpha_mu): the largest
+        # constraint violation still moving the duals (0/0-guarded)
+        return torch.maximum(
+            torch.abs(new_lam - lam) / torch.clamp(p.alpha_lambda, min=1e-30),
+            torch.max(torch.abs(new_mu - mu))
+            / torch.clamp(p.alpha_mu, min=1e-30))
+
+    lam, mu = state.lam, state.mu
+    n_inner = 0
+    while n_inner < static.inner_iters:
+        new_lam, new_mu = dual_step(lam, mu)
+        res = residual(new_lam, lam, new_mu, mu)
+        lam, mu = new_lam, new_mu
+        n_inner += 1
+        if n_inner < static.inner_iters and not bool(res > p.dual_tol):
+            break                                   # host sync: the exit
+
+    # final primal extraction at the converged duals + greedy repair
+    gamma_i, b_i, e_i, _ = best_response(lam)
+    benefit = eta * contribution_score(u_norms, gamma_i) \
+        + mu * (1.0 - rho) - e_i - lam * b_i
+    x = (benefit > 0) & alive
+
+    # repair: greedy keep until the bandwidth budget fits. Clients whose
+    # participation EMA would violate q >= pi_min if dropped go first,
+    # then by benefit (stable sort: ties keep index order, as jnp.argsort)
+    deficit = (p.pi_min - rho * state.q) > 0.0
+    prio = torch.where(deficit, 1e6, 0.0) + benefit
+    order = torch.argsort(torch.where(x, -prio, torch.inf), stable=True)
+    x_sorted = x[order]
+    cum = cumsum_blocked(b_i[order] * x_sorted)
+    keep = torch.zeros(N, dtype=torch.bool, device=x.device)
+    keep[order] = (cum <= 1.0) & x_sorted
+    x = x & keep
+
+    xf = x.to(torch.float32)
+    bandwidth = xf * b_i * p.b_tot
+    energy = xf * e_i
+    q_new = rho * state.q + (1.0 - rho) * xf                 # eq. (1)
+    dec = RoundDecision(x=x, gamma=torch.where(x, gamma_i, 0.0),
+                        bandwidth=bandwidth, energy=energy, lam=lam, mu=mu,
+                        n_inner=torch.tensor(n_inner, dtype=torch.int32),
+                        bw_used=torch.sum(bandwidth))
+    return dec, ControllerState(lam=lam, mu=mu, q=q_new, params=p,
+                                e_cmp=e_cmp)

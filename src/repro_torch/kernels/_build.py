@@ -1,0 +1,120 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) on first use.
+
+Each source compiles with its own ``nvcc`` (all started together) into an
+object, and the objects link into one shared library with a plain C
+interface, ``build/repro_torch/libkernels.so`` under the checkout root,
+loaded with ``ctypes``. A stamp beside the library holds a hash of the
+sources and flags, so a stale build is redone and a current one reused.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, precise math (no
+``--use_fast_math``) and ``--fmad=false``: the dual-solve kernel must
+round every multiply and add as the plain PyTorch version's separate
+elementwise ops do, or near-tied argmins could flip.
+
+Nothing here runs at import: the CPU tests import every module, on
+machines without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
+LIB_NAME = "libkernels.so"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+
+# C entry points: name -> argtypes (every function returns cudaError_t)
+SIGNATURES = {
+    # (P, h, u, e_cmp, scalars, grid, G, newton_iters, n,
+    #  gamma_out, b_out, e_out, phi_out, stream)
+    "dual_solve_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _P, _P, _P, _P, _P),
+    # (x, out, ks, n_rows, d, stream)
+    "topk_rows_f32": (_P, _P, _P, _I, _LL, _P),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "csrc/ on first use and need the CUDA toolkit")
+
+
+def _stamp(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in sources:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into ``BUILD_DIR/libkernels.so`` unless a
+    library built from the same sources and flags is already there."""
+    sources = sorted(CSRC.glob("*.cu"))
+    stamp = _stamp(sources)
+    lib = BUILD_DIR / LIB_NAME
+    stamp_file = BUILD_DIR / (LIB_NAME + ".sha256")
+    if (lib.exists() and stamp_file.exists()
+            and stamp_file.read_text() == stamp):
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / (s.stem + f".{os.getpid()}.o") for s in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for s, o in zip(sources, objs)]
+    logs = [p.communicate()[0].decode() for p in procs]
+    failed = [(s.name, log) for s, p, log in zip(sources, procs, logs)
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"--- {name}\n{log}" for name, log in failed))
+    tmp = BUILD_DIR / (LIB_NAME + f".{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    os.replace(tmp, lib)
+    stamp_file.write_text(stamp)
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point returned a non-zero ``cudaError_t``."""
+    if err != 0:
+        msg = library().repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")

@@ -1,0 +1,112 @@
+"""Plain PyTorch version of the FairEnergy bandwidth best-response.
+
+The per-device subproblem of Algorithm 1's inner loop is
+
+    min_{b in [b_lo, 1]}  phi(b) = E(gamma, b B_tot) + lam b,
+
+with E = P D / R(B), R(B) = B log2(1 + c/B), c = P h / N0 and
+D = gamma S + I. Its stationarity condition is 1-D in the SNR variable
+t = c / B (Yang et al., arXiv:1911.02417):
+
+    g(t) := t^2 A(t) / L(t)^2 = K,   L = ln(1+t), A = L - t/(1+t),
+    K = lam c^2 / (P D B_tot ln 2),
+
+solved by 3 Newton steps in u = ln t, all in log space (K overflows fp32
+at strong channels). phi is unimodal in b, so the stationary point clipped
+to [b_lo, 1] is the box minimum.
+
+This is the port's copy of ``repro.kernels.dual_solve.ref`` for the
+gamma-only grid, with the same operation order: it is what the wrapper in
+``ops`` runs for CPU tensors, and what ``chip_smoke.py`` holds the CUDA
+kernel (``csrc/dual_solve.cu``) against.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...core import channel
+
+Tensor = torch.Tensor
+
+LN2 = 0.6931471805599453
+
+
+def newton_snr(ln_k: Tensor, iters: int = 3) -> Tensor:
+    """Solve g(t) = exp(ln_k) for t by Newton in u = ln t, from a
+    regime-blended initializer (3 steps reach the fp32 noise floor).
+    Below t = 0.01 A(t) switches to its series, where log1p(t) - t/(1+t)
+    would cancel."""
+    ln_k = torch.clamp(ln_k, -45.0, 55.0)
+    u_small = 0.5 * (ln_k + LN2)
+    u_large = 0.5 * ln_k + 0.5 * torch.log(torch.clamp(0.5 * ln_k, min=1.0))
+    u = torch.clamp(torch.where(ln_k > 2.0, u_large, u_small), -20.0, 25.0)
+    for _ in range(iters):
+        t = torch.exp(u)
+        L = torch.log1p(t)
+        one_t = 1.0 + t
+        A = torch.where(t < 0.01,
+                        0.5 * t * t * (1.0 - (4.0 / 3.0) * t + 1.5 * t * t),
+                        L - t / one_t)
+        tL = t / L
+        F = torch.log(tL * tL * A) - ln_k
+        dF = 2.0 + t * t / (one_t * one_t * A) - 2.0 * t / (one_t * L)
+        u = torch.clamp(u - F / dF, -20.0, 25.0)
+    return torch.exp(u)
+
+
+def ln_k_gamma_free(P: Tensor, h: Tensor, *, n0, b_tot) -> Tensor:
+    """The gamma- and lam-independent part of ln K:
+    ln K = ln lam + ln_k_gamma_free - ln D."""
+    c = channel.snr_coeff(P, h, n0)
+    return 2.0 * torch.log(c) - torch.log(P) - torch.log(b_tot * LN2)
+
+
+def ln_k_base(P: Tensor, h: Tensor, gamma: Tensor, *, b_tot, s_bits, i_bits,
+              n0) -> Tensor:
+    """The lam-independent part of ln K: ln K = ln lam + ln_k_base."""
+    D = gamma * s_bits + i_bits
+    return ln_k_gamma_free(P, h, n0=n0, b_tot=b_tot) - torch.log(D)
+
+
+def bandwidth_best_response(lam, P: Tensor, h: Tensor, gamma: Tensor, *,
+                            b_tot, s_bits, i_bits, n0, b_lo, iters: int = 3,
+                            base: Tensor = None) -> Tensor:
+    """argmin_{b in [b_lo, 1]} E(gamma, b B_tot) + lam b, elementwise.
+    Returns the bandwidth fraction; ``base`` optionally supplies a
+    precomputed ``ln_k_base``."""
+    c = channel.snr_coeff(P, h, n0)
+    if base is None:
+        base = ln_k_base(P, h, gamma, b_tot=b_tot, s_bits=s_bits,
+                         i_bits=i_bits, n0=n0)
+    ln_k = torch.log(torch.clamp(torch.as_tensor(lam), min=1e-30)) + base
+    t = newton_snr(ln_k, iters)
+    b = c / (t * b_tot)
+    return torch.clamp(torch.maximum(b, torch.as_tensor(b_lo)), max=1.0)
+
+
+def dual_solve_ref(P: Tensor, h: Tensor, u_norms: Tensor, lam, *, gamma_grid,
+                   eta, b_tot, s_bits, i_bits, n0, b_lo,
+                   newton_iters: int = 3, base: Tensor = None,
+                   e_cmp: Tensor = None):
+    """Per-client best response over the gamma grid.
+
+    For every client i and level gamma_g: the bandwidth best-response at
+    price ``lam``, then phi = E + lam b - eta ||u_i|| gamma_g, reduced over
+    the grid with ties to the lower level (``torch.argmin`` returns the
+    first minimum, as ``jnp.argmin`` does). ``e_cmp`` ([N], optional) is
+    the per-client computation energy, added to E. The scalars are float32
+    0-d tensors (``FEParams``), as the solver carries them. Returns
+    ``(gamma*, b*, e*, phi*)``, each [N]."""
+    Pg, hg, ug = P[:, None], h[:, None], u_norms[:, None]        # [N,1]
+    grid = torch.tensor(gamma_grid, dtype=torch.float32, device=P.device)
+    gam = grid[None, :].expand(P.shape[0], grid.shape[0])        # [N,G]
+    b = bandwidth_best_response(lam, Pg, hg, gam, b_tot=b_tot,
+                                s_bits=s_bits, i_bits=i_bits, n0=n0,
+                                b_lo=b_lo, iters=newton_iters, base=base)
+    e = channel.comm_energy(gam, b * b_tot, Pg, hg, s_bits, i_bits, n0)
+    if e_cmp is not None:
+        e = e + e_cmp[:, None]
+    phi = e + lam * b - eta * ug * gam
+    g_idx = torch.argmin(phi, dim=1, keepdim=True)               # [N,1]
+    take = lambda t: torch.gather(t, 1, g_idx)[:, 0]             # noqa: E731
+    return take(gam), take(b), take(e), take(phi)

@@ -1,0 +1,89 @@
+"""Plain PyTorch version of block-local magnitude top-k sparsification.
+
+Semantics (the JAX package's, bit for bit): the flat vector is split into
+fixed blocks; in each block exactly ``k`` coefficients are kept — those
+with the largest |x|, ties broken by index order (earlier index wins).
+Trailing padding (zeros) competes like any other value but the result is
+truncated back to the input length.
+
+``topk_threshold_mask`` is the sort-free rule the CUDA kernel
+(``csrc/topk_rows.cu``) implements: it finds the exact k-th largest
+magnitude by bisecting on the fp32 *bit pattern* (non-negative floats
+order as their int32 bits, so 31 integer halvings pin the threshold), then
+applies the float tests ``mag > thresh`` / ``mag == thresh`` and fills the
+ties by an inclusive cumulative count. ``block_topk_rows_ref`` is the
+reference's sort-based oracle of the same mask.
+
+Dropped lanes are +0.0 — ``torch.where(mask, x, 0)`` — which is what the
+reference's jitted ``x * mask`` returns (XLA rewrites the product into a
+select), so a dropped NaN, Inf or negative value comes out as +0.0.
+"""
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+DEFAULT_BLOCK = 4096   # the block width; csrc/topk_rows.cu is built for it
+
+
+def topk_threshold_mask(x: Tensor, k) -> Tensor:
+    """Keep-mask of the top-k magnitudes per row, ties to the lower index.
+
+    x: [..., block] float; k: int tensor broadcastable to [..., 1],
+    clipped by the caller to [1, block]. int32 arithmetic wraps, as the
+    reference's does. |x| is taken on the bits (clear the sign), which
+    keeps a NaN's payload on every device, as XLA's abs does on the CPU;
+    ``torch.abs`` on a CUDA tensor returns the canonical NaN instead."""
+    bits = x.to(torch.float32).view(torch.int32) & 0x7FFFFFFF
+    mag = bits.view(torch.float32)
+    k = torch.as_tensor(k, dtype=torch.int32, device=x.device)
+    k = k.expand(*mag.shape[:-1], 1)
+
+    # invariant: count(bits >= lo) >= k, count(bits >= hi) < k
+    lo = torch.zeros_like(k)
+    hi = torch.amax(bits, dim=-1, keepdim=True) + 1
+    for _ in range(31):
+        mid = lo + torch.div(hi - lo, 2, rounding_mode="floor")
+        enough = (bits >= mid).sum(dim=-1, keepdim=True, dtype=torch.int32) >= k
+        lo, hi = torch.where(enough, mid, lo), torch.where(enough, hi, mid)
+    thresh = lo.view(torch.float32)                      # k-th largest |x|
+    greater = mag > thresh
+    n_greater = greater.sum(dim=-1, keepdim=True, dtype=torch.int32)
+    equal = mag == thresh
+    fill = torch.cumsum(equal.to(torch.int32), dim=-1) <= (k - n_greater)
+    return greater | (equal & fill)
+
+
+def block_topk_rows_ref(rows: Tensor, ks: Tensor) -> Tensor:
+    """Sort-based oracle: rows [R, block], ks [R] (clipped to [1, block]).
+    Per row, the ``ks[r]`` largest magnitudes, ties by index order."""
+    block = rows.shape[1]
+    ks = torch.clamp(ks.to(torch.int64), 1, block)
+    mag = torch.abs(rows.to(torch.float32))
+    srt = torch.sort(mag, dim=1).values                           # ascending
+    kth = torch.gather(srt, 1, (block - ks)[:, None])             # [R,1]
+    greater = mag > kth
+    n_greater = greater.sum(dim=1, keepdim=True)
+    equal = mag == kth
+    fill = torch.cumsum(equal.to(torch.int32), dim=1) <= (ks[:, None] - n_greater)
+    mask = greater | (equal & fill)
+    return torch.where(mask, rows, 0.0)
+
+
+def block_topk_rows(mat: Tensor, ks: Tensor) -> Tensor:
+    """The kernel's function in plain PyTorch: ``mat`` [N, D] fp32 split
+    into ``DEFAULT_BLOCK``-wide blocks per row (the ragged tail
+    zero-padded), the top ``ks[n]`` magnitudes kept in every block of row
+    n. When every ``ks[n] >= DEFAULT_BLOCK`` the matrix copies through
+    (the reference's all-full skip); otherwise such a row takes the mask
+    at k = DEFAULT_BLOCK, which drops only NaN lanes. Returns [N, D]."""
+    n, d = mat.shape
+    block = DEFAULT_BLOCK
+    if bool(torch.all(ks >= block)):
+        return mat.clone()
+    nb = -(-d // block)
+    rows = torch.nn.functional.pad(mat, (0, nb * block - d)).reshape(n * nb, block)
+    ks_rows = torch.repeat_interleave(ks.to(torch.int32), nb)[:, None]
+    mask = topk_threshold_mask(rows, torch.clamp(ks_rows, 1, block))
+    return torch.where(mask, rows, 0.0).reshape(n, nb * block)[:, :d]

@@ -1,0 +1,76 @@
+"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` never
+import JAX or the JAX package, and the port's entry point runs on the GPU
+unless asked for the CPU."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+FORBIDDEN = [re.compile(p, re.MULTILINE) for p in (
+    r"^\s*(import|from)\s+jax\b",
+    r"^\s*from\s+repro\.",
+    r"^\s*from\s+repro\s+import\b",
+    r"\bimport\s+repro\b(?!_)",
+)]
+
+
+def _port_modules():
+    import repro_torch
+    names = ["repro_torch"]
+    for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_every_port_module_imports_without_jax_or_repro():
+    mods = _port_modules()
+    assert "repro_torch.fl.server" in mods and len(mods) >= 30
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+            "print(repr(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(ROOT), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
+                                        [*PORT.rglob("*.py"),
+                                         ROOT / "chip_smoke.py"]))
+def test_source_has_no_jax_or_repro_import(path):
+    text = (ROOT / path).read_text()
+    for pat in FORBIDDEN:
+        assert not pat.search(text), f"{path}: {pat.pattern}"
+
+
+def test_scan_flags_reference_imports_but_not_the_port():
+    hits = lambda s: any(p.search(s) for p in FORBIDDEN)  # noqa: E731
+    assert hits("import jax.numpy as jnp")
+    assert hits("from repro.fl import FederatedTrainer")
+    assert hits("from repro import configs")
+    assert hits("import repro")
+    assert not hits("import repro_torch")
+    assert not hits("from repro_torch.fl import FederatedTrainer")
+
+
+def test_trainer_without_device_raises_when_no_gpu(monkeypatch):
+    from repro_torch.fl.server import FederatedTrainer, resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FederatedTrainer(model_loss=None, model_params={}, client_datasets=[],
+                         eval_fn=None, fl_cfg=None, fe_cfg=None, ch_cfg=None)
+    assert resolve_device("cpu") == torch.device("cpu")
