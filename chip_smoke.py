@@ -3,7 +3,8 @@
 the port still starts on the card.
 
     python3 chip_smoke.py             # what CI runs on the H100
-    python3 chip_smoke.py --profile   # + a torch.profiler breakdown of one round
+    python3 chip_smoke.py --profile   # + a torch.profiler breakdown of one
+                                      #   more round of each path
 
 Phases (any failure exits non-zero; nothing is caught and turned into a pass):
 
@@ -11,21 +12,30 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    versions, and TF32 switched off for cuDNN convolutions and matmuls;
 2. kernels: build the CUDA kernels from ``src/repro_torch/csrc`` (and the
    Triton one on first launch), hold each against its plain PyTorch version
-   on the card at the main path's shapes, time both (CUDA events) and the
+   on the card at the main paths' shapes — the four dual-solve variants
+   (gamma grid, outage-priced, joint (gamma, bits), joint + priced), the
+   block top-k and the row norms — and time both (CUDA events) and the
    library call computing the same function where there is one;
-3. main path: ``repro_torch.fl.FederatedTrainer.run_scanned(5)`` with the
+3. paths: ``repro_torch.fl.FederatedTrainer.run_scanned(5)`` with the
    paper's full-width FMNIST CNN (D = 1,630,090), N = 50 clients and the
-   ``benchmarks/fl_experiments.build`` data recipe, on ``cuda``; every
-   kernel's launch count must rise and params, energies and accuracy must
-   be finite;
+   ``benchmarks/fl_experiments.build`` data recipe, on ``cuda``, four
+   times: the legacy main path, (a) the ``quantized`` scenario, (b)
+   ``bursty-interference`` with ``price_outage``, and (c) (b) with the
+   joint grid (8, 16, 32). Each path's launch counts are zeroed just
+   before it and read just after: its own dual-solve variant, the top-k
+   and the norms must have launched and the other variants not; params,
+   energies and accuracy must be finite; (a) and (c) must send some update
+   below 32 bits, (b) and (c) must retransmit;
 4. card against CPU: ``solve_round`` at the main path's setting (N = 50,
-   full-width payload, default solver config) for 5 rounds, then the smoke
-   CNN with N = 8 for 2 rounds of the trainer, each on ``cuda`` and on
-   ``cpu`` from the same inputs: equal selection masks, energies to rtol
-   1e-5 and 1e-4.
+   full-width payload, default solver config) for 5 rounds, for each
+   dual-solve variant, then the smoke CNN with N = 8 for 2 rounds of the
+   legacy trainer and of path (c), each on ``cuda`` and on ``cpu`` from
+   the same inputs: equal masks, gammas, widths, ``n_inner`` and
+   retransmission counts, energies to rtol 1e-5 (solver) and 1e-4
+   (trainer).
 
-Output: one JSON line per kernel check, a ``{"kernels": [...]}`` line, the
-nvidia-smi line, and as the last line
+Output: one JSON line per kernel check, per round and per path, a
+``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a visible GPU, or without the rest of the repository beside it, the
 script exits non-zero and prints no result.
@@ -105,41 +115,77 @@ def diff_report(got: torch.Tensor, want: torch.Tensor, ks: torch.Tensor) -> str:
 
 
 # ------------------------------------------------------------ phase 2 ----
-def check_dual_solve(dev) -> dict:
+DUAL_VARIANTS = {
+    # name: (e_scale, joint grid, TPU kernel it replaces)
+    "dual_solve": (False, False, "src/repro/kernels/dual_solve/kernel.py:84"),
+    "dual_solve_scaled": (True, False, "src/repro/kernels/dual_solve/kernel.py:99"),
+    "dual_solve_joint": (False, True, "src/repro/kernels/dual_solve/kernel.py:167"),
+    "dual_solve_joint_scaled": (True, True,
+                                "src/repro/kernels/dual_solve/kernel.py:183"),
+}
+BITS = (8.0, 16.0, 32.0)
+
+
+def check_dual_solve(dev, name: str) -> dict:
+    """One dual-solve variant against the plain version: n in {50, 513},
+    the lam sweep, the paper grid (x (8, 16, 32) when joint), e_scale from
+    1 to 1000 (the expected attempts up to PRICE_P_CAP) when priced;
+    the gamma-grid variant also on e_cmp = 0 from seed 1. gamma* and
+    bits* exactly equal, b*/e*/phi* rtol 1e-5."""
+    from repro_torch.core.link import expected_attempts
     from repro_torch.kernels.dual_solve import ops, ref
+    scaled, joint, replaces = DUAL_VARIANTS[name]
     f = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
     kw = dict(gamma_grid=GRID, eta=f(1e-3), b_tot=f(1e7), s_bits=f(32 * 1_630_090.0),
-              i_bits=f(1_630_090.0), n0=f(4e-21), b_lo=f(1e-4))
-    gen = torch.Generator().manual_seed(1)
+              i_bits=f(1_630_090.0), n0=f(4e-21), b_lo=f(1e-4),
+              bits_grid=BITS if joint else None)
+    # (generator seed, draw e_cmp and e_scale?): the gamma-grid variant is
+    # also held to the gamma-only kernel's own case, seed 1 with e_cmp = 0
+    cases = ((1, False), (4, True)) if name == "dual_solve" else ((4, True),)
     err = 0.0
-    for n in (50, 513):
-        P = (1e-4 + 2e-4 * torch.rand(n, generator=gen)).to(dev)
-        h = (1e-3 * (50 + 450 * torch.rand(n, generator=gen)) ** -3.0
-             * torch.empty(n).exponential_(generator=gen)).to(dev)
-        u = (0.1 + 5.0 * torch.rand(n, generator=gen)).to(dev)
-        e_cmp = torch.zeros(n, device=dev)
-        for lam in (0.0, 1e-5, 1e-4, 3e-3, 0.2):
-            got = ops.dual_solve(P, h, u, f(lam), **kw, e_cmp=e_cmp)
-            want = ref.dual_solve_ref(P, h, u, f(lam), **kw, e_cmp=e_cmp)
-            if not torch.equal(got[0], want[0]):
-                raise AssertionError(f"dual_solve gamma* differs (n={n}, lam={lam})")
-            for g, w, name in zip(got[1:], want[1:], ("b*", "e*", "phi*")):
-                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-8,
-                                           msg=lambda m: f"dual_solve {name}: {m}")
-                err = max(err, float((g - w).abs().max()))
+    for seed, drawn in cases:
+        gen = torch.Generator().manual_seed(seed)
+        for n in (50, 513):
+            P = (1e-4 + 2e-4 * torch.rand(n, generator=gen)).to(dev)
+            h = (1e-3 * (50 + 450 * torch.rand(n, generator=gen)) ** -3.0
+                 * torch.empty(n).exponential_(generator=gen)).to(dev)
+            u = (0.1 + 5.0 * torch.rand(n, generator=gen)).to(dev)
+            if drawn:
+                e_cmp = (1e-5 * torch.rand(n, generator=gen)).to(dev)
+                p_out = 0.999 * torch.rand(n, generator=gen)
+                p_out[:2] = torch.tensor([0.0, 0.999])
+                es = expected_attempts(p_out).to(dev) if scaled else None
+            else:
+                e_cmp, es = torch.zeros(n, device=dev), None
+            for lam in (0.0, 1e-5, 1e-4, 3e-3, 0.2):
+                got = ops.dual_solve(P, h, u, f(lam), **kw, e_cmp=e_cmp, e_scale=es)
+                want = ref.dual_solve_ref(P, h, u, f(lam), **kw, e_cmp=e_cmp, e_scale=es)
+                assert len(got) == len(want) == (5 if joint else 4)
+                exact = (0, 4) if joint else (0,)
+                for i in exact:
+                    if not torch.equal(got[i], want[i]):
+                        raise AssertionError(f"{name} {('gamma*', '', '', '', 'bits*')[i]} "
+                                             f"differs (seed={seed}, n={n}, lam={lam})")
+                for g, w, what in zip(got[1:4], want[1:4], ("b*", "e*", "phi*")):
+                    torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-8,
+                                               msg=lambda m: f"{name} {what}: {m}")
+                    err = max(err, float((g - w).abs().max()))
     n = N_CLIENTS
-    P, h, u, e_cmp = P[:n].contiguous(), h[:n].contiguous(), u[:n].contiguous(), e_cmp[:n]
+    P, h, u, e_cmp = P[:n].contiguous(), h[:n].contiguous(), u[:n].contiguous(), e_cmp[:n].contiguous()
+    es = es[:n].contiguous() if scaled else None
     lam = f(1e-4)
-    ms = cuda_ms(lambda: ops.dual_solve(P, h, u, lam, **kw, e_cmp=e_cmp), 500)
-    plain = cuda_ms(lambda: ref.dual_solve_ref(P, h, u, lam, **kw, e_cmp=e_cmp), 100)
-    # 4 inputs + 7 scalars read, 4 outputs written; fp32 operations counted
-    # from the source (each libm call as one): ~110 per (client, level)
-    b_ms, b_by = bound(4 * n * 4 + 7 * 4 + 4 * n * 4, n * (len(GRID) * 110 + 10))
-    return dict(name="dual_solve", route="cuda",
-                source="src/repro_torch/csrc/dual_solve.cu",
-                replaces="src/repro/kernels/dual_solve/kernel.py:84",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+    ms = cuda_ms(lambda: ops.dual_solve(P, h, u, lam, **kw, e_cmp=e_cmp, e_scale=es), 500)
+    plain = cuda_ms(lambda: ref.dual_solve_ref(P, h, u, lam, **kw, e_cmp=e_cmp,
+                                               e_scale=es), 100)
+    # 4-5 inputs + 7 scalars read, 4-5 outputs written; float32 operations
+    # counted from the source (each libm call as one): ~110 per (client,
+    # level), plus the level-free head (and ln e_scale)
+    levels = len(GRID) * (len(BITS) if joint else 1)
+    n_io = (4 + scaled) + (4 + joint)
+    b_ms, b_by = bound(n_io * n * 4 + 7 * 4, n * (levels * 110 + 10 + scaled))
+    return dict(name=name, route="cuda", source="src/repro_torch/csrc/dual_solve.cu",
+                replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 def _tricky_rows(dev) -> tuple[torch.Tensor, torch.Tensor]:
@@ -222,27 +268,60 @@ def check_row_norms(dev, mat: torch.Tensor) -> dict:
 
 
 # ------------------------------------------------------------ phase 3 ----
-def counters():
-    from repro_torch.kernels.dual_solve.ops import dual_solve
+def counters() -> dict:
+    """Kernel name -> (wrapper, launch-count attribute)."""
+    from repro_torch.kernels.dual_solve.ops import COUNTERS, dual_solve
     from repro_torch.kernels.score_norm.ops import row_l2_norms
     from repro_torch.kernels.topk_sparsify.ops import block_topk_rows
-    return {"dual_solve": dual_solve, "topk_rows": block_topk_rows,
-            "row_sq_sum": row_l2_norms}
+    names = {(False, False): "dual_solve", (True, False): "dual_solve_scaled",
+             (False, True): "dual_solve_joint", (True, True): "dual_solve_joint_scaled"}
+    out = {names[k]: (dual_solve, attr) for k, attr in COUNTERS.items()}
+    out.update(topk_rows=(block_topk_rows, "launches"),
+               row_sq_sum=(row_l2_norms, "launches"))
+    return out
 
 
-def paper_trainer(dev):
-    """The fl_experiments.build recipe at N = 50 with the full CNN."""
+def paper_data():
+    """The fl_experiments.build data: (train, test) image/label pairs,
+    made once and shared by the paths."""
+    from repro_torch.data import make_fmnist_like
+    return (make_fmnist_like(12000, seed=0, **DATA_KW),
+            make_fmnist_like(2000, seed=999, **dict(DATA_KW, label_noise=0.0)))
+
+
+def paper_trainer(dev, data, scenario=None, price_outage=None, bits_grid=None):
+    """The fl_experiments.build recipe at N = 50 with the full CNN on
+    ``data`` (``paper_data()``), with its scenario, price_outage and
+    bits_grid arguments, through the port's scenario registry."""
+    import dataclasses
+
     from repro_torch.configs import ChannelConfig, FairEnergyConfig, FLConfig
     from repro_torch.configs.fmnist_cnn import CONFIG
-    from repro_torch.data import ClientDataset, dirichlet_partition, make_fmnist_like
+    from repro_torch.data import ClientDataset, dirichlet_partition
     from repro_torch.fl import FederatedTrainer
     from repro_torch.models import CNN, cnn_loss
+    from repro_torch.scenarios import get_scenario
 
-    imgs, labels = make_fmnist_like(12000, seed=0, **DATA_KW)
-    ti, tl = make_fmnist_like(2000, seed=999, **dict(DATA_KW, label_noise=0.0))
-    parts = dirichlet_partition(labels, N_CLIENTS, 0.3, seed=0)
+    scn = get_scenario(scenario) if scenario is not None else None
+    beta = scn.beta(0.3) if scn else 0.3
+    ch_cfg = ChannelConfig(n_clients=N_CLIENTS)
+    fe_cfg = FairEnergyConfig()
+    extra = {}
+    if scn:
+        ch_cfg = scn.apply_channel(ch_cfg)
+        fe_cfg = scn.apply_fe(fe_cfg)
+        extra = dict(device_profile=scn.device_profile(N_CLIENTS, seed=0),
+                     async_cfg=scn.async_config(), fault_cfg=scn.fault_config(),
+                     defense=scn.defense_config(),
+                     mobility=scn.mobility_config(),
+                     link_cfg=scn.link_config(price_outage=price_outage))
+    if bits_grid is not None:
+        fe_cfg = dataclasses.replace(fe_cfg,
+                                     bits_grid=tuple(float(b) for b in bits_grid))
+    (imgs, labels), (ti, tl) = data
+    parts = dirichlet_partition(labels, N_CLIENTS, beta, seed=0)
     fl_cfg = FLConfig(rounds=ROUNDS, local_batch=64, local_steps=2, lr=0.05,
-                      dirichlet_beta=0.3)
+                      dirichlet_beta=beta)
     datasets = [ClientDataset(imgs[p], labels[p], fl_cfg.local_batch, seed=i)
                 for i, p in enumerate(parts)]
     model = CNN(CONFIG, torch.Generator().manual_seed(0)).to(dev)
@@ -256,53 +335,86 @@ def paper_trainer(dev):
     return FederatedTrainer(
         model_loss=cnn_loss(model), model_params=dict(model.named_parameters()),
         client_datasets=datasets, eval_fn=eval_fn, fl_cfg=fl_cfg,
-        fe_cfg=FairEnergyConfig(), ch_cfg=ChannelConfig(n_clients=N_CLIENTS),
-        seed=0, device=dev)
+        fe_cfg=fe_cfg, ch_cfg=ch_cfg, seed=0, device=dev, **extra)
 
 
-def main_path(dev) -> dict:
+# label -> (fl_experiments.build arguments, the dual-solve variant it runs)
+PATHS = {
+    "main": (dict(), "dual_solve"),
+    "a_quantized": (dict(scenario="quantized"), "dual_solve_joint"),
+    "b_bursty_priced": (dict(scenario="bursty-interference", price_outage=True),
+                        "dual_solve_scaled"),
+    "c_bursty_priced_joint": (dict(scenario="bursty-interference",
+                                   price_outage=True, bits_grid=BITS),
+                              "dual_solve_joint_scaled"),
+}
+
+
+def drive_path(dev, data, label: str) -> dict:
+    """Run one path's 5 rounds with every launch count zeroed just before
+    and read just after; check what the path must show."""
+    build_kw, own = PATHS[label]
     t0 = time.perf_counter()
-    tr = paper_trainer(dev)
-    log(f"main path: {tr.n_clients} clients, D={tr.n_params}, set-up "
+    tr = paper_trainer(dev, data, **build_kw)
+    log(f"path {label}: {tr.n_clients} clients, D={tr.n_params}, set-up "
         f"{time.perf_counter() - t0:.1f} s")
     fns = counters()
-    for fn in fns.values():
-        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn, attr in fns.values():
+        setattr(fn, attr, 0)
     tr.run_scanned(ROUNDS, verbose=False)
-    launches = {name: fn.launches for name, fn in fns.items()}
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in fns.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
     for lg in tr.history:
         sel = lg.selected
-        log(json.dumps({"round": lg.round, "selected": int(sel.sum()),
-                        "mean_gamma": float(lg.gamma[sel].mean()) if sel.any() else None,
-                        "energy_J": lg.total_energy, "accuracy": lg.accuracy,
-                        "wall_ms": lg.wall_s * 1e3}))
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-    # the top-k launches must have sparsified something: some selected
-    # client sent gamma < 1, i.e. k = ceil(gamma * 4096) < 4096
-    if not any((lg.gamma[lg.selected] < 1.0).any() for lg in tr.history):
-        raise AssertionError("no selected client had gamma < 1: the top-k "
-                             "kernel copied every row through")
+        log(json.dumps({
+            "path": label, "round": lg.round, "selected": int(sel.sum()),
+            "mean_gamma": float(lg.gamma[sel].mean()) if sel.any() else None,
+            "mean_bits": (float(lg.bits[sel].mean()) if lg.bits is not None
+                          and sel.any() else None),
+            "n_retx": lg.n_retx, "n_outage": lg.n_outage,
+            "goodput_frac": lg.goodput_frac, "e_saved": lg.e_saved,
+            "energy_J": lg.total_energy, "accuracy": lg.accuracy,
+            "wall_ms": lg.wall_s * 1e3}))
+    for name in (own, "topk_rows", "row_sq_sum"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on path {label}")
+    others = [n for n in launches if n.startswith("dual_solve") and n != own
+              and launches[n] != 0]
+    if others:
+        raise AssertionError(f"path {label} launched {others} besides {own}")
+    # the main path's top-k launches must have sparsified something: some
+    # selected client sent gamma < 1, i.e. k = ceil(gamma * 4096) < 4096
+    if label == "main" and not any((lg.gamma[lg.selected] < 1.0).any()
+                                   for lg in tr.history):
+        raise AssertionError(f"path {label}: no selected client had gamma < 1: "
+                             "the top-k kernel copied every row through")
     if not all(bool(torch.isfinite(p).all()) for p in tr.params.values()):
-        raise AssertionError("non-finite params after the main path")
+        raise AssertionError(f"non-finite params after path {label}")
     if not all(np.isfinite(lg.energy).all() and np.isfinite(lg.accuracy)
                for lg in tr.history):
-        raise AssertionError("non-finite energy or accuracy on the main path")
+        raise AssertionError(f"non-finite energy or accuracy on path {label}")
+    if own in ("dual_solve_joint", "dual_solve_joint_scaled"):
+        if not any((lg.bits[lg.selected] < 32.0).any() for lg in tr.history):
+            raise AssertionError(f"path {label}: no selected client sent < 32 bits")
+    if own in ("dual_solve_scaled", "dual_solve_joint_scaled"):
+        if sum(lg.n_retx for lg in tr.history) < 1:
+            raise AssertionError(f"path {label}: no retransmission in {ROUNDS} rounds")
     steady = [lg.wall_s for lg in tr.history[1:]]
-    log(json.dumps({"main_path": {
-        "rounds": ROUNDS, "launches": launches,
-        "dual_solve_launches_per_round": launches["dual_solve"] / ROUNDS,
+    log(json.dumps({"path_summary": {
+        "path": label, "rounds": ROUNDS, "launches": launches,
+        "dual_solve_launches_per_round": launches[own] / ROUNDS,
         "round_ms_first": tr.history[0].wall_s * 1e3,
         "round_ms_steady_mean": 1e3 * sum(steady) / len(steady),
         "rounds_per_s_steady": len(steady) / sum(steady),
-        "peak_mem_GB": torch.cuda.max_memory_allocated(dev) / 1e9}}))
-    return dict(trainer=tr, launches=launches)
+        "peak_mem_GB": peak / 1e9}}))
+    return dict(trainer=tr, launches=launches, own=own)
 
 
-def profile_round(tr, r: int):
-    """torch.profiler over one more round: device time by kernel and the
-    device's busy share of the round's wall time."""
+def profile_round(tr, r: int, label: str):
+    """torch.profiler over one more round of a path: device time by kernel
+    and the device's busy share of the round's wall time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -314,7 +426,8 @@ def profile_round(tr, r: int):
               and "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
-    log(json.dumps({"profile_round": r, "wall_ms": wall * 1e3,
+    log(json.dumps({"profile_path": label, "profile_round": r,
+                    "wall_ms": wall * 1e3,
                     "device_busy_ms": busy_us / 1e3,
                     "device_idle_share": 1.0 - busy_us / 1e3 / (wall * 1e3),
                     "top_kernels": [{"name": e.key[:80], "calls": e.count,
@@ -323,30 +436,42 @@ def profile_round(tr, r: int):
 
 
 # ------------------------------------------------------------ phase 4 ----
-def solver_card_against_cpu(dev):
+def solver_card_against_cpu(dev, variant: str):
     """solve_round on the card and on the CPU at the main path's setting:
     N = 50 on the paper channel, S = 32 D and I = D bits for the full CNN,
     the default FairEnergyConfig (alpha_lambda = 2e-4, where the price
     iteration runs to its cap) with eta from eta_auto, 5 warm-started
-    rounds. Masks, gammas and n_inner exactly equal; lam and energies to
-    rtol 1e-5."""
+    rounds, with the variant's pricing (e_scale = expected_attempts of a
+    per-attempt outage between the 6 dB floor and the cap) and grid
+    (the paper's gammas x (8, 16, 32)). Masks, gammas, widths and n_inner
+    exactly equal; lam and energies to rtol 1e-5."""
+    import dataclasses
+
     from repro_torch.configs import ChannelConfig, FairEnergyConfig
     from repro_torch.core.channel import WirelessNetwork
     from repro_torch.core.controllers import ControllerContext, make_controller
     from repro_torch.core.fairenergy import solve_round
+    from repro_torch.core.link import expected_attempts
 
+    scaled, joint, _ = DUAL_VARIANTS[variant]
     ch = ChannelConfig(n_clients=N_CLIENTS)
     d = 1_630_090
+    fe = FairEnergyConfig()
+    if joint:
+        fe = dataclasses.replace(fe, bits_grid=BITS)
     ctx = ControllerContext(n_clients=N_CLIENTS, b_tot=ch.bandwidth_total,
                             s_bits=32.0 * d, i_bits=float(d),
-                            n0=ch.noise_density, fe_cfg=FairEnergyConfig(),
-                            device="cpu")
+                            n0=ch.noise_density, fe_cfg=fe, device="cpu")
     ctrl = make_controller("fairenergy", ctx)
     net = WirelessNetwork(ch, seed=0)
     P = torch.as_tensor(net.power, dtype=torch.float32)
     hs = [torch.as_tensor(net.gains(r), dtype=torch.float32) for r in range(5)]
     gen = torch.Generator().manual_seed(50)
     us = [0.05 + 0.45 * torch.rand(N_CLIENTS, generator=gen) for _ in range(5)]
+    floor = 1.0 - math.exp(-1.0 / 10.0 ** 0.6)
+    ess = [expected_attempts(floor + (0.999 - floor)
+                             * torch.rand(N_CLIENTS, generator=gen))
+           if scaled else None for _ in range(5)]
     ctrl.calibrate(us[0].numpy(), hs[0].numpy(), P.numpy())
     def to(state, dv):                     # a (nested) NamedTuple of tensors
         return type(state)(*[to(v, dv) if isinstance(v, tuple) else v.to(dv)
@@ -354,36 +479,49 @@ def solver_card_against_cpu(dev):
 
     states = {"cpu": ctrl.init(N_CLIENTS)}
     states["cuda"] = to(states["cpu"], dev)
+    fns = counters()
+    before = getattr(*fns[variant])
     for r in range(5):
         dec = {}
         for name in ("cuda", "cpu"):
             dv = dev if name == "cuda" else torch.device("cpu")
             dec[name], states[name] = solve_round(
                 us[r].to(dv), hs[r].to(dv), P.to(dv), states[name],
-                fe_cfg=ctrl.fe_cfg)
+                fe_cfg=ctrl.fe_cfg, e_scale=None if ess[r] is None else ess[r].to(dv))
         a, b = dec["cuda"], dec["cpu"]
         x_a, x_b = a.x.cpu(), b.x
         if not torch.equal(x_a, x_b):
-            raise AssertionError(f"solver round {r}: masks differ, cuda "
+            raise AssertionError(f"{variant} solver round {r}: masks differ, cuda "
                                  f"{x_a.int().tolist()} cpu {x_b.int().tolist()}")
         if not torch.equal(a.gamma.cpu(), b.gamma) or int(a.n_inner) != int(b.n_inner):
-            raise AssertionError(f"solver round {r}: gamma or n_inner differ")
+            raise AssertionError(f"{variant} solver round {r}: gamma or n_inner differ")
+        if joint and not torch.equal(a.bits.cpu(), b.bits):
+            raise AssertionError(f"{variant} solver round {r}: widths differ")
         for name in ("lam", "energy", "bandwidth"):
             torch.testing.assert_close(getattr(a, name).cpu(), getattr(b, name),
                                        rtol=1e-5, atol=1e-12)
-        log(json.dumps({"solver_card_vs_cpu_round": r, "n_inner": int(b.n_inner),
-                        "selected": int(x_b.sum()),
+        log(json.dumps({"solver_card_vs_cpu": variant, "round": r,
+                        "n_inner": int(b.n_inner), "selected": int(x_b.sum()),
                         "mean_gamma": float(b.gamma[x_b].mean()) if x_b.any() else None,
+                        "mean_bits": float(b.bits[x_b].mean())
+                        if joint and x_b.any() else None,
                         "lam_rel_diff": abs(float(a.lam) - float(b.lam))
                         / max(abs(float(b.lam)), 1e-30)}))
+    if getattr(*fns[variant]) <= before:
+        raise AssertionError(f"the card's solver did not launch {variant}")
 
 
-def card_against_cpu(dev):
+def card_against_cpu(dev, scenario=None, price_outage=None, bits_grid=None):
+    """The smoke CNN with N = 8 for 2 rounds on the card and on the CPU;
+    the scenario arguments as in paper_trainer."""
+    import dataclasses
+
     from repro_torch.configs import ChannelConfig, FairEnergyConfig, FLConfig
     from repro_torch.configs.fmnist_cnn import SMOKE
     from repro_torch.data import dirichlet_partition, make_fmnist_like
     from repro_torch.fl import FederatedTrainer
     from repro_torch.models import CNN, cnn_loss
+    from repro_torch.scenarios import get_scenario
 
     n = 8
     imgs, labels = make_fmnist_like(640, seed=1, **DATA_KW)
@@ -392,9 +530,20 @@ def card_against_cpu(dev):
     shards = [{"images": imgs[p], "labels": labels[p]} for p in parts]
     params0 = {k: v.detach().clone() for k, v in
                CNN(SMOKE, torch.Generator().manual_seed(1)).named_parameters()}
+    # a grid without 1.0 sparsifies every selected update; the smaller
+    # dual step keeps the price iteration from oscillating on this small
+    # model (see tests/test_torch_trainer.py)
+    fe = FairEnergyConfig(gamma_grid=(0.1, 0.25, 0.5), alpha_lambda=5e-5)
+    extra = {}
+    if scenario is not None:
+        scn = get_scenario(scenario)
+        fe = scn.apply_fe(fe)
+        extra = dict(device_profile=scn.device_profile(n, seed=1),
+                     link_cfg=scn.link_config(price_outage=price_outage))
+    if bits_grid is not None:
+        fe = dataclasses.replace(fe, bits_grid=bits_grid)
     hist = {}
-    for name in ("cuda", "cpu"):
-        d = torch.device(name)
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
         model = CNN(SMOKE).to(d)
         ti_d, tl_d = torch.as_tensor(ti, device=d), torch.as_tensor(tl, device=d).long()
 
@@ -402,25 +551,30 @@ def card_against_cpu(dev):
             lg = torch.func.functional_call(model, p, (ti_d,))
             return torch.mean((torch.argmax(lg, -1) == tl_d).to(torch.float32))
 
-        # a grid without 1.0 sparsifies every selected update; the smaller
-        # dual step keeps the price iteration from oscillating on this
-        # small model (see tests/test_torch_trainer.py)
         tr = FederatedTrainer(
             model_loss=cnn_loss(model), model_params=params0,
             client_datasets=shards, eval_fn=eval_fn,
             fl_cfg=FLConfig(local_steps=2, local_batch=32, lr=0.05),
-            fe_cfg=FairEnergyConfig(gamma_grid=(0.1, 0.25, 0.5), alpha_lambda=5e-5),
-            ch_cfg=ChannelConfig(n_clients=n), seed=1, device=d)
+            fe_cfg=fe, ch_cfg=ChannelConfig(n_clients=n), seed=1, device=d,
+            **extra)
         tr.run_scanned(2, verbose=False)
         hist[name] = tr.history
+    label = scenario or "legacy"
     for a, b in zip(hist["cuda"], hist["cpu"]):
         if not np.array_equal(a.selected, b.selected):
-            raise AssertionError(f"round {a.round}: masks differ, cuda "
+            raise AssertionError(f"{label} round {a.round}: masks differ, cuda "
                                  f"{a.selected.astype(int)} cpu {b.selected.astype(int)}")
         np.testing.assert_array_equal(a.gamma, b.gamma)
+        if b.bits is not None:
+            np.testing.assert_array_equal(a.bits, b.bits)
+        if (a.n_retx, a.n_outage) != (b.n_retx, b.n_outage):
+            raise AssertionError(f"{label} round {a.round}: retransmissions differ")
         np.testing.assert_allclose(a.energy, b.energy, rtol=1e-4, atol=0)
-        log(json.dumps({"card_vs_cpu_round": a.round,
+        log(json.dumps({"card_vs_cpu": label, "price_outage": price_outage,
+                        "bits_grid": bits_grid, "round": a.round,
                         "selected": a.selected.astype(int).tolist(),
+                        "bits": None if a.bits is None else a.bits.tolist(),
+                        "n_retx": a.n_retx, "n_outage": a.n_outage,
                         "energy_max_rel": float(np.max(np.abs(a.energy - b.energy)
                                                        / np.maximum(np.abs(b.energy), 1e-30))),
                         "accuracy_cuda": a.accuracy, "accuracy_cpu": b.accuracy}))
@@ -453,24 +607,32 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     _build.library()
     log(f"built {_build.BUILD_DIR / _build.LIB_NAME} in {time.perf_counter() - t0:.1f} s")
+    kernels = [check_dual_solve(dev, name) for name in DUAL_VARIANTS]
     gen = torch.Generator(device=dev).manual_seed(0)
     mat = torch.randn(N_CLIENTS, 1_630_090, device=dev, generator=gen) * 1e-3
-    kernels = [check_dual_solve(dev), check_topk(dev, mat), check_row_norms(dev, mat)]
+    kernels += [check_topk(dev, mat), check_row_norms(dev, mat)]
     del mat
     for k in kernels:
         log(json.dumps(k))
 
-    # ---- phase 3: the main path
-    run = main_path(dev)
+    # ---- phase 3: the paths, each with its launch counts zeroed before it
+    runs, data = {}, paper_data()
+    for label in PATHS:
+        runs[label] = drive_path(dev, data, label)
+        if "--profile" in argv:
+            profile_round(runs[label]["trainer"], ROUNDS, label)
+        runs[label].pop("trainer")
+    # each kernel's launches on the path that carries it: a dual-solve
+    # variant on its own path, the top-k and the norms on the main path
+    carrier = {own: label for label, (_, own) in PATHS.items()}
     for k in kernels:
-        k["launches"] = run["launches"][k["name"]]
-    if "--profile" in argv:
-        profile_round(run["trainer"], ROUNDS)
-    del run
+        k["launches"] = runs[carrier.get(k["name"], "main")]["launches"][k["name"]]
 
     # ---- phase 4: card against CPU
-    solver_card_against_cpu(dev)
+    for variant in DUAL_VARIANTS:
+        solver_card_against_cpu(dev, variant)
     card_against_cpu(dev)
+    card_against_cpu(dev, "bursty-interference", price_outage=True, bits_grid=BITS)
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -74,8 +74,8 @@ class FairEnergyConfig:
     use_pallas_solver: bool = False  # field parity only: ignored by the port
     dual_tol: float = 1e-3          # dual-ascent early-exit residual (0 disables)
     solver_fallback: bool = False   # graceful-degradation guard (not yet ported)
-    bits_grid: Tuple[float, ...] = (32.0,)  # joint (gamma, bits) grid
-                                            # (only (32.0,) is ported)
+    bits_grid: Tuple[float, ...] = (32.0,)  # joint (gamma, bits) grid;
+                                            # (32.0,) = gamma only
 
 
 @dataclass(frozen=True)

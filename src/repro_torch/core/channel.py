@@ -46,10 +46,13 @@ def snr_coeff(P, h, n0=THERMAL_N0) -> Tensor:
     return P * h / n0
 
 
-def payload_bits(gamma, s_bits, i_bits):
-    """``gamma*S + I``: the full-precision value payload scaled by the
-    keep ratio, plus the index/mask overhead."""
-    return gamma * s_bits + i_bits
+def payload_bits(gamma, s_bits, i_bits, value_bits=None):
+    """``gamma*S*(value_bits/32) + I``: the full-precision value payload
+    scaled by the keep ratio and the width (``None``: 32 bits), plus the
+    index/mask overhead, which quantization cannot shrink."""
+    if value_bits is None:
+        return gamma * s_bits + i_bits
+    return gamma * (torch.as_tensor(value_bits) / 32.0) * s_bits + i_bits
 
 
 def comm_time(gamma, B, P, h, s_bits, i_bits, n0=THERMAL_N0) -> Tensor:
@@ -87,9 +90,15 @@ class WirelessNetwork:
 
     The geometry comes from the same numpy generator calls as the JAX
     package's, so ``power`` and ``pathloss`` are equal to the bit; fading
-    is pure in (seed, round) through ``repro_torch.random``."""
+    is pure in (seed, round) through ``repro_torch.random``.
 
-    def __init__(self, cfg, seed: int = 0):
+    ``device_profile`` (a ``core.energy.DeviceProfile``, or a kind string
+    such as "tiered" built by ``make_profile``) rides along without
+    touching the channel draws: power and distance are drawn first. An
+    enabled ``mobility`` config is not ported yet (ROADMAP A-15)."""
+
+    def __init__(self, cfg, seed: int = 0, device_profile=None,
+                 mobility=None):
         rng = np.random.default_rng(seed)
         self.cfg = cfg
         n = cfg.n_clients
@@ -98,6 +107,17 @@ class WirelessNetwork:
         self.pathloss = REF_GAIN_1M * self.distance ** (-cfg.pathloss_exp)
         self.fade_key = prng.PRNGKey(seed)
         self._pathloss_t = torch.as_tensor(self.pathloss, dtype=torch.float32)
+        if mobility is not None and getattr(mobility, "sigma_db", 0.0) > 0.0:
+            raise NotImplementedError(
+                "mobility (pathloss drift) is not ported yet: ROADMAP A-15")
+        self.mobility = None
+        if isinstance(device_profile, str):
+            from .energy import make_profile
+            device_profile = make_profile(device_profile, n, seed=seed)
+        if device_profile is not None and device_profile.n_clients != n:
+            raise ValueError(f"device profile has {device_profile.n_clients} "
+                             f"clients, network has {n}")
+        self.device_profile = device_profile
 
     def gains(self, round_idx: int = 0) -> np.ndarray:
         """h_i^r as a float32 numpy array, pure in (seed, round_idx)."""

@@ -2,7 +2,8 @@
 
     from repro_torch.core.controllers import ControllerContext, make_controller
     ctx = ControllerContext(n_clients=50, b_tot=10e6, s_bits=6.4e7,
-                            i_bits=2e6, n0=4e-21, fe_cfg=FairEnergyConfig())
+                            i_bits=2e6, n0=4e-21, fe_cfg=FairEnergyConfig(),
+                            device="cuda")          # or "cpu"
     ctrl = make_controller("fairenergy", ctx)
     state = ctrl.init(50)
     dec, state = ctrl.decide(obs, state)

@@ -22,6 +22,7 @@ from typing import Any, Callable, NamedTuple, Optional, Protocol, runtime_checka
 
 import torch
 
+from ...devices import resolve_device
 from ..fairenergy import RoundDecision
 
 Tensor = torch.Tensor
@@ -39,6 +40,10 @@ class RoundObservation(NamedTuple):
     round: int        # round index r
     key: Tensor       # PRNG key for this round (stochastic controllers)
     alive: Any = None  # [N] bool — battery not depleted (None = all alive)
+    e_scale: Any = None  # [N] f32 — comm-energy pricing factor >= 1, the
+    #                      expected attempt count 1/(1 - p_out) set by the
+    #                      link model in price_outage mode (None = lossless
+    #                      pricing, the legacy path)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +53,8 @@ class ControllerContext:
     ``fe_cfg`` is the FairEnergy hyper-parameter dataclass; ``e_cmp`` the
     per-client per-round computation energy as a length-N tuple (None:
     the communication-only energy model); ``device`` the device the
-    controller's state lives on."""
+    controller's state lives on: ``None`` means the GPU and raises when
+    none is visible (pass ``device="cpu"`` for the CPU)."""
     n_clients: int
     b_tot: float                       # total uplink bandwidth B_tot (Hz)
     s_bits: float                      # full-precision payload S (bits)
@@ -59,6 +65,7 @@ class ControllerContext:
     device: Any = None
 
     def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
         # shannon_rate clamps bandwidth to a 1 Hz floor: a bracket whose
         # lower end b_min_frac * B_tot probes below it would price rates
         # at another B than it charges for, so such configs are rejected

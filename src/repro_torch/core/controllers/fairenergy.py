@@ -57,4 +57,5 @@ class FairEnergy:
 
     def decide(self, obs: RoundObservation, state):
         return solve_round(obs.u_norms, obs.h, obs.P, state,
-                           fe_cfg=self.fe_cfg, alive=obs.alive)
+                           fe_cfg=self.fe_cfg, alive=obs.alive,
+                           e_scale=obs.e_scale)

@@ -17,11 +17,13 @@ Lagrangian relaxation:
   round's ``ControllerState``, with a residual early exit;
 * greedy repair restores primal bandwidth feasibility after rounding.
 
-This is the port of ``repro.core.fairenergy`` for the legacy
-configuration: the Newton solver on the gamma-only grid. Bandwidth is
-normalized to fractions b = B/B_tot; every float knob rides in ``FEParams``
-as float32 0-d tensors on the solver's device, so the arithmetic is the
-reference's float32 arithmetic.
+This is the port of ``repro.core.fairenergy`` with the Newton solver: on
+the gamma grid or the joint (gamma, bits) grid (``bits_grid``: each level
+charges the payload gamma*S*bits/32 + I and earns the fidelity-discounted
+score), with optional outage-aware pricing (``e_scale``). Bandwidth is
+normalized to fractions b = B/B_tot; every float knob rides in
+``FEParams`` as float32 0-d tensors on the solver's device, so the
+arithmetic is the reference's float32 arithmetic.
 
 The dual ascent is a host loop: the exit test reads the residual on the
 host once per iteration (at most ``inner_iters`` synchronizations a
@@ -34,6 +36,7 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.dual_solve.ops import dual_solve
+from ..kernels.dual_solve.ref import score_fidelity
 from .fairness import contribution_score
 
 Tensor = torch.Tensor
@@ -48,6 +51,8 @@ class RoundDecision(NamedTuple):
     mu: Tensor         # [N] fairness duals
     n_inner: Tensor    # inner dual-ascent iterations actually run
     bw_used: Tensor    # sum of allocated bandwidth (Hz)
+    bits: Tensor = None  # [N] decided quantization width (0 where
+    #                      unselected); None off the joint grid
 
 
 class FEParams(NamedTuple):
@@ -67,10 +72,12 @@ class FEParams(NamedTuple):
 
 
 class FEStatic(NamedTuple):
-    """Solver structure: the grid and the iteration caps."""
+    """Solver structure: the grids and the iteration caps. ``bits_grid``
+    (32.0,) is the gamma-only solve; anything else the flat joint grid."""
     gamma_grid: tuple
     inner_iters: int
     newton_iters: int
+    bits_grid: tuple = (32.0,)
 
 
 class ControllerState(NamedTuple):
@@ -83,7 +90,7 @@ class ControllerState(NamedTuple):
 
 
 def make_params(cfg, *, b_tot: float, s_bits: float, i_bits: float,
-                n0: float, device=None) -> FEParams:
+                n0: float, device) -> FEParams:
     f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
     return FEParams(eta=f(cfg.eta), rho=f(cfg.rho), pi_min=f(cfg.pi_min),
                     alpha_lambda=f(cfg.alpha_lambda), alpha_mu=f(cfg.alpha_mu),
@@ -108,20 +115,20 @@ def static_of(cfg) -> FEStatic:
         raise NotImplementedError(
             "solver_fallback (graceful degradation) is not ported yet: "
             "ROADMAP A-13")
-    if tuple(float(b) for b in getattr(cfg, "bits_grid", (32.0,))) != (32.0,):
-        raise NotImplementedError(
-            "a joint (gamma, bits) grid is not ported yet: ROADMAP A-17")
     return FEStatic(gamma_grid=tuple(float(g) for g in cfg.gamma_grid),
                     inner_iters=int(cfg.inner_iters),
-                    newton_iters=int(getattr(cfg, "newton_iters", 3)))
+                    newton_iters=int(getattr(cfg, "newton_iters", 3)),
+                    bits_grid=tuple(float(b) for b in
+                                    getattr(cfg, "bits_grid", (32.0,))))
 
 
 def init_state(cfg, n_clients: int, *, b_tot: float, s_bits: float,
-               i_bits: float, n0: float, e_cmp=None,
-               device=None) -> ControllerState:
+               i_bits: float, n0: float, device, e_cmp=None
+               ) -> ControllerState:
     """Fresh duals and participation EMA, with the solver scalars
-    embedded. ``e_cmp`` is the [N] per-round computation energy (omitted:
-    zeros, the communication-only objective)."""
+    embedded, on ``device`` (the caller's resolved device, e.g. the
+    controller context's). ``e_cmp`` is the [N] per-round computation
+    energy (omitted: zeros, the communication-only objective)."""
     e_cmp = (torch.zeros(n_clients, dtype=torch.float32, device=device)
              if e_cmp is None
              else torch.as_tensor(e_cmp, dtype=torch.float32, device=device))
@@ -164,32 +171,46 @@ def solve_round(u_norms: Tensor, h: Tensor, P: Tensor, state: ControllerState,
     """One round of Algorithm 1. All client quantities are [N] float32
     tensors on one device; the solver scalars come from ``state.params``.
     ``alive`` ([N] bool, default all true) hard-masks clients out of
-    selection and waives their fairness duals."""
-    if e_scale is not None:
-        raise NotImplementedError(
-            "outage-aware pricing (e_scale) is not ported yet: ROADMAP A-16")
+    selection and waives their fairness duals. ``e_scale`` ([N], >= 1,
+    default None) is the outage-aware comm-energy pricing factor
+    ``1/(1 - p_out)`` (``core.link``): it multiplies E_cmm only, which is
+    ``lam -> lam / e_scale`` in each client's bandwidth best response."""
     if alive is None:
         alive = torch.ones(u_norms.shape, dtype=torch.bool, device=u_norms.device)
-    return _solve_round(u_norms, h, P, alive, state, static_of(fe_cfg))
+    return _solve_round(u_norms, h, P, alive, state, static_of(fe_cfg),
+                        e_scale)
 
 
 def _solve_round(u_norms, h, P, alive, state: ControllerState,
-                 static: FEStatic) -> tuple[RoundDecision, ControllerState]:
+                 static: FEStatic, e_scale=None
+                 ) -> tuple[RoundDecision, ControllerState]:
     N = u_norms.shape[0]
     p = state.params
     e_cmp = state.e_cmp
     alive_f = alive.to(torch.float32)
     rho, eta = p.rho, p.eta
+    # joint (gamma, bits) grid: the kernel returns bits* as a fifth output
+    joint = tuple(static.bits_grid) != (32.0,)
 
     def best_response(lam):
-        return dual_solve(P, h, u_norms, lam, gamma_grid=static.gamma_grid,
-                          eta=eta, b_tot=p.b_tot, s_bits=p.s_bits,
-                          i_bits=p.i_bits, n0=p.n0, b_lo=p.b_min_frac,
-                          newton_iters=static.newton_iters, e_cmp=e_cmp)
+        """(gamma*, b*, e*, bits* or None) at price ``lam``."""
+        out = dual_solve(P, h, u_norms, lam, gamma_grid=static.gamma_grid,
+                         eta=eta, b_tot=p.b_tot, s_bits=p.s_bits,
+                         i_bits=p.i_bits, n0=p.n0, b_lo=p.b_min_frac,
+                         newton_iters=static.newton_iters, e_cmp=e_cmp,
+                         e_scale=e_scale,
+                         bits_grid=static.bits_grid if joint else None)
+        return out[0], out[1], out[2], (out[4] if joint else None)
+
+    def sel_score(gamma_i, bits_i):
+        """The selection-threshold score at the decided level: discounted
+        by the float32 fidelity of its width on the joint grid."""
+        s = contribution_score(u_norms, gamma_i)
+        return s * score_fidelity(bits_i) if joint else s
 
     def dual_step(lam, mu):
-        gamma_i, b_i, e_i, _ = best_response(lam)
-        x = (e_i + lam * b_i < eta * contribution_score(u_norms, gamma_i)
+        gamma_i, b_i, e_i, bits_i = best_response(lam)
+        x = (e_i + lam * b_i < eta * sel_score(gamma_i, bits_i)
              + mu * (1.0 - rho)) & alive
         xf = x.to(torch.float32)
         # Algorithm 1 line 11: bandwidth dual (normalized budget = 1)
@@ -220,8 +241,8 @@ def _solve_round(u_norms, h, P, alive, state: ControllerState,
             break                                   # host sync: the exit
 
     # final primal extraction at the converged duals + greedy repair
-    gamma_i, b_i, e_i, _ = best_response(lam)
-    benefit = eta * contribution_score(u_norms, gamma_i) \
+    gamma_i, b_i, e_i, bits_i = best_response(lam)
+    benefit = eta * sel_score(gamma_i, bits_i) \
         + mu * (1.0 - rho) - e_i - lam * b_i
     x = (benefit > 0) & alive
 
@@ -244,6 +265,7 @@ def _solve_round(u_norms, h, P, alive, state: ControllerState,
     dec = RoundDecision(x=x, gamma=torch.where(x, gamma_i, 0.0),
                         bandwidth=bandwidth, energy=energy, lam=lam, mu=mu,
                         n_inner=torch.tensor(n_inner, dtype=torch.int32),
-                        bw_used=torch.sum(bandwidth))
+                        bw_used=torch.sum(bandwidth),
+                        bits=torch.where(x, bits_i, 0.0) if joint else None)
     return dec, ControllerState(lam=lam, mu=mu, q=q_new, params=p,
                                 e_cmp=e_cmp)

@@ -8,17 +8,26 @@ Round r (paper Sec. II-A + Algorithm 1), all on the trainer's device:
      ``torch.func`` batched client step — giving stacked flat updates
      [N, D] and their norms ||u_i|| (score-norm kernel);
   3. the controller maps the round's ``RoundObservation`` to a
-     ``RoundDecision`` (x, gamma, B) (dual-solve kernel in the FairEnergy
-     solver), hard-masked by the battery, which is debited;
+     ``RoundDecision`` (x, gamma, B[, bits]) (dual-solve kernels in the
+     FairEnergy solver), hard-masked by the battery, which is debited;
   4. the updates are block-top-k sparsified to their gamma_i (top-k
-     kernel), combined by the masked |D_i|-weighted mean and applied.
+     kernel), quantized at their width on the quantized path, combined by
+     the masked |D_i|-weighted mean and applied.
 
-This is the port of ``repro.fl.server`` for the legacy configuration: no
-device profile, async rounds, faults, link model, hierarchy, quantization
-or mesh (ROADMAP A-11 .. A-18). PyTorch runs eagerly, so ``run_scanned``
-is a loop over rounds that materializes its logs on the host once per
-chunk; the dual ascent inside the solver still reads its exit residual
-on the host every iteration.
+This is the port of ``repro.fl.server`` for the synchronous single-device
+round with its optional device profile (computation energy and finite
+batteries, ``device_profile``), lossy uplink (``link_cfg``: burst
+interference, outages with bounded HARQ, outage-aware pricing) and
+quantized payloads (a joint ``FairEnergyConfig.bits_grid`` or profile
+default widths). Async rounds, faults and defense, hierarchy, mobility
+and the client mesh raise ``NotImplementedError`` naming their ROADMAP
+item (A-12, A-13, A-15, A-18). Without a profile, link config or
+quantization the round is the legacy one, step for step.
+
+The round body runs the reference's steps in its order (``_round``).
+PyTorch runs eagerly, so ``run_scanned`` is a loop over rounds that
+materializes its logs on the host once per chunk; the dual ascent inside
+the solver reads its exit residual on the host every iteration.
 """
 from __future__ import annotations
 
@@ -30,30 +39,28 @@ import numpy as np
 import torch
 
 from .. import random as prng
-from ..core.channel import WirelessNetwork, round_gains
+from ..core.channel import WirelessNetwork, comm_energy, comm_time, round_gains
 from ..core.controllers import (Controller, ControllerContext,
                                 RoundObservation, make_controller)
-from ..core.streams import CTRL_STREAM, SAMPLE_STREAM
+from ..core.energy import UNLIMITED_J, alive_mask, comp_energy
+from ..core.link import (LinkConfig, LinkState, attempt_energy,
+                         attempt_outcomes, burst_channel, burst_step,
+                         expected_attempts, init_link_state,
+                         outage_probability)
+from ..core.streams import CTRL_STREAM, LINK_STREAM, SAMPLE_STREAM
 from ..data.pipeline import (client_sample_keys, sample_client_batches,
                              stack_client_datasets)
+from ..devices import resolve_device
 from . import compression
 from .client import make_batched_client_step
 from .updates import tree_spec, unflatten_update
 
-UNLIMITED_J = float("inf")
+__all__ = ["FederatedTrainer", "RoundLog", "UNLIMITED_J", "resolve_device"]
 
-
-def resolve_device(device=None) -> torch.device:
-    """The trainer's device: ``None`` means the GPU. The port never
-    falls back to the CPU silently — pass ``device="cpu"`` to run the
-    plain PyTorch versions of the kernels."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is visible: the port runs on the GPU; pass "
-                "device='cpu' to run it on the CPU")
-        device = "cuda"
-    return torch.device(device)
+# options of the reference's trainer this slice does not bring, and the
+# ROADMAP item that brings each
+_UNPORTED = {"async_cfg": "A-12", "fault_cfg": "A-13", "defense": "A-13",
+             "hierarchy": "A-15", "mesh": "A-18"}
 
 
 @dataclasses.dataclass
@@ -67,12 +74,36 @@ class RoundLog:
     loss: float
     n_selected: int
     battery: Optional[np.ndarray] = None  # J per client after the round
+    # --- link-reliability fields (None unless the link model is on) ----
+    n_retx: Optional[int] = None          # retransmissions this round
+    n_outage: Optional[int] = None        # retx-exhausted clients (update
+    #                                       dropped, energy still charged)
+    goodput_frac: Optional[float] = None  # delivered bits / bits on air
+    e_retx: Optional[float] = None        # J spent on retransmissions
+    # --- quantized-payload fields (None unless the path is on) ---------
+    bits: Optional[np.ndarray] = None     # [N] transmitted width (0 on
+    #                                       unselected rows)
+    e_saved: Optional[float] = None       # J saved vs a 32-bit payload
     wall_s: Optional[float] = None        # host seconds for the round,
     #                                       device work included
 
     @property
     def total_energy(self) -> float:
         return float(self.energy.sum())
+
+
+@dataclasses.dataclass(frozen=True)
+class _LinkRuntime:
+    """The link-reliability quantities resolved from a ``LinkConfig``."""
+    outage: bool
+    margin: float                 # linear fade margin 10^(dB/10)
+    max_retx: int
+    bursty: bool
+    burst_p: float
+    burst_q: float
+    noise_rise: float             # (N0 + I_burst) / N0 >= 1
+    observe_burst: bool
+    price_outage: bool
 
 
 class FederatedTrainer:
@@ -88,14 +119,48 @@ class FederatedTrainer:
 
     ``device=None`` runs on the GPU and raises when none is visible;
     ``device="cpu"`` runs the kernels' plain PyTorch versions.
+
+    ``device_profile``: a ``core.energy.DeviceProfile`` (or a kind string
+    such as "tiered") adds the per-round computation energy — priced by
+    the controller and charged every round — and the batteries' starting
+    charge; depleted clients are masked unselectable. A profile carrying
+    default widths (``bits``) turns the quantized path on.
+
+    ``link_cfg``: a ``core.link.LinkConfig`` makes the uplink lossy —
+    Gilbert-Elliott burst interference on the physics channel, per-attempt
+    Rayleigh outages with bounded HARQ (each attempt charging its real
+    energy, exhausted clients dropped from the aggregate) and, with
+    ``price_outage``, the expected attempt count in the solver's pricing.
+    It fills the ``n_retx``/``n_outage``/``goodput_frac``/``e_retx`` log
+    lanes. ``None`` or a disabled config keeps the legacy round.
+
+    A joint ``fe_cfg.bits_grid`` (anything but ``(32.0,)``) lets the
+    solver pick a width per client; the selected updates are quantized at
+    it after sparsification (``compression.quantize_rows``), every comm
+    charge uses the payload gamma ``gamma*bits/32``, and the logs gain
+    ``bits`` and ``e_saved``.
+
+    ``async_cfg``, ``fault_cfg``, ``defense``, ``hierarchy`` and ``mesh``
+    are not ported yet and raise ``NotImplementedError`` naming their
+    ROADMAP item; an enabled ``mobility`` config raises in the network.
     """
 
     def __init__(self, *, model_loss: Callable, model_params: dict,
                  client_datasets, eval_fn: Callable, fl_cfg, fe_cfg, ch_cfg,
                  controller: Union[str, Controller] = "fairenergy",
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, device_profile=None,
+                 link_cfg: Optional[LinkConfig] = None, mobility=None,
+                 async_cfg=None, fault_cfg=None, defense=None,
+                 hierarchy=None, mesh=None):
         self.device = resolve_device(device)
         dev = self.device
+        for name, value in (("async_cfg", async_cfg), ("fault_cfg", fault_cfg),
+                            ("defense", defense), ("hierarchy", hierarchy),
+                            ("mesh", mesh)):
+            if value is not None:
+                raise NotImplementedError(
+                    f"FederatedTrainer({name}=...) is not ported yet: "
+                    f"ROADMAP {_UNPORTED[name]}")
         self.loss_fn = model_loss
         self.params = {k: torch.as_tensor(v).detach().to(dev, copy=True)
                        for k, v in model_params.items()}
@@ -105,15 +170,28 @@ class FederatedTrainer:
         if ch_cfg.n_clients != self.n_clients:
             raise ValueError(f"ch_cfg.n_clients={ch_cfg.n_clients} but "
                              f"{self.n_clients} client datasets")
-        self.network = WirelessNetwork(ch_cfg, seed=seed)
+        self.network = WirelessNetwork(ch_cfg, seed=seed,
+                                       device_profile=device_profile,
+                                       mobility=mobility)
+        self.device_profile = self.network.device_profile
         self.spec = tree_spec(self.params)
         self.n_params = int(sum(self.spec.sizes))
         self.s_bits = 32.0 * self.n_params
         self.i_bits = float(self.n_params)            # 1-bit/coeff kept-mask
+        # per-round computation energy from the device profile (a round is
+        # local_steps minibatches of local_batch samples); None keeps the
+        # communication-only objective
+        e_cmp = None
+        if self.device_profile is not None:
+            samples = fl_cfg.local_steps * fl_cfg.local_batch
+            e_cmp = comp_energy(self.device_profile, samples)
         ctx = ControllerContext(
             n_clients=self.n_clients, b_tot=ch_cfg.bandwidth_total,
             s_bits=self.s_bits, i_bits=self.i_bits, n0=ch_cfg.noise_density,
-            fe_cfg=fe_cfg, device=dev)
+            fe_cfg=fe_cfg, device=dev,
+            e_cmp=None if e_cmp is None else tuple(e_cmp.tolist()))
+        self._e_cmp = (torch.zeros(self.n_clients, dtype=torch.float32)
+                       if e_cmp is None else e_cmp).to(dev)
         self.controller = make_controller(controller, ctx)
         self.controller_name = (controller if isinstance(controller, str)
                                 else getattr(controller, "name",
@@ -127,6 +205,7 @@ class FederatedTrainer:
         base = prng.PRNGKey(seed)
         self.key = prng.fold_in(base, CTRL_STREAM)            # controller
         self.sample_key = prng.fold_in(base, SAMPLE_STREAM)
+        self.link_key = prng.fold_in(base, LINK_STREAM)
         self._client_step = make_batched_client_step(model_loss, fl_cfg.lr)
         self._P = torch.as_tensor(self.network.power, dtype=torch.float32,
                                   device=dev)
@@ -137,12 +216,61 @@ class FederatedTrainer:
         self.weights = lengths / lengths.sum()
         self._weights = torch.as_tensor(self.weights, dtype=torch.float32,
                                         device=dev)
-        # battery charge carried across rounds; unlimited without a device
-        # profile (profiles arrive with ROADMAP A-11)
-        self._battery = torch.full((self.n_clients,), UNLIMITED_J,
-                                   dtype=torch.float32, device=dev)
+        # battery charge carried across rounds: the profile's capacities,
+        # unlimited without a profile
+        self._battery = (
+            self.device_profile.battery.to(dev, torch.float32, copy=True)
+            if self.device_profile is not None
+            else torch.full((self.n_clients,), UNLIMITED_J,
+                            dtype=torch.float32, device=dev))
+
+        if link_cfg is not None and not isinstance(link_cfg, LinkConfig):
+            raise TypeError(f"link_cfg must be a LinkConfig or None, got "
+                            f"{type(link_cfg).__name__}")
+        self.link_cfg = link_cfg
+        self._link_rt = self._resolve_link_runtime(link_cfg)
+        self._lstate = (init_link_state(self.n_clients, dev)
+                        if self._link_rt is not None and self._link_rt.bursty
+                        else None)
+        # [N] width a controller without the joint grid transmits at, or
+        # None off the quantized path
+        self._default_bits = self._resolve_default_bits()
         self._calibrated = False
         self.history: list[RoundLog] = []
+
+    def _resolve_link_runtime(self, cfg: Optional[LinkConfig]):
+        """The link runtime, or None when the config is absent or
+        disabled (the legacy lossless round)."""
+        if cfg is None or not cfg.enabled:
+            return None
+        return _LinkRuntime(
+            outage=bool(cfg.outage),
+            margin=float(10.0 ** (cfg.fade_margin_db / 10.0)),
+            max_retx=int(cfg.max_retx),
+            bursty=bool(cfg.bursty), burst_p=float(cfg.burst_p),
+            burst_q=float(cfg.burst_q),
+            noise_rise=1.0 + float(cfg.i_burst_n0),
+            observe_burst=bool(cfg.observe_burst),
+            price_outage=bool(cfg.price_outage))
+
+    def _resolve_default_bits(self):
+        """The per-client fallback width (32 unless the profile carries
+        tier widths), or None when neither a joint (gamma, bits) grid nor
+        profile default widths below 32 are set (the legacy full-precision
+        round)."""
+        grid = tuple(float(b) for b in
+                     (getattr(self.fe_cfg, "bits_grid", None) or (32.0,)))
+        active = grid != (32.0,)
+        default_bits = torch.full((self.n_clients,), 32.0,
+                                  dtype=torch.float32)
+        prof_bits = (self.device_profile.bits
+                     if self.device_profile is not None else None)
+        if prof_bits is not None and bool((prof_bits < 32.0).any()):
+            active = True
+            default_bits = prof_bits.to(torch.float32)
+        if not active:
+            return None
+        return default_bits.to(self.device)
 
     # ------------------------------------------------------------------
     @property
@@ -174,16 +302,47 @@ class FederatedTrainer:
 
     @torch.no_grad()
     def _round(self, r: int, evaluate: bool) -> dict:
-        """One round of the legacy core: observe, decide, hard mask,
-        battery debit, sparsify, weighted mean, apply, eval. Returns the
-        round's outputs as device tensors."""
+        """One round: observe, decide, hard mask, energy accounting,
+        battery debit, sparsify, quantize, weighted mean, apply, eval —
+        in the reference's order. Returns the round's outputs as device
+        tensors."""
+        link, default_bits = self._link_rt, self._default_bits
+        quant = default_bits is not None
+        b_tot = float(self.ch_cfg.bandwidth_total)
+        n0 = float(self.ch_cfg.noise_density)
+        s_bits, i_bits, e_cmp = self.s_bits, self.i_bits, self._e_cmp
+        link_out = link is not None and link.outage
+        link_burst = link is not None and link.bursty
         h = round_gains(self.network.fade_key, self._pathloss, r,
                         self.ch_cfg.rayleigh).to(self.device)
         updates, u_norms, losses = self._client_step(self.params,
                                                      self._round_batches(r))
-        alive = self._battery > 0.0
-        obs = RoundObservation(u_norms=u_norms, h=h, P=self._P, round=r,
-                               key=prng.fold_in(self.key, r), alive=alive)
+        P = self._P
+        if link_burst:
+            # one Gilbert-Elliott transition a round; the burst derates
+            # the physics channel (a raised noise floor is a scaled gain)
+            burst = burst_step(self.link_key, r, self._lstate.burst,
+                               link.burst_p, link.burst_q)
+            self._lstate = LinkState(burst=burst)
+            h_phys = burst_channel(h, burst, link.noise_rise)
+        else:
+            h_phys = h
+        # the controller's channel belief: the quiet-state channel unless
+        # it observes the burst; the transmission realizes on h_phys
+        h_obs = h_phys if (link_burst and link.observe_burst) else h
+        h = h_phys
+        alive = alive_mask(self._battery)
+        p_out = e_scale = None
+        if link_out:
+            # per-attempt outage at the decided operating point: the belief
+            # sets the design SNR, the physics the realized fade mean; a
+            # per-client scalar, priceable before the decision
+            p_out = outage_probability(h_obs, h, link.margin)
+            if link.price_outage:
+                e_scale = expected_attempts(p_out)
+        obs = RoundObservation(u_norms=u_norms, h=h_obs, P=P, round=r,
+                               key=prng.fold_in(self.key, r), alive=alive,
+                               e_scale=e_scale)
         dec, self.ctrl_state = self.controller.decide(obs, self.ctrl_state)
         # hard mask, whatever the controller decided: a depleted client
         # transmits nothing and is charged nothing
@@ -193,11 +352,69 @@ class FederatedTrainer:
                            bandwidth=dec.bandwidth * mf,
                            energy=dec.energy * mf,
                            bw_used=torch.sum(dec.bandwidth * mf))
-        self._battery = torch.clamp(self._battery - dec.energy, min=0.0)
+        xf_sel = dec.x.to(torch.float32)
+        bits_w = bits_fac = None
+        if quant:
+            # transmitted width: the solver's joint decision, else the
+            # profile default; 32 on unselected rows
+            bits_dec = dec.bits if dec.bits is not None else default_bits
+            bits_w = torch.where(dec.x, bits_dec, 32.0)
+            bits_fac = bits_w / 32.0
+            if dec.bits is None:
+                # the controller priced a 32-bit payload but the wire
+                # carries the default width: re-charge at the payload
+                # gamma (same allocation, realized channel)
+                b_q = torch.where(dec.x, dec.bandwidth, b_tot)
+                g_q = torch.where(dec.x, dec.gamma, 1.0)
+                dec = dec._replace(energy=xf_sel * (
+                    comm_energy(g_q * bits_fac, b_q, P, h, s_bits, i_bits,
+                                n0) + e_cmp))
+
+        def pay(g):
+            # payload-equivalent gamma: a bits-wide payload is gamma*bits/32
+            # of the full-precision one
+            return g * bits_fac if quant else g
+
+        if link is None:
+            # debit the round's spend; charge floors at 0 (inf stays inf)
+            self._battery = torch.clamp(self._battery - dec.energy, min=0.0)
+        elif link_burst and not link_out:
+            # burst-only: the controller priced the quiet channel, the
+            # transmission pays the physics one (b/gamma guards keep the
+            # unselected lanes finite)
+            b_safe = torch.where(dec.x, dec.bandwidth, b_tot)
+            g_safe = torch.where(dec.x, dec.gamma, 1.0)
+            dec = dec._replace(energy=xf_sel * (
+                comm_energy(pay(g_safe), b_safe, P, h, s_bits, i_bits, n0)
+                + e_cmp))
+        delivered = None
+        if link_out:
+            # bounded HARQ: each attempt a full airtime of the decided
+            # allocation; the realized cost replaces the priced energy
+            b_safe = torch.where(dec.x, dec.bandwidth, b_tot)
+            g_safe = torch.where(dec.x, dec.gamma, 1.0)
+            t1 = comm_time(pay(g_safe), b_safe, P, h, s_bits, i_bits, n0)
+            attempts, delivered = attempt_outcomes(self.link_key, r, p_out,
+                                                   link.max_retx)
+            attempts_f = attempts.to(torch.float32)
+            e_retx_vec = xf_sel * (attempts_f - 1.0) * P * t1
+            dec = dec._replace(energy=xf_sel * (
+                attempt_energy(attempts_f, t1, P) + e_cmp))
+            lost = dec.x & ~delivered
+        if link is not None:
+            # the deferred debit, after the link accounting
+            self._battery = torch.clamp(self._battery - dec.energy, min=0.0)
+        # a retx-exhausted update never decodes: it never enters the
+        # aggregate (its energy and fairness effects landed above)
+        part = dec.x if delivered is None else dec.x & delivered
         # unselected rows carry zero weight; gamma=1 lets them copy through
         gamma = torch.where(dec.x, torch.clamp(dec.gamma, 1e-6, 1.0), 1.0)
         sparse = compression.batch_block_topk(updates, gamma)
-        w = dec.x.to(torch.float32) * self._weights
+        if quant:
+            # client-side quantization of the sparse payload at the
+            # transmitted width, dequantized right back
+            sparse = compression.quantize_rows(sparse, bits_w)
+        w = part.to(torch.float32) * self._weights
         partial, wsum = w @ sparse, torch.sum(w)
         agg = partial / torch.clamp(wsum, min=1e-12) * self.fl_cfg.server_lr
         agg = torch.where(wsum > 0.0, agg, 0.0)
@@ -206,14 +423,43 @@ class FederatedTrainer:
                        for k, p in self.params.items()}
         acc = (self.eval_fn(self.params).to(torch.float32) if evaluate
                else torch.tensor(float("nan"), device=self.device))
-        return dict(x=dec.x, gamma=dec.gamma, bandwidth=dec.bandwidth,
-                    energy=dec.energy, accuracy=acc,
-                    loss=torch.mean(losses), battery=self._battery)
+        out = dict(x=dec.x, gamma=dec.gamma, bandwidth=dec.bandwidth,
+                   energy=dec.energy, accuracy=acc,
+                   loss=torch.mean(losses), battery=self._battery)
+        if quant:
+            # e_saved: the same allocation at a 32-bit payload minus the
+            # realized single-attempt quantized charge
+            b_q = torch.where(dec.x, dec.bandwidth, b_tot)
+            g_q = torch.where(dec.x, dec.gamma, 1.0)
+            de = (comm_energy(g_q, b_q, P, h, s_bits, i_bits, n0)
+                  - comm_energy(pay(g_q), b_q, P, h, s_bits, i_bits, n0))
+            out.update(bits=torch.where(dec.x, bits_w, 0.0),
+                       e_saved=torch.sum(xf_sel * de))
+        if link_out:
+            # goodput is link-layer: only exhausted payloads are dead air
+            d_bits = pay(g_safe) * s_bits + i_bits
+            tx_bits = torch.sum(xf_sel * attempts_f * d_bits)
+            ok_bits = torch.sum(torch.where(dec.x & delivered, d_bits, 0.0))
+            out.update(
+                n_retx=torch.sum(xf_sel * (attempts_f - 1.0)).to(torch.int32),
+                n_outage=torch.sum(lost.to(torch.int32)),
+                goodput_frac=torch.where(
+                    tx_bits > 0.0, ok_bits / torch.clamp(tx_bits, min=1e-30),
+                    1.0),
+                e_retx=torch.sum(xf_sel * e_retx_vec))
+        elif link is not None:
+            # burst-only: one lossless attempt per selection
+            zero_i = torch.zeros((), dtype=torch.int32, device=self.device)
+            out.update(n_retx=zero_i, n_outage=zero_i,
+                       goodput_frac=torch.ones((), device=self.device),
+                       e_retx=torch.zeros((), device=self.device))
+        return out
 
     def _append_logs(self, start: int, outs: list, walls: list) -> None:
         """Materialize one chunk of round outputs (one host copy)."""
         host = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
                 for k in outs[0]}
+        linked, quanted = "n_retx" in host, "bits" in host
         for i in range(len(outs)):
             x = host["x"][i]
             self.history.append(RoundLog(
@@ -221,7 +467,15 @@ class FederatedTrainer:
                 bandwidth=host["bandwidth"][i], energy=host["energy"][i],
                 accuracy=float(host["accuracy"][i]),
                 loss=float(host["loss"][i]), n_selected=int(x.sum()),
-                battery=host["battery"][i], wall_s=walls[i]))
+                battery=host["battery"][i],
+                n_retx=int(host["n_retx"][i]) if linked else None,
+                n_outage=int(host["n_outage"][i]) if linked else None,
+                goodput_frac=(float(host["goodput_frac"][i]) if linked
+                              else None),
+                e_retx=float(host["e_retx"][i]) if linked else None,
+                bits=host["bits"][i] if quanted else None,
+                e_saved=float(host["e_saved"][i]) if quanted else None,
+                wall_s=walls[i]))
 
     def run_round(self, r: int) -> RoundLog:
         """One round with its log — the debug path; it runs the same

@@ -38,10 +38,10 @@ _LL = ctypes.c_longlong
 
 # C entry points: name -> argtypes (every function returns cudaError_t)
 SIGNATURES = {
-    # (P, h, u, e_cmp, scalars, grid, G, newton_iters, n,
-    #  gamma_out, b_out, e_out, phi_out, stream)
-    "dual_solve_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _P, _P, _P, _P, _P),
+    # (P, h, u, e_cmp, e_scale | null, scalars, levels, L, newton_iters, n,
+    #  gamma_out, b_out, e_out, phi_out, bits_out | null, stream)
+    "dual_solve_levels_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _P, _P, _P, _P, _P, _P),
     # (x, out, ks, n_rows, d, stream)
     "topk_rows_f32": (_P, _P, _P, _I, _LL, _P),
 }

@@ -15,16 +15,18 @@ solved by 3 Newton steps in u = ln t, all in log space (K overflows fp32
 at strong channels). phi is unimodal in b, so the stationary point clipped
 to [b_lo, 1] is the box minimum.
 
-This is the port's copy of ``repro.kernels.dual_solve.ref`` for the
-gamma-only grid, with the same operation order: it is what the wrapper in
+This is the port's copy of ``repro.kernels.dual_solve.ref`` — the
+gamma-only grid, the outage-priced ``e_scale`` and the joint (gamma,
+bits) grid — with the same operation order: it is what the wrapper in
 ``ops`` runs for CPU tensors, and what ``chip_smoke.py`` holds the CUDA
-kernel (``csrc/dual_solve.cu``) against.
+kernels (``csrc/dual_solve.cu``) against.
 """
 from __future__ import annotations
 
 import torch
 
 from ...core import channel
+from ...xla_math import exp2_xla
 
 Tensor = torch.Tensor
 
@@ -84,29 +86,84 @@ def bandwidth_best_response(lam, P: Tensor, h: Tensor, gamma: Tensor, *,
     return torch.clamp(torch.maximum(b, torch.as_tensor(b_lo)), max=1.0)
 
 
+def score_fidelity(bits) -> Tensor:
+    """Contribution retained after ``bits``-wide symmetric quantization:
+    ``1 - 2^(1-bits)`` in float32 — exactly 1.0 at 32 bits, 0.9921875 at
+    8. The power of two is XLA's exp2, as in the reference."""
+    return 1.0 - exp2_xla(1.0 - torch.as_tensor(bits, dtype=torch.float32))
+
+
+def joint_levels(gamma_grid, bits_grid) -> tuple:
+    """The flat (gamma, bits) decision grid, gamma-major: ties in the
+    argmin break to the lower flat index (lower gamma first, then the
+    earlier bits_grid entry), as in the reference."""
+    return tuple((float(g), float(bt)) for g in gamma_grid
+                 for bt in bits_grid)
+
+
+def level_coefficients(gamma_grid, bits_grid=None) -> dict:
+    """Per-level float32 constants of the best response, folded in Python
+    doubles and then cast, exactly as the reference folds them: the
+    level's gamma, its payload gamma ``g*bt/32``, its score coefficient
+    ``g*(1 - 2**(1-bt))`` and its width. Without ``bits_grid`` the
+    payload and score coefficients are gamma itself and there are no
+    widths."""
+    if bits_grid is None:
+        g = [float(v) for v in gamma_grid]
+        return dict(gamma=g, pay=g, score=g, bits=None)
+    levels = joint_levels(gamma_grid, bits_grid)
+    return dict(gamma=[g for g, _ in levels],
+                pay=[g * bt / 32.0 for g, bt in levels],
+                score=[g * (1.0 - 2.0 ** (1.0 - bt)) for g, bt in levels],
+                bits=[bt for _, bt in levels])
+
+
 def dual_solve_ref(P: Tensor, h: Tensor, u_norms: Tensor, lam, *, gamma_grid,
                    eta, b_tot, s_bits, i_bits, n0, b_lo,
-                   newton_iters: int = 3, base: Tensor = None,
-                   e_cmp: Tensor = None):
-    """Per-client best response over the gamma grid.
+                   newton_iters: int = 3, e_cmp: Tensor = None,
+                   e_scale: Tensor = None, bits_grid=None):
+    """Per-client best response over the grid.
 
-    For every client i and level gamma_g: the bandwidth best-response at
-    price ``lam``, then phi = E + lam b - eta ||u_i|| gamma_g, reduced over
-    the grid with ties to the lower level (``torch.argmin`` returns the
+    For every client i and level: the bandwidth best-response at price
+    ``lam``, then phi = E + lam b - eta ||u_i|| s_level, reduced over the
+    levels with ties to the lower level (``torch.argmin`` returns the
     first minimum, as ``jnp.argmin`` does). ``e_cmp`` ([N], optional) is
-    the per-client computation energy, added to E. The scalars are float32
-    0-d tensors (``FEParams``), as the solver carries them. Returns
-    ``(gamma*, b*, e*, phi*)``, each [N]."""
+    the per-client computation energy, added to E. The scalars are
+    float32 0-d tensors (``FEParams``), as the solver carries them.
+
+    ``e_scale`` ([N], optional, >= 1) prices the comm energy: E_cmm is
+    multiplied per client, which is ``lam -> lam / e_scale`` in the
+    best response, so ``-ln e_scale`` is subtracted from the
+    stationarity base, ``ln lam + ((gfree - ln D) - ln es)``.
+
+    ``bits_grid`` (tuple, optional) widens the decision to the flat
+    ``joint_levels``: level (g, bt) charges the payload gamma ``g*bt/32``
+    and earns the score ``g*(1 - 2**(1-bt))`` (``level_coefficients``).
+    The return then grows a fifth element, ``bits*``.
+
+    Returns ``(gamma*, b*, e*, phi*[, bits*])``, each [N]."""
     Pg, hg, ug = P[:, None], h[:, None], u_norms[:, None]        # [N,1]
-    grid = torch.tensor(gamma_grid, dtype=torch.float32, device=P.device)
-    gam = grid[None, :].expand(P.shape[0], grid.shape[0])        # [N,G]
-    b = bandwidth_best_response(lam, Pg, hg, gam, b_tot=b_tot,
+    n = P.shape[0]
+    coef = level_coefficients(gamma_grid, bits_grid)
+    row = lambda v: torch.tensor(v, dtype=torch.float32, device=P.device  # noqa: E731
+                                 )[None, :].expand(n, len(v))
+    gam, gam_pay, score_g = row(coef["gamma"]), row(coef["pay"]), row(coef["score"])
+    base = None
+    if e_scale is not None:
+        base = ln_k_base(Pg, hg, gam_pay, b_tot=b_tot, s_bits=s_bits,
+                         i_bits=i_bits, n0=n0) - torch.log(e_scale)[:, None]
+    b = bandwidth_best_response(lam, Pg, hg, gam_pay, b_tot=b_tot,
                                 s_bits=s_bits, i_bits=i_bits, n0=n0,
                                 b_lo=b_lo, iters=newton_iters, base=base)
-    e = channel.comm_energy(gam, b * b_tot, Pg, hg, s_bits, i_bits, n0)
+    e = channel.comm_energy(gam_pay, b * b_tot, Pg, hg, s_bits, i_bits, n0)
+    if e_scale is not None:
+        e = e * e_scale[:, None]                                 # priced comm
     if e_cmp is not None:
         e = e + e_cmp[:, None]
-    phi = e + lam * b - eta * ug * gam
+    phi = e + lam * b - eta * ug * score_g
     g_idx = torch.argmin(phi, dim=1, keepdim=True)               # [N,1]
     take = lambda t: torch.gather(t, 1, g_idx)[:, 0]             # noqa: E731
-    return take(gam), take(b), take(e), take(phi)
+    out = (take(gam), take(b), take(e), take(phi))
+    if coef["bits"] is None:
+        return out
+    return out + (take(row(coef["bits"])),)

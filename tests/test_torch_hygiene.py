@@ -74,3 +74,21 @@ def test_trainer_without_device_raises_when_no_gpu(monkeypatch):
         FederatedTrainer(model_loss=None, model_params={}, client_datasets=[],
                          eval_fn=None, fl_cfg=None, fe_cfg=None, ch_cfg=None)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_controller_context_without_device_raises_when_no_gpu(monkeypatch):
+    """``make_controller`` is a public entry point: its context, like the
+    trainer, means the GPU unless asked for the CPU, and never builds
+    state on the CPU silently."""
+    from repro_torch.configs import FairEnergyConfig
+    from repro_torch.core.controllers import ControllerContext, make_controller
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = dict(n_clients=4, b_tot=10e6, s_bits=6.4e7, i_bits=2e6, n0=4e-21,
+              fe_cfg=FairEnergyConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ControllerContext(**kw)
+    ctx = ControllerContext(**kw, device="cpu")
+    assert ctx.device == torch.device("cpu")
+    state = make_controller("fairenergy", ctx).init(4)
+    assert state.lam.device.type == "cpu" and state.params.eta.device.type == "cpu"
+    assert ctx.e_cmp_array().device.type == "cpu"

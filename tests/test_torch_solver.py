@@ -99,16 +99,20 @@ def test_tie_heavy_repair_pins_stable_argsort():
 
 @pytest.mark.parametrize("kw,item", [({"bw_solver": "gss"}, "A-6"),
                                      ({"solver_fallback": True}, "A-13"),
-                                     ({"bits_grid": (8.0, 32.0)}, "A-17")])
+                                     ({"bits_grid": (8.0, 32.0),
+                                       "solver_fallback": True}, "A-13")])
 def test_unported_options_raise_naming_the_roadmap_item(kw, item):
+    """The GSS oracle and the graceful-degradation fallback are not
+    ported, on the gamma grid or the joint grid, with or without pricing;
+    the joint grid and ``e_scale`` themselves are (A-16, A-17)."""
     fe = dataclasses.replace(TFE(eta_auto=False), **kw)
     u, h, P = (torch.tensor(a) for a in _draws(4, 0))
     st = init_state(TFE(), 4, b_tot=B_TOT, s_bits=S_BITS, i_bits=I_BITS,
                     n0=N0, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         solve_round(u, h, P, st, fe_cfg=fe)
-    with pytest.raises(NotImplementedError, match="A-16"):
-        solve_round(u, h, P, st, fe_cfg=TFE(), e_scale=torch.ones(4))
+    with pytest.raises(NotImplementedError, match=item):
+        solve_round(u, h, P, st, fe_cfg=fe, e_scale=torch.ones(4))
 
 
 D_CNN = 1_630_090          # the paper's FMNIST CNN (configs/fmnist_cnn.py)

@@ -54,7 +54,7 @@ def _mlp_data():
     return params, datasets, tx, ty
 
 
-def _torch_mlp_trainer(params_tree):
+def _torch_mlp_trainer(params_tree, fe_cfg=None, **kw):
     _, datasets, tx, ty = _mlp_data()
     tx, ty = torch.tensor(tx), torch.tensor(ty)
 
@@ -71,8 +71,8 @@ def _torch_mlp_trainer(params_tree):
         model_loss=loss_fn, model_params=params_from_numpy(params_tree),
         client_datasets=datasets, eval_fn=eval_fn,
         fl_cfg=FLConfig(local_steps=2, local_batch=16, lr=0.05),
-        fe_cfg=FairEnergyConfig(), ch_cfg=ChannelConfig(n_clients=N_CLIENTS),
-        device="cpu")
+        fe_cfg=fe_cfg or FairEnergyConfig(),
+        ch_cfg=ChannelConfig(n_clients=N_CLIENTS), device="cpu", **kw)
 
 
 def _assert_trajectories_match(t_hist, j_hist):
