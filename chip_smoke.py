@@ -4,7 +4,8 @@ the port still starts on the card.
 
     python3 chip_smoke.py             # what CI runs on the H100
     python3 chip_smoke.py --profile   # + a torch.profiler breakdown of one
-                                      #   more round of each path
+                                      #   more round of each path, and of one
+                                      #   prefill and one decode step
 
 Phases (any failure exits non-zero; nothing is caught and turned into a pass):
 
@@ -14,8 +15,10 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    Triton one on first launch), hold each against its plain PyTorch version
    on the card at the main paths' shapes — the four dual-solve variants
    (gamma grid, outage-priced, joint (gamma, bits), joint + priced), the
-   block top-k and the row norms — and time both (CUDA events) and the
-   library call computing the same function where there is one;
+   block top-k, the row norms and the flash attention (the serve path's
+   [4, 2048, 32|4, 64] bf16 causal, a 256 window, fp32, a ragged S = 1000,
+   D = 32 and D = 128) — and time both (CUDA events) and the library call
+   computing the same function where there is one;
 3. paths: ``repro_torch.fl.FederatedTrainer.run_scanned(5)`` with the
    paper's full-width FMNIST CNN (D = 1,630,090), N = 50 clients and the
    ``benchmarks/fl_experiments.build`` data recipe, on ``cuda``, four
@@ -32,7 +35,20 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    legacy trainer and of path (c), each on ``cuda`` and on ``cpu`` from
    the same inputs: equal masks, gammas, widths, ``n_inner`` and
    retransmission counts, energies to rtol 1e-5 (solver) and 1e-4
-   (trainer).
+   (trainer);
+5. serve: ``repro_torch.launch.serve.generate`` with TinyLlama-1.1B at full
+   width (22 layers, d 2048, random weights from a seeded generator on the
+   card, bf16): 4 prompts of 2048 ids, 32 new tokens each, once to warm up
+   and once timed (prefill ms, decode ms a step, tokens/s, peak memory).
+   The timed run must launch the flash kernel 22 times (one per layer of
+   the prefill; a lone decode step launches none), give finite logits and
+   32 new ids a request, and its first decode step's logits must match
+   ``lm_forward`` over prompt + token at that position (the ring cache
+   against the flash branch);
+6. serve, card against CPU: the smoke TinyLlama in fp32 from the same
+   weights and seed, prompt 2048 (so the card takes the kernel), 8 tokens
+   at batch 2: equal prompt ids, logits to rtol 1e-4, equal sampled ids up
+   to the first documented tie.
 
 Output: one JSON line per kernel check, per round and per path, a
 ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
@@ -54,10 +70,11 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 
-# H100 SXM published peaks (NVIDIA data sheet; 700 W): HBM bytes/s and
-# fp32 (non-tensor-core) operations/s
+# H100 SXM published peaks (NVIDIA data sheet; 700 W): HBM bytes/s,
+# fp32 (non-tensor-core) and bf16 (dense tensor-core) operations/s
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+PEAK_BF16_S = 989e12
 
 GRID = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
 N_CLIENTS = 50
@@ -85,8 +102,9 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_FP32_S
+def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_FP32_S
+          ) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / peak_ops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -267,17 +285,81 @@ def check_row_norms(dev, mat: torch.Tensor) -> dict:
                 bound_by=b_by, library_ms=library)
 
 
+# (B, S, H, KV, D, dtype, causal, window, Skv): the serve path's call
+# first, then a window, fp32, a ragged S and the other head dims
+FLASH_CASES = (
+    (4, 2048, 32, 4, 64, torch.bfloat16, True, None, None),
+    (4, 2048, 32, 4, 64, torch.bfloat16, True, 256, None),
+    (4, 2048, 32, 4, 64, torch.float32, True, None, None),
+    (2, 1000, 32, 4, 64, torch.bfloat16, True, None, None),
+    (2, 1000, 32, 4, 64, torch.float32, True, 100, None),
+    (2, 2048, 8, 2, 32, torch.float32, True, None, None),      # phase 6's call
+    (1, 300, 8, 2, 128, torch.float32, True, 77, None),
+    (1, 300, 8, 2, 128, torch.bfloat16, False, None, 333),
+)
+FLASH_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def check_flash(dev) -> dict:
+    """The flash kernel against its plain version on FLASH_CASES (fp32
+    atol 1e-5; bf16 atol 2e-2, the JAX package's bf16 bound for its own
+    kernel); timed at the serve path's call, beside SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+    log(json.dumps({"flash_instances": {
+        f"{str(dt)[6:]}/D{d}": ops.kernel_attributes(dt, d)
+        for dt in (torch.bfloat16, torch.float32) for d in ops.HEAD_DIMS}}))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    err, timed = 0.0, None
+    for B, S, H, KV, D, dt, causal, window, Skv in FLASH_CASES:
+        Skv = Skv or S
+        q = torch.randn(B, S, H, D, device=dev, generator=gen).to(dt)
+        k = torch.randn(B, Skv, KV, D, device=dev, generator=gen).to(dt)
+        v = torch.randn(B, Skv, KV, D, device=dev, generator=gen).to(dt)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        e = float((got.float() - want.float()).abs().max())
+        log(json.dumps({"flash_case": [B, S, H, KV, D, str(dt), causal, window, Skv],
+                        "max_abs_err": e}))
+        if not e <= FLASH_ATOL[dt]:
+            raise AssertionError(f"flash kernel differs from its plain version by "
+                                 f"{e} > {FLASH_ATOL[dt]} at {B, S, H, KV, D, dt, causal, window, Skv}")
+        if timed is None:
+            timed, err = (q, k, v), e
+    q, k, v = timed
+    B, S, H, D = q.shape
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True), 20)
+    plain = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), 3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    # QK^T and PV over the causal pairs, S(S+1)/2 per (batch, head), 2 D
+    # operations each; q, k, v read and o written once, bf16
+    n_ops = 2 * 2 * B * H * D * S * (S + 1) / 2
+    n_bytes = 2 * (2 * q.numel() + 2 * k.numel())
+    b_ms, b_by = bound(n_bytes, n_ops, PEAK_BF16_S)
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:25",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library)
+
+
 # ------------------------------------------------------------ phase 3 ----
 def counters() -> dict:
     """Kernel name -> (wrapper, launch-count attribute)."""
     from repro_torch.kernels.dual_solve.ops import COUNTERS, dual_solve
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.score_norm.ops import row_l2_norms
     from repro_torch.kernels.topk_sparsify.ops import block_topk_rows
     names = {(False, False): "dual_solve", (True, False): "dual_solve_scaled",
              (False, True): "dual_solve_joint", (True, True): "dual_solve_joint_scaled"}
     out = {names[k]: (dual_solve, attr) for k, attr in COUNTERS.items()}
     out.update(topk_rows=(block_topk_rows, "launches"),
-               row_sq_sum=(row_l2_norms, "launches"))
+               row_sq_sum=(row_l2_norms, "launches"),
+               flash_attention=(flash_attention, "launches"))
     return out
 
 
@@ -580,6 +662,203 @@ def card_against_cpu(dev, scenario=None, price_outage=None, bits_grid=None):
                         "accuracy_cuda": a.accuracy, "accuracy_cpu": b.accuracy}))
 
 
+# ------------------------------------------------------------ phase 5 ----
+SERVE = dict(arch="tinyllama-1.1b", prompt_len=2048, gen=32, batch=4)
+# the first decode step's logits against lm_forward at that position: both
+# run the bf16 model, one through the flash kernel over 2049 positions, the
+# other through the ring cache and the direct decode (bf16 probabilities),
+# with GEMMs of other shapes. bf16 keeps 8 significant bits (2^-9 relative
+# a rounding); 22 layers round the residual stream twice each, so the final
+# hidden state may drift by a few percent of its scale, which the fp32 head
+# carries into the logits: the bound is 5% of the largest logit.
+SERVE_REL_TOL = 0.05
+
+
+def serve_path(dev, profile: bool = False) -> dict:
+    """Phase 5: generate() at TinyLlama-1.1B's full width on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config(SERVE["arch"])
+    t0 = time.perf_counter()
+    master = steps.init_for(cfg)(torch.Generator(device=dev).manual_seed(0))
+    model = tfm.for_compute(master, cfg)       # the bf16 serving copy, made once
+    del master
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"serve: {cfg.name} {n_params / 1e9:.3f}B params, set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    kw = dict(prompt_len=SERVE["prompt_len"], gen=SERVE["gen"], batch=SERVE["batch"],
+              temperature=1.0, seed=0, device=dev)
+    serve.generate(cfg, model, **kw)                                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fns = counters()
+    for fn, attr in fns.values():
+        setattr(fn, attr, 0)
+    out = serve.generate(cfg, model, **kw)
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in fns.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    B, P, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"serve launched the flash kernel "
+                             f"{launches['flash_attention']} times, not {cfg.n_layers}")
+    others = {n: c for n, c in launches.items() if n != "flash_attention" and c}
+    if others:
+        raise AssertionError(f"serve launched other kernels: {others}")
+    if tuple(out.ids.shape) != (B, 1 + G) or tuple(out.prompt.shape) != (B, P):
+        raise AssertionError(f"ids {tuple(out.ids.shape)}, prompt {tuple(out.prompt.shape)}")
+    if not (0 <= int(out.ids.min()) and int(out.ids.max()) < cfg.vocab_size):
+        raise AssertionError("sampled ids outside the vocabulary")
+    logits = [out.first_logits, *out.decode_logits]
+    if not all(bool(torch.isfinite(lg).all()) for lg in logits):
+        raise AssertionError("non-finite serve logits")
+
+    # attribution: the prefill launches one kernel a layer, a decode step none
+    with torch.no_grad():
+        flash_attention.launches = 0
+        _, cache = tfm.lm_prefill(model, out.prompt.to(dev), cfg, cache_len=P + G)
+        n_prefill = flash_attention.launches
+        flash_attention.launches = 0
+        tfm.lm_decode(model, out.ids[:, :1].to(dev), cache, P, cfg)
+        n_decode = flash_attention.launches
+        del cache
+        if (n_prefill, n_decode) != (cfg.n_layers, 0):
+            raise AssertionError(f"flash launches: prefill {n_prefill}, decode {n_decode}")
+        # the first decode step (token ids[:, 0] at position P) against the
+        # full forward over prompt + that token
+        toks = torch.cat([out.prompt, out.ids[:, :1]], dim=1).to(dev)
+        full, _ = tfm.lm_forward(model, toks, cfg)
+        want = full[:, P]
+        del full
+    diff = float((out.decode_logits[0] - want).abs().max())
+    scale = float(want.abs().max())
+    agree = float((out.decode_logits[0].argmax(-1) == want.argmax(-1)).float().mean())
+    if not diff <= SERVE_REL_TOL * scale:
+        raise AssertionError(f"first decode logits differ from lm_forward by {diff} "
+                             f"> {SERVE_REL_TOL} x {scale}")
+    summary = {"serve": cfg.name, "prompt_len": P, "gen": G, "batch": B,
+               "dtype": cfg.dtype, "prefill_ms": out.prefill_s * 1e3,
+               "decode_ms_per_step": out.decode_s * 1e3 / G,
+               "decode_tokens_per_s": G * B / out.decode_s,
+               "prefill_tokens_per_s": P * B / out.prefill_s,
+               "peak_mem_GB": peak / 1e9, "launches": launches,
+               "flash_launches_prefill": n_prefill, "flash_launches_decode_step": n_decode,
+               "first_decode_vs_forward_max_abs": diff, "logit_scale": scale,
+               "first_decode_vs_forward_argmax_agree": agree,
+               "ids_first_request": out.ids[0, :16].tolist()}
+    log(json.dumps({"serve_summary": summary}))
+    if profile:
+        profile_serve(model, cfg, dev)
+    return summary
+
+
+def profile_serve(model, cfg, dev):
+    """torch.profiler over one more prefill and one decode step at the serve
+    shapes: device time by kernel and the device's busy share of each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as tfm
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE["batch"], SERVE["prompt_len"]),
+                           device=dev, generator=torch.Generator(device=dev).manual_seed(9))
+    P, G = SERVE["prompt_len"], SERVE["gen"]
+    with torch.no_grad():
+        _, cache = tfm.lm_prefill(model, prompt, cfg, cache_len=P + G)
+        tok = prompt[:, -1:]
+        tfm.lm_decode(model, tok, cache, P, cfg)
+        for label, fn in (("prefill", lambda: tfm.lm_prefill(model, prompt, cfg,
+                                                              cache_len=P + G)),
+                          ("decode_step", lambda: tfm.lm_decode(model, tok, cache,
+                                                                 P + 1, cfg))):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            events = [e for e in prof.key_averages()
+                      if getattr(e, "device_type", None) is not None
+                      and "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
+            busy_us = sum(e.self_device_time_total for e in events)
+            top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+            log(json.dumps({"profile_serve": label, "wall_ms": wall * 1e3,
+                            "device_busy_ms": busy_us / 1e3,
+                            "device_idle_share": 1.0 - busy_us / 1e3 / (wall * 1e3),
+                            "kernel_launches": sum(e.count for e in events),
+                            "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                                             "ms": e.self_device_time_total / 1e3}
+                                            for e in top]}))
+
+
+# ------------------------------------------------------------ phase 6 ----
+def _first_tie(ids_a, ids_b, steps_logits, gen_seed: int, temperature: float):
+    """The first column where two id matrices differ (None if equal), and
+    whether, in every request that differs there, the CPU's top two
+    perturbed logits lie within the logits' tolerance (a documented tie)."""
+    from repro_torch import random as prng
+    cols = torch.nonzero((ids_a != ids_b).any(dim=0)).flatten().tolist()
+    if not cols:
+        return None, True
+    c = cols[0]
+    rows = ids_a[:, c] != ids_b[:, c]
+    z = steps_logits[c].cpu()
+    if c > 0:                         # sampled: the same key chain as generate
+        key = prng.PRNGKey(gen_seed)
+        for _ in range(c):
+            key, sk = prng.split(key)
+        z = prng.gumbel(sk, tuple(z.shape)) + z / temperature
+    top2 = torch.topk(z, 2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).abs()
+    tie = bool((gap <= 1e-4 * top2[:, 0].abs() + 1e-5)[rows].all())
+    return c, tie
+
+
+def serve_card_against_cpu(dev) -> dict:
+    """Phase 6: the smoke TinyLlama in fp32, prompt 2048, 8 tokens, batch 2,
+    on the card and on the CPU from the same weights and seed."""
+    import copy
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import serve, steps
+
+    cfg = get_smoke(SERVE["arch"]).replace(dtype="float32")
+    cpu_model = steps.init_for(cfg)(torch.Generator().manual_seed(1))
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    kw = dict(prompt_len=2048, gen=8, batch=2, temperature=1.0, seed=3)
+    flash_attention.launches = 0
+    got = serve.generate(cfg, card_model, **kw, device=dev)
+    if flash_attention.launches != cfg.n_layers:
+        raise AssertionError(f"the card's smoke prefill launched the flash kernel "
+                             f"{flash_attention.launches} times")
+    want = serve.generate(cfg, cpu_model, **kw, device="cpu")
+    if not torch.equal(got.prompt, want.prompt):
+        raise AssertionError("prompt ids differ between card and CPU")
+    got_l = [got.first_logits, *got.decode_logits]
+    want_l = [want.first_logits, *want.decode_logits]
+    col, tie = _first_tie(got.ids, want.ids, want_l, kw["seed"], kw["temperature"])
+    if col is not None and not tie:
+        raise AssertionError(f"sampled ids differ at step {col} without a tie:\n"
+                             f"cuda {got.ids.tolist()}\ncpu {want.ids.tolist()}")
+    # logits agree while both runs saw the same tokens (rtol 1e-4; atol 1e-5
+    # for logits near 0)
+    n_same = len(got_l) if col is None else col + 1
+    err = scale = 0.0
+    for a, b in zip(got_l[:n_same], want_l[:n_same]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+        err = max(err, float((a.cpu() - b).abs().max()))
+        scale = max(scale, float(b.abs().max()))
+    res = {"serve_card_vs_cpu": cfg.name, "dtype": cfg.dtype, "prompt_len": 2048,
+           "gen": 8, "batch": 2, "ids_equal": col is None, "first_diff_step": col,
+           "tie_at_first_diff": tie if col is not None else None,
+           "steps_compared": n_same, "logits_max_abs": err, "logit_scale": scale,
+           "ids_cuda": got.ids.tolist(), "ids_cpu": want.ids.tolist()}
+    log(json.dumps(res))
+    return res
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -612,6 +891,7 @@ def main(argv) -> int:
     mat = torch.randn(N_CLIENTS, 1_630_090, device=dev, generator=gen) * 1e-3
     kernels += [check_topk(dev, mat), check_row_norms(dev, mat)]
     del mat
+    kernels.append(check_flash(dev))
     for k in kernels:
         log(json.dumps(k))
 
@@ -626,13 +906,22 @@ def main(argv) -> int:
     # variant on its own path, the top-k and the norms on the main path
     carrier = {own: label for label, (_, own) in PATHS.items()}
     for k in kernels:
-        k["launches"] = runs[carrier.get(k["name"], "main")]["launches"][k["name"]]
+        if k["name"] != "flash_attention":
+            k["launches"] = runs[carrier.get(k["name"], "main")]["launches"][k["name"]]
 
     # ---- phase 4: card against CPU
     for variant in DUAL_VARIANTS:
         solver_card_against_cpu(dev, variant)
     card_against_cpu(dev)
     card_against_cpu(dev, "bursty-interference", price_outage=True, bits_grid=BITS)
+
+    # ---- phase 5: the serve path, its launch counts zeroed before the timed run
+    serve = serve_path(dev, profile="--profile" in argv)
+    flash = next(k for k in kernels if k["name"] == "flash_attention")
+    flash["launches"] = serve["launches"]["flash_attention"]
+
+    # ---- phase 6: serve, card against CPU
+    serve_card_against_cpu(dev)
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -2,9 +2,9 @@
 
 ``ChannelConfig``, ``FairEnergyConfig`` and ``FLConfig`` are copied field
 for field from the JAX package, defaults included, so a config built for
-one package means the same run in the other. ``ModelConfig`` keeps only
-the fields the FMNIST CNN reads; the LLM model zoo's fields arrive with
-its port.
+one package means the same run in the other. ``ModelConfig``,
+``ShapeConfig`` and ``SHAPES`` are copied whole too, though the port runs
+only the CNN and the dense LM family so far (ROADMAP A-19 lists the rest).
 
 ``FairEnergyConfig.use_pallas_solver`` stays for field parity and is
 ignored here: in the port the tensors' device picks the path (the CUDA
@@ -14,15 +14,60 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # cnn (the only family ported so far)
+    family: str  # dense | moe | ssm | hybrid | audio | vlm | cnn
     n_layers: int
     d_model: int
+    n_heads: int = 0            # 0 => attention-free
+    n_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    head_dim: int = 0           # 0 => d_model // n_heads
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+
+    # --- MoE ---
+    n_experts: int = 0
+    n_experts_per_tok: int = 0
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0           # per-expert hidden (0 => d_ff)
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    moe_group: int = 512        # token-group size for capacity dispatch
+
+    # --- SSM (Mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 128
+
+    # --- RWKV6 ---
+    rwkv_head_size: int = 64
+
+    # --- hybrid (zamba2-style): one shared attention block every k layers ---
+    attn_every: int = 0
+
+    # --- attention window (None => full causal) ---
+    sliding_window: Optional[int] = None
+    # window used when a full-attention arch is lowered for long_500k
+    long_context_window: int = 8192
+
+    # --- encoder-decoder (whisper) ---
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    n_audio_frames: int = 1500   # stub frontend output length
+    max_target_len: int = 448
+
+    # --- VLM stub frontend ---
+    n_vision_tokens: int = 0
 
     # --- CNN (paper's FMNIST model) ---
     cnn_channels: Tuple[int, ...] = ()
@@ -31,10 +76,42 @@ class ModelConfig:
     n_classes: int = 10
 
     dtype: str = "bfloat16"
+    remat: bool = True
+    scan_layers: bool = True
+
     source: str = ""             # citation
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        if self.n_heads:
+            return self.d_model // self.n_heads
+        return 0
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm" and self.attn_every == 0
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An assigned input shape: (name, seq_len, global_batch, kind)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

@@ -9,7 +9,8 @@ sources and flags, so a stale build is redone and a current one reused.
 Flags: ``sm_90a`` (Hopper), ``-O3``, precise math (no
 ``--use_fast_math``) and ``--fmad=false``: the dual-solve kernel must
 round every multiply and add as the plain PyTorch version's separate
-elementwise ops do, or near-tied argmins could flip.
+elementwise ops do, or near-tied argmins could flip. The flash-attention
+kernel asks for its fused multiply-adds explicitly (``fmaf``).
 
 Nothing here runs at import: the CPU tests import every module, on
 machines without ``nvcc``.
@@ -35,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 
 # C entry points: name -> argtypes (every function returns cudaError_t)
 SIGNATURES = {
@@ -44,6 +46,11 @@ SIGNATURES = {
                               _P, _P, _P, _P, _P, _P),
     # (x, out, ks, n_rows, d, stream)
     "topk_rows_f32": (_P, _P, _P, _I, _LL, _P),
+    # (q, k, v, o, dtype, B, Sq, Skv, H, KV, D, causal, window, scale, stream)
+    "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _F, _P),
+    # (dtype, D, out int[3]: registers, local bytes, shared bytes)
+    "flash_attention_attrs": (_I, _I, _P),
 }
 
 

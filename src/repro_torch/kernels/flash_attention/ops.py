@@ -1,0 +1,69 @@
+"""Wrapper of the flash-attention kernel (``csrc/flash_attention.cu``).
+
+``flash_attention(q, k, v, causal=, window=)`` computes causal or
+sliding-window GQA attention, q ``[B, Sq, H, D]`` and k, v
+``[B, Skv, KV, D]`` (fp32 or bf16, all the same type) -> ``[B, Sq, H, D]``
+in q's type; query head h reads KV head ``h // (H // KV)``. CPU tensors
+run ``ref.attention_ref``; CUDA tensors launch the kernel on the current
+stream or raise.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build, check_cuda, is_cpu
+from .ref import attention_ref
+
+HEAD_DIMS = (32, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None) -> torch.Tensor:
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+    if is_cpu(q):
+        return attention_ref(q, k, v, causal=causal, window=window)
+    dev = q.device
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"q has dtype {q.dtype}, expected float32 or bfloat16")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_cuda(name, t, dtype=q.dtype, ndim=4, device=dev)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    B, Sq, H, D = q.shape
+    _, Skv, KV, _ = k.shape
+    if tuple(v.shape) != tuple(k.shape) or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not fit [B,Sq,H,D] / [B,Skv,KV,D]")
+    if H % KV:
+        raise ValueError(f"{H} query heads are not a multiple of {KV} KV heads")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if B * H > 65535:
+        raise ValueError(f"B * H = {B * H} exceeds the grid's y limit")
+    o = torch.empty_like(q)
+    if Sq == 0:
+        return o
+    err = _build.library().flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        _DTYPE_CODE[q.dtype], B, Sq, Skv, H, KV, D, int(causal),
+        0 if window is None else int(window), 1.0 / D ** 0.5,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "flash_attention_fwd")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0
+
+
+def kernel_attributes(dtype: torch.dtype, head_dim: int) -> dict:
+    """Registers a thread, spill (local) bytes a thread and static shared
+    bytes a CTA of the compiled instance for (dtype, head_dim)."""
+    out = (ctypes.c_int * 3)()
+    err = _build.library().flash_attention_attrs(_DTYPE_CODE[dtype], head_dim, out)
+    _build.check(err, "flash_attention_attrs")
+    return {"registers": out[0], "local_bytes": out[1], "shared_bytes": out[2]}

@@ -1,4 +1,6 @@
 from .cnn import CNN, cnn_loss
-from .module import Conv3x3, Dense, param_count
+from .module import Conv3x3, Dense, Embed, dtype_of, param_count
+from .transformer import LM
 
-__all__ = ["CNN", "cnn_loss", "Conv3x3", "Dense", "param_count"]
+__all__ = ["CNN", "cnn_loss", "Conv3x3", "Dense", "Embed", "LM", "dtype_of",
+           "param_count"]

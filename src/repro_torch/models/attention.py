@@ -1,0 +1,192 @@
+"""GQA attention: RoPE, optional QKV bias, causal / sliding-window masks.
+
+A port of ``repro.models.attention`` for self-attention, in the JAX layout
+(``wq``, ``wk``, ``wv``, ``wo``, each ``[in, out]``). Two execution paths:
+
+* ``attention_forward`` — train/prefill. Short sequences take the direct
+  softmax(QK^T)V in plain PyTorch (probabilities rounded to v's type
+  before PV, as the JAX package does); sequences at or above
+  ``_FLASH_THRESHOLD`` take the flash branch, which is
+  ``kernels.flash_attention`` (the CUDA kernel for CUDA tensors, its plain
+  version on the CPU) where the JAX package runs its chunked online-softmax
+  jnp scan. The branch rule is the JAX package's.
+* ``attention_decode`` — one new token against a ring KV cache of
+  ``cache_len`` slots with per-slot absolute positions (``slot_pos``),
+  plain PyTorch. The cache tensors are updated in place (the JAX package
+  returns new arrays; nothing reads the old ones).
+
+Cross-attention (whisper) waits for its family (ROADMAP A-19).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..kernels.flash_attention import flash_attention
+from .layers import apply_rope
+from .module import Dense, _device_of
+
+_FLASH_THRESHOLD = 2048  # use the flash branch for seqs at/above this
+_Q_CHUNK = 1024
+_KV_CHUNK = 1024
+NEG_INF = -1e30
+
+
+def _chunk_of(S: int, target: int) -> int:
+    """Largest divisor of S that is <= target (the JAX package's chunk
+    size; the branch rule depends on it)."""
+    c = min(target, S)
+    while c > 1 and S % c:
+        c -= 1
+    return c
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg, generator: torch.Generator | None = None):
+        super().__init__()
+        dev = _device_of(generator)
+        hd = cfg.resolved_head_dim
+        d = cfg.d_model
+        self.wq = Dense(d, cfg.n_heads * hd, bias=cfg.qkv_bias, device=dev)
+        self.wk = Dense(d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, device=dev)
+        self.wv = Dense(d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, device=dev)
+        self.wo = Dense(cfg.n_heads * hd, d, bias=False, device=dev)
+        for m in (self.wq, self.wk, self.wv, self.wo):
+            m.reset_parameters(generator)
+
+
+def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
+    return x.reshape(*x.shape[:-1], n_heads, head_dim)
+
+
+def _mask(q_positions, kv_positions, causal, window) -> torch.Tensor:
+    mask = torch.ones(q_positions.shape[0], kv_positions.shape[0],
+                      dtype=torch.bool, device=q_positions.device)
+    if causal:
+        mask &= kv_positions[None, :] <= q_positions[:, None]
+    if window is not None:
+        mask &= q_positions[:, None] - kv_positions[None, :] < window
+    return mask
+
+
+def _direct_attention(q, k, v, *, scale, causal, window, q_positions, kv_positions):
+    """q: [B,Sq,KV,G,D]; k/v: [B,Skv,KV,D] -> [B,Sq,KV,G,D]."""
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
+    mask = _mask(q_positions, kv_positions, causal, window)
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+
+
+def attention_forward(params: Attention, x: torch.Tensor, cfg, *,
+                      causal: bool = True,
+                      window: Optional[int] = None,
+                      positions: Optional[torch.Tensor] = None,
+                      use_rope: bool = True,
+                      return_kv: bool = False):
+    """x: [B, S, d]. With return_kv=True also returns the post-RoPE (k, v)
+    ``[B, S, KV, hd]`` for prefill cache construction."""
+    hd = cfg.resolved_head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    G = H // KV
+    B, S = x.shape[0], x.shape[1]
+
+    q = _split_heads(params.wq(x), H, hd)
+    k = _split_heads(params.wk(x), KV, hd)
+    v = _split_heads(params.wv(x), KV, hd)
+
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    use_flash = (S >= _FLASH_THRESHOLD and _chunk_of(S, _Q_CHUNK) > 1
+                 and _chunk_of(S, _KV_CHUNK) > 1)
+    if use_flash:
+        # positions are arange here, as on the JAX package's flash branch
+        out = flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        out = _direct_attention(q.reshape(B, S, KV, G, hd), k, v,
+                                scale=1.0 / float(hd) ** 0.5, causal=causal,
+                                window=window, q_positions=positions,
+                                kv_positions=positions)
+    out = out.reshape(B, S, H * hd).to(x.dtype)
+    y = params.wo(out)
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+# ------------------------------------------------------------- KV cache ----
+def fill_kv_cache(k: torch.Tensor, v: torch.Tensor, cache_len: int,
+                  dtype: torch.dtype) -> dict:
+    """Build a decode-ready ring cache from prefill K/V ([B,S,KV,hd]).
+    Keeps the last ``cache_len`` positions, placed at slot = pos % cache_len
+    so decode's ring indexing continues seamlessly."""
+    S = k.shape[1]
+    keep = min(S, cache_len)
+    pos = torch.arange(S - keep, S, device=k.device)
+    slots = torch.remainder(pos, cache_len)
+    kk = torch.zeros((k.shape[0], cache_len) + tuple(k.shape[2:]), dtype=dtype,
+                     device=k.device)
+    vv = torch.zeros_like(kk)
+    kk[:, slots] = k[:, S - keep:].to(dtype)
+    vv[:, slots] = v[:, S - keep:].to(dtype)
+    slot_pos = torch.full((cache_len,), -1, dtype=torch.int32, device=k.device)
+    slot_pos[slots] = pos.to(torch.int32)
+    return {"k": kk, "v": vv, "slot_pos": slot_pos}
+
+
+def make_kv_cache(cfg, batch: int, cache_len: int, dtype: torch.dtype,
+                  device=None) -> dict:
+    hd = cfg.resolved_head_dim
+    shape = (batch, cache_len, cfg.n_kv_heads, hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "slot_pos": torch.full((cache_len,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def attention_decode(params: Attention, x: torch.Tensor, cache: dict, pos: int,
+                     cfg, *, window: Optional[int] = None,
+                     use_rope: bool = True) -> tuple[torch.Tensor, dict]:
+    """One-token decode. x: [B, 1, d]; pos: the absolute position (int, the
+    same for the whole batch). Writes the token's K/V into slot
+    ``pos % cache_len`` of ``cache`` in place and returns (y, cache)."""
+    hd = cfg.resolved_head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    G = H // KV
+    B = x.shape[0]
+    W = cache["k"].shape[1]
+    pos = int(pos)
+
+    q = _split_heads(params.wq(x), H, hd)                     # [B,1,H,D]
+    k = _split_heads(params.wk(x), KV, hd)                    # [B,1,KV,D]
+    v = _split_heads(params.wv(x), KV, hd)
+    pos_arr = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    if use_rope:
+        q = apply_rope(q, pos_arr, cfg.rope_theta)
+        k = apply_rope(k, pos_arr, cfg.rope_theta)            # absolute pos at write
+
+    slot = pos % W
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["slot_pos"][slot] = pos
+    new_k, new_v, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
+
+    qg = q.reshape(B, 1, KV, G, hd)
+    root = torch.full((), math.sqrt(hd), dtype=torch.float32, device=x.device)
+    scores = torch.einsum("bqkgd,bskd->bkgs", qg.float(), new_k.float()) / root
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if window is not None:
+        valid &= pos - slot_pos < window
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs.to(new_v.dtype), new_v)
+    out = out.reshape(B, 1, H * hd).to(x.dtype)
+    return params.wo(out), cache

@@ -1,0 +1,71 @@
+"""Shared layers of the dense LM: RMSNorm, RoPE and the SwiGLU MLP.
+
+Ports of ``repro.models.layers`` with the same numerics: the norm and RoPE
+compute in fp32 and cast back to the activation's type; the MLP's dense
+layers compute in the activation's type. The other layers (layernorm,
+group norm, sinusoidal positions, GELU MLP) come with their families
+(ROADMAP A-19).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .module import Dense, _device_of
+
+
+class RMSNorm(nn.Module):
+    """Holds the fp32 ``scale`` ``[d]`` (ones at init)."""
+
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, device=device))
+
+    def forward(self, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+        return rmsnorm(self.scale, x, eps)
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * scale
+    return y.to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [..., seq, heads, head_dim]; positions: [..., seq] (int). Rotates
+    the split halves (not interleaved pairs), as the JAX package does."""
+    head_dim = x.shape[-1]
+    freqs = rope_freqs(head_dim, theta, x.device)               # [hd/2]
+    angles = positions.float()[..., None] * freqs               # [..., seq, hd/2]
+    cos = torch.cos(angles)[..., None, :]                       # [..., seq, 1, hd/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+class SwiGLU(nn.Module):
+    """down(silu(gate(x)) * up(x)); fan-in truncated-normal init."""
+
+    def __init__(self, d_model: int, d_ff: int, generator: torch.Generator | None = None):
+        super().__init__()
+        dev = _device_of(generator)
+        self.gate = Dense(d_model, d_ff, bias=False, device=dev)
+        self.up = Dense(d_model, d_ff, bias=False, device=dev)
+        self.down = Dense(d_ff, d_model, bias=False, device=dev)
+        for m in (self.gate, self.up, self.down):
+            m.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return swiglu(self, x)
+
+
+def swiglu(mlp: SwiGLU, x: torch.Tensor) -> torch.Tensor:
+    return mlp.down(F.silu(mlp.gate(x)) * mlp.up(x))

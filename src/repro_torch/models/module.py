@@ -8,9 +8,15 @@ layouts (``[out, in]``, OIHW) are produced by a permute inside
 package's leaves, weights convert by identity (``repro_torch.convert``)
 and the flattened update vector has the same coefficient order.
 
-Initialization draws from an explicit ``torch.Generator``; it does not
-reproduce ``jax.random`` (weights shared with the JAX package come
-through ``repro_torch.convert``).
+Initialization draws from an explicit ``torch.Generator``, with the JAX
+init's distributions; it does not reproduce ``jax.random`` (weights shared
+with the JAX package come through ``repro_torch.convert``). Parameters are
+allocated on the generator's device.
+
+Dtypes follow the JAX package: parameters are fp32 masters, a dense layer
+casts its weight to the activation's type per call (a no-op once the
+weights are already in that type, as in a serving copy), the embedding
+casts its table before the gather, and ``unembed`` runs in fp32.
 """
 from __future__ import annotations
 
@@ -21,13 +27,27 @@ import torch.nn.functional as F
 from torch import nn
 
 
-class Dense(nn.Module):
-    """y = x @ w + b with ``w`` stored ``[in, out]``."""
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
 
-    def __init__(self, d_in: int, d_out: int, *, bias: bool = True):
+
+def dtype_of(cfg) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+def _device_of(generator: torch.Generator | None):
+    return generator.device if generator is not None else None
+
+
+class Dense(nn.Module):
+    """y = x @ w + b with ``w`` stored ``[in, out]``, computed in x's type."""
+
+    def __init__(self, d_in: int, d_out: int, *, bias: bool = True,
+                 device=None):
         super().__init__()
-        self.w = nn.Parameter(torch.empty(d_in, d_out))
-        self.b = nn.Parameter(torch.zeros(d_out)) if bias else None
+        self.w = nn.Parameter(torch.empty(d_in, d_out, device=device))
+        self.b = (nn.Parameter(torch.zeros(d_out, device=device)) if bias
+                  else None)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         """Truncated-normal fan-in init, as ``repro.models.module.dense_init``."""
@@ -39,8 +59,27 @@ class Dense(nn.Module):
                 self.b.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.w
-        return y + self.b if self.b is not None else y
+        y = x @ self.w.to(x.dtype)
+        return y + self.b.to(x.dtype) if self.b is not None else y
+
+
+class Embed(nn.Module):
+    """Token embedding with ``table`` stored ``[vocab, d]``."""
+
+    def __init__(self, vocab: int, d_model: int, generator: torch.Generator | None = None):
+        super().__init__()
+        self.table = nn.Parameter(torch.empty(vocab, d_model,
+                                              device=_device_of(generator)))
+        with torch.no_grad():
+            self.table.normal_(0.0, 1.0, generator=generator).mul_(0.02)
+
+    def forward(self, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return self.table.to(dtype)[ids]
+
+
+def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Vocab logits in fp32 (for a stable softmax): x @ table^T."""
+    return x.float() @ table.float().T
 
 
 class Conv3x3(nn.Module):

@@ -5,7 +5,8 @@ pure in (seed, stream, round): a key is a ``[..., 2]`` int64 tensor of two
 32-bit words, ``fold_in`` and ``split`` derive new keys by hashing, and
 every draw is a hash of a counter under a key. The functions reproduce
 ``jax.random`` bit for bit under ``jax.threefry_partitionable(False)``
-(the semantics the JAX package's goldens were recorded with):
+(the semantics the JAX package's goldens were recorded with; ``gumbel``
+to a rounding of ``log``, ROADMAP C-9):
 
 * ``PRNGKey(seed) = [0, seed]`` for an int32 seed;
 * ``fold_in(key, d) = threefry(key, [0, d])``;
@@ -111,3 +112,40 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
 def exponential(key: torch.Tensor, shape) -> torch.Tensor:
     """Standard exponential draws ``-log1p(-u)`` (float32)."""
     return -torch.log1p(-uniform(key, shape))
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+    """int32 draws in [minval, maxval), ``jax.random.randint``'s
+    construction: two 32-bit words per value from ``split(key)``, combined
+    modulo the span in wrapping uint32 arithmetic."""
+    shape = tuple(shape)
+    lo32, hi32 = -(1 << 31), (1 << 31) - 1
+    minval = max(lo32, min(hi32, int(minval)))
+    maxval = max(lo32, min(hi32, int(maxval)))
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = (maxval - minval) & MASK32 if maxval > minval else 1
+    multiplier = (1 << 16) % span
+    multiplier = ((multiplier * multiplier) & MASK32) % span
+    offset = ((higher % span) * multiplier) & MASK32
+    offset = ((offset + lower % span) & MASK32) % span
+    out = (minval + offset) & MASK32
+    return torch.where(out >= (1 << 31), out - (1 << 32), out).to(torch.int32)
+
+
+def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+    """float32 Gumbel draws ``-log(-log(u))``, u uniform in [tiny, 1) —
+    ``jax.random.gumbel``'s default ``mode="low"``. The uniforms are
+    bit-equal to JAX's; PyTorch's and XLA's float32 ``log`` may round apart
+    by an ulp (ROADMAP C-9)."""
+    tiny = float(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(uniform(key, shape, minval=tiny, maxval=1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """One sample per distribution along ``axis``: ``argmax(gumbel +
+    logits)`` (the Gumbel-max trick, as ``jax.random.categorical`` with
+    replacement). The noise is drawn on the logits' device: the hash is
+    exact everywhere, and only ``log`` may round apart between devices."""
+    noise = gumbel(key.to(logits.device), tuple(logits.shape))
+    return torch.argmax(noise + logits.float(), dim=axis)

@@ -33,6 +33,8 @@ def _port_modules():
 def test_every_port_module_imports_without_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.fl.server" in mods and len(mods) >= 30
+    assert {"repro_torch.launch.serve", "repro_torch.models.transformer",
+            "repro_torch.kernels.flash_attention.ops"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -92,3 +94,25 @@ def test_controller_context_without_device_raises_when_no_gpu(monkeypatch):
     state = make_controller("fairenergy", ctx).init(4)
     assert state.lam.device.type == "cpu" and state.params.eta.device.type == "cpu"
     assert ctx.e_cmp_array().device.type == "cpu"
+
+
+def test_no_library_attention_under_the_port():
+    """``scaled_dot_product_attention`` is ``chip_smoke.py``'s yardstick
+    only: the port's attention is its own kernel or plain PyTorch."""
+    hits = [str(p.relative_to(ROOT)) for p in PORT.rglob("*")
+            if p.is_file() and p.suffix in (".py", ".cu", ".cuh")
+            and "scaled_dot_product_attention" in p.read_text()]
+    assert hits == []
+    assert "scaled_dot_product_attention" in (ROOT / "chip_smoke.py").read_text()
+
+
+def test_serve_without_device_raises_when_no_gpu(monkeypatch):
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import LM
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "tinyllama-1.1b", "--smoke"])
+    cfg = get_smoke("tinyllama-1.1b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.generate(cfg, LM(cfg), prompt_len=4, gen=1, batch=1)

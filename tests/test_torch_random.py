@@ -107,3 +107,52 @@ def test_prngkey_rejects_out_of_range_seed():
         prng.PRNGKey(2**31)
     assert prng.PRNGKey(-1).tolist() == [0, 0xFFFFFFFF]
     assert prng.PRNGKey(3).dtype == torch.int64
+
+
+@pytest.mark.parametrize("seed", [0, 1, 12345])
+@pytest.mark.parametrize("shape,lo,hi", [
+    ((4, 64), 0, 512),             # the serve prompt at smoke width
+    ((2, 2048), 0, 32000),         # TinyLlama's vocabulary
+    ((7,), -5, 5), ((3, 5), 0, 1), ((9,), 3, 3), ((6,), 10, 2),
+    ((50,), -(2**31), 2**31 - 1), ((33,), 0, 1 << 20),
+])
+def test_randint_is_bit_equal(seed, shape, lo, hi):
+    with jax.threefry_partitionable(False):
+        k = jax.random.PRNGKey(seed)
+        want = np.asarray(jax.random.randint(k, shape, lo, hi))
+        got = prng.randint(prng.PRNGKey(seed), shape, lo, hi)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("shape", [(5,), (2, 512), (4, 32000)])
+def test_gumbel_matches_to_a_rounding_of_log(seed, shape):
+    """Uniforms bit-equal; ``-log(-log(u))`` through PyTorch's float32
+    ``log`` and XLA's, which round apart by an ulp on some inputs
+    (ROADMAP C-9): equal to within 2 ulps of each log's result."""
+    with jax.threefry_partitionable(False):
+        k = jax.random.fold_in(jax.random.PRNGKey(seed), 11)
+        want = np.asarray(jax.random.gumbel(k, shape, jnp.float32))
+        got = prng.gumbel(prng.fold_in(prng.PRNGKey(seed), 11), shape).numpy()
+        assert got.dtype == np.float32 and got.shape == want.shape
+        # the inner log is -log(u) > 0; an ulp there moves g by at most
+        # ulp(e^{-g}) / e^{-g} in absolute terms (~1.2e-7), plus the outer ulp
+        np.testing.assert_allclose(got, want, rtol=3e-7, atol=3e-7)
+        assert np.mean(got == want) > 0.5
+
+
+@pytest.mark.parametrize("seed", [0, 3, 99])
+@pytest.mark.parametrize("shape", [(1, 10), (4, 512), (2, 32000)])
+def test_categorical_ids_are_equal(seed, shape):
+    rng = np.random.default_rng(seed)
+    logits = (rng.standard_normal(shape) * 2.0).astype(np.float32)
+    with jax.threefry_partitionable(False):
+        key = jax.random.PRNGKey(seed)
+        tkey = prng.PRNGKey(seed)
+        for _ in range(4):                      # the serve loop's key chain
+            key, sk = jax.random.split(key)
+            tkey, tsk = prng.split(tkey)
+            want = np.asarray(jax.random.categorical(sk, jnp.asarray(logits)))
+            got = prng.categorical(tsk, torch.from_numpy(logits))
+            np.testing.assert_array_equal(got.numpy(), want)
