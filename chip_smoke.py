@@ -6,6 +6,7 @@ the port still starts on the card.
     python3 chip_smoke.py --profile   # + a torch.profiler breakdown of one
                                       #   more round of each path, and of one
                                       #   prefill and one decode step
+    python3 chip_smoke.py --cards 4   # phase 7 alone, across 4 cards
 
 Phases (any failure exits non-zero; nothing is caught and turned into a pass):
 
@@ -15,7 +16,10 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    Triton one on first launch), hold each against its plain PyTorch version
    on the card at the main paths' shapes — the four dual-solve variants
    (gamma grid, outage-priced, joint (gamma, bits), joint + priced), the
-   block top-k, the row norms and the flash attention (the serve path's
+   per-row block top-k, the block top-k of one vector (the CNN's flat
+   update at gamma 0.25 and 0.1, in fp32 and bf16, blocks 256 and 1024,
+   k = block, and NaN/Inf/-0.0/tie lanes, each bit for bit), the row norms
+   and the flash attention (the serve path's
    [4, 2048, 32|4, 64] bf16 causal, a 256 window, fp32, a ragged S = 1000,
    D = 32 and D = 128) — and time both (CUDA events) and the library call
    computing the same function where there is one;
@@ -48,7 +52,24 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
 6. serve, card against CPU: the smoke TinyLlama in fp32 from the same
    weights and seed, prompt 2048 (so the card takes the kernel), 8 tokens
    at batch 2: equal prompt ids, logits to rtol 1e-4, equal sampled ids up
-   to the first documented tie.
+   to the first documented tie;
+7. the multi-rank paths on one rank: a one-rank NCCL process group
+   (``file://`` store in a temporary directory). (a) The cross-silo
+   aggregation on a ``(pod, data, model) = (1, 1, 1)`` mesh with the
+   CNN's flat update at gamma 0.25: ``make_fl_allreduce`` equals
+   ``block_topk_sparsify`` bit for bit and launches the block top-k once
+   a call; the sparse exchange agrees with it to 1e-6 and the int8 one to
+   0.02 relative on the vector padded to whole blocks. (b)
+   ``FederatedTrainer(mesh=make_clients_mesh())`` on the main path's
+   recipe: equal masks and gammas to phase 3's main path, energies rtol
+   1e-5, params atol 1e-6, and the main path's launches of the dual-solve,
+   top-k rows and norm kernels.
+
+``--cards K`` runs phase 7 alone across K cards (one NCCL rank a card,
+after the build): the exchanges on a (2, K/2, 1) mesh against the pod mean
+of the block top-k computed on each card, and the main path's recipe
+sharded over the K cards against rank 0's one-card run (masks and gammas
+equal, energies rtol 1e-5, params atol 1e-6).
 
 Output: one JSON line per kernel check, per round and per path, a
 ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
@@ -267,6 +288,53 @@ def check_topk(dev, mat: torch.Tensor) -> dict:
                 bound_by=b_by, library_ms=None)
 
 
+def check_topk_block(dev, vec: torch.Tensor) -> dict:
+    """The block top-k of one vector against its plain version, bit for
+    bit: ``vec`` (the CNN's flat update, n = 1,630,090, a ragged last
+    block) at gamma 0.25 and 0.1 in fp32 and bf16, blocks 256 and 1024,
+    k = block, and the tie/NaN/Inf rows flattened."""
+    from repro_torch.kernels.topk_sparsify import ops, ref
+    tricky = _tricky_rows(dev)[0].flatten()
+    cases = [(vec, 0.25, 4096), (vec, 0.1, 4096), (vec.bfloat16(), 0.25, 4096),
+             (vec.bfloat16(), 0.1, 4096), (vec, 0.25, 256), (vec, 0.25, 1024),
+             (vec, 1.0, 4096), (tricky, 0.1, 4096), (tricky, 0.5, 256),
+             (tricky, 1.0, 1024), (tricky.bfloat16(), 0.1, 4096)]
+    for v, gamma, block in cases:
+        got, k = ops.block_topk_sparsify(v, gamma, block=block)
+        want, k_ref = ref.block_topk_ref(v, gamma, block=block)
+        same = (same_bits(got, want) if v.dtype == torch.float32 else
+                torch.equal(got.view(torch.int16), want.view(torch.int16)))
+        if k != k_ref or not same:
+            raise AssertionError(f"block top-k kernel differs from its plain "
+                                 f"version: n={v.numel()} {v.dtype} "
+                                 f"gamma={gamma} block={block}")
+        log(json.dumps({"topk_block_case": [v.numel(), str(v.dtype), gamma,
+                                            block, k], "bit_identical": True}))
+    n, block, k = vec.numel(), 4096, 1024
+    nb = -(-n // block)
+    ms = cuda_ms(lambda: ops.block_topk_sparsify(vec, 0.25), 200)
+    plain = cuda_ms(lambda: ref.block_topk_ref(vec, 0.25), 5, warmup=1)
+    rows = torch.nn.functional.pad(vec, (0, nb * block - n)).view(nb, block)
+
+    def library():
+        # two calls that select the same set (neither writes a mask nor
+        # fixes the tie order), plus the zeroed output they scatter into
+        idx = torch.topk(rows.abs(), k, dim=1).indices
+        return torch.zeros_like(rows).scatter_(1, idx, torch.gather(rows, 1, idx))
+
+    lib = cuda_ms(library, 50)
+    # one read and one write of every element; 31 counting passes (compare
+    # + add) and ~8 operations per element for the tests and the tie scan
+    b_ms, b_by = bound(2 * 4 * n, n * (31 * 2 + 8))
+    log(json.dumps({"topk_block_bound": {"n": n, "bytes": 2 * 4 * n,
+                                         "bound_ms": b_ms, "by": b_by}}))
+    return dict(name="topk_block", route="cuda",
+                source="src/repro_torch/csrc/topk_block.cu",
+                replaces="src/repro/kernels/topk_sparsify/kernel.py:26",
+                max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib)
+
+
 def check_row_norms(dev, mat: torch.Tensor) -> dict:
     from repro_torch.kernels.score_norm import ops, ref
     got = ops.row_l2_norms(mat)
@@ -353,11 +421,13 @@ def counters() -> dict:
     from repro_torch.kernels.dual_solve.ops import COUNTERS, dual_solve
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.score_norm.ops import row_l2_norms
-    from repro_torch.kernels.topk_sparsify.ops import block_topk_rows
+    from repro_torch.kernels.topk_sparsify.ops import (block_topk_rows,
+                                                       block_topk_sparsify)
     names = {(False, False): "dual_solve", (True, False): "dual_solve_scaled",
              (False, True): "dual_solve_joint", (True, True): "dual_solve_joint_scaled"}
     out = {names[k]: (dual_solve, attr) for k, attr in COUNTERS.items()}
     out.update(topk_rows=(block_topk_rows, "launches"),
+               topk_block=(block_topk_sparsify, "launches"),
                row_sq_sum=(row_l2_norms, "launches"),
                flash_attention=(flash_attention, "launches"))
     return out
@@ -371,10 +441,12 @@ def paper_data():
             make_fmnist_like(2000, seed=999, **dict(DATA_KW, label_noise=0.0)))
 
 
-def paper_trainer(dev, data, scenario=None, price_outage=None, bits_grid=None):
+def paper_trainer(dev, data, scenario=None, price_outage=None, bits_grid=None,
+                  mesh=None):
     """The fl_experiments.build recipe at N = 50 with the full CNN on
     ``data`` (``paper_data()``), with its scenario, price_outage and
-    bits_grid arguments, through the port's scenario registry."""
+    bits_grid arguments, through the port's scenario registry; ``mesh``
+    shards the clients."""
     import dataclasses
 
     from repro_torch.configs import ChannelConfig, FairEnergyConfig, FLConfig
@@ -417,7 +489,7 @@ def paper_trainer(dev, data, scenario=None, price_outage=None, bits_grid=None):
     return FederatedTrainer(
         model_loss=cnn_loss(model), model_params=dict(model.named_parameters()),
         client_datasets=datasets, eval_fn=eval_fn, fl_cfg=fl_cfg,
-        fe_cfg=fe_cfg, ch_cfg=ch_cfg, seed=0, device=dev, **extra)
+        fe_cfg=fe_cfg, ch_cfg=ch_cfg, seed=0, device=dev, mesh=mesh, **extra)
 
 
 # label -> (fl_experiments.build arguments, the dual-solve variant it runs)
@@ -491,7 +563,8 @@ def drive_path(dev, data, label: str) -> dict:
         "round_ms_steady_mean": 1e3 * sum(steady) / len(steady),
         "rounds_per_s_steady": len(steady) / sum(steady),
         "peak_mem_GB": peak / 1e9}}))
-    return dict(trainer=tr, launches=launches, own=own)
+    return dict(trainer=tr, launches=launches, own=own,
+                steady_ms=1e3 * sum(steady) / len(steady))
 
 
 def profile_round(tr, r: int, label: str):
@@ -859,6 +932,213 @@ def serve_card_against_cpu(dev) -> dict:
     return res
 
 
+# ------------------------------------------------------------ phase 7 ----
+SILO_GAMMA = 0.25
+
+
+def collectives_one_rank(dev, vec: torch.Tensor) -> int:
+    """Phase 7 (a): the cross-silo aggregation on a one-rank (1, 1, 1)
+    mesh. Returns the block top-k launches of the dense exchanges."""
+    from repro_torch.fl import collectives as col
+    from repro_torch.kernels.topk_sparsify import ops
+
+    mesh = col.make_silo_mesh(1, 1, 1, device=dev)
+    dense = col.make_fl_allreduce(mesh, SILO_GAMMA)
+    sparse = col.make_sparse_fl_allreduce(mesh, SILO_GAMMA)
+    int8 = col.make_sparse_fl_allreduce(mesh, SILO_GAMMA, quantize=True)
+    n, block = vec.numel(), 4096
+    padded = torch.nn.functional.pad(vec, (0, -(-n // block) * block - n))
+    fns = counters()
+    for fn, attr in fns.values():
+        setattr(fn, attr, 0)
+    agg = dense(vec)
+    agg_p = dense(padded)
+    agg_s, agg_q = sparse(padded), int8(padded)
+    norm = col.silo_update_norm(vec, mesh=mesh, axis_names=("data", "model"))
+    torch.cuda.synchronize()
+    launches = {name: getattr(f, attr) for name, (f, attr) in fns.items()}
+    if launches["topk_block"] != 2 or any(
+            c for name, c in launches.items() if name != "topk_block"):
+        raise AssertionError(f"the dense exchanges launched {launches}, not "
+                             "the block top-k twice")
+    want = ops.block_topk_sparsify(vec, SILO_GAMMA)[0]
+    if not same_bits(agg, want):
+        raise AssertionError("make_fl_allreduce on one rank differs from "
+                             "block_topk_sparsify")
+    err_s = float((agg_s - agg_p).abs().max())
+    rel_q = float((agg_q - agg_p).abs().max() / agg_p.abs().max())
+    if not (err_s < 1e-6 and rel_q < 0.02):
+        raise AssertionError(f"sparse exchange {err_s} (bound 1e-6), int8 "
+                             f"{rel_q} (bound 0.02) from the dense one")
+    torch.testing.assert_close(norm.double(), torch.linalg.vector_norm(vec.double()),
+                               rtol=1e-5, atol=0)
+    res = {"collectives_one_rank": {
+        "n": n, "gamma": SILO_GAMMA, "launches": launches,
+        "sparse_max_abs": err_s, "int8_rel": rel_q,
+        "dense_ms": cuda_ms(lambda: dense(vec), 50),
+        "sparse_ms": cuda_ms(lambda: sparse(padded), 20),
+        "int8_ms": cuda_ms(lambda: int8(padded), 20),
+        "dense_bytes": dense.result_bytes, "sparse_bytes": sparse.result_bytes,
+        "int8_bytes": int8.result_bytes}}
+    log(json.dumps(res))
+    return launches["topk_block"]
+
+
+def sharded_trainer_one_rank(dev, data, main: dict):
+    """Phase 7 (b): the main path's recipe on a one-rank clients mesh,
+    against phase 3's main path."""
+    from repro_torch.sharding import make_clients_mesh
+
+    tr = paper_trainer(dev, data, mesh=make_clients_mesh(device=dev))
+    fns = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn, attr in fns.values():
+        setattr(fn, attr, 0)
+    tr.run_scanned(ROUNDS, verbose=False)
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in fns.items()}
+    for name in ("dual_solve", "topk_rows", "row_sq_sum"):
+        if launches[name] != main["launches"][name]:
+            raise AssertionError(f"sharded run launched {name} "
+                                 f"{launches[name]} times, the main path "
+                                 f"{main['launches'][name]}")
+    for a, b in zip(tr.history, main["history"]):
+        if not (np.array_equal(a.selected, b.selected)
+                and np.array_equal(a.gamma, b.gamma)):
+            raise AssertionError(f"sharded round {a.round}: masks or gammas "
+                                 "differ from the main path")
+        np.testing.assert_allclose(a.energy, b.energy, rtol=1e-5, atol=0)
+    p_err = max(float((tr.params[k] - main["params"][k]).abs().max())
+                for k in tr.params)
+    if not p_err <= 1e-6:
+        raise AssertionError(f"sharded params differ from the main path's by "
+                             f"{p_err}")
+    steady = [lg.wall_s for lg in tr.history[1:]]
+    log(json.dumps({"sharded_one_rank": {
+        "rounds": ROUNDS, "n_clients": tr.n_clients, "n_local": tr.n_local,
+        "launches": launches, "params_max_abs": p_err,
+        "round_ms_steady_mean": 1e3 * sum(steady) / len(steady),
+        "main_path_round_ms_steady_mean": main["steady_ms"],
+        "peak_mem_GB": torch.cuda.max_memory_allocated(dev) / 1e9}}))
+
+
+def multirank_paths(dev, vec: torch.Tensor, data, main: dict) -> int:
+    """Phase 7 inside a one-rank process group (NCCL on the card)."""
+    import tempfile
+
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            launches = collectives_one_rank(dev, vec)
+            sharded_trainer_one_rank(dev, data, main)
+        finally:
+            dist.destroy_process_group()
+    return launches
+
+
+# ------------------------------------------- phase 7 across the cards ----
+def _card_rank(rank: int, world: int, init: str) -> None:
+    """One rank of ``--cards``: card ``rank``, NCCL. (a) the exchanges on a
+    (2, world / 2, 1) mesh, each pod's silo update its own seeded draw of
+    the CNN's flat update (padded to whole blocks of every shard), against
+    the pod mean of ``block_topk_sparsify`` of each pod's shard computed
+    on this card; (b) the main path's recipe sharded over every card
+    against rank 0's unsharded run."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(HERE / "src"))
+    from repro_torch.fl import collectives as col
+    from repro_torch.kernels.topk_sparsify import ops
+    from repro_torch.sharding import make_clients_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=init, rank=rank,
+                            world_size=world)
+    say = log if rank == 0 else (lambda *a: None)
+    try:
+        mesh = col.make_silo_mesh(2, world // 2, 1, device=dev)
+        n = -(-1_630_090 // (4096 * (world // 2))) * 4096 * (world // 2)
+        vecs = [torch.randn(n, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(100 + p)) * 1e-3 for p in range(2)]
+        shards = [col.local_shard(v, mesh) for v in vecs]
+        mine = shards[mesh.get_local_rank("pod")]
+        fns = counters()
+        for fn, attr in fns.values():
+            setattr(fn, attr, 0)
+        dense = col.make_fl_allreduce(mesh, SILO_GAMMA)
+        agg = dense(mine)
+        torch.cuda.synchronize()
+        launched = fns["topk_block"][0].launches
+        want = (ops.block_topk_sparsify(shards[0], SILO_GAMMA)[0]
+                + ops.block_topk_sparsify(shards[1], SILO_GAMMA)[0]) / 2
+        agg_s = col.make_sparse_fl_allreduce(mesh, SILO_GAMMA)(mine)
+        agg_q = col.make_sparse_fl_allreduce(mesh, SILO_GAMMA, quantize=True)(mine)
+        err = torch.stack([(agg_s - agg).abs().max(), (agg_q - agg).abs().max(),
+                           agg.abs().max()])
+        dist.all_reduce(err, op=dist.ReduceOp.MAX)
+        if launched != 1 or not same_bits(agg, want):
+            raise AssertionError(f"rank {rank}: the dense exchange differs from "
+                                 f"the pod mean of block_topk_sparsify "
+                                 f"(launches {launched})")
+        if not (err[0] < 1e-6 and err[1] / err[2] < 0.02):
+            raise AssertionError(f"sparse exchanges off: {err.tolist()}")
+        say(json.dumps({"cards_collectives": {
+            "mesh": [2, world // 2, 1], "n": n, "topk_block_launches": launched,
+            "sparse_max_abs": float(err[0]), "int8_rel": float(err[1] / err[2]),
+            "dense_ms": cuda_ms(lambda: dense(mine), 20)}}))
+
+        data = paper_data()
+        if rank == 0:
+            ref = paper_trainer(dev, data)
+            ref.run_scanned(ROUNDS, verbose=False)
+        dist.barrier()
+        tr = paper_trainer(dev, data, mesh=make_clients_mesh(device=dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr.run_scanned(ROUNDS, verbose=False)
+        if rank == 0:
+            for a, b in zip(tr.history, ref.history):
+                if not (np.array_equal(a.selected, b.selected)
+                        and np.array_equal(a.gamma, b.gamma)):
+                    raise AssertionError(f"{world}-card round {a.round}: masks "
+                                         "or gammas differ from one card")
+                np.testing.assert_allclose(a.energy, b.energy, rtol=1e-5, atol=0)
+            p_err = max(float((tr.params[k] - ref.params[k]).abs().max())
+                        for k in tr.params)
+            if not p_err <= 1e-6:
+                raise AssertionError(f"{world}-card params differ by {p_err}")
+            steady = lambda h: 1e3 * sum(lg.wall_s for lg in h[1:]) / (len(h) - 1)  # noqa: E731
+            say(json.dumps({"cards_sharded": {
+                "cards": world, "n_padded": tr.n_padded, "n_local": tr.n_local,
+                "params_max_abs": p_err,
+                "energy_max_rel": max(float(np.max(np.abs(a.energy - b.energy)
+                                                   / np.maximum(b.energy, 1e-30)))
+                                      for a, b in zip(tr.history, ref.history)),
+                "round_ms_steady_mean": steady(tr.history),
+                "one_card_round_ms_steady_mean": steady(ref.history),
+                "peak_mem_GB_rank0": torch.cuda.max_memory_allocated(dev) / 1e9}}))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def multicard(world: int) -> None:
+    """``--cards K``: phase 7 across K cards (one rank a card) and nothing
+    else: the collectives and the sharded trainer, each against its
+    one-card result."""
+    import tempfile
+    if world < 2 or world % 2 or world > torch.cuda.device_count():
+        raise SystemExit(f"--cards {world}: need an even count of at least 2 "
+                         f"of the {torch.cuda.device_count()} visible cards")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.multiprocessing.spawn(_card_rank, args=(world, f"file://{tmp}/store"),
+                                    nprocs=world, join=True)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -886,10 +1166,18 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     _build.library()
     log(f"built {_build.BUILD_DIR / _build.LIB_NAME} in {time.perf_counter() - t0:.1f} s")
+    if "--cards" in argv:
+        multicard(int(argv[argv.index("--cards") + 1]))
+        log(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     kernels = [check_dual_solve(dev, name) for name in DUAL_VARIANTS]
     gen = torch.Generator(device=dev).manual_seed(0)
     mat = torch.randn(N_CLIENTS, 1_630_090, device=dev, generator=gen) * 1e-3
-    kernels += [check_topk(dev, mat), check_row_norms(dev, mat)]
+    flat = mat[0].clone()          # one client's flat CNN update, phase 7's
+    kernels += [check_topk(dev, mat), check_topk_block(dev, flat),
+                check_row_norms(dev, mat)]
     del mat
     kernels.append(check_flash(dev))
     for k in kernels:
@@ -899,14 +1187,18 @@ def main(argv) -> int:
     runs, data = {}, paper_data()
     for label in PATHS:
         runs[label] = drive_path(dev, data, label)
+        tr = runs[label].pop("trainer")
+        if label == "main":            # phase 7 holds its sharded run to it
+            runs[label].update(history=list(tr.history),
+                               params={k: v.clone() for k, v in tr.params.items()})
         if "--profile" in argv:
-            profile_round(runs[label]["trainer"], ROUNDS, label)
-        runs[label].pop("trainer")
+            profile_round(tr, ROUNDS, label)
+        del tr
     # each kernel's launches on the path that carries it: a dual-solve
     # variant on its own path, the top-k and the norms on the main path
     carrier = {own: label for label, (_, own) in PATHS.items()}
     for k in kernels:
-        if k["name"] != "flash_attention":
+        if k["name"] not in ("flash_attention", "topk_block"):
             k["launches"] = runs[carrier.get(k["name"], "main")]["launches"][k["name"]]
 
     # ---- phase 4: card against CPU
@@ -922,6 +1214,10 @@ def main(argv) -> int:
 
     # ---- phase 6: serve, card against CPU
     serve_card_against_cpu(dev)
+
+    # ---- phase 7: the multi-rank paths on one rank
+    block = next(k for k in kernels if k["name"] == "topk_block")
+    block["launches"] = multirank_paths(dev, flat, data, runs["main"])
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

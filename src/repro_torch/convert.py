@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .devices import resolve_device
 from .fl.updates import leaf_order
 
 
@@ -33,7 +34,9 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
 
 
 def params_from_numpy(tree: dict, device=None) -> dict:
-    """{"conv0": {"w": array, "b": array}, ...} -> {"conv0.b": tensor, ...}."""
+    """{"conv0": {"w": array, "b": array}, ...} -> {"conv0.b": tensor, ...}.
+    ``device=None`` means the GPU, as at every entry point of the port."""
+    device = resolve_device(device)
     flat = _flatten(tree)
     return {name: torch.tensor(np.asarray(flat[name]), device=device)
             for name in leaf_order(flat)}
@@ -41,7 +44,9 @@ def params_from_numpy(tree: dict, device=None) -> dict:
 
 def lm_params_from_numpy(tree: dict, cfg, device=None) -> dict:
     """{"embed": {"table": ...}, "layers": {"attn": {"wq": {"w": [L, d, hd*H]}},
-    ...}, ...} -> {"embed.table": tensor, "layers.0.attn.wq.w": tensor, ...}."""
+    ...}, ...} -> {"embed.table": tensor, "layers.0.attn.wq.w": tensor, ...}.
+    ``device=None`` means the GPU."""
+    device = resolve_device(device)
     out = {}
     for name, value in _flatten(tree).items():
         arr = np.asarray(value)

@@ -9,14 +9,11 @@
 // Each row is cut into 4096-wide blocks (the last one ragged; its missing
 // tail counts as zeros, as the reference's zero padding does, and is never
 // written). In every block the ks[row] largest magnitudes are kept, ties
-// to the lower index — the exact mask of ref.topk_threshold_mask:
-//   1. lo/hi bisection on the int32 bit pattern of |x| (31 steps, each a
-//      block-wide count of bits >= mid) gives the k-th largest magnitude;
-//   2. the float tests mag > thresh and mag == thresh (a NaN magnitude
-//      passes neither, though the bisection counted it — kept as is);
-//   3. an inclusive scan of `equal` in index order fills the ties;
-//   4. out = mask ? x : +0.0, what the reference's jitted x * mask gives
-//      (XLA turns the product into a select), so a dropped NaN or -x is 0.
+// to the lower index — the exact mask of ref.topk_threshold_mask, computed
+// by topk_common.cuh (bisection on the bit pattern of |x|, the float tests,
+// an index-order scan for the ties) — and written as
+//   out = mask ? x : +0.0, what the reference's jitted x * mask gives
+//   (XLA turns the product into a select), so a dropped NaN or -x is 0.
 // When every row has k >= 4096 the whole matrix copies through, as the
 // reference's all-full lax.cond skip returns it. Otherwise a row with
 // k >= 4096 takes the mask at k = 4096, which keeps every lane but a NaN
@@ -26,42 +23,24 @@
 // What bounds it: memory. Each element is read once and written once
 // (2 x 326 MB at the main path's [50, 1,630,090]: 0.19 ms at 3.35 TB/s).
 // The design keeps the whole block in registers (one CTA of 256 threads
-// per block, 16 contiguous elements per thread) so the 31 counting passes
-// and the scan never touch memory again; each pass is a warp reduction
-// plus one exchange through double-buffered shared memory (one barrier).
+// per block, 16 contiguous elements per thread; topk_common.cuh) so the 31
+// counting passes and the scan never touch memory again.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "topk_common.cuh"
+
 namespace {
 
-constexpr int kBlock = 4096;
-constexpr int kThreads = 256;
-constexpr int kPer = kBlock / kThreads;   // 16 elements per thread
-constexpr int kWarps = kThreads / 32;
-
-// int32 arithmetic that wraps as the reference's jnp int32 does (an
-// all-ones NaN magnitude makes max(bits) + 1 overflow); >> 1 is its floor
-// division by 2
-__device__ __forceinline__ int wrap_add(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
-}
-__device__ __forceinline__ int wrap_sub(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
-  return __reduce_add_sync(0xffffffffu, v);
-}
-
-__device__ __forceinline__ int warp_max(int v) {
-  return __reduce_max_sync(0xffffffffu, v);
-}
+using topk::kPer;
+using topk::kThreads;
+constexpr int kBlock = topk::kMaxBlock;
 
 __global__ void __launch_bounds__(kThreads)
 topk_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
                  const int* __restrict__ ks, int n_rows, long long d, int nb) {
-  __shared__ int red[2][kWarps];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __shared__ topk::Shared sh;
+  const int tid = threadIdx.x;
   const int row = blockIdx.x / nb;
   const long long start = static_cast<long long>(blockIdx.x % nb) * kBlock;
   const long long rem = d - start;
@@ -88,77 +67,18 @@ topk_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
   const int base = tid * kPer;
   float v[kPer];
   int bits[kPer];
-  int local_max = 0;
 #pragma unroll
   for (int p = 0; p < kPer; ++p) {
     const int idx = base + p;
     v[p] = idx < valid ? xr[idx] : 0.0f;
     bits[p] = __float_as_int(v[p]) & 0x7fffffff;   // bits of |x|, >= 0
-    local_max = bits[p] > local_max ? bits[p] : local_max;
   }
-
-  // hi = max(bits) + 1; invariant: count(bits >= lo) >= k > count(bits >= hi)
-  int m = warp_max(local_max);
-  if (lane == 0) red[0][warp] = m;
-  __syncthreads();
-  m = red[0][0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) m = red[0][w] > m ? red[0][w] : m;
-  int lo = 0, hi = wrap_add(m, 1);
-
-  for (int it = 0; it < 31; ++it) {
-    const int mid = wrap_add(lo, wrap_sub(hi, lo) >> 1);
-    int cnt = 0;
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) cnt += bits[p] >= mid;
-    cnt = warp_sum(cnt);
-    int* buf = red[(it + 1) & 1];          // red[0] was read before this loop
-    if (lane == 0) buf[warp] = cnt;
-    __syncthreads();
-    int total = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) total += buf[w];
-    if (total >= k) lo = mid; else hi = mid;
-  }
-  const float thresh = __int_as_float(lo);  // the k-th largest |x|
-
-  // n_greater and the per-thread count of ties, in index order
-  int n_gt = 0, n_eq = 0;
+  bool keep[kPer];
+  topk::keep_mask(bits, kPer, k, sh, keep);
 #pragma unroll
   for (int p = 0; p < kPer; ++p) {
-    const float mag = __int_as_float(bits[p]);
-    n_gt += mag > thresh;
-    n_eq += mag == thresh;
-  }
-  // inclusive warp scan of the tie counts
-  int scan = n_eq;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, scan, off);
-    if (lane >= off) scan += y;
-  }
-  n_gt = warp_sum(n_gt);
-  __shared__ int warp_eq[kWarps], warp_gt[kWarps];
-  if (lane == 31) warp_eq[warp] = scan;
-  if (lane == 0) warp_gt[warp] = n_gt;
-  __syncthreads();
-  int before = scan - n_eq, total_gt = 0;   // ties in earlier threads
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    before += w < warp ? warp_eq[w] : 0;
-    total_gt += warp_gt[w];
-  }
-  const int room = k - total_gt;            // ties that still fit
-
-  int seen = before;
-#pragma unroll
-  for (int p = 0; p < kPer; ++p) {
-    const float mag = __int_as_float(bits[p]);
-    const bool equal = mag == thresh;
-    seen += equal;
-    const bool keep = (mag > thresh) || (equal && seen <= room);
     const int idx = base + p;
-    if (idx < valid) outr[idx] = keep ? v[p] : 0.0f;
+    if (idx < valid) outr[idx] = keep[p] ? v[p] : 0.0f;
   }
 }
 

@@ -53,28 +53,40 @@ class ClientDataset:
 class ClientData(NamedTuple):
     """All client shards on the device: each array is [N, L_pad, ...] with
     the true shard sizes in ``lengths`` (padding rows are zeros and are
-    never sampled)."""
+    never sampled). Ghost clients appended for a mesh
+    (``pad_to_multiple``) have ``lengths == 0``: zero rows and zero
+    aggregation weight."""
     arrays: dict              # field -> [N, L_pad, ...] tensor
     lengths: torch.Tensor     # [N] int32
 
     @property
     def n_clients(self) -> int:
+        """Client-axis size, ghost clients included."""
         return int(self.lengths.shape[0])
 
 
-def stack_client_datasets(datasets, device) -> ClientData:
+def stack_client_datasets(datasets, device, *,
+                          pad_to_multiple: int = 1) -> ClientData:
     """Pad + stack per-client shards onto ``device``.
 
     ``datasets`` is a list of ``ClientDataset`` (mapped to their
     images/labels fields) or of dicts of equal-keyed numpy arrays with the
     example axis leading. Floating fields become float32 and integer
-    fields int64 (the index type PyTorch's gathers take)."""
+    fields int64 (the index type PyTorch's gathers take).
+
+    ``pad_to_multiple`` rounds the client axis up to a multiple (the size
+    of a mesh's clients axis) by appending all-zero ghost clients with
+    ``lengths == 0``; the real clients' rows are unchanged."""
     dicts = [{"images": d.images, "labels": d.labels}
              if isinstance(d, ClientDataset) else dict(d) for d in datasets]
     lengths = np.array([len(next(iter(d.values()))) for d in dicts], np.int32)
     if (lengths == 0).any():
         raise ValueError("empty client shard — drop the client or re-draw "
                          "the partition")
+    if pad_to_multiple < 1:
+        raise ValueError(f"pad_to_multiple must be >= 1, got {pad_to_multiple}")
+    n = len(dicts)
+    n_ghost = -(-n // pad_to_multiple) * pad_to_multiple - n
     L = int(lengths.max())
     arrays = {}
     for k in dicts[0]:
@@ -84,18 +96,32 @@ def stack_client_datasets(datasets, device) -> ClientData:
             pad = [(0, L - int(ln))] + [(0, 0)] * (a.ndim - 1)
             parts.append(np.pad(a, pad))
         stacked = np.stack(parts)
+        if n_ghost:
+            ghosts = np.zeros((n_ghost,) + stacked.shape[1:], stacked.dtype)
+            stacked = np.concatenate([stacked, ghosts])
         dtype = (torch.float32 if np.issubdtype(stacked.dtype, np.floating)
                  else torch.int64)
         arrays[k] = torch.as_tensor(stacked).to(device=device, dtype=dtype)
+    lengths = np.concatenate([lengths, np.zeros(n_ghost, np.int32)])
     return ClientData(arrays=arrays,
                       lengths=torch.as_tensor(lengths).to(device))
 
 
-def client_sample_keys(key: torch.Tensor, round_idx: int,
-                       n_clients: int) -> torch.Tensor:
-    """The ``[N, 2]`` per-(round, client) batch keys:
-    ``split(fold_in(key, round), N)``."""
-    return prng.split(prng.fold_in(key, round_idx), n_clients)
+def client_sample_keys(key: torch.Tensor, round_idx: int, n_real: int,
+                       n_padded: int | None = None) -> torch.Tensor:
+    """The ``[n_padded, 2]`` per-(round, client) batch keys.
+
+    Real clients get ``split(fold_in(key, round), n_real)`` whatever the
+    padding (``split``'s first keys change with its count, so ghosts must
+    not enlarge it); ghost client i gets ``fold_in(rkey, i)``. A rank of a
+    clients mesh computes the whole (tiny) set and slices its rows, so
+    every layout draws the same batches."""
+    rkey = prng.fold_in(key, round_idx)
+    ks = prng.split(rkey, n_real)
+    if n_padded is not None and n_padded > n_real:
+        ghost = prng.fold_in(rkey, torch.arange(n_real, n_padded))
+        ks = torch.cat([ks, ghost])
+    return ks
 
 
 def sample_client_batches(arrays: dict, lengths: torch.Tensor,

@@ -14,15 +14,23 @@ Round r (paper Sec. II-A + Algorithm 1), all on the trainer's device:
      kernel), quantized at their width on the quantized path, combined by
      the masked |D_i|-weighted mean and applied.
 
-This is the port of ``repro.fl.server`` for the synchronous single-device
-round with its optional device profile (computation energy and finite
-batteries, ``device_profile``), lossy uplink (``link_cfg``: burst
-interference, outages with bounded HARQ, outage-aware pricing) and
-quantized payloads (a joint ``FairEnergyConfig.bits_grid`` or profile
-default widths). Async rounds, faults and defense, hierarchy, mobility
-and the client mesh raise ``NotImplementedError`` naming their ROADMAP
-item (A-12, A-13, A-15, A-18). Without a profile, link config or
-quantization the round is the legacy one, step for step.
+This is the port of ``repro.fl.server`` for the synchronous round with its
+optional device profile (computation energy and finite batteries,
+``device_profile``), lossy uplink (``link_cfg``: burst interference,
+outages with bounded HARQ, outage-aware pricing), quantized payloads (a
+joint ``FairEnergyConfig.bits_grid`` or profile default widths) and
+client-axis sharding over a ``clients`` mesh (``mesh``; see
+``repro_torch.sharding``). Async rounds, faults and defense, hierarchy and
+mobility raise ``NotImplementedError`` naming their ROADMAP item (A-12,
+A-13, A-15). Without a profile, link config, quantization or mesh the
+round is the legacy one, step for step.
+
+Under a mesh each rank holds its ``n_local`` rows of the ghost-padded
+client stack: it samples, trains, sparsifies, quantizes and partially
+aggregates them, all-gathers ``u_norms`` and losses (cut to the real
+clients) before anything reads them, runs the controller on the full
+replicated ``[N]`` observation, and all-reduces the partial sums; params,
+controller, battery and link state and the logs are replicated.
 
 The round body runs the reference's steps in its order (``_round``).
 PyTorch runs eagerly, so ``run_scanned`` is a loop over rounds that
@@ -37,6 +45,7 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import random as prng
 from ..core.channel import WirelessNetwork, comm_energy, comm_time, round_gains
@@ -51,6 +60,8 @@ from ..core.streams import CTRL_STREAM, LINK_STREAM, SAMPLE_STREAM
 from ..data.pipeline import (client_sample_keys, sample_client_batches,
                              stack_client_datasets)
 from ..devices import resolve_device
+from ..sharding.fl import (CLIENTS_AXIS, check_clients_mesh,
+                           client_shard_count, shard_client_data)
 from . import compression
 from .client import make_batched_client_step
 from .updates import tree_spec, unflatten_update
@@ -60,7 +71,7 @@ __all__ = ["FederatedTrainer", "RoundLog", "UNLIMITED_J", "resolve_device"]
 # options of the reference's trainer this slice does not bring, and the
 # ROADMAP item that brings each
 _UNPORTED = {"async_cfg": "A-12", "fault_cfg": "A-13", "defense": "A-13",
-             "hierarchy": "A-15", "mesh": "A-18"}
+             "hierarchy": "A-15"}
 
 
 @dataclasses.dataclass
@@ -140,9 +151,16 @@ class FederatedTrainer:
     charge uses the payload gamma ``gamma*bits/32``, and the logs gain
     ``bits`` and ``e_saved``.
 
-    ``async_cfg``, ``fault_cfg``, ``defense``, ``hierarchy`` and ``mesh``
-    are not ported yet and raise ``NotImplementedError`` naming their
-    ROADMAP item; an enabled ``mobility`` config raises in the network.
+    ``mesh``: a 1-D ``clients`` ``DeviceMesh``
+    (``repro_torch.sharding.make_clients_mesh``, on the trainer's device
+    type) shards the client axis over its ranks; every rank builds the
+    trainer with the same arguments and runs the same rounds. Anything but
+    a ``DeviceMesh`` raises ``TypeError``; a 2-D (hierarchy) mesh raises
+    ``NotImplementedError`` naming ROADMAP A-15.
+
+    ``async_cfg``, ``fault_cfg``, ``defense`` and ``hierarchy`` are not
+    ported yet and raise ``NotImplementedError`` naming their ROADMAP item;
+    an enabled ``mobility`` config raises in the network.
     """
 
     def __init__(self, *, model_loss: Callable, model_params: dict,
@@ -151,16 +169,23 @@ class FederatedTrainer:
                  seed: int = 0, device=None, device_profile=None,
                  link_cfg: Optional[LinkConfig] = None, mobility=None,
                  async_cfg=None, fault_cfg=None, defense=None,
-                 hierarchy=None, mesh=None):
+                 hierarchy=None, mesh=None, mesh_axis: str = CLIENTS_AXIS):
         self.device = resolve_device(device)
         dev = self.device
         for name, value in (("async_cfg", async_cfg), ("fault_cfg", fault_cfg),
-                            ("defense", defense), ("hierarchy", hierarchy),
-                            ("mesh", mesh)):
+                            ("defense", defense), ("hierarchy", hierarchy)):
             if value is not None:
                 raise NotImplementedError(
                     f"FederatedTrainer({name}=...) is not ported yet: "
                     f"ROADMAP {_UNPORTED[name]}")
+        self.mesh, self.mesh_axis = mesh, mesh_axis
+        self._group = None
+        if mesh is not None:
+            check_clients_mesh(mesh, mesh_axis)
+            if mesh.device_type != dev.type:
+                raise ValueError(f"the mesh is on {mesh.device_type}, the "
+                                 f"trainer on {dev.type}")
+            self._group = mesh.get_group(mesh_axis)
         self.loss_fn = model_loss
         self.params = {k: torch.as_tensor(v).detach().to(dev, copy=True)
                        for k, v in model_params.items()}
@@ -211,11 +236,30 @@ class FederatedTrainer:
                                   device=dev)
         self._pathloss = torch.as_tensor(self.network.pathloss,
                                          dtype=torch.float32)
-        self._data = stack_client_datasets(client_datasets, dev)
-        lengths = self._data.lengths.cpu().numpy().astype(np.float64)
+        if mesh is None:
+            self._data = stack_client_datasets(client_datasets, dev)
+            lengths = self._data.lengths
+        else:
+            # stack and pad on the host, keep this rank's rows on the device
+            data = stack_client_datasets(
+                client_datasets, "cpu",
+                pad_to_multiple=client_shard_count(mesh, mesh_axis))
+            lengths = data.lengths
+            local = shard_client_data(data, mesh, mesh_axis)
+            self._data = type(local)(
+                arrays={k: v.to(dev) for k, v in local.arrays.items()},
+                lengths=local.lengths.to(dev))
+        # ghost clients have length 0, hence zero aggregation weight;
+        # this rank's rows are [i0, i0 + n_local) of the padded axis
+        lengths = lengths.cpu().numpy().astype(np.float64)
+        self.n_padded = len(lengths)
+        self.n_local = self._data.n_clients
+        self._i0 = (0 if mesh is None
+                    else mesh.get_local_rank(mesh_axis) * self.n_local)
         self.weights = lengths / lengths.sum()
-        self._weights = torch.as_tensor(self.weights, dtype=torch.float32,
-                                        device=dev)
+        self._weights = torch.as_tensor(
+            self.weights[self._i0:self._i0 + self.n_local],
+            dtype=torch.float32, device=dev)
         # battery charge carried across rounds: the profile's capacities,
         # unlimited without a profile
         self._battery = (
@@ -279,8 +323,11 @@ class FederatedTrainer:
         return self._battery.cpu().numpy()
 
     def _round_batches(self, r: int) -> dict:
-        """Round-r minibatches [N, steps, batch, ...] on the device."""
-        ckeys = client_sample_keys(self.sample_key, r, self.n_clients)
+        """Round-r minibatches [n_local, steps, batch, ...] on the device:
+        this rank's rows of the padded client axis."""
+        ckeys = client_sample_keys(self.sample_key, r, self.n_clients,
+                                   self.n_padded)
+        ckeys = ckeys[self._i0:self._i0 + self.n_local]
         return sample_client_batches(self._data.arrays, self._data.lengths,
                                      ckeys, self.fl_cfg.local_steps,
                                      self.fl_cfg.local_batch)
@@ -295,10 +342,34 @@ class FederatedTrainer:
         with torch.no_grad():
             _, u_norms, _ = self._client_step(self.params,
                                               self._round_batches(r))
+            u_norms = self._gather(u_norms)
         self.controller.calibrate(u_norms.cpu().numpy(),
                                   self.network.gains(r), self.network.power)
         self.ctrl_state = self.controller.init(self.n_clients)
         self._calibrated = True
+
+    def _gather(self, local: torch.Tensor) -> torch.Tensor:
+        """The [N] real-client vector from every rank's [n_local] rows
+        (identity without a mesh)."""
+        if self._group is None:
+            return local
+        parts = [torch.empty_like(local)
+                 for _ in range(dist.get_world_size(self._group))]
+        dist.all_gather(parts, local.contiguous(), group=self._group)
+        return torch.cat(parts)[:self.n_clients]
+
+    def _local(self, vec: torch.Tensor, fill) -> torch.Tensor:
+        """This rank's rows of an [N] vector, ghost rows taking ``fill``
+        (identity without a mesh)."""
+        if self._group is None:
+            return vec
+        pad = vec.new_full((self.n_padded - self.n_clients,), fill)
+        return torch.cat([vec, pad])[self._i0:self._i0 + self.n_local]
+
+    def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        if self._group is not None:
+            dist.all_reduce(t, group=self._group)
+        return t
 
     @torch.no_grad()
     def _round(self, r: int, evaluate: bool) -> dict:
@@ -317,6 +388,9 @@ class FederatedTrainer:
                         self.ch_cfg.rayleigh).to(self.device)
         updates, u_norms, losses = self._client_step(self.params,
                                                      self._round_batches(r))
+        # the controller sees the real clients' [N] observation in every
+        # layout: gather before any use, ghosts cut off
+        u_norms, losses = self._gather(u_norms), self._gather(losses)
         P = self._P
         if link_burst:
             # one Gilbert-Elliott transition a round; the burst derates
@@ -407,15 +481,21 @@ class FederatedTrainer:
         # a retx-exhausted update never decodes: it never enters the
         # aggregate (its energy and fairness effects landed above)
         part = dec.x if delivered is None else dec.x & delivered
-        # unselected rows carry zero weight; gamma=1 lets them copy through
+        # unselected rows carry zero weight; gamma=1 lets them copy through.
+        # Sparsify, quantize and the partial aggregate run on this rank's
+        # rows (ghost rows: weight 0, gamma 1, 32 bits); the sums are
+        # all-reduced
         gamma = torch.where(dec.x, torch.clamp(dec.gamma, 1e-6, 1.0), 1.0)
-        sparse = compression.batch_block_topk(updates, gamma)
+        sparse = compression.batch_block_topk(updates,
+                                              self._local(gamma, 1.0))
         if quant:
             # client-side quantization of the sparse payload at the
             # transmitted width, dequantized right back
-            sparse = compression.quantize_rows(sparse, bits_w)
-        w = part.to(torch.float32) * self._weights
-        partial, wsum = w @ sparse, torch.sum(w)
+            sparse = compression.quantize_rows(sparse,
+                                               self._local(bits_w, 32.0))
+        w = self._local(part.to(torch.float32), 0.0) * self._weights
+        partial = self._all_reduce(w @ sparse)
+        wsum = self._all_reduce(torch.sum(w))
         agg = partial / torch.clamp(wsum, min=1e-12) * self.fl_cfg.server_lr
         agg = torch.where(wsum > 0.0, agg, 0.0)
         delta = unflatten_update(agg, self.spec)
@@ -518,7 +598,7 @@ class FederatedTrainer:
                     r, evaluate=(r % eval_every == 0) or r == rounds - 1))
                 walls.append(self._wall(t0))
             self._append_logs(s, outs, walls)
-            if verbose:
+            if verbose and self._i0 == 0:
                 lg = self.history[-1]
                 print(f"[{self.controller_name}] rounds {s:4d}..{s + n - 1:4d} "
                       f"acc={lg.accuracy:.4f} sel={lg.n_selected:2d} "

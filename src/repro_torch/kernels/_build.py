@@ -4,7 +4,8 @@ Each source compiles with its own ``nvcc`` (all started together) into an
 object, and the objects link into one shared library with a plain C
 interface, ``build/repro_torch/libkernels.so`` under the checkout root,
 loaded with ``ctypes``. A stamp beside the library holds a hash of the
-sources and flags, so a stale build is redone and a current one reused.
+sources, the ``*.cuh`` headers they include and the flags, so a stale
+build is redone and a current one reused.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, precise math (no
 ``--use_fast_math``) and ``--fmad=false``: the dual-solve kernel must
@@ -46,6 +47,8 @@ SIGNATURES = {
                               _P, _P, _P, _P, _P, _P),
     # (x, out, ks, n_rows, d, stream)
     "topk_rows_f32": (_P, _P, _P, _I, _LL, _P),
+    # (x, out, n, block, k, dtype, stream)
+    "topk_block": (_P, _P, _LL, _I, _I, _I, _P),
     # (q, k, v, o, dtype, B, Sq, Skv, H, KV, D, causal, window, scale, stream)
     "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _I, _F, _P),
@@ -77,7 +80,7 @@ def build() -> Path:
     """Compile ``csrc/*.cu`` into ``BUILD_DIR/libkernels.so`` unless a
     library built from the same sources and flags is already there."""
     sources = sorted(CSRC.glob("*.cu"))
-    stamp = _stamp(sources)
+    stamp = _stamp(sources + sorted(CSRC.glob("*.cuh")))
     lib = BUILD_DIR / LIB_NAME
     stamp_file = BUILD_DIR / (LIB_NAME + ".sha256")
     if (lib.exists() and stamp_file.exists()

@@ -1,4 +1,6 @@
-from .ops import block_topk_rows
-from .ref import block_topk_rows_ref, topk_threshold_mask
+from .ops import block_topk_rows, block_topk_sparsify
+from .ref import (block_topk_ref, block_topk_rows_ref, keep_count,
+                  topk_threshold_mask)
 
-__all__ = ["block_topk_rows", "block_topk_rows_ref", "topk_threshold_mask"]
+__all__ = ["block_topk_ref", "block_topk_rows", "block_topk_rows_ref",
+           "block_topk_sparsify", "keep_count", "topk_threshold_mask"]

@@ -1,17 +1,23 @@
-"""Wrapper of the per-row block top-k kernel (``csrc/topk_rows.cu``).
+"""Wrappers of the block top-k kernels.
 
-``block_topk_rows(mat, ks)`` sparsifies every ``ref.DEFAULT_BLOCK``-wide
-block of row n of ``mat`` [N, D] to its ``ks[n]`` largest magnitudes
-(``ref.block_topk_rows`` is the same function in plain PyTorch, run for
-CPU tensors). The kernel reads the ragged last block of each row in
-place, so no padded copy of the [N, D] matrix is made.
+``block_topk_rows(mat, ks)`` (``csrc/topk_rows.cu``) sparsifies every
+``ref.DEFAULT_BLOCK``-wide block of row n of ``mat`` [N, D] to its
+``ks[n]`` largest magnitudes. ``block_topk_sparsify(vec, gamma, block=)``
+(``csrc/topk_block.cu``) keeps ``ref.keep_count(gamma, block)`` per block
+of a 1-D fp32 or bf16 vector. Each runs its plain PyTorch version
+(``ref.block_topk_rows``, ``ref.block_topk_ref``) for CPU tensors. The
+kernels read the ragged last block in place, so no padded copy is made.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _build, check_cuda, is_cpu
+from .ref import DEFAULT_BLOCK, block_topk_ref, keep_count
 from .ref import block_topk_rows as block_topk_rows_plain
+
+MAX_BLOCK = 4096                  # csrc/topk_common.cuh: 256 threads x 16 lanes
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def block_topk_rows(mat: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:
@@ -33,3 +39,33 @@ def block_topk_rows(mat: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:
 
 
 block_topk_rows.launches = 0
+
+
+def block_topk_sparsify(vec: torch.Tensor, gamma, *,
+                        block: int = DEFAULT_BLOCK) -> tuple[torch.Tensor, int]:
+    """(vec with the top ``k`` magnitudes of each ``block``-wide block kept,
+    k); ``block`` is a multiple of 128 up to ``MAX_BLOCK``, as the Pallas
+    kernel's lane tiling asks, on either device."""
+    if block % 128 or not 128 <= block <= MAX_BLOCK:
+        raise ValueError(f"block must be a multiple of 128 up to {MAX_BLOCK}, "
+                         f"got {block}")
+    if is_cpu(vec):
+        return block_topk_ref(vec, gamma, block=block)
+    if vec.dtype not in _DTYPE_CODES:
+        raise TypeError(f"vec has dtype {vec.dtype}, expected float32 or "
+                        "bfloat16")
+    check_cuda("vec", vec, dtype=vec.dtype, ndim=1, device=vec.device)
+    k = keep_count(gamma, block)
+    out = torch.empty_like(vec)
+    if vec.numel() == 0:
+        return out, k
+    stream = torch.cuda.current_stream(vec.device).cuda_stream
+    err = _build.library().topk_block(vec.data_ptr(), out.data_ptr(),
+                                      vec.numel(), block, k,
+                                      _DTYPE_CODES[vec.dtype], stream)
+    _build.check(err, "topk_block")
+    block_topk_sparsify.launches += 1
+    return out, k
+
+
+block_topk_sparsify.launches = 0

@@ -14,11 +14,18 @@ applies the float tests ``mag > thresh`` / ``mag == thresh`` and fills the
 ties by an inclusive cumulative count. ``block_topk_rows_ref`` is the
 reference's sort-based oracle of the same mask.
 
+Two functions of the kernels: ``block_topk_rows`` (one k per row of a
+stacked ``[N, D]`` update matrix, ``csrc/topk_rows.cu``) and
+``block_topk_ref`` (one static k for a 1-D vector at a block width of
+its own, ``csrc/topk_block.cu``).
+
 Dropped lanes are +0.0 — ``torch.where(mask, x, 0)`` — which is what the
 reference's jitted ``x * mask`` returns (XLA rewrites the product into a
 select), so a dropped NaN, Inf or negative value comes out as +0.0.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -87,3 +94,36 @@ def block_topk_rows(mat: Tensor, ks: Tensor) -> Tensor:
     ks_rows = torch.repeat_interleave(ks.to(torch.int32), nb)[:, None]
     mask = topk_threshold_mask(rows, torch.clamp(ks_rows, 1, block))
     return torch.where(mask, rows, 0.0).reshape(n, nb * block)[:, :d]
+
+
+def keep_count(gamma, block: int) -> int:
+    """k = clip(ceil(gamma * block), 1, block), in Python doubles as the
+    reference computes it for a static gamma."""
+    return max(1, min(block, math.ceil(float(gamma) * block)))
+
+
+def _pad_to_blocks(vec: Tensor, block: int) -> tuple[Tensor, int]:
+    n = vec.shape[0]
+    nb = -(-n // block)
+    rows = torch.nn.functional.pad(vec, (0, nb * block - n))
+    return rows.reshape(nb, block), n
+
+
+def block_topk_ref(vec: Tensor, gamma, *, block: int = DEFAULT_BLOCK
+                   ) -> tuple[Tensor, int]:
+    """The kernel's function in plain PyTorch: ``vec`` [n] (fp32 or bf16)
+    cut into ``block``-wide blocks (the ragged tail zero-padded, then cut
+    off again), the ``k = keep_count(gamma, block)`` largest magnitudes of
+    every block kept, in the input's dtype. Returns (vector, k).
+
+    The mask is ``topk_threshold_mask`` on the fp32 values; there is no
+    all-full skip, so at k = block the NaN lanes are dropped. Dropped lanes
+    are +0.0, as in the reference's Pallas kernel and its jitted fp32
+    ``block_topk_ref``; its eager one, and its jitted one in bf16, give
+    the IEEE product ``x * 0`` instead (ROADMAP C-11)."""
+    if vec.ndim != 1:
+        raise ValueError(f"vec has shape {tuple(vec.shape)}, expected 1 dim")
+    k = keep_count(gamma, block)
+    rows, n = _pad_to_blocks(vec, block)
+    mask = topk_threshold_mask(rows, k)
+    return torch.where(mask, rows, 0.0).reshape(-1)[:n], k

@@ -34,7 +34,9 @@ def test_every_port_module_imports_without_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.fl.server" in mods and len(mods) >= 30
     assert {"repro_torch.launch.serve", "repro_torch.models.transformer",
-            "repro_torch.kernels.flash_attention.ops"} <= set(mods)
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.fl.collectives", "repro_torch.sharding.fl",
+            "repro_torch.launch.multipod"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -116,3 +118,22 @@ def test_serve_without_device_raises_when_no_gpu(monkeypatch):
     cfg = get_smoke("tinyllama-1.1b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.generate(cfg, LM(cfg), prompt_len=4, gen=1, batch=1)
+
+
+def test_mesh_and_weight_entry_points_without_device_raise_when_no_gpu(
+        monkeypatch):
+    """The clients mesh, the silo mesh, the multipod CLI and the weight
+    converters mean the GPU by ``device=None``, like every entry point."""
+    from repro_torch.convert import lm_params_from_numpy, params_from_numpy
+    from repro_torch.fl.collectives import make_silo_mesh
+    from repro_torch.launch import multipod
+    from repro_torch.sharding import make_clients_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (make_clients_mesh, lambda: make_silo_mesh(2),
+                 lambda: multipod.main(["--pods", "1", "--data", "1",
+                                        "--model", "1"]),
+                 lambda: params_from_numpy({"w": [1.0]}),
+                 lambda: lm_params_from_numpy({"w": [1.0]}, None)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert params_from_numpy({"w": [1.0]}, "cpu")["w"].device.type == "cpu"

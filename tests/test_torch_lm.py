@@ -51,7 +51,8 @@ def _models(arch, dtype="float32", seed=0, **replace):
     with jax.threefry_partitionable(False):
         params = jtfm.init_lm(jax.random.PRNGKey(seed), jcfg)
     model = ttfm.LM(cfg)
-    model.load_state_dict(lm_params_from_numpy(jax.device_get(params), cfg))
+    model.load_state_dict(lm_params_from_numpy(jax.device_get(params), cfg,
+                                               device="cpu"))
     return jcfg, params, cfg, model
 
 
@@ -277,10 +278,11 @@ def test_other_families_raise_naming_the_roadmap_item(arch):
 
 def test_converted_names_are_the_modules_parameters():
     jcfg, params, cfg, model = _models("glm4-9b")
-    conv = lm_params_from_numpy(jax.device_get(params), cfg)
+    conv = lm_params_from_numpy(jax.device_get(params), cfg, device="cpu")
     assert sorted(conv) == sorted(n for n, _ in model.named_parameters())
     with pytest.raises(ValueError, match="layers"):
-        lm_params_from_numpy(jax.device_get(params), cfg.replace(n_layers=3))
+        lm_params_from_numpy(jax.device_get(params), cfg.replace(n_layers=3),
+                             device="cpu")
 
 
 def test_step_builders_run_prefill_and_decode():
@@ -334,7 +336,8 @@ def test_generate_reproduces_the_reference_serve_flow(temperature, dtype, atol):
         arch, dtype, prompt_len, gen, batch, temperature)
     cfg = tconfigs.get_smoke(arch).replace(dtype=dtype)
     model = ttfm.LM(cfg)
-    model.load_state_dict(lm_params_from_numpy(jax.device_get(params), cfg))
+    model.load_state_dict(lm_params_from_numpy(jax.device_get(params), cfg,
+                                               device="cpu"))
     out = serve.generate(cfg, model, prompt_len=prompt_len, gen=gen, batch=batch,
                          temperature=temperature, seed=0, device="cpu")
     np.testing.assert_array_equal(out.prompt.numpy(), prompt)

@@ -122,7 +122,7 @@ def test_sampled_batches_are_exactly_equal(r):
 def _smoke_cnn(seed=0):
     jparams = jcnn.init_cnn(jax.random.PRNGKey(seed), J_SMOKE)
     host = jax.tree_util.tree_map(np.asarray, jparams)
-    return jparams, params_from_numpy(host), CNN(T_SMOKE)
+    return jparams, params_from_numpy(host, device="cpu"), CNN(T_SMOKE)
 
 
 def _images(n, seed=1):

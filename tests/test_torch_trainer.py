@@ -28,6 +28,11 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.fl import FederatedTrainer
 from repro_torch.models import CNN, cnn_loss
 
+# the golden MLP trainer (shared with the multi-rank tests)
+from torch_dist import N_CLIENTS, ROUNDS  # noqa: F401
+from torch_dist import mlp_data as _mlp_data
+from torch_dist import mlp_trainer as _torch_mlp_trainer
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
                       "fairenergy_main_12round.json")
 ACC_TOL = 1.0 / 128 + 1e-9
@@ -35,44 +40,6 @@ ACC_TOL = 1.0 / 128 + 1e-9
 
 def _host(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
-
-
-# ------------------------------------------------- the golden MLP trainer ----
-N_CLIENTS, D_IN, D_HIDDEN, N_CLASSES, ROUNDS = 8, 16, 24, 5, 12
-
-
-def _mlp_data():
-    """The draws of ``test_scan_engine.make_trainer``, in its order."""
-    rng = np.random.default_rng(7)
-    params = {"w1": rng.normal(size=(D_IN, D_HIDDEN)).astype(np.float32) * 0.1,
-              "w2": rng.normal(size=(D_HIDDEN, N_CLASSES)).astype(np.float32) * 0.1}
-    datasets = [{"x": rng.normal(size=(40 + 7 * i, D_IN)).astype(np.float32),
-                 "y": rng.integers(0, N_CLASSES, size=40 + 7 * i)}
-                for i in range(N_CLIENTS)]
-    tx = rng.normal(size=(128, D_IN)).astype(np.float32)
-    ty = rng.integers(0, N_CLASSES, size=128)
-    return params, datasets, tx, ty
-
-
-def _torch_mlp_trainer(params_tree, fe_cfg=None, **kw):
-    _, datasets, tx, ty = _mlp_data()
-    tx, ty = torch.tensor(tx), torch.tensor(ty)
-
-    def loss_fn(p, batch):
-        hid = torch.tanh(batch["x"] @ p["w1"])
-        ll = torch.log_softmax(hid @ p["w2"], dim=-1)
-        return -torch.mean(torch.gather(ll, 1, batch["y"][:, None])), {}
-
-    def eval_fn(p):
-        lg = torch.tanh(tx @ p["w1"]) @ p["w2"]
-        return torch.mean((torch.argmax(lg, -1) == ty).to(torch.float32))
-
-    return FederatedTrainer(
-        model_loss=loss_fn, model_params=params_from_numpy(params_tree),
-        client_datasets=datasets, eval_fn=eval_fn,
-        fl_cfg=FLConfig(local_steps=2, local_batch=16, lr=0.05),
-        fe_cfg=fe_cfg or FairEnergyConfig(),
-        ch_cfg=ChannelConfig(n_clients=N_CLIENTS), device="cpu", **kw)
 
 
 def _assert_trajectories_match(t_hist, j_hist):
@@ -184,7 +151,7 @@ def test_smoke_cnn_three_rounds_match_reference():
         return torch.mean((torch.argmax(lg, -1) == tl_t).to(torch.float32))
 
     ttr = FederatedTrainer(model_loss=cnn_loss(model),
-                           model_params=params_from_numpy(params0),
+                           model_params=params_from_numpy(params0, device="cpu"),
                            client_datasets=shards, eval_fn=t_eval,
                            fl_cfg=FLConfig(**fl),
                            fe_cfg=FairEnergyConfig(**fe),

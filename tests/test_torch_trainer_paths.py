@@ -31,6 +31,7 @@ from repro_torch.scenarios import get_scenario
 
 from test_torch_trainer import (ACC_TOL, N_CLIENTS, ROUNDS, _mlp_data,
                                 _torch_mlp_trainer)
+from torch_dist import single_rank_group
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -194,12 +195,26 @@ def test_finite_batteries_deplete_and_mask_clients():
             np.maximum(prev - lg.energy, 0.0), lg.battery, rtol=1e-6)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(async_cfg=object()), "A-12"), (dict(fault_cfg=object()), "A-13"),
-    (dict(defense=object()), "A-13"), (dict(hierarchy=object()), "A-15"),
-    (dict(mesh=object()), "A-18")])
-def test_unported_trainer_options_raise_naming_the_roadmap_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(async_cfg=object()), NotImplementedError, "A-12"),
+    (dict(fault_cfg=object()), NotImplementedError, "A-13"),
+    (dict(defense=object()), NotImplementedError, "A-13"),
+    (dict(hierarchy=object()), NotImplementedError, "A-15"),
+    (dict(mesh=object()), TypeError, "DeviceMesh")])
+def test_unported_trainer_options_raise_naming_the_roadmap_item(kw, error,
+                                                                 match):
+    """What the port does not bring raises naming its ROADMAP item; a mesh
+    must be a ``DeviceMesh`` (a 2-D one is A-15, tested below)."""
+    with pytest.raises(error, match=match):
         _torch_trainer(**kw)
     with pytest.raises(TypeError, match="LinkConfig"):
         _torch_trainer(link_cfg=object())
+
+
+def test_two_dimensional_mesh_raises_naming_the_hierarchy_item(tmp_path):
+    from torch.distributed.device_mesh import init_device_mesh
+    with single_rank_group(tmp_path):
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("clusters", "clients"))
+        with pytest.raises(NotImplementedError, match="A-15"):
+            _torch_trainer(mesh=mesh)
