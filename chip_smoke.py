@@ -14,23 +14,29 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    versions, and TF32 switched off for cuDNN convolutions and matmuls;
 2. kernels: build the CUDA kernels from ``src/repro_torch/csrc`` (and the
    Triton one on first launch), hold each against its plain PyTorch version
-   on the card at the main paths' shapes — the four dual-solve variants
-   (gamma grid, outage-priced, joint (gamma, bits), joint + priced), the
-   per-row block top-k, the block top-k of one vector (the CNN's flat
-   update at gamma 0.25 and 0.1, in fp32 and bf16, blocks 256 and 1024,
-   k = block, and NaN/Inf/-0.0/tie lanes, each bit for bit), the row norms
-   and the flash attention (the serve path's
-   [4, 2048, 32|4, 64] bf16 causal, a 256 window, fp32, a ragged S = 1000,
-   D = 32 and D = 128) — and time both (CUDA events) and the library call
-   computing the same function where there is one;
+   on the card at the main paths' shapes — the four one-step dual-solve
+   variants (gamma grid, outage-priced, joint (gamma, bits), joint +
+   priced), the four fused dual ascents (phase 4's inputs, 5 warm-started
+   rounds, capped and stopped early with dead clients: masks, gammas,
+   widths and n_inner equal, lam and mu rtol 1e-5), the per-row block
+   top-k, the block top-k of one vector (the CNN's flat update at gamma
+   0.25 and 0.1, in fp32 and bf16, blocks 256 and 1024, k = block, and
+   NaN/Inf/-0.0/tie lanes, each bit for bit), the row norms and flash
+   attention, bf16 on the tensor cores and fp32 on the SIMT kernel (the
+   serve path's [4, 2048, 32|4, 64] bf16 causal, a 256 window, fp32, a
+   ragged S = 1000, D = 32 and D = 128 in both types) — and time both
+   (CUDA events) and the library call computing the same function where
+   there is one (a fused ascent also beside the host loop over the
+   one-step kernel that it replaced);
 3. paths: ``repro_torch.fl.FederatedTrainer.run_scanned(5)`` with the
    paper's full-width FMNIST CNN (D = 1,630,090), N = 50 clients and the
    ``benchmarks/fl_experiments.build`` data recipe, on ``cuda``, four
    times: the legacy main path, (a) the ``quantized`` scenario, (b)
    ``bursty-interference`` with ``price_outage``, and (c) (b) with the
    joint grid (8, 16, 32). Each path's launch counts are zeroed just
-   before it and read just after: its own dual-solve variant, the top-k
-   and the norms must have launched and the other variants not; params,
+   before it and read just after: its own fused dual ascent exactly once
+   a round, no other variant and no one-step dual solve, and the top-k
+   and the norms must have launched; params,
    energies and accuracy must be finite; (a) and (c) must send some update
    below 32 bits, (b) and (c) must retransmit;
 4. card against CPU: ``solve_round`` at the main path's setting (N = 50,
@@ -50,7 +56,7 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    ``lm_forward`` over prompt + token at that position (the ring cache
    against the flash branch);
 6. serve, card against CPU: the smoke TinyLlama in fp32 from the same
-   weights and seed, prompt 2048 (so the card takes the kernel), 8 tokens
+   weights and seed, prompt 2048 (so the card takes the fp32 kernel), 8 tokens
    at batch 2: equal prompt ids, logits to rtol 1e-4, equal sampled ids up
    to the first documented tie;
 7. the multi-rank paths on one rank: a one-rank NCCL process group
@@ -63,7 +69,7 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    ``FederatedTrainer(mesh=make_clients_mesh())`` on the main path's
    recipe: equal masks and gammas to phase 3's main path, energies rtol
    1e-5, params atol 1e-6, and the main path's launches of the dual-solve,
-   top-k rows and norm kernels.
+   top-k rows and norm kernels (one fused ascent a round).
 
 ``--cards K`` runs phase 7 alone across K cards (one NCCL rank a card,
 after the build): the exchanges on a (2, K/2, 1) mesh against the pod mean
@@ -123,6 +129,26 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Mean device time of one launch of the kernels whose name holds
+    ``kernel``, over ``iters`` calls of ``fn`` (torch.profiler's CUDA
+    activity): the kernel alone, without the host time between launches
+    that CUDA events around back-to-back calls also count."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    count = sum(e.count for e in events)
+    if count != iters:
+        raise AssertionError(f"the profiler saw {count} launches of {kernel} "
+                             f"in {iters} calls")
+    return sum(e.self_device_time_total for e in events) / 1e3 / count
+
+
 def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_FP32_S
           ) -> tuple[float, str]:
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / peak_ops
@@ -163,6 +189,8 @@ DUAL_VARIANTS = {
                                 "src/repro/kernels/dual_solve/kernel.py:183"),
 }
 BITS = (8.0, 16.0, 32.0)
+# each one-step variant -> the fused ascent of the same variant
+FUSED = {name: name.replace("dual_solve", "dual_ascent") for name in DUAL_VARIANTS}
 
 
 def check_dual_solve(dev, name: str) -> dict:
@@ -227,6 +255,107 @@ def check_dual_solve(dev, name: str) -> dict:
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+# early-exit tolerances for check_dual_ascent: at the main path's setting
+# the residual stays above 1 (the price iteration oscillates, ROADMAP C-4),
+# and these stop the loop after 1 to ~24 of its 30 iterations
+EARLY_TOLS = (3.0, 5.0)
+
+
+def selection(asc, u, alive, p):
+    """The extraction's benefit test on a dual-ascent result (before the
+    greedy repair), as core.fairenergy._solve_round computes it."""
+    from repro_torch.kernels.dual_solve.ref import selection_score
+    benefit = (p.eta * selection_score(u, asc.gamma, asc.bits)
+               + asc.mu * (1.0 - p.rho) - asc.e - asc.lam * asc.b)
+    return (benefit > 0) & alive
+
+
+def check_dual_ascent(dev, name: str) -> dict:
+    """The fused dual ascent of one variant against its plain version (the
+    host loop over the plain best response) on the card, at phase 4's
+    inputs: each of 5 warm-started rounds capped (the default dual_tol:
+    30 iterations) and stopped early (EARLY_TOLS, with every 7th client
+    dead). Selection masks, gammas, widths and n_inner exactly equal; lam,
+    mu, b*, e* within rtol 1e-5. Timed: one fused launch, the plain host
+    loop, and the host loop over the one-step kernel (the design it
+    replaces), at round 0's capped setting."""
+    from repro_torch.core.fairenergy import solve_round, static_of
+    from repro_torch.kernels.dual_solve import ops, ref
+    scaled, joint, replaces = DUAL_VARIANTS[name]
+    ctrl, P, hs, us, ess = solver_setting(name)
+    static = static_of(ctrl.fe_cfg)
+    state = to_device(ctrl.init(N_CLIENTS), dev)
+    P = P.to(dev)
+    all_alive = torch.ones(N_CLIENTS, dtype=torch.bool, device=dev)
+    some_dead = all_alive.clone()
+    some_dead[::7] = False
+    err, n_inner, timed = 0.0, [], None
+    for r in range(5):
+        h, u = hs[r].to(dev), us[r].to(dev)
+        es = ess[r].to(dev) if scaled else None
+        p = state.params
+        for tol, alive in ((p.dual_tol, all_alive),
+                           *((torch.tensor(t, device=dev), some_dead) for t in EARLY_TOLS)):
+            args = (P, h, u, state.lam, state.mu, state.q, alive)
+            kw = dict(gamma_grid=static.gamma_grid, eta=p.eta, rho=p.rho,
+                      pi_min=p.pi_min, alpha_lambda=p.alpha_lambda,
+                      alpha_mu=p.alpha_mu, dual_tol=tol, b_tot=p.b_tot,
+                      s_bits=p.s_bits, i_bits=p.i_bits, n0=p.n0,
+                      b_lo=p.b_min_frac, inner_iters=static.inner_iters,
+                      newton_iters=static.newton_iters, e_cmp=state.e_cmp,
+                      e_scale=es, bits_grid=BITS if joint else None)
+            got = ops.dual_ascent(*args, **kw)
+            want = ref.dual_ascent_ref(*args, **kw)
+            where = f"{FUSED[name]} round {r} dual_tol {float(tol)}"
+            if int(got.n_inner) != int(want.n_inner):
+                raise AssertionError(f"{where}: n_inner {int(got.n_inner)} != "
+                                     f"{int(want.n_inner)}")
+            x_got = selection(got, u, alive, p)
+            x_want = selection(want, u, alive, p)
+            if not (torch.equal(x_got, x_want) and torch.equal(got.gamma, want.gamma)
+                    and (not joint or torch.equal(got.bits, want.bits))):
+                raise AssertionError(f"{where}: masks, gammas or widths differ")
+            for what in ("lam", "mu", "b", "e"):
+                g, w = getattr(got, what), getattr(want, what)
+                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-12,
+                                           msg=lambda m: f"{where} {what}: {m}")
+                err = max(err, float((g - w).abs().max()))
+            n_inner.append(int(want.n_inner))
+            if timed is None:
+                timed = (args, kw)
+        _, state = solve_round(u, h, P, state, fe_cfg=ctrl.fe_cfg, e_scale=es)
+    args, kw = timed
+    # the kernel's device time (the profiler), and a wrapper call's time
+    # between CUDA events (back-to-back calls: the host side of a launch)
+    ms = device_ms(lambda: ops.dual_ascent(*args, **kw), "dual_ascent_kernel")
+    # one iteration and the extraction: the rest is the loop's latency
+    ms_one = device_ms(lambda: ops.dual_ascent(*args, **dict(kw, inner_iters=1)),
+                       "dual_ascent_kernel")
+    call = cuda_ms(lambda: ops.dual_ascent(*args, **kw), 50)
+    plain = cuda_ms(lambda: ref.dual_ascent_ref(*args, **kw), 3, warmup=1)
+    host_loop = cuda_ms(lambda: ref.dual_ascent_ref(*args, **kw, solve=ops.dual_solve),
+                        5, warmup=1)
+    log(json.dumps({"dual_ascent_case": FUSED[name], "n_inner": n_inner,
+                    "kernel_ms": ms, "kernel_one_iteration_ms": ms_one,
+                    "kernel_ms_per_further_iteration":
+                        (ms - ms_one) / (static.inner_iters - 1),
+                    "call_ms": call, "host_loop_one_step_ms": host_loop,
+                    "plain_ms": plain}))
+    # the capped run: 31 best responses (30 iterations + the extraction),
+    # ~110 float operations a (client, level) and ~20 a client for the
+    # selection and the dual steps; 8-9 inputs and 5-6 outputs a client
+    levels = len(GRID) * (len(BITS) if joint else 1)
+    n = N_CLIENTS
+    iters = int(ops.dual_ascent(*args, **kw).n_inner)
+    n_ops = (iters + 1) * n * (levels * 110 + 10 + scaled) + iters * n * 20
+    b_ms, b_by = bound(((8 + scaled) + (5 + joint)) * n * 4 + 12 * 4 + 8, n_ops)
+    return dict(name=FUSED[name], route="cuda", source="src/repro_torch/csrc/dual_solve.cu",
+                replaces=f"{replaces} + src/repro/core/fairenergy.py:371",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, call_ms=call,
+                host_loop_ms=host_loop)
+
+
 def _tricky_rows(dev) -> tuple[torch.Tensor, torch.Tensor]:
     """Rows with ties, NaN, +-Inf, -0.0, k = 1 and k = block (one of them
     holding NaN and Inf, which the mask at k = block drops and keeps), over
@@ -276,6 +405,24 @@ def check_topk(dev, mat: torch.Tensor) -> dict:
     ms = cuda_ms(lambda: ops.block_topk_rows(mat, ks), 20)
     plain = cuda_ms(lambda: ref.block_topk_rows(mat, ks), 3, warmup=1)
     nb = -(-d // 4096)
+    # the library yardstick: torch.topk of the blocked |x| at the largest k,
+    # then scatter_ of each block's first k (its row's k) into zeros. It
+    # selects the same set up to ties, but neither fixes the tie order nor
+    # drops NaN lanes or writes +0.0 for a dropped -x as the kernel does
+    blocks = torch.nn.functional.pad(mat, (0, nb * 4096 - d)).view(n * nb, 4096)
+    kb = ks.long().repeat_interleave(nb)
+    k_max = int(kb.max())
+    first_k = torch.arange(k_max, device=dev)[None, :] < kb[:, None]
+
+    def library():
+        idx = torch.topk(blocks.abs(), k_max, dim=1).indices
+        vals = torch.where(first_k, torch.gather(blocks, 1, idx), 0.0)
+        return torch.zeros_like(blocks).scatter_(1, idx, vals)
+
+    lib = cuda_ms(library, 5, warmup=1)
+    del blocks, first_k
+    log(json.dumps({"topk_rows_library": {"rows": n * nb, "k_max": k_max,
+                                          "ms": lib}}))
     sparsified = int((ks < 4096).sum()) * nb
     # read + write every element once; per sparsified block 31 counting
     # passes (compare + add per element) and ~8 operations per element
@@ -285,7 +432,7 @@ def check_topk(dev, mat: torch.Tensor) -> dict:
                 source="src/repro_torch/csrc/topk_rows.cu",
                 replaces="src/repro/kernels/topk_sparsify/kernel.py:32",
                 max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=lib)
 
 
 def check_topk_block(dev, vec: torch.Tensor) -> dict:
@@ -354,7 +501,8 @@ def check_row_norms(dev, mat: torch.Tensor) -> dict:
 
 
 # (B, S, H, KV, D, dtype, causal, window, Skv): the serve path's call
-# first, then a window, fp32, a ragged S and the other head dims
+# first, then a window, fp32, a ragged S and the other head dims (bf16 goes
+# to the tensor-core kernel, fp32 to the SIMT one)
 FLASH_CASES = (
     (4, 2048, 32, 4, 64, torch.bfloat16, True, None, None),
     (4, 2048, 32, 4, 64, torch.bfloat16, True, 256, None),
@@ -362,16 +510,24 @@ FLASH_CASES = (
     (2, 1000, 32, 4, 64, torch.bfloat16, True, None, None),
     (2, 1000, 32, 4, 64, torch.float32, True, 100, None),
     (2, 2048, 8, 2, 32, torch.float32, True, None, None),      # phase 6's call
+    (2, 2048, 8, 2, 32, torch.bfloat16, True, None, None),
+    (2, 2048, 16, 2, 128, torch.bfloat16, True, None, None),
     (1, 300, 8, 2, 128, torch.float32, True, 77, None),
     (1, 300, 8, 2, 128, torch.bfloat16, False, None, 333),
+    (1, 130, 4, 4, 64, torch.bfloat16, True, None, None),     # a 2-row tile
+    # a window that ends before Skv: rows that see no key are V's mean
+    (1, 200, 4, 1, 64, torch.bfloat16, False, 50, 77),
+    (1, 200, 4, 1, 64, torch.float32, False, 50, 77),
 )
 FLASH_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
-def check_flash(dev) -> dict:
-    """The flash kernel against its plain version on FLASH_CASES (fp32
+def check_flash(dev) -> list[dict]:
+    """Both flash kernels against their plain version on FLASH_CASES (fp32
     atol 1e-5; bf16 atol 2e-2, the JAX package's bf16 bound for its own
-    kernel); timed at the serve path's call, beside SDPA."""
+    kernel); each timed at the serve path's call (the fp32 kernel on the
+    same values in fp32), beside SDPA on the same inputs. Returns the
+    entries of the bf16 (tensor-core) and the fp32 (SIMT) kernel."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops, ref
@@ -379,7 +535,8 @@ def check_flash(dev) -> dict:
         f"{str(dt)[6:]}/D{d}": ops.kernel_attributes(dt, d)
         for dt in (torch.bfloat16, torch.float32) for d in ops.HEAD_DIMS}}))
     gen = torch.Generator(device=dev).manual_seed(5)
-    err, timed = 0.0, None
+    err = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    timed = None
     for B, S, H, KV, D, dt, causal, window, Skv in FLASH_CASES:
         Skv = Skv or S
         q = torch.randn(B, S, H, D, device=dev, generator=gen).to(dt)
@@ -394,31 +551,40 @@ def check_flash(dev) -> dict:
         if not e <= FLASH_ATOL[dt]:
             raise AssertionError(f"flash kernel differs from its plain version by "
                                  f"{e} > {FLASH_ATOL[dt]} at {B, S, H, KV, D, dt, causal, window, Skv}")
+        err[dt] = max(err[dt], e)
         if timed is None:
-            timed, err = (q, k, v), e
-    q, k, v = timed
-    B, S, H, D = q.shape
-    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True), 20)
-    plain = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), 3, warmup=1)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    library = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    # QK^T and PV over the causal pairs, S(S+1)/2 per (batch, head), 2 D
-    # operations each; q, k, v read and o written once, bf16
-    n_ops = 2 * 2 * B * H * D * S * (S + 1) / 2
-    n_bytes = 2 * (2 * q.numel() + 2 * k.numel())
-    b_ms, b_by = bound(n_bytes, n_ops, PEAK_BF16_S)
-    return dict(name="flash_attention", route="cuda",
-                source="src/repro_torch/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention/kernel.py:25",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library)
+            timed = (q, k, v)
+    out = []
+    for dt, name, source, peak in (
+            (torch.bfloat16, "flash_attention", "src/repro_torch/csrc/flash_attention_sm90.cu",
+             PEAK_BF16_S),
+            (torch.float32, "flash_attention_f32", "src/repro_torch/csrc/flash_attention.cu",
+             PEAK_FP32_S)):
+        q, k, v = (t.to(dt) for t in timed)
+        B, S, H, D = q.shape
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True), 20)
+        plain = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), 3, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        library = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+        # QK^T and PV over the causal pairs, S(S+1)/2 per (batch, head), 2 D
+        # operations each; q, k, v read and o written once
+        n_ops = 2 * 2 * B * H * D * S * (S + 1) / 2
+        n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        b_ms, b_by = bound(n_bytes, n_ops, peak)
+        out.append(dict(name=name, route="cuda", source=source,
+                        replaces="src/repro/kernels/flash_attention/kernel.py:25",
+                        max_abs_err=err[dt], ms=ms, plain_ms=plain, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=library))
+    log(json.dumps({"flash_serve_shape_ms": {e["name"]: e["ms"] for e in out},
+                    "sdpa_ms": {e["name"]: e["library_ms"] for e in out}}))
+    return out
 
 
 # ------------------------------------------------------------ phase 3 ----
 def counters() -> dict:
     """Kernel name -> (wrapper, launch-count attribute)."""
-    from repro_torch.kernels.dual_solve.ops import COUNTERS, dual_solve
+    from repro_torch.kernels.dual_solve.ops import COUNTERS, dual_ascent, dual_solve
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.score_norm.ops import row_l2_norms
     from repro_torch.kernels.topk_sparsify.ops import (block_topk_rows,
@@ -426,10 +592,12 @@ def counters() -> dict:
     names = {(False, False): "dual_solve", (True, False): "dual_solve_scaled",
              (False, True): "dual_solve_joint", (True, True): "dual_solve_joint_scaled"}
     out = {names[k]: (dual_solve, attr) for k, attr in COUNTERS.items()}
+    out.update({FUSED[names[k]]: (dual_ascent, attr) for k, attr in COUNTERS.items()})
     out.update(topk_rows=(block_topk_rows, "launches"),
                topk_block=(block_topk_sparsify, "launches"),
                row_sq_sum=(row_l2_norms, "launches"),
-               flash_attention=(flash_attention, "launches"))
+               flash_attention=(flash_attention, "launches_bf16"),
+               flash_attention_f32=(flash_attention, "launches_f32"))
     return out
 
 
@@ -492,15 +660,15 @@ def paper_trainer(dev, data, scenario=None, price_outage=None, bits_grid=None,
         fe_cfg=fe_cfg, ch_cfg=ch_cfg, seed=0, device=dev, mesh=mesh, **extra)
 
 
-# label -> (fl_experiments.build arguments, the dual-solve variant it runs)
+# label -> (fl_experiments.build arguments, the fused dual-ascent variant it runs)
 PATHS = {
-    "main": (dict(), "dual_solve"),
-    "a_quantized": (dict(scenario="quantized"), "dual_solve_joint"),
+    "main": (dict(), "dual_ascent"),
+    "a_quantized": (dict(scenario="quantized"), "dual_ascent_joint"),
     "b_bursty_priced": (dict(scenario="bursty-interference", price_outage=True),
-                        "dual_solve_scaled"),
+                        "dual_ascent_scaled"),
     "c_bursty_priced_joint": (dict(scenario="bursty-interference",
                                    price_outage=True, bits_grid=BITS),
-                              "dual_solve_joint_scaled"),
+                              "dual_ascent_joint_scaled"),
 }
 
 
@@ -531,10 +699,15 @@ def drive_path(dev, data, label: str) -> dict:
             "goodput_frac": lg.goodput_frac, "e_saved": lg.e_saved,
             "energy_J": lg.total_energy, "accuracy": lg.accuracy,
             "wall_ms": lg.wall_s * 1e3}))
-    for name in (own, "topk_rows", "row_sq_sum"):
+    for name in ("topk_rows", "row_sq_sum"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on path {label}")
-    others = [n for n in launches if n.startswith("dual_solve") and n != own
+    # the solver: exactly one fused launch a round, of this path's variant;
+    # no other variant and no one-step launch
+    if launches[own] != ROUNDS:
+        raise AssertionError(f"path {label} launched {own} {launches[own]} "
+                             f"times in {ROUNDS} rounds, not once a round")
+    others = [n for n in launches if n.startswith("dual_") and n != own
               and launches[n] != 0]
     if others:
         raise AssertionError(f"path {label} launched {others} besides {own}")
@@ -549,16 +722,16 @@ def drive_path(dev, data, label: str) -> dict:
     if not all(np.isfinite(lg.energy).all() and np.isfinite(lg.accuracy)
                for lg in tr.history):
         raise AssertionError(f"non-finite energy or accuracy on path {label}")
-    if own in ("dual_solve_joint", "dual_solve_joint_scaled"):
+    if own in ("dual_ascent_joint", "dual_ascent_joint_scaled"):
         if not any((lg.bits[lg.selected] < 32.0).any() for lg in tr.history):
             raise AssertionError(f"path {label}: no selected client sent < 32 bits")
-    if own in ("dual_solve_scaled", "dual_solve_joint_scaled"):
+    if own in ("dual_ascent_scaled", "dual_ascent_joint_scaled"):
         if sum(lg.n_retx for lg in tr.history) < 1:
             raise AssertionError(f"path {label}: no retransmission in {ROUNDS} rounds")
     steady = [lg.wall_s for lg in tr.history[1:]]
     log(json.dumps({"path_summary": {
         "path": label, "rounds": ROUNDS, "launches": launches,
-        "dual_solve_launches_per_round": launches[own] / ROUNDS,
+        "dual_ascent_launches_per_round": launches[own] / ROUNDS,
         "round_ms_first": tr.history[0].wall_s * 1e3,
         "round_ms_steady_mean": 1e3 * sum(steady) / len(steady),
         "rounds_per_s_steady": len(steady) / sum(steady),
@@ -591,21 +764,20 @@ def profile_round(tr, r: int, label: str):
 
 
 # ------------------------------------------------------------ phase 4 ----
-def solver_card_against_cpu(dev, variant: str):
-    """solve_round on the card and on the CPU at the main path's setting:
-    N = 50 on the paper channel, S = 32 D and I = D bits for the full CNN,
-    the default FairEnergyConfig (alpha_lambda = 2e-4, where the price
-    iteration runs to its cap) with eta from eta_auto, 5 warm-started
-    rounds, with the variant's pricing (e_scale = expected_attempts of a
-    per-attempt outage between the 6 dB floor and the cap) and grid
-    (the paper's gammas x (8, 16, 32)). Masks, gammas, widths and n_inner
-    exactly equal; lam and energies to rtol 1e-5."""
+def solver_setting(variant: str):
+    """The main path's solver setting for one variant, on the CPU: N = 50
+    on the paper channel, S = 32 D and I = D bits for the full CNN, the
+    default FairEnergyConfig (alpha_lambda = 2e-4, where the price
+    iteration runs to its cap) with eta from eta_auto, and 5 rounds of
+    observations, with the variant's pricing (e_scale = expected_attempts
+    of a per-attempt outage between the 6 dB floor and the cap) and grid
+    (the paper's gammas x (8, 16, 32)). Returns (controller, P, [h], [u],
+    [e_scale or None]) a round."""
     import dataclasses
 
     from repro_torch.configs import ChannelConfig, FairEnergyConfig
     from repro_torch.core.channel import WirelessNetwork
     from repro_torch.core.controllers import ControllerContext, make_controller
-    from repro_torch.core.fairenergy import solve_round
     from repro_torch.core.link import expected_attempts
 
     scaled, joint, _ = DUAL_VARIANTS[variant]
@@ -628,14 +800,27 @@ def solver_card_against_cpu(dev, variant: str):
                              * torch.rand(N_CLIENTS, generator=gen))
            if scaled else None for _ in range(5)]
     ctrl.calibrate(us[0].numpy(), hs[0].numpy(), P.numpy())
-    def to(state, dv):                     # a (nested) NamedTuple of tensors
-        return type(state)(*[to(v, dv) if isinstance(v, tuple) else v.to(dv)
-                             for v in state])
+    return ctrl, P, hs, us, ess
 
+
+def to_device(state, dv):
+    """A (nested) NamedTuple of tensors moved to ``dv``."""
+    return type(state)(*[to_device(v, dv) if isinstance(v, tuple) else v.to(dv)
+                         for v in state])
+
+
+def solver_card_against_cpu(dev, variant: str):
+    """solve_round on the card and on the CPU at the main path's setting
+    (``solver_setting``), 5 warm-started rounds. Masks, gammas, widths and
+    n_inner exactly equal; lam and energies to rtol 1e-5."""
+    from repro_torch.core.fairenergy import solve_round
+
+    scaled, joint, _ = DUAL_VARIANTS[variant]
+    ctrl, P, hs, us, ess = solver_setting(variant)
     states = {"cpu": ctrl.init(N_CLIENTS)}
-    states["cuda"] = to(states["cpu"], dev)
+    states["cuda"] = to_device(states["cpu"], dev)
     fns = counters()
-    before = getattr(*fns[variant])
+    before = getattr(*fns[FUSED[variant]])
     for r in range(5):
         dec = {}
         for name in ("cuda", "cpu"):
@@ -662,8 +847,9 @@ def solver_card_against_cpu(dev, variant: str):
                         if joint and x_b.any() else None,
                         "lam_rel_diff": abs(float(a.lam) - float(b.lam))
                         / max(abs(float(b.lam)), 1e-30)}))
-    if getattr(*fns[variant]) <= before:
-        raise AssertionError(f"the card's solver did not launch {variant}")
+    if getattr(*fns[FUSED[variant]]) != before + 5:
+        raise AssertionError(f"the card's solver did not launch "
+                             f"{FUSED[variant]} once a round")
 
 
 def card_against_cpu(dev, scenario=None, price_outage=None, bits_grid=None):
@@ -901,11 +1087,12 @@ def serve_card_against_cpu(dev) -> dict:
     cpu_model = steps.init_for(cfg)(torch.Generator().manual_seed(1))
     card_model = copy.deepcopy(cpu_model).to(dev)
     kw = dict(prompt_len=2048, gen=8, batch=2, temperature=1.0, seed=3)
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention.launches_f32 = 0
     got = serve.generate(cfg, card_model, **kw, device=dev)
-    if flash_attention.launches != cfg.n_layers:
-        raise AssertionError(f"the card's smoke prefill launched the flash kernel "
-                             f"{flash_attention.launches} times")
+    n_f32 = flash_attention.launches_f32
+    if (flash_attention.launches, n_f32) != (cfg.n_layers, cfg.n_layers):
+        raise AssertionError(f"the card's smoke prefill launched the flash kernels "
+                             f"{flash_attention.launches} times, the fp32 one {n_f32}")
     want = serve.generate(cfg, cpu_model, **kw, device="cpu")
     if not torch.equal(got.prompt, want.prompt):
         raise AssertionError("prompt ids differ between card and CPU")
@@ -927,6 +1114,7 @@ def serve_card_against_cpu(dev) -> dict:
            "gen": 8, "batch": 2, "ids_equal": col is None, "first_diff_step": col,
            "tie_at_first_diff": tie if col is not None else None,
            "steps_compared": n_same, "logits_max_abs": err, "logit_scale": scale,
+           "flash_launches_f32": n_f32,
            "ids_cuda": got.ids.tolist(), "ids_cpu": want.ids.tolist()}
     log(json.dumps(res))
     return res
@@ -997,7 +1185,8 @@ def sharded_trainer_one_rank(dev, data, main: dict):
         setattr(fn, attr, 0)
     tr.run_scanned(ROUNDS, verbose=False)
     launches = {name: getattr(fn, attr) for name, (fn, attr) in fns.items()}
-    for name in ("dual_solve", "topk_rows", "row_sq_sum"):
+    for name in [n for n in launches if n.startswith("dual_")] + ["topk_rows",
+                                                                 "row_sq_sum"]:
         if launches[name] != main["launches"][name]:
             raise AssertionError(f"sharded run launched {name} "
                                  f"{launches[name]} times, the main path "
@@ -1173,13 +1362,14 @@ def main(argv) -> int:
                                                  "count": torch.cuda.device_count()}}))
         return 0
     kernels = [check_dual_solve(dev, name) for name in DUAL_VARIANTS]
+    kernels += [check_dual_ascent(dev, name) for name in DUAL_VARIANTS]
     gen = torch.Generator(device=dev).manual_seed(0)
     mat = torch.randn(N_CLIENTS, 1_630_090, device=dev, generator=gen) * 1e-3
     flat = mat[0].clone()          # one client's flat CNN update, phase 7's
     kernels += [check_topk(dev, mat), check_topk_block(dev, flat),
                 check_row_norms(dev, mat)]
     del mat
-    kernels.append(check_flash(dev))
+    kernels += check_flash(dev)
     for k in kernels:
         log(json.dumps(k))
 
@@ -1194,12 +1384,18 @@ def main(argv) -> int:
         if "--profile" in argv:
             profile_round(tr, ROUNDS, label)
         del tr
-    # each kernel's launches on the path that carries it: a dual-solve
-    # variant on its own path, the top-k and the norms on the main path
+    # each kernel's launches on the path that carries it: a fused ascent
+    # variant on its own path, the top-k and the norms on the main path. A
+    # one-step dual-solve kernel is on no path since the ascent is fused:
+    # its count is that of the path of its variant (0), and phase 2 alone
+    # launches it
     carrier = {own: label for label, (_, own) in PATHS.items()}
+    carrier.update({one: carrier[FUSED[one]] for one in DUAL_VARIANTS})
     for k in kernels:
-        if k["name"] not in ("flash_attention", "topk_block"):
+        if k["name"] not in ("flash_attention", "flash_attention_f32", "topk_block"):
             k["launches"] = runs[carrier.get(k["name"], "main")]["launches"][k["name"]]
+        if k["name"] in DUAL_VARIANTS:
+            k["on_path"] = False
 
     # ---- phase 4: card against CPU
     for variant in DUAL_VARIANTS:
@@ -1212,8 +1408,9 @@ def main(argv) -> int:
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     flash["launches"] = serve["launches"]["flash_attention"]
 
-    # ---- phase 6: serve, card against CPU
-    serve_card_against_cpu(dev)
+    # ---- phase 6: serve, card against CPU (the fp32 kernel's launches)
+    flash_f32 = next(k for k in kernels if k["name"] == "flash_attention_f32")
+    flash_f32["launches"] = serve_card_against_cpu(dev)["flash_launches_f32"]
 
     # ---- phase 7: the multi-rank paths on one rank
     block = next(k for k in kernels if k["name"] == "topk_block")

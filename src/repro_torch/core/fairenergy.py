@@ -11,10 +11,14 @@ Lagrangian relaxation:
       x_i = 1  iff  E_i + lambda B_i < eta s_i + mu_i (1 - rho);
 * per device, gamma on a grid and B by the analytic bandwidth
   best-response (a 3-step Newton solve in the SNR variable), fused over
-  the grid in ``kernels.dual_solve`` — the CUDA kernel for CUDA tensors,
-  its plain version for CPU tensors;
+  the grid;
 * duals by projected subgradient ascent, warm-started from the previous
-  round's ``ControllerState``, with a residual early exit;
+  round's ``ControllerState``, with a residual early exit. The whole
+  ascent and the final best response are one call,
+  ``kernels.dual_solve.dual_ascent``: one CUDA launch a round for CUDA
+  tensors, with no host synchronization inside the loop (the iteration
+  count comes back as a device int32), or the plain host loop for CPU
+  tensors;
 * greedy repair restores primal bandwidth feasibility after rounding.
 
 This is the port of ``repro.core.fairenergy`` with the Newton solver: on
@@ -24,10 +28,6 @@ score), with optional outage-aware pricing (``e_scale``). Bandwidth is
 normalized to fractions b = B/B_tot; every float knob rides in
 ``FEParams`` as float32 0-d tensors on the solver's device, so the
 arithmetic is the reference's float32 arithmetic.
-
-The dual ascent is a host loop: the exit test reads the residual on the
-host once per iteration (at most ``inner_iters`` synchronizations a
-round). The first iteration always runs — the residual starts at inf.
 """
 from __future__ import annotations
 
@@ -35,9 +35,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..kernels.dual_solve.ops import dual_solve
-from ..kernels.dual_solve.ref import score_fidelity
-from .fairness import contribution_score
+from ..kernels.dual_solve.ops import dual_ascent
+from ..kernels.dual_solve.ref import selection_score
 
 Tensor = torch.Tensor
 
@@ -187,62 +186,24 @@ def _solve_round(u_norms, h, P, alive, state: ControllerState,
     N = u_norms.shape[0]
     p = state.params
     e_cmp = state.e_cmp
-    alive_f = alive.to(torch.float32)
     rho, eta = p.rho, p.eta
-    # joint (gamma, bits) grid: the kernel returns bits* as a fifth output
+    # joint (gamma, bits) grid: the ascent also decides each width
     joint = tuple(static.bits_grid) != (32.0,)
 
-    def best_response(lam):
-        """(gamma*, b*, e*, bits* or None) at price ``lam``."""
-        out = dual_solve(P, h, u_norms, lam, gamma_grid=static.gamma_grid,
-                         eta=eta, b_tot=p.b_tot, s_bits=p.s_bits,
-                         i_bits=p.i_bits, n0=p.n0, b_lo=p.b_min_frac,
-                         newton_iters=static.newton_iters, e_cmp=e_cmp,
-                         e_scale=e_scale,
-                         bits_grid=static.bits_grid if joint else None)
-        return out[0], out[1], out[2], (out[4] if joint else None)
+    asc = dual_ascent(P, h, u_norms, state.lam, state.mu, state.q, alive,
+                      gamma_grid=static.gamma_grid, eta=eta, rho=rho,
+                      pi_min=p.pi_min, alpha_lambda=p.alpha_lambda,
+                      alpha_mu=p.alpha_mu, dual_tol=p.dual_tol, b_tot=p.b_tot,
+                      s_bits=p.s_bits, i_bits=p.i_bits, n0=p.n0,
+                      b_lo=p.b_min_frac, inner_iters=static.inner_iters,
+                      newton_iters=static.newton_iters, e_cmp=e_cmp,
+                      e_scale=e_scale,
+                      bits_grid=static.bits_grid if joint else None)
+    lam, mu = asc.lam, asc.mu
 
-    def sel_score(gamma_i, bits_i):
-        """The selection-threshold score at the decided level: discounted
-        by the float32 fidelity of its width on the joint grid."""
-        s = contribution_score(u_norms, gamma_i)
-        return s * score_fidelity(bits_i) if joint else s
-
-    def dual_step(lam, mu):
-        gamma_i, b_i, e_i, bits_i = best_response(lam)
-        x = (e_i + lam * b_i < eta * sel_score(gamma_i, bits_i)
-             + mu * (1.0 - rho)) & alive
-        xf = x.to(torch.float32)
-        # Algorithm 1 line 11: bandwidth dual (normalized budget = 1)
-        new_lam = torch.clamp(
-            lam + p.alpha_lambda * (torch.sum(xf * b_i) - 1.0), min=0.0)
-        # Algorithm 1 line 9: fairness dual, waived for dead clients
-        new_mu = torch.clamp(
-            mu + p.alpha_mu * alive_f
-            * (p.pi_min - rho * state.q - (1.0 - rho) * xf), min=0.0)
-        return new_lam, new_mu
-
-    def residual(new_lam, lam, new_mu, mu):
-        # max(|d lam|/alpha_lambda, |d mu|/alpha_mu): the largest
-        # constraint violation still moving the duals (0/0-guarded)
-        return torch.maximum(
-            torch.abs(new_lam - lam) / torch.clamp(p.alpha_lambda, min=1e-30),
-            torch.max(torch.abs(new_mu - mu))
-            / torch.clamp(p.alpha_mu, min=1e-30))
-
-    lam, mu = state.lam, state.mu
-    n_inner = 0
-    while n_inner < static.inner_iters:
-        new_lam, new_mu = dual_step(lam, mu)
-        res = residual(new_lam, lam, new_mu, mu)
-        lam, mu = new_lam, new_mu
-        n_inner += 1
-        if n_inner < static.inner_iters and not bool(res > p.dual_tol):
-            break                                   # host sync: the exit
-
-    # final primal extraction at the converged duals + greedy repair
-    gamma_i, b_i, e_i, bits_i = best_response(lam)
-    benefit = eta * sel_score(gamma_i, bits_i) \
+    # primal extraction at the converged duals + greedy repair
+    gamma_i, b_i, e_i, bits_i = asc.gamma, asc.b, asc.e, asc.bits
+    benefit = eta * selection_score(u_norms, gamma_i, bits_i) \
         + mu * (1.0 - rho) - e_i - lam * b_i
     x = (benefit > 0) & alive
 
@@ -264,7 +225,7 @@ def _solve_round(u_norms, h, P, alive, state: ControllerState,
     q_new = rho * state.q + (1.0 - rho) * xf                 # eq. (1)
     dec = RoundDecision(x=x, gamma=torch.where(x, gamma_i, 0.0),
                         bandwidth=bandwidth, energy=energy, lam=lam, mu=mu,
-                        n_inner=torch.tensor(n_inner, dtype=torch.int32),
+                        n_inner=asc.n_inner,
                         bw_used=torch.sum(bandwidth),
                         bits=torch.where(x, bits_i, 0.0) if joint else None)
     return dec, ControllerState(lam=lam, mu=mu, q=q_new, params=p,

@@ -1,43 +1,44 @@
-// Causal / sliding-window GQA flash attention (forward), for Hopper (sm_90a).
+// Causal / sliding-window GQA flash attention (forward) in fp32, SIMT, for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:
-// _flash_kernel (entry flash_attention_pallas). In the port it runs on the
-// flash branch of models/attention.attention_forward (sequences of 2048 or
-// more), once per layer of a prefill.
+// _flash_kernel (entry flash_attention_pallas) for fp32 inputs; bf16 goes
+// to the tensor-core kernel of flash_attention_sm90.cu (wgmma takes no
+// fp32 operands, and TF32 would not hold fp32's 1e-5). In the port it runs
+// on the flash branch of models/attention.attention_forward (sequences of
+// 2048 or more) for fp32 models, once per layer of a prefill.
 //
-// q [B, Sq, H, D], k and v [B, Skv, KV, D], fp32 or bf16 (all three the
-// same), contiguous; o [B, Sq, H, D] in q's type. Query head h reads KV
-// head h / G (G = H / KV): no KV duplication. What it computes is the
-// Pallas kernel's function:
-//   q is read as fp32 and multiplied by scale = 1/sqrt(D) before QK^T;
+// q [B, Sq, H, D], k and v [B, Skv, KV, D], fp32, contiguous; o [B, Sq, H,
+// D] fp32. Query head h reads KV head h / G (G = H / KV): no KV
+// duplication. What it computes is the Pallas kernel's function:
+//   q is multiplied by scale = 1/sqrt(D) before QK^T;
 //   a masked score (k > q when causal, q - k >= window) is -1e30, not -inf;
 //   m, l and the accumulator are fp32 (online softmax, one rescale per
-//   chunk of keys); o = acc / max(l, 1e-30), rounded to q's type.
+//   chunk of keys); o = acc / max(l, 1e-30).
 // A row whose keys so far are all masked sums exp(0) = 1 terms, and the
 // next visible key's correction exp(-1e30 - m) = 0 wipes them, as in the
 // Pallas kernel; the diagonal is always visible. So key tiles wholly above
 // the diagonal or wholly before the window are skipped: that changes no
-// bit of the result. Keys past Skv in the ragged last tile are absent (never
+// bit of the result. A row with no visible key at all (a window that ends
+// before Skv) is the mean of V over all Skv keys, as in the plain version:
+// its query tile walks every key tile. Keys past Skv in the ragged last tile are absent (never
 // read), query rows past Sq are not written: any S is taken.
 //
 // Design (simple first): one CTA of 64 threads owns a 64-row query tile of
 // one (batch, head); each thread owns one query row, its scaled q and its
 // fp32 accumulator in registers. K and V are streamed through shared
-// memory in tiles of BK rows (converted to fp32 on the way in); each thread
-// walks the tile in chunks of 16 keys: 16 scalar dot products, one max and
-// one rescale, then 16 fused multiply-adds of p into the accumulator. The
-// heavy (late) query tiles of a causal mask are scheduled first.
+// memory in tiles of BK rows; each thread walks the tile in chunks of 16
+// keys: 16 scalar dot products, one max and one rescale, then 16 fused
+// multiply-adds of p into the accumulator (explicit fmaf: the library is
+// built with --fmad=false). The heavy (late) query tiles of a causal mask
+// are scheduled first.
 //
-// What bounds it on an H100 SXM at the serve path's shapes (B = 4, H = 32,
-// KV = 4, S = 2048, D = 64, causal, bf16): 2*B*H*S^2*D = 6.87e10 operations
-// (QK^T and PV over the causal half), 0.069 ms at 989 TFLOP/s of bf16 tensor
-// cores; 75.5 MB of q, k, v and o, 0.023 ms at 3.35 TB/s. So the work is
-// bound by operations. This kernel does them as fp32 FMAs on the CUDA cores
-// (67 TFLOP/s at best, 1.0 ms) and leaves the tensor cores idle: wgmma on
-// bf16 tiles fed by TMA, a warp-specialised producer and 128-row query
-// tiles are what it leaves on the table. D = 128 keeps 2 x 128 fp32 values
-// a thread in registers and will spill; the serve path runs D = 64.
-#include <cuda_bf16.h>
+// What bounds it on an H100 SXM at the serve path's shapes in fp32 (B = 4,
+// H = 32, KV = 4, S = 2048, D = 64, causal): 2*B*H*S^2*D = 6.87e10
+// operations (QK^T and PV over the causal half), 1.03 ms at 67 TFLOP/s of
+// fp32 on the CUDA cores; 151 MB of q, k, v and o, 0.045 ms at 3.35 TB/s.
+// So it is bound by operations, and it does them as scalar FMAs; D = 128
+// keeps 2 x 128 fp32 values a thread in registers and spills.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,19 +48,10 @@ constexpr int kRows = 64;      // query rows per CTA = threads per CTA
 constexpr int kChunk = 16;     // keys per online-softmax rescale
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kRows)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
                  int H, int KV, int causal, int window, float scale) {
   constexpr int BK = D <= 64 ? 64 : 32;  // keys per shared tile: 32 KB of fp32
   __shared__ __align__(16) float Ks[BK][D];
@@ -77,9 +69,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   float qr[D], acc[D];
   if (active) {
-    const T* qp = q + ((static_cast<long long>(b) * Sq + row) * H + h) * D;
+    const float* qp = q + ((static_cast<long long>(b) * Sq + row) * H + h) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = to_f32(qp[d]) * scale;
+    for (int d = 0; d < D; ++d) qr[d] = qp[d] * scale;
   }
 #pragma unroll
   for (int d = 0; d < D; ++d) acc[d] = 0.f;
@@ -89,13 +81,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_last = min(q0 + kRows, Sq) - 1;
   int k_end = Skv;
   if (causal) k_end = min(k_end, q_last + 1);
+  // (all of them when some row sees no key: such a row is the mean of V
+  // over every key, as in the plain version)
   int k_begin = 0;
-  if (window > 0) k_begin = max(0, q0 - window + 1);
+  if (window > 0 && q_last < Skv - 1 + window) k_begin = max(0, q0 - window + 1);
   k_begin = (k_begin / BK) * BK;
 
   const long long kv_row_stride = static_cast<long long>(KV) * D;
-  const T* kb = k + (static_cast<long long>(b) * Skv * KV + kvh) * D;
-  const T* vb = v + (static_cast<long long>(b) * Skv * KV + kvh) * D;
+  const float* kb = k + (static_cast<long long>(b) * Skv * KV + kvh) * D;
+  const float* vb = v + (static_cast<long long>(b) * Skv * KV + kvh) * D;
 
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     const int kn = min(BK, Skv - k0);
@@ -103,8 +97,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < kn * D; i += kRows) {
       const int j = i / D, d = i % D;
       const long long off = (k0 + j) * kv_row_stride + d;
-      Ks[j][d] = to_f32(kb[off]);
-      Vs[j][d] = to_f32(vb[off]);
+      Ks[j][d] = kb[off];
+      Vs[j][d] = vb[off];
     }
     __syncthreads();
     if (!active) continue;
@@ -160,74 +154,63 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (active) {
     const float l_safe = fmaxf(l, 1e-30f);
-    T* op = o + ((static_cast<long long>(b) * Sq + row) * H + h) * D;
+    float* op = o + ((static_cast<long long>(b) * Sq + row) * H + h) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) store(op + d, acc[d] / l_safe);
+    for (int d = 0; d < D; ++d) op[d] = acc[d] / l_safe;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
                    int Sq, int Skv, int H, int KV, int causal, int window,
                    float scale, cudaStream_t stream) {
   dim3 grid((Sq + kRows - 1) / kRows, B * H);
-  flash_fwd_kernel<T, D><<<grid, kRows, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H, KV, causal,
-      window, scale);
+  flash_fwd_kernel<D><<<grid, kRows, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, KV,
+      causal, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       int B, int Sq, int Skv, int H, int KV, int D, int causal,
-                       int window, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t attrs_d(int D, cudaFuncAttributes* a) {
-  switch (D) {
-    case 32: return cudaFuncGetAttributes(a, flash_fwd_kernel<T, 32>);
-    case 64: return cudaFuncGetAttributes(a, flash_fwd_kernel<T, 64>);
-    case 128: return cudaFuncGetAttributes(a, flash_fwd_kernel<T, 128>);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
-
-// The compiled instance's registers a thread, local (spill) bytes a thread
-// and static shared bytes a CTA, into out[0..2].
-extern "C" int flash_attention_attrs(int dtype, int D, int* out) {
+template <int D>
+cudaError_t attrs(int* out) {
   cudaFuncAttributes a;
-  cudaError_t err = dtype == 0   ? attrs_d<float>(D, &a)
-                    : dtype == 1 ? attrs_d<__nv_bfloat16>(D, &a)
-                                 : cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncGetAttributes(&a, flash_fwd_kernel<D>);
   if (err == cudaSuccess) {
     out[0] = a.numRegs;
     out[1] = static_cast<int>(a.localSizeBytes);
     out[2] = static_cast<int>(a.sharedSizeBytes);
+    out[3] = 0;
   }
   return err;
 }
 
-// dtype: 0 = fp32, 1 = bf16. window <= 0 means no window. Returns the
-// launch's cudaError_t (cudaErrorInvalidValue for a head_dim it does not
-// take: 32, 64 and 128 are instantiated).
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int dtype, int B, int Sq, int Skv,
-                                   int H, int KV, int D, int causal, int window,
-                                   float scale, void* stream) {
+}  // namespace
+
+// The compiled instance's registers a thread, local (spill) bytes a thread,
+// static and dynamic shared bytes a CTA, into out[0..3].
+extern "C" int flash_attention_attrs_f32(int D, int* out) {
+  switch (D) {
+    case 32: return attrs<32>(out);
+    case 64: return attrs<64>(out);
+    case 128: return attrs<128>(out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// fp32 q, k, v, o; window <= 0 means no window. Returns the launch's
+// cudaError_t (cudaErrorInvalidValue for a head_dim it does not take: 32,
+// 64 and 128 are instantiated).
+extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
+                                       const void* v, void* o, int B, int Sq,
+                                       int Skv, int H, int KV, int D,
+                                       int causal, int window, float scale,
+                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, s);
-  return cudaErrorInvalidValue;
+  switch (D) {
+    case 32: return launch<32>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale, s);
+    case 64: return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale, s);
+    case 128: return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

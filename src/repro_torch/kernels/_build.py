@@ -7,11 +7,15 @@ loaded with ``ctypes``. A stamp beside the library holds a hash of the
 sources, the ``*.cuh`` headers they include and the flags, so a stale
 build is redone and a current one reused.
 
-Flags: ``sm_90a`` (Hopper), ``-O3``, precise math (no
-``--use_fast_math``) and ``--fmad=false``: the dual-solve kernel must
-round every multiply and add as the plain PyTorch version's separate
-elementwise ops do, or near-tied argmins could flip. The flash-attention
-kernel asks for its fused multiply-adds explicitly (``fmaf``).
+Flags: ``sm_90a`` (Hopper: ``wgmma`` and ``setmaxnreg`` exist only for
+that target), ``-O3``, precise math (no ``--use_fast_math``) and
+``--fmad=false``: the dual-solve kernels must round every multiply and
+add as the plain PyTorch version's separate elementwise ops do, or
+near-tied argmins and selection tests could flip. The fp32 flash kernel
+asks for its fused multiply-adds explicitly (``fmaf``); the bf16 one
+multiplies on the tensor cores and takes its exponentials from
+``ex2.approx``. The TMA tensor maps are encoded through the runtime's
+driver entry-point query, so the link line needs no ``-lcuda``.
 
 Nothing here runs at import: the CPU tests import every module, on
 machines without ``nvcc``.
@@ -45,15 +49,24 @@ SIGNATURES = {
     #  gamma_out, b_out, e_out, phi_out, bits_out | null, stream)
     "dual_solve_levels_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _P, _P, _P, _P, _P, _P),
+    # (P, h, u, e_cmp, e_scale | null, alive, q, mu, scalars, levels, L,
+    #  newton_iters, cap, n, gamma_out, b_out, e_out, phi_out, bits_out | null,
+    #  mu_out, lam_out, n_out, stream)
+    "dual_ascent_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # (x, out, ks, n_rows, d, stream)
     "topk_rows_f32": (_P, _P, _P, _I, _LL, _P),
     # (x, out, n, block, k, dtype, stream)
     "topk_block": (_P, _P, _LL, _I, _I, _I, _P),
-    # (q, k, v, o, dtype, B, Sq, Skv, H, KV, D, causal, window, scale, stream)
-    "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _F, _P),
-    # (dtype, D, out int[3]: registers, local bytes, shared bytes)
-    "flash_attention_attrs": (_I, _I, _P),
+    # (q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, stream):
+    # the fp32 SIMT kernel and the bf16 tensor-core kernel
+    "flash_attention_fwd_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _F, _P),
+    "flash_attention_fwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _F, _P),
+    # (D, out int[4]: registers, local bytes, static and dynamic shared bytes)
+    "flash_attention_attrs_f32": (_I, _P),
+    "flash_attention_attrs_bf16": (_I, _P),
 }
 
 

@@ -1,4 +1,4 @@
-from .ops import dual_solve
-from .ref import dual_solve_ref
+from .ops import dual_ascent, dual_solve
+from .ref import dual_ascent_ref, dual_solve_ref
 
-__all__ = ["dual_solve", "dual_solve_ref"]
+__all__ = ["dual_ascent", "dual_ascent_ref", "dual_solve", "dual_solve_ref"]

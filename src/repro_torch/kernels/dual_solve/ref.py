@@ -17,15 +17,21 @@ to [b_lo, 1] is the box minimum.
 
 This is the port's copy of ``repro.kernels.dual_solve.ref`` — the
 gamma-only grid, the outage-priced ``e_scale`` and the joint (gamma,
-bits) grid — with the same operation order: it is what the wrapper in
-``ops`` runs for CPU tensors, and what ``chip_smoke.py`` holds the CUDA
-kernels (``csrc/dual_solve.cu``) against.
+bits) grid — with the same operation order: it is what the wrappers in
+``ops`` run for CPU tensors, and what ``chip_smoke.py`` holds the CUDA
+kernels (``csrc/dual_solve.cu``) against. ``dual_ascent_ref`` is
+Algorithm 1's projected subgradient loop around the best response (the
+reference's ``lax.while_loop`` in ``repro.core.fairenergy``), run on the
+host: the plain version of the fused ``dual_ascent`` kernel.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from ...core import channel
+from ...core.fairness import contribution_score
 from ...xla_math import exp2_xla
 
 Tensor = torch.Tensor
@@ -167,3 +173,94 @@ def dual_solve_ref(P: Tensor, h: Tensor, u_norms: Tensor, lam, *, gamma_grid,
     if coef["bits"] is None:
         return out
     return out + (take(row(coef["bits"])),)
+
+
+def selection_score(u_norms: Tensor, gamma: Tensor, bits: Tensor = None) -> Tensor:
+    """The selection test's score at a decided level: ``||u|| gamma``,
+    discounted on the joint grid by the float32 fidelity of the decided
+    width ``bits`` (None off the joint grid)."""
+    s = contribution_score(u_norms, gamma)
+    return s if bits is None else s * score_fidelity(bits)
+
+
+class Ascent(NamedTuple):
+    """What the dual ascent returns: the best response at the final price
+    ``lam`` (``bits`` None off the joint grid), the final duals, and the
+    number of iterations run (0-d int32)."""
+    gamma: Tensor
+    b: Tensor
+    e: Tensor
+    phi: Tensor
+    bits: Tensor | None
+    lam: Tensor
+    mu: Tensor
+    n_inner: Tensor
+
+
+def dual_ascent_ref(P: Tensor, h: Tensor, u_norms: Tensor, lam: Tensor,
+                    mu: Tensor, q: Tensor, alive: Tensor, *, gamma_grid, eta,
+                    rho, pi_min, alpha_lambda, alpha_mu, dual_tol, b_tot,
+                    s_bits, i_bits, n0, b_lo, inner_iters: int,
+                    newton_iters: int = 3, e_cmp: Tensor = None,
+                    e_scale: Tensor = None, bits_grid=None,
+                    solve=None) -> Ascent:
+    """Algorithm 1's warm-started dual ascent with the residual early exit,
+    then the best response at the final price.
+
+    Each iteration: the best response at ``lam``; the selection test
+    ``e + lam b < eta s + mu (1 - rho)`` among ``alive`` clients, with the
+    score ``s = ||u|| gamma`` discounted by the float32 fidelity of the
+    decided width on the joint grid; the clamped steps
+    ``lam += alpha_lambda (sum x b - 1)`` and
+    ``mu += alpha_mu alive (pi_min - rho q - (1 - rho) x)``; the residual
+    ``max(|d lam| / alpha_lambda, max |d mu| / alpha_mu)`` (0/0-guarded).
+    The first iteration always runs; the loop stops at ``inner_iters`` or
+    once the residual is not above ``dual_tol``, read on the host (one
+    synchronization an iteration on a device). The scalars are float32 0-d
+    tensors (``FEParams``). ``solve`` is the best response
+    (``dual_solve_ref`` by default; any function of its signature)."""
+    solve = dual_solve_ref if solve is None else solve
+    joint = bits_grid is not None
+    alive_f = alive.to(torch.float32)
+
+    def best_response(lam):
+        return solve(P, h, u_norms, lam, gamma_grid=gamma_grid, eta=eta,
+                     b_tot=b_tot, s_bits=s_bits, i_bits=i_bits, n0=n0,
+                     b_lo=b_lo, newton_iters=newton_iters, e_cmp=e_cmp,
+                     e_scale=e_scale, bits_grid=bits_grid)
+
+    def dual_step(lam, mu):
+        out = best_response(lam)
+        gamma_i, b_i, e_i = out[0], out[1], out[2]
+        s = selection_score(u_norms, gamma_i, out[4] if joint else None)
+        x = (e_i + lam * b_i < eta * s + mu * (1.0 - rho)) & alive
+        xf = x.to(torch.float32)
+        # Algorithm 1 line 11: bandwidth dual (normalized budget = 1)
+        new_lam = torch.clamp(
+            lam + alpha_lambda * (torch.sum(xf * b_i) - 1.0), min=0.0)
+        # Algorithm 1 line 9: fairness dual, waived for dead clients
+        new_mu = torch.clamp(
+            mu + alpha_mu * alive_f * (pi_min - rho * q - (1.0 - rho) * xf),
+            min=0.0)
+        return new_lam, new_mu
+
+    def residual(new_lam, lam, new_mu, mu):
+        # max(|d lam|/alpha_lambda, |d mu|/alpha_mu): the largest
+        # constraint violation still moving the duals (0/0-guarded)
+        return torch.maximum(
+            torch.abs(new_lam - lam) / torch.clamp(alpha_lambda, min=1e-30),
+            torch.max(torch.abs(new_mu - mu))
+            / torch.clamp(alpha_mu, min=1e-30))
+
+    n_inner = 0
+    while n_inner < inner_iters:
+        new_lam, new_mu = dual_step(lam, mu)
+        res = residual(new_lam, lam, new_mu, mu)
+        lam, mu = new_lam, new_mu
+        n_inner += 1
+        if n_inner < inner_iters and not bool(res > dual_tol):
+            break                                   # host sync: the exit
+
+    out = best_response(lam)
+    return Ascent(out[0], out[1], out[2], out[3], out[4] if joint else None,
+                  lam, mu, torch.tensor(n_inner, dtype=torch.int32))

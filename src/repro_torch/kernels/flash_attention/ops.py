@@ -1,11 +1,17 @@
-"""Wrapper of the flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the flash-attention kernels.
 
 ``flash_attention(q, k, v, causal=, window=)`` computes causal or
 sliding-window GQA attention, q ``[B, Sq, H, D]`` and k, v
 ``[B, Skv, KV, D]`` (fp32 or bf16, all the same type) -> ``[B, Sq, H, D]``
 in q's type; query head h reads KV head ``h // (H // KV)``. CPU tensors
-run ``ref.attention_ref``; CUDA tensors launch the kernel on the current
-stream or raise.
+run ``ref.attention_ref``. CUDA tensors launch, on the current stream, the
+kernel of their type or raise: bf16 the tensor-core kernel
+(``csrc/flash_attention_sm90.cu``: ``wgmma`` fed by TMA, P rounded to bf16
+before P V), fp32 the SIMT kernel (``csrc/flash_attention.cu``). Neither
+falls back to the other.
+
+``flash_attention.launches`` counts every launch; ``.launches_bf16`` and
+``.launches_f32`` count each kernel's.
 """
 from __future__ import annotations
 
@@ -17,7 +23,11 @@ from .. import _build, check_cuda, is_cpu
 from .ref import attention_ref
 
 HEAD_DIMS = (32, 64, 128)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# dtype -> (C entry, attributes entry, per-kernel launch counter)
+_ROUTES = {torch.float32: ("flash_attention_fwd_f32", "flash_attention_attrs_f32",
+                           "launches_f32"),
+           torch.bfloat16: ("flash_attention_fwd_bf16", "flash_attention_attrs_bf16",
+                            "launches_bf16")}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -27,7 +37,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if is_cpu(q):
         return attention_ref(q, k, v, causal=causal, window=window)
     dev = q.device
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in _ROUTES:
         raise TypeError(f"q has dtype {q.dtype}, expected float32 or bfloat16")
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_cuda(name, t, dtype=q.dtype, ndim=4, device=dev)
@@ -47,23 +57,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty_like(q)
     if Sq == 0:
         return o
-    err = _build.library().flash_attention_fwd(
+    entry, _, counter = _ROUTES[q.dtype]
+    err = getattr(_build.library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        _DTYPE_CODE[q.dtype], B, Sq, Skv, H, KV, D, int(causal),
+        B, Sq, Skv, H, KV, D, int(causal),
         0 if window is None else int(window), 1.0 / D ** 0.5,
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "flash_attention_fwd")
+    _build.check(err, entry)
     flash_attention.launches += 1
+    setattr(flash_attention, counter, getattr(flash_attention, counter) + 1)
     return o
 
 
 flash_attention.launches = 0
+flash_attention.launches_f32 = 0
+flash_attention.launches_bf16 = 0
 
 
 def kernel_attributes(dtype: torch.dtype, head_dim: int) -> dict:
-    """Registers a thread, spill (local) bytes a thread and static shared
-    bytes a CTA of the compiled instance for (dtype, head_dim)."""
-    out = (ctypes.c_int * 3)()
-    err = _build.library().flash_attention_attrs(_DTYPE_CODE[dtype], head_dim, out)
-    _build.check(err, "flash_attention_attrs")
-    return {"registers": out[0], "local_bytes": out[1], "shared_bytes": out[2]}
+    """Registers a thread (at launch), spill (local) bytes a thread, and
+    static and dynamic shared bytes a CTA of the compiled instance for
+    (dtype, head_dim)."""
+    out = (ctypes.c_int * 4)()
+    entry = _ROUTES[dtype][1]
+    err = getattr(_build.library(), entry)(head_dim, out)
+    _build.check(err, entry)
+    return {"registers": out[0], "local_bytes": out[1],
+            "shared_bytes": out[2], "dynamic_shared_bytes": out[3]}

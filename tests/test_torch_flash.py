@@ -6,8 +6,13 @@ package's oracle ``attention_ref`` (atol 2e-6 in fp32, as the JAX package
 holds its own kernel; 2e-2 in bf16, the bf16 bound of
 ``tests/test_kernels.py``) and the Pallas kernel itself, run in interpret
 mode as the JAX package's tests run it. The CUDA kernel is held against the
-same plain version on the card by ``chip_smoke.py``.
+same plain version on the card by ``chip_smoke.py``. A CPU emulation of the
+bf16 tensor-core kernel's numerics (``csrc/flash_attention_sm90.cu``: its
+tiles, masks and skipped tiles, P rounded to bf16 before P V) shows that
+its one numeric change fits the bf16 gate before it runs on a card.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -103,3 +108,94 @@ def test_wrapper_rejects_other_devices():
     _, (q, k, v) = _inputs(7, 1, 8, 2, 1, 32)
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+# ---- the bf16 tensor-core kernel's numerics, emulated on the CPU -----------
+def _sm90_emulated(q, k, v, *, causal, window):
+    """What ``csrc/flash_attention_sm90.cu`` computes, in float32 torch ops:
+    CTAs of 128 query rows, two warpgroups of 64, key tiles of BK (128 for
+    D <= 64, else 64) from the CTA's first visible tile (every tile when
+    some row sees no key), a warpgroup skipping the tiles wholly above its
+    diagonal or before its window; S = Q K^T in fp32 times 1/sqrt(D);
+    masked scores -1e30, keys past Skv (zero-filled by the TMA) -inf;
+    online softmax with exp2((s - m) log2 e); l sums the fp32 P, and
+    O += bf16(P) V in fp32; o = O / max(l, 1e-30) in bf16."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    BK = 128 if D <= 64 else 64
+    n_kt = -(-Skv // BK)
+    pad = n_kt * BK - Skv
+    qf = q.float().permute(0, 2, 1, 3)                          # [B,H,Sq,D]
+    kf, vf = (torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad))
+              .permute(0, 2, 1, 3).repeat_interleave(H // KV, dim=1)
+              for t in (k, v))                                  # [B,H,n_kt*BK,D]
+    scale, log2e = 1.0 / math.sqrt(D), 1.4426950408889634
+    out = torch.zeros(B, H, Sq, D)
+    for q0 in range(0, Sq, 128):
+        q_last = min(q0 + 128, Sq) - 1
+        orphans = window is not None and q_last >= Skv - 1 + window
+        k_end = min(Skv, q_last + 1) if causal else Skv
+        k_begin = max(0, q0 - window + 1) if window and not orphans else 0
+        k_begin = k_begin // BK * BK
+        for r_lo in (q0, q0 + 64):
+            if r_lo >= Sq:
+                continue
+            rows = torch.arange(r_lo, r_lo + 64)
+            m = torch.full((B, H, 64), -1e30)
+            l = torch.zeros(B, H, 64)
+            o = torch.zeros(B, H, 64, D)
+            qt = torch.nn.functional.pad(qf[:, :, r_lo:r_lo + 64],
+                                         (0, 0, 0, 64 - qf[:, :, r_lo:r_lo + 64].shape[2]))
+            for k0 in range(k_begin, k_end, BK):
+                if not orphans and ((causal and k0 > r_lo + 63) or (
+                        window and k0 + BK - 1 < r_lo - window + 1)):
+                    continue
+                keys = torch.arange(k0, k0 + BK)
+                s = (qt @ kf[:, :, k0:k0 + BK].transpose(-1, -2)) * scale
+                vis = torch.ones(64, BK, dtype=torch.bool)
+                if causal:
+                    vis &= keys[None, :] <= rows[:, None]
+                if window:
+                    vis &= rows[:, None] - keys[None, :] < window
+                s = torch.where(vis, s, -1e30)
+                s = torch.where(keys[None, :] >= Skv, -math.inf, s)
+                m_new = torch.maximum(m, s.amax(-1))
+                corr = torch.exp2((m - m_new) * log2e)
+                p = torch.exp2((s - m_new[..., None]) * log2e)
+                l = l * corr + p.sum(-1)
+                o = o * corr[..., None] + p.bfloat16().float() @ vf[:, :, k0:k0 + BK]
+                m = m_new
+            n = min(64, Sq - r_lo)
+            out[:, :, r_lo:r_lo + n] = (o / torch.clamp(l, min=1e-30)[..., None])[:, :, :n]
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window,Skv", [
+    (1, 2048, 8, 1, 64, True, None, None),     # the serve call, heads cut
+    (1, 2048, 8, 1, 64, True, 256, None),
+    (1, 1000, 8, 1, 64, True, None, None),     # ragged tiles
+    (1, 2048, 4, 1, 32, True, None, None),
+    (1, 2048, 8, 1, 128, True, None, None),
+    (1, 300, 8, 2, 128, False, None, 333),     # Skv != Sq, past-Skv keys
+    (1, 200, 4, 1, 64, False, 50, 77),         # rows that see no key
+])
+def test_sm90_numerics_emulated_fit_the_bf16_gate(B, S, H, KV, D, causal,
+                                                   window, Skv):
+    """The bf16 FLASH_CASES of ``chip_smoke.py`` (batch and heads cut, the
+    card's unit-variance inputs), emulated as the tensor-core kernel
+    computes them, against the plain version (fp32 P) and, where its tiling
+    applies, the interpreted Pallas kernel: within the unchanged 2e-2."""
+    Skv = Skv or S
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(torch.bfloat16)
+               for shape in ((B, S, H, D), (B, Skv, KV, D), (B, Skv, KV, D)))
+    got = _sm90_emulated(q, k, v, causal=causal, window=window)
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-2, rtol=0)
+    if causal and Skv == S and S % 256 == 0:
+        jq, jk, jv = (jnp.asarray(t.float().numpy()).astype("bfloat16")
+                      for t in (q, k, v))
+        pallas = flash_attention_pallas(jq, jk, jv, causal=True, window=window,
+                                        interpret=True)
+        np.testing.assert_allclose(_f32(got), _f32(pallas), atol=2e-2, rtol=0)

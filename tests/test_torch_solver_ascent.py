@@ -1,0 +1,239 @@
+"""The fused dual ascent's plain version and wrapper
+(``repro_torch.kernels.dual_solve``: ``dual_ascent_ref``, ``dual_ascent``)
+against the JAX package's ``solve_round``, and the CPU-side pieces of the
+fused CUDA kernel: its argument packing and the combine rule of its
+shuffle argmin.
+
+``dual_ascent_ref`` is Algorithm 1's host loop; on the CPU the wrapper
+runs it, so ``solve_round`` reproduces the reference's duals, iteration
+counts and masks exactly as before the loop moved (lam and mu rtol 1e-5,
+n_inner and masks equal), for the four variants (gamma grid, outage
+priced, joint (gamma, bits), both), capped and stopped early, with dead
+clients. ``chip_smoke.py`` holds the CUDA kernel against the same plain
+version on the card.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import FairEnergyConfig as JFE
+from repro.core.fairenergy import init_state as j_init
+from repro.core.fairenergy import solve_round as j_solve
+
+from repro_torch.configs.base import FairEnergyConfig as TFE
+from repro_torch.core.fairenergy import init_state, solve_round, static_of
+from repro_torch.kernels.dual_solve import ops, ref
+
+N0, S_BITS, I_BITS, B_TOT = 4e-21, 6.4e7, 2e6, 10e6
+BITS = (8.0, 16.0, 32.0)
+# (priced, joint grid)
+VARIANTS = {"gamma": (False, False), "scaled": (True, False),
+            "joint": (False, True), "joint_scaled": (True, True)}
+EARLY_TOL = 0.3          # stops these draws' loop after 1-10 iterations
+
+
+def _draws(n, seed):
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(0.5, 5.0, n).astype(np.float32)
+    h = (1e-3 * rng.uniform(50, 500, n) ** -3.0
+         * rng.exponential(1.0, n)).astype(np.float32)
+    P = rng.uniform(1e-4, 3e-4, n).astype(np.float32)
+    es = rng.uniform(1.0, 8.0, n).astype(np.float32)
+    return u, h, P, es
+
+
+def _ascent_kwargs(state, static):
+    p = state.params
+    return dict(gamma_grid=static.gamma_grid, eta=p.eta, rho=p.rho,
+                pi_min=p.pi_min, alpha_lambda=p.alpha_lambda,
+                alpha_mu=p.alpha_mu, dual_tol=p.dual_tol, b_tot=p.b_tot,
+                s_bits=p.s_bits, i_bits=p.i_bits, n0=p.n0, b_lo=p.b_min_frac,
+                inner_iters=static.inner_iters, newton_iters=static.newton_iters, e_cmp=state.e_cmp,
+                bits_grid=(static.bits_grid
+                           if tuple(static.bits_grid) != (32.0,) else None))
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("case", ["capped", "early_exit", "dead_clients"])
+def test_dual_ascent_ref_matches_reference_solver(variant, case):
+    """Four warm-started rounds: ``dual_ascent_ref`` from each round's state
+    gives the reference's lam, mu and n_inner, and ``solve_round`` (which
+    calls the wrapper, hence the plain version on the CPU) its masks,
+    gammas and widths."""
+    priced, joint = VARIANTS[variant]
+    n = 24
+    u, h, P, es = _draws(n, 3)
+    kw = dict(eta_auto=False, eta=1e-3,
+              bits_grid=BITS if joint else (32.0,))
+    if case == "early_exit":
+        kw["dual_tol"] = EARLY_TOL
+    jfe, tfe = JFE(**kw), TFE(**kw)
+    alive = np.ones(n, bool)
+    if case == "dead_clients":
+        alive[[1, 6, 13, 20]] = False
+    scal = dict(b_tot=B_TOT, s_bits=S_BITS, i_bits=I_BITS, n0=N0)
+    js = j_init(jfe, n, **scal)
+    ts = init_state(tfe, n, **scal, device="cpu")
+    static = static_of(tfe)
+    tu, th, tP = torch.tensor(u), torch.tensor(h), torch.tensor(P)
+    t_alive, t_es = torch.tensor(alive), torch.tensor(es) if priced else None
+    n_inner = []
+    for r in range(4):
+        asc = ref.dual_ascent_ref(tP, th, tu, ts.lam, ts.mu, ts.q, t_alive,
+                                  **_ascent_kwargs(ts, static), e_scale=t_es)
+        with jax.threefry_partitionable(False):
+            jd, js = j_solve(jnp.asarray(u), jnp.asarray(h), jnp.asarray(P),
+                             js, fe_cfg=jfe, alive=jnp.asarray(alive),
+                             e_scale=jnp.asarray(es) if priced else None)
+        td, ts = solve_round(tu, th, tP, ts, fe_cfg=tfe, alive=t_alive,
+                             e_scale=t_es)
+        msg = f"{variant} {case} round {r}"
+        assert int(asc.n_inner) == int(jd.n_inner) == int(td.n_inner), msg
+        np.testing.assert_allclose(asc.lam.numpy(), np.asarray(jd.lam),
+                                   rtol=1e-5, atol=1e-12, err_msg=msg)
+        np.testing.assert_allclose(asc.mu.numpy(), np.asarray(jd.mu),
+                                   rtol=1e-5, atol=1e-12, err_msg=msg)
+        assert torch.equal(asc.lam, td.lam) and torch.equal(asc.mu, td.mu), msg
+        np.testing.assert_array_equal(td.x.numpy(), np.asarray(jd.x), err_msg=msg)
+        np.testing.assert_array_equal(td.gamma.numpy(), np.asarray(jd.gamma),
+                                      err_msg=msg)
+        if joint:
+            np.testing.assert_array_equal(td.bits.numpy(), np.asarray(jd.bits),
+                                          err_msg=msg)
+        assert not td.x.numpy()[~alive].any(), msg
+        n_inner.append(int(asc.n_inner))
+    if case == "early_exit":            # the branch the main path never takes
+        assert any(1 < k < static.inner_iters for k in n_inner), n_inner
+    else:
+        assert max(n_inner) == static.inner_iters, n_inner
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_wrapper_runs_the_plain_version_on_cpu_and_counts_no_launch(variant):
+    priced, joint = VARIANTS[variant]
+    n = 10
+    u, h, P, es = (torch.tensor(a) for a in _draws(n, 5))
+    tfe = TFE(eta_auto=False, eta=1e-3, bits_grid=BITS if joint else (32.0,))
+    st = init_state(tfe, n, b_tot=B_TOT, s_bits=S_BITS, i_bits=I_BITS, n0=N0,
+                    device="cpu")
+    alive = torch.ones(n, dtype=torch.bool)
+    args = (P, h, u, st.lam, st.mu, st.q, alive)
+    kw = dict(_ascent_kwargs(st, static_of(tfe)), e_scale=es if priced else None)
+    before = {a: getattr(ops.dual_ascent, a) for a in ops.COUNTERS.values()}
+    got = ops.dual_ascent(*args, **kw)
+    want = ref.dual_ascent_ref(*args, **kw)
+    assert {a: getattr(ops.dual_ascent, a) for a in ops.COUNTERS.values()} == before
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)
+    assert got.n_inner.dtype == torch.int32 and got.n_inner.ndim == 0
+    assert (got.bits is not None) == joint
+
+
+def test_ascent_packing_equals_the_plain_versions_constants():
+    """The fused kernel's level table holds the best response's per-level
+    constants and, on the joint grid, the float32 fidelity that the plain
+    version's selection test multiplies in; its scalar vector holds the
+    solver scalars in the kernel's order, as float32."""
+    grid = (0.1, 0.25, 0.5, 1.0)
+    for bits_grid in (None, BITS, (2.0, 4.0, 8.0, 16.0, 32.0)):
+        table = ops.ascent_levels(grid, bits_grid)
+        coef = ref.level_coefficients(grid, bits_grid)
+        L = len(coef["gamma"])
+        assert len(table) == 5 * L
+        blocks = [table[i * L:(i + 1) * L] for i in range(5)]
+        assert blocks[0] == coef["gamma"]
+        assert blocks[1] == coef["pay"] and blocks[2] == coef["score"]
+        if bits_grid is None:
+            assert blocks[3] == [0.0] * L and blocks[4] == [1.0] * L
+            continue
+        assert blocks[3] == coef["bits"]
+        # the fidelity the plain version computes from a decided width
+        decided = torch.tensor(coef["bits"], dtype=torch.float32)
+        want = ref.score_fidelity(decided)
+        got = torch.tensor(blocks[4], dtype=torch.float32)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    with pytest.raises(ValueError, match="levels"):
+        ops.ascent_levels(tuple(range(1, 12)), BITS)
+
+    tfe = TFE(eta_auto=False, eta=1e-3, dual_tol=0.25)
+    st = init_state(tfe, 4, b_tot=B_TOT, s_bits=S_BITS, i_bits=I_BITS, n0=N0,
+                    device="cpu")
+    p = st.params
+    lam = torch.tensor(3e-4)
+    sc = ops.ascent_scalars(lam=lam, eta=p.eta, b_tot=p.b_tot, s_bits=p.s_bits,
+                            i_bits=p.i_bits, n0=p.n0, b_lo=p.b_min_frac,
+                            rho=p.rho, pi_min=p.pi_min,
+                            alpha_lambda=p.alpha_lambda, alpha_mu=p.alpha_mu,
+                            dual_tol=p.dual_tol, device=torch.device("cpu"))
+    want = torch.stack([lam, p.eta, p.b_tot, p.s_bits, p.i_bits, p.n0,
+                        p.b_min_frac, p.rho, p.pi_min, p.alpha_lambda,
+                        p.alpha_mu, p.dual_tol])
+    assert sc.dtype == torch.float32 and torch.equal(sc, want)
+
+
+# ---- the fused kernel's argmin over a client's levels -----------------------
+def _scan_argmin(phi):
+    """The one-step kernel's running strict-< minimum over the levels."""
+    best = 0
+    for i in range(1, len(phi)):
+        if phi[i] < phi[best]:
+            best = i
+    return best
+
+
+def _butterfly_argmin(phi, lanes):
+    """A model of ``best_level`` in ``csrc/dual_solve.cu``: lane l holds
+    level l (idle beyond the grid); log2(lanes) xor-shuffle rounds, each
+    lane keeping the better of itself and its partner under the order
+    (level 0 with a NaN phi) < (numbers by value, then level) < (NaN phis
+    and idle lanes, by level). Returns every lane's result."""
+    def key(lane):
+        if lane >= len(phi):
+            return (2, 0.0, lane)
+        v = phi[lane]
+        if v != v:
+            return (0 if lane == 0 else 2, 0.0, lane)
+        return (1, v, lane)
+
+    def better(a, b):              # the kernel's `take` test, b over a
+        if b[0] != a[0]:
+            return b[0] < a[0]
+        if b[0] == 1:
+            return b[1] < a[1] or (b[1] == a[1] and b[2] < a[2])
+        return b[2] < a[2]
+
+    state = [key(i) for i in range(lanes)]
+    o = lanes // 2
+    while o:
+        state = [state[i ^ o] if better(state[i], state[i ^ o]) else state[i]
+                 for i in range(lanes)]
+        o //= 2
+    return [s[2] for s in state]
+
+
+def test_shuffle_argmin_combine_rule_matches_the_running_minimum():
+    """Ties, +-inf, -0.0 against +0.0 and NaN anywhere (level 0 included):
+    the butterfly picks the running minimum's level, and every lane of the
+    group agrees on it."""
+    rng = np.random.default_rng(0)
+    nan, inf = float("nan"), float("inf")
+    rows = [[1.0, 1.0, 0.5, 0.5], [nan, 0.1, -1.0], [0.3, nan, 0.2, nan],
+            [nan, nan, nan], [inf, inf, 2.0, inf], [inf, inf, inf],
+            [-0.0, 0.0, -0.0], [0.0, -0.0], [2.0], [nan],
+            [-inf, -inf, nan, -inf], [5.0, nan, 5.0, 4.0, 4.0]]
+    for _ in range(400):
+        L = int(rng.integers(1, 33))
+        row = np.round(rng.normal(size=L), 1).tolist()   # many ties
+        for i in np.flatnonzero(rng.random(L) < 0.15):
+            row[i] = [nan, inf, -inf, -0.0][int(rng.integers(0, 4))]
+        rows.append(row)
+    for row in rows:
+        phi = [float(np.float32(v)) for v in row]
+        want = _scan_argmin(phi)
+        for lanes in (16, 32):
+            if len(phi) > lanes:
+                continue
+            got = _butterfly_argmin(phi, lanes)
+            assert got == [want] * lanes, (row, lanes, got, want)
