@@ -19,15 +19,20 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    priced), the four fused dual ascents (phase 4's inputs, 5 warm-started
    rounds, capped and stopped early with dead clients: masks, gammas,
    widths and n_inner equal, lam and mu rtol 1e-5), the per-row block
-   top-k, the block top-k of one vector (the CNN's flat update at gamma
-   0.25 and 0.1, in fp32 and bf16, blocks 256 and 1024, k = block, and
-   NaN/Inf/-0.0/tie lanes, each bit for bit), the row norms and flash
-   attention, bf16 on the tensor cores and fp32 on the SIMT kernel (the
-   serve path's [4, 2048, 32|4, 64] bf16 causal, a 256 window, fp32, a
-   ragged S = 1000, D = 32 and D = 128 in both types) — and time both
-   (CUDA events) and the library call computing the same function where
-   there is one (a fused ascent also beside the host loop over the
-   one-step kernel that it replaced);
+   top-k (main-path rows, NaN/Inf/-0.0/tie rows with a 0x7fffffff NaN and
+   a row of one value, all-full, rows of odd length and inputs off a
+   16-byte word), the block top-k of one vector (the CNN's flat update at
+   gamma 0.25 and 0.1, in fp32 and bf16, blocks 256 and 1024, k = block,
+   the same NaN/Inf/-0.0/tie lanes in fp32 and bf16, inputs off a word),
+   each bit for bit, with the top-k kernels' registers, spills and shared
+   bytes; the row norms and flash attention, bf16 on the tensor cores and
+   fp32 on the SIMT kernel (the serve path's [4, 2048, 32|4, 64] bf16
+   causal, a 256 window, fp32, a ragged S = 1000, D = 32 and D = 128 in
+   both types), and a flash call under grad raising (C-14) — and time
+   both (CUDA events) and the library call computing the same function
+   where there is one (a fused ascent also beside the host loop over the
+   one-step kernel that it replaced; the top-k rows kernel also at the ks
+   of the main path's last round, after phase 3);
 3. paths: ``repro_torch.fl.FederatedTrainer.run_scanned(5)`` with the
    paper's full-width FMNIST CNN (D = 1,630,090), N = 50 clients and the
    ``benchmarks/fl_experiments.build`` data recipe, on ``cuda``, four
@@ -58,7 +63,8 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
 6. serve, card against CPU: the smoke TinyLlama in fp32 from the same
    weights and seed, prompt 2048 (so the card takes the fp32 kernel), 8 tokens
    at batch 2: equal prompt ids, logits to rtol 1e-4, equal sampled ids up
-   to the first documented tie;
+   to the first documented tie; then the same in bf16 (the tensor-core
+   kernel), logits within 5% of their scale and ties within that;
 7. the multi-rank paths on one rank: a one-rank NCCL process group
    (``file://`` store in a temporary directory). (a) The cross-silo
    aggregation on a ``(pod, data, model) = (1, 1, 1)`` mesh with the
@@ -87,6 +93,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -133,20 +140,23 @@ def device_ms(fn, kernel: str, iters: int = 20) -> float:
     """Mean device time of one launch of the kernels whose name holds
     ``kernel``, over ``iters`` calls of ``fn`` (torch.profiler's CUDA
     activity): the kernel alone, without the host time between launches
-    that CUDA events around back-to-back calls also count."""
+    that CUDA events around back-to-back calls also count. The profiler
+    has been seen to drop one launch's event from a session: a session that
+    does not see exactly ``iters`` launches is run again, three at most."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel in e.key]
-    count = sum(e.count for e in events)
-    if count != iters:
-        raise AssertionError(f"the profiler saw {count} launches of {kernel} "
-                             f"in {iters} calls")
-    return sum(e.self_device_time_total for e in events) / 1e3 / count
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if kernel in e.key]
+        count = sum(e.count for e in events)
+        if count == iters:
+            return sum(e.self_device_time_total for e in events) / 1e3 / count
+    raise AssertionError(f"the profiler saw {count} launches of {kernel} "
+                         f"in {iters} calls")
 
 
 def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_FP32_S
@@ -358,11 +368,14 @@ def check_dual_ascent(dev, name: str) -> dict:
 
 def _tricky_rows(dev) -> tuple[torch.Tensor, torch.Tensor]:
     """Rows with ties, NaN, +-Inf, -0.0, k = 1 and k = block (one of them
-    holding NaN and Inf, which the mask at k = block drops and keeps), over
-    a D that is not a multiple of 4096."""
+    holding NaN and Inf, which the mask at k = block drops and keeps), a NaN
+    with every mantissa bit set (0x7fffffff: the reference's max + 1 wraps
+    and its bisection keeps every non-NaN lane) and a row of one value,
+    over a D of odd length (3 x 4096 + 101), so the rows start at every
+    offset in a 16-byte word."""
     gen = torch.Generator().manual_seed(2)
-    d = 3 * 4096 + 100
-    rows = torch.randn(9, d, generator=gen)
+    d = 3 * 4096 + 101
+    rows = torch.randn(11, d, generator=gen)
     rows[1, ::7] = float("nan")
     rows[2, ::5] = float("inf")
     rows[2, 1::5] = float("-inf")
@@ -375,8 +388,40 @@ def _tricky_rows(dev) -> tuple[torch.Tensor, torch.Tensor]:
     rows[8, ::3] = float("nan")
     rows[8, 1::7] = float("-inf")
     rows[8, 2::5] = -0.0
-    ks = torch.tensor([1, 2, 409, 4096, 17, 3000, 50, 1, 4096], dtype=torch.int32)
+    bits = rows.view(torch.int32)
+    bits[9, 5] = 0x7FFFFFFF
+    bits[9, 4096 + 7] = -1                    # 0xffffffff: |x| is 0x7fffffff
+    rows[9, 9::31] = float("nan")
+    rows[10] = -0.25
+    ks = torch.tensor([1, 2, 409, 4096, 17, 3000, 50, 1, 4096, 100, 1000],
+                      dtype=torch.int32)
     return rows.to(dev), ks.to(dev)
+
+
+def _offset_view(m: torch.Tensor, elems: int) -> torch.Tensor:
+    """A contiguous copy of ``m`` whose data starts ``elems`` elements into
+    its storage (so not on a 16-byte word when elems * itemsize % 16)."""
+    buf = torch.empty(m.numel() + elems, dtype=m.dtype, device=m.device)
+    view = buf[elems:].view(m.shape)
+    view.copy_(m)
+    return view
+
+
+def topk_attributes() -> dict:
+    """Registers, spill bytes and shared bytes of the built top-k kernels."""
+    from repro_torch.kernels.topk_sparsify import ops
+    return {"rows": ops.kernel_attributes("rows"),
+            "block_f32": ops.kernel_attributes("block", torch.float32),
+            "block_bf16": ops.kernel_attributes("block", torch.bfloat16)}
+
+
+def topk_rows_bound(n: int, d: int, ks: torch.Tensor) -> tuple[float, str]:
+    """The rows kernel's bound, by the formula of every earlier measurement
+    (PERF.md row 5): one read and one write of every element; per sparsified
+    block 31 counting passes (compare + add per element) and ~8 operations
+    per element for the tests, the tie scan and the product."""
+    sparsified = int((ks < 4096).sum()) * -(-d // 4096)
+    return bound(2 * n * d * 4 + n * 4, sparsified * 4096 * (31 * 2 + 8))
 
 
 def check_topk(dev, mat: torch.Tensor) -> dict:
@@ -395,15 +440,26 @@ def check_topk(dev, mat: torch.Tensor) -> dict:
         f"{int(torch.abs(nan).view(torch.int32)) & 0xFFFFFFFF:#010x} "
         f"(input {int(nan.view(torch.int32)) & 0xFFFFFFFF:#010x})")
     full = torch.full_like(tks, 4096)
+    ties = torch.full_like(tks, 1000)
     for m, k, what in ((mat, ks, "main-path rows"), (rows, tks, "tie/NaN/Inf rows"),
-                       (rows, full, "all-full rows (copy through)")):
+                       (rows, full, "all-full rows (copy through)"),
+                       (_offset_view(rows, 1), tks,
+                        "tie/NaN/Inf rows, input one element off a word"),
+                       (_offset_view(rows, 3), full, "all-full rows, 3 off")):
         got = ops.block_topk_rows(m, k)
         want = ref.block_topk_rows(m, k)
         if not same_bits(got, want):
             raise AssertionError(f"top-k kernel differs from the plain version "
                                  f"on the {what}:\n{diff_report(got, want, k)}")
+        log(json.dumps({"topk_rows_case": what, "bit_identical": True}))
+    # the wrapped bisection keeps every non-NaN lane of row 9's blocks 0 and 1
+    kept = ops.block_topk_rows(rows, ties)[9]
+    if not torch.equal(torch.isnan(rows[9, :8192]), kept[:8192] == 0):
+        raise AssertionError("the 0x7fffffff row did not keep every non-NaN lane")
     ms = cuda_ms(lambda: ops.block_topk_rows(mat, ks), 20)
     plain = cuda_ms(lambda: ref.block_topk_rows(mat, ks), 3, warmup=1)
+    # what moving the bytes alone takes here: one read and one write each
+    copy = cuda_ms(lambda: mat.clone(), 20)
     nb = -(-d // 4096)
     # the library yardstick: torch.topk of the blocked |x| at the largest k,
     # then scatter_ of each block's first k (its row's k) into zeros. It
@@ -423,29 +479,59 @@ def check_topk(dev, mat: torch.Tensor) -> dict:
     del blocks, first_k
     log(json.dumps({"topk_rows_library": {"rows": n * nb, "k_max": k_max,
                                           "ms": lib}}))
-    sparsified = int((ks < 4096).sum()) * nb
-    # read + write every element once; per sparsified block 31 counting
-    # passes (compare + add per element) and ~8 operations per element
-    # for the tests, the tie scan and the product
-    b_ms, b_by = bound(2 * n * d * 4 + n * 4, sparsified * 4096 * (31 * 2 + 8))
+    b_ms, b_by = topk_rows_bound(n, d, ks)
     return dict(name="topk_rows", route="cuda",
                 source="src/repro_torch/csrc/topk_rows.cu",
                 replaces="src/repro/kernels/topk_sparsify/kernel.py:32",
                 max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib)
+                bound_by=b_by, library_ms=lib, copy_ms=copy)
+
+
+def time_topk_round(dev, entry: dict, lg) -> None:
+    """The rows kernel at the ks of one round of the main path (``lg``, its
+    RoundLog): the selected clients' gammas, 1 for the others, as
+    ``fl/server.py`` hands them to ``batch_block_topk``; on phase 2's
+    matrix, beside the plain version. Adds them to ``entry``."""
+    from repro_torch.kernels.topk_sparsify import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mat = torch.randn(N_CLIENTS, 1_630_090, device=dev, generator=gen) * 1e-3
+    gamma = torch.as_tensor(np.where(lg.selected, np.clip(lg.gamma, 1e-6, 1.0),
+                                     1.0), dtype=torch.float32, device=dev)
+    ks = torch.clamp(torch.ceil(gamma * 4096).to(torch.int32), 1, 4096)
+    if not same_bits(ops.block_topk_rows(mat, ks), ref.block_topk_rows(mat, ks)):
+        raise AssertionError("top-k kernel differs from the plain version at "
+                             "the main path's round ks")
+    ms = cuda_ms(lambda: ops.block_topk_rows(mat, ks), 20)
+    plain = cuda_ms(lambda: ref.block_topk_rows(mat, ks), 3, warmup=1)
+    b_ms, _ = topk_rows_bound(*mat.shape, ks)
+    sparsified = int((ks < 4096).sum())
+    entry.update(round_ms=ms, round_plain_ms=plain, round_bound_ms=b_ms,
+                 round_sparsified_rows=sparsified)
+    log(json.dumps({"topk_rows_main_round": {
+        "round": lg.round, "sparsified_rows": sparsified,
+        "ks": sorted(ks.tolist()), "ms": ms, "plain_ms": plain,
+        "bound_ms": b_ms}}))
 
 
 def check_topk_block(dev, vec: torch.Tensor) -> dict:
     """The block top-k of one vector against its plain version, bit for
     bit: ``vec`` (the CNN's flat update, n = 1,630,090, a ragged last
     block) at gamma 0.25 and 0.1 in fp32 and bf16, blocks 256 and 1024,
-    k = block, and the tie/NaN/Inf rows flattened."""
+    k = block, the tie/NaN/Inf rows flattened (the 0x7fffffff NaN, and in
+    bf16 its all-ones NaN 0x7fff), and inputs that start off a 16-byte
+    word."""
     from repro_torch.kernels.topk_sparsify import ops, ref
     tricky = _tricky_rows(dev)[0].flatten()
+    tricky16 = tricky.bfloat16()
+    tricky16.view(torch.int16)[5] = 0x7FFF
+    tricky16.view(torch.int16)[4096 + 7] = -1
     cases = [(vec, 0.25, 4096), (vec, 0.1, 4096), (vec.bfloat16(), 0.25, 4096),
              (vec.bfloat16(), 0.1, 4096), (vec, 0.25, 256), (vec, 0.25, 1024),
              (vec, 1.0, 4096), (tricky, 0.1, 4096), (tricky, 0.5, 256),
-             (tricky, 1.0, 1024), (tricky.bfloat16(), 0.1, 4096)]
+             (tricky, 1.0, 1024), (tricky16, 0.1, 4096),
+             (tricky16, 0.5, 256), (tricky16, 0.25, 1024),
+             (tricky[1:], 0.1, 4096), (tricky16[3:], 0.25, 1024),
+             (vec[2:], 0.25, 4096)]
     for v, gamma, block in cases:
         got, k = ops.block_topk_sparsify(v, gamma, block=block)
         want, k_ref = ref.block_topk_ref(v, gamma, block=block)
@@ -456,10 +542,15 @@ def check_topk_block(dev, vec: torch.Tensor) -> dict:
                                  f"version: n={v.numel()} {v.dtype} "
                                  f"gamma={gamma} block={block}")
         log(json.dumps({"topk_block_case": [v.numel(), str(v.dtype), gamma,
-                                            block, k], "bit_identical": True}))
+                                            block, k, v.data_ptr() % 16],
+                        "bit_identical": True}))
     n, block, k = vec.numel(), 4096, 1024
     nb = -(-n // block)
-    ms = cuda_ms(lambda: ops.block_topk_sparsify(vec, 0.25), 200)
+    # the kernel alone (profiler): back-to-back wrapper calls time the host
+    # here, as long as the kernel itself
+    ms = device_ms(lambda: ops.block_topk_sparsify(vec, 0.25), "topk_block_kernel",
+                   50)
+    call = cuda_ms(lambda: ops.block_topk_sparsify(vec, 0.25), 200)
     plain = cuda_ms(lambda: ref.block_topk_ref(vec, 0.25), 5, warmup=1)
     rows = torch.nn.functional.pad(vec, (0, nb * block - n)).view(nb, block)
 
@@ -470,8 +561,9 @@ def check_topk_block(dev, vec: torch.Tensor) -> dict:
         return torch.zeros_like(rows).scatter_(1, idx, torch.gather(rows, 1, idx))
 
     lib = cuda_ms(library, 50)
-    # one read and one write of every element; 31 counting passes (compare
-    # + add) and ~8 operations per element for the tests and the tie scan
+    # the formula of every earlier measurement (PERF.md row 6): one read and
+    # one write of every element; 31 counting passes (compare + add) and ~8
+    # operations per element for the tests and the tie scan
     b_ms, b_by = bound(2 * 4 * n, n * (31 * 2 + 8))
     log(json.dumps({"topk_block_bound": {"n": n, "bytes": 2 * 4 * n,
                                          "bound_ms": b_ms, "by": b_by}}))
@@ -479,7 +571,7 @@ def check_topk_block(dev, vec: torch.Tensor) -> dict:
                 source="src/repro_torch/csrc/topk_block.cu",
                 replaces="src/repro/kernels/topk_sparsify/kernel.py:26",
                 max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib)
+                bound_by=b_by, library_ms=lib, call_ms=call)
 
 
 def check_row_norms(dev, mat: torch.Tensor) -> dict:
@@ -576,6 +668,21 @@ def check_flash(dev) -> list[dict]:
                         replaces="src/repro/kernels/flash_attention/kernel.py:25",
                         max_abs_err=err[dt], ms=ms, plain_ms=plain, bound_ms=b_ms,
                         bound_by=b_by, library_ms=library))
+    # C-14: the kernels have no backward, so a call that autograd would
+    # record raises instead of losing the gradient
+    q, k, v = (t[:1].clone() for t in timed)
+    q.requires_grad_(True)
+    before = ops.flash_attention.launches
+    try:
+        ops.flash_attention(q, k, v, causal=True)
+    except RuntimeError as err:
+        if "C-14" not in str(err):
+            raise
+    else:
+        raise AssertionError("flash_attention on the card under grad did not raise")
+    if ops.flash_attention.launches != before:
+        raise AssertionError("a refused flash call counted a launch")
+    log(json.dumps({"flash_under_grad": "raises (C-14)"}))
     log(json.dumps({"flash_serve_shape_ms": {e["name"]: e["ms"] for e in out},
                     "sdpa_ms": {e["name"]: e["library_ms"] for e in out}}))
     return out
@@ -1052,7 +1159,8 @@ def profile_serve(model, cfg, dev):
 
 
 # ------------------------------------------------------------ phase 6 ----
-def _first_tie(ids_a, ids_b, steps_logits, gen_seed: int, temperature: float):
+def _first_tie(ids_a, ids_b, steps_logits, gen_seed: int, temperature: float,
+               rtol: float = 1e-4, atol: float = 1e-5):
     """The first column where two id matrices differ (None if equal), and
     whether, in every request that differs there, the CPU's top two
     perturbed logits lie within the logits' tolerance (a documented tie)."""
@@ -1070,51 +1178,62 @@ def _first_tie(ids_a, ids_b, steps_logits, gen_seed: int, temperature: float):
         z = prng.gumbel(sk, tuple(z.shape)) + z / temperature
     top2 = torch.topk(z, 2, dim=-1).values
     gap = (top2[:, 0] - top2[:, 1]).abs()
-    tie = bool((gap <= 1e-4 * top2[:, 0].abs() + 1e-5)[rows].all())
+    tie = bool((gap <= rtol * top2[:, 0].abs() + atol)[rows].all())
     return c, tie
 
 
-def serve_card_against_cpu(dev) -> dict:
-    """Phase 6: the smoke TinyLlama in fp32, prompt 2048, 8 tokens, batch 2,
-    on the card and on the CPU from the same weights and seed."""
+def serve_card_against_cpu(dev, dtype: str = "float32") -> dict:
+    """Phase 6: the smoke TinyLlama in ``dtype``, prompt 2048, 8 tokens,
+    batch 2, on the card and on the CPU from the same weights and seed.
+    fp32 takes the card's SIMT flash kernel, bf16 the tensor-core one (C-13).
+    Logits agree to rtol 1e-4 in fp32, and in bf16 to phase 5's 5% of the
+    logit scale (bf16 rounds at other places on the two devices, C-10); a
+    documented tie is a top-two gap within that tolerance."""
     import copy
 
     from repro_torch.configs import get_smoke
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.launch import serve, steps
 
-    cfg = get_smoke(SERVE["arch"]).replace(dtype="float32")
+    cfg = get_smoke(SERVE["arch"]).replace(dtype=dtype)
     cpu_model = steps.init_for(cfg)(torch.Generator().manual_seed(1))
     card_model = copy.deepcopy(cpu_model).to(dev)
     kw = dict(prompt_len=2048, gen=8, batch=2, temperature=1.0, seed=3)
-    flash_attention.launches = flash_attention.launches_f32 = 0
+    counter = "launches_f32" if dtype == "float32" else "launches_bf16"
+    flash_attention.launches = 0
+    setattr(flash_attention, counter, 0)
     got = serve.generate(cfg, card_model, **kw, device=dev)
-    n_f32 = flash_attention.launches_f32
-    if (flash_attention.launches, n_f32) != (cfg.n_layers, cfg.n_layers):
+    n_kernel = getattr(flash_attention, counter)
+    if (flash_attention.launches, n_kernel) != (cfg.n_layers, cfg.n_layers):
         raise AssertionError(f"the card's smoke prefill launched the flash kernels "
-                             f"{flash_attention.launches} times, the fp32 one {n_f32}")
+                             f"{flash_attention.launches} times, the {dtype} one "
+                             f"{n_kernel}")
     want = serve.generate(cfg, cpu_model, **kw, device="cpu")
     if not torch.equal(got.prompt, want.prompt):
         raise AssertionError("prompt ids differ between card and CPU")
-    got_l = [got.first_logits, *got.decode_logits]
-    want_l = [want.first_logits, *want.decode_logits]
-    col, tie = _first_tie(got.ids, want.ids, want_l, kw["seed"], kw["temperature"])
+    got_l = [got.first_logits.float(), *(lg.float() for lg in got.decode_logits)]
+    want_l = [want.first_logits.float(), *(lg.float() for lg in want.decode_logits)]
+    if dtype == "float32":
+        rtol, atol = 1e-4, 1e-5
+    else:
+        rtol, atol = 0.0, SERVE_REL_TOL * float(want_l[0].abs().max())
+    col, tie = _first_tie(got.ids, want.ids, want_l, kw["seed"], kw["temperature"],
+                          rtol, atol)
     if col is not None and not tie:
         raise AssertionError(f"sampled ids differ at step {col} without a tie:\n"
                              f"cuda {got.ids.tolist()}\ncpu {want.ids.tolist()}")
-    # logits agree while both runs saw the same tokens (rtol 1e-4; atol 1e-5
-    # for logits near 0)
+    # logits agree while both runs saw the same tokens
     n_same = len(got_l) if col is None else col + 1
     err = scale = 0.0
     for a, b in zip(got_l[:n_same], want_l[:n_same]):
-        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(a.cpu(), b, rtol=rtol, atol=max(atol, 1e-5))
         err = max(err, float((a.cpu() - b).abs().max()))
         scale = max(scale, float(b.abs().max()))
     res = {"serve_card_vs_cpu": cfg.name, "dtype": cfg.dtype, "prompt_len": 2048,
            "gen": 8, "batch": 2, "ids_equal": col is None, "first_diff_step": col,
            "tie_at_first_diff": tie if col is not None else None,
            "steps_compared": n_same, "logits_max_abs": err, "logit_scale": scale,
-           "flash_launches_f32": n_f32,
+           "logits_atol": atol, "flash_launches": n_kernel,
            "ids_cuda": got.ids.tolist(), "ids_cpu": want.ids.tolist()}
     log(json.dumps(res))
     return res
@@ -1290,29 +1409,79 @@ def _card_rank(rank: int, world: int, init: str) -> None:
         torch.cuda.reset_peak_memory_stats(dev)
         tr.run_scanned(ROUNDS, verbose=False)
         if rank == 0:
-            for a, b in zip(tr.history, ref.history):
-                if not (np.array_equal(a.selected, b.selected)
-                        and np.array_equal(a.gamma, b.gamma)):
-                    raise AssertionError(f"{world}-card round {a.round}: masks "
-                                         "or gammas differ from one card")
-                np.testing.assert_allclose(a.energy, b.energy, rtol=1e-5, atol=0)
+            # the numbers first, then the gates, so a failed run still says
+            # how far apart the two runs ended
+            same = [bool(np.array_equal(a.selected, b.selected)
+                         and np.array_equal(a.gamma, b.gamma))
+                    for a, b in zip(tr.history, ref.history)]
+            e_rel = max(float(np.max(np.abs(a.energy - b.energy)
+                                     / np.maximum(b.energy, 1e-30)))
+                        for a, b in zip(tr.history, ref.history))
             p_err = max(float((tr.params[k] - ref.params[k]).abs().max())
                         for k in tr.params)
-            if not p_err <= 1e-6:
-                raise AssertionError(f"{world}-card params differ by {p_err}")
             steady = lambda h: 1e3 * sum(lg.wall_s for lg in h[1:]) / (len(h) - 1)  # noqa: E731
             say(json.dumps({"cards_sharded": {
                 "cards": world, "n_padded": tr.n_padded, "n_local": tr.n_local,
-                "params_max_abs": p_err,
-                "energy_max_rel": max(float(np.max(np.abs(a.energy - b.energy)
-                                                   / np.maximum(b.energy, 1e-30)))
-                                      for a, b in zip(tr.history, ref.history)),
+                "masks_gammas_equal_by_round": same,
+                "sparsified_rows_by_round": [
+                    int((b.selected & (b.gamma < 1.0)).sum()) for b in ref.history],
+                "params_max_abs": p_err, "energy_max_rel": e_rel,
                 "round_ms_steady_mean": steady(tr.history),
                 "one_card_round_ms_steady_mean": steady(ref.history),
                 "peak_mem_GB_rank0": torch.cuda.max_memory_allocated(dev) / 1e9}}))
+            client_step_by_card(dev, ref, world)
+            for a, b, eq in zip(tr.history, ref.history, same):
+                if not eq:
+                    who = np.nonzero((a.selected != b.selected)
+                                     | (a.gamma != b.gamma))[0]
+                    raise AssertionError(
+                        f"{world}-card round {a.round}: masks or gammas differ "
+                        f"from one card at clients {who.tolist()}")
+                np.testing.assert_allclose(a.energy, b.energy, rtol=1e-5, atol=0)
+            if not p_err <= 1e-6:
+                raise AssertionError(f"{world}-card params differ by {p_err}")
         dist.barrier()
-    finally:
-        dist.destroy_process_group()
+    except BaseException:
+        # the other ranks wait in a collective that this one will not reach,
+        # and tearing the group down would wait for them: say why and leave,
+        # so that spawn ends the others and the run fails
+        import traceback
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
+
+
+def client_step_by_card(dev, tr, world: int) -> None:
+    """How far the client step on one card's share of the clients (the
+    sharded trainer's n_local a card) is from the same clients' rows of one
+    step over all of them, at ``tr``'s params and round 0's batches (one
+    card, so no collective is involved), and how many
+    top-k lanes move with it at the main path's k for gamma 0.1 (410): the
+    sharded run and the one-card run differ by this much before any
+    collective."""
+    from repro_torch.kernels.topk_sparsify import ops
+    n_local = -(-tr.n_clients // world)
+    with torch.no_grad():
+        batches = tr._round_batches(0)
+        whole, norms, _ = tr._client_step(tr.params, batches)
+        parts = [tr._client_step(tr.params, {k: v[i:i + n_local]
+                                             for k, v in batches.items()})
+                 for i in range(0, tr.n_clients, n_local)]
+        split = torch.cat([p[0] for p in parts])
+        split_norms = torch.cat([p[1] for p in parts])
+        ks = torch.full((tr.n_clients,), 410, dtype=torch.int32, device=dev)
+        moved = (ops.block_topk_rows(whole, ks) != 0) != (
+            ops.block_topk_rows(split, ks) != 0)
+    log(json.dumps({"client_step_by_card": {
+        "clients": tr.n_clients, "a_call": n_local,
+        "update_lanes_differ": int((split != whole).sum()),
+        "update_lanes": whole.numel(),
+        "update_max_abs": float((split - whole).abs().max()),
+        "update_scale": float(whole.abs().max()),
+        "norms_max_rel": float(((split_norms - norms).abs() / norms).max()),
+        "topk_lanes_moved_at_k410": int(moved.sum())}}))
 
 
 def multicard(world: int) -> None:
@@ -1368,6 +1537,11 @@ def main(argv) -> int:
     flat = mat[0].clone()          # one client's flat CNN update, phase 7's
     kernels += [check_topk(dev, mat), check_topk_block(dev, flat),
                 check_row_norms(dev, mat)]
+    attrs = topk_attributes()
+    log(json.dumps({"topk_instances": attrs}))
+    kernels[-3]["attributes"] = attrs["rows"]
+    kernels[-2]["attributes"] = {"f32": attrs["block_f32"],
+                                 "bf16": attrs["block_bf16"]}
     del mat
     kernels += check_flash(dev)
     for k in kernels:
@@ -1389,6 +1563,9 @@ def main(argv) -> int:
     # one-step dual-solve kernel is on no path since the ascent is fused:
     # its count is that of the path of its variant (0), and phase 2 alone
     # launches it
+    # the rows kernel at the ks of the main path's last round
+    time_topk_round(dev, next(k for k in kernels if k["name"] == "topk_rows"),
+                    runs["main"]["history"][-1])
     carrier = {own: label for label, (_, own) in PATHS.items()}
     carrier.update({one: carrier[FUSED[one]] for one in DUAL_VARIANTS})
     for k in kernels:
@@ -1408,9 +1585,11 @@ def main(argv) -> int:
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     flash["launches"] = serve["launches"]["flash_attention"]
 
-    # ---- phase 6: serve, card against CPU (the fp32 kernel's launches)
+    # ---- phase 6: serve, card against CPU (the fp32 kernel's launches), and
+    # the same in bf16 through the tensor-core kernel (C-13)
     flash_f32 = next(k for k in kernels if k["name"] == "flash_attention_f32")
-    flash_f32["launches"] = serve_card_against_cpu(dev)["flash_launches_f32"]
+    flash_f32["launches"] = serve_card_against_cpu(dev)["flash_launches"]
+    serve_card_against_cpu(dev, "bfloat16")
 
     # ---- phase 7: the multi-rank paths on one rank
     block = next(k for k in kernels if k["name"] == "topk_block")

@@ -18,11 +18,15 @@
 // neither float test); the kernel writes that directly. There is no
 // all-full skip: the reference's block_topk has none.
 //
-// What bounds it: memory. Each element is read once and written once
-// (2 x 6.5 MB at the paper CNN's flat update, n = 1,630,090 fp32: 3.9 us at
-// 3.35 TB/s). One CTA of 256 threads per block holds the block in registers
-// (16 contiguous lanes a thread; lanes past the block width are ignored) so
-// the 31 counting passes and the tie scan never touch memory again.
+// What bounds it on an H100: memory in principle (2 x 6.5 MB at the paper
+// CNN's flat update, n = 1,630,090 fp32: 3.9 us at 3.35 TB/s), latency in
+// practice: the exchange's vector is only 398 blocks of 4096, about three
+// a streaming multiprocessor, so the time is one block's chain of load,
+// select and store, plus the launch. The design shortens that chain: the
+// 4-pass radix select of topk_common.cuh in place of 31 bisection passes,
+// the block staged by one bulk async copy and written back one 16-byte word
+// a thread, and five CTAs of 256 threads an SM, so that all 398 blocks run
+// in one wave. Lanes past the block width are ignored.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -30,57 +34,30 @@
 
 namespace {
 
-using topk::kPer;
 using topk::kThreads;
 
-// bit pattern of |x| for an fp32 lane and for a bf16 lane (its fp32 value
-// is the bf16 bits shifted up 16)
-__device__ __forceinline__ int mag_bits(float v) {
-  return __float_as_int(v) & 0x7fffffff;
-}
-__device__ __forceinline__ int mag_bits(uint16_t v) {
-  return (static_cast<int>(v) << 16) & 0x7fffffff;
-}
-
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, topk::kMinCtas)
 topk_block_kernel(const T* __restrict__ x, T* __restrict__ out, long long n,
                   int block, int k) {
-  __shared__ topk::Shared sh;
-  const int tid = threadIdx.x;
   const long long start = static_cast<long long>(blockIdx.x) * block;
   const long long rem = n - start;
   const int valid = rem < block ? static_cast<int>(rem) : block;
-  const T* xb = x + start;
-  T* ob = out + start;
+  topk::sparsify_block(x + start, out + start, valid, x, x + n, block, k,
+                       false);
+}
 
-  if (k >= block) {                        // the mask at k = block: all but NaN
-    for (int i = tid; i < valid; i += kThreads) {
-      const T v = xb[i];
-      ob[i] = mag_bits(v) > 0x7f800000 ? T(0) : v;
-    }
-    return;
+template <typename T>
+cudaError_t attrs(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, topk_block_kernel<T>);
+  if (err == cudaSuccess) {
+    out[0] = a.numRegs;
+    out[1] = static_cast<int>(a.localSizeBytes);
+    out[2] = static_cast<int>(a.sharedSizeBytes);
+    out[3] = 0;
   }
-  k = k < 1 ? 1 : k;
-
-  const int base = tid * kPer;
-  const int left = block - base;           // this thread's lanes in the block
-  const int n_mine = left < 0 ? 0 : (left < kPer ? left : kPer);
-  T v[kPer];
-  int bits[kPer];
-#pragma unroll
-  for (int p = 0; p < kPer; ++p) {
-    const int idx = base + p;
-    v[p] = idx < valid ? xb[idx] : T(0);
-    bits[p] = mag_bits(v[p]);
-  }
-  bool keep[kPer];
-  topk::keep_mask(bits, n_mine, k, sh, keep);
-#pragma unroll
-  for (int p = 0; p < kPer; ++p) {
-    const int idx = base + p;
-    if (idx < valid) ob[idx] = keep[p] ? v[p] : T(0);
-  }
+  return err;
 }
 
 }  // namespace
@@ -103,4 +80,13 @@ extern "C" int topk_block(const void* x, void* out, long long n, int block,
         static_cast<const uint16_t*>(x), static_cast<uint16_t*>(out), n, block,
         k);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The compiled instance's (dtype as above) registers a thread, local
+// (spill) bytes a thread, static and dynamic shared bytes a CTA, into
+// out[0..3].
+extern "C" int topk_block_attrs(int dtype, int* out) {
+  if (dtype == 0) return static_cast<int>(attrs<float>(out));
+  if (dtype == 1) return static_cast<int>(attrs<uint16_t>(out));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

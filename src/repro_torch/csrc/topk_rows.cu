@@ -3,28 +3,32 @@
 //
 // Replaces the TPU kernel src/repro/kernels/topk_sparsify/kernel.py:
 // _topk_rows_kernel (entry topk_sparsify_rows_pallas), reached from
-// fl/compression.batch_block_topk.
+// fl/compression.batch_block_topk once a round.
 //
 // Input: x [n_rows, d] fp32 (one client update per row), ks [n_rows] int32.
 // Each row is cut into 4096-wide blocks (the last one ragged; its missing
 // tail counts as zeros, as the reference's zero padding does, and is never
 // written). In every block the ks[row] largest magnitudes are kept, ties
 // to the lower index — the exact mask of ref.topk_threshold_mask, computed
-// by topk_common.cuh (bisection on the bit pattern of |x|, the float tests,
-// an index-order scan for the ties) — and written as
+// by topk_common.cuh — and written as
 //   out = mask ? x : +0.0, what the reference's jitted x * mask gives
 //   (XLA turns the product into a select), so a dropped NaN or -x is 0.
 // When every row has k >= 4096 the whole matrix copies through, as the
 // reference's all-full lax.cond skip returns it. Otherwise a row with
 // k >= 4096 takes the mask at k = 4096, which keeps every lane but a NaN
 // (a NaN magnitude passes neither float test); the kernel writes that
-// directly instead of bisecting.
+// directly instead of selecting.
 //
-// What bounds it: memory. Each element is read once and written once
-// (2 x 326 MB at the main path's [50, 1,630,090]: 0.19 ms at 3.35 TB/s).
-// The design keeps the whole block in registers (one CTA of 256 threads
-// per block, 16 contiguous elements per thread; topk_common.cuh) so the 31
-// counting passes and the scan never touch memory again.
+// What bounds it on an H100: memory. Each element is read once and written
+// once (2 x 326 MB at the main path's [50, 1,630,090]: 0.195 ms at
+// 3.35 TB/s), so the select has to cost less than the block's bytes. The
+// reference's 31 bisection passes (a compare and an add a lane each, and a
+// CTA barrier a pass) took more issue slots than that alone; the radix
+// select of topk_common.cuh takes 4 passes of an 8-bit digit, and after the
+// first (the exponent) only the lanes that share the threshold's digits so
+// far count. One CTA a 4096-lane block: it comes in by one bulk async copy
+// and goes out one 16-byte word a thread, and five CTAs share an SM, so
+// some load or store while others select (topk_common.cuh).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -32,54 +36,25 @@
 
 namespace {
 
-using topk::kPer;
 using topk::kThreads;
 constexpr int kBlock = topk::kMaxBlock;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, topk::kMinCtas)
 topk_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
                  const int* __restrict__ ks, int n_rows, long long d, int nb) {
-  __shared__ topk::Shared sh;
-  const int tid = threadIdx.x;
   const int row = blockIdx.x / nb;
   const long long start = static_cast<long long>(blockIdx.x % nb) * kBlock;
   const long long rem = d - start;
   const int valid = rem < kBlock ? static_cast<int>(rem) : kBlock;
-  const float* xr = x + static_cast<long long>(row) * d + start;
-  float* outr = out + static_cast<long long>(row) * d + start;
-
+  const long long offset = static_cast<long long>(row) * d + start;
   bool full = true;                        // every row keeps its whole block
-  for (int i = tid; i < n_rows; i += kThreads) full = full && ks[i] >= kBlock;
-  if (__syncthreads_and(full)) {           // the all-full skip: copy through
-    for (int i = tid; i < valid; i += kThreads) outr[i] = xr[i];
-    return;
-  }
-  int k = ks[row];
-  if (k >= kBlock) {                       // the mask at k = 4096: all but NaN
-    for (int i = tid; i < valid; i += kThreads) {
-      const float v = xr[i];
-      outr[i] = v != v ? 0.0f : v;
-    }
-    return;
-  }
-  k = k < 1 ? 1 : k;
-
-  const int base = tid * kPer;
-  float v[kPer];
-  int bits[kPer];
-#pragma unroll
-  for (int p = 0; p < kPer; ++p) {
-    const int idx = base + p;
-    v[p] = idx < valid ? xr[idx] : 0.0f;
-    bits[p] = __float_as_int(v[p]) & 0x7fffffff;   // bits of |x|, >= 0
-  }
-  bool keep[kPer];
-  topk::keep_mask(bits, kPer, k, sh, keep);
-#pragma unroll
-  for (int p = 0; p < kPer; ++p) {
-    const int idx = base + p;
-    if (idx < valid) outr[idx] = keep[p] ? v[p] : 0.0f;
-  }
+  for (int i = threadIdx.x; i < n_rows; i += kThreads)
+    full = full && ks[i] >= kBlock;
+  // the all-full skip copies through; a row with k >= 4096 loses its NaN
+  // lanes only
+  topk::sparsify_block(x + offset, out + offset, valid, x,
+                       x + static_cast<long long>(n_rows) * d, kBlock, ks[row],
+                       __syncthreads_and(full));
 }
 
 }  // namespace
@@ -94,4 +69,18 @@ extern "C" int topk_rows_f32(const float* x, float* out, const int* ks,
                      static_cast<cudaStream_t>(stream)>>>(
       x, out, ks, n_rows, d, static_cast<int>(nb));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The compiled kernel's registers a thread, local (spill) bytes a thread,
+// static and dynamic shared bytes a CTA, into out[0..3].
+extern "C" int topk_rows_attrs(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, topk_rows_kernel);
+  if (err == cudaSuccess) {
+    out[0] = a.numRegs;
+    out[1] = static_cast<int>(a.localSizeBytes);
+    out[2] = static_cast<int>(a.sharedSizeBytes);
+    out[3] = 0;
+  }
+  return static_cast<int>(err);
 }

@@ -16,8 +16,9 @@ the level table, per-level fidelity included, by value: the loop's exit
 test never reads the card from the host, and the iteration count comes
 back as a device int32.
 
-Grids of more than ``MAX_LEVELS`` levels are refused on either device.
-Launches are counted per variant on each wrapper: ``.launches`` (gamma
+The plain versions take a grid of any size, as the reference does; the
+kernels take at most ``MAX_LEVELS`` levels, so CUDA tensors on a larger
+grid raise ``ValueError`` (ROADMAP B-1c (d)). Launches are counted per variant on each wrapper: ``.launches`` (gamma
 grid), ``.launches_scaled`` (with ``e_scale``), ``.launches_joint`` (with
 ``bits_grid``) and ``.launches_joint_scaled`` (both).
 """
@@ -34,6 +35,15 @@ from .ref import (Ascent, dual_ascent_ref, dual_solve_ref, level_coefficients,
 
 MAX_LEVELS = 32
 
+
+
+def check_kernel_levels(n_levels: int) -> None:
+    """Raise unless the kernels take a grid of ``n_levels`` levels."""
+    if not 1 <= n_levels <= MAX_LEVELS:
+        raise ValueError(f"the grid has {n_levels} levels; the kernel takes "
+                         f"1..{MAX_LEVELS} (ROADMAP B-1c (d))")
+
+
 COUNTERS = {(False, False): "launches", (True, False): "launches_scaled",
             (False, True): "launches_joint", (True, True): "launches_joint_scaled"}
 
@@ -43,17 +53,15 @@ def dual_solve(P, h, u_norms, lam, *, gamma_grid, eta, b_tot, s_bits, i_bits,
                bits_grid=None):
     if e_cmp is None:
         e_cmp = torch.zeros_like(P)
-    coef = level_coefficients(gamma_grid, bits_grid)
-    n_levels = len(coef["gamma"])
-    if not 1 <= n_levels <= MAX_LEVELS:
-        raise ValueError(f"the grid has {n_levels} levels; the kernel takes "
-                         f"1..{MAX_LEVELS}")
     if is_cpu(P):
         return dual_solve_ref(P, h, u_norms, lam, gamma_grid=gamma_grid,
                               eta=eta, b_tot=b_tot, s_bits=s_bits,
                               i_bits=i_bits, n0=n0, b_lo=b_lo,
                               newton_iters=newton_iters, e_cmp=e_cmp,
                               e_scale=e_scale, bits_grid=bits_grid)
+    coef = level_coefficients(gamma_grid, bits_grid)
+    n_levels = len(coef["gamma"])
+    check_kernel_levels(n_levels)
     dev = P.device
     n = P.shape[0]
     vectors = [("P", P), ("h", h), ("u_norms", u_norms), ("e_cmp", e_cmp)]
@@ -105,9 +113,7 @@ def ascent_levels(gamma_grid, bits_grid=None) -> list:
     test takes no fidelity)."""
     coef = level_coefficients(gamma_grid, bits_grid)
     n_levels = len(coef["gamma"])
-    if not 1 <= n_levels <= MAX_LEVELS:
-        raise ValueError(f"the grid has {n_levels} levels; the kernel takes "
-                         f"1..{MAX_LEVELS}")
+    check_kernel_levels(n_levels)
     if coef["bits"] is None:
         bits, fid = [0.0] * n_levels, [1.0] * n_levels
     else:
@@ -131,8 +137,6 @@ def dual_ascent(P, h, u_norms, lam, mu, q, alive, *, gamma_grid, eta, rho,
                 e_cmp=None, e_scale=None, bits_grid=None) -> Ascent:
     if e_cmp is None:
         e_cmp = torch.zeros_like(P)
-    table, n_levels = _ascent_table(tuple(gamma_grid),
-                                    None if bits_grid is None else tuple(bits_grid))
     kw = dict(gamma_grid=gamma_grid, eta=eta, rho=rho, pi_min=pi_min,
               alpha_lambda=alpha_lambda, alpha_mu=alpha_mu, dual_tol=dual_tol,
               b_tot=b_tot, s_bits=s_bits, i_bits=i_bits, n0=n0, b_lo=b_lo,
@@ -140,6 +144,8 @@ def dual_ascent(P, h, u_norms, lam, mu, q, alive, *, gamma_grid, eta, rho,
               e_scale=e_scale, bits_grid=bits_grid)
     if is_cpu(P):
         return dual_ascent_ref(P, h, u_norms, lam, mu, q, alive, **kw)
+    table, n_levels = _ascent_table(tuple(gamma_grid),
+                                    None if bits_grid is None else tuple(bits_grid))
     dev = P.device
     n = P.shape[0]
     if n < 1:

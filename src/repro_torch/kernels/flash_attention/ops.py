@@ -12,6 +12,11 @@ falls back to the other.
 
 ``flash_attention.launches`` counts every launch; ``.launches_bf16`` and
 ``.launches_f32`` count each kernel's.
+
+The kernels compute the forward only. On CUDA tensors the wrapper raises
+while grad mode is on and q, k or v requires grad, rather than return an
+output with no autograd graph (ROADMAP C-14); the CPU plain version keeps
+its autograd.
 """
 from __future__ import annotations
 
@@ -30,12 +35,22 @@ _ROUTES = {torch.float32: ("flash_attention_fwd_f32", "flash_attention_attrs_f32
                             "launches_bf16")}
 
 
+def refuse_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise if autograd would record a call of the kernels, which have no
+    backward: the attention path's gradient would be lost silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention on CUDA tensors has no backward "
+                           "(ROADMAP C-14): call it under torch.no_grad() or "
+                           "with inputs that do not require grad")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None) -> torch.Tensor:
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
     if is_cpu(q):
         return attention_ref(q, k, v, causal=causal, window=window)
+    refuse_grad(q, k, v)
     dev = q.device
     if q.dtype not in _ROUTES:
         raise TypeError(f"q has dtype {q.dtype}, expected float32 or bfloat16")

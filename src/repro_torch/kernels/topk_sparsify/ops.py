@@ -6,9 +6,14 @@
 (``csrc/topk_block.cu``) keeps ``ref.keep_count(gamma, block)`` per block
 of a 1-D fp32 or bf16 vector. Each runs its plain PyTorch version
 (``ref.block_topk_rows``, ``ref.block_topk_ref``) for CPU tensors. The
-kernels read the ragged last block in place, so no padded copy is made.
+kernels read the ragged last block in place, so no padded copy is made;
+they find each block's k-th largest magnitude by a 4-pass radix select
+(``csrc/topk_common.cuh``), which gives the plain version's bisection
+threshold bit for bit.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -16,7 +21,7 @@ from .. import _build, check_cuda, is_cpu
 from .ref import DEFAULT_BLOCK, block_topk_ref, keep_count
 from .ref import block_topk_rows as block_topk_rows_plain
 
-MAX_BLOCK = 4096                  # csrc/topk_common.cuh: 256 threads x 16 lanes
+MAX_BLOCK = 4096                  # csrc/topk_common.cuh: kMaxBlock lanes a CTA
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -69,3 +74,20 @@ def block_topk_sparsify(vec: torch.Tensor, gamma, *,
 
 
 block_topk_sparsify.launches = 0
+
+
+def kernel_attributes(kernel: str, dtype: torch.dtype = torch.float32) -> dict:
+    """Registers a thread, spill (local) bytes a thread, and static and
+    dynamic shared bytes a CTA of the compiled ``"rows"`` kernel or of the
+    ``"block"`` kernel's instance for ``dtype``."""
+    out = (ctypes.c_int * 4)()
+    lib = _build.library()
+    if kernel == "rows":
+        err = lib.topk_rows_attrs(out)
+    elif kernel == "block":
+        err = lib.topk_block_attrs(_DTYPE_CODES[dtype], out)
+    else:
+        raise ValueError(f"kernel must be 'rows' or 'block', got {kernel!r}")
+    _build.check(err, f"topk_{kernel}_attrs")
+    return {"registers": out[0], "local_bytes": out[1],
+            "shared_bytes": out[2], "dynamic_shared_bytes": out[3]}

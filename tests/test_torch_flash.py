@@ -22,6 +22,7 @@ import torch
 from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention.ops import refuse_grad
 
 TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 
@@ -102,6 +103,26 @@ def test_wrapper_rejects_a_window_below_one():
     _, (q, k, v) = _inputs(6, 1, 8, 2, 1, 32)
     with pytest.raises(ValueError, match="window"):
         flash_attention(q, k, v, window=0)
+
+
+def test_kernel_calls_under_grad_raise_and_the_plain_version_keeps_autograd():
+    """C-14: the CUDA kernels compute the forward only, so on CUDA tensors
+    the wrapper raises (``refuse_grad``) while grad mode is on and an input
+    requires grad; the CPU plain version still back-propagates."""
+    _, (q, k, v) = _inputs(8, 1, 16, 2, 1, 32)
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="ROADMAP C-14"):
+        refuse_grad(q, k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        refuse_grad(q.detach(), k, v.requires_grad_(True))
+    v.requires_grad_(False)
+    with torch.no_grad():
+        refuse_grad(q, k, v)
+    refuse_grad(q.detach(), k, v)
+    out = flash_attention(q, k, v, causal=True)
+    out.square().sum().backward()
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
+    assert float(q.grad.abs().sum()) > 0
 
 
 def test_wrapper_rejects_other_devices():

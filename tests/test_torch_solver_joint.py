@@ -34,7 +34,10 @@ from repro.kernels.dual_solve import ref as j_ref
 from repro_torch.configs.base import FairEnergyConfig as TFE
 from repro_torch.core.fairenergy import init_state, solve_round
 from repro_torch.core.link import expected_attempts as t_expected
-from repro_torch.kernels.dual_solve.ops import MAX_LEVELS, dual_solve
+from repro_torch.kernels.dual_solve.ops import (MAX_LEVELS,
+                                                check_kernel_levels,
+                                                dual_solve)
+from repro_torch.kernels.dual_solve.ref import dual_solve_ref
 
 GRID = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
 BITS = (8.0, 16.0, 32.0)
@@ -123,6 +126,9 @@ def test_unit_pricing_and_a_32_bit_grid_are_the_legacy_solve():
 
 
 def test_the_wrapper_refuses_grids_beyond_the_kernel_cap():
+    """The kernels take at most MAX_LEVELS levels: a larger grid on CUDA
+    tensors raises (ROADMAP B-1c (d)), while the plain version that CPU
+    tensors run takes it, as the reference does (C-15)."""
     P, h, u, _, _ = _inputs(8)
     tf, tkw = _scalars("torch")
     args = tuple(map(torch.tensor, (P, h, u)))
@@ -133,11 +139,39 @@ def test_the_wrapper_refuses_grids_beyond_the_kernel_cap():
                                                                   24.0),
                      **tkw)
     assert len(out) == 5 and len(GRID) * 3 <= MAX_LEVELS
-    with pytest.raises(ValueError, match="33 levels"):
-        dual_solve(*args, tf(1e-4), gamma_grid=tuple(range(1, 12)),
-                   bits_grid=BITS, **tkw)
+    with pytest.raises(ValueError, match=r"33 levels.*B-1c \(d\)"):
+        check_kernel_levels(33)
+    check_kernel_levels(MAX_LEVELS)
+    wide = dict(gamma_grid=tuple(range(1, 12)), bits_grid=BITS)
+    got = dual_solve(*args, tf(1e-4), **wide, **tkw)
+    want = dual_solve_ref(*args, tf(1e-4), **wide, **tkw)
+    assert len(got) == 5
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
     # CPU tensors run the plain version: no kernel launch is counted
     assert before == {k: getattr(dual_solve, k) for k in before}
+
+
+def test_solve_round_takes_a_40_level_grid_as_the_reference_does():
+    """C-15: bits 4, 8, 16, 32 over the default 10-point gamma grid is 40
+    levels, above the kernels' MAX_LEVELS; the plain version runs it.
+    Masks, gammas and widths equal the reference's, energies within rtol
+    1e-4, over 4 warm-started rounds."""
+    bits_grid = (4.0, 8.0, 16.0, 32.0)
+    assert len(TFE().gamma_grid) * len(bits_grid) == 40 > MAX_LEVELS
+    u, h, P, _ = _draws(8, 4)
+    runs = _run_both(u, h, P, 4, bits_grid=bits_grid, eta=1e-3,
+                     alpha_lambda=5e-5)
+    for r, (jd, _, td, _) in enumerate(runs):
+        np.testing.assert_array_equal(td.x.numpy(), np.asarray(jd.x),
+                                      err_msg=f"round {r}")
+        np.testing.assert_array_equal(td.gamma.numpy(), np.asarray(jd.gamma),
+                                      err_msg=f"round {r}")
+        np.testing.assert_array_equal(td.bits.numpy(), np.asarray(jd.bits),
+                                      err_msg=f"round {r}")
+        np.testing.assert_allclose(td.energy.numpy(), np.asarray(jd.energy),
+                                   rtol=1e-4, atol=1e-12, err_msg=f"round {r}")
+    assert any(bool((td.bits[td.x] < 32).any()) for _, _, td, _ in runs)
 
 
 # --------------------------------------------------------------- solver ----

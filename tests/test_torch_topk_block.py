@@ -105,6 +105,44 @@ def test_ties_nan_inf_and_signed_zeros(gamma, block, dtype):
         assert not torch.isnan(got).any()
 
 
+@pytest.mark.parametrize("gamma,block", [(0.1, 4096), (0.25, 1024), (0.5, 256)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_the_all_ones_nan_keeps_the_pallas_kernels_mask(gamma, block, dtype):
+    """A NaN with every mantissa bit set (|x| = 0x7fffffff) among the
+    tie/NaN lanes: the bisection's max + 1 wraps, its threshold ends at the
+    pattern 0x80000001 (a negative denormal), and every non-NaN lane of that
+    block is kept, more than k. The Pallas kernel agrees on every lane but
+    the zeros of such a block: XLA on the CPU compares the denormal as -0.0,
+    so a zero there is a tie that does not fit and comes out +0.0, where the
+    plain version (IEEE compares, as the card's kernel) keeps a -0.0
+    (ROADMAP C-16). The sort-based jnp oracle keeps k lanes there, so it is
+    not compared on this input. bf16's all-ones NaN widens to 0x7fff0000,
+    below the wrap: there every lane agrees."""
+    v = _tricky()
+    v.view(np.uint32)[[5, 4096 + 17]] = (0x7FFFFFFF, 0xFFFFFFFF)
+    jv, tv = _pair(v, dtype)
+    if dtype == "bfloat16":
+        tv.view(torch.int16)[[5, 4096 + 17]] = torch.tensor([0x7FFF, -1],
+                                                            dtype=torch.int16)
+        jv = jnp.asarray(tv.view(torch.int16).numpy()).view(jnp.bfloat16)
+    got, k = block_topk_sparsify(tv, gamma, block=block)
+    want, _ = j_pallas(jv, gamma, block=block)
+    g, w = _bits(got), _bits(want)
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(g, w)
+        return
+    wrapped = np.zeros(v.shape, bool)
+    for lane in (5, 4096 + 17):
+        lo = lane // block * block
+        wrapped[lo:lo + block] = True
+        kept = np.where(np.isnan(v[lo:lo + block]), np.float32(0), v[lo:lo + block])
+        np.testing.assert_array_equal(g[lo:lo + block], kept.view(np.int32))
+        assert int((~np.isnan(v[lo:lo + block])).sum()) > k
+    differ = g != w
+    assert differ.any() and (wrapped & (v == 0))[differ].all()
+    assert (g[differ] == np.int32(-2**31)).all() and (w[differ] == 0).all()
+
+
 def test_keeps_exactly_k_per_block_and_the_largest():
     x = np.random.default_rng(0).normal(size=8192).astype(np.float32)
     got, k = block_topk_sparsify(torch.from_numpy(x), 0.25, block=2048)
