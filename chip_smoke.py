@@ -20,13 +20,14 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    rounds, capped and stopped early with dead clients: masks, gammas,
    widths and n_inner equal, lam and mu rtol 1e-5), the per-row block
    top-k (main-path rows, NaN/Inf/-0.0/tie rows with a 0x7fffffff NaN and
-   a row of one value, all-full, rows of odd length and inputs off a
-   16-byte word), the block top-k of one vector (the CNN's flat update at
+   a row of one value, rows of denormals, which compare as zero (C-16),
+   all-full, rows of odd length and inputs off a 16-byte word), the block
+   top-k of one vector (the CNN's flat update at
    gamma 0.25 and 0.1, in fp32 and bf16, blocks 256 and 1024, k = block,
    the same NaN/Inf/-0.0/tie lanes in fp32 and bf16, inputs off a word),
    each bit for bit, with the top-k kernels' registers, spills and shared
    bytes; the row norms and flash attention, bf16 on the tensor cores and
-   fp32 on the SIMT kernel (the serve path's [4, 2048, 32|4, 64] bf16
+   fp32 on the register-tiled SIMT kernel (the serve path's [4, 2048, 32|4, 64] bf16
    causal, a 256 window, fp32, a ragged S = 1000, D = 32 and D = 128 in
    both types), and a flash call under grad raising (C-14) — and time
    both (CUDA events) and the library call computing the same function
@@ -60,6 +61,12 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    32 new ids a request, and its first decode step's logits must match
    ``lm_forward`` over prompt + token at that position (the ring cache
    against the flash branch);
+5b. prefill in fp32: ``lm_prefill`` of TinyLlama-1.1B at full width in
+   fp32 (seeded random weights), 4 prompts of 2048 ids, once to warm up and
+   once timed: 22 launches of the fp32 flash kernel and nothing else,
+   finite last-position logits within 1e-4 of their scale of the same
+   prefill with the attention patched (in this script only) to the plain
+   version, and the flash kernel's share of the prefill;
 6. serve, card against CPU: the smoke TinyLlama in fp32 from the same
    weights and seed, prompt 2048 (so the card takes the fp32 kernel), 8 tokens
    at batch 2: equal prompt ids, logits to rtol 1e-4, equal sampled ids up
@@ -75,13 +82,18 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    ``FederatedTrainer(mesh=make_clients_mesh())`` on the main path's
    recipe: equal masks and gammas to phase 3's main path, energies rtol
    1e-5, params atol 1e-6, and the main path's launches of the dual-solve,
-   top-k rows and norm kernels (one fused ascent a round).
+   top-k rows and norm kernels (one fused ascent a round). Then C-17's gate
+   (``client_step_by_card``): the client step over 13 clients a call (one
+   of 4 cards' share) equals the same clients' rows of the step over all
+   50, bit for bit, and two calls of one step agree, with the step's time
+   at each chunk size beside the client module's CLIENT_CHUNK.
 
 ``--cards K`` runs phase 7 alone across K cards (one NCCL rank a card,
 after the build): the exchanges on a (2, K/2, 1) mesh against the pod mean
 of the block top-k computed on each card, and the main path's recipe
 sharded over the K cards against rank 0's one-card run (masks and gammas
-equal, energies rtol 1e-5, params atol 1e-6).
+equal, energies rtol 1e-5, params atol 1e-6), with C-17's gate on rank 0's
+card at K's share of the clients.
 
 Output: one JSON line per kernel check, per round and per path, a
 ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
@@ -370,12 +382,14 @@ def _tricky_rows(dev) -> tuple[torch.Tensor, torch.Tensor]:
     """Rows with ties, NaN, +-Inf, -0.0, k = 1 and k = block (one of them
     holding NaN and Inf, which the mask at k = block drops and keeps), a NaN
     with every mantissa bit set (0x7fffffff: the reference's max + 1 wraps
-    and its bisection keeps every non-NaN lane) and a row of one value,
-    over a D of odd length (3 x 4096 + 101), so the rows start at every
-    offset in a 16-byte word."""
+    and its bisection keeps every non-NaN lane), a row of one value, and
+    denormals (C-16: compared as zero), with a k whose threshold is a
+    denormal, with the threshold 0.0 and denormals after zeros, and beside
+    the 0x7fffffff NaN and zeros; over a D of odd length (3 x 4096 + 101),
+    so the rows start at every offset in a 16-byte word."""
     gen = torch.Generator().manual_seed(2)
     d = 3 * 4096 + 101
-    rows = torch.randn(11, d, generator=gen)
+    rows = torch.randn(14, d, generator=gen)
     rows[1, ::7] = float("nan")
     rows[2, ::5] = float("inf")
     rows[2, 1::5] = float("-inf")
@@ -393,8 +407,22 @@ def _tricky_rows(dev) -> tuple[torch.Tensor, torch.Tensor]:
     bits[9, 4096 + 7] = -1                    # 0xffffffff: |x| is 0x7fffffff
     rows[9, 9::31] = float("nan")
     rows[10] = -0.25
-    ks = torch.tensor([1, 2, 409, 4096, 17, 3000, 50, 1, 4096, 100, 1000],
-                      dtype=torch.int32)
+
+    def denormals(m: int) -> torch.Tensor:
+        b = torch.randint(1, 1 << 23, (m,), generator=gen, dtype=torch.int32)
+        sign = torch.randint(0, 2, (m,), generator=gen, dtype=torch.int32)
+        return (b | (sign << 31)).view(torch.float32)
+
+    rows[11:13] = 0.0
+    rows[11, ::40] = torch.randn(len(range(0, d, 40)), generator=gen)
+    rows[11, 3::7] = denormals(len(range(3, d, 7)))
+    rows[12, :20] = torch.randn(20, generator=gen)
+    rows[12, 6000::9] = denormals(len(range(6000, d, 9)))
+    rows[13, 3::5] = 0.0
+    rows[13, 4::11] = denormals(len(range(4, d, 11)))
+    bits[13, 5] = 0x7FFFFFFF
+    ks = torch.tensor([1, 2, 409, 4096, 17, 3000, 50, 1, 4096, 100, 1000,
+                       500, 3000, 100], dtype=torch.int32)
     return rows.to(dev), ks.to(dev)
 
 
@@ -1158,6 +1186,84 @@ def profile_serve(model, cfg, dev):
                                             for e in top]}))
 
 
+# ----------------------------------------------------------- phase 5b ----
+# the fp32 prefill against the same prefill through the plain attention:
+# both run fp32 GEMMs of the same shapes, and the two attentions agree to
+# ~1e-6 (phase 2), which 22 layers carry into the logits
+PREFILL_F32_REL_TOL = 1e-4
+
+
+def serve_prefill_f32(dev, kernel_ms: float) -> dict:
+    """Phase 5b: ``lm_prefill`` of TinyLlama-1.1B at full width in fp32
+    (22 layers, d 2048, seeded random weights on the card), 4 prompts of
+    2048 ids, once to warm up and once timed: 22 launches of the fp32 flash
+    kernel and nothing else, finite last-position logits within
+    PREFILL_F32_REL_TOL of their scale of the same prefill with the
+    attention patched (here only) to the plain version. ``kernel_ms`` is
+    phase 2's time of the fp32 kernel at this call's shape: the flash
+    share of the prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.launch import steps
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config(SERVE["arch"]).replace(dtype="float32")
+    model = tfm.for_compute(steps.init_for(cfg)(
+        torch.Generator(device=dev).manual_seed(0)), cfg)
+    B, P = SERVE["batch"], SERVE["prompt_len"]
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(7))
+    with torch.no_grad():
+        tfm.lm_prefill(model, prompt, cfg, cache_len=P)               # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fns = counters()
+        for fn, attr in fns.values():
+            setattr(fn, attr, 0)
+        t0 = time.perf_counter()
+        logits, _ = tfm.lm_prefill(model, prompt, cfg, cache_len=P)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        launches = {name: getattr(fn, attr) for name, (fn, attr) in fns.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        kernel = attention.flash_attention
+        attention.flash_attention = ref.attention_ref
+        try:
+            t0 = time.perf_counter()
+            want, _ = tfm.lm_prefill(model, prompt, cfg, cache_len=P)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            attention.flash_attention = kernel
+    if launches["flash_attention_f32"] != cfg.n_layers:
+        raise AssertionError(f"the fp32 prefill launched the fp32 flash kernel "
+                             f"{launches['flash_attention_f32']} times, not "
+                             f"{cfg.n_layers}")
+    others = {n: c for n, c in launches.items() if n != "flash_attention_f32" and c}
+    if others:
+        raise AssertionError(f"the fp32 prefill launched other kernels: {others}")
+    if tuple(logits.shape) != (B, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"fp32 prefill logits {tuple(logits.shape)}, "
+                             "or not finite")
+    diff = float((logits - want).abs().max())
+    scale = float(want.abs().max())
+    if not diff <= PREFILL_F32_REL_TOL * scale:
+        raise AssertionError(f"fp32 prefill logits differ from the plain "
+                             f"attention's by {diff} > {PREFILL_F32_REL_TOL} x {scale}")
+    res = {"prefill_f32": cfg.name, "batch": B, "prompt_len": P,
+           "layers": cfg.n_layers, "prefill_ms": prefill_ms,
+           "plain_attention_prefill_ms": plain_ms,
+           "flash_ms_at_phase2": cfg.n_layers * kernel_ms,
+           "flash_share": cfg.n_layers * kernel_ms / prefill_ms,
+           "prefill_tokens_per_s": B * P / (prefill_ms / 1e3),
+           "peak_mem_GB": peak / 1e9, "launches": launches,
+           "logits_max_abs": diff, "logit_scale": scale}
+    log(json.dumps(res))
+    return res
+
+
 # ------------------------------------------------------------ phase 6 ----
 def _first_tie(ids_a, ids_b, steps_logits, gen_seed: int, temperature: float,
                rtol: float = 1e-4, atol: float = 1e-5):
@@ -1328,6 +1434,9 @@ def sharded_trainer_one_rank(dev, data, main: dict):
         "round_ms_steady_mean": 1e3 * sum(steady) / len(steady),
         "main_path_round_ms_steady_mean": main["steady_ms"],
         "peak_mem_GB": torch.cuda.max_memory_allocated(dev) / 1e9}}))
+    # C-17 on this card: the step over one of 4 cards' share of the
+    # clients (13 a call) against the step over all 50
+    client_step_by_card(dev, tr, 4)
 
 
 def multirank_paths(dev, vec: torch.Tensor, data, main: dict) -> int:
@@ -1453,35 +1562,73 @@ def _card_rank(rank: int, world: int, init: str) -> None:
     dist.destroy_process_group()
 
 
-def client_step_by_card(dev, tr, world: int) -> None:
-    """How far the client step on one card's share of the clients (the
-    sharded trainer's n_local a card) is from the same clients' rows of one
-    step over all of them, at ``tr``'s params and round 0's batches (one
-    card, so no collective is involved), and how many
-    top-k lanes move with it at the main path's k for gamma 0.1 (410): the
-    sharded run and the one-card run differ by this much before any
-    collective."""
+# chunk sizes of the client step timed beside the module's CLIENT_CHUNK
+CHUNK_SWEEP = (1, 5, 10, 13, 25, 50)
+
+
+def _step_apart(tr, batches, n_local: int, dev) -> dict:
+    """The client step over ``n_local`` clients a call against the same
+    clients' rows of one step over all of them, at the client module's
+    current CLIENT_CHUNK, and the top-k lanes that move with it at the main
+    path's k for gamma 0.1 (410)."""
     from repro_torch.kernels.topk_sparsify import ops
+    whole, norms, losses = tr._client_step(tr.params, batches)
+    again = tr._client_step(tr.params, batches)[0]
+    parts = [tr._client_step(tr.params, {k: v[i:i + n_local]
+                                         for k, v in batches.items()})
+             for i in range(0, tr.n_clients, n_local)]
+    split, split_norms, split_losses = (torch.cat([p[j] for p in parts])
+                                        for j in range(3))
+    ks = torch.full((tr.n_clients,), 410, dtype=torch.int32, device=dev)
+    moved = (ops.block_topk_rows(whole, ks) != 0) != (
+        ops.block_topk_rows(split, ks) != 0)
+    return {"update_lanes_differ": int((split != whole).sum()),
+            "repeat_lanes_differ": int((again != whole).sum()),
+            "update_max_abs": float((split - whole).abs().max()),
+            "norms_differ": int((split_norms != norms).sum()),
+            "losses_differ": int((split_losses != losses).sum()),
+            "topk_lanes_moved_at_k410": int(moved.sum())}
+
+
+def client_step_by_card(dev, tr, world: int) -> dict:
+    """C-17's gate. The client step on one card's share of the clients
+    (the sharded trainer's n_local a card when ``world`` cards share them)
+    against the same clients' rows of one step over all of them, at
+    ``tr``'s params and round 0's batches, on this card (no collective):
+    no update lane may differ, none may differ between two calls of the same
+    step, no norm or loss may differ, and no top-k lane may move at the
+    main path's k for gamma 0.1 (410). The sharded run and the one-card run would differ by this much
+    before any collective. Also the step's device time at each chunk size of
+    CHUNK_SWEEP (CUDA events, one step over all clients), and whether each
+    size would hold the gate: the measurement behind CLIENT_CHUNK."""
+    from repro_torch.fl import client
     n_local = -(-tr.n_clients // world)
+    chosen = client.CLIENT_CHUNK
+    sweep = {}
     with torch.no_grad():
         batches = tr._round_batches(0)
-        whole, norms, _ = tr._client_step(tr.params, batches)
-        parts = [tr._client_step(tr.params, {k: v[i:i + n_local]
-                                             for k, v in batches.items()})
-                 for i in range(0, tr.n_clients, n_local)]
-        split = torch.cat([p[0] for p in parts])
-        split_norms = torch.cat([p[1] for p in parts])
-        ks = torch.full((tr.n_clients,), 410, dtype=torch.int32, device=dev)
-        moved = (ops.block_topk_rows(whole, ks) != 0) != (
-            ops.block_topk_rows(split, ks) != 0)
-    log(json.dumps({"client_step_by_card": {
-        "clients": tr.n_clients, "a_call": n_local,
-        "update_lanes_differ": int((split != whole).sum()),
-        "update_lanes": whole.numel(),
-        "update_max_abs": float((split - whole).abs().max()),
-        "update_scale": float(whole.abs().max()),
-        "norms_max_rel": float(((split_norms - norms).abs() / norms).max()),
-        "topk_lanes_moved_at_k410": int(moved.sum())}}))
+        res = _step_apart(tr, batches, n_local, dev)
+        try:
+            for c in CHUNK_SWEEP:
+                client.CLIENT_CHUNK = c
+                apart = _step_apart(tr, batches, n_local, dev)
+                sweep[c] = {"step_ms": cuda_ms(lambda: tr._client_step(tr.params, batches),
+                                               5, warmup=1),
+                            **{k: apart[k] for k in ("update_lanes_differ",
+                                                     "repeat_lanes_differ",
+                                                     "norms_differ")}}
+        finally:
+            client.CLIENT_CHUNK = chosen
+    res = {"clients": tr.n_clients, "a_call": n_local, "client_chunk": chosen,
+           **res, "update_lanes": tr.n_clients * tr.n_params,
+           "step_ms_by_chunk": sweep}
+    log(json.dumps({"client_step_by_card": res}))
+    if any(res[k] for k in ("update_lanes_differ", "repeat_lanes_differ",
+                            "norms_differ", "losses_differ",
+                            "topk_lanes_moved_at_k410")):
+        raise AssertionError(f"the client step depends on the clients a call "
+                             f"(C-17): {res}")
+    return res
 
 
 def multicard(world: int) -> None:
@@ -1585,10 +1732,15 @@ def main(argv) -> int:
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     flash["launches"] = serve["launches"]["flash_attention"]
 
+    # ---- phase 5b: the full-width fp32 prefill, its counts zeroed before
+    # the timed run
+    flash_f32 = next(k for k in kernels if k["name"] == "flash_attention_f32")
+    prefill = serve_prefill_f32(dev, flash_f32["ms"])
+
     # ---- phase 6: serve, card against CPU (the fp32 kernel's launches), and
     # the same in bf16 through the tensor-core kernel (C-13)
-    flash_f32 = next(k for k in kernels if k["name"] == "flash_attention_f32")
-    flash_f32["launches"] = serve_card_against_cpu(dev)["flash_launches"]
+    flash_f32["launches"] = (prefill["launches"]["flash_attention_f32"]
+                             + serve_card_against_cpu(dev)["flash_launches"])
     serve_card_against_cpu(dev, "bfloat16")
 
     # ---- phase 7: the multi-rank paths on one rank

@@ -14,71 +14,148 @@
 //   q is multiplied by scale = 1/sqrt(D) before QK^T;
 //   a masked score (k > q when causal, q - k >= window) is -1e30, not -inf;
 //   m, l and the accumulator are fp32 (online softmax, one rescale per
-//   chunk of keys); o = acc / max(l, 1e-30).
+//   tile of keys); o = acc / max(l, 1e-30).
 // A row whose keys so far are all masked sums exp(0) = 1 terms, and the
 // next visible key's correction exp(-1e30 - m) = 0 wipes them, as in the
 // Pallas kernel; the diagonal is always visible. So key tiles wholly above
 // the diagonal or wholly before the window are skipped: that changes no
 // bit of the result. A row with no visible key at all (a window that ends
 // before Skv) is the mean of V over all Skv keys, as in the plain version:
-// its query tile walks every key tile. Keys past Skv in the ragged last tile are absent (never
-// read), query rows past Sq are not written: any S is taken.
-//
-// Design (simple first): one CTA of 64 threads owns a 64-row query tile of
-// one (batch, head); each thread owns one query row, its scaled q and its
-// fp32 accumulator in registers. K and V are streamed through shared
-// memory in tiles of BK rows; each thread walks the tile in chunks of 16
-// keys: 16 scalar dot products, one max and one rescale, then 16 fused
-// multiply-adds of p into the accumulator (explicit fmaf: the library is
-// built with --fmad=false). The heavy (late) query tiles of a causal mask
-// are scheduled first.
+// its query tile walks every key tile. Keys past Skv in the ragged last
+// tile are absent (zero-filled, scored -inf, so their p is 0), query rows
+// past Sq are not written: any S is taken.
 //
 // What bounds it on an H100 SXM at the serve path's shapes in fp32 (B = 4,
 // H = 32, KV = 4, S = 2048, D = 64, causal): 2*B*H*S^2*D = 6.87e10
 // operations (QK^T and PV over the causal half), 1.03 ms at 67 TFLOP/s of
 // fp32 on the CUDA cores; 151 MB of q, k, v and o, 0.045 ms at 3.35 TB/s.
-// So it is bound by operations, and it does them as scalar FMAs; D = 128
-// keeps 2 x 128 fp32 values a thread in registers and spills.
+// So the CUDA cores' FMA issue rate bounds it, and the design keeps them fed:
+//
+// - A CTA of 128 threads owns a 64-row query tile of one (batch, head);
+//   thread (ty, tx) = (tid / 8, tid % 8) owns rows ty + 16 j (j < 4) of it.
+//   Q (scaled) stays in shared memory; K and V stream through it in tiles
+//   of BK keys (64 at D = 32, else 32), double-buffered: the next tile's
+//   16-byte cp.async copies are in flight while this one computes. At
+//   D = 32 and 64 three CTAs share an SM (at most 170 registers a thread,
+//   61 KB of shared memory a CTA at D = 64), at D = 128 two. (BK = 64 at
+//   D = 64, with two CTAs an SM, ran slower on an NVIDIA H100 80GB HBM3 at
+//   700 W: PERF.md, row 8b's finding.)
+// - S = Q K^T is a register-tiled outer product: the thread holds the 4 x
+//   (BK / 8) scores of its rows and keys tx + 8 i, and for every 4 values
+//   of d loads 4 + BK / 8 float4s of Q and K and issues 4 * 4 * BK / 8
+//   independent fmaf: 64 FMAs a 8 loads at BK = 32, no dependency chain
+//   (each score still sums d in order, 0..D-1).
+// - The online softmax of a row runs on the 8 threads that share it: the
+//   row max by three xor shuffles, each thread's share of l rescaled and
+//   summed on its own keys, the shares added once at the end.
+// - P goes to shared memory (transposed, each thread's 4 rows in one
+//   float4), and O += P V is the same outer product again: a thread holds
+//   the 4 x (D / 8) accumulators of its rows and columns 4 tx + 32 c, and
+//   for every key loads one float4 of P and D / 32 of V.
+// - Rows of Q, K, V and P are padded by 4 floats, so the float4 reads of a
+//   warp fall on distinct banks.
+// The heavy (late) query tiles of a causal mask are scheduled first, over
+// every (batch, head). Every multiply-add is an explicit fmaf (the library
+// is built with --fmad=false).
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRows = 64;      // query rows per CTA = threads per CTA
-constexpr int kChunk = 16;     // keys per online-softmax rescale
-constexpr float kNegInf = -1e30f;
+constexpr int kBQ = 64;          // query rows a CTA
+constexpr int kThreads = 128;    // 16 row groups (ty) x 8 column groups (tx)
+constexpr int kTM = 4;           // query rows a thread: ty + 16 j
+constexpr float kMasked = -1e30f;
 
 template <int D>
-__global__ void __launch_bounds__(kRows)
+struct Tile {
+  static constexpr int BK = D <= 32 ? 64 : 32;   // keys a tile
+  static constexpr int kMinCtas = D <= 64 ? 3 : 2;  // CTAs an SM
+  static constexpr int TN = BK / 8;              // keys a thread: tx + 8 i
+  static constexpr int DC = D / 32;              // float4s of O a row: 4 tx + 32 c
+  static constexpr int LD = D + 4;               // row stride of Q, K, V (floats)
+  static constexpr int LDP = kBQ + 4;            // row stride of P
+  static constexpr int kQ = kBQ * LD;
+  static constexpr int kKV = BK * LD;
+  static constexpr int kP = BK * LDP;
+  // Q, two stages of (K, V), P
+  static constexpr int kBytes = (kQ + 4 * kKV + kP) * 4;
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(full ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// The key tile [k0, k0 + BK) of K and V into Ks and Vs: one 16-byte copy a
+// (key, 4 values of d), keys past Skv zero-filled.
+template <int D>
+__device__ __forceinline__ void load_kv(float* Ks, float* Vs, const float* kb,
+                                        const float* vb, int k0, int Skv,
+                                        long long stride) {
+  using T = Tile<D>;
+  constexpr int kChunks = D / 4;
+  static_assert(T::BK * kChunks % kThreads == 0, "whole copies a thread");
+#pragma unroll
+  for (int it = 0; it < T::BK * kChunks / kThreads; ++it) {
+    const int idx = it * kThreads + threadIdx.x;
+    const int j = idx / kChunks, c = idx % kChunks;
+    const bool in = k0 + j < Skv;
+    const long long off = in ? (k0 + j) * stride + 4 * c : 0;
+    cp_async16(Ks + j * T::LD + 4 * c, kb + off, in);
+    cp_async16(Vs + j * T::LD + 4 * c, vb + off, in);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, Tile<D>::kMinCtas)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
                  int H, int KV, int causal, int window, float scale) {
-  constexpr int BK = D <= 64 ? 64 : 32;  // keys per shared tile: 32 KB of fp32
-  __shared__ __align__(16) float Ks[BK][D];
-  __shared__ __align__(16) float Vs[BK][D];
+  using T = Tile<D>;
+  constexpr int BK = T::BK, TN = T::TN, DC = T::DC, LD = T::LD, LDP = T::LDP;
+  extern __shared__ __align__(16) float smem[];
+  float* const Qs = smem;
+  float* const KV0 = smem + T::kQ;            // stage s: K at KV0 + 2 s kKV, V after it
+  float* const Ps = smem + T::kQ + 4 * T::kKV;
 
-  const int tid = threadIdx.x;
-  const int n_qt = gridDim.x;
-  const int qt = n_qt - 1 - blockIdx.x;  // late (heavy) tiles first
-  const int bh = blockIdx.y;
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // late (heavy) tiles first
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KV);
-  const int q0 = qt * kRows;
-  const int row = q0 + tid;
-  const bool active = row < Sq;
+  const int q0 = qt * kBQ;
 
-  float qr[D], acc[D];
-  if (active) {
-    const float* qp = q + ((static_cast<long long>(b) * Sq + row) * H + h) * D;
-#pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = qp[d] * scale;
+  // the query tile, times scale; rows past Sq are zeros
+  {
+    const long long row_stride = static_cast<long long>(H) * D;
+    const float* qb = q + (static_cast<long long>(b) * Sq * H + h) * D;
+    for (int idx = tid; idx < kBQ * (D / 4); idx += kThreads) {
+      const int r = idx / (D / 4), c = idx % (D / 4);
+      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < Sq) {
+        val = *reinterpret_cast<const float4*>(qb + (q0 + r) * row_stride + 4 * c);
+        val.x *= scale;
+        val.y *= scale;
+        val.z *= scale;
+        val.w *= scale;
+      }
+      *reinterpret_cast<float4*>(Qs + r * LD + 4 * c) = val;
+    }
   }
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  float m = kNegInf, l = 0.f;
 
   // key tiles that can hold a visible key for some row of this query tile
-  const int q_last = min(q0 + kRows, Sq) - 1;
+  const int q_last = min(q0 + kBQ, Sq) - 1;
   int k_end = Skv;
   if (causal) k_end = min(k_end, q_last + 1);
   // (all of them when some row sees no key: such a row is the mean of V
@@ -86,77 +163,150 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   int k_begin = 0;
   if (window > 0 && q_last < Skv - 1 + window) k_begin = max(0, q0 - window + 1);
   k_begin = (k_begin / BK) * BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  const long long kv_row_stride = static_cast<long long>(KV) * D;
+  const long long kv_stride = static_cast<long long>(KV) * D;
   const float* kb = k + (static_cast<long long>(b) * Skv * KV + kvh) * D;
   const float* vb = v + (static_cast<long long>(b) * Skv * KV + kvh) * D;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    const int kn = min(BK, Skv - k0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = tid; i < kn * D; i += kRows) {
-      const int j = i / D, d = i % D;
-      const long long off = (k0 + j) * kv_row_stride + d;
-      Ks[j][d] = kb[off];
-      Vs[j][d] = vb[off];
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int c = 0; c < kn; c += kChunk) {
-      float s[kChunk];
-      float m_new = m;
+  float acc[kTM][4 * DC];
+  float m[kTM], l[kTM];
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const int j = c + jj;
-        if (j < kn) {
-          const float4* kr = reinterpret_cast<const float4*>(Ks[j]);
-          float dot = 0.f;
+  for (int j = 0; j < kTM; ++j) {
+    m[j] = kMasked;
+    l[j] = 0.f;
 #pragma unroll
-          for (int d4 = 0; d4 < D / 4; ++d4) {
-            const float4 kk = kr[d4];   // the same address in every thread
-            dot = fmaf(qr[4 * d4], kk.x, dot);
-            dot = fmaf(qr[4 * d4 + 1], kk.y, dot);
-            dot = fmaf(qr[4 * d4 + 2], kk.z, dot);
-            dot = fmaf(qr[4 * d4 + 3], kk.w, dot);
-          }
-          const int kpos = k0 + j;
-          bool visible = true;
-          if (causal) visible = visible && kpos <= row;
-          if (window > 0) visible = visible && row - kpos < window;
-          s[jj] = visible ? dot : kNegInf;
-          m_new = fmaxf(m_new, s[jj]);
-        }
-      }
-      const float corr = expf(m - m_new);
-      l *= corr;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= corr;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const int j = c + jj;
-        if (j < kn) {
-          const float p = expf(s[jj] - m_new);
-          l += p;
-          const float4* vr = reinterpret_cast<const float4*>(Vs[j]);
-#pragma unroll
-          for (int d4 = 0; d4 < D / 4; ++d4) {
-            const float4 vv = vr[d4];
-            acc[4 * d4] = fmaf(p, vv.x, acc[4 * d4]);
-            acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-            acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-            acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
-          }
-        }
-      }
-      m = m_new;
-    }
+    for (int c = 0; c < 4 * DC; ++c) acc[j][c] = 0.f;
   }
 
-  if (active) {
-    const float l_safe = fmaxf(l, 1e-30f);
-    float* op = o + ((static_cast<long long>(b) * Sq + row) * H + h) * D;
+  if (n_tiles > 0) load_kv<D>(KV0, KV0 + T::kKV, kb, vb, k_begin, Skv, kv_stride);
+  cp_async_commit();
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_begin + t * BK;
+    const float* Ks = KV0 + (t & 1) * 2 * T::kKV;
+    const float* Vs = Ks + T::kKV;
+    if (t + 1 < n_tiles) {
+      float* Kn = KV0 + ((t + 1) & 1) * 2 * T::kKV;
+      load_kv<D>(Kn, Kn + T::kKV, kb, vb, k0 + BK, Skv, kv_stride);
+    }
+    cp_async_commit();     // an empty group on the last tile
+    cp_async_wait_one();   // this tile's copies (this thread's) have landed
+    __syncthreads();       // ... every thread's, and Q on the first tile
+
+    // S = (q scale) K^T: a 4 x TN micro-tile, d in order
+    float s[kTM][TN];
 #pragma unroll
-    for (int d = 0; d < D; ++d) op[d] = acc[d] / l_safe;
+    for (int j = 0; j < kTM; ++j)
+#pragma unroll
+      for (int i = 0; i < TN; ++i) s[j][i] = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[kTM], kv[TN];
+#pragma unroll
+      for (int j = 0; j < kTM; ++j)
+        qv[j] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * j) * LD + d);
+#pragma unroll
+      for (int i = 0; i < TN; ++i)
+        kv[i] = *reinterpret_cast<const float4*>(Ks + (tx + 8 * i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < kTM; ++j)
+#pragma unroll
+        for (int i = 0; i < TN; ++i) {
+          s[j][i] = fmaf(qv[j].x, kv[i].x, s[j][i]);
+          s[j][i] = fmaf(qv[j].y, kv[i].y, s[j][i]);
+          s[j][i] = fmaf(qv[j].z, kv[i].z, s[j][i]);
+          s[j][i] = fmaf(qv[j].w, kv[i].w, s[j][i]);
+        }
+    }
+
+    // masks (a tile whose keys are all present and visible to every row of
+    // the CTA needs none), then the online softmax of each row over its 8
+    // threads
+    const bool masked = k0 + BK > Skv || (causal && k0 + BK - 1 > q0) ||
+                        (window > 0 && q_last - k0 >= window);
+    if (masked) {
+#pragma unroll
+      for (int j = 0; j < kTM; ++j) {
+        const int row = q0 + ty + 16 * j;
+#pragma unroll
+        for (int i = 0; i < TN; ++i) {
+          const int key = k0 + tx + 8 * i;
+          if (key >= Skv) {
+            s[j][i] = -INFINITY;
+          } else if ((causal && key > row) || (window > 0 && row - key >= window)) {
+            s[j][i] = kMasked;
+          }
+        }
+      }
+    }
+    float corr[kTM];
+#pragma unroll
+    for (int j = 0; j < kTM; ++j) {
+      float mx = m[j];
+#pragma unroll
+      for (int i = 0; i < TN; ++i) mx = fmaxf(mx, s[j][i]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      corr[j] = expf(m[j] - mx);
+      m[j] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < TN; ++i) {
+        const float p = expf(s[j][i] - mx);
+        s[j][i] = p;
+        sum += p;
+      }
+      l[j] = l[j] * corr[j] + sum;
+    }
+    // P transposed: key i's 4 rows in one float4
+#pragma unroll
+    for (int i = 0; i < TN; ++i)
+      *reinterpret_cast<float4*>(Ps + (tx + 8 * i) * LDP + 4 * ty) =
+          make_float4(s[0][i], s[1][i], s[2][i], s[3][i]);
+#pragma unroll
+    for (int j = 0; j < kTM; ++j)
+#pragma unroll
+      for (int c = 0; c < 4 * DC; ++c) acc[j][c] *= corr[j];
+    __syncthreads();
+
+    // O += P V: a 4 x 4 DC micro-tile, keys in order (past Skv p = 0, V = 0)
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 p4 = *reinterpret_cast<const float4*>(Ps + kk * LDP + 4 * ty);
+      const float p[kTM] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const float4 vv = *reinterpret_cast<const float4*>(Vs + kk * LD + 4 * tx + 32 * c);
+#pragma unroll
+        for (int j = 0; j < kTM; ++j) {
+          acc[j][4 * c] = fmaf(p[j], vv.x, acc[j][4 * c]);
+          acc[j][4 * c + 1] = fmaf(p[j], vv.y, acc[j][4 * c + 1]);
+          acc[j][4 * c + 2] = fmaf(p[j], vv.z, acc[j][4 * c + 2]);
+          acc[j][4 * c + 3] = fmaf(p[j], vv.w, acc[j][4 * c + 3]);
+        }
+      }
+    }
+    __syncthreads();       // P and this stage are free for the next tile
+  }
+
+#pragma unroll
+  for (int j = 0; j < kTM; ++j) {
+    float lt = l[j];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 4);
+    const int row = q0 + ty + 16 * j;
+    if (row < Sq) {
+      const float l_safe = fmaxf(lt, 1e-30f);
+      float* op = o + ((static_cast<long long>(b) * Sq + row) * H + h) * D;
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+        *reinterpret_cast<float4*>(op + 4 * tx + 32 * c) =
+            make_float4(acc[j][4 * c] / l_safe, acc[j][4 * c + 1] / l_safe,
+                        acc[j][4 * c + 2] / l_safe, acc[j][4 * c + 3] / l_safe);
+    }
   }
 }
 
@@ -164,8 +314,12 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
                    int Sq, int Skv, int H, int KV, int causal, int window,
                    float scale, cudaStream_t stream) {
-  dim3 grid((Sq + kRows - 1) / kRows, B * H);
-  flash_fwd_kernel<D><<<grid, kRows, 0, stream>>>(
+  constexpr int kBytes = Tile<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
+  flash_fwd_kernel<D><<<grid, kThreads, kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, KV,
       causal, window, scale);
@@ -180,7 +334,7 @@ cudaError_t attrs(int* out) {
     out[0] = a.numRegs;
     out[1] = static_cast<int>(a.localSizeBytes);
     out[2] = static_cast<int>(a.sharedSizeBytes);
-    out[3] = 0;
+    out[3] = Tile<D>::kBytes;
   }
   return err;
 }

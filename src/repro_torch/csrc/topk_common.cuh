@@ -8,7 +8,9 @@
 //   1. thresh = the k-th largest int32 bit pattern of |x| over the block
 //      (a NaN counts above every number);
 //   2. the float tests mag > thresh and mag == thresh (a NaN magnitude
-//      passes neither, though step 1 counted it);
+//      passes neither, though step 1 counted it), with denormals as zero:
+//      the reference's platform, XLA on the CPU, compares so, and the
+//      kernel clears a denormal pattern (exponent field 0) before the test;
 //   3. the ties, in index order, while they fit: inclusive count <= k - n_gt.
 // The reference finds step 1 by 31 bisection passes. Here it is a radix
 // select on the 31-bit pattern, most significant digit first: 4 passes of
@@ -96,6 +98,12 @@ __device__ __forceinline__ int mag_bits(float v) {
 }
 __device__ __forceinline__ int mag_bits(uint16_t v) {
   return (static_cast<int>(v) << 16) & 0x7fffffff;
+}
+
+// The float that a compare on XLA's CPU sees for the pattern `bits`:
+// denormals (exponent field 0, either sign) are +0.0.
+__device__ __forceinline__ float daz_float(int bits) {
+  return __int_as_float((bits & 0x7f800000) ? bits : 0);
 }
 
 // ---- PTX: mbarrier and the bulk async copy ---------------------------------
@@ -323,13 +331,13 @@ __device__ __forceinline__ void keep_mask(const int (&bits)[kPer], int n_lanes,
     }
     prefix = lo;
   }
-  const float thresh = __int_as_float(prefix);   // the k-th largest |x|
+  const float thresh = daz_float(prefix);   // the k-th largest |x|
 
   // the float tests, and the ties in index order: (p, warp, lane)
   int n_gt = 0;
 #pragma unroll
   for (int p = 0; p < kPer; ++p) {
-    const float mag = __int_as_float(bits[p]);
+    const float mag = daz_float(bits[p]);
     n_gt += counted[p] && mag > thresh;
     const unsigned ties = __ballot_sync(0xffffffffu, counted[p] && mag == thresh);
     if (lane == 0) sh.tie[p * kWarps + warp] = __popc(ties);
@@ -359,7 +367,7 @@ __device__ __forceinline__ void keep_mask(const int (&bits)[kPer], int n_lanes,
 #pragma unroll
   for (int p = 0; p < kPer; ++p) {
     // the ballot again: cheaper than holding kPer of them across barriers
-    const float mag = __int_as_float(bits[p]);
+    const float mag = daz_float(bits[p]);
     const bool equal = counted[p] && mag == thresh;
     const unsigned ties = __ballot_sync(0xffffffffu, equal);
     const int rank = sh.tie[p * kWarps + warp] + __popc(ties & below) + 1;

@@ -14,6 +14,15 @@ from ..kernels.score_norm.ops import row_l2_norms
 from ..optim import make_optimizer
 from .updates import flatten_update
 
+# Clients a call of the vmapped step. Every call holds exactly this many
+# (the last one padded with copies of a real client's batches, whose rows
+# are dropped), so every convolution and GEMM of the step has one shape
+# whatever the caller's client count: the library picks one algorithm, and
+# a client's update does not depend on how many clients share the step or
+# where it sits in it (ROADMAP C-17: the sharded trainer's rank holds fewer
+# clients than one card). The value is measured on the H100 (PERF.md).
+CLIENT_CHUNK = 50
+
 
 def make_batched_client_step(loss_fn: Callable, lr: float,
                              opt_name: str = "sgd", **opt_kw):
@@ -23,10 +32,10 @@ def make_batched_client_step(loss_fn: Callable, lr: float,
     ``loss_fn(params, batch) -> (loss, aux)`` is a function of a params
     dict; ``batches`` maps fields to tensors with leading dims
     ``[n_clients, local_steps, ...]``. Every client starts from the same
-    global params: ``torch.func.vmap`` runs the clients together over
-    ``torch.func.grad_and_value``, with the (small, static) local steps
-    unrolled and the optimizer state initialized once and threaded through
-    them. Updates come back flattened (fp32, the JAX package's leaf order);
+    global params: ``torch.func.vmap`` runs ``CLIENT_CHUNK`` clients at a
+    time over ``torch.func.grad_and_value``, with the (small, static) local
+    steps unrolled and the optimizer state initialized once and threaded
+    through them. Updates come back flattened (fp32, the JAX package's leaf order);
     ``u_norms`` are their row norms from the score-norm kernel (its plain
     version on the CPU); ``losses`` are each client's last-step loss.
     """
@@ -47,7 +56,29 @@ def make_batched_client_step(loss_fn: Callable, lr: float,
     batched = vmap(one_client, in_dims=(None, 0))
 
     def step(params, batches):
-        updates, losses = batched(params, batches)
+        n = next(iter(batches.values())).shape[0]
+        c = CLIENT_CHUNK
+        n_pad = -(-n // c) * c
+        if n_pad > n:
+            batches = {k: torch.cat([v, v[-1:].expand(n_pad - n, *v.shape[1:])])
+                       for k, v in batches.items()}
+        updates = losses = None
+        cudnn = torch.backends.cudnn
+        saved = cudnn.deterministic, cudnn.benchmark
+        # cuDNN's fastest algorithms for some of these shapes add with
+        # atomics, so two calls would differ in the last bits
+        cudnn.deterministic, cudnn.benchmark = True, False
+        try:
+            for i in range(0, n_pad, c):
+                u, lo = batched(params, {k: v[i:i + c] for k, v in batches.items()})
+                if updates is None:
+                    updates = u.new_empty((n, u.shape[1]))
+                    losses = lo.new_empty((n,))
+                m = min(c, n - i)
+                updates[i:i + m] = u[:m]
+                losses[i:i + m] = lo[:m]
+        finally:
+            cudnn.deterministic, cudnn.benchmark = saved
         return updates, row_l2_norms(updates), losses
 
     return step

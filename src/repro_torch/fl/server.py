@@ -29,8 +29,10 @@ Under a mesh each rank holds its ``n_local`` rows of the ghost-padded
 client stack: it samples, trains, sparsifies, quantizes and partially
 aggregates them, all-gathers ``u_norms`` and losses (cut to the real
 clients) before anything reads them, runs the controller on the full
-replicated ``[N]`` observation, and all-reduces the partial sums; params,
-controller, battery and link state and the logs are replicated.
+replicated ``[N]`` observation, and all-reduces the partial sums (in
+float64, ``weighted_sum``, so the aggregate's bits do not depend on the
+mesh); params, controller, battery and link state and the logs are
+replicated.
 
 The round body runs the reference's steps in its order (``_round``).
 PyTorch runs eagerly, so ``run_scanned`` is a loop over rounds that
@@ -72,6 +74,25 @@ __all__ = ["FederatedTrainer", "RoundLog", "UNLIMITED_J", "resolve_device"]
 # ROADMAP item that brings each
 _UNPORTED = {"async_cfg": "A-12", "fault_cfg": "A-13", "defense": "A-13",
              "hierarchy": "A-15"}
+
+
+# rows of the update matrix widened to float64 at a time by weighted_sum
+_SUM_ROWS = 8
+
+
+def weighted_sum(w: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``sum_i w[i] * rows[i]`` of fp32 ``w`` [n] and ``rows`` [n, D],
+    accumulated in float64 ([D] float64). Each product is exact there and
+    each addition rounds at float64's ulp, 2^29 times finer than float32's,
+    so two groupings of the terms (one GEMV over all clients on one card,
+    or each rank's partial sum and the all-reduce across a clients mesh)
+    almost never round to different float32 aggregates: the sharded
+    trainer equals one card bit for bit (ROADMAP C-17). The rows are
+    widened a few at a time, so no float64 copy of the matrix is made."""
+    acc = torch.zeros(rows.shape[1], dtype=torch.float64, device=rows.device)
+    for i in range(0, rows.shape[0], _SUM_ROWS):
+        acc += w[i:i + _SUM_ROWS].double() @ rows[i:i + _SUM_ROWS].double()
+    return acc
 
 
 @dataclasses.dataclass
@@ -494,10 +515,10 @@ class FederatedTrainer:
             sparse = compression.quantize_rows(sparse,
                                                self._local(bits_w, 32.0))
         w = self._local(part.to(torch.float32), 0.0) * self._weights
-        partial = self._all_reduce(w @ sparse)
-        wsum = self._all_reduce(torch.sum(w))
-        agg = partial / torch.clamp(wsum, min=1e-12) * self.fl_cfg.server_lr
-        agg = torch.where(wsum > 0.0, agg, 0.0)
+        partial = self._all_reduce(weighted_sum(w, sparse))
+        wsum = self._all_reduce(torch.sum(w.double()))
+        agg = (partial / torch.clamp(wsum, min=1e-12)).to(torch.float32)
+        agg = torch.where(wsum > 0.0, agg * self.fl_cfg.server_lr, 0.0)
         delta = unflatten_update(agg, self.spec)
         self.params = {k: p + delta[k].to(p.dtype)
                        for k, p in self.params.items()}

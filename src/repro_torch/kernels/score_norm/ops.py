@@ -3,15 +3,16 @@
 ``row_l2_norms(mat)`` is the port's ``u_norms`` for the stacked client
 updates [N, D]: CPU tensors run ``ref.row_l2_norms_ref``; CUDA tensors
 launch ``kernel.sq_sum_partials`` over a (N, ceil(D / BLOCK)) grid, and
-the [N, nb] partials are summed and square-rooted outside the kernel,
-as ``repro.kernels.score_norm.ops.l2_norm`` does with its partials.
+the [N, nb] partials are summed (in float64, ``ref.norms_from_partials``)
+and square-rooted outside the kernel, as
+``repro.kernels.score_norm.ops.l2_norm`` does with its partials.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import check_cuda, is_cpu
-from .ref import row_l2_norms_ref
+from .ref import norms_from_partials, row_l2_norms_ref
 
 BLOCK = 8192
 
@@ -26,7 +27,7 @@ def row_l2_norms(mat: torch.Tensor) -> torch.Tensor:
     from .kernel import sq_sum_partials
     sq_sum_partials(mat, partials, BLOCK)
     row_l2_norms.launches += 1
-    return torch.sqrt(torch.sum(partials, dim=1))
+    return norms_from_partials(partials)
 
 
 row_l2_norms.launches = 0

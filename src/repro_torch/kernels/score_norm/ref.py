@@ -21,6 +21,16 @@ def sq_sum_partials_ref(mat: Tensor, block: int) -> Tensor:
     return torch.sum(x * x, dim=-1)
 
 
+def norms_from_partials(partials: Tensor) -> Tensor:
+    """[N, nb] fp32 partials -> [N] norms: sqrt of each row's sum, the sum
+    accumulated in float64 and rounded once to fp32, so that a row's norm
+    does not depend on how many rows the reduction holds (the library
+    reduces rows of a small matrix in orders that follow its shape;
+    ROADMAP C-17)."""
+    return torch.sqrt(torch.sum(partials, dim=1, dtype=torch.float64)
+                      .to(torch.float32))
+
+
 def row_l2_norms_ref(mat: Tensor, block: int) -> Tensor:
     """[N, D] -> [N] row L2 norms."""
-    return torch.sqrt(torch.sum(sq_sum_partials_ref(mat, block), dim=1))
+    return norms_from_partials(sq_sum_partials_ref(mat, block))

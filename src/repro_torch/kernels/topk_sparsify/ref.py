@@ -11,8 +11,12 @@ truncated back to the input length.
 magnitude by bisecting on the fp32 *bit pattern* (non-negative floats
 order as their int32 bits, so 31 integer halvings pin the threshold), then
 applies the float tests ``mag > thresh`` / ``mag == thresh`` and fills the
-ties by an inclusive cumulative count. ``block_topk_rows_ref`` is the
-reference's sort-based oracle of the same mask.
+ties by an inclusive cumulative count. The float tests compare as the
+reference's platform, XLA on the CPU, does: with denormals as zero, so a
+magnitude or threshold whose exponent field is 0 compares as 0.0 (ROADMAP
+C-16); the bisection works on the raw bits, as the reference's does.
+``block_topk_rows_ref`` is the reference's sort-based oracle of the same
+mask on normal numbers.
 
 Two functions of the kernels: ``block_topk_rows`` (one k per row of a
 stacked ``[N, D]`` update matrix, ``csrc/topk_rows.cu``) and
@@ -34,6 +38,13 @@ Tensor = torch.Tensor
 DEFAULT_BLOCK = 4096   # the block width; csrc/topk_rows.cu is built for it
 
 
+def daz(bits: Tensor) -> Tensor:
+    """int32 float patterns with the denormals (exponent field 0, either
+    sign) set to +0.0: what a float compare on XLA's CPU sees, since it
+    runs with denormals as zero."""
+    return torch.where((bits & 0x7F800000) == 0, 0, bits)
+
+
 def topk_threshold_mask(x: Tensor, k) -> Tensor:
     """Keep-mask of the top-k magnitudes per row, ties to the lower index.
 
@@ -41,11 +52,11 @@ def topk_threshold_mask(x: Tensor, k) -> Tensor:
     clipped by the caller to [1, block]. int32 arithmetic wraps, as the
     reference's does. |x| is taken on the bits (clear the sign), which
     keeps a NaN's payload on every device, as XLA's abs does on the CPU;
-    ``torch.abs`` on a CUDA tensor returns the canonical NaN instead."""
+    ``torch.abs`` on a CUDA tensor returns the canonical NaN instead. The
+    float tests see denormals as zero (``daz``), as the reference's do."""
     bits = x.to(torch.float32).view(torch.int32) & 0x7FFFFFFF
-    mag = bits.view(torch.float32)
     k = torch.as_tensor(k, dtype=torch.int32, device=x.device)
-    k = k.expand(*mag.shape[:-1], 1)
+    k = k.expand(*bits.shape[:-1], 1)
 
     # invariant: count(bits >= lo) >= k, count(bits >= hi) < k
     lo = torch.zeros_like(k)
@@ -54,7 +65,9 @@ def topk_threshold_mask(x: Tensor, k) -> Tensor:
         mid = lo + torch.div(hi - lo, 2, rounding_mode="floor")
         enough = (bits >= mid).sum(dim=-1, keepdim=True, dtype=torch.int32) >= k
         lo, hi = torch.where(enough, mid, lo), torch.where(enough, hi, mid)
-    thresh = lo.view(torch.float32)                      # k-th largest |x|
+    # the k-th largest |x|, and the float tests with denormals as zero
+    thresh = daz(lo).view(torch.float32)
+    mag = daz(bits).view(torch.float32)
     greater = mag > thresh
     n_greater = greater.sum(dim=-1, keepdim=True, dtype=torch.int32)
     equal = mag == thresh

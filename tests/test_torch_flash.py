@@ -9,7 +9,10 @@ mode as the JAX package's tests run it. The CUDA kernel is held against the
 same plain version on the card by ``chip_smoke.py``. A CPU emulation of the
 bf16 tensor-core kernel's numerics (``csrc/flash_attention_sm90.cu``: its
 tiles, masks and skipped tiles, P rounded to bf16 before P V) shows that
-its one numeric change fits the bf16 gate before it runs on a card.
+its one numeric change fits the bf16 gate before it runs on a card; a CPU
+model of the fp32 SIMT kernel (``csrc/flash_attention.cu``: its tiles, the
+order of its sums and its per-tile rescale) holds its arithmetic to the
+fp32 gate the same way.
 """
 import math
 
@@ -220,3 +223,101 @@ def test_sm90_numerics_emulated_fit_the_bf16_gate(B, S, H, KV, D, causal,
         pallas = flash_attention_pallas(jq, jk, jv, causal=True, window=window,
                                         interpret=True)
         np.testing.assert_allclose(_f32(got), _f32(pallas), atol=2e-2, rtol=0)
+
+
+# ---- the fp32 SIMT kernel's numerics, modelled on the CPU ------------------
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf(a, b, c) in float32: the product is exact in float64, and the
+    sum is rounded once more to float32 (a double rounding that fmaf does
+    not do; it moves a result by an ulp at most, and rarely)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _simt_f32_emulated(q, k, v, *, causal, window):
+    """What ``csrc/flash_attention.cu`` computes, in torch ops: CTAs of 64
+    query rows, key tiles of BK (64 for D = 32, else 32) from the CTA's
+    first tile that can hold a visible key (every tile when some row sees
+    none) to its last; q times 1/sqrt(D) in fp32; each score a chain of
+    fmaf over d in order; masked scores -1e30, keys past Skv -inf; a row's
+    max over the tile and one rescale a tile; l held as 8 shares (share tx
+    sums the tile's keys tx + 8 i in order, then is added to its rescaled
+    self) added at the end in the shuffles' tree; O rescaled, then a chain
+    of fmaf over the tile's keys in order; o = O / max(l, 1e-30)."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    BK = 64 if D <= 32 else 32
+    n_kt = -(-Skv // BK)
+    pad = n_kt * BK - Skv
+    scale = torch.tensor(1.0 / D ** 0.5, dtype=torch.float32)
+    qf = (q.float() * scale).permute(0, 2, 1, 3)                # [B,H,Sq,D]
+    kf, vf = (torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad))
+              .permute(0, 2, 1, 3).repeat_interleave(H // KV, dim=1)
+              for t in (k, v))                                  # [B,H,n_kt*BK,D]
+    out = torch.zeros(B, H, Sq, D)
+    for q0 in range(0, Sq, 64):
+        q_last = min(q0 + 64, Sq) - 1
+        k_end = min(Skv, q_last + 1) if causal else Skv
+        k_begin = (max(0, q0 - window + 1)
+                   if window and q_last < Skv - 1 + window else 0)
+        k_begin = k_begin // BK * BK
+        rows = torch.arange(q0, q0 + 64)
+        qt = torch.nn.functional.pad(qf[:, :, q0:q0 + 64],
+                                     (0, 0, 0, 64 - qf[:, :, q0:q0 + 64].shape[2]))
+        m = torch.full((B, H, 64), -1e30)
+        shares = torch.zeros(B, H, 64, 8)
+        acc = torch.zeros(B, H, 64, D)
+        for k0 in range(k_begin, k_end, BK):
+            keys = torch.arange(k0, k0 + BK)
+            kt, vt = kf[:, :, k0:k0 + BK], vf[:, :, k0:k0 + BK]
+            s = torch.zeros(B, H, 64, BK)
+            for d in range(D):
+                s = _fma(qt[..., d, None], kt[..., None, :, d], s)
+            vis = torch.ones(64, BK, dtype=torch.bool)
+            if causal:
+                vis &= keys[None, :] <= rows[:, None]
+            if window:
+                vis &= rows[:, None] - keys[None, :] < window
+            s = torch.where(vis, s, -1e30)
+            s = torch.where(keys[None, :] >= Skv, -math.inf, s)
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            own = torch.zeros(B, H, 64, 8)
+            for i in range(BK // 8):
+                own = own + p[..., 8 * i:8 * i + 8]
+            shares = shares * corr[..., None] + own
+            acc = acc * corr[..., None]
+            for j in range(BK):
+                acc = _fma(p[..., j, None], vt[:, :, None, j], acc)
+            m = m_new
+        a = shares[..., 0::2] + shares[..., 1::2]           # xor 1
+        b = a[..., 0::2] + a[..., 1::2]                      # xor 2
+        l = b[..., 0] + b[..., 1]                            # xor 4
+        n = min(64, Sq - q0)
+        out[:, :, q0:q0 + n] = (acc / torch.clamp(l, min=1e-30)[..., None])[:, :, :n]
+    return out.permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window,Skv", [
+    (1, 256, 8, 1, 64, True, None, None),      # the serve call, cut
+    (1, 200, 8, 2, 64, True, 100, None),       # a window, ragged tiles
+    (1, 256, 4, 2, 32, True, None, None),      # phase 6's call, cut
+    (1, 300, 8, 2, 128, True, 77, None),       # D = 128
+    (1, 200, 4, 1, 64, False, 50, 77),         # rows that see no key
+])
+def test_simt_f32_numerics_emulated_fit_the_fp32_gate(B, S, H, KV, D, causal,
+                                                      window, Skv):
+    """The fp32 FLASH_CASES of ``chip_smoke.py`` (S, batch and heads cut,
+    the card's unit-variance inputs), modelled as the SIMT kernel computes
+    them, against the plain version and the JAX package's oracle: within
+    the card's unchanged fp32 gate, 1e-5."""
+    Skv = Skv or S
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for shape in ((B, S, H, D), (B, Skv, KV, D), (B, Skv, KV, D)))
+    got = _simt_f32_emulated(q, k, v, causal=causal, window=window)
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-5, rtol=0)
+    oracle = j_attention_ref(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                             causal=causal, window=window)
+    np.testing.assert_allclose(_f32(got), _f32(oracle), atol=1e-5, rtol=0)

@@ -110,14 +110,13 @@ def test_ties_nan_inf_and_signed_zeros(gamma, block, dtype):
 def test_the_all_ones_nan_keeps_the_pallas_kernels_mask(gamma, block, dtype):
     """A NaN with every mantissa bit set (|x| = 0x7fffffff) among the
     tie/NaN lanes: the bisection's max + 1 wraps, its threshold ends at the
-    pattern 0x80000001 (a negative denormal), and every non-NaN lane of that
-    block is kept, more than k. The Pallas kernel agrees on every lane but
-    the zeros of such a block: XLA on the CPU compares the denormal as -0.0,
-    so a zero there is a tie that does not fit and comes out +0.0, where the
-    plain version (IEEE compares, as the card's kernel) keeps a -0.0
-    (ROADMAP C-16). The sort-based jnp oracle keeps k lanes there, so it is
-    not compared on this input. bf16's all-ones NaN widens to 0x7fff0000,
-    below the wrap: there every lane agrees."""
+    pattern 0x80000001 (a negative denormal), and every non-NaN, non-zero
+    lane of that block is kept, more than k. XLA on the CPU compares the
+    denormal as 0.0, so a zero there is a tie that does not fit and comes
+    out +0.0; the plain version compares denormals as zero too (ROADMAP
+    C-16), so every lane equals the Pallas kernel's. The sort-based jnp
+    oracle keeps k lanes there, so it is not compared on this input.
+    bf16's all-ones NaN widens to 0x7fff0000, below the wrap."""
     v = _tricky()
     v.view(np.uint32)[[5, 4096 + 17]] = (0x7FFFFFFF, 0xFFFFFFFF)
     jv, tv = _pair(v, dtype)
@@ -128,19 +127,84 @@ def test_the_all_ones_nan_keeps_the_pallas_kernels_mask(gamma, block, dtype):
     got, k = block_topk_sparsify(tv, gamma, block=block)
     want, _ = j_pallas(jv, gamma, block=block)
     g, w = _bits(got), _bits(want)
+    np.testing.assert_array_equal(g, w)
     if dtype == "bfloat16":
-        np.testing.assert_array_equal(g, w)
         return
-    wrapped = np.zeros(v.shape, bool)
     for lane in (5, 4096 + 17):
         lo = lane // block * block
-        wrapped[lo:lo + block] = True
-        kept = np.where(np.isnan(v[lo:lo + block]), np.float32(0), v[lo:lo + block])
+        blk = v[lo:lo + block]
+        kept = np.where(np.isnan(blk) | (blk == 0), np.float32(0), blk)
         np.testing.assert_array_equal(g[lo:lo + block], kept.view(np.int32))
-        assert int((~np.isnan(v[lo:lo + block])).sum()) > k
-    differ = g != w
-    assert differ.any() and (wrapped & (v == 0))[differ].all()
-    assert (g[differ] == np.int32(-2**31)).all() and (w[differ] == 0).all()
+        assert int((~np.isnan(blk)).sum()) > k
+
+
+def _denormal_vector(dtype: str, seed=0) -> np.ndarray:
+    """Blocks of 1024 (as uint32 fp32 patterns, or uint16 bf16 ones): block 0
+    holds a few normals and many denormals of either sign (a mid k's
+    threshold is a denormal, C-16 (b)); block 1 a few normals, zeros, then
+    denormals (the threshold is 0.0 and denormals come after zeros, C-16
+    (c)); block 2 normals with one denormal (kept only at large k)."""
+    rng, n = np.random.default_rng(seed), 3 * 1024
+    if dtype == "float32":
+        normal = lambda m: rng.normal(size=m).astype(np.float32).view(np.uint32)  # noqa: E731
+        man, sign, out = 1 << 23, 0x80000000, np.zeros(n, np.uint32)
+    else:
+        normal = lambda m: (rng.normal(size=m).astype(np.float32).view(np.uint32)  # noqa: E731
+                            >> 16).astype(np.uint16)
+        man, sign, out = 1 << 7, 0x8000, np.zeros(n, np.uint16)
+    den = lambda m: (rng.integers(1, man, size=m)  # noqa: E731
+                     | np.where(rng.random(m) < 0.5, sign, 0)).astype(out.dtype)
+    out[0:1024:40] = normal(len(out[0:1024:40]))
+    out[3:1024:7] = den(len(out[3:1024:7]))
+    out[1024:1024 + 20] = normal(20)
+    out[1024 + 512:2048:9] = den(len(out[1024 + 512:2048:9]))
+    out[2048:] = normal(1024)
+    out[2048 + 700] = den(1)[0]
+    return out
+
+
+def _from_bits(bits: np.ndarray, dtype: str):
+    if dtype == "float32":
+        return _pair(bits.view(np.float32), dtype)
+    tv = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+    return jnp.asarray(bits).view(jnp.bfloat16), tv
+
+
+@pytest.mark.parametrize("gamma", [0.03, 0.1, 0.55, 0.99])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_denormals_compare_as_zero_as_in_the_reference(gamma, dtype):
+    """C-16 (b) and (c) on the one-vector path: XLA on the CPU compares a
+    denormal magnitude or threshold as 0.0, so denormals tie with zeros
+    and are kept in index order while they fit; a kept denormal keeps its
+    bits (the product is a select). The plain version equals the Pallas
+    kernel on every lane, bf16 in its own type."""
+    jv, tv = _from_bits(_denormal_vector(dtype), dtype)
+    got, _ = block_topk_sparsify(tv, gamma, block=1024)
+    want, _ = j_pallas(jv, gamma, block=1024)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    if gamma >= 0.55:
+        # some denormal is kept, with its bits
+        kept = _bits(got)[_bits(got) != 0]
+        assert ((kept & 0x7F800000) == 0).any()
+
+
+@pytest.mark.parametrize("gammas", [[0.03, 0.1, 0.99], [0.55, 1.0, 0.2]])
+def test_denormal_rows_match_the_reference_batch_top_k(gammas):
+    """C-16 on the rows path (the FL round's top-k): the port's
+    ``batch_block_topk`` on rows holding the denormal blocks against the
+    reference's jitted ``batch_block_topk`` (its bisection fast path) and
+    its Pallas rows kernel (interpreted), bit for bit."""
+    from repro.fl.compression import batch_block_topk as j_batch
+    from repro_torch.fl.compression import batch_block_topk
+
+    base = np.tile(_denormal_vector("float32"), 4).view(np.float32)
+    mat = np.stack([np.roll(base, 1000 * i) for i in range(3)])
+    g = np.asarray(gammas, np.float32)
+    got = _bits(batch_block_topk(torch.from_numpy(mat), torch.from_numpy(g)))
+    for use_pallas in (False, True):
+        want = jax.jit(lambda m, g, p=use_pallas: j_batch(m, g, use_pallas=p))(
+            jnp.asarray(mat), jnp.asarray(g))
+        np.testing.assert_array_equal(got, _bits(want))
 
 
 def test_keeps_exactly_k_per_block_and_the_largest():

@@ -8,7 +8,8 @@ t + 256 p, p < 16), the radix select's 4 passes over digits of 8, 8, 8 and 7 bit
 the 31-bit pattern of |x| (one histogram a pass, its scan of the bins from
 the top as warp scans plus warp totals, the winning bin and the rank left
 in it), the wrapped 31-pass bisection of a block
-whose largest pattern is 0x7fffffff, the float tests, and the tie scan in
+whose largest pattern is 0x7fffffff, the float tests (denormals compare
+as zero, as on XLA's CPU: ROADMAP C-16), and the tie scan in
 index order through (p, warp, lane) ballots and the exclusive scan of the
 128 (p, warp) counts. Both kernels, the rows one and the one-vector one,
 run this select in CTAs of that shape. ``chip_smoke.py`` holds the kernels themselves to the port's plain version
@@ -81,10 +82,19 @@ def _wrapped_bisection(bits, counted, k):
     return lo
 
 
-def kernel_mask(x: torch.Tensor, k, *, valid=None) -> torch.Tensor:
+def _compared(bits: torch.Tensor, daz: bool) -> torch.Tensor:
+    """The float32 a compare sees for int64 patterns: denormals as +0.0
+    when ``daz`` (the kernels' ``daz_float``), else the IEEE value."""
+    if daz:
+        bits = torch.where((bits & 0x7F800000) == 0, 0, bits)
+    return _wrap(bits).to(torch.int32).view(torch.float32)
+
+
+def kernel_mask(x: torch.Tensor, k, *, valid=None, daz=True) -> torch.Tensor:
     """What a CTA keeps of each row of ``x`` [R, n]
     (n <= 4096 lanes counted; the lanes of [valid, n) hold the ragged
-    tail's zeros) at ``k`` (an int or [R]). Returns the mask [R, n]."""
+    tail's zeros) at ``k`` (an int or [R]). Returns the mask [R, n].
+    ``daz=False`` makes the float tests IEEE compares instead."""
     r, n = x.shape
     per = MAX_BLOCK // THREADS
     valid = n if valid is None else valid
@@ -100,8 +110,8 @@ def kernel_mask(x: torch.Tensor, k, *, valid=None) -> torch.Tensor:
     wrapped = ((bits == 0x7FFFFFFF) & counted).any(1)
     thresh = torch.where(wrapped, _wrapped_bisection(bits, counted, k),
                          _radix_threshold(bits, counted, k))
-    t32 = _wrap(thresh).to(torch.int32).view(torch.float32)[:, None]
-    mag = bits.to(torch.int32).view(torch.float32)
+    t32 = _compared(thresh, daz)[:, None]
+    mag = _compared(bits, daz)
     gt = counted & (mag > t32)
     eq = counted & (mag == t32)
 
@@ -161,11 +171,29 @@ def _case(name: str, n: int, rng) -> np.ndarray:
         v = rng.normal(size=n).astype(np.float32)
         v[n // 2] = _f32(0xFFFFFFFF)
         return v
+    if name == "denormal_threshold":   # a mid k's threshold is a denormal
+        v = np.zeros(n, np.float32)
+        v[::40] = rng.normal(size=len(v[::40]))
+        v[3::7] = _denormals(len(v[3::7]), rng)
+        return v
+    if name == "denormals_after_zeros":  # threshold 0, denormals late
+        v = np.zeros(n, np.float32)
+        v[:20] = rng.normal(size=20)
+        v[n // 2::9] = _denormals(len(v[n // 2::9]), rng)
+        return v
     raise KeyError(name)
 
 
+def _denormals(size: int, rng) -> np.ndarray:
+    """float32 denormals of either sign (exponent field 0, mantissa > 0)."""
+    bits = rng.integers(1, 1 << 23, size=size, dtype=np.uint32)
+    bits[rng.random(size) < 0.5] |= np.uint32(0x80000000)
+    return _f32(bits)
+
+
 CASES = ("gradient", "ties_across_digits", "all_equal", "all_zero",
-         "specials", "all_ones_nan", "negative_all_ones_nan")
+         "specials", "all_ones_nan", "negative_all_ones_nan",
+         "denormal_threshold", "denormals_after_zeros")
 
 
 def _check(x: np.ndarray, ks, *, n_lanes: int, valid: int,
@@ -211,10 +239,12 @@ def test_the_all_ones_nan_keeps_the_references_wrapped_mask(ks):
 
 def test_zeros_beside_the_all_ones_nan_follow_ieee_compares():
     """In a wrapped block the threshold is the pattern 0x80000001, a
-    negative denormal: IEEE compares (the model, the port's plain version
-    and the card) keep the zero lanes; XLA on the CPU compares the denormal
-    as -0.0, so the JAX package's mask drops them as ties that do not fit
-    (ROADMAP C-16). Every other lane agrees."""
+    negative denormal. IEEE compares (the model with ``daz=False``) would
+    keep the zero lanes beside it; XLA on the CPU compares the denormal as
+    0.0, so the JAX package's mask drops them as ties that do not fit, and
+    so do the port's plain version and the kernels' model, which compare
+    denormals as zero (ROADMAP C-16). Every lane agrees with the reference;
+    the zero lanes are the only ones the IEEE compares would keep."""
     rng = np.random.default_rng(5)
     x = np.stack([_case("all_ones_nan", MAX_BLOCK, rng) for _ in range(2)])
     x[:, 3::5] = -0.0
@@ -223,10 +253,48 @@ def test_zeros_beside_the_all_ones_nan_follow_ieee_compares():
     ks = torch.tensor([[100], [MAX_BLOCK - 1]])
     got = kernel_mask(xt, ks[:, 0])
     assert torch.equal(got, topk_threshold_mask(xt, ks))
-    assert torch.equal(got, ~torch.isnan(xt))
     jwant = np.asarray(j_mask(jnp.asarray(x), jnp.asarray(ks.numpy())))
-    differ = got.numpy() != jwant
+    np.testing.assert_array_equal(got.numpy(), jwant)
+    # at k = 100 no tie fits: every zero is dropped (at k = 4095 they fit)
+    assert torch.equal(got[0], ~torch.isnan(xt[0]) & (xt[0] != 0))
+    ieee = kernel_mask(xt, ks[:, 0], daz=False)
+    assert torch.equal(ieee, ~torch.isnan(xt))
+    differ = ieee.numpy() != jwant
     assert differ.any() and (x[differ] == 0).all() and not jwant[differ].any()
+
+
+@pytest.mark.parametrize("k", [100, 409, 700])
+def test_a_denormal_threshold_ties_with_zero_as_in_the_reference(k):
+    """C-16 (b): the k-th largest |x| is a denormal. With denormals as zero
+    every denormal and zero lane is a tie of the threshold, filled in index
+    order, where IEEE compares would keep the largest denormals; the model,
+    the port and the JAX package keep the same lanes."""
+    rng = np.random.default_rng(k)
+    x = np.stack([_case("denormal_threshold", MAX_BLOCK, rng) for _ in range(3)])
+    got = _check(x, [k] * 3, n_lanes=MAX_BLOCK, valid=MAX_BLOCK)
+    bits = np.abs(x).view(np.int32)
+    assert ((bits[:, ::40] > 0x7FFFFF).sum(1) < k).all()      # normals fit
+    ieee = kernel_mask(torch.from_numpy(x), k, daz=False)
+    assert not torch.equal(got, ieee)
+    assert (got.sum(1) == k).all() and (ieee.sum(1) == k).all()
+
+
+@pytest.mark.parametrize("k", [409, 2048, 2200])
+def test_denormals_after_zeros_are_kept_in_index_order(k):
+    """C-16 (c): the threshold is 0.0 and denormal lanes sit after zeros.
+    The reference keeps the first ties in index order, zeros and denormals
+    alike, so a late denormal is dropped (IEEE compares would keep every
+    denormal as larger than zero); the kept ones keep their bits."""
+    rng = np.random.default_rng(k)
+    x = np.stack([_case("denormals_after_zeros", MAX_BLOCK, rng)
+                  for _ in range(2)])
+    got = _check(x, [k] * 2, n_lanes=MAX_BLOCK, valid=MAX_BLOCK)
+    denormal = (x != 0) & (np.abs(x).view(np.int32) <= 0x7FFFFF)
+    lanes = np.arange(MAX_BLOCK)
+    np.testing.assert_array_equal(got.numpy()[denormal],
+                                  np.broadcast_to(lanes < k, x.shape)[denormal])
+    ieee = kernel_mask(torch.from_numpy(x), k, daz=False)
+    assert ieee.numpy()[denormal].all()
 
 
 @pytest.mark.parametrize("valid", [1, 100, 4000, 4095])
