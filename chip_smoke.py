@@ -36,7 +36,9 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    of the main path's last round, after phase 3);
 3. paths: ``repro_torch.fl.FederatedTrainer.run_scanned(5)`` with the
    paper's full-width FMNIST CNN (D = 1,630,090), N = 50 clients and the
-   ``benchmarks/fl_experiments.build`` data recipe, on ``cuda``, four
+   recipe of ``repro_torch.launch.experiments.build`` (the port of
+   ``benchmarks/fl_experiments.build``, weights from its seeded
+   ``init_cnn``), on ``cuda``, four
    times: the legacy main path, (a) the ``quantized`` scenario, (b)
    ``bursty-interference`` with ``price_outage``, and (c) (b) with the
    joint grid (8, 16, 32). Each path's launch counts are zeroed just
@@ -47,11 +49,15 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    below 32 bits, (b) and (c) must retransmit;
 4. card against CPU: ``solve_round`` at the main path's setting (N = 50,
    full-width payload, default solver config) for 5 rounds, for each
-   dual-solve variant, then the smoke CNN with N = 8 for 2 rounds of the
-   legacy trainer and of path (c), each on ``cuda`` and on ``cpu`` from
-   the same inputs: equal masks, gammas, widths, ``n_inner`` and
-   retransmission counts, energies to rtol 1e-5 (solver) and 1e-4
-   (trainer);
+   dual-solve variant, and with ``bw_solver="gss"`` (plain PyTorch;
+   energies within 2e-3, ROADMAP C-18), then the smoke CNN with N = 8 for
+   2 rounds of the legacy trainer, of path (c) and of the five other
+   strategies (``scoremax``, ``ecorandom``, ``randomfull``,
+   ``channelgreedy``, ``tilted``), each on ``cuda`` and on ``cpu`` from
+   the same inputs: equal masks (a split is reported with its score gap),
+   gammas, widths, ``n_inner`` and retransmission counts, energies to rtol
+   1e-5 (solver) and 1e-4 (trainer); and the baselines' ``topk_mask`` on
+   CUDA tensors against ``np.argsort`` (ties, NaN);
 5. serve: ``repro_torch.launch.serve.generate`` with TinyLlama-1.1B at full
    width (22 layers, d 2048, random weights from a seeded generator on the
    card, bf16): 4 prompts of 2048 ids, 32 new tokens each, once to warm up
@@ -87,6 +93,19 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    of 4 cards' share) equals the same clients' rows of the step over all
    50, bit for bit, and two calls of one step agree, with the step's time
    at each chunk size beside the client module's CLIENT_CHUNK.
+
+8. the paper's experiment: ``repro_torch.launch.experiments.run_all`` at
+   the recipe's own 60 rounds, N = 50, with the extra baselines, seed
+   lanes (0, 1) for every strategy and FairEnergy's eta lanes (0.04,
+   0.16), each run's launch counts zeroed just before it and read just
+   after (FairEnergy's fused ascent once a round of each lane, no
+   dual-solve kernel in a baseline run, the top-k rows and the norms in
+   every run), the protocol's K, EcoRandom gamma (< 1) and bandwidth in
+   range, finite energies and accuracies, and every strategy's seed-0
+   lane equal to its ``run_scanned`` run bit for bit; one line a strategy
+   (steady rounds/s, sweep rounds/s, energy a round, final accuracy,
+   participation) and FairEnergy's energy against each baseline's; the
+   results JSON goes to ``build/chip_smoke/``.
 
 ``--cards K`` runs phase 7 alone across K cards (one NCCL rank a card,
 after the build): the exchanges on a (2, K/2, 1) mesh against the pod mean
@@ -125,7 +144,6 @@ PEAK_BF16_S = 989e12
 GRID = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
 N_CLIENTS = 50
 ROUNDS = 5
-DATA_KW = dict(confusion=0.55, label_noise=0.05, noise=0.9)
 
 
 def log(*args):
@@ -736,63 +754,17 @@ def counters() -> dict:
     return out
 
 
-def paper_data():
-    """The fl_experiments.build data: (train, test) image/label pairs,
-    made once and shared by the paths."""
-    from repro_torch.data import make_fmnist_like
-    return (make_fmnist_like(12000, seed=0, **DATA_KW),
-            make_fmnist_like(2000, seed=999, **dict(DATA_KW, label_noise=0.0)))
-
-
-def paper_trainer(dev, data, scenario=None, price_outage=None, bits_grid=None,
+def paper_trainer(dev, scenario=None, price_outage=None, bits_grid=None,
                   mesh=None):
-    """The fl_experiments.build recipe at N = 50 with the full CNN on
-    ``data`` (``paper_data()``), with its scenario, price_outage and
-    bits_grid arguments, through the port's scenario registry; ``mesh``
-    shards the clients."""
-    import dataclasses
-
-    from repro_torch.configs import ChannelConfig, FairEnergyConfig, FLConfig
-    from repro_torch.configs.fmnist_cnn import CONFIG
-    from repro_torch.data import ClientDataset, dirichlet_partition
-    from repro_torch.fl import FederatedTrainer
-    from repro_torch.models import CNN, cnn_loss
-    from repro_torch.scenarios import get_scenario
-
-    scn = get_scenario(scenario) if scenario is not None else None
-    beta = scn.beta(0.3) if scn else 0.3
-    ch_cfg = ChannelConfig(n_clients=N_CLIENTS)
-    fe_cfg = FairEnergyConfig()
-    extra = {}
-    if scn:
-        ch_cfg = scn.apply_channel(ch_cfg)
-        fe_cfg = scn.apply_fe(fe_cfg)
-        extra = dict(device_profile=scn.device_profile(N_CLIENTS, seed=0),
-                     async_cfg=scn.async_config(), fault_cfg=scn.fault_config(),
-                     defense=scn.defense_config(),
-                     mobility=scn.mobility_config(),
-                     link_cfg=scn.link_config(price_outage=price_outage))
-    if bits_grid is not None:
-        fe_cfg = dataclasses.replace(fe_cfg,
-                                     bits_grid=tuple(float(b) for b in bits_grid))
-    (imgs, labels), (ti, tl) = data
-    parts = dirichlet_partition(labels, N_CLIENTS, beta, seed=0)
-    fl_cfg = FLConfig(rounds=ROUNDS, local_batch=64, local_steps=2, lr=0.05,
-                      dirichlet_beta=beta)
-    datasets = [ClientDataset(imgs[p], labels[p], fl_cfg.local_batch, seed=i)
-                for i, p in enumerate(parts)]
-    model = CNN(CONFIG, torch.Generator().manual_seed(0)).to(dev)
-    ti_t = torch.as_tensor(ti, device=dev)
-    tl_t = torch.as_tensor(tl, device=dev).long()
-
-    def eval_fn(p):
-        logits = torch.func.functional_call(model, p, (ti_t,))
-        return torch.mean((torch.argmax(logits, -1) == tl_t).to(torch.float32))
-
-    return FederatedTrainer(
-        model_loss=cnn_loss(model), model_params=dict(model.named_parameters()),
-        client_datasets=datasets, eval_fn=eval_fn, fl_cfg=fl_cfg,
-        fe_cfg=fe_cfg, ch_cfg=ch_cfg, seed=0, device=dev, mesh=mesh, **extra)
+    """The paper recipe at N = 50 with the full CNN, from the port's
+    ``launch.experiments.build`` (the ``fl_experiments.build`` recipe and
+    its seeded ``init_cnn`` weights), with its scenario, price_outage and
+    bits_grid arguments; ``mesh`` shards the clients."""
+    from repro_torch.launch.experiments import build
+    make, _ = build(n_clients=N_CLIENTS, rounds=ROUNDS, seed=0,
+                    scenario=scenario, price_outage=price_outage,
+                    bits_grid=bits_grid, device=dev)
+    return make("fairenergy", mesh=mesh)
 
 
 # label -> (fl_experiments.build arguments, the fused dual-ascent variant it runs)
@@ -807,12 +779,12 @@ PATHS = {
 }
 
 
-def drive_path(dev, data, label: str) -> dict:
+def drive_path(dev, label: str) -> dict:
     """Run one path's 5 rounds with every launch count zeroed just before
     and read just after; check what the path must show."""
     build_kw, own = PATHS[label]
     t0 = time.perf_counter()
-    tr = paper_trainer(dev, data, **build_kw)
+    tr = paper_trainer(dev, **build_kw)
     log(f"path {label}: {tr.n_clients} clients, D={tr.n_params}, set-up "
         f"{time.perf_counter() - t0:.1f} s")
     fns = counters()
@@ -987,15 +959,105 @@ def solver_card_against_cpu(dev, variant: str):
                              f"{FUSED[variant]} once a round")
 
 
-def card_against_cpu(dev, scenario=None, price_outage=None, bits_grid=None):
+# the fixed-K knobs of phase 4's baseline runs (N = 8): EcoRandom at a
+# gamma below 1, so its rows are sparsified
+BASELINE_KW = dict(fixed_k=3, eco_gamma=0.25, eco_bandwidth=2e6)
+BASELINES = ("scoremax", "ecorandom", "randomfull", "channelgreedy", "tilted")
+
+
+def _split_gap(label: str, r: int, a, b, scores) -> str:
+    """What a mask split between the card and the CPU looks like: the
+    clients that differ and, for a ranking strategy, the relative gap
+    between the K-th and the (K+1)-th score on the CPU."""
+    who = np.nonzero(a.selected != b.selected)[0].tolist()
+    msg = f"{label} round {r}: masks differ at clients {who}"
+    if scores is not None:
+        k = int(b.selected.sum())
+        top = np.sort(scores)[::-1]
+        if 0 < k < top.size:
+            msg += (f"; K-th/(K+1)-th scores {top[k - 1]:.9g} / {top[k]:.9g}, "
+                    f"relative gap {(top[k - 1] - top[k]) / abs(top[k - 1]):.3g}")
+    return msg
+
+
+def gss_card_against_cpu(dev):
+    """``solve_round`` with ``bw_solver="gss"`` (plain PyTorch on either
+    device) at the main path's setting, 5 warm-started rounds on the card
+    and on the CPU: masks, gammas and n_inner equal; energies, widths and
+    lam to rtol 2e-3, the golden-section search's own reach (ROADMAP
+    C-18: it ends on float32 noise in a flat minimum), measured and
+    logged; no fused ascent is launched."""
+    import dataclasses
+
+    from repro_torch.core.fairenergy import solve_round
+
+    ctrl, P, hs, us, _ = solver_setting("dual_solve")
+    fe = dataclasses.replace(ctrl.fe_cfg, bw_solver="gss")
+    states = {"cpu": ctrl.init(N_CLIENTS)}
+    states["cuda"] = to_device(states["cpu"], dev)
+    fns = counters()
+    before = {k: getattr(fn, attr) for k, (fn, attr) in fns.items()
+              if k.startswith("dual_")}
+    for r in range(5):
+        dec = {}
+        for name in ("cuda", "cpu"):
+            dv = dev if name == "cuda" else torch.device("cpu")
+            dec[name], states[name] = solve_round(us[r].to(dv), hs[r].to(dv),
+                                                  P.to(dv), states[name],
+                                                  fe_cfg=fe)
+        a, b = dec["cuda"], dec["cpu"]
+        if not torch.equal(a.x.cpu(), b.x):
+            raise AssertionError(f"gss solver round {r}: masks differ, cuda "
+                                 f"{a.x.int().tolist()} cpu {b.x.int().tolist()}")
+        if not torch.equal(a.gamma.cpu(), b.gamma) or int(a.n_inner) != int(b.n_inner):
+            raise AssertionError(f"gss solver round {r}: gamma or n_inner differ")
+        rel = {name: float(torch.max(torch.abs(getattr(a, name).cpu() - getattr(b, name))
+                                     / torch.clamp(torch.abs(getattr(b, name)), min=1e-30)))
+               for name in ("lam", "energy", "bandwidth")}
+        log(json.dumps({"gss_card_vs_cpu": r, "n_inner": int(b.n_inner),
+                        "selected": int(b.x.sum()), "max_rel": rel}))
+        for name in ("lam", "energy", "bandwidth"):
+            torch.testing.assert_close(getattr(a, name).cpu(), getattr(b, name),
+                                       rtol=2e-3, atol=1e-12)
+    after = {k: getattr(fn, attr) for k, (fn, attr) in fns.items()
+             if k.startswith("dual_")}
+    if after != before:
+        raise AssertionError("the gss solver launched a dual-solve kernel")
+
+
+def topk_mask_on_card(dev):
+    """The baselines' ``topk_mask`` on CUDA tensors: ties to the lower
+    index and NaN last, as ``np.argsort(-scores, kind="stable")``."""
+    from repro_torch.core.controllers import topk_mask
+    rows = ([3.0, 1.0, 3.0, 5.0, 0.5], [2.0] * 6,
+            [1.0, float("nan"), 4.0, float("nan"), -float("inf"), 4.0],
+            [float("nan"), float("nan"), 0.0],
+            [-float("inf"), -float("inf"), 1.0, float("inf")])
+    for row in rows:
+        s = np.asarray(row, np.float32)
+        for k in range(s.size + 1):
+            want = np.zeros(s.size, bool)
+            want[np.argsort(-s, kind="stable")[:k]] = True
+            got = topk_mask(torch.tensor(s, device=dev), k).cpu().numpy()
+            if not np.array_equal(got, want):
+                raise AssertionError(f"topk_mask on the card: {row} k={k} "
+                                     f"gives {got.astype(int)}, want {want.astype(int)}")
+    log(json.dumps({"topk_mask_on_card": len(rows)}))
+
+
+def card_against_cpu(dev, scenario=None, price_outage=None, bits_grid=None,
+                     strategy="fairenergy"):
     """The smoke CNN with N = 8 for 2 rounds on the card and on the CPU;
-    the scenario arguments as in paper_trainer."""
+    the scenario arguments as in paper_trainer; a baseline ``strategy``
+    runs with ``BASELINE_KW``. A mask split is reported with its gap and
+    fails the phase."""
     import dataclasses
 
     from repro_torch.configs import ChannelConfig, FairEnergyConfig, FLConfig
     from repro_torch.configs.fmnist_cnn import SMOKE
     from repro_torch.data import dirichlet_partition, make_fmnist_like
     from repro_torch.fl import FederatedTrainer
+    from repro_torch.launch.experiments import DATA_KW
     from repro_torch.models import CNN, cnn_loss
     from repro_torch.scenarios import get_scenario
 
@@ -1018,6 +1080,8 @@ def card_against_cpu(dev, scenario=None, price_outage=None, bits_grid=None):
                      link_cfg=scn.link_config(price_outage=price_outage))
     if bits_grid is not None:
         fe = dataclasses.replace(fe, bits_grid=bits_grid)
+    if strategy != "fairenergy":
+        extra.update(BASELINE_KW)
     hist = {}
     for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
         model = CNN(SMOKE).to(d)
@@ -1032,21 +1096,25 @@ def card_against_cpu(dev, scenario=None, price_outage=None, bits_grid=None):
             client_datasets=shards, eval_fn=eval_fn,
             fl_cfg=FLConfig(local_steps=2, local_batch=32, lr=0.05),
             fe_cfg=fe, ch_cfg=ChannelConfig(n_clients=n), seed=1, device=d,
-            **extra)
+            strategy=strategy, **extra)
         tr.run_scanned(2, verbose=False)
         hist[name] = tr.history
-    label = scenario or "legacy"
+        if name == "cpu":
+            net = tr.network
+    label = scenario or ("legacy" if strategy == "fairenergy" else strategy)
     for a, b in zip(hist["cuda"], hist["cpu"]):
         if not np.array_equal(a.selected, b.selected):
-            raise AssertionError(f"{label} round {a.round}: masks differ, cuda "
-                                 f"{a.selected.astype(int)} cpu {b.selected.astype(int)}")
+            # the ranking a fixed-K baseline cut at K (tilted's is random)
+            scores = net.gains(a.round) if strategy == "channelgreedy" else None
+            raise AssertionError(_split_gap(label, a.round, a, b, scores))
         np.testing.assert_array_equal(a.gamma, b.gamma)
         if b.bits is not None:
             np.testing.assert_array_equal(a.bits, b.bits)
         if (a.n_retx, a.n_outage) != (b.n_retx, b.n_outage):
             raise AssertionError(f"{label} round {a.round}: retransmissions differ")
         np.testing.assert_allclose(a.energy, b.energy, rtol=1e-4, atol=0)
-        log(json.dumps({"card_vs_cpu": label, "price_outage": price_outage,
+        log(json.dumps({"card_vs_cpu": label, "strategy": strategy,
+                        "price_outage": price_outage,
                         "bits_grid": bits_grid, "round": a.round,
                         "selected": a.selected.astype(int).tolist(),
                         "bits": None if a.bits is None else a.bits.tolist(),
@@ -1054,6 +1122,123 @@ def card_against_cpu(dev, scenario=None, price_outage=None, bits_grid=None):
                         "energy_max_rel": float(np.max(np.abs(a.energy - b.energy)
                                                        / np.maximum(np.abs(b.energy), 1e-30))),
                         "accuracy_cuda": a.accuracy, "accuracy_cpu": b.accuracy}))
+
+
+# ------------------------------------------------------------ phase 8 ----
+# the paper's experiment: its recipe's own 60 rounds, the extra baselines,
+# two seed lanes a strategy, and FairEnergy's config lanes at half and
+# twice the eta that eta_auto calibrates on this recipe (0.0807)
+EXPERIMENT = dict(n_clients=N_CLIENTS, rounds=60, seed=0, extra_baselines=True,
+                  sweep_seeds=(0, 1), config_sweep={"eta": [0.04, 0.16]})
+EXPERIMENT_OUT = HERE / "build" / "chip_smoke" / "fl_results_torch.json"
+
+
+def paper_experiment(dev) -> dict:
+    """``launch.experiments.run_all`` at the paper recipe on the card, each
+    run with every launch count zeroed just before it and read just after:
+    FairEnergy launches its fused ascent once a round (of each lane in a
+    sweep), a baseline no dual-solve kernel, every run the top-k and the
+    norms. The protocol's K, EcoRandom gamma (< 1: its rows are really
+    sparsified) and bandwidth are in range, energies and accuracies
+    finite, and each strategy's seed-0 sweep lane equals its
+    ``run_scanned`` run bit for bit. Prints a line a strategy and
+    FairEnergy's energy a round against each baseline's (recorded, not
+    gated); the results JSON goes under ``build/``."""
+    from repro_torch.launch.experiments import _json_safe, run_all
+
+    fns = counters()
+    rounds, lanes = EXPERIMENT["rounds"], len(EXPERIMENT["sweep_seeds"])
+    n_cfg = len(EXPERIMENT["config_sweep"]["eta"])
+    seen = {}
+
+    def monitor(event, phase, name, obj):
+        if event == "before":
+            torch.cuda.synchronize()
+            for fn, attr in fns.values():
+                setattr(fn, attr, 0)
+            seen[(phase, name)] = {"t0": time.perf_counter()}
+            return
+        torch.cuda.synchronize()
+        rec = seen[(phase, name)]
+        rec["wall_s"] = time.perf_counter() - rec.pop("t0")
+        rec["launches"] = {k: getattr(fn, attr) for k, (fn, attr) in fns.items()}
+        if phase == "run":
+            rec["history"] = list(obj.history)
+        else:
+            rec["outs"] = obj
+
+    t0 = time.perf_counter()
+    res = run_all(verbose=False, device=dev, monitor=monitor, **EXPERIMENT)
+    total_s = time.perf_counter() - t0
+    k, g, bw = res["k"], res["eco_gamma"], res["eco_bandwidth"]
+    b_tot = 10e6
+    if not (1 <= k <= N_CLIENTS and 0.0 < g < 1.0 and 0.0 < bw <= b_tot):
+        raise AssertionError(f"protocol constants out of range: K {k}, "
+                             f"eco_gamma {g}, eco_bandwidth {bw}")
+    fused = "dual_ascent"
+    for (phase, name), rec in seen.items():
+        n = rec["launches"]
+        runs = {"run": 1, "sweep": lanes, "config_sweep": lanes * n_cfg}[phase]
+        for kernel in ("topk_rows", "row_sq_sum"):
+            if n[kernel] <= 0:
+                raise AssertionError(f"{phase} {name} launched no {kernel}")
+        duals = {kk: v for kk, v in n.items() if kk.startswith("dual_") and v}
+        want = {fused: rounds * runs} if name == "fairenergy" else {}
+        if duals != want:
+            raise AssertionError(f"{phase} {name}: dual-solve launches {duals}, "
+                                 f"want {want}")
+    out = {"experiment": {kk: v for kk, v in EXPERIMENT.items()},
+           "k": k, "eco_gamma": g, "eco_bandwidth": bw,
+           "total_s": total_s, "strategies": {}}
+    fe_epr = float(np.mean(res["strategies"]["fairenergy"]["energy_per_round_J"]))
+    for name, s in res["strategies"].items():
+        hist = seen[("run", name)]["history"]
+        sweep = seen[("sweep", name)]["outs"]
+        if not (np.isfinite(s["energy_per_round_J"]).all()
+                and np.isfinite(s["accuracy"]).all()
+                and np.isfinite(sweep["energy"]).all()
+                and np.isfinite(sweep["accuracy"]).all()):
+            raise AssertionError(f"{name}: non-finite energy or accuracy")
+        lane0 = {"x": np.stack([lg.selected for lg in hist]),
+                 "energy": np.stack([lg.energy for lg in hist]),
+                 "accuracy": np.array([lg.accuracy for lg in hist], np.float32)}
+        for key, want in lane0.items():
+            if not np.array_equal(sweep[key][0], want):
+                diff = int(np.sum(sweep[key][0] != want))
+                raise AssertionError(f"{name}: seed lane 0's {key} differs from "
+                                     f"its run_scanned run on {diff} entries")
+        steady = [lg.wall_s for lg in hist[1:]]
+        sw = seen[("sweep", name)]["wall_s"]
+        epr = float(np.mean(s["energy_per_round_J"]))
+        line = {"strategy": name, "rounds": rounds,
+                "round_ms_steady_mean": 1e3 * sum(steady) / len(steady),
+                "rounds_per_s_steady": len(steady) / sum(steady),
+                "sweep_rounds_per_s": lanes * rounds / sw,
+                "energy_per_round_J": epr,
+                "final_accuracy": s["accuracy"][-1],
+                "participation": s["participation"],
+                "mean_selected": s["mean_selected"], "mean_gamma": s["mean_gamma"],
+                "sweep_final_acc_mean": res["sweep"]["strategies"][name]["final_acc_mean"],
+                "launches_run": {kk: v for kk, v in seen[("run", name)]["launches"].items() if v},
+                "launches_sweep": {kk: v for kk, v in seen[("sweep", name)]["launches"].items() if v}}
+        if name != "fairenergy":
+            line["fairenergy_energy_saving_vs_this"] = 1.0 - fe_epr / epr
+        log(json.dumps({"experiment_strategy": line}))
+        out["strategies"][name] = line
+    cs = seen[("config_sweep", "fairenergy")]
+    out["config_sweep"] = {"lanes": res["config_sweep"]["lanes"],
+                           "rounds_per_s": lanes * n_cfg * rounds / cs["wall_s"],
+                           "launches": {kk: v for kk, v in cs["launches"].items() if v}}
+    log(json.dumps({"experiment_config_sweep": out["config_sweep"]}))
+    log(json.dumps({"experiment_summary": {
+        "k": k, "eco_gamma": g, "eco_bandwidth": bw, "total_s": total_s,
+        "fairenergy_energy_per_round_J": fe_epr,
+        "saving_vs": {n: s["fairenergy_energy_saving_vs_this"]
+                      for n, s in out["strategies"].items() if n != "fairenergy"}}}))
+    EXPERIMENT_OUT.parent.mkdir(parents=True, exist_ok=True)
+    EXPERIMENT_OUT.write_text(json.dumps(_json_safe({"results": res, "card": out}),
+                                         indent=1, default=float))
+    return out
 
 
 # ------------------------------------------------------------ phase 5 ----
@@ -1397,12 +1582,12 @@ def collectives_one_rank(dev, vec: torch.Tensor) -> int:
     return launches["topk_block"]
 
 
-def sharded_trainer_one_rank(dev, data, main: dict):
+def sharded_trainer_one_rank(dev, main: dict):
     """Phase 7 (b): the main path's recipe on a one-rank clients mesh,
     against phase 3's main path."""
     from repro_torch.sharding import make_clients_mesh
 
-    tr = paper_trainer(dev, data, mesh=make_clients_mesh(device=dev))
+    tr = paper_trainer(dev, mesh=make_clients_mesh(device=dev))
     fns = counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1439,7 +1624,7 @@ def sharded_trainer_one_rank(dev, data, main: dict):
     client_step_by_card(dev, tr, 4)
 
 
-def multirank_paths(dev, vec: torch.Tensor, data, main: dict) -> int:
+def multirank_paths(dev, vec: torch.Tensor, main: dict) -> int:
     """Phase 7 inside a one-rank process group (NCCL on the card)."""
     import tempfile
 
@@ -1450,7 +1635,7 @@ def multirank_paths(dev, vec: torch.Tensor, data, main: dict) -> int:
                                 rank=0, world_size=1)
         try:
             launches = collectives_one_rank(dev, vec)
-            sharded_trainer_one_rank(dev, data, main)
+            sharded_trainer_one_rank(dev, main)
         finally:
             dist.destroy_process_group()
     return launches
@@ -1509,12 +1694,11 @@ def _card_rank(rank: int, world: int, init: str) -> None:
             "sparse_max_abs": float(err[0]), "int8_rel": float(err[1] / err[2]),
             "dense_ms": cuda_ms(lambda: dense(mine), 20)}}))
 
-        data = paper_data()
         if rank == 0:
-            ref = paper_trainer(dev, data)
+            ref = paper_trainer(dev)
             ref.run_scanned(ROUNDS, verbose=False)
         dist.barrier()
-        tr = paper_trainer(dev, data, mesh=make_clients_mesh(device=dev))
+        tr = paper_trainer(dev, mesh=make_clients_mesh(device=dev))
         torch.cuda.reset_peak_memory_stats(dev)
         tr.run_scanned(ROUNDS, verbose=False)
         if rank == 0:
@@ -1606,7 +1790,7 @@ def client_step_by_card(dev, tr, world: int) -> dict:
     chosen = client.CLIENT_CHUNK
     sweep = {}
     with torch.no_grad():
-        batches = tr._round_batches(0)
+        batches = tr._round_batches(0, tr.keys.sample)
         res = _step_apart(tr, batches, n_local, dev)
         try:
             for c in CHUNK_SWEEP:
@@ -1695,9 +1879,9 @@ def main(argv) -> int:
         log(json.dumps(k))
 
     # ---- phase 3: the paths, each with its launch counts zeroed before it
-    runs, data = {}, paper_data()
+    runs = {}
     for label in PATHS:
-        runs[label] = drive_path(dev, data, label)
+        runs[label] = drive_path(dev, label)
         tr = runs[label].pop("trainer")
         if label == "main":            # phase 7 holds its sharded run to it
             runs[label].update(history=list(tr.history),
@@ -1724,8 +1908,12 @@ def main(argv) -> int:
     # ---- phase 4: card against CPU
     for variant in DUAL_VARIANTS:
         solver_card_against_cpu(dev, variant)
+    gss_card_against_cpu(dev)
     card_against_cpu(dev)
     card_against_cpu(dev, "bursty-interference", price_outage=True, bits_grid=BITS)
+    topk_mask_on_card(dev)
+    for strategy in BASELINES:
+        card_against_cpu(dev, strategy=strategy)
 
     # ---- phase 5: the serve path, its launch counts zeroed before the timed run
     serve = serve_path(dev, profile="--profile" in argv)
@@ -1745,7 +1933,10 @@ def main(argv) -> int:
 
     # ---- phase 7: the multi-rank paths on one rank
     block = next(k for k in kernels if k["name"] == "topk_block")
-    block["launches"] = multirank_paths(dev, flat, data, runs["main"])
+    block["launches"] = multirank_paths(dev, flat, runs["main"])
+
+    # ---- phase 8: the paper's experiment, each run's counts zeroed before it
+    paper_experiment(dev)
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

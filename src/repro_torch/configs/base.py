@@ -146,7 +146,7 @@ class FairEnergyConfig:
     gss_tol: float = 1e-3           # relative tol on bandwidth
     gss_max_iters: int = 60
     b_min_frac: float = 1e-4        # per-device min bandwidth fraction for GSS bracket
-    bw_solver: str = "newton"       # "newton" (ported) | "gss" (not yet ported)
+    bw_solver: str = "newton"       # "newton" (analytic, 3 steps) | "gss" (oracle)
     newton_iters: int = 3           # Newton steps on the SNR stationarity
     use_pallas_solver: bool = False  # field parity only: ignored by the port
     dual_tol: float = 1e-3          # dual-ascent early-exit residual (0 disables)

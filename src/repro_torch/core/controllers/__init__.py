@@ -8,10 +8,11 @@
     state = ctrl.init(50)
     dec, state = ctrl.decide(obs, state)
 
-Registered: ``fairenergy`` (paper Algorithm 1).
+Registered: ``fairenergy`` (paper Algorithm 1), ``scoremax``,
+``ecorandom``, ``randomfull``, ``channelgreedy`` and ``tilted``.
 """
 from .base import (Controller, ControllerContext, RoundDecision,  # noqa: F401
                    RoundObservation, available_controllers, make_controller,
-                   register_controller)
-from . import fairenergy  # noqa: F401  (registration side effect)
+                   masked_decision, register_controller, topk_mask)
+from . import baselines, fairenergy, tilted  # noqa: F401  (registration side effects)
 from .fairenergy import FairEnergy  # noqa: F401

@@ -23,13 +23,14 @@ from typing import Any, Callable, NamedTuple, Optional, Protocol, runtime_checka
 import torch
 
 from ...devices import resolve_device
+from ..channel import comm_energy
 from ..fairenergy import RoundDecision
 
 Tensor = torch.Tensor
 
 __all__ = ["Controller", "ControllerContext", "RoundDecision",
            "RoundObservation", "available_controllers", "make_controller",
-           "register_controller"]
+           "masked_decision", "register_controller", "topk_mask"]
 
 
 class RoundObservation(NamedTuple):
@@ -50,9 +51,11 @@ class RoundObservation(NamedTuple):
 class ControllerContext:
     """Static per-run constants controllers are constructed from.
 
-    ``fe_cfg`` is the FairEnergy hyper-parameter dataclass; ``e_cmp`` the
-    per-client per-round computation energy as a length-N tuple (None:
-    the communication-only energy model); ``device`` the device the
+    ``fe_cfg`` is the FairEnergy hyper-parameter dataclass;
+    ``fixed_k``/``eco_gamma``/``eco_bandwidth`` parameterize the paper's
+    fixed-K baselines and ``tilt_t``/``tilt_ema`` the tilted one; ``e_cmp``
+    the per-client per-round computation energy as a length-N tuple
+    (None: the communication-only energy model); ``device`` the device the
     controller's state lives on: ``None`` means the GPU and raises when
     none is visible (pass ``device="cpu"`` for the CPU)."""
     n_clients: int
@@ -61,7 +64,12 @@ class ControllerContext:
     i_bits: float                      # index/mask overhead I (bits)
     n0: float                          # noise density N0 (W/Hz)
     fe_cfg: Any = None
+    fixed_k: Optional[int] = None
+    eco_gamma: float = 0.1
+    eco_bandwidth: Optional[float] = None
     e_cmp: Optional[tuple] = None      # [N] J/round computation energy
+    tilt_t: float = 2.0                # tilted baseline: tilt temperature
+    tilt_ema: float = 0.5              # tilted baseline: score EMA step
     device: Any = None
 
     def __post_init__(self):
@@ -91,6 +99,19 @@ class ControllerContext:
                                device=self.device)
         return torch.tensor(self.e_cmp, dtype=torch.float32,
                             device=self.device)
+
+    @property
+    def k(self) -> int:
+        """Baseline selection size K (paper: the mean FairEnergy count)."""
+        return self.fixed_k if self.fixed_k is not None else max(1, self.n_clients // 5)
+
+    @property
+    def eco_bw(self) -> float:
+        """EcoRandom's per-client bandwidth. An ``is None`` check, so an
+        explicit 0.0 is honoured; the default splits B_tot over ``k``."""
+        if self.eco_bandwidth is not None:
+            return self.eco_bandwidth
+        return self.b_tot / max(self.k, 1)
 
 
 @runtime_checkable
@@ -136,3 +157,37 @@ def make_controller(spec: "str | Controller", ctx: ControllerContext) -> Control
         raise TypeError(f"controller must be a registry name or implement "
                         f"init/decide, got {type(spec).__name__}")
     return spec
+
+
+# ------------------------------------------------------------ helpers ----
+def topk_mask(scores: Tensor, k: int) -> Tensor:
+    """Boolean mask of the k largest entries; ties go to the lower index
+    and NaN ranks last (``np.argsort(-scores)[:k]``, ``jnp.argsort``'s
+    order: a stable sort of ``-scores``, NaN after every number)."""
+    n = scores.shape[0]
+    order = torch.argsort(-scores, stable=True)     # NaN sorts last
+    ranks = torch.empty(n, dtype=torch.int64, device=scores.device)
+    ranks[order] = torch.arange(n, device=scores.device)
+    return ranks < k
+
+
+def masked_decision(x: Tensor, gamma: Tensor, bandwidth: Tensor,
+                    obs: RoundObservation, ctx: ControllerContext) -> RoundDecision:
+    """A ``RoundDecision`` from raw (x, gamma, B): selected clients are
+    charged E_i = P_i (gamma_i S + I) / R_i(B_i) + E_cmp,i; gamma, B and E
+    are zero elsewhere. Unselected rows are priced at B_tot before the
+    mask: ``comm_energy`` is inf below the 1 Hz floor, and ``inf * 0``
+    would be NaN."""
+    xf = x.to(torch.float32)
+    b_safe = torch.where(x, bandwidth, ctx.b_tot)
+    energy = xf * (comm_energy(gamma, b_safe, obs.P, obs.h, ctx.s_bits,
+                               ctx.i_bits, ctx.n0) + ctx.e_cmp_array())
+    bandwidth = bandwidth * xf
+    return RoundDecision(x=x, gamma=gamma * xf, bandwidth=bandwidth,
+                         energy=energy,
+                         lam=torch.zeros((), dtype=torch.float32,
+                                         device=x.device),
+                         mu=torch.zeros_like(xf),
+                         n_inner=torch.zeros((), dtype=torch.int32,
+                                             device=x.device),
+                         bw_used=torch.sum(bandwidth))

@@ -21,22 +21,33 @@ Lagrangian relaxation:
   tensors;
 * greedy repair restores primal bandwidth feasibility after rounding.
 
-This is the port of ``repro.core.fairenergy`` with the Newton solver: on
-the gamma grid or the joint (gamma, bits) grid (``bits_grid``: each level
-charges the payload gamma*S*bits/32 + I and earns the fidelity-discounted
-score), with optional outage-aware pricing (``e_scale``). Bandwidth is
+This is the port of ``repro.core.fairenergy`` with the Newton solver (and
+``bw_solver="gss"``, below): on the gamma grid or the joint (gamma, bits)
+grid (``bits_grid``: each level charges the payload gamma*S*bits/32 + I
+and earns the fidelity-discounted score), with optional outage-aware
+pricing (``e_scale``). Bandwidth is
 normalized to fractions b = B/B_tot; every float knob rides in
 ``FEParams`` as float32 0-d tensors on the solver's device, so the
 arithmetic is the reference's float32 arithmetic.
+
+``bw_solver="gss"`` is the reference's oracle: the best response by a
+blind golden-section search on phi (``core.gss``) inside the same dual
+ascent, as plain PyTorch on either device (the reference runs it outside
+any kernel too). The fused ascent kernel is not used for it.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from ..kernels.dual_solve.ops import dual_ascent
-from ..kernels.dual_solve.ref import selection_score
+from ..kernels.dual_solve.ref import (dual_ascent_ref, joint_levels,
+                                      selection_score)
+from .channel import comm_energy
+from .fairness import contribution_score
+from .gss import golden_section_minimize
 
 Tensor = torch.Tensor
 
@@ -71,12 +82,15 @@ class FEParams(NamedTuple):
 
 
 class FEStatic(NamedTuple):
-    """Solver structure: the grids and the iteration caps. ``bits_grid``
-    (32.0,) is the gamma-only solve; anything else the flat joint grid."""
+    """Solver structure: the grids, the iteration caps and the bandwidth
+    solver ("newton" or "gss"). ``bits_grid`` (32.0,) is the gamma-only
+    solve; anything else the flat joint grid."""
     gamma_grid: tuple
     inner_iters: int
     newton_iters: int
     bits_grid: tuple = (32.0,)
+    solver: str = "newton"
+    gss_iters: int = 60
 
 
 class ControllerState(NamedTuple):
@@ -103,11 +117,7 @@ def static_of(cfg) -> FEStatic:
     """The solver structure of ``cfg``; options the port does not have
     yet raise, naming the ROADMAP item that brings them."""
     solver = str(getattr(cfg, "bw_solver", "newton"))
-    if solver == "gss":
-        raise NotImplementedError(
-            "bw_solver='gss' (the golden-section oracle) is not ported yet: "
-            "ROADMAP A-6")
-    if solver != "newton":
+    if solver not in ("newton", "gss"):
         raise ValueError(f"bw_solver must be 'newton' or 'gss', got "
                          f"{solver!r}")
     if getattr(cfg, "solver_fallback", False):
@@ -118,7 +128,9 @@ def static_of(cfg) -> FEStatic:
                     inner_iters=int(cfg.inner_iters),
                     newton_iters=int(getattr(cfg, "newton_iters", 3)),
                     bits_grid=tuple(float(b) for b in
-                                    getattr(cfg, "bits_grid", (32.0,))))
+                                    getattr(cfg, "bits_grid", (32.0,))),
+                    solver=solver,
+                    gss_iters=int(getattr(cfg, "gss_max_iters", 60)))
 
 
 def init_state(cfg, n_clients: int, *, b_tot: float, s_bits: float,
@@ -190,15 +202,20 @@ def _solve_round(u_norms, h, P, alive, state: ControllerState,
     # joint (gamma, bits) grid: the ascent also decides each width
     joint = tuple(static.bits_grid) != (32.0,)
 
-    asc = dual_ascent(P, h, u_norms, state.lam, state.mu, state.q, alive,
-                      gamma_grid=static.gamma_grid, eta=eta, rho=rho,
-                      pi_min=p.pi_min, alpha_lambda=p.alpha_lambda,
-                      alpha_mu=p.alpha_mu, dual_tol=p.dual_tol, b_tot=p.b_tot,
-                      s_bits=p.s_bits, i_bits=p.i_bits, n0=p.n0,
-                      b_lo=p.b_min_frac, inner_iters=static.inner_iters,
-                      newton_iters=static.newton_iters, e_cmp=e_cmp,
-                      e_scale=e_scale,
-                      bits_grid=static.bits_grid if joint else None)
+    # the fused kernel (CUDA) or its plain host loop (CPU) on the Newton
+    # best response; the golden-section oracle in the plain loop
+    ascend = (dual_ascent if static.solver == "newton" else functools.partial(
+        dual_ascent_ref, solve=functools.partial(best_response_gss,
+                                                 iters=static.gss_iters)))
+    asc = ascend(P, h, u_norms, state.lam, state.mu, state.q, alive,
+                 gamma_grid=static.gamma_grid, eta=eta, rho=rho,
+                 pi_min=p.pi_min, alpha_lambda=p.alpha_lambda,
+                 alpha_mu=p.alpha_mu, dual_tol=p.dual_tol, b_tot=p.b_tot,
+                 s_bits=p.s_bits, i_bits=p.i_bits, n0=p.n0,
+                 b_lo=p.b_min_frac, inner_iters=static.inner_iters,
+                 newton_iters=static.newton_iters, e_cmp=e_cmp,
+                 e_scale=e_scale,
+                 bits_grid=static.bits_grid if joint else None)
     lam, mu = asc.lam, asc.mu
 
     # primal extraction at the converged duals + greedy repair
@@ -230,3 +247,50 @@ def _solve_round(u_norms, h, P, alive, state: ControllerState,
                         bits=torch.where(x, bits_i, 0.0) if joint else None)
     return dec, ControllerState(lam=lam, mu=mu, q=q_new, params=p,
                                 e_cmp=e_cmp)
+
+
+def best_response_gss(P: Tensor, h: Tensor, u_norms: Tensor, lam, *,
+                      gamma_grid, eta, b_tot, s_bits, i_bits, n0, b_lo,
+                      e_cmp: Tensor, e_scale: Tensor = None, bits_grid=None,
+                      iters: int = 60, newton_iters: int = 3):
+    """The reference's oracle best response (``best_response_gss`` in
+    ``repro.core.fairenergy``), with ``dual_solve_ref``'s contract: per
+    client, the golden-section minimum over b in [b_lo, 1] of the priced
+    comm energy + lam b at every level, then the argmin over the levels of
+    phi + E_cmp - eta * score (E_cmp, constant in b, added after the
+    search). Returns ``(gamma*, b*, e*, phi*[, bits*])``. ``newton_iters``
+    is ignored (it is the Newton solver's)."""
+    n = P.shape[0]
+    dev = P.device
+    row = lambda v: torch.tensor(v, dtype=torch.float32, device=dev  # noqa: E731
+                                 )[None, :].expand(n, len(v))
+    if bits_grid is None:
+        gam = gam_pay = row([float(g) for g in gamma_grid])
+        gam_bits = fid = None
+    else:
+        levels = joint_levels(gamma_grid, bits_grid)
+        gam = row([g for g, _ in levels])
+        gam_bits = row([bt for _, bt in levels])
+        gam_pay = row([g * bt / 32.0 for g, bt in levels])
+        fid = torch.tensor([1.0 - 2.0 ** (1.0 - bt) for _, bt in levels],
+                           dtype=torch.float32, device=dev)
+    Pg, hg = P[:, None], h[:, None]
+
+    def priced_energy_of(b_frac):
+        e = comm_energy(gam_pay, b_frac * b_tot, Pg, hg, s_bits, i_bits, n0)
+        return e if e_scale is None else e * e_scale[:, None]
+
+    score = contribution_score(u_norms[:, None], gam)
+    if fid is not None:
+        score = score * fid[None, :]
+    b_star, phi_star = golden_section_minimize(
+        lambda b: priced_energy_of(b) + lam * b,
+        torch.broadcast_to(torch.as_tensor(b_lo, dtype=torch.float32,
+                                           device=dev), gam.shape),
+        1.0, iters=iters)
+    phi_full = phi_star + e_cmp[:, None] - eta * score
+    g_idx = torch.argmin(phi_full, dim=1, keepdim=True)
+    take = lambda t: torch.gather(t, 1, g_idx)[:, 0]  # noqa: E731
+    out = (take(gam), take(b_star), take(priced_energy_of(b_star)) + e_cmp,
+           take(phi_full))
+    return out if gam_bits is None else out + (take(gam_bits),)

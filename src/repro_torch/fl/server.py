@@ -34,16 +34,20 @@ float64, ``weighted_sum``, so the aggregate's bits do not depend on the
 mesh); params, controller, battery and link state and the logs are
 replicated.
 
-The round body runs the reference's steps in its order (``_round``).
-PyTorch runs eagerly, so ``run_scanned`` is a loop over rounds that
-materializes its logs on the host once per chunk; the dual ascent inside
-the solver reads its exit residual on the host every iteration.
+The round body runs the reference's steps in its order (``_round``), on
+a lane's key streams (``RoundKeys``: fading, controller, sampling and link
+keys off one base key) and its carry (``Carry``: params, controller
+state, battery, link state). ``run_round``, ``run``, ``run_scanned`` and
+``run_sweep`` all drive that one body. PyTorch runs eagerly, so
+``run_scanned`` is a loop over rounds that materializes its logs on the
+host once per chunk, and ``run_sweep`` runs its seed and config lanes one
+after another (the reference's sharded sweep does the same).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Optional, Union
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -54,6 +58,7 @@ from ..core.channel import WirelessNetwork, comm_energy, comm_time, round_gains
 from ..core.controllers import (Controller, ControllerContext,
                                 RoundObservation, make_controller)
 from ..core.energy import UNLIMITED_J, alive_mask, comp_energy
+from ..core.fairenergy import FEParams
 from ..core.link import (LinkConfig, LinkState, attempt_energy,
                          attempt_outcomes, burst_channel, burst_step,
                          expected_attempts, init_link_state,
@@ -68,7 +73,8 @@ from . import compression
 from .client import make_batched_client_step
 from .updates import tree_spec, unflatten_update
 
-__all__ = ["FederatedTrainer", "RoundLog", "UNLIMITED_J", "resolve_device"]
+__all__ = ["Carry", "FederatedTrainer", "RoundKeys", "RoundLog", "UNLIMITED_J",
+           "resolve_device", "seed_keys"]
 
 # options of the reference's trainer this slice does not bring, and the
 # ROADMAP item that brings each
@@ -93,6 +99,32 @@ def weighted_sum(w: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     for i in range(0, rows.shape[0], _SUM_ROWS):
         acc += w[i:i + _SUM_ROWS].double() @ rows[i:i + _SUM_ROWS].double()
     return acc
+
+
+class RoundKeys(NamedTuple):
+    """One lane's key streams: fading uses the base key itself (folded by
+    round), the others ``fold_in(base, STREAM)`` with the JAX package's
+    stream tags. Keys stay on the host."""
+    fade: torch.Tensor
+    ctrl: torch.Tensor
+    sample: torch.Tensor
+    link: torch.Tensor
+
+
+def seed_keys(base: torch.Tensor) -> RoundKeys:
+    """The key streams of the lane whose base key is ``base``
+    (``random.PRNGKey(seed)``), as the reference's ``_seed_keys``."""
+    return RoundKeys(fade=base, ctrl=prng.fold_in(base, CTRL_STREAM),
+                     sample=prng.fold_in(base, SAMPLE_STREAM),
+                     link=prng.fold_in(base, LINK_STREAM))
+
+
+class Carry(NamedTuple):
+    """What one round hands the next."""
+    params: dict
+    ctrl_state: Any
+    battery: torch.Tensor        # [N] J (inf = unlimited)
+    lstate: Optional[LinkState]  # None unless the burst chain is on
 
 
 @dataclasses.dataclass
@@ -179,6 +211,11 @@ class FederatedTrainer:
     a ``DeviceMesh`` raises ``TypeError``; a 2-D (hierarchy) mesh raises
     ``NotImplementedError`` naming ROADMAP A-15.
 
+    ``controller`` (or its alias ``strategy``) is a registry name or an
+    instance; ``fixed_k``, ``eco_gamma`` and ``eco_bandwidth`` set the
+    fixed-K baselines' K and EcoRandom's gamma and bandwidth
+    (``ControllerContext``).
+
     ``async_cfg``, ``fault_cfg``, ``defense`` and ``hierarchy`` are not
     ported yet and raise ``NotImplementedError`` naming their ROADMAP item;
     an enabled ``mobility`` config raises in the network.
@@ -187,10 +224,15 @@ class FederatedTrainer:
     def __init__(self, *, model_loss: Callable, model_params: dict,
                  client_datasets, eval_fn: Callable, fl_cfg, fe_cfg, ch_cfg,
                  controller: Union[str, Controller] = "fairenergy",
+                 strategy: Optional[str] = None,
+                 fixed_k: Optional[int] = None, eco_gamma: float = 0.1,
+                 eco_bandwidth: Optional[float] = None,
                  seed: int = 0, device=None, device_profile=None,
                  link_cfg: Optional[LinkConfig] = None, mobility=None,
                  async_cfg=None, fault_cfg=None, defense=None,
                  hierarchy=None, mesh=None, mesh_axis: str = CLIENTS_AXIS):
+        if strategy is not None:
+            controller = strategy
         self.device = resolve_device(device)
         dev = self.device
         for name, value in (("async_cfg", async_cfg), ("fault_cfg", fault_cfg),
@@ -234,7 +276,8 @@ class FederatedTrainer:
         ctx = ControllerContext(
             n_clients=self.n_clients, b_tot=ch_cfg.bandwidth_total,
             s_bits=self.s_bits, i_bits=self.i_bits, n0=ch_cfg.noise_density,
-            fe_cfg=fe_cfg, device=dev,
+            fe_cfg=fe_cfg, fixed_k=fixed_k, eco_gamma=eco_gamma,
+            eco_bandwidth=eco_bandwidth, device=dev,
             e_cmp=None if e_cmp is None else tuple(e_cmp.tolist()))
         self._e_cmp = (torch.zeros(self.n_clients, dtype=torch.float32)
                        if e_cmp is None else e_cmp).to(dev)
@@ -245,13 +288,9 @@ class FederatedTrainer:
         self.ctrl_state = self.controller.init(self.n_clients)
 
         self.seed = seed
-        # independent streams off one per-seed base key (fading uses the
-        # base itself, folded by round); keys stay on the host, where the
-        # [N]-sized hashes are cheapest
-        base = prng.PRNGKey(seed)
-        self.key = prng.fold_in(base, CTRL_STREAM)            # controller
-        self.sample_key = prng.fold_in(base, SAMPLE_STREAM)
-        self.link_key = prng.fold_in(base, LINK_STREAM)
+        # independent streams off one per-seed base key; keys stay on the
+        # host, where the [N]-sized hashes are cheapest
+        self.keys = seed_keys(prng.PRNGKey(seed))
         self._client_step = make_batched_client_step(model_loss, fl_cfg.lr)
         self._P = torch.as_tensor(self.network.power, dtype=torch.float32,
                                   device=dev)
@@ -282,21 +321,23 @@ class FederatedTrainer:
             self.weights[self._i0:self._i0 + self.n_local],
             dtype=torch.float32, device=dev)
         # battery charge carried across rounds: the profile's capacities,
-        # unlimited without a profile
-        self._battery = (
+        # unlimited without a profile; every sweep lane starts from _battery0
+        self._battery0 = (
             self.device_profile.battery.to(dev, torch.float32, copy=True)
             if self.device_profile is not None
             else torch.full((self.n_clients,), UNLIMITED_J,
                             dtype=torch.float32, device=dev))
+        self._battery = self._battery0.clone()
 
         if link_cfg is not None and not isinstance(link_cfg, LinkConfig):
             raise TypeError(f"link_cfg must be a LinkConfig or None, got "
                             f"{type(link_cfg).__name__}")
         self.link_cfg = link_cfg
         self._link_rt = self._resolve_link_runtime(link_cfg)
-        self._lstate = (init_link_state(self.n_clients, dev)
-                        if self._link_rt is not None and self._link_rt.bursty
-                        else None)
+        self._lstate0 = (init_link_state(self.n_clients, dev)
+                         if self._link_rt is not None and self._link_rt.bursty
+                         else None)
+        self._lstate = self._lstate0
         # [N] width a controller without the joint grid transmits at, or
         # None off the quantized path
         self._default_bits = self._resolve_default_bits()
@@ -339,14 +380,34 @@ class FederatedTrainer:
 
     # ------------------------------------------------------------------
     @property
+    def strategy(self) -> str:
+        """The controller's name (the reference's alias of it)."""
+        return self.controller_name
+
+    @property
     def battery(self) -> np.ndarray:
         """[N] current per-client battery charge (J; inf = unlimited)."""
         return self._battery.cpu().numpy()
 
-    def _round_batches(self, r: int) -> dict:
+    @property
+    def carry(self) -> Carry:
+        """The trainer's live carry (what ``run_scanned`` continues)."""
+        return Carry(self.params, self.ctrl_state, self._battery, self._lstate)
+
+    def _store(self, carry: Carry) -> None:
+        (self.params, self.ctrl_state, self._battery,
+         self._lstate) = carry
+
+    def _fresh_carry(self, ctrl_state) -> Carry:
+        """A sweep lane's starting carry: the trainer's current params, the
+        given controller state, and the starting battery and link state."""
+        return Carry({k: v.clone() for k, v in self.params.items()},
+                     ctrl_state, self._battery0.clone(), self._lstate0)
+
+    def _round_batches(self, r: int, sample_key: torch.Tensor) -> dict:
         """Round-r minibatches [n_local, steps, batch, ...] on the device:
         this rank's rows of the padded client axis."""
-        ckeys = client_sample_keys(self.sample_key, r, self.n_clients,
+        ckeys = client_sample_keys(sample_key, r, self.n_clients,
                                    self.n_padded)
         ckeys = ckeys[self._i0:self._i0 + self.n_local]
         return sample_client_batches(self._data.arrays, self._data.lengths,
@@ -361,8 +422,8 @@ class FederatedTrainer:
         if not getattr(self.controller, "needs_calibration", False):
             return
         with torch.no_grad():
-            _, u_norms, _ = self._client_step(self.params,
-                                              self._round_batches(r))
+            _, u_norms, _ = self._client_step(
+                self.params, self._round_batches(r, self.keys.sample))
             u_norms = self._gather(u_norms)
         self.controller.calibrate(u_norms.cpu().numpy(),
                                   self.network.gains(r), self.network.power)
@@ -393,22 +454,28 @@ class FederatedTrainer:
         return t
 
     @torch.no_grad()
-    def _round(self, r: int, evaluate: bool) -> dict:
-        """One round: observe, decide, hard mask, energy accounting,
-        battery debit, sparsify, quantize, weighted mean, apply, eval —
-        in the reference's order. Returns the round's outputs as device
-        tensors."""
+    def _round(self, r: int, evaluate: bool, keys: RoundKeys,
+               carry: Carry) -> tuple[dict, Carry]:
+        """One round of the lane with ``keys`` from ``carry``: observe,
+        decide, hard mask, energy accounting, battery debit, sparsify,
+        quantize, weighted mean, apply, eval — in the reference's order.
+        Returns the round's outputs as device tensors and the next carry;
+        the trainer itself is not changed."""
+        params, ctrl_state, battery, lstate = carry
         link, default_bits = self._link_rt, self._default_bits
         quant = default_bits is not None
+        # the trainer's own B_tot, as the reference's round body takes it,
+        # under a config lane too (the lane's rides in the controller
+        # state): it only prices the unselected rows, which are masked
         b_tot = float(self.ch_cfg.bandwidth_total)
         n0 = float(self.ch_cfg.noise_density)
         s_bits, i_bits, e_cmp = self.s_bits, self.i_bits, self._e_cmp
         link_out = link is not None and link.outage
         link_burst = link is not None and link.bursty
-        h = round_gains(self.network.fade_key, self._pathloss, r,
+        h = round_gains(keys.fade, self._pathloss, r,
                         self.ch_cfg.rayleigh).to(self.device)
-        updates, u_norms, losses = self._client_step(self.params,
-                                                     self._round_batches(r))
+        updates, u_norms, losses = self._client_step(
+            params, self._round_batches(r, keys.sample))
         # the controller sees the real clients' [N] observation in every
         # layout: gather before any use, ghosts cut off
         u_norms, losses = self._gather(u_norms), self._gather(losses)
@@ -416,9 +483,9 @@ class FederatedTrainer:
         if link_burst:
             # one Gilbert-Elliott transition a round; the burst derates
             # the physics channel (a raised noise floor is a scaled gain)
-            burst = burst_step(self.link_key, r, self._lstate.burst,
-                               link.burst_p, link.burst_q)
-            self._lstate = LinkState(burst=burst)
+            burst = burst_step(keys.link, r, lstate.burst, link.burst_p,
+                               link.burst_q)
+            lstate = LinkState(burst=burst)
             h_phys = burst_channel(h, burst, link.noise_rise)
         else:
             h_phys = h
@@ -426,7 +493,7 @@ class FederatedTrainer:
         # it observes the burst; the transmission realizes on h_phys
         h_obs = h_phys if (link_burst and link.observe_burst) else h
         h = h_phys
-        alive = alive_mask(self._battery)
+        alive = alive_mask(battery)
         p_out = e_scale = None
         if link_out:
             # per-attempt outage at the decided operating point: the belief
@@ -436,9 +503,9 @@ class FederatedTrainer:
             if link.price_outage:
                 e_scale = expected_attempts(p_out)
         obs = RoundObservation(u_norms=u_norms, h=h_obs, P=P, round=r,
-                               key=prng.fold_in(self.key, r), alive=alive,
+                               key=prng.fold_in(keys.ctrl, r), alive=alive,
                                e_scale=e_scale)
-        dec, self.ctrl_state = self.controller.decide(obs, self.ctrl_state)
+        dec, ctrl_state = self.controller.decide(obs, ctrl_state)
         # hard mask, whatever the controller decided: a depleted client
         # transmits nothing and is charged nothing
         x = dec.x & alive
@@ -472,7 +539,7 @@ class FederatedTrainer:
 
         if link is None:
             # debit the round's spend; charge floors at 0 (inf stays inf)
-            self._battery = torch.clamp(self._battery - dec.energy, min=0.0)
+            battery = torch.clamp(battery - dec.energy, min=0.0)
         elif link_burst and not link_out:
             # burst-only: the controller priced the quiet channel, the
             # transmission pays the physics one (b/gamma guards keep the
@@ -489,7 +556,7 @@ class FederatedTrainer:
             b_safe = torch.where(dec.x, dec.bandwidth, b_tot)
             g_safe = torch.where(dec.x, dec.gamma, 1.0)
             t1 = comm_time(pay(g_safe), b_safe, P, h, s_bits, i_bits, n0)
-            attempts, delivered = attempt_outcomes(self.link_key, r, p_out,
+            attempts, delivered = attempt_outcomes(keys.link, r, p_out,
                                                    link.max_retx)
             attempts_f = attempts.to(torch.float32)
             e_retx_vec = xf_sel * (attempts_f - 1.0) * P * t1
@@ -498,7 +565,7 @@ class FederatedTrainer:
             lost = dec.x & ~delivered
         if link is not None:
             # the deferred debit, after the link accounting
-            self._battery = torch.clamp(self._battery - dec.energy, min=0.0)
+            battery = torch.clamp(battery - dec.energy, min=0.0)
         # a retx-exhausted update never decodes: it never enters the
         # aggregate (its energy and fairness effects landed above)
         part = dec.x if delivered is None else dec.x & delivered
@@ -520,13 +587,12 @@ class FederatedTrainer:
         agg = (partial / torch.clamp(wsum, min=1e-12)).to(torch.float32)
         agg = torch.where(wsum > 0.0, agg * self.fl_cfg.server_lr, 0.0)
         delta = unflatten_update(agg, self.spec)
-        self.params = {k: p + delta[k].to(p.dtype)
-                       for k, p in self.params.items()}
-        acc = (self.eval_fn(self.params).to(torch.float32) if evaluate
+        params = {k: p + delta[k].to(p.dtype) for k, p in params.items()}
+        acc = (self.eval_fn(params).to(torch.float32) if evaluate
                else torch.tensor(float("nan"), device=self.device))
         out = dict(x=dec.x, gamma=dec.gamma, bandwidth=dec.bandwidth,
                    energy=dec.energy, accuracy=acc,
-                   loss=torch.mean(losses), battery=self._battery)
+                   loss=torch.mean(losses), battery=battery)
         if quant:
             # e_saved: the same allocation at a 32-bit payload minus the
             # realized single-attempt quantized charge
@@ -554,12 +620,18 @@ class FederatedTrainer:
             out.update(n_retx=zero_i, n_outage=zero_i,
                        goodput_frac=torch.ones((), device=self.device),
                        e_retx=torch.zeros((), device=self.device))
-        return out
+        return out, Carry(params, ctrl_state, battery, lstate)
+
+    @staticmethod
+    def _host(outs: list) -> dict:
+        """Rounds' outputs stacked on a leading round axis, on the host
+        (one copy each)."""
+        return {k: torch.stack([o[k] for o in outs]).cpu().numpy()
+                for k in outs[0]}
 
     def _append_logs(self, start: int, outs: list, walls: list) -> None:
         """Materialize one chunk of round outputs (one host copy)."""
-        host = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
-                for k in outs[0]}
+        host = self._host(outs)
         linked, quanted = "n_retx" in host, "bits" in host
         for i in range(len(outs)):
             x = host["x"][i]
@@ -583,9 +655,24 @@ class FederatedTrainer:
         round body as ``run_scanned``."""
         self._maybe_calibrate(r)
         t0 = time.perf_counter()
-        out = self._round(r, evaluate=True)
+        out, carry = self._round(r, True, self.keys, self.carry)
+        self._store(carry)
         self._append_logs(r, [out], [self._wall(t0)])
         return self.history[-1]
+
+    def run(self, rounds: Optional[int] = None, *, log_every: int = 10,
+            verbose: bool = True):
+        """``rounds`` rounds of ``run_round`` from round 0, printing every
+        ``log_every``-th and the last; returns ``history``."""
+        rounds = rounds or self.fl_cfg.rounds
+        for r in range(rounds):
+            lg = self.run_round(r)
+            if verbose and self._i0 == 0 and (r % log_every == 0
+                                              or r == rounds - 1):
+                print(f"[{self.controller_name}] round {r:4d} "
+                      f"acc={lg.accuracy:.4f} sel={lg.n_selected:2d} "
+                      f"E={lg.total_energy*1e3:.3f} mJ")
+        return self.history
 
     def _wall(self, t0: float) -> float:
         if self.device.type == "cuda":
@@ -615,8 +702,11 @@ class FederatedTrainer:
             outs, walls = [], []
             for r in range(s, s + n):
                 t0 = time.perf_counter()
-                outs.append(self._round(
-                    r, evaluate=(r % eval_every == 0) or r == rounds - 1))
+                out, carry = self._round(
+                    r, (r % eval_every == 0) or r == rounds - 1, self.keys,
+                    self.carry)
+                self._store(carry)
+                outs.append(out)
                 walls.append(self._wall(t0))
             self._append_logs(s, outs, walls)
             if verbose and self._i0 == 0:
@@ -625,6 +715,102 @@ class FederatedTrainer:
                       f"acc={lg.accuracy:.4f} sel={lg.n_selected:2d} "
                       f"E={lg.total_energy*1e3:.3f} mJ")
         return self.history
+
+    # ------------------------------------------------------------ sweeps ----
+    def run_sweep(self, seeds, rounds: Optional[int] = None, *,
+                  eval_every: int = 1, configs: Optional[dict] = None) -> dict:
+        """Independent runs over seed lanes — and, with ``configs``, over
+        ``FEParams`` config lanes — one lane after another.
+
+        Every lane starts from the trainer's *current* params and
+        controller state (sweep a fresh trainer for independent-run error
+        bars) with the starting battery and link state, shares the client
+        shards and geometry, and draws its own fading, batches, controller
+        and link randomness from ``seed_keys(PRNGKey(seed))``. A lane of
+        the trainer's own seed, swept before any training, therefore
+        equals its ``run_scanned`` bit for bit. With
+        ``eta_auto``, eta is calibrated once from this trainer's round 0
+        and shared by every lane. ``history``, ``params`` and the live
+        carry are left untouched.
+
+        Returns stacked numpy arrays under the reference's keys:
+        ``accuracy``/``loss`` [S, R], ``x``/``gamma``/``bandwidth``/
+        ``energy``/``battery`` [S, R, N], plus the link (``n_retx``, ...)
+        and quantized (``bits``, ``e_saved``) lanes where those paths are
+        on. ``configs`` maps ``FEParams`` fields (``eta``, ``rho``,
+        ``b_tot``, ...) to equal-length value lists (a single value
+        broadcasts): C config lanes, each run over every seed; the arrays
+        gain a leading [C] axis and the lanes are echoed under
+        ``"configs"``. It needs a controller whose state carries
+        ``FEParams`` (fairenergy). Under a mesh every rank runs the same
+        lanes in the same order."""
+        rounds = rounds or self.fl_cfg.rounds
+        if eval_every < 1:
+            raise ValueError(f"eval_every must be >= 1, got {eval_every}")
+        self._maybe_calibrate(0)
+        bases = [prng.PRNGKey(int(s)) for s in seeds]
+        if configs is None:
+            return self._seed_lanes(bases, rounds, eval_every, self.ctrl_state)
+        states, echo = self._config_states(configs)
+        lanes = [self._seed_lanes(bases, rounds, eval_every, st)
+                 for st in states]
+        res = {k: np.stack([ln[k] for ln in lanes]) for k in lanes[0]}
+        res["configs"] = echo
+        return res
+
+    def _seed_lanes(self, bases, rounds: int, eval_every: int,
+                    ctrl_state) -> dict:
+        """One lane a base key, each from a fresh carry with
+        ``ctrl_state``; outputs stacked [S, R, ...] on the host."""
+        lanes = []
+        for base in bases:
+            keys, carry, outs = seed_keys(base), self._fresh_carry(ctrl_state), []
+            for r in range(rounds):
+                out, carry = self._round(
+                    r, (r % eval_every == 0) or r == rounds - 1, keys, carry)
+                outs.append(out)
+            lanes.append(self._host(outs))
+        return {k: np.stack([ln[k] for ln in lanes]) for k in lanes[0]}
+
+    def _config_states(self, configs: dict) -> tuple[list, dict]:
+        """Per-lane controller states from ``FEParams`` overrides
+        (equal-length or single values), and the post-broadcast echo
+        ``{field: [one value a lane]}``; the reference's checks and
+        errors."""
+        base = self.ctrl_state
+        if not isinstance(getattr(base, "params", None), FEParams):
+            raise ValueError(
+                "config sweep needs a controller whose state carries "
+                "FEParams (the fairenergy controller); "
+                f"got {type(self.controller).__name__}")
+        unknown = set(configs) - set(FEParams._fields)
+        if unknown:
+            raise KeyError(f"unknown FEParams field(s) {sorted(unknown)}; "
+                           f"sweepable: {list(FEParams._fields)}")
+        vals = {k: np.atleast_1d(np.asarray(v, np.float32))
+                for k, v in configs.items()}
+        n_lanes = max(v.shape[0] for v in vals.values())
+        for k, v in vals.items():
+            if v.shape[0] == 1:
+                vals[k] = np.broadcast_to(v, (n_lanes,))
+            elif v.shape[0] != n_lanes:
+                raise ValueError(f"config {k!r} has {v.shape[0]} values, "
+                                 f"expected 1 or {n_lanes}")
+        # the 1 Hz rate floor (ControllerContext) must hold on every lane
+        b_lo = vals.get("b_min_frac",
+                        np.full(n_lanes, float(base.params.b_min_frac)))
+        b_tot = vals.get("b_tot", np.full(n_lanes, float(base.params.b_tot)))
+        bad = b_lo * b_tot < 1.0
+        if bad.any():
+            raise ValueError(
+                f"config lane(s) {np.nonzero(bad)[0].tolist()} probe "
+                "bandwidth below the 1 Hz rate floor "
+                "(b_min_frac * b_tot < 1); raise b_min_frac or b_tot")
+        dev = base.params.eta.device
+        states = [base._replace(params=base.params._replace(
+            **{k: torch.tensor(v[i], device=dev) for k, v in vals.items()}))
+            for i in range(n_lanes)]
+        return states, {k: np.asarray(v).tolist() for k, v in vals.items()}
 
     # -------------------------------------------------------- statistics ----
     def participation_counts(self) -> np.ndarray:

@@ -1,4 +1,4 @@
-from .cnn import CNN, cnn_loss
+from .cnn import CNN, cnn_loss, init_cnn
 from .module import Conv3x3, Dense, Embed, dtype_of, param_count
 from .transformer import LM
 

@@ -10,12 +10,46 @@ NCHW flatten would scramble ``fc1``'s rows).
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
+from .. import random as prng
+from ..convert import params_from_numpy
 from .module import Conv3x3, Dense
+
+
+def init_cnn(key: torch.Tensor, cfg, device=None) -> dict:
+    """The JAX package's ``init_cnn(key, cfg)``, draw for draw: conv
+    weights ``normal / sqrt(9 c_in)``, dense weights truncated normals in
+    (-2, 2) times ``1 / sqrt(d_in)``, zero biases, from ``split(key,
+    n_conv + 2)``. Returns the trainer's params dict (dotted names) on
+    ``device`` (None: the GPU). The draws are made on the host and equal
+    the reference's bit for bit, so a run starts from its weights by the
+    seed alone."""
+    chans = cfg.cnn_channels or (32, 64)
+    h, w, c_prev = cfg.input_hw
+    keys = prng.split(key, len(chans) + 2)
+    tree = {}
+    for i, c in enumerate(chans):
+        root = torch.sqrt(torch.tensor(9.0 * c_prev, dtype=torch.float64))
+        tree[f"conv{i}"] = {
+            "w": (prng.normal(keys[i], (3, 3, c_prev, c))
+                  / root.to(torch.float32)).numpy(),
+            "b": np.zeros(c, np.float32)}
+        c_prev = c
+        h, w = h // 2, w // 2
+    dims = (h * w * c_prev, cfg.cnn_dense or 512, cfg.n_classes)
+    for j, name in enumerate(("fc1", "fc2")):
+        d_in, d_out = dims[j], dims[j + 1]
+        wt = prng.truncated_normal(keys[len(chans) + j], -2.0, 2.0, (d_in, d_out))
+        tree[name] = {"w": (wt * (1.0 / math.sqrt(d_in))).numpy(),
+                      "b": np.zeros(d_out, np.float32)}
+    return params_from_numpy(tree, device)
 
 
 class CNN(nn.Module):

@@ -5,8 +5,11 @@ pure in (seed, stream, round): a key is a ``[..., 2]`` int64 tensor of two
 32-bit words, ``fold_in`` and ``split`` derive new keys by hashing, and
 every draw is a hash of a counter under a key. The functions reproduce
 ``jax.random`` bit for bit under ``jax.threefry_partitionable(False)``
-(the semantics the JAX package's goldens were recorded with; ``gumbel``
-to a rounding of ``log``, ROADMAP C-9):
+(the semantics the JAX package's goldens were recorded with). The float
+transforms of the uniforms (``exponential``, ``gumbel``, ``normal``,
+``truncated_normal``) use
+XLA:CPU's float32 ``log``, ``log1p`` and ``erf_inv`` (``xla_math``), so
+they are bit-equal to the JAX package's CPU draws too:
 
 * ``PRNGKey(seed) = [0, seed]`` for an int32 seed;
 * ``fold_in(key, d) = threefry(key, [0, d])``;
@@ -25,6 +28,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from .xla_math import SQRT2_F32, erfinv_xla, fma_f32, log1p_xla, log_xla
 
 MASK32 = 0xFFFFFFFF
 
@@ -100,18 +105,51 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """float32 uniforms in [minval, maxval): the top 23 bits as a
-    mantissa in [1, 2), minus 1 — JAX's construction."""
+    mantissa in [1, 2), minus 1 — JAX's construction — scaled and shifted
+    in one rounding, as XLA:CPU's FMA does."""
     bits = random_bits(key, shape)
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = mant.view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    return torch.maximum(lo, fma_f32(floats, hi - lo, lo))
 
 
 def exponential(key: torch.Tensor, shape) -> torch.Tensor:
-    """Standard exponential draws ``-log1p(-u)`` (float32)."""
-    return -torch.log1p(-uniform(key, shape))
+    """Standard exponential draws ``-log1p(-u)`` (float32), with XLA's
+    ``log1p``."""
+    return -log1p_xla(-uniform(key, shape))
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """Standard normal float32 draws ``sqrt(2) erf_inv(u)``, u uniform in
+    [nextafter(-1, 0), 1) — ``jax.random.normal``'s construction, with
+    XLA's ``erf_inv``."""
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    return erfinv_xla(uniform(key, shape, minval=lo, maxval=1.0)) * SQRT2_F32
+
+
+# float32 erf(bound / sqrt(2)) as XLA computes it, for the bounds the JAX
+# package draws truncated normals between
+_ERF_OF_BOUND = {2.0: float(torch.tensor(1064589848, dtype=torch.int32)
+                            .view(torch.float32))}
+
+
+def truncated_normal(key: torch.Tensor, lower: float, upper: float,
+                     shape) -> torch.Tensor:
+    """float32 normals truncated to (lower, upper), ``jax.random.
+    truncated_normal``'s construction: ``sqrt(2) erf_inv(u)``, u uniform
+    between the bounds' erf, clipped inside the open interval. The bounds'
+    erf is XLA's float32 value, tabulated for the symmetric bound 2 (the
+    fan-in initializers'); other bounds raise."""
+    if -lower != upper or float(upper) not in _ERF_OF_BOUND:
+        raise ValueError(f"truncated_normal takes the bounds -b, b for b in "
+                         f"{sorted(_ERF_OF_BOUND)}, got ({lower}, {upper})")
+    e = _ERF_OF_BOUND[float(upper)]
+    out = erfinv_xla(uniform(key, shape, minval=-e, maxval=e)) * SQRT2_F32
+    lo = torch.nextafter(torch.tensor(float(lower)), torch.tensor(float("inf")))
+    hi = torch.nextafter(torch.tensor(float(upper)), torch.tensor(float("-inf")))
+    return torch.clamp(out, lo.item(), hi.item())
 
 
 def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
@@ -135,17 +173,15 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
 
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
     """float32 Gumbel draws ``-log(-log(u))``, u uniform in [tiny, 1) —
-    ``jax.random.gumbel``'s default ``mode="low"``. The uniforms are
-    bit-equal to JAX's; PyTorch's and XLA's float32 ``log`` may round apart
-    by an ulp (ROADMAP C-9)."""
+    ``jax.random.gumbel``'s default ``mode="low"`` — with XLA's ``log``."""
     tiny = float(torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(uniform(key, shape, minval=tiny, maxval=1.0)))
+    return -log_xla(-log_xla(uniform(key, shape, minval=tiny, maxval=1.0)))
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """One sample per distribution along ``axis``: ``argmax(gumbel +
     logits)`` (the Gumbel-max trick, as ``jax.random.categorical`` with
-    replacement). The noise is drawn on the logits' device: the hash is
-    exact everywhere, and only ``log`` may round apart between devices."""
+    replacement). The noise is drawn on the logits' device; every step of
+    it is exact float32 arithmetic, so devices agree."""
     noise = gumbel(key.to(logits.device), tuple(logits.shape))
     return torch.argmax(noise + logits.float(), dim=axis)

@@ -5,6 +5,31 @@ XLA evaluates ``exp2(x)`` as ``exp(x * ln2)`` in float32, which is not an
 exact power of two: ``exp2(15)`` is 32767.984, not 32768. The quantizer's
 ``qmax = 2**(bits-1) - 1`` and the score fidelity ``1 - 2**(1-bits)`` are
 built on it in the reference, so the port builds them the same way.
+
+XLA:CPU does not call libm for float32 ``log``, ``log1p`` or ``erf_inv``:
+it emits its own polynomials, which round differently from PyTorch's
+(``torch.log`` and ``jnp.log`` differ in the last bit on ~14% of uniform
+inputs). ``log_xla``, ``log1p_xla`` and ``erfinv_xla`` transcribe the
+LLVM IR that XLA:CPU emits for ``jnp.log``, ``jnp.log1p`` and
+``jax.scipy.special.erfinv`` (dumped with ``XLA_FLAGS=--xla_dump_to=DIR``,
+the ``*.ir-with-opt.ll`` files), operation for operation in float32:
+
+* ``log``: Cephes' ``logf`` — the input split into a mantissa in
+  [sqrt(1/2), sqrt(2)) and an exponent, a degree-9 polynomial in the
+  mantissa minus one, the exponent's ln 2 added in two parts;
+* ``log1p``: a Cephes rational approximation below |x| = sqrt(2) - 1,
+  else ``log(1 + x)``;
+* ``erf_inv``: Giles' single-precision polynomials in ``w =
+  -log1p(-x*x)`` (below w = 5, or in ``sqrt(w)`` above), times ``x``.
+
+The IR's order of operations is kept, and so is one thing only the
+machine code shows (the ``*.o`` files of the same dump): the code
+generator contracts each product that feeds one sum into an FMA
+instruction, rounded once. ``fma_f32`` computes those exactly; every
+other product and sum rounds to float32 on its own, as separate PyTorch
+operations do on any device. Each constant is written as the double bit
+pattern that the IR prints, so it can be checked against a dump. ``tests/test_torch_random.py`` holds all three bit for bit against
+XLA on millions of inputs.
 """
 from __future__ import annotations
 
@@ -18,3 +43,138 @@ def exp2_xla(x: torch.Tensor) -> torch.Tensor:
     """``exp(x * float32(ln 2))``: XLA's float32 ``exp2``. On the CPU it
     equals the reference bit for bit at every integer in [-40, 31]."""
     return torch.exp(x * LN2_F32)
+
+
+def _c(bits: int) -> float:
+    """The float32 constant the IR prints as the double pattern ``bits``."""
+    return float(np.float32(np.array(bits, np.uint64).view(np.float64)))
+
+
+_MIN_NORMAL = _c(0x3810000000000000)           # 2^-126
+_SQRT_HALF = _c(0x3FE6A09E60000000)
+# Cephes logf: the polynomial in x = mantissa - 1, highest power first
+_LOG_P = [_c(b) for b in (0x3FB2043760000000, 0xBFBD7A3700000000,
+                          0x3FBDE4A340000000, 0xBFBFCBA9E0000000,
+                          0x3FC23D37E0000000, 0xBFC555CA00000000,
+                          0x3FC999D580000000, 0xBFCFFFFF80000000,
+                          0x3FD5555540000000)]
+_LN2_LO = _c(0xBF2BD01060000000)               # -2.12194440e-4
+_LN2_HI = _c(0x3FE6300000000000)               # 0.693359375
+# log1p below |x| < sqrt(2) - 1: x - x^2/2 + x^3 N(x)/D(x)
+_LOG1P_SMALL = _c(0x3FDA8279A0000000)
+_LOG1P_NUM = [_c(b) for b in (0x3F07BC0960000000, 0x3FDFE818A0000000,
+                              0x401A509F40000000, 0x403DE97380000000,
+                              0x404E798EC0000000, 0x404C8E75A0000000,
+                              0x40340A2020000000)]
+_LOG1P_DEN = [1.0] + [_c(b) for b in (0x402E2035A0000000, 0x4054C30B60000000,
+                                      0x406BB865A0000000, 0x4073519460000000,
+                                      0x406B0DB140000000, 0x404E0F3040000000)]
+# erf_inv: (coefficients for w < 5, for w >= 5), highest power first
+_ERFINV = [(_c(a), _c(b)) for a, b in (
+    (0x3E5E2CB100000000, 0xBF2A3E1360000000),
+    (0x3E970966C0000000, 0x3F1A76AD60000000),
+    (0xBECD8E6AE0000000, 0x3F561B8E40000000),
+    (0xBED26B5820000000, 0xBF6E17BCE0000000),
+    (0x3F2CA65B60000000, 0x3F77824F60000000),
+    (0xBF548A8100000000, 0xBF7F38BAE0000000),
+    (0xBF711C9DE0000000, 0x3F8354AFC0000000),
+    (0x3FCF91EC60000000, 0x3FF006DB60000000),
+    (0x3FF805C5E0000000, 0x4006A9EFC0000000))]
+SQRT2_F32 = _c(0x3FF6A09E60000000)
+
+
+def fma_f32(a, b, c) -> torch.Tensor:
+    """Float32 ``a * b + c`` rounded once, as the FMA instructions that
+    XLA:CPU's code generator contracts each single-use product and its
+    sum into. The product is exact in float64; the float64 sum is made
+    round-to-odd (its rounding error, exact by TwoSum, sets the last bit),
+    so the final rounding to float32 is the fused one."""
+    a, b, c = (torch.as_tensor(v, dtype=torch.float64) for v in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf"))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def _is_zero(v: torch.Tensor) -> torch.Tensor:
+    """``v == 0`` as XLA:CPU compares it, with denormals as zero."""
+    return torch.abs(v) < _MIN_NORMAL
+
+
+def log_xla(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 ``log``: NaN below 0, -inf at 0 (denormals
+    included), +inf at +inf."""
+    x = x.to(torch.float32)
+    invalid = ~(x > 0.0)                       # <= 0, or NaN
+    zero = _is_zero(x)
+    pinf = x == float("inf")
+    v = torch.where(x > _MIN_NORMAL, x, _MIN_NORMAL)
+    bits = v.view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)  # [0.5, 1)
+    low = m < _SQRT_HALF
+    t = m - 1.0
+    e = e - torch.where(low, 1.0, 0.0)
+    t = t + torch.where(low, m, 0.0)           # 2m - 1 below sqrt(1/2)
+    z = t * t
+    t3 = z * t
+    p = _LOG_P
+    y0 = fma_f32(fma_f32(t, p[0], p[1]), t, p[2])
+    y1 = fma_f32(fma_f32(t, p[3], p[4]), t, p[5])
+    y2 = fma_f32(fma_f32(t, p[6], p[7]), t, p[8])
+    y = fma_f32(y0, t3, y1)
+    y = fma_f32(y, t3, y2)
+    y = fma_f32(y, t3, e * _LN2_LO)
+    r = fma_f32(z, -0.5, t)
+    r = r + y
+    r = fma_f32(e, _LN2_HI, r)
+    out = torch.where(invalid, torch.full_like(bits, -1), r.view(torch.int32))
+    out = torch.where(zero, torch.full_like(bits, -8388608), out)   # -inf
+    out = torch.where(pinf, torch.full_like(bits, 0x7F800000), out)  # +inf
+    return out.view(torch.float32)
+
+
+def _horner(x: torch.Tensor, coefs, start: torch.Tensor) -> torch.Tensor:
+    """``(((start + c0) x + c1) x + ...)``, each step one FMA: the IR's
+    chain, in which the first term is ``x * 0 + c0`` (kept, for its NaN
+    and signed zero)."""
+    acc = start + coefs[0]
+    for c in coefs[1:]:
+        acc = fma_f32(acc, x, c)
+    return acc
+
+
+def log1p_xla(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 ``log1p``: a rational approximation for |x| below
+    sqrt(2) - 1, else ``log(1 + x)``; a denormal ``x`` reads as zero."""
+    x = x.to(torch.float32)
+    x = torch.where(_is_zero(x), x * 0.0, x)
+    large = log_xla(x + 1.0)
+    x2 = x * x
+    zero = x * 0.0
+    ratio = _horner(x, _LOG1P_NUM, zero) / _horner(x, _LOG1P_DEN, zero)
+    small = x + fma_f32(x2, -0.5, (x * x2) * ratio)
+    return torch.where(torch.abs(x) < _LOG1P_SMALL, small, large)
+
+
+def erfinv_xla(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv`` (Giles' approximation, as XLA expands it)
+    on XLA:CPU's ``log1p`` and a correctly rounded ``sqrt``; a denormal
+    ``x`` reads as zero."""
+    x = x.to(torch.float32)
+    x = torch.where(_is_zero(x), x * 0.0, x)
+    w = log1p_xla(x * -x)                      # log(1 - x^2) <= 0
+    central = w > -5.0
+    # float32 sqrt correctly rounded (as vsqrtps is) through float64:
+    # PyTorch's vectorized float32 sqrt on the CPU is not
+    root = torch.sqrt(-w.double()).to(torch.float32)
+    t = torch.where(central, -2.5 - w, root - 3.0)
+    pick = lambda a, b: torch.where(central, a, b)  # noqa: E731
+    p = fma_f32(pick(*_ERFINV[0]), t, pick(*_ERFINV[1]))
+    for a, b in _ERFINV[2:]:
+        p = fma_f32(t, p, pick(a, b))
+    return x * torch.where(torch.abs(x) == 1.0, float("inf"), p)

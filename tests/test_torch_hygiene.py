@@ -1,6 +1,6 @@
 """Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` never
-import JAX or the JAX package, and the port's entry point runs on the GPU
-unless asked for the CPU."""
+import JAX, the JAX package or its ``benchmarks``, and the port's entry
+points run on the GPU unless asked for the CPU."""
 import os
 import pkgutil
 import re
@@ -19,6 +19,7 @@ FORBIDDEN = [re.compile(p, re.MULTILINE) for p in (
     r"^\s*from\s+repro\.",
     r"^\s*from\s+repro\s+import\b",
     r"\bimport\s+repro\b(?!_)",
+    r"^\s*(import|from)\s+benchmarks\b",
 )]
 
 
@@ -36,12 +37,14 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert {"repro_torch.launch.serve", "repro_torch.models.transformer",
             "repro_torch.kernels.flash_attention.ops",
             "repro_torch.fl.collectives", "repro_torch.sharding.fl",
-            "repro_torch.launch.multipod"} <= set(mods)
+            "repro_torch.launch.multipod", "repro_torch.launch.experiments",
+            "repro_torch.core.gss", "repro_torch.core.controllers.baselines",
+            "repro_torch.core.controllers.tilted"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro', 'benchmarks'))\n"
             "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -65,6 +68,7 @@ def test_scan_flags_reference_imports_but_not_the_port():
     assert hits("from repro.fl import FederatedTrainer")
     assert hits("from repro import configs")
     assert hits("import repro")
+    assert hits("from benchmarks.fl_experiments import run_all")
     assert not hits("import repro_torch")
     assert not hits("from repro_torch.fl import FederatedTrainer")
 
@@ -137,3 +141,12 @@ def test_mesh_and_weight_entry_points_without_device_raise_when_no_gpu(
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert params_from_numpy({"w": [1.0]}, "cpu")["w"].device.type == "cpu"
+
+
+def test_experiments_without_device_raise_when_no_gpu(monkeypatch):
+    from repro_torch.launch import experiments
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        experiments.build(n_clients=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        experiments.run_all(n_clients=2, rounds=1)

@@ -1,9 +1,11 @@
 """The port's threefry PRNG (``repro_torch.random``) against ``jax.random``.
 
 Every JAX call runs under ``jax.threefry_partitionable(False)``, the
-semantics the JAX package's goldens were recorded with. Keys, raw bits and
-uniforms must be bit-equal; exponentials are ``-log1p(-u)`` and may differ
-by 1 ulp, because PyTorch's and XLA's ``log1p`` round differently.
+semantics the JAX package's goldens were recorded with. Keys, raw bits,
+uniforms and the float transforms of them (exponential, Gumbel, normal)
+must be bit-equal: the port computes ``log``, ``log1p`` and ``erf_inv`` as
+XLA:CPU does (``repro_torch.xla_math``), which these tests also hold bit
+for bit against XLA on millions of inputs.
 """
 import jax
 import jax.numpy as jnp
@@ -13,7 +15,10 @@ import torch
 
 from repro.core import channel as jchannel
 from repro.data.pipeline import client_sample_keys as j_client_sample_keys
+from jax.scipy.special import erfinv as j_erfinv
+
 from repro_torch import random as prng
+from repro_torch import xla_math
 from repro_torch.core import channel as tchannel
 from repro_torch.data.pipeline import client_sample_keys
 
@@ -24,10 +29,14 @@ def _u32(a) -> np.ndarray:
     return np.asarray(a).astype(np.uint32).astype(np.int64)
 
 
-def _ulps(a, b) -> int:
-    ia = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
-    ib = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
-    return int(np.abs(ia - ib).max())
+def _assert_bits(want, got, msg=""):
+    """Equal float32 bit patterns (NaNs included)."""
+    want = np.asarray(want, np.float32)
+    got = np.asarray(got, np.float32)
+    assert want.shape == got.shape, msg
+    bad = want.view(np.int32) != got.view(np.int32)
+    assert not bad.any(), (f"{msg}: {int(bad.sum())} of {bad.size} differ, "
+                           f"e.g. {want[bad][:3]} vs {got[bad][:3]}")
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -61,13 +70,15 @@ def test_bits_and_uniform_are_bit_equal(seed, shape):
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_exponential_within_one_ulp(seed):
+    """Bit-equal since the port's ``log1p`` is XLA's (the name dates from
+    when PyTorch's ``log1p`` left up to 1 ulp, ROADMAP C-5)."""
     with jax.threefry_partitionable(False):
         k = jax.random.PRNGKey(seed)
         t = prng.PRNGKey(seed)
         for shape in [(8,), (50,), (4, 9)]:
             e_j = jax.random.exponential(k, shape, jnp.float32)
             e_t = prng.exponential(t, shape)
-            assert _ulps(e_j, e_t) <= 1, shape
+            _assert_bits(e_j, e_t, str(shape))
 
 
 @pytest.mark.parametrize("seed", [0, 3])
@@ -99,7 +110,7 @@ def test_round_fading_within_one_ulp(n):
             for r in [0, 1, 7, 100]:
                 f_j = jchannel.round_fading(jax.random.PRNGKey(seed), r, n)
                 f_t = tchannel.round_fading(prng.PRNGKey(seed), r, n)
-                assert _ulps(f_j, f_t) <= 1, (seed, r)
+                _assert_bits(f_j, f_t, str((seed, r)))
 
 
 def test_prngkey_rejects_out_of_range_seed():
@@ -128,18 +139,115 @@ def test_randint_is_bit_equal(seed, shape, lo, hi):
 @pytest.mark.parametrize("seed", [0, 7])
 @pytest.mark.parametrize("shape", [(5,), (2, 512), (4, 32000)])
 def test_gumbel_matches_to_a_rounding_of_log(seed, shape):
-    """Uniforms bit-equal; ``-log(-log(u))`` through PyTorch's float32
-    ``log`` and XLA's, which round apart by an ulp on some inputs
-    (ROADMAP C-9): equal to within 2 ulps of each log's result."""
+    """``-log(-log(u))`` through XLA's float32 ``log``: bit-equal (the name
+    dates from when PyTorch's ``log`` rounded apart, ROADMAP C-9)."""
     with jax.threefry_partitionable(False):
         k = jax.random.fold_in(jax.random.PRNGKey(seed), 11)
         want = np.asarray(jax.random.gumbel(k, shape, jnp.float32))
         got = prng.gumbel(prng.fold_in(prng.PRNGKey(seed), 11), shape).numpy()
-        assert got.dtype == np.float32 and got.shape == want.shape
-        # the inner log is -log(u) > 0; an ulp there moves g by at most
-        # ulp(e^{-g}) / e^{-g} in absolute terms (~1.2e-7), plus the outer ulp
-        np.testing.assert_allclose(got, want, rtol=3e-7, atol=3e-7)
-        assert np.mean(got == want) > 0.5
+        assert got.dtype == np.float32
+        _assert_bits(want, got, str(shape))
+
+
+# ------------------------------------------------ XLA's float32 math ----
+def _xla(fn, x: np.ndarray) -> np.ndarray:
+    return np.asarray(jax.jit(fn)(jnp.asarray(x)))
+
+
+def _every_positive_float(stride: int) -> np.ndarray:
+    """Every ``stride``-th float32 bit pattern from +0 to +inf
+    (denormals included)."""
+    return (np.arange(0, 0x7F800001, stride, dtype=np.int64)
+            .astype(np.uint32).view(np.float32))
+
+
+SPECIAL = np.array([0.0, -0.0, 1e-40, -1e-40, 1.0, -1.0, 2.0, -2.0, 1e-30,
+                    0.41421354, -0.41421354, 0.9999999, -0.99999994,
+                    np.inf, -np.inf], np.float32)
+
+
+@pytest.mark.parametrize("name,jfn,tfn,make", [
+    ("log", jnp.log, xla_math.log_xla,
+     lambda r: np.concatenate([_every_positive_float(331), r.random(1 << 20, np.float32)])),
+    ("log1p", jnp.log1p, xla_math.log1p_xla,
+     lambda r: np.concatenate([_every_positive_float(331), -r.random(1 << 20, np.float32),
+                               (r.standard_normal(1 << 18) * 8).astype(np.float32)])),
+    ("erfinv", j_erfinv, xla_math.erfinv_xla,
+     lambda r: r.random(1 << 21, np.float32) * 2 - 1),
+])
+def test_xla_math_is_bit_equal_to_xla_cpu(name, jfn, tfn, make):
+    """Each function on >= 1M inputs (every 331st positive float pattern,
+    and the draws' own ranges) and the special values, bit for bit."""
+    x = np.concatenate([make(np.random.default_rng(5)), SPECIAL])
+    if name == "erfinv":            # outside [-1, 1] only NaN's payload differs
+        x = x[np.abs(x) <= 1.0]
+    _assert_bits(_xla(jfn, x), tfn(torch.from_numpy(x)).numpy(), name)
+
+
+def test_fma_f32_rounds_once():
+    """``fma_f32`` against the product and sum rounded once from exact
+    rationals, on inputs where two roundings would differ."""
+    from fractions import Fraction
+    rng = np.random.default_rng(2)
+    a = rng.standard_normal(3000).astype(np.float32)
+    b = rng.standard_normal(3000).astype(np.float32)
+    # c cancels most of the product, so its low bits decide the rounding
+    c = -(a.astype(np.float64) * b).astype(np.float32)
+    c = np.nextafter(c, np.float32(np.inf) * np.sign(rng.standard_normal(3000)))
+    got = xla_math.fma_f32(torch.from_numpy(a), torch.from_numpy(b),
+                           torch.from_numpy(c)).numpy()
+    two_roundings = (a * b) + c
+    assert np.any(got != two_roundings)
+    for i in range(a.size):
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) + Fraction(float(c[i]))
+        f = np.float32(float(exact))
+        near = [np.nextafter(f, np.float32(-np.inf)), f,
+                np.nextafter(f, np.float32(np.inf))]
+        best = min(near, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                        int(np.array(v).view(np.int32)) & 1))
+        assert got[i] == best, i
+
+
+@pytest.mark.parametrize("draw", ["exponential", "gumbel", "normal"])
+def test_draws_are_bit_equal_on_a_million(draw):
+    """>= 1M draws of each transform over several seeds and shapes, equal
+    to ``jax.random``'s bit for bit."""
+    jfn = getattr(jax.random, draw)
+    tfn = getattr(prng, draw)
+    total = 0
+    with jax.threefry_partitionable(False):
+        for seed, shape in [(0, (1 << 19,)), (7, (513, 1021)), (12345, (3, 50)),
+                            (2**31 - 1, (1000, 5)), (42, (1,))]:
+            k = jax.random.fold_in(jax.random.PRNGKey(seed), 5)
+            want = np.asarray(jfn(k, shape, jnp.float32))
+            got = tfn(prng.fold_in(prng.PRNGKey(seed), 5), shape).numpy()
+            _assert_bits(want, got, f"{draw} {seed} {shape}")
+            total += want.size
+    assert total >= 1_000_000
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+@pytest.mark.parametrize("shape", [(1 << 19,), (3, 3, 1, 32), (512, 10)])
+def test_truncated_normal_is_bit_equal(seed, shape):
+    """``jax.random.truncated_normal(key, -2, 2, ...)``, the fan-in
+    initializer's draw (``models.cnn.init_cnn``)."""
+    with jax.threefry_partitionable(False):
+        want = np.asarray(jax.random.truncated_normal(
+            jax.random.PRNGKey(seed), -2.0, 2.0, shape, jnp.float32))
+    got = prng.truncated_normal(prng.PRNGKey(seed), -2.0, 2.0, shape)
+    _assert_bits(want, got.numpy(), str(shape))
+    with pytest.raises(ValueError, match="bounds"):
+        prng.truncated_normal(prng.PRNGKey(seed), -1.0, 2.0, shape)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 99])
+@pytest.mark.parametrize("shape", [(5,), (50,), (3, 3, 8, 16)])
+def test_normal_is_bit_equal(seed, shape):
+    with jax.threefry_partitionable(False):
+        want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape))
+        got = prng.normal(prng.PRNGKey(seed), shape).numpy()
+        assert got.dtype == np.float32
+        _assert_bits(want, got, str(shape))
 
 
 @pytest.mark.parametrize("seed", [0, 3, 99])

@@ -97,14 +97,16 @@ def test_tie_heavy_repair_pins_stable_argsort():
         _assert_same(jd, js, td, ts, r)
 
 
-@pytest.mark.parametrize("kw,item", [({"bw_solver": "gss"}, "A-6"),
+@pytest.mark.parametrize("kw,item", [({"bw_solver": "gss",
+                                       "solver_fallback": True}, "A-13"),
                                      ({"solver_fallback": True}, "A-13"),
                                      ({"bits_grid": (8.0, 32.0),
                                        "solver_fallback": True}, "A-13")])
 def test_unported_options_raise_naming_the_roadmap_item(kw, item):
-    """The GSS oracle and the graceful-degradation fallback are not
-    ported, on the gamma grid or the joint grid, with or without pricing;
-    the joint grid and ``e_scale`` themselves are (A-16, A-17)."""
+    """The graceful-degradation fallback is not ported, with either
+    bandwidth solver, on the gamma grid or the joint grid, with or without
+    pricing; the GSS oracle (A-6), the joint grid and ``e_scale``
+    themselves are (``test_torch_gss.py``)."""
     fe = dataclasses.replace(TFE(eta_auto=False), **kw)
     u, h, P = (torch.tensor(a) for a in _draws(4, 0))
     st = init_state(TFE(), 4, b_tot=B_TOT, s_bits=S_BITS, i_bits=I_BITS,

@@ -167,3 +167,14 @@ def sharded_trainer_body(rank, cases, out_dir):
     except ValueError as e:
         out["divisibility_error"] = np.array(str(e))
     _save(out_dir, rank, **out)
+
+
+def sweep_body(rank, params, fe_cfg, seeds, rounds, configs, out_dir):
+    """``run_sweep`` of the MLP trainer on a clients mesh over every rank:
+    seed lanes, then ``configs`` lanes."""
+    from repro_torch.sharding import make_clients_mesh
+    tr = mlp_trainer(params, fe_cfg, mesh=make_clients_mesh(device="cpu"))
+    seeds_out = tr.run_sweep(seeds, rounds)
+    cfg_out = tr.run_sweep(seeds, rounds, configs=configs)
+    _save(out_dir, rank, **{f"seeds.{k}": v for k, v in seeds_out.items()},
+          **{f"configs.{k}": v for k, v in cfg_out.items() if k != "configs"})
