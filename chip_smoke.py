@@ -4,8 +4,9 @@ the port still starts on the card.
 
     python3 chip_smoke.py             # what CI runs on the H100
     python3 chip_smoke.py --profile   # + a torch.profiler breakdown of one
-                                      #   more round of each path, and of one
-                                      #   prefill and one decode step
+                                      #   more round of each path (phases 3
+                                      #   and 9), and of one prefill and one
+                                      #   decode step
     python3 chip_smoke.py --cards 4   # phase 7 alone, across 4 cards
 
 Phases (any failure exits non-zero; nothing is caught and turned into a pass):
@@ -18,7 +19,8 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    variants (gamma grid, outage-priced, joint (gamma, bits), joint +
    priced), the four fused dual ascents (phase 4's inputs, 5 warm-started
    rounds, capped and stopped early with dead clients: masks, gammas,
-   widths and n_inner equal, lam and mu rtol 1e-5), the per-row block
+   widths and n_inner equal, lam, mu and the last two residuals that the
+   solver's fallback guard reads rtol 1e-5), the per-row block
    top-k (main-path rows, NaN/Inf/-0.0/tie rows with a 0x7fffffff NaN and
    a row of one value, rows of denormals, which compare as zero (C-16),
    all-full, rows of odd length and inputs off a 16-byte word), the block
@@ -26,7 +28,9 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    gamma 0.25 and 0.1, in fp32 and bf16, blocks 256 and 1024, k = block,
    the same NaN/Inf/-0.0/tie lanes in fp32 and bf16, inputs off a word),
    each bit for bit, with the top-k kernels' registers, spills and shared
-   bytes; the row norms and flash attention, bf16 on the tensor cores and
+   bytes; the row norms (also on rows holding NaN, +Inf and rows scaled
+   by -1e3: the screen-less defended clip's inputs) and flash attention,
+   bf16 on the tensor cores and
    fp32 on the register-tiled SIMT kernel (the serve path's [4, 2048, 32|4, 64] bf16
    causal, a 256 window, fp32, a ragged S = 1000, D = 32 and D = 128 in
    both types), and a flash call under grad raising (C-14) — and time
@@ -56,8 +60,14 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    ``channelgreedy``, ``tilted``), each on ``cuda`` and on ``cpu`` from
    the same inputs: equal masks (a split is reported with its score gap),
    gammas, widths, ``n_inner`` and retransmission counts, energies to rtol
-   1e-5 (solver) and 1e-4 (trainer); and the baselines' ``topk_mask`` on
-   CUDA tensors against ``np.argsort`` (ties, NaN);
+   1e-5 (solver) and 1e-4 (trainer); the baselines' ``topk_mask`` on
+   CUDA tensors against ``np.argsort`` (ties, NaN); and 3 rounds of the
+   timed, fault and defense paths (``straggler``, ``harvesting`` with a
+   quantile deadline, ``churn``, ``byzantine-lite``, and byzantine-lite
+   on the oscillating solver setting with ``solver_fallback``, which must
+   take the fallback): ``made``, ``n_late``, ``n_stale``, ``n_faulted``,
+   ``n_rejected`` and ``fallback`` equal, energies and ``t_round`` rtol
+   1e-5, ``clip_frac`` within 1e-6;
 5. serve: ``repro_torch.launch.serve.generate`` with TinyLlama-1.1B at full
    width (22 layers, d 2048, random weights from a seeded generator on the
    card, bf16): 4 prompts of 2048 ids, 32 new tokens each, once to warm up
@@ -105,14 +115,29 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    lane equal to its ``run_scanned`` run bit for bit; one line a strategy
    (steady rounds/s, sweep rounds/s, energy a round, final accuracy,
    participation) and FairEnergy's energy against each baseline's; the
-   results JSON goes to ``build/chip_smoke/``.
+   results JSON goes to ``build/chip_smoke/``;
+9. the timed, fault and defense paths at full width (N = 50, the paper's
+   CNN, ``experiments.build``): ``straggler`` (its [50, D] stale buffer
+   in the carry), ``harvesting``, ``churn``, ``byzantine-lite`` (trim 0.1)
+   and byzantine-lite with ``solver_fallback``, 20 rounds each, every
+   run's launch counts zeroed before it and asserted after (the fused
+   ascent and the top-k rows once a round, the norms once a round plus
+   once a clipped round); one line a path (steady round, rounds/s, peak
+   memory, late/stale/fault/rejected/clip totals, energy a round against
+   the main path's); then the checkpoint on the card: 10 straggler rounds
+   with a checkpoint every 5, a fresh trainer restored at round 5
+   continuing with equal masks and energies and bit-equal params, and
+   ``verify_checkpoint`` rejecting a copy with one flipped byte (under
+   ``build/chip_smoke/``, removed after).
 
 ``--cards K`` runs phase 7 alone across K cards (one NCCL rank a card,
 after the build): the exchanges on a (2, K/2, 1) mesh against the pod mean
-of the block top-k computed on each card, and the main path's recipe
-sharded over the K cards against rank 0's one-card run (masks and gammas
-equal, energies rtol 1e-5, params atol 1e-6), with C-17's gate on rank 0's
-card at K's share of the clients.
+of the block top-k computed on each card, the main path's recipe sharded
+over the K cards against rank 0's one-card run (masks and gammas equal,
+energies rtol 1e-5, params atol 1e-6), with C-17's gate on rank 0's card
+at K's share of the clients, and (7b) the straggler and byzantine-lite
+scenarios sharded the same way (masks, made, stale and rejected counts
+equal, params within 1e-6).
 
 Output: one JSON line per kernel check, per round and per path, a
 ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
@@ -316,7 +341,9 @@ def check_dual_ascent(dev, name: str) -> dict:
     inputs: each of 5 warm-started rounds capped (the default dual_tol:
     30 iterations) and stopped early (EARLY_TOLS, with every 7th client
     dead). Selection masks, gammas, widths and n_inner exactly equal; lam,
-    mu, b*, e* within rtol 1e-5. Timed: one fused launch, the plain host
+    mu, b*, e* and the last two residuals (res, res_prev: +inf equal where
+    no iteration set them) within rtol 1e-5. Timed: one fused launch, the
+    plain host
     loop, and the host loop over the one-step kernel (the design it
     replaces), at round 0's capped setting."""
     from repro_torch.core.fairenergy import solve_round, static_of
@@ -329,7 +356,7 @@ def check_dual_ascent(dev, name: str) -> dict:
     all_alive = torch.ones(N_CLIENTS, dtype=torch.bool, device=dev)
     some_dead = all_alive.clone()
     some_dead[::7] = False
-    err, n_inner, timed = 0.0, [], None
+    err, res_err, n_inner, timed = 0.0, 0.0, [], None
     for r in range(5):
         h, u = hs[r].to(dev), us[r].to(dev)
         es = ess[r].to(dev) if scaled else None
@@ -360,6 +387,17 @@ def check_dual_ascent(dev, name: str) -> dict:
                 torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-12,
                                            msg=lambda m: f"{where} {what}: {m}")
                 err = max(err, float((g - w).abs().max()))
+            # the last two residuals, what the fallback guard reads: +inf
+            # where no iteration set them, else within rtol 1e-5
+            for what in ("res", "res_prev"):
+                g, w = float(getattr(got, what)), float(getattr(want, what))
+                if math.isinf(w) or math.isinf(g):
+                    if g != w:
+                        raise AssertionError(f"{where} {what}: {g} != {w}")
+                elif not abs(g - w) <= 1e-5 * abs(w):
+                    raise AssertionError(f"{where} {what}: {g} vs {w}")
+                else:
+                    res_err = max(res_err, abs(g - w) / max(abs(w), 1e-30))
             n_inner.append(int(want.n_inner))
             if timed is None:
                 timed = (args, kw)
@@ -376,6 +414,7 @@ def check_dual_ascent(dev, name: str) -> dict:
     host_loop = cuda_ms(lambda: ref.dual_ascent_ref(*args, **kw, solve=ops.dual_solve),
                         5, warmup=1)
     log(json.dumps({"dual_ascent_case": FUSED[name], "n_inner": n_inner,
+                    "res_max_rel_err": res_err,
                     "kernel_ms": ms, "kernel_one_iteration_ms": ms_one,
                     "kernel_ms_per_further_iteration":
                         (ms - ms_one) / (static.inner_iters - 1),
@@ -393,7 +432,7 @@ def check_dual_ascent(dev, name: str) -> dict:
                 replaces=f"{replaces} + src/repro/core/fairenergy.py:371",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, call_ms=call,
-                host_loop_ms=host_loop)
+                host_loop_ms=host_loop, res_max_rel_err=res_err)
 
 
 def _tricky_rows(dev) -> tuple[torch.Tensor, torch.Tensor]:
@@ -621,11 +660,29 @@ def check_topk_block(dev, vec: torch.Tensor) -> dict:
 
 
 def check_row_norms(dev, mat: torch.Tensor) -> dict:
+    """The norms kernel against its plain version on the main path's
+    matrix, and on the screen-less defended clip's inputs: rows holding
+    NaN (all of a row, and one lane), +Inf and rows scaled by -1e3, which
+    must come out NaN, +Inf and scaled."""
     from repro_torch.kernels.score_norm import ops, ref
     got = ops.row_l2_norms(mat)
     want = ref.row_l2_norms_ref(mat, ops.BLOCK)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
     err = float((got - want).abs().max())
+    bad = mat[:8].clone()
+    bad[1] = float("nan")
+    bad[2, 12345] = float("nan")
+    bad[3, 777] = float("inf")
+    bad[4] = float("inf")
+    bad[5] *= -1e3
+    got_b = ops.row_l2_norms(bad)
+    want_b = ref.row_l2_norms_ref(bad, ops.BLOCK)
+    torch.testing.assert_close(got_b, want_b, rtol=1e-6, atol=0, equal_nan=True)
+    if not (torch.isnan(got_b[1:3]).all() and torch.isposinf(got_b[3:5]).all()
+            and torch.isfinite(got_b[[0, 5, 6, 7]]).all()):
+        raise AssertionError(f"norms of the NaN/Inf rows: {got_b.tolist()}")
+    torch.testing.assert_close(got_b[5], got[5] * 1e3, rtol=1e-6, atol=0)
+    log(json.dumps({"row_norms_special_rows": got_b.tolist()}))
     ms = cuda_ms(lambda: ops.row_l2_norms(mat), 50)
     plain = cuda_ms(lambda: ref.row_l2_norms_ref(mat, ops.BLOCK), 10)
     library = cuda_ms(lambda: torch.linalg.vector_norm(mat, dim=1), 50)
@@ -1046,11 +1103,18 @@ def topk_mask_on_card(dev):
 
 
 def card_against_cpu(dev, scenario=None, price_outage=None, bits_grid=None,
-                     strategy="fairenergy"):
-    """The smoke CNN with N = 8 for 2 rounds on the card and on the CPU;
-    the scenario arguments as in paper_trainer; a baseline ``strategy``
-    runs with ``BASELINE_KW``. A mask split is reported with its gap and
-    fails the phase."""
+                     strategy="fairenergy", async_cfg=None, fe_kw=None,
+                     label=None, rounds=2):
+    """The smoke CNN with N = 8 for ``rounds`` rounds on the card and on the
+    CPU; the scenario arguments as in paper_trainer (a scenario's timed,
+    fault and defense configs included; ``async_cfg`` replaces its timed
+    one); ``fe_kw`` replaces FairEnergyConfig fields; a baseline
+    ``strategy`` runs with ``BASELINE_KW``. Masks, gammas, widths,
+    retransmissions, and on the timed and fault paths ``made``,
+    ``n_late``, ``n_stale``, ``n_faulted``, ``n_rejected`` and ``fallback``
+    exactly equal; energies rtol 1e-4 (1e-5 on the timed and fault
+    paths), ``t_round`` rtol 1e-5 and ``clip_frac`` within 1e-6. A mask
+    split is reported with its gap and fails the phase."""
     import dataclasses
 
     from repro_torch.configs import ChannelConfig, FairEnergyConfig, FLConfig
@@ -1077,9 +1141,18 @@ def card_against_cpu(dev, scenario=None, price_outage=None, bits_grid=None,
         scn = get_scenario(scenario)
         fe = scn.apply_fe(fe)
         extra = dict(device_profile=scn.device_profile(n, seed=1),
-                     link_cfg=scn.link_config(price_outage=price_outage))
+                     link_cfg=scn.link_config(price_outage=price_outage),
+                     async_cfg=scn.async_config(),
+                     fault_cfg=scn.fault_config(),
+                     defense=scn.defense_config())
+    if async_cfg is not None:
+        extra["async_cfg"] = async_cfg
     if bits_grid is not None:
         fe = dataclasses.replace(fe, bits_grid=bits_grid)
+    if fe_kw:
+        fe = dataclasses.replace(fe, **fe_kw)
+    robust = any(extra.get(k) is not None
+                 for k in ("async_cfg", "fault_cfg", "defense")) or bool(fe_kw)
     if strategy != "fairenergy":
         extra.update(BASELINE_KW)
     hist = {}
@@ -1097,11 +1170,12 @@ def card_against_cpu(dev, scenario=None, price_outage=None, bits_grid=None,
             fl_cfg=FLConfig(local_steps=2, local_batch=32, lr=0.05),
             fe_cfg=fe, ch_cfg=ChannelConfig(n_clients=n), seed=1, device=d,
             strategy=strategy, **extra)
-        tr.run_scanned(2, verbose=False)
+        tr.run_scanned(rounds, verbose=False)
         hist[name] = tr.history
         if name == "cpu":
             net = tr.network
-    label = scenario or ("legacy" if strategy == "fairenergy" else strategy)
+    label = label or scenario or ("legacy" if strategy == "fairenergy"
+                                  else strategy)
     for a, b in zip(hist["cuda"], hist["cpu"]):
         if not np.array_equal(a.selected, b.selected):
             # the ranking a fixed-K baseline cut at K (tilted's is random)
@@ -1112,16 +1186,64 @@ def card_against_cpu(dev, scenario=None, price_outage=None, bits_grid=None,
             np.testing.assert_array_equal(a.bits, b.bits)
         if (a.n_retx, a.n_outage) != (b.n_retx, b.n_outage):
             raise AssertionError(f"{label} round {a.round}: retransmissions differ")
-        np.testing.assert_allclose(a.energy, b.energy, rtol=1e-4, atol=0)
+        counts = ("n_late", "n_stale", "n_faulted", "n_rejected", "fallback")
+        if tuple(getattr(a, k) for k in counts) != tuple(getattr(b, k) for k in counts):
+            raise AssertionError(
+                f"{label} round {a.round}: {counts} differ, cuda "
+                f"{[getattr(a, k) for k in counts]} cpu {[getattr(b, k) for k in counts]}")
+        if (a.made is None) != (b.made is None) or (
+                a.made is not None and not np.array_equal(a.made, b.made)):
+            raise AssertionError(f"{label} round {a.round}: made differs")
+        if (a.t_round is None) != (b.t_round is None) or (
+                a.t_round is not None
+                and not abs(a.t_round - b.t_round) <= 1e-5 * abs(b.t_round)):
+            raise AssertionError(f"{label} round {a.round}: t_round "
+                                 f"{a.t_round} vs {b.t_round}")
+        if (a.clip_frac is None) != (b.clip_frac is None) or (
+                a.clip_frac is not None and not abs(a.clip_frac - b.clip_frac) <= 1e-6):
+            raise AssertionError(f"{label} round {a.round}: clip_frac "
+                                 f"{a.clip_frac} vs {b.clip_frac}")
+        np.testing.assert_allclose(a.energy, b.energy, rtol=1e-5 if robust else 1e-4,
+                                   atol=0)
         log(json.dumps({"card_vs_cpu": label, "strategy": strategy,
                         "price_outage": price_outage,
                         "bits_grid": bits_grid, "round": a.round,
                         "selected": a.selected.astype(int).tolist(),
                         "bits": None if a.bits is None else a.bits.tolist(),
                         "n_retx": a.n_retx, "n_outage": a.n_outage,
+                        "made": None if a.made is None else a.made.astype(int).tolist(),
+                        "n_stale": a.n_stale, "t_round": a.t_round,
+                        "n_faulted": a.n_faulted, "n_rejected": a.n_rejected,
+                        "clip_frac": a.clip_frac, "fallback": a.fallback,
                         "energy_max_rel": float(np.max(np.abs(a.energy - b.energy)
                                                        / np.maximum(np.abs(b.energy), 1e-30))),
                         "accuracy_cuda": a.accuracy, "accuracy_cpu": b.accuracy}))
+    return hist["cuda"]
+
+
+# the oscillating solver setting of tests/test_fault_injection.py (the
+# bandwidth dual step far too large: the ascent's residual does not shrink
+# at its cap), with the fallback guard on
+OSCILLATING = dict(eta=1e-2, eta_auto=False, alpha_lambda=1e2, inner_iters=6,
+                   dual_tol=1e-3, solver_fallback=True)
+
+
+def robust_card_against_cpu(dev) -> None:
+    """Phase 4's timed, fault and defense runs (N = 8, 3 rounds): the
+    straggler, harvesting with a quantile deadline, churn and
+    byzantine-lite scenarios, and byzantine-lite on the oscillating solver
+    setting with the fallback guard on, which must take the fallback in
+    some round on both devices."""
+    from repro_torch.core.rounds import AsyncConfig
+    card_against_cpu(dev, "straggler", rounds=3)
+    card_against_cpu(dev, "harvesting", rounds=3, label="harvesting_deadline",
+                     async_cfg=AsyncConfig(deadline_q=0.5, harvest_j=2e-3))
+    card_against_cpu(dev, "churn", rounds=3)
+    card_against_cpu(dev, "byzantine-lite", rounds=3)
+    hist = card_against_cpu(dev, "byzantine-lite", rounds=3, fe_kw=OSCILLATING,
+                            label="solver_fallback_oscillating")
+    if not any(lg.fallback for lg in hist):
+        raise AssertionError("the oscillating setting took no fallback round")
 
 
 # ------------------------------------------------------------ phase 8 ----
@@ -1239,6 +1361,159 @@ def paper_experiment(dev) -> dict:
     EXPERIMENT_OUT.write_text(json.dumps(_json_safe({"results": res, "card": out}),
                                          indent=1, default=float))
     return out
+
+
+# ------------------------------------------------------------ phase 9 ----
+ROBUST_ROUNDS = 20
+# label -> (scenario, solver_fallback): the timed, fault and defense paths
+# at full width
+ROBUST = {"straggler": ("straggler", False),
+          "harvesting": ("harvesting", False),
+          "churn": ("churn", False),
+          "byzantine_lite": ("byzantine-lite", False),
+          "byzantine_lite_fallback": ("byzantine-lite", True)}
+CKPT_DIR = HERE / "build" / "chip_smoke" / "ckpt"
+
+
+def robust_trainer(dev, scenario, fallback=False, mesh=None):
+    """``paper_trainer`` of a scenario, with the solver's fallback guard on
+    when asked (set on the controller's config before its first round)."""
+    import dataclasses
+    tr = paper_trainer(dev, scenario=scenario, mesh=mesh)
+    if fallback:
+        tr.fe_cfg = dataclasses.replace(tr.fe_cfg, solver_fallback=True)
+        tr.controller.fe_cfg = dataclasses.replace(tr.controller.fe_cfg,
+                                                   solver_fallback=True)
+    return tr
+
+
+def robust_path(dev, label: str, main_epr: float, profile: bool = False) -> dict:
+    """One scenario's ``ROBUST_ROUNDS`` rounds at full width (N = 50, D =
+    1,630,090), its launch counts zeroed just before and read just after:
+    the fused ascent once a round and no other dual-solve launch, the top-k
+    rows once a round, the norms once a round plus once a round where the
+    defended aggregator clips (and once for eta_auto's calibration). Logs the steady round, peak memory, the
+    timed and fault totals and the energy a round against the main
+    path's."""
+    scenario, fallback = ROBUST[label]
+    t0 = time.perf_counter()
+    tr = robust_trainer(dev, scenario, fallback)
+    setup_s = time.perf_counter() - t0
+    fns = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn, attr in fns.values():
+        setattr(fn, attr, 0)
+    tr.run_scanned(ROBUST_ROUNDS, verbose=False)
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in fns.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    rounds = ROBUST_ROUNDS
+    clipped = tr.defense_cfg is not None and tr.defense_cfg.clip_q > 0.0
+    # the norms: the round's u_norms, the clip's (defended) and once for
+    # the eta_auto calibration's client step before round 0
+    want = {"dual_ascent": rounds, "topk_rows": rounds,
+            "row_sq_sum": rounds * (2 if clipped else 1) + 1}
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        raise AssertionError(f"phase 9 {label}: launches {got}, want {want}")
+    h = tr.history
+    if not all(bool(torch.isfinite(p).all()) for p in tr.params.values()):
+        raise AssertionError(f"phase 9 {label}: non-finite params")
+    if not all(np.isfinite(lg.energy).all() and np.isfinite(lg.accuracy)
+               for lg in h):
+        raise AssertionError(f"phase 9 {label}: non-finite energy or accuracy")
+    total = lambda k: (None if getattr(h[0], k) is None  # noqa: E731
+                       else sum(getattr(lg, k) for lg in h))
+    totals = {k: total(k) for k in ("n_late", "n_stale", "n_faulted",
+                                    "n_rejected", "clip_frac", "fallback")}
+    # what shows the path ran: stragglers, crashes, rejected payloads
+    need = {"straggler": "n_late", "churn": "n_faulted",
+            "byzantine_lite": "n_rejected"}.get(label)
+    if need and not totals[need]:
+        raise AssertionError(f"phase 9 {label}: no {need} in {rounds} rounds")
+    if label == "harvesting" and not any(
+            (b.battery > a.battery).any() for a, b in zip(h, h[1:])):
+        raise AssertionError("phase 9 harvesting: no battery recharged")
+    steady = [lg.wall_s for lg in h[1:]]
+    epr = float(np.mean([lg.total_energy for lg in h]))
+    line = {"label": label, "scenario": scenario, "solver_fallback": fallback,
+            "rounds": rounds, "n_clients": tr.n_clients, "d": tr.n_params,
+            "deadline_s": tr.deadline_s, "setup_s": setup_s,
+            "round_ms_first": h[0].wall_s * 1e3,
+            "round_ms_steady_mean": 1e3 * sum(steady) / len(steady),
+            "rounds_per_s_steady": len(steady) / sum(steady),
+            "peak_mem_GB": peak / 1e9,
+            "stale_buffer_GB": (None if tr.carry.astate is None else
+                                tr.carry.astate.buf.numel() * 4 / 1e9),
+            "launches": got, "totals": totals,
+            "simulated_time_s": tr.simulated_time(),
+            "energy_per_round_J": epr,
+            "main_path_energy_per_round_J": main_epr,
+            "energy_vs_main_path": epr / main_epr,
+            "final_accuracy": h[-1].accuracy}
+    log(json.dumps({"robust_path": line}))
+    if profile:
+        profile_round(tr, rounds, label)
+    return line
+
+
+def checkpoint_on_card(dev) -> dict:
+    """The straggler scenario (its stale buffer in the carry) for 10 rounds
+    with ``chunk=5`` and a checkpoint after every chunk; a fresh trainer
+    restored from the round-5 checkpoint continues: masks, made and
+    energies equal, params equal bit for bit; ``verify_checkpoint``
+    passes the file and rejects a copy with one flipped byte."""
+    import shutil
+
+    from repro_torch.checkpoint import verify_checkpoint
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    a = robust_trainer(dev, "straggler")
+    t0 = time.perf_counter()
+    a.run_scanned(10, chunk=5, ckpt_dir=str(CKPT_DIR), ckpt_every=1,
+                  verbose=False)
+    run_s = time.perf_counter() - t0
+    mid = CKPT_DIR / "ckpt_00000005.npz"
+    b = robust_trainer(dev, "straggler")
+    t0 = time.perf_counter()
+    nxt = b.restore_checkpoint(str(mid))
+    restore_s = time.perf_counter() - t0
+    if nxt != 5:
+        raise AssertionError(f"the checkpoint resumes at {nxt}, not 5")
+    b.run_scanned(10, chunk=5, start_round=5, verbose=False)
+    for la, lb in zip(a.history[5:], b.history):
+        if not (np.array_equal(la.selected, lb.selected)
+                and np.array_equal(la.made, lb.made)
+                and np.array_equal(la.energy, lb.energy)
+                and la.t_round == lb.t_round and la.n_stale == lb.n_stale):
+            raise AssertionError(f"restored round {lb.round} differs")
+    differ = [k for k in a.params if not torch.equal(a.params[k], b.params[k])]
+    if differ:
+        raise AssertionError(f"restored params differ in {differ}")
+    raw = bytearray(mid.read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    flipped = CKPT_DIR / "flipped.npz"
+    flipped.write_bytes(bytes(raw))
+    if not verify_checkpoint(str(mid)) or verify_checkpoint(str(flipped)):
+        raise AssertionError("verify_checkpoint did not tell the flipped "
+                             "copy from the checkpoint")
+    res = {"rounds": 10, "resumed_at": nxt, "file_MB": mid.stat().st_size / 1e6,
+           "run_with_checkpoints_s": run_s, "restore_s": restore_s,
+           "n_stale_after_resume": sum(lg.n_stale for lg in b.history),
+           "params_bitwise_equal": True, "flipped_copy_rejected": True}
+    log(json.dumps({"checkpoint_on_card": res}))
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return res
+
+
+def robust_rounds(dev, main: dict, profile: bool = False) -> dict:
+    """Phase 9: each ``ROBUST`` path at full width (``profile``: and a
+    torch.profiler round of each), then the checkpoint on the card.
+    Returns the paths' lines by label."""
+    main_epr = float(np.mean([lg.total_energy for lg in main["history"]]))
+    lines = {label: robust_path(dev, label, main_epr, profile)
+             for label in ROBUST}
+    checkpoint_on_card(dev)
+    return lines
 
 
 # ------------------------------------------------------------ phase 5 ----
@@ -1734,6 +2009,11 @@ def _card_rank(rank: int, world: int, init: str) -> None:
             if not p_err <= 1e-6:
                 raise AssertionError(f"{world}-card params differ by {p_err}")
         dist.barrier()
+        del tr
+        if rank == 0:
+            del ref
+        for scenario in ("straggler", "byzantine-lite"):
+            robust_sharded(dev, rank, world, scenario, say)
     except BaseException:
         # the other ranks wait in a collective that this one will not reach,
         # and tearing the group down would wait for them: say why and leave,
@@ -1744,6 +2024,50 @@ def _card_rank(rank: int, world: int, init: str) -> None:
         sys.stderr.flush()
         os._exit(1)
     dist.destroy_process_group()
+
+
+def robust_sharded(dev, rank: int, world: int, scenario: str, say) -> None:
+    """Phase 7b across the cards: a timed or fault scenario's ``ROUNDS``
+    rounds sharded over every card (the stale buffer as each rank's rows;
+    the clip's norms and the trimmed mean's matrix gathered) against rank
+    0's one-card run: masks, made, stale and rejected counts exactly
+    equal, params within 1e-6."""
+    import torch.distributed as dist
+    from repro_torch.sharding import make_clients_mesh
+    if rank == 0:
+        one = robust_trainer(dev, scenario)
+        one.run_scanned(ROUNDS, verbose=False)
+    dist.barrier()
+    tr = robust_trainer(dev, scenario, mesh=make_clients_mesh(device=dev))
+    tr.run_scanned(ROUNDS, verbose=False)
+    if rank == 0:
+        fields = ("selected", "made", "n_stale", "n_rejected")
+        same = {f: [bool(np.array_equal(getattr(a, f), getattr(b, f)))
+                    for a, b in zip(tr.history, one.history)] for f in fields}
+        p_err = max(float((tr.params[k] - one.params[k]).abs().max())
+                    for k in tr.params)
+        e_rel = max(float(np.max(np.abs(a.energy - b.energy)
+                                 / np.maximum(b.energy, 1e-30)))
+                    for a, b in zip(tr.history, one.history))
+        steady = lambda h: 1e3 * sum(lg.wall_s for lg in h[1:]) / (len(h) - 1)  # noqa: E731
+        say(json.dumps({"cards_robust": {
+            "scenario": scenario, "cards": world, "n_local": tr.n_local,
+            "equal_by_round": same, "params_max_abs": p_err,
+            "energy_max_rel": e_rel,
+            "n_stale": [lg.n_stale for lg in one.history],
+            "n_rejected": [lg.n_rejected for lg in one.history],
+            "round_ms_steady_mean": steady(tr.history),
+            "one_card_round_ms_steady_mean": steady(one.history),
+            "peak_mem_GB_rank0": torch.cuda.max_memory_allocated(dev) / 1e9}}))
+        for f, eq in same.items():
+            if not all(eq):
+                raise AssertionError(f"{world}-card {scenario}: {f} differs "
+                                     f"from one card in rounds "
+                                     f"{[i for i, e in enumerate(eq) if not e]}")
+        if not p_err <= 1e-6:
+            raise AssertionError(f"{world}-card {scenario} params differ by "
+                                 f"{p_err}")
+    dist.barrier()
 
 
 # chunk sizes of the client step timed beside the module's CLIENT_CHUNK
@@ -1914,6 +2238,7 @@ def main(argv) -> int:
     topk_mask_on_card(dev)
     for strategy in BASELINES:
         card_against_cpu(dev, strategy=strategy)
+    robust_card_against_cpu(dev)
 
     # ---- phase 5: the serve path, its launch counts zeroed before the timed run
     serve = serve_path(dev, profile="--profile" in argv)
@@ -1937,6 +2262,14 @@ def main(argv) -> int:
 
     # ---- phase 8: the paper's experiment, each run's counts zeroed before it
     paper_experiment(dev)
+
+    # ---- phase 9: the timed, fault and defense paths at full width, each
+    # run's counts zeroed before it, and the checkpoint on the card
+    robust = robust_rounds(dev, runs["main"], profile="--profile" in argv)
+    norms = next(k for k in kernels if k["name"] == "row_sq_sum")
+    norms["launches_defended_clip"] = (
+        robust["byzantine_lite"]["launches"]["row_sq_sum"] - ROBUST_ROUNDS - 1)
+    norms["second_call_site"] = "src/repro_torch/core/faults/defense.py"
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -150,7 +150,7 @@ class FairEnergyConfig:
     newton_iters: int = 3           # Newton steps on the SNR stationarity
     use_pallas_solver: bool = False  # field parity only: ignored by the port
     dual_tol: float = 1e-3          # dual-ascent early-exit residual (0 disables)
-    solver_fallback: bool = False   # graceful-degradation guard (not yet ported)
+    solver_fallback: bool = False   # graceful-degradation guard (eco fallback)
     bits_grid: Tuple[float, ...] = (32.0,)  # joint (gamma, bits) grid;
                                             # (32.0,) = gamma only
 

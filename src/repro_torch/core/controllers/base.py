@@ -40,7 +40,11 @@ class RoundObservation(NamedTuple):
     P: Tensor         # [N] — transmit powers P_i
     round: int        # round index r
     key: Tensor       # PRNG key for this round (stochastic controllers)
-    alive: Any = None  # [N] bool — battery not depleted (None = all alive)
+    alive: Any = None  # [N] bool — battery not depleted and, on timed
+    #                    rounds, deadline-feasible (None = all alive)
+    t_round: Any = None  # [N] f32 — best-case round time (comp + minimum-
+    #                      payload comm at full bandwidth), seconds; set
+    #                      only on timed rounds (core.rounds)
     e_scale: Any = None  # [N] f32 — comm-energy pricing factor >= 1, the
     #                      expected attempt count 1/(1 - p_out) set by the
     #                      link model in price_outage mode (None = lossless

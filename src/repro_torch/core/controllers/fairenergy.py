@@ -59,3 +59,13 @@ class FairEnergy:
         return solve_round(obs.u_norms, obs.h, obs.P, state,
                            fe_cfg=self.fe_cfg, alive=obs.alive,
                            e_scale=obs.e_scale)
+
+    def reset_clients(self, state, mask):
+        """Open-population hook (``core.faults``): the masked (newly
+        arrived) clients get fresh fairness state — participation EMA back
+        to q0, fairness dual back to zero — so a returning slot does not
+        inherit the departed occupant's participation debt."""
+        q0 = torch.tensor(self.fe_cfg.q0, dtype=torch.float32,
+                          device=state.q.device)
+        return state._replace(q=torch.where(mask, q0, state.q),
+                              mu=torch.where(mask, 0.0, state.mu))

@@ -33,7 +33,15 @@ arithmetic is the reference's float32 arithmetic.
 ``bw_solver="gss"`` is the reference's oracle: the best response by a
 blind golden-section search on phi (``core.gss``) inside the same dual
 ascent, as plain PyTorch on either device (the reference runs it outside
-any kernel too). The fused ascent kernel is not used for it.
+any kernel too). The fused ascent kernel is not used for it. Its search
+ends on float32 noise in a flat minimum, so phi, the probes, the dual
+step and the participation EMA are computed as XLA:CPU compiles the
+reference (its FMAs and its order of sums; ROADMAP C-18).
+
+``solver_fallback`` adds the reference's graceful degradation: after the
+ascent, a diverged loop (cap hit, residual above tolerance and not
+shrinking, read from the kernel's last two residuals) or a non-finite
+observation replaces the decision by the eco fallback (``_guard``).
 """
 from __future__ import annotations
 
@@ -45,11 +53,14 @@ import torch
 from ..kernels.dual_solve.ops import dual_ascent
 from ..kernels.dual_solve.ref import (dual_ascent_ref, joint_levels,
                                       selection_score)
-from .channel import comm_energy
+from ..xla_math import fma_f32, log1p_xla
+from .channel import LN2, RATE_B_FLOOR_HZ, RATE_EPS, comm_energy
 from .fairness import contribution_score
 from .gss import golden_section_minimize
 
 Tensor = torch.Tensor
+
+INV_LN2_F32 = float(1.0 / torch.tensor(LN2, dtype=torch.float32))
 
 
 class RoundDecision(NamedTuple):
@@ -61,6 +72,10 @@ class RoundDecision(NamedTuple):
     mu: Tensor         # [N] fairness duals
     n_inner: Tensor    # inner dual-ascent iterations actually run
     bw_used: Tensor    # sum of allocated bandwidth (Hz)
+    fallback: Tensor = False  # True when the round came from the graceful-
+    #                           degradation fallback (diverged duals or a
+    #                           non-finite observation); always False
+    #                           unless FEStatic.fallback is set
     bits: Tensor = None  # [N] decided quantization width (0 where
     #                      unselected); None off the joint grid
 
@@ -82,15 +97,16 @@ class FEParams(NamedTuple):
 
 
 class FEStatic(NamedTuple):
-    """Solver structure: the grids, the iteration caps and the bandwidth
-    solver ("newton" or "gss"). ``bits_grid`` (32.0,) is the gamma-only
-    solve; anything else the flat joint grid."""
+    """Solver structure: the grids, the iteration caps, the bandwidth
+    solver ("newton" or "gss") and the fallback guard. ``bits_grid``
+    (32.0,) is the gamma-only solve; anything else the flat joint grid."""
     gamma_grid: tuple
     inner_iters: int
     newton_iters: int
     bits_grid: tuple = (32.0,)
     solver: str = "newton"
     gss_iters: int = 60
+    fallback: bool = False
 
 
 class ControllerState(NamedTuple):
@@ -114,23 +130,19 @@ def make_params(cfg, *, b_tot: float, s_bits: float, i_bits: float,
 
 
 def static_of(cfg) -> FEStatic:
-    """The solver structure of ``cfg``; options the port does not have
-    yet raise, naming the ROADMAP item that brings them."""
+    """The solver structure of ``cfg``."""
     solver = str(getattr(cfg, "bw_solver", "newton"))
     if solver not in ("newton", "gss"):
         raise ValueError(f"bw_solver must be 'newton' or 'gss', got "
                          f"{solver!r}")
-    if getattr(cfg, "solver_fallback", False):
-        raise NotImplementedError(
-            "solver_fallback (graceful degradation) is not ported yet: "
-            "ROADMAP A-13")
     return FEStatic(gamma_grid=tuple(float(g) for g in cfg.gamma_grid),
                     inner_iters=int(cfg.inner_iters),
                     newton_iters=int(getattr(cfg, "newton_iters", 3)),
                     bits_grid=tuple(float(b) for b in
                                     getattr(cfg, "bits_grid", (32.0,))),
                     solver=solver,
-                    gss_iters=int(getattr(cfg, "gss_max_iters", 60)))
+                    gss_iters=int(getattr(cfg, "gss_max_iters", 60)),
+                    fallback=bool(getattr(cfg, "solver_fallback", False)))
 
 
 def init_state(cfg, n_clients: int, *, b_tot: float, s_bits: float,
@@ -205,8 +217,8 @@ def _solve_round(u_norms, h, P, alive, state: ControllerState,
     # the fused kernel (CUDA) or its plain host loop (CPU) on the Newton
     # best response; the golden-section oracle in the plain loop
     ascend = (dual_ascent if static.solver == "newton" else functools.partial(
-        dual_ascent_ref, solve=functools.partial(best_response_gss,
-                                                 iters=static.gss_iters)))
+        dual_ascent_ref, fused=True,
+        solve=functools.partial(best_response_gss, iters=static.gss_iters)))
     asc = ascend(P, h, u_norms, state.lam, state.mu, state.q, alive,
                  gamma_grid=static.gamma_grid, eta=eta, rho=rho,
                  pi_min=p.pi_min, alpha_lambda=p.alpha_lambda,
@@ -239,14 +251,73 @@ def _solve_round(u_norms, h, P, alive, state: ControllerState,
     xf = x.to(torch.float32)
     bandwidth = xf * b_i * p.b_tot
     energy = xf * e_i
-    q_new = rho * state.q + (1.0 - rho) * xf                 # eq. (1)
+    # eq. (1) as XLA:CPU compiles the reference: the first product rounded
+    # with the sum
+    q_new = fma_f32(rho, state.q, (1.0 - rho) * xf).to(xf.device)
     dec = RoundDecision(x=x, gamma=torch.where(x, gamma_i, 0.0),
                         bandwidth=bandwidth, energy=energy, lam=lam, mu=mu,
                         n_inner=asc.n_inner,
                         bw_used=torch.sum(bandwidth),
                         bits=torch.where(x, bits_i, 0.0) if joint else None)
-    return dec, ControllerState(lam=lam, mu=mu, q=q_new, params=p,
+    if static.fallback:
+        dec, q_new = _guard(dec, q_new, asc, u_norms, h, P, alive, state,
+                            static, joint)
+    return dec, ControllerState(lam=dec.lam, mu=dec.mu, q=q_new, params=p,
                                 e_cmp=e_cmp)
+
+
+def _guard(dec: RoundDecision, q_new: Tensor, asc, u_norms, h, P, alive,
+           state: ControllerState, static: FEStatic, joint: bool):
+    """Graceful degradation (``FairEnergyConfig.solver_fallback``): a
+    diverged ascent or a poisoned observation must not leak garbage duals
+    or energies into the carry. Divergence is the cap hit with the
+    residual above tolerance and not shrinking (the kernel's last two
+    residuals), or a non-finite residual; poisoned is any non-finite entry
+    of the observation. Then the eco decision replaces the solve: the
+    top-k clients by channel gain (k = max(1, N // 5)), an equal bandwidth
+    split, the grid's cheapest gamma, no duals — and with a poisoned
+    observation nothing at all, with the participation EMA frozen. Both
+    decisions are formed and one is taken by ``torch.where``, so the
+    guard adds no host synchronization. Returns the decision (its
+    ``fallback`` set) and the participation EMA."""
+    p = state.params
+    n = u_norms.shape[0]
+    obs_ok = (torch.all(torch.isfinite(u_norms)) & torch.all(torch.isfinite(h))
+              & torch.all(torch.isfinite(P)))
+    diverged = (((asc.n_inner >= static.inner_iters) & (asc.res > p.dual_tol)
+                 & ~(asc.res < asc.res_prev)) | ~torch.isfinite(asc.res))
+    use_fb = ~obs_ok | diverged
+    k_fb = max(1, n // 5)
+    g_fb = torch.tensor(static.gamma_grid[0], dtype=torch.float32,
+                        device=h.device)
+    b_each = torch.tensor(1.0 / k_fb, dtype=torch.float32, device=h.device)
+    score_h = torch.where(torch.isfinite(h) & alive, h, -torch.inf)
+    order = torch.argsort(-score_h, stable=True)
+    ranks = torch.empty_like(order)
+    ranks[order] = torch.arange(n, device=h.device)
+    e_fb = comm_energy(g_fb, b_each * p.b_tot, P, h, p.s_bits, p.i_bits,
+                       p.n0) + state.e_cmp
+    x_fb = ((ranks < k_fb) & alive & torch.isfinite(h) & torch.isfinite(e_fb)
+            & obs_ok)
+    xf_fb = x_fb.to(torch.float32)
+    bw = xf_fb * b_each * p.b_tot
+    # the fallback sends full-width payloads: width 32 where selected; the
+    # duals revert to the warm start, whose iterates must not seed the
+    # next round
+    q_fb = torch.where(
+        obs_ok, fma_f32(p.rho, state.q, (1.0 - p.rho) * xf_fb).to(h.device),
+        state.q)
+    pick = lambda fb, solved: torch.where(use_fb, fb, solved)  # noqa: E731
+    dec = RoundDecision(
+        x=pick(x_fb, dec.x), gamma=pick(torch.where(x_fb, g_fb, 0.0), dec.gamma),
+        bandwidth=pick(bw, dec.bandwidth),
+        energy=pick(torch.where(x_fb, e_fb, 0.0), dec.energy),
+        lam=pick(state.lam, dec.lam), mu=pick(state.mu, dec.mu),
+        n_inner=dec.n_inner, bw_used=pick(torch.sum(bw), dec.bw_used),
+        fallback=use_fb,
+        bits=(pick(torch.where(x_fb, 32.0, 0.0), dec.bits) if joint
+              else None))
+    return dec, pick(q_fb, q_new)
 
 
 def best_response_gss(P: Tensor, h: Tensor, u_norms: Tensor, lam, *,
@@ -259,7 +330,9 @@ def best_response_gss(P: Tensor, h: Tensor, u_norms: Tensor, lam, *,
     comm energy + lam b at every level, then the argmin over the levels of
     phi + E_cmp - eta * score (E_cmp, constant in b, added after the
     search). Returns ``(gamma*, b*, e*, phi*[, bits*])``. ``newton_iters``
-    is ignored (it is the Newton solver's)."""
+    is ignored (it is the Newton solver's). phi, the probes and the
+    level objective round as the reference's fused XLA:CPU program does
+    (``xla_math.fma_f32``, ``log1p_xla``; ROADMAP C-18)."""
     n = P.shape[0]
     dev = P.device
     row = lambda v: torch.tensor(v, dtype=torch.float32, device=dev  # noqa: E731
@@ -276,21 +349,40 @@ def best_response_gss(P: Tensor, h: Tensor, u_norms: Tensor, lam, *,
                            dtype=torch.float32, device=dev)
     Pg, hg = P[:, None], h[:, None]
 
+    def energy_factors(b_frac):
+        """The priced comm energy at ``b_frac`` as its last product's two
+        factors, computed as XLA:CPU compiles the reference's fused phi:
+        the payload's product and sum rounded once (an FMA), the rate's
+        division by ln 2 a product by its float32 reciprocal, XLA's
+        log1p."""
+        B = b_frac * b_tot
+        Bc = torch.clamp(B, min=RATE_B_FLOOR_HZ)
+        rate = (Bc * log1p_xla(Pg * hg / (n0 * Bc))) * INV_LN2_F32
+        pay = fma_f32(gam_pay, s_bits, i_bits).to(dev)
+        t = torch.where(B >= RATE_B_FLOOR_HZ,
+                        pay / torch.clamp(rate, min=RATE_EPS), torch.inf)
+        if e_scale is None:
+            return Pg.expand_as(t), t
+        return Pg * t, e_scale[:, None].expand_as(t)
+
     def priced_energy_of(b_frac):
-        e = comm_energy(gam_pay, b_frac * b_tot, Pg, hg, s_bits, i_bits, n0)
-        return e if e_scale is None else e * e_scale[:, None]
+        a, b = energy_factors(b_frac)
+        return a * b
 
     score = contribution_score(u_norms[:, None], gam)
     if fid is not None:
         score = score * fid[None, :]
     b_star, phi_star = golden_section_minimize(
-        lambda b: priced_energy_of(b) + lam * b,
+        lambda b: fma_f32(lam, b, priced_energy_of(b)).to(dev),
         torch.broadcast_to(torch.as_tensor(b_lo, dtype=torch.float32,
                                            device=dev), gam.shape),
         1.0, iters=iters)
-    phi_full = phi_star + e_cmp[:, None] - eta * score
+    # the level objective and the energy, each product rounded with the
+    # sum it feeds (as in the reference's fused program)
+    phi_full = fma_f32(-eta, score, phi_star + e_cmp[:, None]).to(dev)
     g_idx = torch.argmin(phi_full, dim=1, keepdim=True)
     take = lambda t: torch.gather(t, 1, g_idx)[:, 0]  # noqa: E731
-    out = (take(gam), take(b_star), take(priced_energy_of(b_star)) + e_cmp,
+    a, b = energy_factors(b_star)
+    out = (take(gam), take(b_star), fma_f32(take(a), take(b), e_cmp).to(dev),
            take(phi_full))
     return out if gam_bits is None else out + (take(gam_bits),)

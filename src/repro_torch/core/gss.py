@@ -14,6 +14,8 @@ from typing import Callable
 
 import torch
 
+from ..xla_math import fma_f32
+
 INVPHI = 0.6180339887498949   # 1/phi
 INVPHI2 = 0.3819660112501051  # 1/phi^2
 
@@ -27,16 +29,20 @@ def golden_section_minimize(f: Callable, lo, hi, *, iters: int = 60):
     reference's dtype without x64.
 
     After ~35 steps the bracket spans a few floats of a flat minimum, so
-    where it ends follows the last-bit rounding of ``f``: against the
-    reference (whose XLA:CPU code fuses products and sums into FMAs) the
-    minimum's value agrees to float32 noise, its location to ~1e-3
-    (ROADMAP C-18)."""
+    where it ends follows the last-bit rounding of ``f`` and of the probes.
+    Each probe ``a + k (b - a)`` is one FMA, as the reference's XLA:CPU
+    code computes it inside the solver; with ``f`` computed the same way
+    (``core.fairenergy.best_response_gss``) the search ends where the
+    reference's does (ROADMAP C-18)."""
     lo = torch.as_tensor(lo, dtype=torch.float32)
     hi = torch.as_tensor(hi, dtype=torch.float32, device=lo.device)
     shape = torch.broadcast_shapes(lo.shape, hi.shape)
     a, b = lo.expand(shape), hi.expand(shape)
-    c = a + INVPHI2 * (b - a)
-    d = a + INVPHI * (b - a)
+    f1 = torch.tensor(INVPHI, dtype=torch.float32, device=lo.device)
+    f2 = torch.tensor(INVPHI2, dtype=torch.float32, device=lo.device)
+    lin = lambda x, k, y: fma_f32(k, y - x, x).to(x.device)  # noqa: E731
+    c = lin(a, f2, b)
+    d = lin(a, f1, b)
     fc, fd = f(c), f(d)
     for _ in range(iters):
         # shrink toward the smaller probe; both probes are evaluated, as
@@ -44,8 +50,8 @@ def golden_section_minimize(f: Callable, lo, hi, *, iters: int = 60):
         left = fc < fd
         new_b = torch.where(left, d, b)
         new_a = torch.where(left, a, c)
-        new_d = torch.where(left, c, new_a + INVPHI * (new_b - new_a))
-        new_c = torch.where(left, new_a + INVPHI2 * (new_b - new_a), d)
+        new_d = torch.where(left, c, lin(new_a, f1, new_b))
+        new_c = torch.where(left, lin(new_a, f2, new_b), d)
         new_fc = torch.where(left, f(new_c), fd)
         new_fd = torch.where(left, fc, f(new_d))
         a, b, c, d, fc, fd = new_a, new_b, new_c, new_d, new_fc, new_fd

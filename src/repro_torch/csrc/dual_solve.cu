@@ -306,7 +306,8 @@ dual_ascent_kernel(const float* __restrict__ P_in, const float* __restrict__ h_i
                    float* __restrict__ gam_out, float* __restrict__ b_out,
                    float* __restrict__ e_out, float* __restrict__ phi_out,
                    float* __restrict__ bits_out, float* __restrict__ mu_out,
-                   float* __restrict__ lam_out, int* __restrict__ n_out) {
+                   float* __restrict__ lam_out, float* __restrict__ res_out,
+                   int* __restrict__ n_out) {
   __shared__ float red_sum[32], red_max[32];
   __shared__ float s_lam;
   __shared__ int s_go;
@@ -326,6 +327,10 @@ dual_ascent_kernel(const float* __restrict__ P_in, const float* __restrict__ h_i
   __syncthreads();
 
   int it = 0;
+  // the last residual and the one before it, as the plain loop carries
+  // them (+inf until an iteration sets them); thread 0 computes and keeps
+  // them
+  float res_last = INFINITY, res_prev = INFINITY;
   while (s_go) {
     k.lam = s_lam;
     float part = 0.0f, dmu = 0.0f;     // this leader's sum(x b), max |d mu|
@@ -367,6 +372,8 @@ dual_ascent_kernel(const float* __restrict__ P_in, const float* __restrict__ h_i
                                   dmu_all / max_nan(amu, 1e-30f));
         s_lam = new_lam;
         s_go = it + 1 < cap && res > tol;
+        res_prev = res_last;
+        res_last = res;
       }
     }
     ++it;
@@ -393,6 +400,8 @@ dual_ascent_kernel(const float* __restrict__ P_in, const float* __restrict__ h_i
   }
   if (tid == 0) {
     lam_out[0] = k.lam;
+    res_out[0] = res_last;
+    res_out[1] = res_prev;
     n_out[0] = it;
   }
 }
@@ -415,13 +424,13 @@ void launch_ascent(const float* P, const float* h, const float* u,
                    const float* q, const float* mu, const float* sc,
                    const Levels& lv, int n_levels, int newton_iters, int cap,
                    int n, float* gam, float* b, float* e, float* phi,
-                   float* bits, float* mu_out, float* lam_out, int* n_out,
-                   cudaStream_t stream) {
+                   float* bits, float* mu_out, float* lam_out, float* res_out,
+                   int* n_out, cudaStream_t stream) {
   const int lanes = n * LANES;
   const int threads = lanes >= 1024 ? 1024 : ((lanes + 31) / 32) * 32;
   dual_ascent_kernel<SCALED, JOINT, LANES><<<1, threads, 0, stream>>>(
       P, h, u, ec, es, alive, q, mu, sc, lv, n_levels, newton_iters, cap, n,
-      gam, b, e, phi, bits, mu_out, lam_out, n_out);
+      gam, b, e, phi, bits, mu_out, lam_out, res_out, n_out);
 }
 
 template <int LANES>
@@ -430,16 +439,16 @@ void dispatch_ascent(bool scaled, bool joint, const float* P, const float* h,
                      const bool* alive, const float* q, const float* mu,
                      const float* sc, const Levels& lv, int L, int newton_iters,
                      int cap, int n, float* gam, float* b, float* e, float* phi,
-                     float* bits, float* mu_out, float* lam_out, int* n_out,
-                     cudaStream_t s) {
+                     float* bits, float* mu_out, float* lam_out, float* res_out,
+                     int* n_out, cudaStream_t s) {
   if (scaled && joint)
-    launch_ascent<true, true, LANES>(P, h, u, ec, es, alive, q, mu, sc, lv, L, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, n_out, s);
+    launch_ascent<true, true, LANES>(P, h, u, ec, es, alive, q, mu, sc, lv, L, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, res_out, n_out, s);
   else if (scaled)
-    launch_ascent<true, false, LANES>(P, h, u, ec, es, alive, q, mu, sc, lv, L, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, n_out, s);
+    launch_ascent<true, false, LANES>(P, h, u, ec, es, alive, q, mu, sc, lv, L, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, res_out, n_out, s);
   else if (joint)
-    launch_ascent<false, true, LANES>(P, h, u, ec, es, alive, q, mu, sc, lv, L, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, n_out, s);
+    launch_ascent<false, true, LANES>(P, h, u, ec, es, alive, q, mu, sc, lv, L, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, res_out, n_out, s);
   else
-    launch_ascent<false, false, LANES>(P, h, u, ec, es, alive, q, mu, sc, lv, L, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, n_out, s);
+    launch_ascent<false, false, LANES>(P, h, u, ec, es, alive, q, mu, sc, lv, L, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, res_out, n_out, s);
 }
 
 // host array of 5 * L floats: [gamma | payload gamma | score coefficient |
@@ -463,8 +472,9 @@ Levels read_levels(const float* levels, int L, bool with_fidelity) {
 // device (lam, eta, b_tot, s_bits, i_bits, n0, b_lo, rho, pi_min,
 // alpha_lambda, alpha_mu, dual_tol); levels: the host table of 5 * L
 // floats. e_scale may be null (unpriced), bits null (gamma grid). Writes
-// gamma, b, e, phi (bits) at the final price, mu_out [n], lam_out [1] and
-// n_out [1] (iterations run, int32).
+// gamma, b, e, phi (bits) at the final price, mu_out [n], lam_out [1],
+// res_out [2] (the last residual and the one before it, +inf where no
+// iteration set them) and n_out [1] (iterations run, int32).
 extern "C" int dual_ascent_f32(const float* P, const float* h, const float* u,
                                const float* e_cmp, const float* e_scale,
                                const bool* alive, const float* q,
@@ -472,16 +482,17 @@ extern "C" int dual_ascent_f32(const float* P, const float* h, const float* u,
                                const float* levels, int L, int newton_iters,
                                int cap, int n, float* gam, float* b, float* e,
                                float* phi, float* bits, float* mu_out,
-                               float* lam_out, int* n_out, void* stream) {
+                               float* lam_out, float* res_out, int* n_out,
+                               void* stream) {
   if (L < 1 || L > kMaxLevels || n < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Levels lv = read_levels(levels, L, true);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool scaled = e_scale != nullptr, joint = bits != nullptr;
   if (L <= 16)
-    dispatch_ascent<16>(scaled, joint, P, h, u, e_cmp, e_scale, alive, q, mu, scalars, lv, L, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, n_out, s);
+    dispatch_ascent<16>(scaled, joint, P, h, u, e_cmp, e_scale, alive, q, mu, scalars, lv, L, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, res_out, n_out, s);
   else
-    dispatch_ascent<32>(scaled, joint, P, h, u, e_cmp, e_scale, alive, q, mu, scalars, lv, L, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, n_out, s);
+    dispatch_ascent<32>(scaled, joint, P, h, u, e_cmp, e_scale, alive, q, mu, scalars, lv, L, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, res_out, n_out, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,36 +12,43 @@ Round r (paper Sec. II-A + Algorithm 1), all on the trainer's device:
      FairEnergy solver), hard-masked by the battery, which is debited;
   4. the updates are block-top-k sparsified to their gamma_i (top-k
      kernel), quantized at their width on the quantized path, combined by
-     the masked |D_i|-weighted mean and applied.
+     the aggregator (the masked |D_i|-weighted mean, or the defended one)
+     and applied.
 
-This is the port of ``repro.fl.server`` for the synchronous round with its
-optional device profile (computation energy and finite batteries,
-``device_profile``), lossy uplink (``link_cfg``: burst interference,
-outages with bounded HARQ, outage-aware pricing), quantized payloads (a
-joint ``FairEnergyConfig.bits_grid`` or profile default widths) and
-client-axis sharding over a ``clients`` mesh (``mesh``; see
-``repro_torch.sharding``). Async rounds, faults and defense, hierarchy and
-mobility raise ``NotImplementedError`` naming their ROADMAP item (A-12,
-A-13, A-15). Without a profile, link config, quantization or mesh the
-round is the legacy one, step for step.
+This is the port of ``repro.fl.server`` with its optional device profile
+(computation energy and finite batteries, ``device_profile``), lossy
+uplink (``link_cfg``: burst interference, outages with bounded HARQ and
+backoff, outage-aware pricing), quantized payloads (a joint
+``FairEnergyConfig.bits_grid`` or profile default widths), timed rounds
+(``async_cfg``: deadlines, partial energy, the staleness buffer,
+harvesting), faults (``fault_cfg``: crashes, corrupted payloads,
+channel-estimate error, churn), defended aggregation (``defense``),
+checkpoints of the full carry (``save_checkpoint``/``restore_checkpoint``,
+``run_scanned(ckpt_dir=..., start_round=...)``) and client-axis sharding
+over a ``clients`` mesh (``mesh``; see ``repro_torch.sharding``). The
+hierarchy and mobility raise ``NotImplementedError`` naming their ROADMAP
+item (A-15). Without any of these options the round is the legacy one,
+step for step.
 
 Under a mesh each rank holds its ``n_local`` rows of the ghost-padded
-client stack: it samples, trains, sparsifies, quantizes and partially
-aggregates them, all-gathers ``u_norms`` and losses (cut to the real
-clients) before anything reads them, runs the controller on the full
-replicated ``[N]`` observation, and all-reduces the partial sums (in
-float64, ``weighted_sum``, so the aggregate's bits do not depend on the
-mesh); params, controller, battery and link state and the logs are
-replicated.
+client stack (and of the stale buffer): it samples, trains, sparsifies,
+quantizes, corrupts, screens and clips them and partially aggregates
+them, all-gathers ``u_norms``, losses and the clip's norms before
+anything reads them, runs the controller on the full replicated ``[N]``
+observation, and all-reduces the partial sums (in float64,
+``weighted_sum``, so the aggregate's bits do not depend on the mesh) and
+the counts; params, controller, battery, defense and link state and the
+logs are replicated. The trimmed mean gathers the whole update matrix.
 
 The round body runs the reference's steps in its order (``_round``), on
-a lane's key streams (``RoundKeys``: fading, controller, sampling and link
-keys off one base key) and its carry (``Carry``: params, controller
-state, battery, link state). ``run_round``, ``run``, ``run_scanned`` and
-``run_sweep`` all drive that one body. PyTorch runs eagerly, so
-``run_scanned`` is a loop over rounds that materializes its logs on the
-host once per chunk, and ``run_sweep`` runs its seed and config lanes one
-after another (the reference's sharded sweep does the same).
+a lane's key streams (``RoundKeys``: fading, controller, sampling,
+harvest, fault and link keys off one base key) and its carry (``Carry``:
+params, controller state, battery, stale buffer, defense and link state).
+``run_round``, ``run``, ``run_scanned`` and ``run_sweep`` all drive that
+one body. PyTorch runs eagerly, so ``run_scanned`` is a loop over rounds
+that materializes its logs on the host once per chunk, and ``run_sweep``
+runs its seed and config lanes one after another (the reference's
+sharded sweep does the same).
 """
 from __future__ import annotations
 
@@ -54,16 +61,26 @@ import torch
 import torch.distributed as dist
 
 from .. import random as prng
+from ..checkpoint import ckpt as _ckpt
 from ..core.channel import WirelessNetwork, comm_energy, comm_time, round_gains
 from ..core.controllers import (Controller, ControllerContext,
                                 RoundObservation, make_controller)
-from ..core.energy import UNLIMITED_J, alive_mask, comp_energy
+from ..core.energy import UNLIMITED_J, alive_mask, comp_energy, comp_time
 from ..core.fairenergy import FEParams
+from ..core.faults import (DefenseConfig, FaultConfig, arrival_mask,
+                           channel_estimate, corrupt_draw, corrupt_payload,
+                           crash_draw, make_aggregator)
 from ..core.link import (LinkConfig, LinkState, attempt_energy,
-                         attempt_outcomes, burst_channel, burst_step,
-                         expected_attempts, init_link_state,
+                         attempt_outcomes, attempt_time, burst_channel,
+                         burst_step, expected_attempts, init_link_state,
                          outage_probability)
-from ..core.streams import CTRL_STREAM, LINK_STREAM, SAMPLE_STREAM
+from ..core.rounds import (AsyncConfig, AsyncState, apply_harvest,
+                           best_case_round_time, harvest_rates,
+                           init_async_state, partial_round_energy,
+                           resolve_deadline, round_wall_clock,
+                           staleness_weight)
+from ..core.streams import (CTRL_STREAM, FAULT_STREAM, HARVEST_STREAM,
+                            LINK_STREAM, SAMPLE_STREAM)
 from ..data.pipeline import (client_sample_keys, sample_client_batches,
                              stack_client_datasets)
 from ..devices import resolve_device
@@ -71,34 +88,14 @@ from ..sharding.fl import (CLIENTS_AXIS, check_clients_mesh,
                            client_shard_count, shard_client_data)
 from . import compression
 from .client import make_batched_client_step
-from .updates import tree_spec, unflatten_update
+from .updates import tree_spec, unflatten_update, weighted_sum
 
 __all__ = ["Carry", "FederatedTrainer", "RoundKeys", "RoundLog", "UNLIMITED_J",
-           "resolve_device", "seed_keys"]
+           "resolve_device", "seed_keys", "weighted_sum"]
 
 # options of the reference's trainer this slice does not bring, and the
 # ROADMAP item that brings each
-_UNPORTED = {"async_cfg": "A-12", "fault_cfg": "A-13", "defense": "A-13",
-             "hierarchy": "A-15"}
-
-
-# rows of the update matrix widened to float64 at a time by weighted_sum
-_SUM_ROWS = 8
-
-
-def weighted_sum(w: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """``sum_i w[i] * rows[i]`` of fp32 ``w`` [n] and ``rows`` [n, D],
-    accumulated in float64 ([D] float64). Each product is exact there and
-    each addition rounds at float64's ulp, 2^29 times finer than float32's,
-    so two groupings of the terms (one GEMV over all clients on one card,
-    or each rank's partial sum and the all-reduce across a clients mesh)
-    almost never round to different float32 aggregates: the sharded
-    trainer equals one card bit for bit (ROADMAP C-17). The rows are
-    widened a few at a time, so no float64 copy of the matrix is made."""
-    acc = torch.zeros(rows.shape[1], dtype=torch.float64, device=rows.device)
-    for i in range(0, rows.shape[0], _SUM_ROWS):
-        acc += w[i:i + _SUM_ROWS].double() @ rows[i:i + _SUM_ROWS].double()
-    return acc
+_UNPORTED = {"hierarchy": "A-15"}
 
 
 class RoundKeys(NamedTuple):
@@ -108,6 +105,8 @@ class RoundKeys(NamedTuple):
     fade: torch.Tensor
     ctrl: torch.Tensor
     sample: torch.Tensor
+    harvest: torch.Tensor
+    fault: torch.Tensor
     link: torch.Tensor
 
 
@@ -116,15 +115,19 @@ def seed_keys(base: torch.Tensor) -> RoundKeys:
     (``random.PRNGKey(seed)``), as the reference's ``_seed_keys``."""
     return RoundKeys(fade=base, ctrl=prng.fold_in(base, CTRL_STREAM),
                      sample=prng.fold_in(base, SAMPLE_STREAM),
+                     harvest=prng.fold_in(base, HARVEST_STREAM),
+                     fault=prng.fold_in(base, FAULT_STREAM),
                      link=prng.fold_in(base, LINK_STREAM))
 
 
 class Carry(NamedTuple):
-    """What one round hands the next."""
+    """What one round hands the next (what a checkpoint holds)."""
     params: dict
     ctrl_state: Any
-    battery: torch.Tensor        # [N] J (inf = unlimited)
-    lstate: Optional[LinkState]  # None unless the burst chain is on
+    battery: torch.Tensor           # [N] J (inf = unlimited)
+    astate: Optional[AsyncState]    # None unless the staleness buffer is on
+    fstate: Any                     # None unless the clip tracker is on
+    lstate: Optional[LinkState]     # None unless the burst chain is on
 
 
 @dataclasses.dataclass
@@ -138,6 +141,22 @@ class RoundLog:
     loss: float
     n_selected: int
     battery: Optional[np.ndarray] = None  # J per client after the round
+    # --- timed-round fields (None on untimed rounds) -------------------
+    t_round: Optional[float] = None       # simulated wall-clock of the
+    #                                       round (s): slowest selected
+    #                                       comp+comm, capped at T_round
+    made: Optional[np.ndarray] = None     # [N] bool — selected AND inside
+    #                                       the deadline (aggregated)
+    n_late: Optional[int] = None          # selected clients past deadline
+    n_stale: Optional[int] = None         # buffered updates folded in
+    # --- fault-telemetry fields (None unless faults or the defended
+    #     aggregator are on) ---------------------------------------------
+    n_faulted: Optional[int] = None       # crashed + corrupted participants
+    n_rejected: Optional[int] = None      # updates screened out (or all of
+    #                                       them on a rejected round)
+    clip_frac: Optional[float] = None     # fraction of accepted updates
+    #                                       norm-clipped this round
+    fallback: Optional[bool] = None       # solver fallback round
     # --- link-reliability fields (None unless the link model is on) ----
     n_retx: Optional[int] = None          # retransmissions this round
     n_outage: Optional[int] = None        # retx-exhausted clients (update
@@ -157,17 +176,66 @@ class RoundLog:
 
 
 @dataclasses.dataclass(frozen=True)
+class _AsyncRuntime:
+    """The timed-round quantities resolved from an ``AsyncConfig``:
+    ``deadline`` is the concrete T_round in seconds (``deadline_q``
+    resolved); ``rates=None`` disables harvesting."""
+    deadline: float
+    staleness: bool
+    staleness_a: float
+    cap: torch.Tensor                 # [N] J battery capacity (inf ok)
+    rates: Optional[torch.Tensor]     # [N] J/round mean harvest, or None
+    gamma_floor: float
+
+
+@dataclasses.dataclass(frozen=True)
+class _FaultsRuntime:
+    """The fault-injection knobs resolved from a ``FaultConfig``."""
+    crash_rate: float
+    corrupt_rate: float
+    corrupt_mode: str
+    corrupt_scale: float
+    h_err_std: float
+    churn_dwell: int
+    churn_away: float
+
+
+@dataclasses.dataclass(frozen=True)
 class _LinkRuntime:
     """The link-reliability quantities resolved from a ``LinkConfig``."""
     outage: bool
     margin: float                 # linear fade margin 10^(dB/10)
     max_retx: int
+    backoff_s: float
     bursty: bool
     burst_p: float
     burst_q: float
     noise_rise: float             # (N0 + I_burst) / N0 >= 1
     observe_burst: bool
     price_outage: bool
+
+
+def _nest(params: dict) -> dict:
+    """Dotted names -> the nested dict of the JAX package's params tree
+    (``conv0.w`` -> ``{"conv0": {"w": ...}}``), for checkpoint keys."""
+    out: dict = {}
+    for name, v in params.items():
+        *head, leaf = name.split(".")
+        node = out
+        for part in head:
+            node = node.setdefault(part, {})
+        node[leaf] = v
+    return out
+
+
+def _unnest(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_unnest(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
 
 
 class FederatedTrainer:
@@ -193,16 +261,37 @@ class FederatedTrainer:
     ``link_cfg``: a ``core.link.LinkConfig`` makes the uplink lossy —
     Gilbert-Elliott burst interference on the physics channel, per-attempt
     Rayleigh outages with bounded HARQ (each attempt charging its real
-    energy, exhausted clients dropped from the aggregate) and, with
-    ``price_outage``, the expected attempt count in the solver's pricing.
-    It fills the ``n_retx``/``n_outage``/``goodput_frac``/``e_retx`` log
-    lanes. ``None`` or a disabled config keeps the legacy round.
+    energy and airtime, with a backoff slot before each retry; exhausted
+    clients dropped from the aggregate) and, with ``price_outage``, the
+    expected attempt count in the solver's pricing. It fills the
+    ``n_retx``/``n_outage``/``goodput_frac``/``e_retx`` log lanes. ``None``
+    or a disabled config keeps the legacy round.
 
     A joint ``fe_cfg.bits_grid`` (anything but ``(32.0,)``) lets the
     solver pick a width per client; the selected updates are quantized at
     it after sparsification (``compression.quantize_rows``), every comm
     charge uses the payload gamma ``gamma*bits/32``, and the logs gain
     ``bits`` and ``e_saved``.
+
+    ``async_cfg``: a ``core.rounds.AsyncConfig`` makes rounds timed —
+    deadline-infeasible clients are masked out, late clients are dropped
+    from the aggregate with partial energy (or, with ``staleness``, kept
+    in the carried stale buffer and folded in later with the
+    ``(1 + tau)^-a`` discount), batteries recharge by the harvesting draw,
+    and the logs gain ``t_round``/``made``/``n_late``/``n_stale``. With the
+    link's outages on, a client's timeline is its whole retry sequence.
+
+    ``fault_cfg``: a ``core.faults.FaultConfig`` injects (seed,
+    round)-pure faults — mid-round crashes with partial energy, corrupted
+    payloads, channel-estimate error and open-population churn (arriving
+    clients get fresh controller state through ``reset_clients``).
+    ``defense``: a ``core.faults.DefenseConfig`` routes aggregation through
+    the defended aggregator (finite screen, norm clip against a streaming
+    quantile, optional trimmed mean). Either adds the
+    ``n_faulted``/``n_rejected``/``clip_frac``/``fallback`` log lanes and
+    the whole-round guard: a non-finite aggregate is rejected (params
+    unchanged, every participant counted rejected). Disabled configs keep
+    the legacy round.
 
     ``mesh``: a 1-D ``clients`` ``DeviceMesh``
     (``repro_torch.sharding.make_clients_mesh``, on the trainer's device
@@ -216,9 +305,9 @@ class FederatedTrainer:
     fixed-K baselines' K and EcoRandom's gamma and bandwidth
     (``ControllerContext``).
 
-    ``async_cfg``, ``fault_cfg``, ``defense`` and ``hierarchy`` are not
-    ported yet and raise ``NotImplementedError`` naming their ROADMAP item;
-    an enabled ``mobility`` config raises in the network.
+    ``hierarchy`` is not ported yet and raises ``NotImplementedError``
+    naming its ROADMAP item; an enabled ``mobility`` config raises in the
+    network.
     """
 
     def __init__(self, *, model_loss: Callable, model_params: dict,
@@ -229,18 +318,25 @@ class FederatedTrainer:
                  eco_bandwidth: Optional[float] = None,
                  seed: int = 0, device=None, device_profile=None,
                  link_cfg: Optional[LinkConfig] = None, mobility=None,
-                 async_cfg=None, fault_cfg=None, defense=None,
+                 async_cfg: Optional[AsyncConfig] = None,
+                 fault_cfg: Optional[FaultConfig] = None,
+                 defense: Optional[DefenseConfig] = None,
                  hierarchy=None, mesh=None, mesh_axis: str = CLIENTS_AXIS):
         if strategy is not None:
             controller = strategy
         self.device = resolve_device(device)
         dev = self.device
-        for name, value in (("async_cfg", async_cfg), ("fault_cfg", fault_cfg),
-                            ("defense", defense), ("hierarchy", hierarchy)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"FederatedTrainer({name}=...) is not ported yet: "
-                    f"ROADMAP {_UNPORTED[name]}")
+        if hierarchy is not None:
+            raise NotImplementedError(
+                f"FederatedTrainer(hierarchy=...) is not ported yet: "
+                f"ROADMAP {_UNPORTED['hierarchy']}")
+        for name, value, kind in (("async_cfg", async_cfg, AsyncConfig),
+                                  ("fault_cfg", fault_cfg, FaultConfig),
+                                  ("defense", defense, DefenseConfig),
+                                  ("link_cfg", link_cfg, LinkConfig)):
+            if value is not None and not isinstance(value, kind):
+                raise TypeError(f"{name} must be a {kind.__name__} instance "
+                                f"or None, got {type(value).__name__}")
         self.mesh, self.mesh_axis = mesh, mesh_axis
         self._group = None
         if mesh is not None:
@@ -266,21 +362,23 @@ class FederatedTrainer:
         self.n_params = int(sum(self.spec.sizes))
         self.s_bits = 32.0 * self.n_params
         self.i_bits = float(self.n_params)            # 1-bit/coeff kept-mask
-        # per-round computation energy from the device profile (a round is
-        # local_steps minibatches of local_batch samples); None keeps the
-        # communication-only objective
-        e_cmp = None
+        # per-round computation time and energy from the device profile (a
+        # round is local_steps minibatches of local_batch samples); without
+        # a profile, the communication-only objective and instant compute
+        e_cmp = t_cmp = None
         if self.device_profile is not None:
             samples = fl_cfg.local_steps * fl_cfg.local_batch
             e_cmp = comp_energy(self.device_profile, samples)
+            t_cmp = comp_time(self.device_profile, samples)
         ctx = ControllerContext(
             n_clients=self.n_clients, b_tot=ch_cfg.bandwidth_total,
             s_bits=self.s_bits, i_bits=self.i_bits, n0=ch_cfg.noise_density,
             fe_cfg=fe_cfg, fixed_k=fixed_k, eco_gamma=eco_gamma,
             eco_bandwidth=eco_bandwidth, device=dev,
             e_cmp=None if e_cmp is None else tuple(e_cmp.tolist()))
-        self._e_cmp = (torch.zeros(self.n_clients, dtype=torch.float32)
-                       if e_cmp is None else e_cmp).to(dev)
+        zeros = torch.zeros(self.n_clients, dtype=torch.float32)
+        self._e_cmp = (zeros if e_cmp is None else e_cmp).to(dev)
+        self._t_cmp = (zeros if t_cmp is None else t_cmp).to(dev)
         self.controller = make_controller(controller, ctx)
         self.controller_name = (controller if isinstance(controller, str)
                                 else getattr(controller, "name",
@@ -327,24 +425,80 @@ class FederatedTrainer:
             if self.device_profile is not None
             else torch.full((self.n_clients,), UNLIMITED_J,
                             dtype=torch.float32, device=dev))
-        self._battery = self._battery0.clone()
 
-        if link_cfg is not None and not isinstance(link_cfg, LinkConfig):
-            raise TypeError(f"link_cfg must be a LinkConfig or None, got "
-                            f"{type(link_cfg).__name__}")
+        # ---- timed rounds (core.rounds): a disabled config resolves to
+        # None, and with it the legacy untimed round
+        self.async_cfg = async_cfg
+        self._async_rt = self._resolve_async_runtime(async_cfg, ctx)
+        self.deadline_s = (self._async_rt.deadline
+                           if self._async_rt is not None else float("inf"))
+        self._astate0 = (init_async_state(self.n_local, self.n_params, dev)
+                         if self._async_rt is not None
+                         and self._async_rt.staleness else None)
+
+        # ---- faults and defended aggregation (core.faults)
+        self.fault_cfg, self.defense_cfg = fault_cfg, defense
+        self.aggregator = make_aggregator(
+            "defended" if defense is not None and defense.enabled else "mean",
+            defense)
+        self._fault_rt = self._resolve_fault_runtime(fault_cfg)
+        self._fstate0 = self.aggregator.init(dev)
+
+        # ---- the lossy uplink (core.link)
         self.link_cfg = link_cfg
         self._link_rt = self._resolve_link_runtime(link_cfg)
         self._lstate0 = (init_link_state(self.n_clients, dev)
                          if self._link_rt is not None and self._link_rt.bursty
                          else None)
-        self._lstate = self._lstate0
         # [N] width a controller without the joint grid transmits at, or
         # None off the quantized path
         self._default_bits = self._resolve_default_bits()
+        (self._battery, self._astate, self._fstate,
+         self._lstate) = self._starting_state()
         self._calibrated = False
         self.history: list[RoundLog] = []
 
-    def _resolve_link_runtime(self, cfg: Optional[LinkConfig]):
+    def _resolve_async_runtime(self, cfg: Optional[AsyncConfig],
+                               ctx: ControllerContext):
+        """The timed-round runtime, or None when the config is absent or
+        disabled: the battery caps, the harvesting rates and the concrete
+        deadline (``deadline_q`` resolved against deterministic round-time
+        estimates, pure in the trainer's geometry)."""
+        if cfg is None or not cfg.enabled:
+            return None
+        deadline = cfg.deadline_s
+        if cfg.deadline_q is not None:
+            deadline = resolve_deadline(
+                cfg.deadline_q, t_cmp=self._t_cmp.cpu().numpy(),
+                P=self.network.power, h=self.network.pathloss,
+                b_tot=self.ch_cfg.bandwidth_total, s_bits=self.s_bits,
+                i_bits=self.i_bits, n0=self.ch_cfg.noise_density, k=ctx.k)
+        rates = (harvest_rates(self.device_profile, self.n_clients,
+                               cfg.harvest_j, self.device)
+                 if cfg.harvest_j is not None else None)
+        return _AsyncRuntime(
+            deadline=float(deadline), staleness=cfg.staleness,
+            staleness_a=float(cfg.staleness_a), cap=self._battery0.clone(),
+            rates=rates,
+            gamma_floor=float(getattr(self.fe_cfg, "gamma_min", 0.1) or 0.1))
+
+    @staticmethod
+    def _resolve_fault_runtime(cfg: Optional[FaultConfig]):
+        """The fault runtime, or None when the config is absent or
+        disabled (the legacy fault-free round)."""
+        if cfg is None or not cfg.enabled:
+            return None
+        return _FaultsRuntime(
+            crash_rate=float(cfg.crash_rate),
+            corrupt_rate=float(cfg.corrupt_rate),
+            corrupt_mode=str(cfg.corrupt_mode),
+            corrupt_scale=float(cfg.corrupt_scale),
+            h_err_std=float(cfg.h_err_std),
+            churn_dwell=int(cfg.churn_dwell),
+            churn_away=float(cfg.churn_away))
+
+    @staticmethod
+    def _resolve_link_runtime(cfg: Optional[LinkConfig]):
         """The link runtime, or None when the config is absent or
         disabled (the legacy lossless round)."""
         if cfg is None or not cfg.enabled:
@@ -352,7 +506,7 @@ class FederatedTrainer:
         return _LinkRuntime(
             outage=bool(cfg.outage),
             margin=float(10.0 ** (cfg.fade_margin_db / 10.0)),
-            max_retx=int(cfg.max_retx),
+            max_retx=int(cfg.max_retx), backoff_s=float(cfg.backoff_s),
             bursty=bool(cfg.bursty), burst_p=float(cfg.burst_p),
             burst_q=float(cfg.burst_q),
             noise_rise=1.0 + float(cfg.i_burst_n0),
@@ -390,19 +544,36 @@ class FederatedTrainer:
         return self._battery.cpu().numpy()
 
     @property
+    def harvest_key(self) -> torch.Tensor:
+        return self.keys.harvest
+
+    @property
+    def fault_key(self) -> torch.Tensor:
+        return self.keys.fault
+
+    @property
     def carry(self) -> Carry:
         """The trainer's live carry (what ``run_scanned`` continues)."""
-        return Carry(self.params, self.ctrl_state, self._battery, self._lstate)
+        return Carry(self.params, self.ctrl_state, self._battery,
+                     self._astate, self._fstate, self._lstate)
 
     def _store(self, carry: Carry) -> None:
-        (self.params, self.ctrl_state, self._battery,
-         self._lstate) = carry
+        (self.params, self.ctrl_state, self._battery, self._astate,
+         self._fstate, self._lstate) = carry
+
+    def _starting_state(self) -> tuple:
+        """Copies of the starting battery, stale buffer, defense and link
+        state."""
+        copy = lambda st: None if st is None else type(st)(  # noqa: E731
+            *[t.clone() for t in st])
+        return (self._battery0.clone(), copy(self._astate0),
+                copy(self._fstate0), copy(self._lstate0))
 
     def _fresh_carry(self, ctrl_state) -> Carry:
         """A sweep lane's starting carry: the trainer's current params, the
-        given controller state, and the starting battery and link state."""
+        given controller state, and the starting state."""
         return Carry({k: v.clone() for k, v in self.params.items()},
-                     ctrl_state, self._battery0.clone(), self._lstate0)
+                     ctrl_state, *self._starting_state())
 
     def _round_batches(self, r: int, sample_key: torch.Tensor) -> dict:
         """Round-r minibatches [n_local, steps, batch, ...] on the device:
@@ -416,7 +587,9 @@ class FederatedTrainer:
 
     def _maybe_calibrate(self, r: int):
         """One-shot eta_auto calibration from round-r observations, then a
-        fresh controller state so the calibrated eta reaches the solver."""
+        fresh controller state so the calibrated eta reaches the solver.
+        Skipped after a checkpoint restore, whose controller state already
+        carries the calibrated eta (re-initing would wipe its duals)."""
         if self._calibrated:
             return
         if not getattr(self.controller, "needs_calibration", False):
@@ -430,15 +603,20 @@ class FederatedTrainer:
         self.ctrl_state = self.controller.init(self.n_clients)
         self._calibrated = True
 
-    def _gather(self, local: torch.Tensor) -> torch.Tensor:
-        """The [N] real-client vector from every rank's [n_local] rows
-        (identity without a mesh)."""
+    def _gather_rows(self, local: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a [n_local, ...] tensor, in rank order: the
+        [n_padded, ...] tensor (identity without a mesh)."""
         if self._group is None:
             return local
         parts = [torch.empty_like(local)
                  for _ in range(dist.get_world_size(self._group))]
         dist.all_gather(parts, local.contiguous(), group=self._group)
-        return torch.cat(parts)[:self.n_clients]
+        return torch.cat(parts)
+
+    def _gather(self, local: torch.Tensor) -> torch.Tensor:
+        """The [N] real-client vector from every rank's [n_local] rows
+        (identity without a mesh)."""
+        return self._gather_rows(local)[:self.n_clients]
 
     def _local(self, vec: torch.Tensor, fill) -> torch.Tensor:
         """This rank's rows of an [N] vector, ghost rows taking ``fill``
@@ -457,23 +635,29 @@ class FederatedTrainer:
     def _round(self, r: int, evaluate: bool, keys: RoundKeys,
                carry: Carry) -> tuple[dict, Carry]:
         """One round of the lane with ``keys`` from ``carry``: observe,
-        decide, hard mask, energy accounting, battery debit, sparsify,
-        quantize, weighted mean, apply, eval — in the reference's order.
-        Returns the round's outputs as device tensors and the next carry;
-        the trainer itself is not changed."""
-        params, ctrl_state, battery, lstate = carry
+        decide, hard mask, energy and time accounting, battery debit,
+        sparsify, quantize, corrupt, aggregate, stale fold, apply, eval —
+        in the reference's order. Returns the round's outputs as device
+        tensors and the next carry; the trainer itself is not changed."""
+        params, ctrl_state, battery, astate, fstate, lstate = carry
         link, default_bits = self._link_rt, self._default_bits
+        arun, frun = self._async_rt, self._fault_rt
         quant = default_bits is not None
+        faulty = frun is not None
+        telemetry = faulty or self.aggregator.enabled
+        dev = self.device
+        n = self.n_clients
         # the trainer's own B_tot, as the reference's round body takes it,
         # under a config lane too (the lane's rides in the controller
         # state): it only prices the unselected rows, which are masked
         b_tot = float(self.ch_cfg.bandwidth_total)
         n0 = float(self.ch_cfg.noise_density)
-        s_bits, i_bits, e_cmp = self.s_bits, self.i_bits, self._e_cmp
+        s_bits, i_bits = self.s_bits, self.i_bits
+        e_cmp, t_cmp = self._e_cmp, self._t_cmp
         link_out = link is not None and link.outage
         link_burst = link is not None and link.bursty
         h = round_gains(keys.fade, self._pathloss, r,
-                        self.ch_cfg.rayleigh).to(self.device)
+                        self.ch_cfg.rayleigh).to(dev)
         updates, u_norms, losses = self._client_step(
             params, self._round_batches(r, keys.sample))
         # the controller sees the real clients' [N] observation in every
@@ -490,10 +674,30 @@ class FederatedTrainer:
         else:
             h_phys = h
         # the controller's channel belief: the quiet-state channel unless
-        # it observes the burst; the transmission realizes on h_phys
+        # it observes the burst, then lognormal-noised under the
+        # channel-estimate fault; the transmission realizes on h_phys
         h_obs = h_phys if (link_burst and link.observe_burst) else h
+        if faulty and frun.h_err_std > 0.0:
+            h_obs = channel_estimate(keys.fault, r, h_obs, frun.h_err_std)
         h = h_phys
         alive = alive_mask(battery)
+        if faulty and frun.churn_dwell > 0:
+            # departed clients join the hard mask; (re)arrivals get fresh
+            # per-client controller state
+            present, arrived = arrival_mask(keys.fault, r, n,
+                                            frun.churn_away, frun.churn_dwell)
+            alive = alive & present.to(dev)
+            if hasattr(self.controller, "reset_clients"):
+                ctrl_state = self.controller.reset_clients(ctrl_state,
+                                                           arrived.to(dev))
+        t_obs = None
+        if arun is not None:
+            # best-case round time: a client that cannot make the deadline
+            # under any allocation is priced out through the hard mask
+            t_obs = best_case_round_time(
+                t_cmp, P, h_obs, b_tot=b_tot, gamma_floor=arun.gamma_floor,
+                s_bits=s_bits, i_bits=i_bits, n0=n0)
+            alive = alive & (t_obs <= arun.deadline)
         p_out = e_scale = None
         if link_out:
             # per-attempt outage at the decided operating point: the belief
@@ -504,7 +708,7 @@ class FederatedTrainer:
                 e_scale = expected_attempts(p_out)
         obs = RoundObservation(u_norms=u_norms, h=h_obs, P=P, round=r,
                                key=prng.fold_in(keys.ctrl, r), alive=alive,
-                               e_scale=e_scale)
+                               t_round=t_obs, e_scale=e_scale)
         dec, ctrl_state = self.controller.decide(obs, ctrl_state)
         # hard mask, whatever the controller decided: a depleted client
         # transmits nothing and is charged nothing
@@ -537,62 +741,203 @@ class FederatedTrainer:
             # of the full-precision one
             return g * bits_fac if quant else g
 
-        if link is None:
+        if arun is None and not faulty and link is None:
             # debit the round's spend; charge floors at 0 (inf stays inf)
             battery = torch.clamp(battery - dec.energy, min=0.0)
-        elif link_burst and not link_out:
-            # burst-only: the controller priced the quiet channel, the
-            # transmission pays the physics one (b/gamma guards keep the
-            # unselected lanes finite)
+        if (faulty and frun.h_err_std > 0.0) or (link_burst and not link_out):
+            # the controller priced its belief (h_est and/or the quiet
+            # channel); the transmission pays the physics channel, same
+            # allocation (b/gamma guards keep the unselected lanes finite).
+            # With outages on, the retry accounting below re-prices instead
             b_safe = torch.where(dec.x, dec.bandwidth, b_tot)
             g_safe = torch.where(dec.x, dec.gamma, 1.0)
             dec = dec._replace(energy=xf_sel * (
                 comm_energy(pay(g_safe), b_safe, P, h, s_bits, i_bits, n0)
                 + e_cmp))
-        delivered = None
+        crashed = cfrac = None
+        if faulty and frun.crash_rate > 0.0:
+            crashed_m, cfrac = crash_draw(keys.fault, r, n, frun.crash_rate)
+            crashed, cfrac = dec.x & crashed_m.to(dev), cfrac.to(dev)
+        delivered = lost = t_link = None
         if link_out:
             # bounded HARQ: each attempt a full airtime of the decided
-            # allocation; the realized cost replaces the priced energy
+            # allocation, a backoff slot before each retry; the realized
+            # cost replaces the priced energy
             b_safe = torch.where(dec.x, dec.bandwidth, b_tot)
             g_safe = torch.where(dec.x, dec.gamma, 1.0)
             t1 = comm_time(pay(g_safe), b_safe, P, h, s_bits, i_bits, n0)
             attempts, delivered = attempt_outcomes(keys.link, r, p_out,
                                                    link.max_retx)
             attempts_f = attempts.to(torch.float32)
+            t_link = attempt_time(attempts_f, t1, link.backoff_s)
             e_retx_vec = xf_sel * (attempts_f - 1.0) * P * t1
             dec = dec._replace(energy=xf_sel * (
                 attempt_energy(attempts_f, t1, P) + e_cmp))
+            # a crashed client counts as a crash, not an outage
             lost = dec.x & ~delivered
-        if link is not None:
-            # the deferred debit, after the link accounting
+            if crashed is not None:
+                lost = lost & ~crashed
+
+        made = late = None
+        extras = {}
+        if arun is not None:
+            # realized round time under the actual allocation (inf on
+            # unselected rows, read only through the selection mask); with
+            # outages, the whole retry timeline
+            t_comm = (t_link if link_out else
+                      comm_time(pay(dec.gamma), dec.bandwidth, P, h, s_bits,
+                                i_bits, n0))
+            t_total = t_cmp + t_comm
+            feasible = dec.x & (t_total <= arun.deadline)
+            # a crashed client is neither made nor late; a retx-exhausted
+            # one neither, but it pays like a late one
+            made = feasible if crashed is None else feasible & ~crashed
+            late = (dec.x & ~feasible if crashed is None
+                    else dec.x & ~feasible & ~crashed)
+            if delivered is not None:
+                made = made & delivered
+                late = late & delivered
+            e_full = dec.energy
+            if not arun.staleness:
+                # a dropped update is abandoned at the deadline: computation
+                # first, then the prorated transmission (never above full)
+                drop = late if lost is None else late | lost
+                e_part = partial_round_energy(t_cmp, t_comm, e_cmp, P,
+                                              arun.deadline)
+                dec = dec._replace(energy=torch.where(
+                    made, dec.energy,
+                    torch.where(drop, torch.minimum(e_part, dec.energy),
+                                0.0)))
+            # with staleness the transmission completes in the background:
+            # late clients pay their full energy
+            if crashed is not None:
+                # a crash at the fraction cfrac of the client's own round
+                # (capped at the deadline unless the transmission would
+                # have gone on in the background)
+                t_cap = (t_total if arun.staleness
+                         else torch.clamp(t_total, max=arun.deadline))
+                t_c = cfrac * torch.where(dec.x, t_cap, 0.0)
+                e_crash = partial_round_energy(t_cmp, t_comm, e_cmp, P, t_c)
+                dec = dec._replace(energy=torch.where(
+                    crashed, torch.minimum(e_crash, e_full), dec.energy))
             battery = torch.clamp(battery - dec.energy, min=0.0)
-        # a retx-exhausted update never decodes: it never enters the
-        # aggregate (its energy and fairness effects landed above)
-        part = dec.x if delivered is None else dec.x & delivered
-        # unselected rows carry zero weight; gamma=1 lets them copy through.
-        # Sparsify, quantize and the partial aggregate run on this rank's
-        # rows (ghost rows: weight 0, gamma 1, 32 bits); the sums are
-        # all-reduced
+            battery = apply_harvest(battery, arun.cap, keys.harvest, r,
+                                    arun.rates)
+            t_wall = round_wall_clock(dec.x, t_total, arun.deadline)
+            extras = dict(t_round=t_wall, made=made,
+                          n_late=torch.sum(late.to(torch.int32)),
+                          n_stale=torch.zeros((), dtype=torch.int32,
+                                              device=dev))
+        elif faulty or link is not None:
+            if crashed is not None:
+                # untimed rounds prorate a crash over the client's own
+                # comp+comm (the retry timeline with outages on)
+                t_comm_f = (t_link if link_out else comm_time(
+                    pay(torch.where(dec.x, dec.gamma, 1.0)),
+                    torch.where(dec.x, dec.bandwidth, b_tot), P, h, s_bits,
+                    i_bits, n0))
+                t_c = cfrac * torch.where(dec.x, t_cmp + t_comm_f, 0.0)
+                e_crash = partial_round_energy(t_cmp, t_comm_f, e_cmp, P, t_c)
+                dec = dec._replace(energy=torch.where(
+                    crashed, torch.minimum(e_crash, dec.energy), dec.energy))
+            # the deferred debit, after the link and crash accounting
+            battery = torch.clamp(battery - dec.energy, min=0.0)
+
+        # only clients inside the deadline, not crashed and delivered enter
+        # this round's aggregate
+        part = made if made is not None else dec.x
+        if crashed is not None and made is None:
+            part = dec.x & ~crashed
+        if delivered is not None and made is None:
+            part = part & delivered
+        cm = flavor = None
+        if faulty and frun.corrupt_rate > 0.0:
+            # corruption hits the transmitted payload: drawn over every
+            # client, applied to this rank's rows below
+            cm, flavor = corrupt_draw(keys.fault, r, n, frun.corrupt_rate)
+            cm, flavor = cm.to(dev), flavor.to(dev)
+        # unselected rows carry zero weight; gamma=1 lets them copy
+        # through. Late rows keep their gamma: the buffered update is the
+        # sparsified payload the client transmits. Sparsify, quantize,
+        # corrupt and the partial aggregate run on this rank's rows (ghost
+        # rows: weight 0, gamma 1, 32 bits); the sums are all-reduced
         gamma = torch.where(dec.x, torch.clamp(dec.gamma, 1e-6, 1.0), 1.0)
         sparse = compression.batch_block_topk(updates,
                                               self._local(gamma, 1.0))
         if quant:
             # client-side quantization of the sparse payload at the
-            # transmitted width, dequantized right back
+            # transmitted width, dequantized right back; before the
+            # in-transit corruption, which the quantizer must not screen
             sparse = compression.quantize_rows(sparse,
                                                self._local(bits_w, 32.0))
-        w = self._local(part.to(torch.float32), 0.0) * self._weights
-        partial = self._all_reduce(weighted_sum(w, sparse))
-        wsum = self._all_reduce(torch.sum(w.double()))
+        if cm is not None:
+            sparse = corrupt_payload(sparse, self._local(cm, False),
+                                     self._local(flavor, 0.0),
+                                     frun.corrupt_mode, frun.corrupt_scale)
+        # the aggregator: the legacy weighted mean, or the defended one,
+        # which returns the screened and clipped rows the buffer must hold
+        partial, wsum, fstate, dstats, sparse = self.aggregator(
+            sparse, self._local(part.to(torch.float32), 0.0), self._weights,
+            fstate, gather=None if self._group is None else self._gather_rows,
+            n_shards=self.n_padded // self.n_local)
+        if arun is not None and arun.staleness:
+            # the staleness buffer (this rank's rows): age the pending
+            # slots by the round's wall-clock, fold the completed ones in
+            # with the w(tau) discount, then buffer this round's late
+            # updates (a newer one replaces an older, staler one)
+            buf, age, t_rem = astate
+            pending = age >= 0
+            age = torch.where(pending, age + 1, age)
+            t_rem = torch.where(pending, t_rem - extras["t_round"], t_rem)
+            ready = pending & (t_rem <= 0.0)
+            w_stale = (self._weights * staleness_weight(age, arun.staleness_a)
+                       * ready.to(torch.float32))
+            wsum = wsum + torch.sum(w_stale.double())
+            partial = partial + weighted_sum(w_stale, buf)
+            late_l = self._local(late, False)
+            t_new = self._local(torch.clamp(t_total - arun.deadline, min=0.0),
+                                0.0)
+            buf = torch.where(late_l[:, None], sparse, buf)
+            age = torch.where(late_l, 0, torch.where(ready, -1, age))
+            t_rem = torch.where(late_l, t_new, torch.where(ready, 0.0, t_rem))
+            astate = AsyncState(buf=buf, age=age, t_rem=t_rem)
+            extras["n_stale"] = self._all_reduce(
+                torch.sum(ready.to(torch.int32)))
+        partial, wsum = self._all_reduce(partial), self._all_reduce(wsum)
         agg = (partial / torch.clamp(wsum, min=1e-12)).to(torch.float32)
         agg = torch.where(wsum > 0.0, agg * self.fl_cfg.server_lr, 0.0)
+        if telemetry:
+            n_part = torch.sum(part.to(torch.int32))
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            n_rej = self._all_reduce(dstats.get("n_rejected", zero).clone())
+            n_clip = self._all_reduce(dstats.get("n_clipped", zero).clone())
+            # last-resort guard: whatever slipped past the defenses (or an
+            # undefended run's corrupted payloads) must not poison the
+            # params — reject the whole round, every accepted participant
+            # counted rejected
+            ok_round = torch.all(torch.isfinite(agg))
+            agg = torch.where(ok_round, agg, 0.0)
+            n_rej = n_rej + torch.where(ok_round, 0,
+                                        torch.clamp(n_part - n_rej, min=0))
+            n_faulted = zero
+            if crashed is not None:
+                n_faulted = n_faulted + torch.sum(crashed.to(torch.int32))
+            if cm is not None:
+                n_faulted = n_faulted + torch.sum((cm & part).to(torch.int32))
+            extras.update(
+                n_faulted=n_faulted, n_rejected=n_rej,
+                clip_frac=(n_clip.to(torch.float32)
+                           / torch.clamp(n_part - n_rej, min=1)
+                           .to(torch.float32)),
+                fallback=torch.as_tensor(dec.fallback, dtype=torch.bool,
+                                         device=dev))
         delta = unflatten_update(agg, self.spec)
         params = {k: p + delta[k].to(p.dtype) for k, p in params.items()}
         acc = (self.eval_fn(params).to(torch.float32) if evaluate
-               else torch.tensor(float("nan"), device=self.device))
+               else torch.tensor(float("nan"), device=dev))
         out = dict(x=dec.x, gamma=dec.gamma, bandwidth=dec.bandwidth,
                    energy=dec.energy, accuracy=acc,
-                   loss=torch.mean(losses), battery=battery)
+                   loss=torch.mean(losses), battery=battery, **extras)
         if quant:
             # e_saved: the same allocation at a 32-bit payload minus the
             # realized single-attempt quantized charge
@@ -603,24 +948,30 @@ class FederatedTrainer:
             out.update(bits=torch.where(dec.x, bits_w, 0.0),
                        e_saved=torch.sum(xf_sel * de))
         if link_out:
+            # link telemetry over the selected clients that did not crash;
             # goodput is link-layer: only exhausted payloads are dead air
+            nc_f = (xf_sel if crashed is None
+                    else xf_sel * (~crashed).to(torch.float32))
+            ok_m = dec.x & delivered
+            if crashed is not None:
+                ok_m = ok_m & ~crashed
             d_bits = pay(g_safe) * s_bits + i_bits
-            tx_bits = torch.sum(xf_sel * attempts_f * d_bits)
-            ok_bits = torch.sum(torch.where(dec.x & delivered, d_bits, 0.0))
+            tx_bits = torch.sum(nc_f * attempts_f * d_bits)
+            ok_bits = torch.sum(torch.where(ok_m, d_bits, 0.0))
             out.update(
-                n_retx=torch.sum(xf_sel * (attempts_f - 1.0)).to(torch.int32),
+                n_retx=torch.sum(nc_f * (attempts_f - 1.0)).to(torch.int32),
                 n_outage=torch.sum(lost.to(torch.int32)),
                 goodput_frac=torch.where(
                     tx_bits > 0.0, ok_bits / torch.clamp(tx_bits, min=1e-30),
                     1.0),
-                e_retx=torch.sum(xf_sel * e_retx_vec))
+                e_retx=torch.sum(nc_f * e_retx_vec))
         elif link is not None:
             # burst-only: one lossless attempt per selection
-            zero_i = torch.zeros((), dtype=torch.int32, device=self.device)
+            zero_i = torch.zeros((), dtype=torch.int32, device=dev)
             out.update(n_retx=zero_i, n_outage=zero_i,
-                       goodput_frac=torch.ones((), device=self.device),
-                       e_retx=torch.zeros((), device=self.device))
-        return out, Carry(params, ctrl_state, battery, lstate)
+                       goodput_frac=torch.ones((), device=dev),
+                       e_retx=torch.zeros((), device=dev))
+        return out, Carry(params, ctrl_state, battery, astate, fstate, lstate)
 
     @staticmethod
     def _host(outs: list) -> dict:
@@ -632,6 +983,7 @@ class FederatedTrainer:
     def _append_logs(self, start: int, outs: list, walls: list) -> None:
         """Materialize one chunk of round outputs (one host copy)."""
         host = self._host(outs)
+        timed, faulted = "t_round" in host, "n_faulted" in host
         linked, quanted = "n_retx" in host, "bits" in host
         for i in range(len(outs)):
             x = host["x"][i]
@@ -641,6 +993,14 @@ class FederatedTrainer:
                 accuracy=float(host["accuracy"][i]),
                 loss=float(host["loss"][i]), n_selected=int(x.sum()),
                 battery=host["battery"][i],
+                t_round=float(host["t_round"][i]) if timed else None,
+                made=host["made"][i] if timed else None,
+                n_late=int(host["n_late"][i]) if timed else None,
+                n_stale=int(host["n_stale"][i]) if timed else None,
+                n_faulted=int(host["n_faulted"][i]) if faulted else None,
+                n_rejected=int(host["n_rejected"][i]) if faulted else None,
+                clip_frac=float(host["clip_frac"][i]) if faulted else None,
+                fallback=bool(host["fallback"][i]) if faulted else None,
                 n_retx=int(host["n_retx"][i]) if linked else None,
                 n_outage=int(host["n_outage"][i]) if linked else None,
                 goodput_frac=(float(host["goodput_frac"][i]) if linked
@@ -681,23 +1041,35 @@ class FederatedTrainer:
 
     def run_scanned(self, rounds: Optional[int] = None, *,
                     chunk: Optional[int] = None, eval_every: int = 1,
-                    verbose: bool = True):
-        """Run ``rounds`` FL rounds from round 0; append to ``history``
+                    verbose: bool = True, start_round: int = 0,
+                    ckpt_dir: Optional[str] = None, ckpt_every: int = 1):
+        """Run rounds ``start_round .. rounds - 1``; append to ``history``
         and return it.
 
         ``chunk`` bounds the rounds whose logs are gathered to the host
         together (default: all); ``eval_every`` strides the accuracy
         evaluation (skipped rounds log ``accuracy=NaN``; the final round
         is always evaluated). All randomness is pure in (seed, round), so
-        a second call replays the same batches and channels."""
+        a second call replays the same batches and channels.
+
+        ``start_round`` resumes mid-trajectory: the carry must already hold
+        that round's state (``restore_checkpoint``), and the remaining
+        rounds replay bit for bit. With ``ckpt_dir`` the full carry is saved
+        (``save_checkpoint``) after every ``ckpt_every``-th chunk and after
+        the final round."""
         rounds = rounds or self.fl_cfg.rounds
         chunk = min(chunk or rounds, rounds)
         if eval_every < 1:
             raise ValueError(f"eval_every must be >= 1, got {eval_every} "
                              "(it strides the eval; use a large value to "
                              "evaluate only the final round)")
-        self._maybe_calibrate(0)
-        for s in range(0, rounds, chunk):
+        if not 0 <= start_round < rounds:
+            raise ValueError(f"start_round {start_round} outside "
+                             f"[0, {rounds})")
+        if ckpt_every < 1:
+            raise ValueError(f"ckpt_every must be >= 1, got {ckpt_every}")
+        self._maybe_calibrate(start_round)
+        for ci, s in enumerate(range(start_round, rounds, chunk)):
             n = min(chunk, rounds - s)
             outs, walls = [], []
             for r in range(s, s + n):
@@ -709,12 +1081,76 @@ class FederatedTrainer:
                 outs.append(out)
                 walls.append(self._wall(t0))
             self._append_logs(s, outs, walls)
+            if ckpt_dir is not None and ((ci + 1) % ckpt_every == 0
+                                         or s + n >= rounds):
+                self.save_checkpoint(ckpt_dir, s + n)
             if verbose and self._i0 == 0:
                 lg = self.history[-1]
                 print(f"[{self.controller_name}] rounds {s:4d}..{s + n - 1:4d} "
                       f"acc={lg.accuracy:.4f} sel={lg.n_selected:2d} "
                       f"E={lg.total_energy*1e3:.3f} mJ")
         return self.history
+
+    # ------------------------------------------------------- checkpoints ----
+    def _carry_tree(self, astate=None) -> dict:
+        """The full carry as one tree (what a checkpoint holds), keyed as
+        the reference's ``_carry_tree``: params (nested as the JAX
+        package's tree), controller state, batteries, the stale buffer
+        (``astate``: by default the trainer's, whole), the defense state
+        and the link state."""
+        return {"params": _nest(self.params), "ctrl_state": self.ctrl_state,
+                "battery": self._battery,
+                "astate": self._whole_astate() if astate is None else astate,
+                "fstate": self._fstate, "lstate": self._lstate}
+
+    def _whole_astate(self):
+        """The stale buffer over every (padded) client: under a mesh each
+        rank's rows gathered in rank order, as the reference's sharded
+        buffer reads back."""
+        if self._astate is None or self._group is None:
+            return self._astate
+        return AsyncState(*[self._gather_rows(t) for t in self._astate])
+
+    def save_checkpoint(self, directory: str, next_round: int) -> str:
+        """Persist the carry after round ``next_round - 1``; resuming at
+        ``start_round=next_round`` continues the trajectory bit for bit.
+        Under a mesh every rank calls it (the stale buffer is gathered)
+        and the mesh's first rank writes the file."""
+        tree = self._carry_tree()
+        path = _ckpt.checkpoint_path(directory, next_round)
+        if self._group is None or dist.get_rank(self._group) == 0:
+            path = _ckpt.save_checkpoint(
+                directory, next_round, tree,
+                metadata={"next_round": int(next_round),
+                          "seed": int(self.seed),
+                          "controller": self.controller_name,
+                          "n_history": len(self.history)})
+        if self._group is not None:
+            dist.barrier(group=self._group)
+        return path
+
+    def restore_checkpoint(self, path: str) -> int:
+        """Load a checkpoint (the port's or the JAX package's) into the
+        live carry and return the round to resume from
+        (``run_scanned(start_round=...)``); under a mesh each rank keeps
+        its rows of the stale buffer. The restored controller state
+        already carries any calibrated ``FEParams``, so calibration is
+        marked done."""
+        like = self._astate
+        if like is not None:
+            like = AsyncState(*[t.new_zeros((self.n_padded, *t.shape[1:]))
+                                for t in like])
+        tree = _ckpt.restore_checkpoint(path, self._carry_tree(like))
+        meta = _ckpt.load_metadata(path)
+        astate = tree["astate"]
+        if astate is not None:
+            rows = slice(self._i0, self._i0 + self.n_local)
+            astate = AsyncState(*[t[rows].clone() for t in astate])
+        self._store(Carry(_unnest(tree["params"]), tree["ctrl_state"],
+                          tree["battery"], astate, tree["fstate"],
+                          tree["lstate"]))
+        self._calibrated = True
+        return int(meta["next_round"])
 
     # ------------------------------------------------------------ sweeps ----
     def run_sweep(self, seeds, rounds: Optional[int] = None, *,
@@ -724,18 +1160,20 @@ class FederatedTrainer:
 
         Every lane starts from the trainer's *current* params and
         controller state (sweep a fresh trainer for independent-run error
-        bars) with the starting battery and link state, shares the client
-        shards and geometry, and draws its own fading, batches, controller
-        and link randomness from ``seed_keys(PRNGKey(seed))``. A lane of
-        the trainer's own seed, swept before any training, therefore
-        equals its ``run_scanned`` bit for bit. With
-        ``eta_auto``, eta is calibrated once from this trainer's round 0
+        bars) with the starting battery, stale buffer, defense and link
+        state, shares the client shards and geometry, and draws its own
+        fading, batches, controller, harvest, fault and link randomness
+        from ``seed_keys(PRNGKey(seed))``. A lane of the trainer's own
+        seed, swept before any training, therefore equals its
+        ``run_scanned`` bit for bit. With ``eta_auto``, eta is calibrated once from this trainer's round 0
         and shared by every lane. ``history``, ``params`` and the live
         carry are left untouched.
 
         Returns stacked numpy arrays under the reference's keys:
         ``accuracy``/``loss`` [S, R], ``x``/``gamma``/``bandwidth``/
-        ``energy``/``battery`` [S, R, N], plus the link (``n_retx``, ...)
+        ``energy``/``battery`` [S, R, N], plus the timed (``t_round``,
+        ``made``, ``n_late``, ``n_stale``), fault (``n_faulted``,
+        ``n_rejected``, ``clip_frac``, ``fallback``), link (``n_retx``, ...)
         and quantized (``bits``, ``e_saved``) lanes where those paths are
         on. ``configs`` maps ``FEParams`` fields (``eta``, ``rho``,
         ``b_tot``, ...) to equal-length value lists (a single value
@@ -827,6 +1265,22 @@ class FederatedTrainer:
         for lg in self.history:
             cum += lg.total_energy
             if lg.accuracy >= target:
+                return cum
+        return None
+
+    def simulated_time(self) -> float:
+        """Cumulative simulated wall-clock (s) across the logged rounds
+        (``RoundLog.t_round``); untimed rounds count zero."""
+        return float(sum(lg.t_round or 0.0 for lg in self.history))
+
+    def wallclock_to_accuracy(self, target: float) -> float | None:
+        """Simulated seconds until accuracy first reaches ``target``; None
+        if it never does (or the run is untimed)."""
+        cum, timed = 0.0, False
+        for lg in self.history:
+            cum += lg.t_round or 0.0
+            timed = timed or lg.t_round is not None
+            if timed and lg.accuracy >= target:
                 return cum
         return None
 

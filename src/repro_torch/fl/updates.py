@@ -51,3 +51,27 @@ def unflatten_update(vec: Tensor, spec: TreeSpec) -> dict:
         out[name] = vec[off:off + size].reshape(shape).to(dtype)
         off += size
     return out
+
+
+def finite_rows(mat: Tensor) -> Tensor:
+    """[n] bool — rows of an [n, D] matrix with every coefficient finite."""
+    return torch.all(torch.isfinite(mat), dim=1)
+
+
+# rows of the update matrix widened to float64 at a time by weighted_sum
+_SUM_ROWS = 8
+
+
+def weighted_sum(w: Tensor, rows: Tensor) -> Tensor:
+    """``sum_i w[i] * rows[i]`` of fp32 ``w`` [n] and ``rows`` [n, D],
+    accumulated in float64 ([D] float64). Each product is exact there and
+    each addition rounds at float64's ulp, 2^29 times finer than float32's,
+    so two groupings of the terms (one GEMV over all clients on one card,
+    or each rank's partial sum and the all-reduce across a clients mesh)
+    almost never round to different float32 aggregates: the sharded
+    trainer equals one card bit for bit (ROADMAP C-17). The rows are
+    widened a few at a time, so no float64 copy of the matrix is made."""
+    acc = torch.zeros(rows.shape[1], dtype=torch.float64, device=rows.device)
+    for i in range(0, rows.shape[0], _SUM_ROWS):
+        acc += w[i:i + _SUM_ROWS].double() @ rows[i:i + _SUM_ROWS].double()
+    return acc

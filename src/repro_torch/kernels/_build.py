@@ -51,9 +51,9 @@ SIGNATURES = {
                               _P, _P, _P, _P, _P, _P),
     # (P, h, u, e_cmp, e_scale | null, alive, q, mu, scalars, levels, L,
     #  newton_iters, cap, n, gamma_out, b_out, e_out, phi_out, bits_out | null,
-    #  mu_out, lam_out, n_out, stream)
+    #  mu_out, lam_out, res_out, n_out, stream)
     "dual_ascent_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _P, _P, _P, _P, _P, _P, _P, _P, _P),
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # (x, out, ks, n_rows, d, stream)
     "topk_rows_f32": (_P, _P, _P, _I, _LL, _P),
     # (x, out, n, block, k, dtype, stream)

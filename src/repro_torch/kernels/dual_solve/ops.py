@@ -9,12 +9,13 @@ vector so the dual price never leaves the card for a launch, and the
 per-level constants folded on the host as the plain version folds them.
 
 ``dual_ascent`` has ``ref.dual_ascent_ref``'s contract: Algorithm 1's
-whole dual ascent and the best response at the final price, returned as
-``ref.Ascent``. CPU tensors run the plain host loop; CUDA tensors launch
-the fused kernel once (one CTA), with 12 scalars in a device vector and
-the level table, per-level fidelity included, by value: the loop's exit
-test never reads the card from the host, and the iteration count comes
-back as a device int32.
+whole dual ascent and the best response at the final price, with the last
+two residuals, returned as ``ref.Ascent``. CPU tensors run the plain host
+loop; CUDA tensors launch the fused kernel once (one CTA), with 12
+scalars in a device vector and the level table, per-level fidelity
+included, by value: the loop's exit test never reads the card from the
+host, and the iteration count and the residuals come back as device
+tensors.
 
 The plain versions take a grid of any size, as the reference does; the
 kernels take at most ``MAX_LEVELS`` levels, so CUDA tensors on a larger
@@ -166,10 +167,11 @@ def dual_ascent(P, h, u_norms, lam, mu, q, alive, *, gamma_grid, eta, rho,
                              pi_min=pi_min, alpha_lambda=alpha_lambda,
                              alpha_mu=alpha_mu, dual_tol=dual_tol, device=dev)
     joint = bits_grid is not None
-    # gamma b e phi mu [bits] lam in one buffer; the iteration count apart
-    buf = torch.empty((6 if joint else 5) * n + 1, dtype=torch.float32, device=dev)
+    # gamma b e phi mu [bits] lam res res_prev in one buffer; the iteration
+    # count apart
+    buf = torch.empty((6 if joint else 5) * n + 3, dtype=torch.float32, device=dev)
     outs = [buf[j * n:(j + 1) * n] for j in range(6 if joint else 5)]
-    lam_out = buf[-1]
+    lam_out, res_out = buf[-3], buf[-2:]
     n_out = torch.empty((), dtype=torch.int32, device=dev)
     err = _build.library().dual_ascent_f32(
         P.data_ptr(), h.data_ptr(), u_norms.data_ptr(), e_cmp.data_ptr(),
@@ -178,13 +180,14 @@ def dual_ascent(P, h, u_norms, lam, mu, q, alive, *, gamma_grid, eta, rho,
         ctypes.cast(table, ctypes.c_void_p), n_levels, int(newton_iters),
         int(inner_iters), n, *(o.data_ptr() for o in outs[:4]),
         outs[5].data_ptr() if joint else None, outs[4].data_ptr(),
-        lam_out.data_ptr(), n_out.data_ptr(),
+        lam_out.data_ptr(), res_out.data_ptr(), n_out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "dual_ascent_f32")
     attr = COUNTERS[(e_scale is not None, joint)]
     setattr(dual_ascent, attr, getattr(dual_ascent, attr) + 1)
     return Ascent(outs[0], outs[1], outs[2], outs[3],
-                  outs[5] if joint else None, lam_out, outs[4], n_out)
+                  outs[5] if joint else None, lam_out, outs[4], n_out,
+                  res_out[0], res_out[1])
 
 
 for _attr in COUNTERS.values():

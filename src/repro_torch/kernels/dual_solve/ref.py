@@ -32,7 +32,7 @@ import torch
 
 from ...core import channel
 from ...core.fairness import contribution_score
-from ...xla_math import exp2_xla
+from ...xla_math import exp2_xla, fma_f32, sum_xla
 
 Tensor = torch.Tensor
 
@@ -185,8 +185,10 @@ def selection_score(u_norms: Tensor, gamma: Tensor, bits: Tensor = None) -> Tens
 
 class Ascent(NamedTuple):
     """What the dual ascent returns: the best response at the final price
-    ``lam`` (``bits`` None off the joint grid), the final duals, and the
-    number of iterations run (0-d int32)."""
+    ``lam`` (``bits`` None off the joint grid), the final duals, the
+    number of iterations run (0-d int32), and the last two residuals
+    (0-d float32, +inf before an iteration sets them): what the solver's
+    fallback guard reads."""
     gamma: Tensor
     b: Tensor
     e: Tensor
@@ -195,6 +197,8 @@ class Ascent(NamedTuple):
     lam: Tensor
     mu: Tensor
     n_inner: Tensor
+    res: Tensor
+    res_prev: Tensor
 
 
 def dual_ascent_ref(P: Tensor, h: Tensor, u_norms: Tensor, lam: Tensor,
@@ -203,7 +207,7 @@ def dual_ascent_ref(P: Tensor, h: Tensor, u_norms: Tensor, lam: Tensor,
                     s_bits, i_bits, n0, b_lo, inner_iters: int,
                     newton_iters: int = 3, e_cmp: Tensor = None,
                     e_scale: Tensor = None, bits_grid=None,
-                    solve=None) -> Ascent:
+                    solve=None, fused: bool = False) -> Ascent:
     """Algorithm 1's warm-started dual ascent with the residual early exit,
     then the best response at the final price.
 
@@ -216,11 +220,22 @@ def dual_ascent_ref(P: Tensor, h: Tensor, u_norms: Tensor, lam: Tensor,
     ``max(|d lam| / alpha_lambda, max |d mu| / alpha_mu)`` (0/0-guarded).
     The first iteration always runs; the loop stops at ``inner_iters`` or
     once the residual is not above ``dual_tol``, read on the host (one
-    synchronization an iteration on a device). The scalars are float32 0-d
+    synchronization an iteration on a device). The last residual and the
+    one before it are returned (``res``, ``res_prev``), both +inf until
+    an iteration sets them, as the reference's guarded loop carries them. The scalars are float32 0-d
     tensors (``FEParams``). ``solve`` is the best response
-    (``dual_solve_ref`` by default; any function of its signature)."""
+    (``dual_solve_ref`` by default; any function of its signature).
+
+    ``fused=True`` computes the dual step as XLA:CPU compiles the
+    reference's loop: each product that feeds one sum rounded with it
+    once (``xla_math.fma_f32``: the selection test's ``lam b + e`` and
+    ``mu (1 - rho) + eta s``, the price step, the fairness step) and the
+    bandwidth sum in XLA's order (``xla_math.sum_xla``). The GSS oracle
+    takes it (ROADMAP C-18); the Newton path keeps the plain step, which
+    its kernel holds to."""
     solve = dual_solve_ref if solve is None else solve
     joint = bits_grid is not None
+    dev = P.device
     alive_f = alive.to(torch.float32)
 
     def best_response(lam):
@@ -229,10 +244,23 @@ def dual_ascent_ref(P: Tensor, h: Tensor, u_norms: Tensor, lam: Tensor,
                      b_lo=b_lo, newton_iters=newton_iters, e_cmp=e_cmp,
                      e_scale=e_scale, bits_grid=bits_grid)
 
+    def fused_step(lam, mu, e_i, b_i, s):
+        x = (fma_f32(lam, b_i, e_i).to(dev)
+             < fma_f32(eta, s, mu * (1.0 - rho)).to(dev)) & alive
+        xf = x.to(torch.float32)
+        new_lam = torch.clamp(fma_f32(alpha_lambda, sum_xla(xf * b_i) - 1.0,
+                                      lam).to(dev), min=0.0)
+        drive = fma_f32(-(1.0 - rho), xf, fma_f32(-rho, q, pi_min)).to(dev)
+        new_mu = torch.clamp(fma_f32(alpha_mu * alive_f, drive, mu).to(dev),
+                             min=0.0)
+        return new_lam, new_mu
+
     def dual_step(lam, mu):
         out = best_response(lam)
         gamma_i, b_i, e_i = out[0], out[1], out[2]
         s = selection_score(u_norms, gamma_i, out[4] if joint else None)
+        if fused:
+            return fused_step(lam, mu, e_i, b_i, s)
         x = (e_i + lam * b_i < eta * s + mu * (1.0 - rho)) & alive
         xf = x.to(torch.float32)
         # Algorithm 1 line 11: bandwidth dual (normalized budget = 1)
@@ -253,9 +281,11 @@ def dual_ascent_ref(P: Tensor, h: Tensor, u_norms: Tensor, lam: Tensor,
             / torch.clamp(alpha_mu, min=1e-30))
 
     n_inner = 0
+    res = res_prev = torch.tensor(float("inf"), dtype=torch.float32,
+                                  device=P.device)
     while n_inner < inner_iters:
         new_lam, new_mu = dual_step(lam, mu)
-        res = residual(new_lam, lam, new_mu, mu)
+        res_prev, res = res, residual(new_lam, lam, new_mu, mu)
         lam, mu = new_lam, new_mu
         n_inner += 1
         if n_inner < inner_iters and not bool(res > dual_tol):
@@ -263,4 +293,5 @@ def dual_ascent_ref(P: Tensor, h: Tensor, u_norms: Tensor, lam: Tensor,
 
     out = best_response(lam)
     return Ascent(out[0], out[1], out[2], out[3], out[4] if joint else None,
-                  lam, mu, torch.tensor(n_inner, dtype=torch.int32))
+                  lam, mu, torch.tensor(n_inner, dtype=torch.int32), res,
+                  res_prev)

@@ -20,11 +20,20 @@ the JAX package's weights for the seed.
     PYTHONPATH=src python -m repro_torch.launch.experiments --clients 50 \\
         --rounds 60 --extra-baselines --seeds 2 --sweep-eta 1e-4,3e-4
 
+    # timed rounds and faults: a scenario, with the reference's overrides
+    PYTHONPATH=src python -m repro_torch.launch.experiments --device cpu \
+        --clients 8 --rounds 4 --scenario straggler --deadline 0.02
+    PYTHONPATH=src python -m repro_torch.launch.experiments --device cpu \
+        --clients 8 --rounds 4 --scenario byzantine-lite --fault-rate 0.3
+
+``--deadline``/``--staleness-a`` (timed rounds), ``--fault-rate``/
+``--crash-rate``/``--churn`` (fault injection) and ``--defense`` (the
+defended aggregator) take the reference's semantics: with a scenario they
+override its preset, without one they build the reference's configs.
 Options whose trainer parts are not ported raise ``NotImplementedError``
-naming their ROADMAP item: ``--deadline``/``--staleness-a`` (A-12),
-``--fault-rate``/``--crash-rate``/``--churn``/``--defense`` (A-13),
-``--clusters``/``--pool-frac``/``--mobility-sigma`` (A-15) and
-``--shard-clients`` (A-10b: one process a card).
+naming their ROADMAP item: ``--clusters``/``--pool-frac``/
+``--mobility-sigma`` (A-15) and ``--shard-clients`` (A-10b: one process
+a card).
 """
 from __future__ import annotations
 
@@ -43,7 +52,9 @@ import torch
 from .. import random as prng
 from ..configs import ChannelConfig, FairEnergyConfig, FLConfig
 from ..configs.fmnist_cnn import CONFIG as CNN_FULL
+from ..core.faults import DefenseConfig, FaultConfig
 from ..core.link import LinkConfig
+from ..core.rounds import AsyncConfig
 from ..data import ClientDataset, dirichlet_partition, make_fmnist_like
 from ..devices import resolve_device
 from ..fl import FederatedTrainer
@@ -57,15 +68,15 @@ PROTECTED_OUT = "experiments/fl_example.json"
 
 # build() options of the reference whose trainer parts the port has not,
 # and the ROADMAP item that brings each
-UNPORTED = {"deadline": "A-12", "staleness_a": "A-12", "fault_rate": "A-13",
-            "crash_rate": "A-13", "churn": "A-13", "defense": "A-13",
-            "clusters": "A-15", "pool_frac": "A-15", "mobility_sigma": "A-15",
+UNPORTED = {"clusters": "A-15", "pool_frac": "A-15", "mobility_sigma": "A-15",
             "shard_clients": "A-10b"}
 
 
 def build(n_clients=20, rounds=60, n_train=12000, n_test=2000, seed=0,
-          lr=0.05, local_steps=2, scenario=None, max_retx=None, burst_p=None,
-          price_outage=None, bits_grid=None, device=None, **unported):
+          lr=0.05, local_steps=2, scenario=None, deadline=None,
+          staleness_a=None, fault_rate=None, crash_rate=None, churn=None,
+          defense=None, max_retx=None, burst_p=None, price_outage=None,
+          bits_grid=None, device=None, **unported):
     """The experiment's recipe: returns ``(make, fl_cfg)``, where
     ``make(controller, **trainer_kw)`` builds a ``FederatedTrainer`` on
     the shared data, weights and channel. ``device=None`` is the GPU."""
@@ -87,20 +98,35 @@ def build(n_clients=20, rounds=60, n_train=12000, n_test=2000, seed=0,
         ch_cfg = scn.apply_channel(ch_cfg)
         fe_cfg = scn.apply_fe(fe_cfg)
         extra = dict(device_profile=scn.device_profile(n_clients, seed=seed),
-                     async_cfg=scn.async_config(),
-                     fault_cfg=scn.fault_config(),
-                     defense=scn.defense_config(),
+                     async_cfg=scn.async_config(deadline_s=deadline,
+                                                staleness_a=staleness_a),
+                     fault_cfg=scn.fault_config(crash_rate=crash_rate,
+                                                corrupt_rate=fault_rate),
+                     defense=scn.defense_config(defended=defense),
                      mobility=scn.mobility_config(),
                      link_cfg=scn.link_config(max_retx=max_retx,
                                               burst_p=burst_p,
                                               price_outage=price_outage))
-    elif burst_p or price_outage or max_retx is not None:
-        link = LinkConfig(outage=True,
-                          max_retx=max_retx if max_retx is not None else 2,
-                          burst_p=burst_p or 0.0,
-                          i_burst_n0=99.0 if burst_p else 0.0,
-                          price_outage=bool(price_outage))
-        extra["link_cfg"] = link if link.enabled else None
+    else:
+        if deadline is not None:
+            extra["async_cfg"] = AsyncConfig(
+                deadline_s=deadline,
+                staleness_a=staleness_a if staleness_a is not None else 0.5)
+        if fault_rate or crash_rate or churn:
+            fault = FaultConfig(crash_rate=crash_rate or 0.0,
+                                corrupt_rate=fault_rate or 0.0,
+                                churn_dwell=4 if churn else 0,
+                                churn_away=churn or 0.3)
+            extra["fault_cfg"] = fault if fault.enabled else None
+        if defense:
+            extra["defense"] = DefenseConfig()
+        if burst_p or price_outage or max_retx is not None:
+            link = LinkConfig(outage=True,
+                              max_retx=max_retx if max_retx is not None else 2,
+                              burst_p=burst_p or 0.0,
+                              i_burst_n0=99.0 if burst_p else 0.0,
+                              price_outage=bool(price_outage))
+            extra["link_cfg"] = link if link.enabled else None
     if bits_grid is not None:
         # an explicit grid wins over the scenario's: the solver decides on
         # the joint (gamma, bits) grid and the round quantizes at it
@@ -192,6 +218,20 @@ def run_all(n_clients=20, rounds=60, target=0.80, seed=0, verbose=True,
             "mean_selected": float(np.mean([lg.n_selected for lg in tr.history])),
             "mean_gamma": tr.mean_gamma_selected(),
         }
+        if tr.history and tr.history[0].t_round is not None:
+            entry.update(
+                simulated_time_s=tr.simulated_time(),
+                wallclock_to_target_s=tr.wallclock_to_accuracy(target),
+                n_late=int(sum(lg.n_late for lg in tr.history)),
+                n_stale=int(sum(lg.n_stale for lg in tr.history)))
+        if tr.history and tr.history[0].n_faulted is not None:
+            entry.update(
+                n_faulted=int(sum(lg.n_faulted for lg in tr.history)),
+                n_rejected=int(sum(lg.n_rejected for lg in tr.history)),
+                mean_clip_frac=float(np.mean([lg.clip_frac
+                                              for lg in tr.history])),
+                n_fallback_rounds=int(sum(bool(lg.fallback)
+                                          for lg in tr.history)))
         if tr.history and tr.history[0].n_retx is not None:
             entry.update(
                 n_retx=int(sum(lg.n_retx for lg in tr.history)),
@@ -291,6 +331,11 @@ def summarize(res):
         print(f"{name:14s}{acc:10.3f}{epr:12.3f}"
               f"{(f'{e2t:.3f}' if e2t else 'n/a'):>12s}"
               f"{p['min']:>8d}/{p['max']:<4d}{p['std']:6.2f}")
+        if "n_faulted" in s:
+            print(f"{'':14s}faults: {s['n_faulted']} injected, "
+                  f"{s['n_rejected']} rejected, clip "
+                  f"{s['mean_clip_frac']:.2f}, "
+                  f"{s['n_fallback_rounds']} solver-fallback rounds")
         if "n_retx" in s:
             print(f"{'':14s}link: {s['n_retx']} retx, {s['n_outage']} "
                   f"outages, goodput {s['mean_goodput_frac']:.2f}, "
@@ -364,16 +409,30 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="price the expected attempt count in the solver")
     ap.add_argument("--bits-grid", default=None,
                     help="comma-separated quantization widths, e.g. 8,16,32")
-    for flag, item in (("--deadline", "A-12"), ("--staleness-a", "A-12"),
-                       ("--fault-rate", "A-13"), ("--crash-rate", "A-13"),
-                       ("--churn", "A-13"), ("--pool-frac", "A-15"),
-                       ("--mobility-sigma", "A-15")):
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="round deadline T_round in seconds: selected "
+                         "clients past it are dropped from the aggregate; "
+                         "overrides the scenario's preset deadline")
+    ap.add_argument("--staleness-a", type=float, default=None,
+                    help="staleness decay exponent a in w(tau)=(1+tau)^-a "
+                         "(with a scenario that buffers late updates)")
+    ap.add_argument("--fault-rate", type=float, default=None,
+                    help="payload corruption rate; overrides the scenario "
+                         "preset's corrupt_rate")
+    ap.add_argument("--crash-rate", type=float, default=None,
+                    help="mid-round crash rate; overrides the scenario "
+                         "preset's crash_rate")
+    ap.add_argument("--churn", type=float, default=None,
+                    help="open-population away probability on 4-round "
+                         "dwell epochs (scenario-less runs)")
+    ap.add_argument("--defense", action="store_true", default=None,
+                    help="defended aggregation (finite screen + norm "
+                         "clipping); overrides the scenario preset")
+    for flag in ("--pool-frac", "--mobility-sigma"):
         ap.add_argument(flag, type=float, default=None,
-                        help=f"not ported yet (ROADMAP {item}): raises")
+                        help="not ported yet (ROADMAP A-15): raises")
     ap.add_argument("--clusters", type=int, default=None,
                     help="not ported yet (ROADMAP A-15): raises")
-    ap.add_argument("--defense", action="store_true", default=None,
-                    help="not ported yet (ROADMAP A-13): raises")
     ap.add_argument("--shard-clients", action="store_true",
                     help="not ported yet (ROADMAP A-10b, one process a "
                          "card): raises")

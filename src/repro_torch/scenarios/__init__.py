@@ -1,11 +1,10 @@
 """Named experiment scenarios: device fleets x data skew x channel.
 
 The port's copy of ``repro.scenarios``: the ``Scenario`` dataclass with
-all its fields, the registry and every preset. The knobs of subsystems
-the port does not have yet (async rounds, faults and defense, mobility)
-are kept, and their config builders raise ``NotImplementedError`` naming
-the ROADMAP item (A-12, A-13, A-15) when a preset sets them; with the
-knobs off they return ``None`` as in the reference.
+all its fields, the registry and every preset. The mobility knobs are
+kept, and ``mobility_config`` raises ``NotImplementedError`` naming
+ROADMAP A-15 when a preset sets them; with them off it returns ``None``
+as in the reference.
 
 A ``Scenario`` composes the knobs that define a workload — the device
 profile kind (``core.energy``), finite-battery draws, the Dirichlet
@@ -141,33 +140,35 @@ class Scenario:
 
     def async_config(self, *, deadline_s: Optional[float] = None,
                      staleness_a: Optional[float] = None):
-        """The scenario's async-round config: ``None`` when no async knob
-        is set (the legacy synchronous round). Async rounds are not
-        ported yet: a set knob raises (ROADMAP A-12)."""
-        harvest = self.harvest_j is not None
-        d_s = deadline_s if deadline_s is not None else self.deadline_s
-        d_q = None if deadline_s is not None else self.deadline_q
-        timed = (d_s is not None and math.isfinite(d_s)) or d_q is not None
-        if timed or self.staleness or harvest:
-            raise NotImplementedError(
-                f"scenario {self.name!r}: async rounds (deadlines, "
-                "staleness, harvesting) are not ported yet: ROADMAP A-12")
-        return None
+        """The scenario's ``core.rounds.AsyncConfig`` (None when no async
+        knob is set — the trainer then runs the exact legacy synchronous
+        round). Explicit CLI overrides win over the preset: ``deadline_s``
+        replaces both preset deadline knobs."""
+        from ..core.rounds import AsyncConfig
+        d_s, d_q = self.deadline_s, self.deadline_q
+        if deadline_s is not None:
+            d_s, d_q = deadline_s, None
+        a = staleness_a if staleness_a is not None else self.staleness_a
+        cfg = AsyncConfig(
+            deadline_s=d_s if d_s is not None else math.inf,
+            deadline_q=d_q, staleness=self.staleness, staleness_a=a,
+            harvest_j=self.harvest_j)
+        return cfg if cfg.enabled else None
 
     def fault_config(self, *, crash_rate: Optional[float] = None,
                      corrupt_rate: Optional[float] = None):
-        """The scenario's fault-injection config: ``None`` when no fault
-        knob is set. Fault injection is not ported yet: a set knob raises
-        (ROADMAP A-13)."""
-        crash = crash_rate if crash_rate is not None else self.crash_rate
-        corrupt = (corrupt_rate if corrupt_rate is not None
-                   else self.corrupt_rate)
-        if (crash > 0.0 or corrupt > 0.0 or self.h_err_std > 0.0
-                or self.churn_dwell > 0):
-            raise NotImplementedError(
-                f"scenario {self.name!r}: fault injection is not ported "
-                "yet: ROADMAP A-13")
-        return None
+        """The scenario's ``core.faults.FaultConfig`` (None when no fault
+        knob is set — the legacy fault-free round). Explicit CLI overrides
+        win over the preset."""
+        from ..core.faults import FaultConfig
+        cfg = FaultConfig(
+            crash_rate=crash_rate if crash_rate is not None else self.crash_rate,
+            corrupt_rate=(corrupt_rate if corrupt_rate is not None
+                          else self.corrupt_rate),
+            corrupt_mode=self.corrupt_mode, corrupt_scale=self.corrupt_scale,
+            h_err_std=self.h_err_std, churn_dwell=self.churn_dwell,
+            churn_away=self.churn_away)
+        return cfg if cfg.enabled else None
 
     def mobility_config(self, *, sigma_db: Optional[float] = None):
         """The scenario's mobility config: ``None`` when mobility is off.
@@ -201,15 +202,14 @@ class Scenario:
         return cfg if cfg.enabled else None
 
     def defense_config(self, *, defended: Optional[bool] = None):
-        """The scenario's defended-aggregation config: ``None`` when
-        defense is off. Defended aggregation is not ported yet: turning
-        it on raises (ROADMAP A-13)."""
+        """The scenario's ``core.faults.DefenseConfig`` (None when defense
+        is off — aggregation stays the legacy weighted mean). ``defended``
+        overrides the preset in either direction."""
         on = defended if defended is not None else self.defended
         if not on:
             return None
-        raise NotImplementedError(
-            f"scenario {self.name!r}: defended aggregation is not ported "
-            "yet: ROADMAP A-13")
+        from ..core.faults import DefenseConfig
+        return DefenseConfig(trim_frac=self.trim_frac)
 
 
 _REGISTRY: dict[str, Scenario] = {}

@@ -15,7 +15,13 @@ over the ranks of a process group:
 * the tiny per-client observables the controller reads (``u_norms``,
   ``h``, ``P``, all ``[N]``) are all-gathered or replicated, so selection
   runs on the same global observation in every layout;
-* model params, controller state and the round logs are replicated.
+* on timed rounds with the staleness buffer, each rank holds the buffer
+  rows of its own clients (``core.rounds.AsyncState``), like the update
+  buffer; the defended aggregator's clip gathers the [N] row norms and
+  participation, and its trimmed mean gathers the whole update matrix;
+* model params, controller state, battery, the defense tracker
+  (``core.faults.DefenseState``), the link state and the round logs are
+  replicated: every rank computes them from the same gathered inputs.
 
 ``N`` must divide the mesh: ``stack_client_datasets(...,
 pad_to_multiple=...)`` appends zero-weight ghost clients.
@@ -23,8 +29,8 @@ pad_to_multiple=...)`` appends zero-weight ghost clients.
 The JAX package's ``PartitionSpec`` helpers (``client_stack_spec``,
 ``client_data_specs``, ``replicated_specs``, ``async_state_specs``,
 ``defense_state_specs``, ``link_state_specs``) have no counterpart here:
-a rank's shard is a slice of the stack, and what is replicated is simply
-computed on every rank. The two-tier ``(clusters, clients)`` hierarchy
+a rank's shard is a slice of the stack (and of the stale buffer), and what
+is replicated is simply computed on every rank. The two-tier ``(clusters, clients)`` hierarchy
 mesh is ROADMAP A-15.
 
 A process group that is not initialized is an error: nothing here starts

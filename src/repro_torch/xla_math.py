@@ -178,3 +178,30 @@ def erfinv_xla(x: torch.Tensor) -> torch.Tensor:
     for a, b in _ERFINV[2:]:
         p = fma_f32(t, p, pick(a, b))
     return x * torch.where(torch.abs(x) == 1.0, float("inf"), p)
+
+
+# XLA rewrites a reduction over more elements than this into windows of
+# this many (its tree-reduction rewrite on the CPU)
+_REDUCE_WINDOW = 32
+
+
+def sum_xla(v: torch.Tensor) -> torch.Tensor:
+    """``jnp.sum`` of a 1-D float32 vector as XLA:CPU adds it: up to 32
+    elements one after another from 0; a longer vector padded with zeros
+    on both sides (the lower side takes the smaller half) to whole windows
+    of 32, each window summed so, and the window sums summed the same way,
+    recursively. Each addition rounds to float32."""
+    n = v.shape[0]
+    if n <= _REDUCE_WINDOW:
+        acc = torch.zeros((), dtype=torch.float32, device=v.device)
+        for i in range(n):
+            acc = acc + v[i]
+        return acc
+    padded = -(-n // _REDUCE_WINDOW) * _REDUCE_WINDOW
+    lo = (padded - n) // 2
+    w = torch.nn.functional.pad(v, (lo, padded - n - lo)).reshape(
+        -1, _REDUCE_WINDOW)
+    acc = torch.zeros(w.shape[0], dtype=torch.float32, device=v.device)
+    for j in range(_REDUCE_WINDOW):
+        acc = acc + w[:, j]
+    return sum_xla(acc)

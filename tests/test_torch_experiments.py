@@ -133,12 +133,20 @@ def test_cli_writes_json_and_refuses_unported_options(tmp_path, monkeypatch,
         {"eta": pytest.approx(1e-3), "rho": pytest.approx(0.6)},
         {"eta": pytest.approx(2e-3), "rho": pytest.approx(0.6)}]
     assert res["k"] >= 1 and "FL results" in capsys.readouterr().out
-    for flags, item in ((["--deadline", "1.0"], "A-12"),
-                        (["--churn", "0.3"], "A-13"),
-                        (["--defense"], "A-13"),
-                        (["--clusters", "2"], "A-15"),
+    for flags, item in ((["--clusters", "2"], "A-15"),
                         (["--shard-clients"], "A-10b")):
         with pytest.raises(NotImplementedError, match=item):
             tex.cli(["--device", "cpu", "--out", str(out)] + flags)
+    # the timed-round and fault options build the reference's configs
+    for kw, attr, want in ((dict(deadline=1.0), "async_cfg",
+                            dict(deadline_s=1.0, staleness_a=0.5)),
+                           (dict(churn=0.3), "fault_cfg",
+                            dict(churn_dwell=4, churn_away=0.3)),
+                           (dict(defense=True), "defense_cfg",
+                            dict(finite_screen=True, trim_frac=0.0))):
+        make, _ = tex.build(n_clients=4, rounds=2, n_train=256, n_test=64,
+                            device="cpu", **kw)
+        cfg = getattr(make("fairenergy"), attr)
+        assert {k: getattr(cfg, k) for k in want} == want, kw
     with pytest.raises(ValueError, match="fl_example"):
         tex.main(out=os.path.join(ROOT, "experiments", "fl_example.json"))

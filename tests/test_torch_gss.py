@@ -3,12 +3,17 @@
 best response as ``tests/test_dual_solver.py`` holds them.
 
 Against the reference: masks, gammas and iteration counts exactly equal.
-Energies, widths and ``lam`` agree to rtol 2e-3, not 1e-5 (ROADMAP C-18):
-after ~35 of its 60 steps the search brackets a few floats of a flat
-minimum, and where it stops there follows the last-bit rounding of phi,
-which XLA:CPU computes with fused multiply-adds and other sums' orders.
-Measured on these inputs: energies within 3.3e-4, widths 6.8e-4, lam
-1.5e-4.
+After ~35 of its 60 steps the search brackets a few floats of a flat
+minimum, and where it stops follows the last-bit rounding of phi, so the
+port's oracle computes phi, the search's probes and the dual step as
+XLA:CPU compiles the reference (``core.fairenergy.best_response_gss``,
+``dual_ascent_ref(fused=True)``; ROADMAP C-18). On the gamma grid with
+the default early exit the three cases below agree to rtol 1e-5
+(measured: bit for bit, the bandwidth total within 6.1e-8). Outage
+pricing, the joint grid and a capped ascent still end apart (measured:
+energies within 1.4e-4, widths 6.6e-4, lam 6.5e-5), and that case keeps
+the 2e-3 gate: the order in which the reference's fused loop adds the
+bandwidth sum of 9-32 clients is not the emulated one.
 """
 import dataclasses
 
@@ -31,6 +36,7 @@ from repro_torch.kernels.dual_solve.ref import bandwidth_best_response
 
 N0, S_BITS, I_BITS, B_TOT = 4e-21, 6.4e7, 2e6, 10e6
 GSS_RTOL = 2e-3            # C-18: where a flat minimum's search ends
+GSS_RTOL_GAMMA = 1e-5      # the gamma grid with the default early exit
 
 
 def _draws(m, seed):
@@ -107,7 +113,8 @@ def test_newton_never_loses_to_gss():
     assert rel.max() < 1e-5
 
 
-def _solve_both(u, h, P, rounds, alive=None, e_scale=None, **fe_kw):
+def _solve_both(u, h, P, rounds, alive=None, e_scale=None, rtol=GSS_RTOL,
+                **fe_kw):
     jfe = JFE(eta_auto=False, bw_solver="gss", **fe_kw)
     tfe = TFE(eta_auto=False, bw_solver="gss", **fe_kw)
     n = u.shape[0]
@@ -130,7 +137,7 @@ def _solve_both(u, h, P, rounds, alive=None, e_scale=None, **fe_kw):
         for name in ("energy", "bandwidth", "lam", "mu", "bw_used"):
             np.testing.assert_allclose(getattr(td, name).numpy(),
                                        np.asarray(getattr(jd, name)),
-                                       rtol=GSS_RTOL, atol=1e-12,
+                                       rtol=rtol, atol=1e-12,
                                        err_msg=f"{name} {msg}")
         if jd.bits is not None:
             np.testing.assert_array_equal(td.bits.numpy(), np.asarray(jd.bits))
@@ -143,7 +150,7 @@ def test_solve_round_gss_matches_reference(n, seed, eta):
     d = _draws(n, seed)
     u = np.random.default_rng(seed + 100).uniform(0.5, 5.0, n).astype(np.float32)
     with jax.threefry_partitionable(False):
-        _solve_both(u, d["h"], d["P"], 3, eta=eta)
+        _solve_both(u, d["h"], d["P"], 3, eta=eta, rtol=GSS_RTOL_GAMMA)
 
 
 def test_solve_round_gss_dead_clients_pricing_and_joint_grid():

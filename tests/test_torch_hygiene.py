@@ -39,7 +39,13 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.fl.collectives", "repro_torch.sharding.fl",
             "repro_torch.launch.multipod", "repro_torch.launch.experiments",
             "repro_torch.core.gss", "repro_torch.core.controllers.baselines",
-            "repro_torch.core.controllers.tilted"} <= set(mods)
+            "repro_torch.core.controllers.tilted",
+            "repro_torch.core.rounds.config", "repro_torch.core.rounds.timing",
+            "repro_torch.core.rounds.staleness",
+            "repro_torch.core.rounds.harvest", "repro_torch.core.faults.config",
+            "repro_torch.core.faults.inject",
+            "repro_torch.core.faults.defense", "repro_torch.checkpoint.ckpt",
+            "repro_torch.checkpoint"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -150,3 +156,25 @@ def test_experiments_without_device_raise_when_no_gpu(monkeypatch):
         experiments.build(n_clients=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         experiments.run_all(n_clients=2, rounds=1)
+
+
+def test_timed_fault_and_checkpoint_entry_points_mean_the_gpu(monkeypatch,
+                                                              tmp_path):
+    """The timed-round, fault and defense state builders mean the GPU by
+    ``device=None``; a checkpoint restores onto the devices of the tree it
+    restores into."""
+    from repro_torch import checkpoint
+    from repro_torch.core import faults, rounds
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: rounds.init_async_state(2, 3),
+                 lambda: rounds.harvest_rates(None, 2, 1e-3),
+                 faults.init_defense_state,
+                 lambda: faults.make_aggregator("defended").init()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    st = rounds.init_async_state(2, 3, device="cpu")
+    assert st.buf.device.type == "cpu"
+    assert faults.init_defense_state("cpu").tau.device.type == "cpu"
+    p = checkpoint.save_checkpoint(str(tmp_path), 1, {"a": st})
+    back = checkpoint.restore_checkpoint(p, {"a": st})
+    assert back["a"].buf.device.type == "cpu"

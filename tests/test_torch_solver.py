@@ -7,7 +7,6 @@ Selection masks, gammas and ``n_inner`` must be exactly equal; the duals
 (atol 1e-12 for entries that are exactly 0 in one package and an ulp-level
 residue in the other).
 """
-import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -95,26 +94,6 @@ def test_tie_heavy_repair_pins_stable_argsort():
     for r, (jd, js, td, ts) in enumerate(_run_both(u, h, P, 3, eta=5e-3,
                                                    pi_min=0.0)):
         _assert_same(jd, js, td, ts, r)
-
-
-@pytest.mark.parametrize("kw,item", [({"bw_solver": "gss",
-                                       "solver_fallback": True}, "A-13"),
-                                     ({"solver_fallback": True}, "A-13"),
-                                     ({"bits_grid": (8.0, 32.0),
-                                       "solver_fallback": True}, "A-13")])
-def test_unported_options_raise_naming_the_roadmap_item(kw, item):
-    """The graceful-degradation fallback is not ported, with either
-    bandwidth solver, on the gamma grid or the joint grid, with or without
-    pricing; the GSS oracle (A-6), the joint grid and ``e_scale``
-    themselves are (``test_torch_gss.py``)."""
-    fe = dataclasses.replace(TFE(eta_auto=False), **kw)
-    u, h, P = (torch.tensor(a) for a in _draws(4, 0))
-    st = init_state(TFE(), 4, b_tot=B_TOT, s_bits=S_BITS, i_bits=I_BITS,
-                    n0=N0, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        solve_round(u, h, P, st, fe_cfg=fe)
-    with pytest.raises(NotImplementedError, match=item):
-        solve_round(u, h, P, st, fe_cfg=fe, e_scale=torch.ones(4))
 
 
 D_CNN = 1_630_090          # the paper's FMNIST CNN (configs/fmnist_cnn.py)

@@ -196,15 +196,16 @@ def test_finite_batteries_deplete_and_mask_clients():
 
 
 @pytest.mark.parametrize("kw,error,match", [
-    (dict(async_cfg=object()), NotImplementedError, "A-12"),
-    (dict(fault_cfg=object()), NotImplementedError, "A-13"),
-    (dict(defense=object()), NotImplementedError, "A-13"),
+    (dict(async_cfg=object()), TypeError, "AsyncConfig"),
+    (dict(fault_cfg=object()), TypeError, "FaultConfig"),
+    (dict(defense=object()), TypeError, "DefenseConfig"),
     (dict(hierarchy=object()), NotImplementedError, "A-15"),
     (dict(mesh=object()), TypeError, "DeviceMesh")])
 def test_unported_trainer_options_raise_naming_the_roadmap_item(kw, error,
                                                                  match):
-    """What the port does not bring raises naming its ROADMAP item; a mesh
-    must be a ``DeviceMesh`` (a 2-D one is A-15, tested below)."""
+    """What the port does not bring raises naming its ROADMAP item; the
+    timed-round, fault and defense options (ported) and a mesh take only
+    their own types (a 2-D mesh is A-15, tested below)."""
     with pytest.raises(error, match=match):
         _torch_trainer(**kw)
     with pytest.raises(TypeError, match="LinkConfig"):

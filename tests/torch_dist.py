@@ -77,6 +77,13 @@ def history_arrays(tr) -> dict:
     if h[0].n_retx is not None:
         out["n_retx"] = np.array([lg.n_retx for lg in h])
         out["n_outage"] = np.array([lg.n_outage for lg in h])
+    if h[0].t_round is not None:
+        out["made"] = np.stack([lg.made for lg in h])
+        for k in ("t_round", "n_late", "n_stale"):
+            out[k] = np.array([getattr(lg, k) for lg in h])
+    if h[0].n_faulted is not None:
+        for k in ("n_faulted", "n_rejected", "clip_frac", "fallback"):
+            out[k] = np.array([getattr(lg, k) for lg in h])
     return out
 
 
@@ -178,3 +185,20 @@ def sweep_body(rank, params, fe_cfg, seeds, rounds, configs, out_dir):
     cfg_out = tr.run_sweep(seeds, rounds, configs=configs)
     _save(out_dir, rank, **{f"seeds.{k}": v for k, v in seeds_out.items()},
           **{f"configs.{k}": v for k, v in cfg_out.items() if k != "configs"})
+
+
+def checkpoint_body(rank, params, kw, ckpt_dir, out_dir):
+    """The MLP trainer on a clients mesh over every rank for ``ROUNDS``
+    rounds in chunks of 4, a checkpoint after each (the mesh's first rank
+    writes it); then a fresh mesh trainer restored from the round-8 file
+    runs the rest."""
+    import os as _os
+    from repro_torch.sharding import make_clients_mesh
+    mesh = make_clients_mesh(device="cpu")
+    a = mlp_trainer(params, mesh=mesh, **kw)
+    a.run_scanned(ROUNDS, chunk=4, ckpt_dir=ckpt_dir, verbose=False)
+    b = mlp_trainer(params, mesh=mesh, **kw)
+    start = b.restore_checkpoint(_os.path.join(ckpt_dir, "ckpt_00000008.npz"))
+    b.run_scanned(ROUNDS, chunk=4, start_round=start, verbose=False)
+    _save(out_dir, rank, **{f"full.{k}": v for k, v in history_arrays(a).items()},
+          **{f"resumed.{k}": v for k, v in history_arrays(b).items()})
