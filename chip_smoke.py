@@ -67,7 +67,11 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    on the oscillating solver setting with ``solver_fallback``, which must
    take the fallback): ``made``, ``n_late``, ``n_stale``, ``n_faulted``,
    ``n_rejected`` and ``fallback`` equal, energies and ``t_round`` rtol
-   1e-5, ``clip_frac`` within 1e-6;
+   1e-5, ``clip_frac`` within 1e-6; and 3 rounds of the population-scale
+   paths (the ``mobility`` scenario, the hierarchy with clusters 2 and
+   pool_frac 0.5, that with the joint bits grid, and under churn): the
+   pool of every round, the cluster assignment, masks and bits equal,
+   energies rtol 1e-5;
 5. serve: ``repro_torch.launch.serve.generate`` with TinyLlama-1.1B at full
    width (22 layers, d 2048, random weights from a seeded generator on the
    card, bf16): 4 prompts of 2048 ids, 32 new tokens each, once to warm up
@@ -128,7 +132,30 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    with a checkpoint every 5, a fresh trainer restored at round 5
    continuing with equal masks and energies and bit-equal params, and
    ``verify_checkpoint`` rejecting a copy with one flipped byte (under
-   ``build/chip_smoke/``, removed after).
+   ``build/chip_smoke/``, removed after);
+10. hierarchy and mobility at full CNN width (``experiments.build``),
+   each run's launch counts zeroed before it and asserted after (one fused
+   ascent a round, of K_pool clients; the top-k rows once a round; the
+   norms once a round plus the calibration), finite params and energies,
+   at most K_pool selected: (a) the ``mobility`` scenario at N = 50, 20
+   rounds (steady round, energy a round against the main path's); (b)
+   clusters 4, pool_frac 0.25 at N = 50 (K_pool 12), 20 rounds
+   checkpointed every 5, resumed at 5: pools, masks, energies and params
+   bit for bit; (c) N = 1,000 clients over 60,000 images, clusters 4,
+   pool_frac 0.25 (K_pool 250), 10 rounds, against the same recipe
+   solving the full population: steady round ms, peak memory, every
+   k-means cluster in every pool, final accuracy, then one more round
+   whose kernels are held against their plain versions on that round's
+   own inputs (the fused ascent on the [250] pool or all [1000] clients:
+   masks, gammas, widths and n_inner equal, lam, mu, b*, e* and the
+   residuals rtol 1e-5; the top-k rows bit for bit and the norms rtol
+   1e-6 on the [1000, D] update matrix) and three more for the ascent's
+   device ms; (d) the decide alone, full against pooled (pool_size 512,
+   clusters 8 at N >= 64) on ``benchmarks/hierarchy_bench.py``'s
+   synthetic channel statistics at N = 50, 10,000 and 100,000: ms a
+   decide over 10 decides after a warm-up one, the fused ascent's device
+   ms a decide, and one more decide's ascent (on 50, 512, 10^4 or 10^5
+   clients) held against its plain version as in (c).
 
 ``--cards K`` runs phase 7 alone across K cards (one NCCL rank a card,
 after the build): the exchanges on a (2, K/2, 1) mesh against the pod mean
@@ -137,7 +164,10 @@ over the K cards against rank 0's one-card run (masks and gammas equal,
 energies rtol 1e-5, params atol 1e-6), with C-17's gate on rank 0's card
 at K's share of the clients, and (7b) the straggler and byzantine-lite
 scenarios sharded the same way (masks, made, stale and rejected counts
-equal, params within 1e-6).
+equal, params within 1e-6), and (7c) phase 10 (b)'s recipe on the (2,
+K/2) ``(clusters, clients)`` hierarchy mesh against rank 0's one-card
+run: the pool of every round, the cluster assignment, masks and params
+bit for bit.
 
 Output: one JSON line per kernel check, per round and per path, a
 ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
@@ -147,6 +177,7 @@ script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -326,13 +357,53 @@ def check_dual_solve(dev, name: str) -> dict:
 EARLY_TOLS = (3.0, 5.0)
 
 
-def selection(asc, u, alive, p):
+def selection(asc, u, alive, eta, rho):
     """The extraction's benefit test on a dual-ascent result (before the
     greedy repair), as core.fairenergy._solve_round computes it."""
     from repro_torch.kernels.dual_solve.ref import selection_score
-    benefit = (p.eta * selection_score(u, asc.gamma, asc.bits)
-               + asc.mu * (1.0 - p.rho) - asc.e - asc.lam * asc.b)
+    benefit = (eta * selection_score(u, asc.gamma, asc.bits)
+               + asc.mu * (1.0 - rho) - asc.e - asc.lam * asc.b)
     return (benefit > 0) & alive
+
+
+def hold_ascent(args, kw, where: str) -> tuple[float, float, int]:
+    """The fused ascent against its plain version (the host loop over the
+    plain best response) on one call's inputs, ``args`` and ``kw`` as the
+    solver passes them: selection masks, gammas, widths and n_inner
+    exactly equal; lam, mu, b*, e* and the last two residuals (res,
+    res_prev: +inf equal where no iteration set them) within rtol 1e-5.
+    Returns the largest absolute error of lam, mu, b* and e*, the largest
+    relative error of the residuals and n_inner."""
+    from repro_torch.kernels.dual_solve import ops, ref
+    got = ops.dual_ascent(*args, **kw)
+    want = ref.dual_ascent_ref(*args, **kw)
+    if int(got.n_inner) != int(want.n_inner):
+        raise AssertionError(f"{where}: n_inner {int(got.n_inner)} != "
+                             f"{int(want.n_inner)}")
+    u, alive = args[2], args[6]
+    x_got = selection(got, u, alive, kw["eta"], kw["rho"])
+    x_want = selection(want, u, alive, kw["eta"], kw["rho"])
+    if not (torch.equal(x_got, x_want) and torch.equal(got.gamma, want.gamma)
+            and (kw.get("bits_grid") is None
+                 or torch.equal(got.bits, want.bits))):
+        raise AssertionError(f"{where}: masks, gammas or widths differ")
+    err, res_err = 0.0, 0.0
+    for what in ("lam", "mu", "b", "e"):
+        g, w = getattr(got, what), getattr(want, what)
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-12,
+                                   msg=lambda m: f"{where} {what}: {m}")
+        err = max(err, float((g - w).abs().max()))
+    # the last two residuals, what the fallback guard reads
+    for what in ("res", "res_prev"):
+        g, w = float(getattr(got, what)), float(getattr(want, what))
+        if math.isinf(w) or math.isinf(g):
+            if g != w:
+                raise AssertionError(f"{where} {what}: {g} != {w}")
+        elif not abs(g - w) <= 1e-5 * abs(w):
+            raise AssertionError(f"{where} {what}: {g} vs {w}")
+        else:
+            res_err = max(res_err, abs(g - w) / max(abs(w), 1e-30))
+    return err, res_err, int(want.n_inner)
 
 
 def check_dual_ascent(dev, name: str) -> dict:
@@ -371,34 +442,10 @@ def check_dual_ascent(dev, name: str) -> dict:
                       b_lo=p.b_min_frac, inner_iters=static.inner_iters,
                       newton_iters=static.newton_iters, e_cmp=state.e_cmp,
                       e_scale=es, bits_grid=BITS if joint else None)
-            got = ops.dual_ascent(*args, **kw)
-            want = ref.dual_ascent_ref(*args, **kw)
-            where = f"{FUSED[name]} round {r} dual_tol {float(tol)}"
-            if int(got.n_inner) != int(want.n_inner):
-                raise AssertionError(f"{where}: n_inner {int(got.n_inner)} != "
-                                     f"{int(want.n_inner)}")
-            x_got = selection(got, u, alive, p)
-            x_want = selection(want, u, alive, p)
-            if not (torch.equal(x_got, x_want) and torch.equal(got.gamma, want.gamma)
-                    and (not joint or torch.equal(got.bits, want.bits))):
-                raise AssertionError(f"{where}: masks, gammas or widths differ")
-            for what in ("lam", "mu", "b", "e"):
-                g, w = getattr(got, what), getattr(want, what)
-                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-12,
-                                           msg=lambda m: f"{where} {what}: {m}")
-                err = max(err, float((g - w).abs().max()))
-            # the last two residuals, what the fallback guard reads: +inf
-            # where no iteration set them, else within rtol 1e-5
-            for what in ("res", "res_prev"):
-                g, w = float(getattr(got, what)), float(getattr(want, what))
-                if math.isinf(w) or math.isinf(g):
-                    if g != w:
-                        raise AssertionError(f"{where} {what}: {g} != {w}")
-                elif not abs(g - w) <= 1e-5 * abs(w):
-                    raise AssertionError(f"{where} {what}: {g} vs {w}")
-                else:
-                    res_err = max(res_err, abs(g - w) / max(abs(w), 1e-30))
-            n_inner.append(int(want.n_inner))
+            e_abs, e_res, iters = hold_ascent(
+                args, kw, f"{FUSED[name]} round {r} dual_tol {float(tol)}")
+            err, res_err = max(err, e_abs), max(res_err, e_res)
+            n_inner.append(iters)
             if timed is None:
                 timed = (args, kw)
         _, state = solve_round(u, h, P, state, fe_cfg=ctrl.fe_cfg, e_scale=es)
@@ -1104,17 +1151,20 @@ def topk_mask_on_card(dev):
 
 def card_against_cpu(dev, scenario=None, price_outage=None, bits_grid=None,
                      strategy="fairenergy", async_cfg=None, fe_kw=None,
-                     label=None, rounds=2):
+                     label=None, rounds=2, hierarchy=None):
     """The smoke CNN with N = 8 for ``rounds`` rounds on the card and on the
     CPU; the scenario arguments as in paper_trainer (a scenario's timed,
-    fault and defense configs included; ``async_cfg`` replaces its timed
-    one); ``fe_kw`` replaces FairEnergyConfig fields; a baseline
-    ``strategy`` runs with ``BASELINE_KW``. Masks, gammas, widths,
+    fault, defense and mobility configs included; ``async_cfg`` replaces
+    its timed one); ``fe_kw`` replaces FairEnergyConfig fields; a baseline
+    ``strategy`` runs with ``BASELINE_KW``; ``hierarchy`` (a
+    HierarchyConfig) samples the decide path. Masks, gammas, widths,
     retransmissions, and on the timed and fault paths ``made``,
     ``n_late``, ``n_stale``, ``n_faulted``, ``n_rejected`` and ``fallback``
-    exactly equal; energies rtol 1e-4 (1e-5 on the timed and fault
-    paths), ``t_round`` rtol 1e-5 and ``clip_frac`` within 1e-6. A mask
-    split is reported with its gap and fails the phase."""
+    exactly equal, with a hierarchy the pool of every round and the
+    cluster assignment too; energies rtol 1e-4 (1e-5 on the timed, fault,
+    mobility and hierarchy paths), ``t_round`` rtol 1e-5 and
+    ``clip_frac`` within 1e-6. A mask split is reported with its gap and
+    fails the phase."""
     import dataclasses
 
     from repro_torch.configs import ChannelConfig, FairEnergyConfig, FLConfig
@@ -1144,18 +1194,22 @@ def card_against_cpu(dev, scenario=None, price_outage=None, bits_grid=None,
                      link_cfg=scn.link_config(price_outage=price_outage),
                      async_cfg=scn.async_config(),
                      fault_cfg=scn.fault_config(),
-                     defense=scn.defense_config())
+                     defense=scn.defense_config(),
+                     mobility=scn.mobility_config())
     if async_cfg is not None:
         extra["async_cfg"] = async_cfg
+    if hierarchy is not None:
+        extra["hierarchy"] = hierarchy
     if bits_grid is not None:
         fe = dataclasses.replace(fe, bits_grid=bits_grid)
     if fe_kw:
         fe = dataclasses.replace(fe, **fe_kw)
     robust = any(extra.get(k) is not None
-                 for k in ("async_cfg", "fault_cfg", "defense")) or bool(fe_kw)
+                 for k in ("async_cfg", "fault_cfg", "defense", "mobility",
+                           "hierarchy")) or bool(fe_kw)
     if strategy != "fairenergy":
         extra.update(BASELINE_KW)
-    hist = {}
+    hist, pools, assign = {}, {}, {}
     for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
         model = CNN(SMOKE).to(d)
         ti_d, tl_d = torch.as_tensor(ti, device=d), torch.as_tensor(tl, device=d).long()
@@ -1170,12 +1224,23 @@ def card_against_cpu(dev, scenario=None, price_outage=None, bits_grid=None,
             fl_cfg=FLConfig(local_steps=2, local_batch=32, lr=0.05),
             fe_cfg=fe, ch_cfg=ChannelConfig(n_clients=n), seed=1, device=d,
             strategy=strategy, **extra)
+        pools[name] = record_pools(tr)
         tr.run_scanned(rounds, verbose=False)
         hist[name] = tr.history
+        if hierarchy is not None:
+            assign[name] = tr.ctrl_state.assign.cpu()
         if name == "cpu":
             net = tr.network
     label = label or scenario or ("legacy" if strategy == "fairenergy"
                                   else strategy)
+    if hierarchy is not None:
+        if len(pools["cuda"]) != rounds or any(
+                not torch.equal(a, b)
+                for a, b in zip(pools["cuda"], pools["cpu"])):
+            raise AssertionError(f"{label}: the pools differ between the card "
+                                 f"and the CPU: {pools}")
+        if not torch.equal(assign["cuda"], assign["cpu"]):
+            raise AssertionError(f"{label}: the cluster assignment differs")
     for a, b in zip(hist["cuda"], hist["cpu"]):
         if not np.array_equal(a.selected, b.selected):
             # the ranking a fixed-K baseline cut at K (tilted's is random)
@@ -1217,8 +1282,42 @@ def card_against_cpu(dev, scenario=None, price_outage=None, bits_grid=None,
                         "clip_frac": a.clip_frac, "fallback": a.fallback,
                         "energy_max_rel": float(np.max(np.abs(a.energy - b.energy)
                                                        / np.maximum(np.abs(b.energy), 1e-30))),
+                        "pool": (pools["cuda"][a.round].tolist()
+                                 if hierarchy is not None else None),
                         "accuracy_cuda": a.accuracy, "accuracy_cpu": b.accuracy}))
     return hist["cuda"]
+
+
+def record_pools(tr) -> list:
+    """The candidate pool of each round a sampled trainer decides on (on
+    the host), recorded by wrapping the controller's ``pool_for`` on this
+    instance; an empty list stays empty for an unwrapped controller."""
+    pools = []
+    if hasattr(tr.controller, "pool_for"):
+        pool_for = tr.controller.pool_for
+
+        def recording(state, round_idx, alive=None):
+            idx = pool_for(state, round_idx, alive)
+            pools.append(idx.cpu())
+            return idx
+        tr.controller.pool_for = recording
+    return pools
+
+
+def hierarchy_card_against_cpu(dev) -> None:
+    """Phase 4's population-scale runs (N = 8): the mobility scenario, the
+    hierarchy (clusters 2, pool_frac 0.5), the hierarchy with the joint
+    bits grid (the bits scatter) and the hierarchy under churn (arrivals
+    re-clustered): pools, assignment, masks and bits equal on the card and
+    the CPU, energies rtol 1e-5."""
+    from repro_torch.core.hierarchy import HierarchyConfig
+    hier = HierarchyConfig(clusters=2, pool_frac=0.5)
+    card_against_cpu(dev, "mobility", rounds=3)
+    card_against_cpu(dev, hierarchy=hier, rounds=3, label="hierarchy")
+    card_against_cpu(dev, hierarchy=hier, bits_grid=BITS, rounds=3,
+                     label="hierarchy_bits")
+    card_against_cpu(dev, "churn", hierarchy=hier, rounds=3,
+                     label="hierarchy_churn")
 
 
 # the oscillating solver setting of tests/test_fault_injection.py (the
@@ -1514,6 +1613,347 @@ def robust_rounds(dev, main: dict, profile: bool = False) -> dict:
              for label in ROBUST}
     checkpoint_on_card(dev)
     return lines
+
+
+# ----------------------------------------------------------- phase 10 ----
+POP_ROUNDS = 20          # (a) and (b)
+POP_CKPT_AT = 5
+POP_N, POP_TRAIN, POP_POP_ROUNDS = 1000, 60_000, 10      # (c)
+DECIDE_N = (50, 10_000, 100_000)                         # (d)
+DECIDE_POOL, DECIDE_CLUSTERS, DECIDE_STEPS = 512, 8, 10
+
+
+def record_ascent_sizes() -> tuple[list, callable]:
+    """Wrap the solver's fused dual ascent (``core.fairenergy.dual_ascent``,
+    in this script only) to record the client count of each call; returns
+    the list and the function that restores the original. The wrapper's
+    own launch count is untouched."""
+    from repro_torch.core import fairenergy
+    orig, sizes = fairenergy.dual_ascent, []
+
+    def recording(P, *args, **kw):
+        sizes.append(int(P.shape[0]))
+        return orig(P, *args, **kw)
+    fairenergy.dual_ascent = recording
+    return sizes, lambda: setattr(fairenergy, "dual_ascent", orig)
+
+
+@contextlib.contextmanager
+def captured(module, name: str):
+    """``module.name`` wrapped for the block (in this script only): the
+    arguments of its last call, tensors cloned, land in the yielded dict
+    as ``args`` and ``kw``. The wrapper's own launch count is untouched."""
+    orig, got = getattr(module, name), {}
+    keep = lambda v: v.clone() if isinstance(v, torch.Tensor) else v  # noqa: E731
+
+    def recording(*args, **kw):
+        got["args"] = tuple(keep(a) for a in args)
+        got["kw"] = {k: keep(v) for k, v in kw.items()}
+        return orig(*args, **kw)
+    setattr(module, name, recording)
+    try:
+        yield got
+    finally:
+        setattr(module, name, orig)
+
+
+# rows of the [N, D] matrix a call of a plain version takes in
+# hold_round_kernels (its temporaries are several times the slice)
+PLAIN_ROWS = 100
+
+
+def hold_round_kernels(dev, tr, r: int, label: str) -> dict:
+    """One more round (``r``) of trainer ``tr`` with the inputs of its fused
+    ascent, its top-k rows and its norms captured, and each kernel held
+    against its plain version on them: the ascent as phase 2 holds it
+    (``hold_ascent``), the top-k rows bit for bit and the norms to rtol
+    1e-6 on the whole ``[N, D]`` update matrix (each kernel launched once
+    on all of it; the plain version, whose rows are independent, on
+    ``PLAIN_ROWS`` rows a call)."""
+    from repro_torch.core import fairenergy
+    from repro_torch.fl import client, compression
+    from repro_torch.kernels.score_norm import ops as norm_ops
+    from repro_torch.kernels.score_norm import ref as norm_ref
+    from repro_torch.kernels.topk_sparsify import ops as topk_ops
+    from repro_torch.kernels.topk_sparsify import ref as topk_ref
+    with captured(fairenergy, "dual_ascent") as asc, \
+            captured(compression, "block_topk_rows") as rows, \
+            captured(client, "row_l2_norms") as norms:
+        tr.run_round(r)
+    a_err, r_err, iters = hold_ascent(asc["args"], asc["kw"],
+                                      f"phase 10 {label} round {r} ascent")
+    mat, ks = rows["args"]
+    got = topk_ops.block_topk_rows(mat, ks)
+    for i in range(0, mat.shape[0], PLAIN_ROWS):
+        sl = slice(i, i + PLAIN_ROWS)
+        want = topk_ref.block_topk_rows(mat[sl], ks[sl])
+        if not same_bits(got[sl], want):
+            raise AssertionError(
+                f"phase 10 {label}: top-k rows differ from the plain version "
+                f"in rows {i}-{i + PLAIN_ROWS}:\n"
+                f"{diff_report(got[sl], want, ks[sl])}")
+    del got, mat
+    (upd,) = norms["args"]
+    got = norm_ops.row_l2_norms(upd)
+    want = torch.cat([norm_ref.row_l2_norms_ref(upd[i:i + PLAIN_ROWS],
+                                                norm_ops.BLOCK)
+                      for i in range(0, upd.shape[0], PLAIN_ROWS)])
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0,
+                               msg=lambda m: f"phase 10 {label} norms: {m}")
+    held = {"ascent_clients": int(asc["args"][0].shape[0]),
+            "ascent_n_inner": iters, "ascent_max_abs_err": a_err,
+            "ascent_res_max_rel_err": r_err,
+            "topk_rows_shape": list(upd.shape), "topk_rows_bit_identical": True,
+            "row_norms_max_abs_err": float((got - want).abs().max())}
+    log(json.dumps({"phase10_kernels_held": label, **held}))
+    return held
+
+
+def kernel_launch_ms(fn, kernel: str) -> float:
+    """Mean device ms of a launch of the kernels whose name holds
+    ``kernel`` while ``fn()`` runs (torch.profiler's CUDA activity). The
+    profiler has been seen to miss a session's launch of a kernel (see
+    device_ms), so the mean is over the launches it saw, of which there
+    must be one."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    seen = [e for e in prof.key_averages() if kernel in e.key]
+    count = sum(e.count for e in seen)
+    if count < 1:
+        raise AssertionError(f"the profiler saw no launch of {kernel}")
+    return sum(e.self_device_time_total for e in seen) / 1e3 / count
+
+
+def population_run(dev, label: str, rounds: int, k_pool: int, *,
+                   ckpt_dir=None, **build_kw) -> dict:
+    """The paper recipe (``experiments.build``) at full CNN width for
+    ``rounds`` rounds with its launch counts zeroed just before and read
+    just after: one fused ascent a round, of ``k_pool`` clients, the top-k
+    rows once a round and the norms once a round plus the calibration;
+    finite params and energies, at most ``k_pool`` selected a round.
+    Returns the trainer, its launches, pools, steady round ms and peak
+    memory."""
+    from repro_torch.launch.experiments import build
+    t0 = time.perf_counter()
+    make, _ = build(rounds=rounds, seed=0, device=dev, **build_kw)
+    tr = make("fairenergy")
+    setup_s = time.perf_counter() - t0
+    pools = record_pools(tr)
+    sizes, restore = record_ascent_sizes()
+    fns = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn, attr in fns.values():
+        setattr(fn, attr, 0)
+    try:
+        tr.run_scanned(rounds, verbose=False,
+                       **({} if ckpt_dir is None else
+                          dict(chunk=POP_CKPT_AT, ckpt_dir=str(ckpt_dir))))
+    finally:
+        restore()
+    launches = {k: v for k, v in ((n, getattr(fn, a)) for n, (fn, a)
+                                  in fns.items()) if v}
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {"dual_ascent": rounds, "topk_rows": rounds,
+            "row_sq_sum": rounds + 1}
+    if launches != want or sizes != [k_pool] * rounds:
+        raise AssertionError(f"phase 10 {label}: launches {launches} (want "
+                             f"{want}), ascent sizes {sorted(set(sizes))} "
+                             f"(want {k_pool})")
+    h = tr.history
+    if not all(bool(torch.isfinite(p).all()) for p in tr.params.values()):
+        raise AssertionError(f"phase 10 {label}: non-finite params")
+    if not all(np.isfinite(lg.energy).all() for lg in h):
+        raise AssertionError(f"phase 10 {label}: non-finite energies")
+    selected = [lg.n_selected for lg in h]
+    if max(selected) > k_pool or not any(selected):
+        raise AssertionError(f"phase 10 {label}: selections {selected} for "
+                             f"a pool of {k_pool}")
+    steady = [lg.wall_s for lg in h[1:]]
+    return dict(trainer=tr, pools=pools, launches=launches, setup_s=setup_s,
+                steady_ms=1e3 * sum(steady) / len(steady), peak_GB=peak / 1e9,
+                energy_per_round_J=float(np.mean([lg.total_energy
+                                                  for lg in h])),
+                final_accuracy=h[-1].accuracy)
+
+
+def population_paths(dev, main: dict) -> dict:
+    """Phase 10: the hierarchy and mobility at full CNN width. (a) the
+    mobility scenario at N = 50; (b) clusters 4, pool_frac 0.25 at N = 50
+    (K_pool 12), checkpointed at round 5 and resumed: pools, masks and
+    params bit for bit; (c) N = 1,000 over 60,000 images, clusters 4,
+    pool_frac 0.25 (K_pool 250), against the same recipe solving the full
+    population: round ms, peak memory, the ascent's device ms, every
+    cluster in every pool, final accuracy, and each kernel of one round
+    held against its plain version (``hold_round_kernels``); (d) the
+    decide alone on the hierarchy bench's synthetic channel statistics,
+    each arm's ascent held against its plain version."""
+    import shutil
+    main_epr = float(np.mean([lg.total_energy for lg in main["history"]]))
+    out = {}
+    # (a) mobility
+    a = population_run(dev, "a_mobility", POP_ROUNDS, N_CLIENTS,
+                       n_clients=N_CLIENTS, scenario="mobility")
+    out["a_mobility"] = {
+        "rounds": POP_ROUNDS, "n_clients": N_CLIENTS, "sigma_db":
+        a["trainer"].mobility.sigma_db, "launches": a["launches"],
+        "round_ms_steady_mean": a["steady_ms"], "peak_mem_GB": a["peak_GB"],
+        "energy_per_round_J": a["energy_per_round_J"],
+        "main_path_energy_per_round_J": main_epr,
+        "energy_vs_main_path": a["energy_per_round_J"] / main_epr,
+        "final_accuracy": a["final_accuracy"]}
+    log(json.dumps({"population_path": out["a_mobility"]}))
+    del a
+    # (b) the sampled path at N = 50, checkpointed and resumed
+    from repro_torch.core.hierarchy import HierarchyConfig
+    ckpt = HERE / "build" / "chip_smoke" / "ckpt_hier"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    hier = dict(clusters=4, pool_frac=0.25)
+    k_b = HierarchyConfig(**hier).resolve_pool(N_CLIENTS)
+    hier["n_clients"] = N_CLIENTS
+    b = population_run(dev, "b_hierarchy", POP_ROUNDS, k_b, ckpt_dir=ckpt,
+                       **hier)
+    from repro_torch.launch.experiments import build
+    make, _ = build(rounds=POP_ROUNDS, seed=0, device=dev, **hier)
+    resumed = make("fairenergy")
+    nxt = resumed.restore_checkpoint(str(ckpt / f"ckpt_{POP_CKPT_AT:08d}.npz"))
+    rpools = record_pools(resumed)
+    resumed.run_scanned(POP_ROUNDS, chunk=POP_CKPT_AT, start_round=nxt,
+                        verbose=False)
+    tb = b["trainer"]
+    same = (nxt == POP_CKPT_AT
+            and all(torch.equal(x, y)
+                    for x, y in zip(b["pools"][nxt:], rpools))
+            and len(rpools) == POP_ROUNDS - nxt
+            and all(np.array_equal(x.selected, y.selected)
+                    and np.array_equal(x.energy, y.energy)
+                    for x, y in zip(tb.history[nxt:], resumed.history))
+            and all(torch.equal(tb.params[k], resumed.params[k])
+                    for k in tb.params)
+            and torch.equal(tb.ctrl_state.assign, resumed.ctrl_state.assign))
+    out["b_hierarchy"] = {
+        "rounds": POP_ROUNDS, "n_clients": N_CLIENTS, "k_pool": k_b,
+        "clusters": 4, "launches": b["launches"],
+        "round_ms_steady_mean": b["steady_ms"], "peak_mem_GB": b["peak_GB"],
+        "energy_per_round_J": b["energy_per_round_J"],
+        "energy_vs_main_path": b["energy_per_round_J"] / main_epr,
+        "final_accuracy": b["final_accuracy"], "resumed_at": nxt,
+        "resumed_bit_for_bit": same}
+    log(json.dumps({"population_path": out["b_hierarchy"]}))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if not same:
+        raise AssertionError("phase 10 (b): the resumed run differs")
+    del b, resumed, tb
+    # (c) the population: N = 1,000 sampled against the full solve
+    runs = {}
+    pooled = dict(clusters=4, pool_frac=0.25)
+    for mode, kw, k_pool in (
+            ("pooled", pooled, HierarchyConfig(**pooled).resolve_pool(POP_N)),
+            ("full", {}, POP_N)):
+        run = population_run(dev, f"c_{mode}", POP_POP_ROUNDS, k_pool,
+                             n_clients=POP_N, n_train=POP_TRAIN, **kw)
+        tr = run.pop("trainer")
+        run["kernels_held"] = hold_round_kernels(dev, tr, POP_POP_ROUNDS,
+                                                 f"c_{mode}")
+        torch.cuda.empty_cache()
+        run["ascent_device_ms"] = kernel_launch_ms(
+            lambda: [tr.run_round(POP_POP_ROUNDS + 1 + i) for i in range(3)],
+            "dual_ascent_kernel")
+        if mode == "pooled":
+            assign = tr.ctrl_state.assign.cpu()
+            covered = [len(set(assign[p].tolist())) for p in run["pools"]]
+            if min(covered) != 4:
+                raise AssertionError(f"phase 10 (c): a pool missed a cluster: "
+                                     f"{covered}")
+            run["clusters_in_every_pool"] = True
+            run["cluster_sizes"] = torch.bincount(assign.long()).tolist()
+        run.pop("pools")
+        runs[mode] = run
+        del tr
+        torch.cuda.empty_cache()
+    out["c_population"] = {"n_clients": POP_N, "n_train": POP_TRAIN,
+                           "rounds": POP_POP_ROUNDS, **runs,
+                           "ascent_pooled_over_full": (
+                               runs["pooled"]["ascent_device_ms"]
+                               / runs["full"]["ascent_device_ms"]),
+                           "round_pooled_over_full": (
+                               runs["pooled"]["steady_ms"]
+                               / runs["full"]["steady_ms"])}
+    log(json.dumps({"population_path": out["c_population"]}))
+    # (d) decide latency
+    out["d_decide"] = [decide_latency(dev, n) for n in DECIDE_N]
+    return out
+
+
+def decide_latency(dev, n: int) -> dict:
+    """ms a decide, full against pooled (``pool_size`` 512, clusters 8 at
+    N >= 64, as ``benchmarks/hierarchy_bench.py``'s arms) on its synthetic
+    channel statistics, over ``DECIDE_STEPS`` decides after one warm-up
+    decide, each decide's state carried into the next, the fused
+    ascent's device ms a decide (torch.profiler), and the ascent of one
+    more decide held against its plain version (``hold_ascent``)."""
+    from repro_torch import random as prng
+    from repro_torch.configs import FairEnergyConfig
+    from repro_torch.core import fairenergy
+    from repro_torch.core.controllers import (
+        ControllerContext, RoundObservation, make_controller)
+    from repro_torch.core.hierarchy import HierarchyConfig, wrap_controller
+
+    rng = np.random.default_rng(0)
+    ctx = ControllerContext(n_clients=n, b_tot=10e6, s_bits=6.4e7, i_bits=2e6,
+                            n0=4e-21, device=dev,
+                            fe_cfg=FairEnergyConfig(eta=1e-3, eta_auto=False))
+    pathloss, power = rng.uniform(1e-9, 1e-7, n), rng.uniform(0.1, 1.0, n)
+    rng = np.random.default_rng(1)
+    u = torch.tensor(rng.uniform(0.1, 2.0, n), dtype=torch.float32, device=dev)
+    h = torch.tensor(pathloss * rng.exponential(1.0, n), dtype=torch.float32,
+                     device=dev)
+    P = torch.tensor(power, dtype=torch.float32, device=dev)
+    base = prng.PRNGKey(3)
+    res = {"n_clients": n}
+    for mode in ("full", "pooled"):
+        ctrl = make_controller("fairenergy", ctx)
+        if mode == "pooled":
+            cfg = HierarchyConfig(clusters=DECIDE_CLUSTERS if n >= 64 else 1,
+                                  pool_size=min(DECIDE_POOL, n))
+            ctrl = wrap_controller(ctrl, cfg, ctx, pathloss=pathloss,
+                                   power=power, base_key=prng.PRNGKey(17),
+                                   seed=0)
+        state = ctrl.init(n)
+
+        def decide(r, state):
+            obs = RoundObservation(u_norms=u, h=h, P=P, round=r,
+                                   key=prng.fold_in(base, r))
+            dec, state = ctrl.decide(obs, state)
+            return int(dec.x.sum()), state
+
+        _, state = decide(0, state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in range(1, DECIDE_STEPS + 1):
+            sel, state = decide(r, state)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / DECIDE_STEPS
+        asc = kernel_launch_ms(
+            lambda: [decide(DECIDE_STEPS + 1 + r, state) for r in range(3)],
+            "dual_ascent_kernel")
+        # the ascent of one more decide held against its plain version
+        with captured(fairenergy, "dual_ascent") as got:
+            decide(DECIDE_STEPS + 4, state)
+        k = int(got["args"][0].shape[0])
+        a_err, r_err, iters = hold_ascent(
+            got["args"], got["kw"], f"phase 10 (d) N={n} {mode} ascent")
+        res[mode] = {"k": k, "ms_per_decide": ms, "ascent_device_ms": asc,
+                     "selected_last": sel, "ascent_held": {
+                         "n_inner": iters, "max_abs_err": a_err,
+                         "res_max_rel_err": r_err}}
+    res["pooled_speedup"] = (res["full"]["ms_per_decide"]
+                             / res["pooled"]["ms_per_decide"])
+    log(json.dumps({"decide_latency": res}))
+    return res
 
 
 # ------------------------------------------------------------ phase 5 ----
@@ -2014,6 +2454,7 @@ def _card_rank(rank: int, world: int, init: str) -> None:
             del ref
         for scenario in ("straggler", "byzantine-lite"):
             robust_sharded(dev, rank, world, scenario, say)
+        hierarchy_sharded(dev, rank, world, say)
     except BaseException:
         # the other ranks wait in a collective that this one will not reach,
         # and tearing the group down would wait for them: say why and leave,
@@ -2067,6 +2508,56 @@ def robust_sharded(dev, rank: int, world: int, scenario: str, say) -> None:
         if not p_err <= 1e-6:
             raise AssertionError(f"{world}-card {scenario} params differ by "
                                  f"{p_err}")
+    dist.barrier()
+
+
+HIER_SHARDED = dict(n_clients=N_CLIENTS, clusters=4, pool_frac=0.25)
+HIER_SHARDED_ROUNDS = 10
+
+
+def hierarchy_sharded(dev, rank: int, world: int, say) -> None:
+    """7c: phase 10 (b)'s recipe (clusters 4, pool_frac 0.25, K_pool 12)
+    on the (2, world / 2) ``(clusters, clients)`` hierarchy mesh, its
+    all-reduces in two stages, against rank 0's one-card run: the pool of
+    every round, the cluster assignment, masks and params equal bit for
+    bit; the round ms of both."""
+    import torch.distributed as dist
+    from repro_torch.launch.experiments import build
+    from repro_torch.sharding import make_hierarchy_mesh
+    make, _ = build(rounds=HIER_SHARDED_ROUNDS, seed=0, device=dev,
+                    **HIER_SHARDED)
+    if rank == 0:
+        one = make("fairenergy")
+        one_pools = record_pools(one)
+        one.run_scanned(HIER_SHARDED_ROUNDS, verbose=False)
+    dist.barrier()
+    mesh = make_hierarchy_mesh(2, device=dev)
+    tr = make("fairenergy", mesh=mesh)
+    pools = record_pools(tr)
+    tr.run_scanned(HIER_SHARDED_ROUNDS, verbose=False)
+    if rank == 0:
+        same = {
+            "pools": len(pools) == len(one_pools) == HIER_SHARDED_ROUNDS
+            and all(torch.equal(a, b) for a, b in zip(pools, one_pools)),
+            "assign": torch.equal(tr.ctrl_state.assign, one.ctrl_state.assign),
+            "masks": all(np.array_equal(a.selected, b.selected)
+                         for a, b in zip(tr.history, one.history)),
+            "params": all(torch.equal(tr.params[k], one.params[k])
+                          for k in tr.params)}
+        steady = lambda h: 1e3 * sum(lg.wall_s for lg in h[1:]) / (len(h) - 1)  # noqa: E731
+        say(json.dumps({"cards_hierarchy": {
+            "mesh": list(mesh.shape), "mesh_dims": list(mesh.mesh_dim_names),
+            "rounds": HIER_SHARDED_ROUNDS, "n_local": tr.n_local,
+            "k_pool": tr.controller.k_pool, "equal": same,
+            "energy_max_rel": max(float(np.max(np.abs(a.energy - b.energy)
+                                               / np.maximum(b.energy, 1e-30)))
+                                  for a, b in zip(tr.history, one.history)),
+            "round_ms_steady_mean": steady(tr.history),
+            "one_card_round_ms_steady_mean": steady(one.history)}}))
+        bad = [k for k, v in same.items() if not v]
+        if bad:
+            raise AssertionError(f"{world}-card hierarchy mesh: {bad} differ "
+                                 f"from one card")
     dist.barrier()
 
 
@@ -2239,6 +2730,7 @@ def main(argv) -> int:
     for strategy in BASELINES:
         card_against_cpu(dev, strategy=strategy)
     robust_card_against_cpu(dev)
+    hierarchy_card_against_cpu(dev)
 
     # ---- phase 5: the serve path, its launch counts zeroed before the timed run
     serve = serve_path(dev, profile="--profile" in argv)
@@ -2270,6 +2762,18 @@ def main(argv) -> int:
     norms["launches_defended_clip"] = (
         robust["byzantine_lite"]["launches"]["row_sq_sum"] - ROBUST_ROUNDS - 1)
     norms["second_call_site"] = "src/repro_torch/core/faults/defense.py"
+
+    # ---- phase 10: hierarchy and mobility at full width, each run's counts
+    # zeroed before it; the launches of each run beside the main path's
+    pop = population_paths(dev, runs["main"])
+    pop_launches = {"a_mobility": pop["a_mobility"]["launches"],
+                    "b_hierarchy": pop["b_hierarchy"]["launches"],
+                    **{f"c_{m}": pop["c_population"][m]["launches"]
+                       for m in ("pooled", "full")}}
+    for k in kernels:
+        if k["name"] in ("dual_ascent", "topk_rows", "row_sq_sum"):
+            k["launches_phase10"] = {run: got[k["name"]]
+                                     for run, got in pop_launches.items()}
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -2,17 +2,24 @@
 
 Rate follows Shannon capacity R = B log2(1 + P h / (N0 B)); payload is
 ``gamma * S + I`` bits; T = payload / R; E = P * T. Channel gains combine
-a distance^-alpha pathloss with per-round Rayleigh fading. Every function
-works elementwise on float32 tensors (Python floats broadcast as float32)
-and keeps the JAX package's operation order, so the two agree to the last
-few ulps.
+a distance^-alpha pathloss with per-round Rayleigh fading and, with a
+``MobilityConfig``, a slow pathloss drift. Every function works
+elementwise on float32 tensors (Python floats broadcast as float32) and
+keeps the JAX package's operation order, so the two agree to the last few
+ulps; the fading and the drift are drawn on the host and are bit-equal to
+the JAX package's.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import random as prng
+from ..xla_math import fma_f32, pow_xla, sin_xla
+from .streams import MOBILITY_STREAM
 
 Tensor = torch.Tensor
 
@@ -75,10 +82,84 @@ def round_fading(key: Tensor, round_idx: int, n: int) -> Tensor:
     return prng.exponential(prng.fold_in(key, round_idx), (n,))
 
 
+# incommensurate harmonic mixture for the slow drift waveform, with a
+# closed-form RMS so sigma_db is an exact shadowing scale
+_MOB_FREQS = (1.0, 0.521, 0.287)
+_MOB_AMPS = (1.0, 0.6, 0.35)
+_TWO_PI = 6.283185307179586
+
+
+@dataclasses.dataclass(frozen=True)
+class MobilityConfig:
+    """Slow log-normal pathloss drift from client mobility: each client's
+    pathloss is multiplied by ``10 ** (sigma_db * w_i(r) / 10)``, where
+    ``w_i(r)`` is a unit-RMS mixture of incommensurate sinusoids with
+    per-client random phases — a closed-form function of the round, so
+    the drift is (seed, round)-pure. ``sigma_db`` is the RMS shadowing
+    scale in dB; ``sigma_db = 0`` is the static channel."""
+    sigma_db: float = 3.0        # RMS drift amplitude (dB)
+    period_rounds: float = 40.0  # rounds per slowest-harmonic cycle
+
+    def __post_init__(self):
+        if self.sigma_db < 0.0:
+            raise ValueError(f"sigma_db must be >= 0, got {self.sigma_db}")
+        if self.period_rounds <= 0.0:
+            raise ValueError(f"period_rounds must be > 0, "
+                             f"got {self.period_rounds}")
+
+    @property
+    def enabled(self) -> bool:
+        return self.sigma_db > 0.0
+
+
+def _drift_constants(mobility: MobilityConfig):
+    """The float32 constants of the drift as the JAX package's scanned
+    round folds them: the harmonics' ``f_j / period`` (each rounded; the
+    round's ``r * f32(2 pi)`` multiplies them), and ``sigma_db / 10 / rms``
+    as ``(sigma_db * f32(0.1)) * (1 / rms)``, where ``rms = sqrt(sum(amps^2)
+    / 2)`` is summed in order."""
+    f32 = np.float32
+    period = f32(mobility.period_rounds)
+    freqs = [f32(f32(f) / period) for f in _MOB_FREQS]
+    ssq = f32(0.0)
+    for a in _MOB_AMPS:
+        ssq = f32(ssq + f32(f32(a) * f32(a)))
+    rms = np.sqrt(f32(ssq / f32(2.0)), dtype=f32)
+    scale = f32(f32(f32(mobility.sigma_db) * f32(0.1)) * f32(f32(1.0) / rms))
+    return [float(f) for f in freqs], float(scale)
+
+
+def mobility_drift(key: Tensor, round_idx: int, n: int,
+                   mobility: MobilityConfig) -> Tensor:
+    """[N] multiplicative pathloss drift for round ``round_idx`` (float32,
+    on the host), pure in (key, round) and bit-equal to the drift of the
+    JAX package's scanned round. The per-client phases come from
+    ``uniform(fold_in(key, MOBILITY_STREAM), (n, 3), 0, 2 pi)``, never the
+    round's fading draw. Harmonic j's argument is ``f32(f32(r * f32(2 pi))
+    * (f_j / period)) + phase`` (the association XLA gives the scanned
+    round), its sine is XLA's (``sinf``), the three terms are summed by
+    FMAs in order, scaled by the folded constant and raised as ``powf(10,
+    .)``."""
+    phases = prng.uniform(prng.fold_in(key, MOBILITY_STREAM),
+                          (n, len(_MOB_FREQS)), 0.0, _TWO_PI)
+    freqs, scale = _drift_constants(mobility)
+    f32 = np.float32
+    r2pi = f32(f32(round_idx) * f32(_TWO_PI))
+    w = torch.zeros(n, dtype=torch.float32)
+    for j, (f, a) in enumerate(zip(freqs, _MOB_AMPS)):
+        arg = float(f32(r2pi * f32(f))) + phases[:, j]
+        w = fma_f32(float(f32(a)), sin_xla(arg), w)
+    return pow_xla(10.0, w * scale)
+
+
 def round_gains(key: Tensor, pathloss: Tensor, round_idx: int,
-                rayleigh: bool = True) -> Tensor:
-    """h_i^r = pathloss_i x fade_i^r (fade == 1 when Rayleigh is off).
-    Mobility drift is not ported yet (ROADMAP A-15)."""
+                rayleigh: bool = True,
+                mobility: Optional[MobilityConfig] = None) -> Tensor:
+    """h_i^r = pathloss_i x drift_i^r x fade_i^r (fade == 1 when Rayleigh
+    is off; drift == 1 without an enabled mobility config)."""
+    if mobility is not None and mobility.enabled:
+        drift = mobility_drift(key, round_idx, pathloss.shape[0], mobility)
+        pathloss = pathloss * drift.to(pathloss.device)
     if not rayleigh:
         return pathloss
     fade = round_fading(key, round_idx, pathloss.shape[0])
@@ -94,8 +175,10 @@ class WirelessNetwork:
 
     ``device_profile`` (a ``core.energy.DeviceProfile``, or a kind string
     such as "tiered" built by ``make_profile``) rides along without
-    touching the channel draws: power and distance are drawn first. An
-    enabled ``mobility`` config is not ported yet (ROADMAP A-15)."""
+    touching the channel draws: power and distance are drawn first.
+    ``mobility`` (a ``MobilityConfig``) adds the slow pathloss drift; a
+    disabled one (``sigma_db = 0``) is normalized to ``None``, the static
+    channel."""
 
     def __init__(self, cfg, seed: int = 0, device_profile=None,
                  mobility=None):
@@ -107,10 +190,9 @@ class WirelessNetwork:
         self.pathloss = REF_GAIN_1M * self.distance ** (-cfg.pathloss_exp)
         self.fade_key = prng.PRNGKey(seed)
         self._pathloss_t = torch.as_tensor(self.pathloss, dtype=torch.float32)
-        if mobility is not None and getattr(mobility, "sigma_db", 0.0) > 0.0:
-            raise NotImplementedError(
-                "mobility (pathloss drift) is not ported yet: ROADMAP A-15")
-        self.mobility = None
+        if mobility is not None and not mobility.enabled:
+            mobility = None
+        self.mobility = mobility
         if isinstance(device_profile, str):
             from .energy import make_profile
             device_profile = make_profile(device_profile, n, seed=seed)
@@ -122,4 +204,4 @@ class WirelessNetwork:
     def gains(self, round_idx: int = 0) -> np.ndarray:
         """h_i^r as a float32 numpy array, pure in (seed, round_idx)."""
         return round_gains(self.fade_key, self._pathloss_t, round_idx,
-                           self.cfg.rayleigh).numpy()
+                           self.cfg.rayleigh, mobility=self.mobility).numpy()

@@ -45,6 +45,10 @@ class RoundObservation(NamedTuple):
     t_round: Any = None  # [N] f32 — best-case round time (comp + minimum-
     #                      payload comm at full bandwidth), seconds; set
     #                      only on timed rounds (core.rounds)
+    e_cmp: Any = None  # [N] f32 — per-round computation energy of THESE
+    #                    lanes, set by the sampled decide path
+    #                    (core.hierarchy), whose [K_pool] slice no longer
+    #                    matches ctx.e_cmp_array(); None = the context's
     e_scale: Any = None  # [N] f32 — comm-energy pricing factor >= 1, the
     #                      expected attempt count 1/(1 - p_out) set by the
     #                      link model in price_outage mode (None = lossless
@@ -181,11 +185,13 @@ def masked_decision(x: Tensor, gamma: Tensor, bandwidth: Tensor,
     charged E_i = P_i (gamma_i S + I) / R_i(B_i) + E_cmp,i; gamma, B and E
     are zero elsewhere. Unselected rows are priced at B_tot before the
     mask: ``comm_energy`` is inf below the 1 Hz floor, and ``inf * 0``
-    would be NaN."""
+    would be NaN. The computation energy is ``obs.e_cmp`` when set (the
+    sampled path's ``[K_pool]`` slice), else the context's ``[N]``."""
     xf = x.to(torch.float32)
+    e_cmp = obs.e_cmp if obs.e_cmp is not None else ctx.e_cmp_array()
     b_safe = torch.where(x, bandwidth, ctx.b_tot)
     energy = xf * (comm_energy(gamma, b_safe, obs.P, obs.h, ctx.s_bits,
-                               ctx.i_bits, ctx.n0) + ctx.e_cmp_array())
+                               ctx.i_bits, ctx.n0) + e_cmp)
     bandwidth = bandwidth * xf
     return RoundDecision(x=x, gamma=gamma * xf, bandwidth=bandwidth,
                          energy=energy,

@@ -69,3 +69,19 @@ class FairEnergy:
                           device=state.q.device)
         return state._replace(q=torch.where(mask, q0, state.q),
                               mu=torch.where(mask, 0.0, state.mu))
+
+    # ---- sampled decide-path hooks (core.hierarchy) --------------------
+    def sampling_deficit(self, state):
+        """[N] fairness deficit for candidate-pool sampling: how far each
+        client's participation EMA would fall below ``pi_min`` if passed
+        over this round, ``max(pi_min - rho q, 0)`` (the greedy repair's
+        criterion)."""
+        p = state.params
+        return torch.clamp(p.pi_min - p.rho * state.q, min=0.0)
+
+    def observe_unsampled(self, state, mask):
+        """A client outside the round's pool counts as observed but
+        unselected: its participation EMA decays by eq. (1) with x_i = 0
+        (``q <- rho q``); its fairness dual stays frozen."""
+        p = state.params
+        return state._replace(q=torch.where(mask, p.rho * state.q, state.q))

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ... import random as prng
+from ...xla_math import exp_xla
 
 Tensor = torch.Tensor
 
@@ -71,10 +72,12 @@ def corrupt_payload(updates: Tensor, mask: Tensor, flavor: Tensor, mode: str,
 def channel_estimate(key: Tensor, round_idx: int, h: Tensor, sigma: float
                      ) -> Tensor:
     """The controller's noisy view of the channel: ``h * exp(sigma * eps)``
-    with ``eps ~ N(0, 1)`` per client — multiplicative lognormal error."""
+    with ``eps ~ N(0, 1)`` per client — multiplicative lognormal error.
+    The float32 ``exp`` is XLA's (``xla_math.exp_xla``), so ``h_est`` is
+    bit-equal to the JAX package's."""
     eps = prng.normal(_stream_key(key, _CHEST_STREAM, round_idx),
                       tuple(h.shape)).to(h.device)
-    return h * torch.exp(float(sigma) * eps)
+    return h * exp_xla(float(sigma) * eps)
 
 
 def presence_mask(key: Tensor, round_idx: int, n: int, away: float, dwell: int

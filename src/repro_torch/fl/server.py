@@ -24,11 +24,11 @@ backoff, outage-aware pricing), quantized payloads (a joint
 harvesting), faults (``fault_cfg``: crashes, corrupted payloads,
 channel-estimate error, churn), defended aggregation (``defense``),
 checkpoints of the full carry (``save_checkpoint``/``restore_checkpoint``,
-``run_scanned(ckpt_dir=..., start_round=...)``) and client-axis sharding
-over a ``clients`` mesh (``mesh``; see ``repro_torch.sharding``). The
-hierarchy and mobility raise ``NotImplementedError`` naming their ROADMAP
-item (A-15). Without any of these options the round is the legacy one,
-step for step.
+``run_scanned(ckpt_dir=..., start_round=...)``), the pathloss drift of
+moving clients (``mobility``), the sampled decide path over a pool of
+candidates (``hierarchy``) and client-axis sharding over a ``clients`` or
+``(clusters, clients)`` mesh (``mesh``; see ``repro_torch.sharding``).
+Without any of these options the round is the legacy one, step for step.
 
 Under a mesh each rank holds its ``n_local`` rows of the ghost-padded
 client stack (and of the stale buffer): it samples, trains, sparsifies,
@@ -37,8 +37,10 @@ them, all-gathers ``u_norms``, losses and the clip's norms before
 anything reads them, runs the controller on the full replicated ``[N]``
 observation, and all-reduces the partial sums (in float64,
 ``weighted_sum``, so the aggregate's bits do not depend on the mesh) and
-the counts; params, controller, battery, defense and link state and the
-logs are replicated. The trimmed mean gathers the whole update matrix.
+the counts — on a hierarchy mesh in two stages, over ``clients`` and then
+over ``clusters``; params, controller, battery, defense and link state
+and the logs are replicated. The trimmed mean gathers the whole update
+matrix.
 
 The round body runs the reference's steps in its order (``_round``), on
 a lane's key streams (``RoundKeys``: fading, controller, sampling,
@@ -70,6 +72,7 @@ from ..core.fairenergy import FEParams
 from ..core.faults import (DefenseConfig, FaultConfig, arrival_mask,
                            channel_estimate, corrupt_draw, corrupt_payload,
                            crash_draw, make_aggregator)
+from ..core.hierarchy import HierarchyConfig, wrap_controller
 from ..core.link import (LinkConfig, LinkState, attempt_energy,
                          attempt_outcomes, attempt_time, burst_channel,
                          burst_step, expected_attempts, init_link_state,
@@ -80,22 +83,19 @@ from ..core.rounds import (AsyncConfig, AsyncState, apply_harvest,
                            resolve_deadline, round_wall_clock,
                            staleness_weight)
 from ..core.streams import (CTRL_STREAM, FAULT_STREAM, HARVEST_STREAM,
-                            LINK_STREAM, SAMPLE_STREAM)
+                            LINK_STREAM, POOL_STREAM, SAMPLE_STREAM)
 from ..data.pipeline import (client_sample_keys, sample_client_batches,
                              stack_client_datasets)
 from ..devices import resolve_device
 from ..sharding.fl import (CLIENTS_AXIS, check_clients_mesh,
-                           client_shard_count, shard_client_data)
+                           client_shard_count, client_shard_index,
+                           shard_client_data)
 from . import compression
 from .client import make_batched_client_step
 from .updates import tree_spec, unflatten_update, weighted_sum
 
 __all__ = ["Carry", "FederatedTrainer", "RoundKeys", "RoundLog", "UNLIMITED_J",
            "resolve_device", "seed_keys", "weighted_sum"]
-
-# options of the reference's trainer this slice does not bring, and the
-# ROADMAP item that brings each
-_UNPORTED = {"hierarchy": "A-15"}
 
 
 class RoundKeys(NamedTuple):
@@ -293,21 +293,33 @@ class FederatedTrainer:
     unchanged, every participant counted rejected). Disabled configs keep
     the legacy round.
 
-    ``mesh``: a 1-D ``clients`` ``DeviceMesh``
-    (``repro_torch.sharding.make_clients_mesh``, on the trainer's device
-    type) shards the client axis over its ranks; every rank builds the
-    trainer with the same arguments and runs the same rounds. Anything but
-    a ``DeviceMesh`` raises ``TypeError``; a 2-D (hierarchy) mesh raises
-    ``NotImplementedError`` naming ROADMAP A-15.
+    ``mesh``: a ``DeviceMesh`` on the trainer's device type — the 1-D
+    ``clients`` mesh (``repro_torch.sharding.make_clients_mesh``) or the
+    2-D ``(clusters, clients)`` one (``make_hierarchy_mesh``) — shards the
+    client axis over its ranks (cluster-major on the 2-D mesh, whose
+    all-reduces run over ``clients`` and then ``clusters``); every rank
+    builds the trainer with the same arguments and runs the same rounds.
+    Anything but a ``DeviceMesh`` raises ``TypeError``.
 
     ``controller`` (or its alias ``strategy``) is a registry name or an
     instance; ``fixed_k``, ``eco_gamma`` and ``eco_bandwidth`` set the
     fixed-K baselines' K and EcoRandom's gamma and bandwidth
     (``ControllerContext``).
 
-    ``hierarchy`` is not ported yet and raises ``NotImplementedError``
-    naming its ROADMAP item; an enabled ``mobility`` config raises in the
-    network.
+    ``hierarchy``: a ``core.hierarchy.HierarchyConfig`` switches the
+    controller to the sampled decide path when ``sampling_enabled``:
+    clients are k-means clustered over channel statistics and device tier,
+    each round draws a candidate pool proportional to the fairness deficit
+    (cluster-stratified) and the wrapped controller solves on the gathered
+    ``[K_pool]`` slice. The sampler key (``fold_in(PRNGKey(seed),
+    POOL_STREAM)``) rides in the carry (``HierarchyState.key``), so resumed
+    runs replay the same pools; under ``run_sweep`` it is shared by the
+    seed lanes, as in the reference. A disabled config leaves the
+    controller unwrapped.
+
+    ``mobility``: a ``core.channel.MobilityConfig`` adds the slow (seed,
+    round)-pure log-normal pathloss drift to every round's channel draw;
+    ``None`` or ``sigma_db = 0`` keeps the static channel.
     """
 
     def __init__(self, *, model_loss: Callable, model_params: dict,
@@ -326,25 +338,27 @@ class FederatedTrainer:
             controller = strategy
         self.device = resolve_device(device)
         dev = self.device
-        if hierarchy is not None:
-            raise NotImplementedError(
-                f"FederatedTrainer(hierarchy=...) is not ported yet: "
-                f"ROADMAP {_UNPORTED['hierarchy']}")
         for name, value, kind in (("async_cfg", async_cfg, AsyncConfig),
                                   ("fault_cfg", fault_cfg, FaultConfig),
                                   ("defense", defense, DefenseConfig),
-                                  ("link_cfg", link_cfg, LinkConfig)):
+                                  ("link_cfg", link_cfg, LinkConfig),
+                                  ("hierarchy", hierarchy, HierarchyConfig)):
             if value is not None and not isinstance(value, kind):
                 raise TypeError(f"{name} must be a {kind.__name__} instance "
                                 f"or None, got {type(value).__name__}")
         self.mesh, self.mesh_axis = mesh, mesh_axis
-        self._group = None
+        # _group spans every rank of the mesh in shard order (gathers);
+        # _reduce_groups are the all-reduce stages, the innermost axis first
+        self._group, self._reduce_groups = None, ()
         if mesh is not None:
-            check_clients_mesh(mesh, mesh_axis)
+            axes = check_clients_mesh(mesh, mesh_axis)
             if mesh.device_type != dev.type:
                 raise ValueError(f"the mesh is on {mesh.device_type}, the "
                                  f"trainer on {dev.type}")
-            self._group = mesh.get_group(mesh_axis)
+            self._group = (mesh.get_group(axes[0]) if len(axes) == 1
+                           else dist.group.WORLD)
+            self._reduce_groups = tuple(mesh.get_group(a)
+                                        for a in reversed(axes))
         self.loss_fn = model_loss
         self.params = {k: torch.as_tensor(v).detach().to(dev, copy=True)
                        for k, v in model_params.items()}
@@ -357,6 +371,8 @@ class FederatedTrainer:
         self.network = WirelessNetwork(ch_cfg, seed=seed,
                                        device_profile=device_profile,
                                        mobility=mobility)
+        # normalized by the network: a disabled (sigma_db=0) config is None
+        self.mobility = self.network.mobility
         self.device_profile = self.network.device_profile
         self.spec = tree_spec(self.params)
         self.n_params = int(sum(self.spec.sizes))
@@ -383,6 +399,16 @@ class FederatedTrainer:
         self.controller_name = (controller if isinstance(controller, str)
                                 else getattr(controller, "name",
                                              type(controller).__name__.lower()))
+        # ---- hierarchical control (core.hierarchy): wrap only when the
+        # sampled path changes anything, so a disabled config is legacy
+        self.hierarchy = hierarchy
+        if (hierarchy is not None
+                and hierarchy.sampling_enabled(self.n_clients)):
+            self.controller = wrap_controller(
+                self.controller, hierarchy, ctx,
+                pathloss=self.network.pathloss, power=self.network.power,
+                base_key=prng.fold_in(prng.PRNGKey(seed), POOL_STREAM),
+                seed=seed)
         self.ctrl_state = self.controller.init(self.n_clients)
 
         self.seed = seed
@@ -413,7 +439,7 @@ class FederatedTrainer:
         self.n_padded = len(lengths)
         self.n_local = self._data.n_clients
         self._i0 = (0 if mesh is None
-                    else mesh.get_local_rank(mesh_axis) * self.n_local)
+                    else client_shard_index(mesh, mesh_axis) * self.n_local)
         self.weights = lengths / lengths.sum()
         self._weights = torch.as_tensor(
             self.weights[self._i0:self._i0 + self.n_local],
@@ -627,8 +653,10 @@ class FederatedTrainer:
         return torch.cat([vec, pad])[self._i0:self._i0 + self.n_local]
 
     def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        if self._group is not None:
-            dist.all_reduce(t, group=self._group)
+        """The sum over every rank, in place: one all-reduce a stage
+        (``clients``, then ``clusters`` on a hierarchy mesh)."""
+        for group in self._reduce_groups:
+            dist.all_reduce(t, group=group)
         return t
 
     @torch.no_grad()
@@ -656,8 +684,8 @@ class FederatedTrainer:
         e_cmp, t_cmp = self._e_cmp, self._t_cmp
         link_out = link is not None and link.outage
         link_burst = link is not None and link.bursty
-        h = round_gains(keys.fade, self._pathloss, r,
-                        self.ch_cfg.rayleigh).to(dev)
+        h = round_gains(keys.fade, self._pathloss, r, self.ch_cfg.rayleigh,
+                        mobility=self.mobility).to(dev)
         updates, u_norms, losses = self._client_step(
             params, self._round_batches(r, keys.sample))
         # the controller sees the real clients' [N] observation in every

@@ -26,14 +26,19 @@ the JAX package's weights for the seed.
     PYTHONPATH=src python -m repro_torch.launch.experiments --device cpu \
         --clients 8 --rounds 4 --scenario byzantine-lite --fault-rate 0.3
 
+    # population-scale control: k-means clusters and a sampled pool, with
+    # the pathloss drift of moving clients
+    PYTHONPATH=src python -m repro_torch.launch.experiments --device cpu \
+        --clients 8 --rounds 4 --clusters 2 --pool-frac 0.5 \
+        --mobility-sigma 3
+
 ``--deadline``/``--staleness-a`` (timed rounds), ``--fault-rate``/
-``--crash-rate``/``--churn`` (fault injection) and ``--defense`` (the
-defended aggregator) take the reference's semantics: with a scenario they
-override its preset, without one they build the reference's configs.
-Options whose trainer parts are not ported raise ``NotImplementedError``
-naming their ROADMAP item: ``--clusters``/``--pool-frac``/
-``--mobility-sigma`` (A-15) and ``--shard-clients`` (A-10b: one process
-a card).
+``--crash-rate``/``--churn`` (fault injection), ``--defense`` (the
+defended aggregator), ``--clusters``/``--pool-frac`` (the hierarchy) and
+``--mobility-sigma`` (the pathloss drift) take the reference's semantics:
+with a scenario they override its preset, without one they build the
+reference's configs. ``--shard-clients`` is not ported and raises
+``NotImplementedError`` naming ROADMAP A-10b (one process a card).
 """
 from __future__ import annotations
 
@@ -52,7 +57,9 @@ import torch
 from .. import random as prng
 from ..configs import ChannelConfig, FairEnergyConfig, FLConfig
 from ..configs.fmnist_cnn import CONFIG as CNN_FULL
+from ..core.channel import MobilityConfig
 from ..core.faults import DefenseConfig, FaultConfig
+from ..core.hierarchy import HierarchyConfig
 from ..core.link import LinkConfig
 from ..core.rounds import AsyncConfig
 from ..data import ClientDataset, dirichlet_partition, make_fmnist_like
@@ -68,15 +75,15 @@ PROTECTED_OUT = "experiments/fl_example.json"
 
 # build() options of the reference whose trainer parts the port has not,
 # and the ROADMAP item that brings each
-UNPORTED = {"clusters": "A-15", "pool_frac": "A-15", "mobility_sigma": "A-15",
-            "shard_clients": "A-10b"}
+UNPORTED = {"shard_clients": "A-10b"}
 
 
 def build(n_clients=20, rounds=60, n_train=12000, n_test=2000, seed=0,
           lr=0.05, local_steps=2, scenario=None, deadline=None,
           staleness_a=None, fault_rate=None, crash_rate=None, churn=None,
-          defense=None, max_retx=None, burst_p=None, price_outage=None,
-          bits_grid=None, device=None, **unported):
+          defense=None, clusters=None, pool_frac=None, mobility_sigma=None,
+          max_retx=None, burst_p=None, price_outage=None, bits_grid=None,
+          device=None, **unported):
     """The experiment's recipe: returns ``(make, fl_cfg)``, where
     ``make(controller, **trainer_kw)`` builds a ``FederatedTrainer`` on
     the shared data, weights and channel. ``device=None`` is the GPU."""
@@ -94,20 +101,26 @@ def build(n_clients=20, rounds=60, n_train=12000, n_test=2000, seed=0,
     ch_cfg = ChannelConfig(n_clients=n_clients)
     fe_cfg = FairEnergyConfig()
     extra = {}
+    if clusters is not None or pool_frac is not None:
+        extra["hierarchy"] = HierarchyConfig(
+            clusters=clusters if clusters is not None else 1,
+            pool_frac=pool_frac if pool_frac is not None else 1.0)
     if scn:
         ch_cfg = scn.apply_channel(ch_cfg)
         fe_cfg = scn.apply_fe(fe_cfg)
-        extra = dict(device_profile=scn.device_profile(n_clients, seed=seed),
+        extra.update(device_profile=scn.device_profile(n_clients, seed=seed),
                      async_cfg=scn.async_config(deadline_s=deadline,
                                                 staleness_a=staleness_a),
                      fault_cfg=scn.fault_config(crash_rate=crash_rate,
                                                 corrupt_rate=fault_rate),
                      defense=scn.defense_config(defended=defense),
-                     mobility=scn.mobility_config(),
+                     mobility=scn.mobility_config(sigma_db=mobility_sigma),
                      link_cfg=scn.link_config(max_retx=max_retx,
                                               burst_p=burst_p,
                                               price_outage=price_outage))
     else:
+        if mobility_sigma is not None and mobility_sigma > 0.0:
+            extra["mobility"] = MobilityConfig(sigma_db=mobility_sigma)
         if deadline is not None:
             extra["async_cfg"] = AsyncConfig(
                 deadline_s=deadline,
@@ -428,11 +441,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--defense", action="store_true", default=None,
                     help="defended aggregation (finite screen + norm "
                          "clipping); overrides the scenario preset")
-    for flag in ("--pool-frac", "--mobility-sigma"):
-        ap.add_argument(flag, type=float, default=None,
-                        help="not ported yet (ROADMAP A-15): raises")
     ap.add_argument("--clusters", type=int, default=None,
-                    help="not ported yet (ROADMAP A-15): raises")
+                    help="hierarchical control (core.hierarchy): k-means "
+                         "client clusters for stratified candidate "
+                         "sampling; 1 (default) keeps full-population "
+                         "control")
+    ap.add_argument("--pool-frac", type=float, default=None,
+                    help="per-round candidate pool fraction sampled prop. "
+                         "to fairness deficit; controllers solve on the "
+                         "pooled slice only (1.0 = full population)")
+    ap.add_argument("--mobility-sigma", type=float, default=None,
+                    help="slow pathloss drift RMS in dB "
+                         "(core.channel.MobilityConfig); overrides the "
+                         "scenario preset (0 disables)")
     ap.add_argument("--shard-clients", action="store_true",
                     help="not ported yet (ROADMAP A-10b, one process a "
                          "card): raises")

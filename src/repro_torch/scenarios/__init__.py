@@ -1,10 +1,7 @@
 """Named experiment scenarios: device fleets x data skew x channel.
 
 The port's copy of ``repro.scenarios``: the ``Scenario`` dataclass with
-all its fields, the registry and every preset. The mobility knobs are
-kept, and ``mobility_config`` raises ``NotImplementedError`` naming
-ROADMAP A-15 when a preset sets them; with them off it returns ``None``
-as in the reference.
+all its fields, the registry and every preset.
 
 A ``Scenario`` composes the knobs that define a workload — the device
 profile kind (``core.energy``), finite-battery draws, the Dirichlet
@@ -171,15 +168,14 @@ class Scenario:
         return cfg if cfg.enabled else None
 
     def mobility_config(self, *, sigma_db: Optional[float] = None):
-        """The scenario's mobility config: ``None`` when mobility is off.
-        The pathloss drift is not ported yet: a positive ``sigma_db``
-        raises (ROADMAP A-15)."""
+        """The scenario's ``core.channel.MobilityConfig`` (None when
+        mobility is off — the static channel). ``sigma_db`` overrides the
+        preset in either direction (0 disables)."""
         s = sigma_db if sigma_db is not None else self.mobility_sigma_db
         if s <= 0.0:
             return None
-        raise NotImplementedError(
-            f"scenario {self.name!r}: mobility (pathloss drift) is not "
-            "ported yet: ROADMAP A-15")
+        from ..core.channel import MobilityConfig
+        return MobilityConfig(sigma_db=s, period_rounds=self.mobility_period)
 
     def link_config(self, *, max_retx: Optional[int] = None,
                     burst_p: Optional[float] = None,

@@ -30,8 +30,15 @@ The JAX package's ``PartitionSpec`` helpers (``client_stack_spec``,
 ``client_data_specs``, ``replicated_specs``, ``async_state_specs``,
 ``defense_state_specs``, ``link_state_specs``) have no counterpart here:
 a rank's shard is a slice of the stack (and of the stale buffer), and what
-is replicated is simply computed on every rank. The two-tier ``(clusters, clients)`` hierarchy
-mesh is ROADMAP A-15.
+is replicated is simply computed on every rank.
+
+The two-tier hierarchy mesh (``make_hierarchy_mesh``) is 2-D, ``(clusters,
+clients)``: the client axis of every stack is split over both mesh axes,
+cluster-major (rank ``c * n_clients_axis + k`` holds the ``c * n_clients_axis
++ k``-th shard), and the trainer reduces in two stages, over ``clients``
+(the cluster head's partial aggregate) and then over ``clusters`` (the
+server's). Every helper accepts the client axis as the 1-D string or the
+tuple of axis names.
 
 A process group that is not initialized is an error: nothing here starts
 one (``torch.distributed.init_process_group`` with ``gloo`` for CPU
@@ -83,48 +90,87 @@ def make_clients_mesh(n_devices: Optional[int] = None, device=None,
     return init_device_mesh(dev.type, (n,), mesh_dim_names=(axis,))
 
 
-def make_hierarchy_mesh(*args, **kwargs):
-    raise NotImplementedError("the (clusters, clients) hierarchy mesh is not "
-                              "ported yet: ROADMAP A-15")
+def make_hierarchy_mesh(n_clusters: Optional[int] = None,
+                        n_devices: Optional[int] = None, device=None,
+                        clusters_axis: str = CLUSTERS_AXIS,
+                        clients_axis: str = CLIENTS_AXIS) -> DeviceMesh:
+    """Two-tier ``(clusters, clients)`` mesh for cluster-head partial
+    aggregation over every rank of the default process group.
+    ``n_clusters in (None, 1)`` returns the 1-D clients mesh; else the
+    ranks are factored ``n_clusters x (world / n_clusters)`` and
+    ``n_clusters`` must divide the world size."""
+    if n_clusters is None or n_clusters == 1:
+        return make_clients_mesh(n_devices, device, clients_axis)
+    dev = resolve_device(device)
+    require_process_group()
+    world = dist.get_world_size()
+    n = world if n_devices is None else int(n_devices)
+    if n != world:
+        raise ValueError(f"requested {n} devices but the process group has "
+                         f"{world} ranks: the mesh spans the whole group")
+    if n_clusters < 1 or n % n_clusters != 0:
+        raise ValueError(f"{n_clusters} clusters do not divide {n} devices")
+    return init_device_mesh(dev.type, (n_clusters, n // n_clusters),
+                            mesh_dim_names=(clusters_axis, clients_axis))
 
 
-def _client_axes(axis: AxisSpec) -> str:
+def _dims(mesh: DeviceMesh) -> tuple:
+    return tuple(mesh.mesh_dim_names or ())
+
+
+def mesh_client_axes(mesh: DeviceMesh, axis: AxisSpec = CLIENTS_AXIS) -> tuple:
+    """The client-axis names on ``mesh``: ``("clusters", "clients")`` on a
+    hierarchy mesh, ``("clients",)`` on the 1-D one. The order is the
+    cluster-major order client lanes are laid out in, and the reverse of
+    the order the two all-reduce stages run in."""
     names = axis_names(axis)
-    if len(names) != 1 or CLUSTERS_AXIS in names:
-        raise NotImplementedError(
-            f"a client axis over {names} (the hierarchy mesh) is not ported "
-            "yet: ROADMAP A-15")
-    return names[0]
+    if len(names) == 1 and CLUSTERS_AXIS in _dims(mesh) \
+            and names[0] != CLUSTERS_AXIS:
+        names = (CLUSTERS_AXIS,) + names
+    for a in names:
+        if a not in _dims(mesh):
+            raise ValueError(f"mesh has no {a!r} axis; axes: {_dims(mesh)}")
+    return names
 
 
-def check_clients_mesh(mesh, axis: AxisSpec = CLIENTS_AXIS) -> str:
-    """The name of the mesh's client axis, after checking that ``mesh`` is
-    a 1-D ``DeviceMesh`` carrying it."""
+def check_clients_mesh(mesh, axis: AxisSpec = CLIENTS_AXIS) -> tuple:
+    """The mesh's client axes (``mesh_client_axes``), after checking that
+    ``mesh`` is a ``DeviceMesh`` made of exactly those axes, in that
+    order, over every rank of the default group."""
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh must be a torch.distributed DeviceMesh, got "
                         f"{type(mesh).__name__}")
-    name = _client_axes(axis)
-    names = tuple(mesh.mesh_dim_names or ())
-    if mesh.ndim != 1 or CLUSTERS_AXIS in names:
-        raise NotImplementedError(
-            f"a {mesh.ndim}-D mesh {names} splits the client axis over "
-            "several mesh axes (the hierarchy mesh), not ported yet: "
-            "ROADMAP A-15")
-    if name not in names:
-        raise ValueError(f"mesh has no {name!r} axis; axes: {names}")
-    return name
+    names = mesh_client_axes(mesh, axis)
+    if _dims(mesh) != names:
+        raise ValueError(f"mesh axes {_dims(mesh)} are not the client axes "
+                         f"{names}")
+    if mesh.mesh.flatten().tolist() != list(range(dist.get_world_size())):
+        raise ValueError("the mesh must span the default process group's "
+                         "ranks in order")
+    return names
 
 
 def clients_axis_size(mesh: DeviceMesh, axis: str = CLIENTS_AXIS) -> int:
-    names = tuple(mesh.mesh_dim_names or ())
-    if axis not in names:
-        raise ValueError(f"mesh has no {axis!r} axis; axes: {names}")
-    return mesh.size(names.index(axis))
+    if axis not in _dims(mesh):
+        raise ValueError(f"mesh has no {axis!r} axis; axes: {_dims(mesh)}")
+    return mesh.size(_dims(mesh).index(axis))
 
 
 def client_shard_count(mesh: DeviceMesh, axis: AxisSpec = CLIENTS_AXIS) -> int:
-    """Number of shards the client axis splits into."""
-    return clients_axis_size(mesh, _client_axes(axis))
+    """Number of shards the client axis splits into: the product over
+    all its mesh axes."""
+    count = 1
+    for a in mesh_client_axes(mesh, axis):
+        count *= clients_axis_size(mesh, a)
+    return count
+
+
+def client_shard_index(mesh: DeviceMesh, axis: AxisSpec = CLIENTS_AXIS) -> int:
+    """This rank's shard of the client axis, cluster-major."""
+    i = 0
+    for a in mesh_client_axes(mesh, axis):
+        i = i * clients_axis_size(mesh, a) + mesh.get_local_rank(a)
+    return i
 
 
 def shard_client_data(data: ClientData, mesh: DeviceMesh,
@@ -133,16 +179,15 @@ def shard_client_data(data: ClientData, mesh: DeviceMesh,
     device). The client count must already be mesh-divisible: build the
     stacks with ``stack_client_datasets(...,
     pad_to_multiple=client_shard_count(mesh))``."""
-    name = _client_axes(axis)
     n = data.n_clients
-    size = client_shard_count(mesh, name)
+    size = client_shard_count(mesh, axis)
     if n % size != 0:
         raise ValueError(
-            f"client count {n} does not divide the {axis_names(axis)} mesh "
-            f"axes ({size}); stack with pad_to_multiple={size} to add ghost "
-            f"clients")
+            f"client count {n} does not divide the "
+            f"{mesh_client_axes(mesh, axis)} mesh axes ({size}); stack with "
+            f"pad_to_multiple={size} to add ghost clients")
     n_local = n // size
-    i0 = mesh.get_local_rank(name) * n_local
+    i0 = client_shard_index(mesh, axis) * n_local
     take = lambda t: t[i0:i0 + n_local].clone()  # noqa: E731
     return ClientData(arrays={k: take(v) for k, v in data.arrays.items()},
                       lengths=take(data.lengths))

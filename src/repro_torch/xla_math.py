@@ -30,8 +30,23 @@ other product and sum rounds to float32 on its own, as separate PyTorch
 operations do on any device. Each constant is written as the double bit
 pattern that the IR prints, so it can be checked against a dump. ``tests/test_torch_random.py`` holds all three bit for bit against
 XLA on millions of inputs.
+
+``exp_xla`` is XLA:CPU's float32 ``exp`` the same way (Cephes' ``expf``:
+the input clamped to +-88.376, ``n = floor(x log2 e + 0.5)``, the
+reduced argument in two FMAs, a degree-5 polynomial and ``2^n`` built
+from the exponent bits). Float32 ``sin`` and ``pow`` are different: the
+machine code XLA:CPU emits for them calls the C library's ``sinf`` and
+``powf`` (the symbols its JIT resolves from the process), so ``sin_xla``
+and ``pow_xla`` call those same functions, one element at a time, on the
+host, with denormals flushed to zero as XLA:CPU runs.
+``tests/test_torch_mobility.py`` holds all three bit for bit against
+jitted ``jnp.exp``, ``jnp.sin`` and ``10.0 ** x``.
 """
 from __future__ import annotations
+
+import ctypes
+import ctypes.util
+import functools
 
 import numpy as np
 import torch
@@ -205,3 +220,75 @@ def sum_xla(v: torch.Tensor) -> torch.Tensor:
     for j in range(_REDUCE_WINDOW):
         acc = acc + w[:, j]
     return sum_xla(acc)
+
+
+# Cephes expf as XLA:CPU emits it: the clamp, log2(e), the two parts of
+# ln 2 and the polynomial, highest power first
+_EXP_LO = _c(0xC055F33340000000)               # -88.37626
+_EXP_HI = _c(0x4056333340000000)               # 88.37626
+_LOG2E = _c(0x3FF7154760000000)
+_EXP_P = [_c(b) for b in (0x3F2A0D2CE0000000, 0x3F56E879C0000000,
+                          0x3F81112100000000, 0x3FA5553820000000,
+                          0x3FC5555540000000)] + [0.5]
+
+
+def exp_xla(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 ``exp`` for finite inputs: the input clamped to
+    [-88.376, 88.376], ``n = floor(fma(x, log2 e, 0.5))`` clamped to
+    [-127, 127], ``r = x - n ln2`` in two FMAs (ln 2 split in a high and a
+    low part), ``p`` the polynomial in ``r`` by FMAs, then
+    ``(fma(p, r*r, r) + 1) * 2^n``, a denormal result flushed to zero
+    (XLA:CPU runs with denormals flushed)."""
+    x = x.to(torch.float32)
+    x = torch.clamp(x, _EXP_LO, _EXP_HI)
+    n = torch.clamp(torch.floor(fma_f32(x, _LOG2E, 0.5)), -127.0, 127.0)
+    r = fma_f32(-n, _LN2_HI, x)
+    r = fma_f32(-n, _LN2_LO, r)
+    p = torch.full_like(r, _EXP_P[0])
+    for c in _EXP_P[1:]:
+        p = fma_f32(p, r, c)
+    y = fma_f32(p, r * r, r) + 1.0
+    scale = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    out = y * scale
+    return torch.where(out < _MIN_NORMAL, 0.0, out)
+
+
+@functools.lru_cache(maxsize=None)
+def _libm():
+    """The C library's float32 ``sinf`` and ``powf``, the functions
+    XLA:CPU's compiled code calls for ``sin`` and ``pow``."""
+    lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    lib.sinf.restype = ctypes.c_float
+    lib.sinf.argtypes = [ctypes.c_float]
+    lib.powf.restype = ctypes.c_float
+    lib.powf.argtypes = [ctypes.c_float, ctypes.c_float]
+    return lib
+
+
+def _flush(v: torch.Tensor) -> torch.Tensor:
+    """Denormals to a zero of their sign, as XLA:CPU's flush-to-zero and
+    denormals-are-zero modes see them."""
+    return torch.where(_is_zero(v), v * 0.0, v)
+
+
+def _host_map(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` of each float32 element of ``x``, computed on the host with
+    denormal inputs and results flushed to zero; the result keeps ``x``'s
+    shape and device."""
+    flat = _flush(x.detach().to("cpu", torch.float32)).reshape(-1).tolist()
+    out = np.fromiter((fn(v) for v in flat), np.float32, count=len(flat))
+    return _flush(torch.from_numpy(out).reshape(x.shape)).to(x.device)
+
+
+def sin_xla(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 ``sin``: the C library's ``sinf``."""
+    return _host_map(_libm().sinf, x)
+
+
+def pow_xla(base: float, x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 ``pow(base, x)`` for a constant ``base``: the C
+    library's ``powf``. XLA does not rewrite ``10.0 ** x`` into an
+    ``exp``: it calls ``powf(10, x)``."""
+    b = float(np.float32(base))
+    powf = _libm().powf
+    return _host_map(lambda v: powf(b, v), x)

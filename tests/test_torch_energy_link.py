@@ -21,6 +21,7 @@ import torch
 from repro.configs import ChannelConfig as JCh
 from repro.core import energy as je
 from repro.core import link as jl
+from repro.core.channel import MobilityConfig as JMobility
 from repro.core.channel import WirelessNetwork as JNet
 from repro.core.channel import payload_bits as j_payload_bits
 from repro.scenarios import available_scenarios as j_available
@@ -30,7 +31,8 @@ from repro_torch import random as prng
 from repro_torch.configs import ChannelConfig
 from repro_torch.core import energy as te
 from repro_torch.core import link as tl
-from repro_torch.core.channel import WirelessNetwork, payload_bits
+from repro_torch.core.channel import (MobilityConfig, WirelessNetwork,
+                                      payload_bits)
 from repro_torch.scenarios import available_scenarios, get_scenario
 
 
@@ -105,12 +107,22 @@ def test_network_carries_the_profile_without_touching_the_channel():
     with pytest.raises(ValueError, match="device profile has 4 clients"):
         WirelessNetwork(ch, device_profile=te.uniform_profile(4))
 
-    @dataclasses.dataclass(frozen=True)
-    class Drift:
-        sigma_db: float
-    assert WirelessNetwork(ch, mobility=Drift(0.0)).mobility is None
-    with pytest.raises(NotImplementedError, match="A-15"):
-        WirelessNetwork(ch, mobility=Drift(3.0))
+    # a disabled drift normalizes to the static channel; an enabled one
+    # draws the reference's gains with the profile attached. The port's
+    # drift is the reference's scanned round's, bit for bit
+    # (test_torch_mobility.py); the reference's eager gains() rounds its
+    # scalar arithmetic in another association, a few ulps apart
+    assert WirelessNetwork(ch, mobility=MobilityConfig(0.0)).mobility is None
+    mob = WirelessNetwork(ch, seed=4, device_profile="tiered",
+                          mobility=MobilityConfig(3.0, 30.0))
+    np.testing.assert_array_equal(mob.power, plain.power)
+    with jax.threefry_partitionable(False):
+        jmob = JNet(JCh(n_clients=8), seed=4, device_profile="tiered",
+                    mobility=JMobility(3.0, 30.0))
+        for r in (0, 5):
+            np.testing.assert_allclose(mob.gains(r), jmob.gains(r),
+                                       rtol=2e-6)
+            assert not np.array_equal(mob.gains(r), plain.gains(r))
 
 
 @pytest.mark.parametrize("value_bits", [None, 8.0, 16.0, 32.0])
@@ -238,17 +250,17 @@ def test_preset_profile_link_and_fe_equal_reference(name):
     assert t.beta(0.3) == j.beta(0.3)
     assert (t.apply_channel(ChannelConfig()).rayleigh
             == j.apply_channel(JCh()).rayleigh)
-    # the timed-round, fault and defense configs equal the reference's
-    # field for field (None where it has none); mobility, not ported yet:
-    # off in the reference => None here, on => NotImplementedError naming
-    # the ROADMAP item
-    for fn in ("async_config", "fault_config", "defense_config"):
+    # the timed-round, fault, defense and mobility configs equal the
+    # reference's field for field (None where it has none)
+    for fn in ("async_config", "fault_config", "defense_config",
+               "mobility_config"):
         tc, jc = getattr(t, fn)(), getattr(j, fn)()
         assert (tc is None) == (jc is None), (name, fn)
         if jc is not None:
             assert dataclasses.asdict(tc) == dataclasses.asdict(jc), (name, fn)
-    if j.mobility_config() is None:
-        assert t.mobility_config() is None, name
-    else:
-        with pytest.raises(NotImplementedError, match="A-15"):
-            t.mobility_config()
+    for sigma in (0.0, 5.0):
+        tc, jc = (t.mobility_config(sigma_db=sigma),
+                  j.mobility_config(sigma_db=sigma))
+        assert (tc is None) == (jc is None), (name, sigma)
+        if jc is not None:
+            assert dataclasses.asdict(tc) == dataclasses.asdict(jc), name

@@ -133,20 +133,34 @@ def test_cli_writes_json_and_refuses_unported_options(tmp_path, monkeypatch,
         {"eta": pytest.approx(1e-3), "rho": pytest.approx(0.6)},
         {"eta": pytest.approx(2e-3), "rho": pytest.approx(0.6)}]
     assert res["k"] >= 1 and "FL results" in capsys.readouterr().out
-    for flags, item in ((["--clusters", "2"], "A-15"),
-                        (["--shard-clients"], "A-10b")):
+    for flags, item in ((["--shard-clients"], "A-10b"),):
         with pytest.raises(NotImplementedError, match=item):
             tex.cli(["--device", "cpu", "--out", str(out)] + flags)
-    # the timed-round and fault options build the reference's configs
+    # the timed-round, fault, hierarchy and mobility options build the
+    # reference's configs (a scenario's mobility preset is overridden)
     for kw, attr, want in ((dict(deadline=1.0), "async_cfg",
                             dict(deadline_s=1.0, staleness_a=0.5)),
                            (dict(churn=0.3), "fault_cfg",
                             dict(churn_dwell=4, churn_away=0.3)),
                            (dict(defense=True), "defense_cfg",
-                            dict(finite_screen=True, trim_frac=0.0))):
+                            dict(finite_screen=True, trim_frac=0.0)),
+                           (dict(clusters=2), "hierarchy",
+                            dict(clusters=2, pool_frac=1.0)),
+                           (dict(pool_frac=0.5), "hierarchy",
+                            dict(clusters=1, pool_frac=0.5)),
+                           (dict(mobility_sigma=4.0), "mobility",
+                            dict(sigma_db=4.0, period_rounds=40.0)),
+                           (dict(scenario="mobility", mobility_sigma=5.0),
+                            "mobility", dict(sigma_db=5.0,
+                                             period_rounds=30.0))):
         make, _ = tex.build(n_clients=4, rounds=2, n_train=256, n_test=64,
                             device="cpu", **kw)
         cfg = getattr(make("fairenergy"), attr)
         assert {k: getattr(cfg, k) for k in want} == want, kw
+    make, _ = tex.build(n_clients=4, rounds=2, n_train=256, n_test=64,
+                        device="cpu", scenario="mobility", mobility_sigma=0.0,
+                        clusters=2, pool_frac=0.5)
+    tr = make("fairenergy")
+    assert tr.mobility is None and tr.controller.name == "sampled(fairenergy)"
     with pytest.raises(ValueError, match="fl_example"):
         tex.main(out=os.path.join(ROOT, "experiments", "fl_example.json"))

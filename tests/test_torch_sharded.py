@@ -73,8 +73,8 @@ def test_padded_sample_keys_equal_the_reference():
 def test_meshes_need_a_process_group_and_a_gpu_by_default(monkeypatch):
     with pytest.raises(RuntimeError, match="init_process_group"):
         make_clients_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="A-15"):
-        make_hierarchy_mesh(2)
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        make_hierarchy_mesh(2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_clients_mesh()
@@ -90,8 +90,12 @@ def test_one_rank_mesh_matches_the_unsharded_run(tmp_path):
             make_clients_mesh(2, device="cpu")
         mesh = make_clients_mesh(device="cpu")
         assert clients_axis_size(mesh) == client_shard_count(mesh) == 1
-        with pytest.raises(NotImplementedError, match="A-15"):
+        with pytest.raises(ValueError, match="clusters"):
             client_shard_count(mesh, ("clusters", "clients"))
+        assert make_hierarchy_mesh(1, device="cpu").mesh_dim_names == (
+            "clients",)
+        with pytest.raises(ValueError, match="do not divide"):
+            make_hierarchy_mesh(2, device="cpu")
         data = stack_client_datasets(_shards(), "cpu")
         assert shard_client_data(data, mesh).n_clients == 5
         tr = mlp_trainer(mlp_data()[0], mesh=mesh)

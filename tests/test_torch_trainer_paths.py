@@ -199,13 +199,12 @@ def test_finite_batteries_deplete_and_mask_clients():
     (dict(async_cfg=object()), TypeError, "AsyncConfig"),
     (dict(fault_cfg=object()), TypeError, "FaultConfig"),
     (dict(defense=object()), TypeError, "DefenseConfig"),
-    (dict(hierarchy=object()), NotImplementedError, "A-15"),
+    (dict(hierarchy=object()), TypeError, "HierarchyConfig"),
     (dict(mesh=object()), TypeError, "DeviceMesh")])
 def test_unported_trainer_options_raise_naming_the_roadmap_item(kw, error,
                                                                  match):
-    """What the port does not bring raises naming its ROADMAP item; the
-    timed-round, fault and defense options (ported) and a mesh take only
-    their own types (a 2-D mesh is A-15, tested below)."""
+    """The timed-round, fault, defense and hierarchy options and a mesh
+    take only their own types (the 2-D hierarchy mesh is tested below)."""
     with pytest.raises(error, match=match):
         _torch_trainer(**kw)
     with pytest.raises(TypeError, match="LinkConfig"):
@@ -213,9 +212,24 @@ def test_unported_trainer_options_raise_naming_the_roadmap_item(kw, error,
 
 
 def test_two_dimensional_mesh_raises_naming_the_hierarchy_item(tmp_path):
+    """A (clusters, clients) mesh is taken (a 1 x 1 one here, in this
+    process) and gives the unsharded run; a mesh whose axes are not the
+    client axes raises."""
     from torch.distributed.device_mesh import init_device_mesh
+    ref = _torch_trainer()
+    ref.run_scanned(4, verbose=False)
     with single_rank_group(tmp_path):
         mesh = init_device_mesh("cpu", (1, 1),
                                 mesh_dim_names=("clusters", "clients"))
-        with pytest.raises(NotImplementedError, match="A-15"):
-            _torch_trainer(mesh=mesh)
+        tr = _torch_trainer(mesh=mesh)
+        tr.run_scanned(4, verbose=False)
+        swapped = init_device_mesh("cpu", (1, 1),
+                                   mesh_dim_names=("clients", "clusters"))
+        with pytest.raises(ValueError, match="client axes"):
+            _torch_trainer(mesh=swapped)
+    for a, b in zip(ref.history, tr.history):
+        np.testing.assert_array_equal(a.selected, b.selected)
+        np.testing.assert_array_equal(a.energy, b.energy)
+    for k in ref.params:
+        np.testing.assert_array_equal(ref.params[k].numpy(),
+                                      tr.params[k].numpy())

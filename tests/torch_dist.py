@@ -202,3 +202,34 @@ def checkpoint_body(rank, params, kw, ckpt_dir, out_dir):
     b.run_scanned(ROUNDS, chunk=4, start_round=start, verbose=False)
     _save(out_dir, rank, **{f"full.{k}": v for k, v in history_arrays(a).items()},
           **{f"resumed.{k}": v for k, v in history_arrays(b).items()})
+
+
+def record_pools(tr) -> list:
+    """The candidate pool of every round a sampled trainer decides on, as
+    it is drawn from that round's state: the controller's ``pool_for``
+    wrapped on this instance (host int64 arrays, one a call)."""
+    drawn = []
+    pool_for = tr.controller.pool_for
+
+    def recording(state, round_idx, alive=None):
+        idx = pool_for(state, round_idx, alive)
+        drawn.append(idx.cpu().numpy())
+        return idx
+    tr.controller.pool_for = recording
+    return drawn
+
+
+def hierarchy_mesh_body(rank, params, hier_kw, out_dir):
+    """The sampled MLP trainer (``HierarchyConfig(**hier_kw)``) for
+    ``ROUNDS`` rounds on the 2-D ``(clusters, clients)`` mesh of two
+    clusters over every rank; its logs, params, the pools as drawn and
+    the assignment."""
+    from repro_torch.core.hierarchy import HierarchyConfig
+    from repro_torch.sharding import make_hierarchy_mesh
+    mesh = make_hierarchy_mesh(2, device="cpu")
+    tr = mlp_trainer(params, mesh=mesh, hierarchy=HierarchyConfig(**hier_kw))
+    pools = record_pools(tr)
+    tr.run_scanned(ROUNDS, verbose=False)
+    _save(out_dir, rank, **history_arrays(tr), pools=np.stack(pools),
+          assign=tr.ctrl_state.assign.numpy(),
+          mesh_shape=np.array(tuple(mesh.shape)))
