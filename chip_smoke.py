@@ -33,7 +33,13 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    bf16 on the tensor cores and
    fp32 on the register-tiled SIMT kernel (the serve path's [4, 2048, 32|4, 64] bf16
    causal, a 256 window, fp32, a ragged S = 1000, D = 32 and D = 128 in
-   both types), and a flash call under grad raising (C-14) — and time
+   both types, and phase 11's [4, 4096, 32|4, 64]), each case also launched
+   with its log-sum-exp output (out unchanged, lse within 1e-5 in fp32 and
+   1e-2 in bf16 of ``flash_fwd_ref``'s), and at phase 11's shape the
+   autograd Function's gradients (the kernel forward, ``flash_bwd_ref``
+   backward) against the all-plain forward's through the same backward
+   (within 1e-5 of their scale in fp32, 2e-2 in bf16), the kernel's ms with
+   and without lse and ``flash_bwd_ref``'s beside its fp32 bound — and time
    both (CUDA events) and the library call computing the same function
    where there is one (a fused ascent also beside the host loop over the
    one-step kernel that it replaced; the top-k rows kernel also at the ks
@@ -119,7 +125,10 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    lane equal to its ``run_scanned`` run bit for bit; one line a strategy
    (steady rounds/s, sweep rounds/s, energy a round, final accuracy,
    participation) and FairEnergy's energy against each baseline's; the
-   results JSON goes to ``build/chip_smoke/``;
+   results JSON goes to ``build/chip_smoke/``; then
+   ``launch.experiments.cli`` at N = 50, 3 rounds, without and with
+   ``--shard-clients`` (one NCCL rank here): the two JSONs equal but for
+   the wall time;
 9. the timed, fault and defense paths at full width (N = 50, the paper's
    CNN, ``experiments.build``): ``straggler`` (its [50, D] stale buffer
    in the carry), ``harvesting``, ``churn``, ``byzantine-lite`` (trim 0.1)
@@ -155,7 +164,22 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    synthetic channel statistics at N = 50, 10,000 and 100,000: ms a
    decide over 10 decides after a warm-up one, the fused ascent's device
    ms a decide, and one more decide's ascent (on 50, 512, 10^4 or 10^5
-   clients) held against its plain version as in (c).
+   clients) held against its plain version as in (c);
+11. training: ``launch.steps.build_train_step`` on TinyLlama-1.1B at full
+   width (fp32 master weights from a seeded generator on the card, bf16
+   activations, remat), AdamW lr 3e-4, batch 8 x 4096 tokens (train_4k's
+   sequence; its global batch 256 cut to one card's 8) in 2 microbatches:
+   1 warm-up and 6 timed steps with the counts zeroed before them: finite
+   losses, the last below the first, the bf16 flash kernel launched with
+   lse 2 x 22 x 2 times a step (forward and remat recompute), the plain
+   backward called 22 x 2 times, no other kernel; ms a step, tokens/s,
+   peak memory, and one more step split by CUDA events (the flash
+   forward, ``flash_bwd_ref``, AdamW; ``--profile`` adds the GEMMs' share);
+11b. the smoke TinyLlama, 3 AdamW steps at seq 2048, batch 2, on the card
+   and the CPU from the same weights: fp32 first-step gradients within
+   1e-5 of their scale, losses rtol 1e-5, params within 1e-5 of their
+   scale but for at most 0.1% of a leaf (AdamW's near-zero-gradient
+   elements), which stay within 3 lr; bf16 losses within 2e-2.
 
 ``--cards K`` runs phase 7 alone across K cards (one NCCL rank a card,
 after the build): the exchanges on a (2, K/2, 1) mesh against the pod mean
@@ -167,7 +191,11 @@ scenarios sharded the same way (masks, made, stale and rejected counts
 equal, params within 1e-6), and (7c) phase 10 (b)'s recipe on the (2,
 K/2) ``(clusters, clients)`` hierarchy mesh against rank 0's one-card
 run: the pool of every round, the cluster assignment, masks and params
-bit for bit.
+bit for bit, (7d) the experiment CLI with ``--shard-clients`` on the K
+ranks at N = 50 against the unsharded CLI on one card (equal JSON), and
+(7e) the main path's recipe at N = 800 (the reference's
+``sharded_engine_bench`` size; 60,000 images) sharded against one card:
+masks, energies and params, and both round times.
 
 Output: one JSON line per kernel check, per round and per path, a
 ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
@@ -760,8 +788,21 @@ FLASH_CASES = (
     # a window that ends before Skv: rows that see no key are V's mean
     (1, 200, 4, 1, 64, torch.bfloat16, False, 50, 77),
     (1, 200, 4, 1, 64, torch.float32, False, 50, 77),
+    # phase 11's call: train_4k's sequence, a microbatch of 4
+    (4, 4096, 32, 4, 64, torch.bfloat16, True, None, None),
+    (4, 4096, 32, 4, 64, torch.float32, True, None, None),
 )
 FLASH_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# the kernels' log-sum-exp against flash_fwd_ref's: both take the max of
+# the same fp32 scores and the log of an fp32 sum (the bf16 kernel's terms
+# from ex2.approx), so fp32 holds 1e-5; bf16 gets 1e-2
+FLASH_LSE_ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# dq, dk, dv of the Function (kernel forward) against the all-plain
+# forward, both through flash_bwd_ref, relative to each gradient's scale:
+# fp32 1e-5 (the forwards agree to ~1e-6); bf16 2e-2 (out rounded to bf16,
+# P rounded before P V, as the forward's own gate)
+FLASH_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+TRAIN_FLASH = (4, 4096, 32, 4, 64)      # B (a microbatch), S, H, KV, D
 
 
 def check_flash(dev) -> list[dict]:
@@ -778,6 +819,7 @@ def check_flash(dev) -> list[dict]:
         for dt in (torch.bfloat16, torch.float32) for d in ops.HEAD_DIMS}}))
     gen = torch.Generator(device=dev).manual_seed(5)
     err = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    lse_err = dict(err)
     timed = None
     for B, S, H, KV, D, dt, causal, window, Skv in FLASH_CASES:
         Skv = Skv or S
@@ -788,14 +830,31 @@ def check_flash(dev) -> list[dict]:
         want = ref.attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         e = float((got.float() - want.float()).abs().max())
-        log(json.dumps({"flash_case": [B, S, H, KV, D, str(dt), causal, window, Skv],
-                        "max_abs_err": e}))
+        del want
+        # the same launch writing the log-sum-exp: out unchanged, lse
+        # against the chunked plain forward's
+        got_l, lse = ops.flash_attention_cuda(q, k, v, causal=causal,
+                                              window=window, with_lse=True)
+        _, lse_want = ref.flash_fwd_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        e_lse = float((lse - lse_want).abs().max())
+        case = [B, S, H, KV, D, str(dt), causal, window, Skv]
+        log(json.dumps({"flash_case": case, "max_abs_err": e,
+                        "lse_max_abs_err": e_lse,
+                        "out_equal_with_lse": bool(torch.equal(got_l, got))}))
         if not e <= FLASH_ATOL[dt]:
             raise AssertionError(f"flash kernel differs from its plain version by "
-                                 f"{e} > {FLASH_ATOL[dt]} at {B, S, H, KV, D, dt, causal, window, Skv}")
+                                 f"{e} > {FLASH_ATOL[dt]} at {case}")
+        if not torch.equal(got_l, got):
+            raise AssertionError(f"the launch with lse changed out at {case}")
+        if not e_lse <= FLASH_LSE_ATOL[dt]:
+            raise AssertionError(f"flash kernel's lse differs from flash_fwd_ref's "
+                                 f"by {e_lse} > {FLASH_LSE_ATOL[dt]} at {case}")
         err[dt] = max(err[dt], e)
+        lse_err[dt] = max(lse_err[dt], e_lse)
         if timed is None:
             timed = (q, k, v)
+        del got, got_l, lse, lse_want
     out = []
     for dt, name, source, peak in (
             (torch.bfloat16, "flash_attention", "src/repro_torch/csrc/flash_attention_sm90.cu",
@@ -805,6 +864,8 @@ def check_flash(dev) -> list[dict]:
         q, k, v = (t.to(dt) for t in timed)
         B, S, H, D = q.shape
         ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True), 20)
+        ms_lse = cuda_ms(lambda: ops.flash_attention_cuda(
+            q, k, v, causal=True, with_lse=True), 20)
         plain = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), 3, warmup=1)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         library = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -814,28 +875,81 @@ def check_flash(dev) -> list[dict]:
         n_ops = 2 * 2 * B * H * D * S * (S + 1) / 2
         n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
         b_ms, b_by = bound(n_bytes, n_ops, peak)
-        out.append(dict(name=name, route="cuda", source=source,
-                        replaces="src/repro/kernels/flash_attention/kernel.py:25",
-                        max_abs_err=err[dt], ms=ms, plain_ms=plain, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=library))
-    # C-14: the kernels have no backward, so a call that autograd would
-    # record raises instead of losing the gradient
-    q, k, v = (t[:1].clone() for t in timed)
-    q.requires_grad_(True)
-    before = ops.flash_attention.launches
-    try:
-        ops.flash_attention(q, k, v, causal=True)
-    except RuntimeError as err:
-        if "C-14" not in str(err):
-            raise
-    else:
-        raise AssertionError("flash_attention on the card under grad did not raise")
-    if ops.flash_attention.launches != before:
-        raise AssertionError("a refused flash call counted a launch")
-    log(json.dumps({"flash_under_grad": "raises (C-14)"}))
+        entry = dict(name=name, route="cuda", source=source,
+                     replaces="src/repro/kernels/flash_attention/kernel.py:25",
+                     max_abs_err=err[dt], ms=ms, plain_ms=plain, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=library, ms_with_lse=ms_lse,
+                     lse_max_abs_err=lse_err[dt])
+        entry.update(check_flash_grad(dev, dt, peak))
+        out.append(entry)
     log(json.dumps({"flash_serve_shape_ms": {e["name"]: e["ms"] for e in out},
+                    "with_lse_ms": {e["name"]: e["ms_with_lse"] for e in out},
                     "sdpa_ms": {e["name"]: e["library_ms"] for e in out}}))
     return out
+
+
+def flash_bwd_bound(B: int, S: int, H: int, KV: int, D: int, esize: int
+                    ) -> tuple[float, str]:
+    """The plain backward's least time at fp32 peak: its five fp32 block
+    products (S, dP, dV, dQ, dK) over every (query, key) chunk pair it
+    computes, masked ones included, against reading q, k, v, out, dout
+    and lse once and writing dq, dk, dv once."""
+    from repro_torch.kernels.flash_attention.ref import KV_CHUNK, Q_CHUNK, chunk_of
+    qc, kc = chunk_of(S, Q_CHUNK), chunk_of(S, KV_CHUNK)
+    n_ops = 5 * 2 * B * H * qc * kc * D * (S // qc) * (S // kc)
+    n_bytes = esize * (2 * 2 * B * S * H * D + 2 * 2 * B * S * KV * D) + 4 * B * H * S
+    return bound(n_bytes, n_ops)
+
+
+def check_flash_grad(dev, dt, peak) -> dict:
+    """The training path's flash at phase 11's shape (TRAIN_FLASH, causal):
+    the wrapper's Function under grad (the kernel with its lse forward,
+    ``flash_bwd_ref`` backward) against the all-plain forward
+    (``flash_fwd_ref``) through the same backward, within FLASH_GRAD_TOL
+    of each gradient's scale; then the kernel's ms with and without lse,
+    and ``flash_bwd_ref``'s ms beside its fp32 bound (CUDA events)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    B, S, H, KV, D = TRAIN_FLASH
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn(B, S, H, D, device=dev, generator=gen).to(dt)
+    k = torch.randn(B, S, KV, D, device=dev, generator=gen).to(dt)
+    v = torch.randn(B, S, KV, D, device=dev, generator=gen).to(dt)
+    dout = torch.randn(B, S, H, D, device=dev, generator=gen).to(dt)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    calls, lse_launches = ops.flash_attention.backward_calls, ops.flash_attention.launches_lse
+    out = ops.flash_attention(*leaves, causal=True)
+    got = torch.autograd.grad(out, leaves, dout)
+    if (ops.flash_attention.backward_calls - calls,
+            ops.flash_attention.launches_lse - lse_launches) != (1, 1):
+        raise AssertionError("the Function under grad did not launch the kernel "
+                             "with lse once and call flash_bwd_ref once")
+    del out, leaves
+    out_p, lse_p = ref.flash_fwd_ref(q, k, v, causal=True)
+    want = ref.flash_bwd_ref(q, k, v, out_p, lse_p, dout, causal=True)
+    errs = {n: float((g.float() - w.float()).abs().max() / w.float().abs().max())
+            for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    del got, want, out_p, lse_p
+    log(json.dumps({"flash_grad": {"dtype": str(dt), "shape": [B, S, H, KV, D],
+                                   "err_over_scale": errs}}))
+    if not max(errs.values()) <= FLASH_GRAD_TOL[dt]:
+        raise AssertionError(f"{dt} flash gradients differ from the all-plain "
+                             f"ones by {errs} of their scale > {FLASH_GRAD_TOL[dt]}")
+    ms = cuda_ms(lambda: ops.flash_attention_cuda(q, k, v, causal=True), 10)
+    ms_lse = cuda_ms(lambda: ops.flash_attention_cuda(q, k, v, causal=True,
+                                                      with_lse=True), 10)
+    o_k, lse_k = ops.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+    bwd_ms = cuda_ms(lambda: ref.flash_bwd_ref(q, k, v, o_k, lse_k, dout,
+                                               causal=True), 3, warmup=1)
+    n_ops = 2 * 2 * B * H * D * S * (S + 1) / 2
+    fwd_bound = bound(q.element_size() * (2 * q.numel() + 2 * k.numel()), n_ops, peak)
+    bwd_bound = flash_bwd_bound(B, S, H, KV, D, q.element_size())
+    res = {"train_shape": [B, S, H, KV, D], "train_shape_ms": ms,
+           "train_shape_ms_with_lse": ms_lse, "train_shape_bound_ms": fwd_bound[0],
+           "grad_err_over_scale": errs, "flash_bwd_ref_ms": bwd_ms,
+           "flash_bwd_ref_bound_ms": bwd_bound[0],
+           "flash_bwd_ref_bound_by": bwd_bound[1]}
+    log(json.dumps({"flash_train_shape": dict(res, dtype=str(dt))}))
+    return res
 
 
 # ------------------------------------------------------------ phase 3 ----
@@ -1460,6 +1574,40 @@ def paper_experiment(dev) -> dict:
     EXPERIMENT_OUT.write_text(json.dumps(_json_safe({"results": res, "card": out}),
                                          indent=1, default=float))
     return out
+
+
+# the experiment CLI with and without --shard-clients (A-10b): the paper's
+# N = 50 at a few rounds
+CLI_ROUNDS = 3
+CLI_OUT = HERE / "build" / "chip_smoke"
+
+
+def _cli_json(path) -> dict:
+    res = json.loads(Path(path).read_text())
+    res.pop("elapsed_s")
+    return res
+
+
+def sharded_cli_one_card(dev) -> dict:
+    """Phase 8, A-10b: ``launch.experiments.cli`` at N = 50, CLI_ROUNDS
+    rounds, unsharded and with ``--shard-clients`` (here one NCCL rank, the
+    one card): the two JSONs equal but for the wall time."""
+    from repro_torch.launch import experiments
+    argv = ["--clients", str(N_CLIENTS), "--rounds", str(CLI_ROUNDS),
+            "--device", str(dev)]
+    walls = {}
+    for name, extra in (("plain", []), ("sharded", ["--shard-clients"])):
+        t0 = time.perf_counter()
+        experiments.cli(argv + ["--out", str(CLI_OUT / f"cli_{name}.json")] + extra)
+        walls[name] = time.perf_counter() - t0
+    same = _cli_json(CLI_OUT / "cli_plain.json") == _cli_json(CLI_OUT / "cli_sharded.json")
+    log(json.dumps({"cli_shard_clients_one_card": {
+        "n_clients": N_CLIENTS, "rounds": CLI_ROUNDS, "json_equal": same,
+        "wall_s": walls}}))
+    if not same:
+        raise AssertionError("--shard-clients on one card wrote another JSON "
+                             "than the unsharded CLI")
+    return {"json_equal": same, "wall_s": walls}
 
 
 # ------------------------------------------------------------ phase 9 ----
@@ -2356,6 +2504,290 @@ def multirank_paths(dev, vec: torch.Tensor, main: dict) -> int:
     return launches
 
 
+# ----------------------------------------------------------- phase 11 ----
+# TinyLlama-1.1B training at full width: train_4k's sequence; its global
+# batch of 256 cut to 8 for one card, in 2 microbatches of 4
+TRAIN = dict(arch="tinyllama-1.1b", batch=8, seq=4096, microbatches=2,
+             lr=3e-4, warmup=1, steps=6)
+
+
+def _timed(module, name: str, spans: list):
+    """Wrap ``module.name`` so that each call records CUDA events around it
+    into ``spans`` (this script's attribution only); returns the original."""
+    orig = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*a, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+    setattr(module, name, wrapped)
+    return orig
+
+
+def train_split(step, model, opt, batch, dev) -> dict:
+    """One more train step with the flash forward, ``flash_bwd_ref`` and
+    AdamW bracketed by CUDA events: each one's device-stream ms and share
+    of the step."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import steps
+    spans = {"flash_forward": [], "flash_bwd_ref": [], "adamw": []}
+    wrapped = [(ops, "flash_attention_cuda", spans["flash_forward"]),
+               (ops, "flash_bwd_ref", spans["flash_bwd_ref"]),
+               (steps, "adamw_update", spans["adamw"])]
+    origs = [_timed(m, n, sp) for m, n, sp in wrapped]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(model, opt, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for (m, n, _), orig in zip(wrapped, origs):
+            setattr(m, n, orig)
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    return {"step_ms": step_ms, "ms": ms,
+            "share": {k: v / step_ms for k, v in ms.items()},
+            "calls": {k: len(v) for k, v in spans.items()}}
+
+
+def _device_events(fn):
+    """torch.profiler's CUDA kernel events over one call of ``fn``, and
+    the call's wall ms."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
+    return events, wall * 1e3
+
+
+def _gemm_ms(events) -> float:
+    return sum(e.self_device_time_total for e in events
+               if any(t in e.key.lower() for t in ("gemm", "xmma", "cutlass",
+                                                    "nvjet"))) / 1e3
+
+
+def train_profile(step, model, opt, batch, calls: int) -> dict:
+    """``--profile``: torch.profiler over one more train step: the GEMM
+    kernels' device ms, split into ``flash_bwd_ref``'s (one call profiled
+    alone at the step's shape, times its ``calls`` a step) and the rest,
+    the dense matmuls (the layers' bf16 GEMMs, the fp32 head); the
+    device's busy share and the top kernels."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    events, wall = _device_events(lambda: step(model, opt, batch))
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    gemm = _gemm_ms(events)
+    B, S = TRAIN["batch"] // TRAIN["microbatches"], TRAIN["seq"]
+    cfg = model.cfg
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=batch["tokens"].device).manual_seed(12)
+    q, k, v, dout = (torch.randn(B, S, h, D, device=gen.device, generator=gen)
+                     .to(torch.bfloat16) for h in (H, KV, KV, H))
+    out, lse = ops.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+    bwd_events, _ = _device_events(lambda: ref.flash_bwd_ref(
+        q, k, v, out, lse, dout, causal=True))
+    bwd_gemm = _gemm_ms(bwd_events) * calls
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall,
+            "gemm_ms": gemm, "flash_bwd_ref_gemm_ms": bwd_gemm,
+            "dense_matmul_ms": gemm - bwd_gemm,
+            "dense_matmul_share": (gemm - bwd_gemm) / wall,
+            "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                             "ms": e.self_device_time_total / 1e3} for e in top]}
+
+
+def train_path(dev, profile: bool = False) -> dict:
+    """Phase 11: ``launch.steps.build_train_step`` on TinyLlama-1.1B at
+    full width (22 layers, d 2048, 32/4 heads, d_ff 5632, vocab 32000;
+    bf16 activations, fp32 master weights from a seeded generator on the
+    card, remat on), AdamW at lr 3e-4, microbatches 2, batch 8 x 4096
+    tokens of ``launch.train.make_lm_batches``: 1 warm-up step, then 6
+    timed steps with every count zeroed just before them. Asserts finite
+    losses, the last below the first, the bf16 flash kernel launched with
+    lse 2 x 22 x 2 times a step (forward and remat recompute, 2
+    microbatches), ``flash_bwd_ref`` called 22 x 2 times a step, and no
+    other kernel or flash route."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import make_lm_batches
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config(TRAIN["arch"])
+    t0 = time.perf_counter()
+    model = steps.init_for(cfg)(torch.Generator(device=dev).manual_seed(0))
+    opt = adamw_init(dict(model.named_parameters()))
+    step = steps.build_train_step(cfg, lr=TRAIN["lr"],
+                                  microbatches=TRAIN["microbatches"])
+    n_steps = TRAIN["warmup"] + TRAIN["steps"] + 1 + int(profile)
+    batches = list(make_lm_batches(cfg, TRAIN["batch"], TRAIN["seq"], n_steps,
+                                   device=dev))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"train: {cfg.name} {n_params / 1e9:.3f}B params, {cfg.dtype}, remat "
+        f"{cfg.remat}, set-up {time.perf_counter() - t0:.1f} s")
+    losses = []
+    for b in batches[:TRAIN["warmup"]]:
+        losses.append(float(step(model, opt, b)[2]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fns = counters()
+    for fn, attr in fns.values():
+        setattr(fn, attr, 0)
+    flash_attention.launches = flash_attention.launches_lse = 0
+    flash_attention.backward_calls = 0
+    step_ms = []
+    for b in batches[TRAIN["warmup"]:TRAIN["warmup"] + TRAIN["steps"]]:
+        t1 = time.perf_counter()
+        loss = float(step(model, opt, b)[2])        # float() waits for the step
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(loss)
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in fns.items()}
+    routes = {"launches": flash_attention.launches,
+              "launches_lse": flash_attention.launches_lse,
+              "backward_calls": flash_attention.backward_calls}
+    peak = torch.cuda.max_memory_allocated(dev)
+    n, L, M = TRAIN["steps"], cfg.n_layers, TRAIN["microbatches"]
+    log(json.dumps({"train_losses": losses, "step_ms": step_ms}))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite train loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"no learning: {losses[0]} -> {losses[-1]}")
+    want = 2 * L * M * n
+    if (launches["flash_attention"], routes["launches"], routes["launches_lse"]) \
+            != (want, want, want):
+        raise AssertionError(f"train launched the bf16 flash kernel "
+                             f"{launches['flash_attention']} times ({routes}), "
+                             f"want {want} with lse")
+    if routes["backward_calls"] != L * M * n:
+        raise AssertionError(f"flash_bwd_ref called {routes['backward_calls']} "
+                             f"times, want {L * M * n}")
+    others = {k: c for k, c in launches.items() if k != "flash_attention" and c}
+    if others:
+        raise AssertionError(f"train launched other kernels: {others}")
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    mean_ms = sum(step_ms) / len(step_ms)
+    res = {"train": cfg.name, "dtype": cfg.dtype, "remat": cfg.remat,
+           "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+           "microbatches": M, "lr": TRAIN["lr"], "steps": n,
+           "step_ms": step_ms, "step_ms_mean": mean_ms,
+           "tokens_per_s": tokens / (mean_ms / 1e3),
+           "peak_mem_GB": peak / 1e9, "losses": losses,
+           "launches_per_step": {"flash_attention": launches["flash_attention"] / n,
+                                 "flash_bwd_ref_calls": routes["backward_calls"] / n}}
+    res["split"] = train_split(step, model, opt, batches[TRAIN["warmup"] + n], dev)
+    if profile:
+        res["profile"] = train_profile(step, model, opt, batches[-1], L * M)
+    log(json.dumps({"train_summary": res}))
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------- phase 11b ----
+TRAIN_CARD_CPU = dict(batch=2, seq=2048, steps=3, lr=3e-4)
+
+
+def train_card_against_cpu(dev, dtype: str) -> dict:
+    """Phase 11b: 3 AdamW steps of the smoke TinyLlama in ``dtype`` at
+    seq 2048 (the flash branch: the card's kernel of that type with lse,
+    ``flash_bwd_ref``), batch 2, on the card and on the CPU from the same
+    weights and tokens. fp32: the first step's gradients within 1e-5 of
+    each leaf's scale, losses rtol 1e-5, and the parameters after 3 steps
+    within 1e-5 of each leaf's scale but for at most 0.1% of a leaf's
+    elements, which stay within 3 lr: AdamW's update g / (|g| + 1e-8)
+    turns ~1e-9 gradient differences on elements whose gradient is near
+    zero into update differences of up to ~0.1 of lr, and the elements
+    they move shift the later steps' gradients. bf16: losses within
+    2e-2."""
+    import copy
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import make_lm_batches
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw_init
+
+    cfg = get_smoke(TRAIN["arch"]).replace(dtype=dtype)
+    c = TRAIN_CARD_CPU
+    cpu_model = steps.init_for(cfg)(torch.Generator().manual_seed(2))
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    batches = list(make_lm_batches(cfg, c["batch"], c["seq"], c["steps"],
+                                   seed=4, device="cpu"))
+    names = [n for n, _ in cpu_model.named_parameters()]
+
+    def first_grads(model):
+        loss, _ = tfm.lm_loss(model, {k: t.to(model.embed.table.device)
+                                      for k, t in batches[0].items()}, cfg)
+        return {n: g.float().cpu() for n, g in zip(
+            names, torch.autograd.grad(loss, list(model.parameters())))}
+
+    g_cpu, g_card = first_grads(cpu_model), first_grads(card_model)
+    grad_err = max(float((g_card[n] - g_cpu[n]).abs().max()
+                         / g_cpu[n].abs().max().clamp(min=1e-30)) for n in names)
+    runs = {}
+    for where, model in (("cuda", card_model), ("cpu", cpu_model)):
+        opt = adamw_init(dict(model.named_parameters()))
+        step = steps.build_train_step(cfg, lr=c["lr"])
+        before = flash_attention.launches_lse
+        losses = [float(step(model, opt, {k: t.to(model.embed.table.device)
+                                          for k, t in b.items()})[2])
+                  for b in batches]
+        runs[where] = (losses, {n: p.detach().cpu()
+                                for n, p in model.named_parameters()},
+                       flash_attention.launches_lse - before)
+    (l_card, p_card, n_card), (l_cpu, p_cpu, n_cpu) = runs["cuda"], runs["cpu"]
+    want_launches = 2 * cfg.n_layers * c["steps"]
+    def check_launches():
+        if (n_card, n_cpu) != (want_launches, 0):
+            raise AssertionError(f"card launched the flash kernel with lse "
+                                 f"{n_card} times (want {want_launches}), CPU "
+                                 f"{n_cpu}")
+
+    res = {"train_card_vs_cpu": cfg.name, "dtype": dtype, "seq": c["seq"],
+           "batch": c["batch"], "steps": c["steps"], "losses_cuda": l_card,
+           "losses_cpu": l_cpu, "flash_launches_with_lse": n_card}
+    if dtype == "float32":
+        off_frac, worst, moved = {}, {}, 0.0
+        for k, w in p_cpu.items():
+            d = (p_card[k] - w).abs()
+            scale = float(w.abs().max())
+            off_frac[k] = float((d > 1e-5 * scale).float().mean())
+            worst[k] = float(d.max()) / scale
+            moved = max(moved, float(d.max()))
+        res.update(first_grad_err_over_scale=grad_err,
+                   param_err_over_scale_max=max(worst.values()),
+                   params_off_1e5_frac_max=max(off_frac.values()),
+                   params_off_1e5_count=int(sum(
+                       off_frac[k] * p_cpu[k].numel() for k in p_cpu)),
+                   param_moved_max=moved)
+        log(json.dumps(res))
+        check_launches()
+        np.testing.assert_allclose(l_card, l_cpu, rtol=1e-5)
+        if not (grad_err <= 1e-5 and max(off_frac.values()) <= 1e-3
+                and moved <= c["steps"] * c["lr"]):
+            raise AssertionError(f"fp32 train params differ card/CPU: {res}")
+    else:
+        res["loss_max_abs"] = max(abs(a - b) for a, b in zip(l_card, l_cpu))
+        log(json.dumps(res))
+        check_launches()
+        if not res["loss_max_abs"] <= 2e-2:
+            raise AssertionError(f"bf16 train losses differ card/CPU by "
+                                 f"{res['loss_max_abs']} > 2e-2")
+    return res
+
+
 # ------------------------------------------- phase 7 across the cards ----
 def _card_rank(rank: int, world: int, init: str) -> None:
     """One rank of ``--cards``: card ``rank``, NCCL. (a) the exchanges on a
@@ -2455,6 +2887,8 @@ def _card_rank(rank: int, world: int, init: str) -> None:
         for scenario in ("straggler", "byzantine-lite"):
             robust_sharded(dev, rank, world, scenario, say)
         hierarchy_sharded(dev, rank, world, say)
+        cli_sharded_cards(dev, rank, world, say)
+        sharded_n800(dev, rank, world, say)
     except BaseException:
         # the other ranks wait in a collective that this one will not reach,
         # and tearing the group down would wait for them: say why and leave,
@@ -2558,6 +2992,92 @@ def hierarchy_sharded(dev, rank: int, world: int, say) -> None:
         if bad:
             raise AssertionError(f"{world}-card hierarchy mesh: {bad} differ "
                                  f"from one card")
+    dist.barrier()
+
+
+def cli_sharded_cards(dev, rank: int, world: int, say) -> None:
+    """7d: ``launch.experiments.cli --shard-clients`` inside the cards'
+    process group (every rank runs ``run_all`` on a clients mesh, rank 0
+    writes the JSON) at the paper's N = 50, CLI_ROUNDS rounds, against
+    the unsharded CLI on rank 0's card: the JSONs equal but for the wall
+    time (C-17)."""
+    import torch.distributed as dist
+    from repro_torch.launch import experiments
+    argv = ["--clients", str(N_CLIENTS), "--rounds", str(CLI_ROUNDS)]
+    t0 = time.perf_counter()
+    experiments.cli(argv + ["--out", str(CLI_OUT / "cards_cli_sharded.json"),
+                            "--shard-clients"])
+    sharded_s = time.perf_counter() - t0
+    dist.barrier()
+    if rank == 0:
+        t0 = time.perf_counter()
+        experiments.cli(argv + ["--out", str(CLI_OUT / "cards_cli_plain.json"),
+                                "--device", str(dev)])
+        plain_s = time.perf_counter() - t0
+        same = (_cli_json(CLI_OUT / "cards_cli_sharded.json")
+                == _cli_json(CLI_OUT / "cards_cli_plain.json"))
+        say(json.dumps({"cards_cli_shard_clients": {
+            "cards": world, "n_clients": N_CLIENTS, "rounds": CLI_ROUNDS,
+            "json_equal": same, "wall_s_sharded": sharded_s,
+            "wall_s_one_card": plain_s}}))
+        if not same:
+            raise AssertionError(f"--shard-clients over {world} cards wrote "
+                                 "another JSON than one card")
+    dist.barrier()
+
+
+# the reference's sharded_engine_bench size (ROADMAP A-18): N = 800 over
+# Fashion-MNIST's 60,000 training images (12,000 do not partition at
+# Dirichlet 0.3 for N >= 1,000; phase 10 (c))
+N800 = dict(n_clients=800, n_train=60_000, rounds=5)
+
+
+def sharded_n800(dev, rank: int, world: int, say) -> None:
+    """7e: the main path's recipe at N = 800 sharded over the cards (200
+    clients a card) against rank 0's one-card run: masks and gammas equal,
+    energies rtol 1e-5, params within 1e-6, and each run's steady round
+    ms and peak memory."""
+    import torch.distributed as dist
+    from repro_torch.launch.experiments import build
+    from repro_torch.sharding import make_clients_mesh
+    make, _ = build(n_clients=N800["n_clients"], rounds=N800["rounds"],
+                    n_train=N800["n_train"], seed=0, device=dev)
+    steady = lambda h: 1e3 * sum(lg.wall_s for lg in h[1:]) / (len(h) - 1)  # noqa: E731
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats(dev)
+        one = make("fairenergy")
+        one.run_scanned(N800["rounds"], verbose=False)
+        one_peak = torch.cuda.max_memory_allocated(dev)
+        one_hist, one_params = one.history, one.params
+        del one
+        torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = make("fairenergy", mesh=make_clients_mesh(device=dev))
+    tr.run_scanned(N800["rounds"], verbose=False)
+    if rank == 0:
+        same = [bool(np.array_equal(a.selected, b.selected)
+                     and np.array_equal(a.gamma, b.gamma))
+                for a, b in zip(tr.history, one_hist)]
+        p_err = max(float((tr.params[k] - one_params[k]).abs().max())
+                    for k in tr.params)
+        say(json.dumps({"cards_n800": {
+            "cards": world, "n_clients": tr.n_clients, "n_local": tr.n_local,
+            "rounds": N800["rounds"], "masks_gammas_equal_by_round": same,
+            "params_max_abs": p_err,
+            "round_ms_steady_mean": steady(tr.history),
+            "round_ms_by_round": [lg.wall_s * 1e3 for lg in tr.history],
+            "one_card_round_ms_steady_mean": steady(one_hist),
+            "one_card_round_ms_by_round": [lg.wall_s * 1e3 for lg in one_hist],
+            "peak_mem_GB_rank0": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "one_card_peak_mem_GB": one_peak / 1e9}}))
+        if not all(same):
+            raise AssertionError(f"{world}-card N = 800: masks or gammas differ "
+                                 f"from one card by round: {same}")
+        for a, b in zip(tr.history, one_hist):
+            np.testing.assert_allclose(a.energy, b.energy, rtol=1e-5, atol=0)
+        if not p_err <= 1e-6:
+            raise AssertionError(f"{world}-card N = 800 params differ by {p_err}")
     dist.barrier()
 
 
@@ -2752,8 +3272,10 @@ def main(argv) -> int:
     block = next(k for k in kernels if k["name"] == "topk_block")
     block["launches"] = multirank_paths(dev, flat, runs["main"])
 
-    # ---- phase 8: the paper's experiment, each run's counts zeroed before it
+    # ---- phase 8: the paper's experiment, each run's counts zeroed before
+    # it; then the CLI with and without --shard-clients on this card
     paper_experiment(dev)
+    sharded_cli_one_card(dev)
 
     # ---- phase 9: the timed, fault and defense paths at full width, each
     # run's counts zeroed before it, and the checkpoint on the card
@@ -2774,6 +3296,17 @@ def main(argv) -> int:
         if k["name"] in ("dual_ascent", "topk_rows", "row_sq_sum"):
             k["launches_phase10"] = {run: got[k["name"]]
                                      for run, got in pop_launches.items()}
+
+    # ---- phase 11: TinyLlama-1.1B training at full width, its counts
+    # zeroed before the timed steps; 11b: the smoke model's steps card
+    # against CPU in fp32 and bf16
+    trained = train_path(dev, profile="--profile" in argv)
+    flash["launches_phase11"] = trained["launches_per_step"]["flash_attention"] \
+        * TRAIN["steps"]
+    flash["flash_bwd_ref_calls_phase11"] = \
+        trained["launches_per_step"]["flash_bwd_ref_calls"] * TRAIN["steps"]
+    for dtype in ("float32", "bfloat16"):
+        train_card_against_cpu(dev, dtype)
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

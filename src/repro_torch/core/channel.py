@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from .. import random as prng
-from ..xla_math import fma_f32, pow_xla, sin_xla
+from ..xla_math import fma_f32, log1p_xla, pow_xla, sin_xla
 from .streams import MOBILITY_STREAM
 
 Tensor = torch.Tensor
@@ -74,6 +74,23 @@ def comm_time(gamma, B, P, h, s_bits, i_bits, n0=THERMAL_N0) -> Tensor:
 def comm_energy(gamma, B, P, h, s_bits, i_bits, n0=THERMAL_N0) -> Tensor:
     """Joules (paper: E_i = P_i T_i)."""
     return P * comm_time(gamma, B, P, h, s_bits, i_bits, n0)
+
+
+def comm_energy_eager(gamma: float, B: float, P: Tensor, h: Tensor,
+                      s_bits: float, i_bits: float, n0=THERMAL_N0) -> Tensor:
+    """``comm_energy`` of float32 CPU tensors at a scalar gamma and B, as
+    the JAX package computes it op by op outside ``jit`` (its eta_auto
+    calibration does): XLA's ``log1p``, and the payload, a Python float,
+    rounded to float32 and divided by the rate in one true division
+    (``float / tensor`` in PyTorch multiplies by the reciprocal, which
+    rounds twice; ROADMAP C-20)."""
+    B = torch.clamp(torch.as_tensor(B, dtype=torch.float32), min=RATE_B_FLOOR_HZ)
+    snr = P * h / (n0 * B)
+    rate = B * log1p_xla(snr) / LN2
+    payload = torch.as_tensor(payload_bits(gamma, s_bits, i_bits),
+                              dtype=torch.float32)
+    t = torch.div(payload, torch.clamp(rate, min=RATE_EPS))
+    return P * torch.where(B >= RATE_B_FLOOR_HZ, t, np.inf)
 
 
 def round_fading(key: Tensor, round_idx: int, n: int) -> Tensor:
@@ -166,6 +183,30 @@ def round_gains(key: Tensor, pathloss: Tensor, round_idx: int,
     return pathloss * fade.to(pathloss.device)
 
 
+def eager_mobility_drift(key: Tensor, round_idx: int, n: int,
+                         mobility: MobilityConfig) -> Tensor:
+    """``mobility_drift`` as the JAX package computes it op by op outside
+    ``jit`` (its ``WirelessNetwork.gains``): the harmonics' argument is
+    ``f32(f32(2 pi) * f_j) * r + phase``, each product rounded, the three
+    terms added one after another from 0, divided by the RMS, then by
+    ``sigma_db`` and 10 in two roundings; no FMA. It differs from the
+    scanned round's drift in the last ulps (ROADMAP C-20)."""
+    f32 = np.float32
+    phases = prng.uniform(prng.fold_in(key, MOBILITY_STREAM),
+                          (n, len(_MOB_FREQS)), 0.0, _TWO_PI)
+    period, r = f32(mobility.period_rounds), f32(round_idx)
+    w = torch.zeros(n, dtype=torch.float32)
+    ssq = f32(0.0)
+    for j, (f, a) in enumerate(zip(_MOB_FREQS, _MOB_AMPS)):
+        arg = float(f32(f32(f32(_TWO_PI) * f32(f32(f) / period)) * r))
+        w = w + float(f32(a)) * sin_xla(arg + phases[:, j])
+        ssq = f32(ssq + f32(f32(a) * f32(a)))
+    rms = np.sqrt(f32(ssq / f32(2.0)), dtype=f32)
+    w = torch.div(w, torch.tensor(float(rms)))
+    x = torch.div(float(f32(mobility.sigma_db)) * w, torch.tensor(10.0))
+    return pow_xla(10.0, x)
+
+
 class WirelessNetwork:
     """Static client geometry + per-round fading.
 
@@ -205,3 +246,16 @@ class WirelessNetwork:
         """h_i^r as a float32 numpy array, pure in (seed, round_idx)."""
         return round_gains(self.fade_key, self._pathloss_t, round_idx,
                            self.cfg.rayleigh, mobility=self.mobility).numpy()
+
+    def calibration_gains(self, round_idx: int = 0) -> np.ndarray:
+        """h_i^r as the JAX package's eager ``gains(r)`` computes them, the
+        drift by ``eager_mobility_drift``: what eta_auto calibrates on.
+        Without mobility it is ``gains(r)``."""
+        if self.mobility is None:
+            return self.gains(round_idx)
+        n = self._pathloss_t.shape[0]
+        h = self._pathloss_t * eager_mobility_drift(self.fade_key, round_idx,
+                                                    n, self.mobility)
+        if self.cfg.rayleigh:
+            h = h * round_fading(self.fade_key, round_idx, n)
+        return h.numpy()

@@ -18,7 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..channel import comm_energy
+from ..channel import comm_energy_eager
 from ..fairenergy import init_state, solve_round
 from .base import ControllerContext, RoundObservation, register_controller
 
@@ -44,12 +44,13 @@ class FairEnergy:
     def calibrate(self, u_norms, h, P) -> None:
         """eta_auto: eta := eta_rel * median_i [E_cmm,i(gamma=.5,
         B=B_tot/N) + E_cmp,i] / median_i s_i(.5), from host arrays. The
-        energies are float32, the medians numpy's, as in the reference."""
+        energies are float32, computed as the reference's eager ops
+        compute them (``comm_energy_eager``, C-20), the medians numpy's."""
         ctx = self.ctx
-        e = comm_energy(0.5, ctx.b_tot / ctx.n_clients,
-                        torch.as_tensor(np.asarray(P, np.float32)),
-                        torch.as_tensor(np.asarray(h, np.float32)),
-                        ctx.s_bits, ctx.i_bits, ctx.n0).numpy()
+        e = comm_energy_eager(0.5, ctx.b_tot / ctx.n_clients,
+                              torch.as_tensor(np.asarray(P, np.float32)),
+                              torch.as_tensor(np.asarray(h, np.float32)),
+                              ctx.s_bits, ctx.i_bits, ctx.n0).numpy()
         e = e + ctx.e_cmp_array().cpu().numpy()
         s = 0.5 * np.asarray(u_norms, np.float32)
         eta = self.fe_cfg.eta_rel * float(np.median(e)) / max(float(np.median(s)), 1e-12)

@@ -9,8 +9,12 @@
 // 2048 or more) for fp32 models, once per layer of a prefill.
 //
 // q [B, Sq, H, D], k and v [B, Skv, KV, D], fp32, contiguous; o [B, Sq, H,
-// D] fp32. Query head h reads KV head h / G (G = H / KV): no KV
-// duplication. What it computes is the Pallas kernel's function:
+// D] fp32; lse, when not null, [B, H, Sq] fp32 (the JAX package's
+// [B, KV, G, Sq], h = kv G + g): the log-sum-exp of each row's scaled
+// scores, m + log(max(l, 1e-30)), which the training path's backward
+// (kernels/flash_attention/ref.py: flash_bwd_ref) reads. A null lse writes
+// nothing, so the serve path does the work it did without it. Query head
+// h reads KV head h / G (G = H / KV): no KV duplication. What it computes is the Pallas kernel's function:
 //   q is multiplied by scale = 1/sqrt(D) before QK^T;
 //   a masked score (k > q when causal, q - k >= window) is -1e30, not -inf;
 //   m, l and the accumulator are fp32 (online softmax, one rescale per
@@ -120,8 +124,9 @@ __device__ __forceinline__ void load_kv(float* Ks, float* Vs, const float* kb,
 template <int D>
 __global__ void __launch_bounds__(kThreads, Tile<D>::kMinCtas)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
-                 int H, int KV, int causal, int window, float scale) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Skv, int H, int KV,
+                 int causal, int window, float scale) {
   using T = Tile<D>;
   constexpr int BK = T::BK, TN = T::TN, DC = T::DC, LD = T::LD, LDP = T::LDP;
   extern __shared__ __align__(16) float smem[];
@@ -306,14 +311,17 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         *reinterpret_cast<float4*>(op + 4 * tx + 32 * c) =
             make_float4(acc[j][4 * c] / l_safe, acc[j][4 * c + 1] / l_safe,
                         acc[j][4 * c + 2] / l_safe, acc[j][4 * c + 3] / l_safe);
+      // m is in units of the scaled scores (q was scaled before QK^T)
+      if (lse != nullptr && tx == 0)
+        lse[(static_cast<long long>(b) * H + h) * Sq + row] = m[j] + logf(l_safe);
     }
   }
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int Sq, int Skv, int H, int KV, int causal, int window,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int B, int Sq, int Skv, int H, int KV, int causal,
+                   int window, float scale, cudaStream_t stream) {
   constexpr int kBytes = Tile<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
@@ -321,8 +329,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   flash_fwd_kernel<D><<<grid, kThreads, kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, KV,
-      causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), Sq, Skv, H, KV, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -352,19 +360,19 @@ extern "C" int flash_attention_attrs_f32(int D, int* out) {
   }
 }
 
-// fp32 q, k, v, o; window <= 0 means no window. Returns the launch's
-// cudaError_t (cudaErrorInvalidValue for a head_dim it does not take: 32,
-// 64 and 128 are instantiated).
+// fp32 q, k, v, o, lse (null: not written); window <= 0 means no window.
+// Returns the launch's cudaError_t (cudaErrorInvalidValue for a head_dim it
+// does not take: 32, 64 and 128 are instantiated).
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
-                                       const void* v, void* o, int B, int Sq,
-                                       int Skv, int H, int KV, int D,
-                                       int causal, int window, float scale,
-                                       void* stream) {
+                                       const void* v, void* o, void* lse,
+                                       int B, int Sq, int Skv, int H, int KV,
+                                       int D, int causal, int window,
+                                       float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<32>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale, s);
-    case 64: return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale, s);
-    case 128: return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale, s);
+    case 32: return launch<32>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
+    case 64: return launch<64>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
+    case 128: return launch<128>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -10,8 +10,13 @@
 // per layer of a bf16 prefill.
 //
 // q [B, Sq, H, D], k and v [B, Skv, KV, D], bf16, contiguous, read in place
-// (no transpose copy); o [B, Sq, H, D] bf16. Query head h reads KV head
-// h / (H / KV). What it computes is the Pallas kernel's function:
+// (no transpose copy); o [B, Sq, H, D] bf16; lse, when not null, [B, H, Sq]
+// fp32 (the JAX package's [B, KV, G, Sq], h = kv G + g): the log-sum-exp of
+// each row's scaled scores, m + log(max(l, 1e-30)), from the fp32 running
+// max and sum (not from the bf16-rounded P), which the training path's
+// backward (kernels/flash_attention/ref.py: flash_bwd_ref) reads. A null
+// lse writes nothing, so the serve path does the work it did without it.
+// Query head h reads KV head h / (H / KV). What it computes is the Pallas kernel's function:
 //   S = Q K^T accumulated in fp32, then multiplied by 1/sqrt(D) in fp32;
 //   a masked score (key > row when causal, row - key >= window) is -1e30,
 //   not -inf; m, l and O are fp32 (online softmax, one rescale per tile of
@@ -273,8 +278,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v,
-               __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H, int KV,
-               int causal, int window, float scale) {
+               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq,
+               int Skv, int H, int KV, int causal, int window, float scale) {
   using C = Cfg<D>;
   constexpr int BK = C::BK, SW = C::SW, COLS = C::COLS;
   extern __shared__ uint8_t smem_raw[];
@@ -468,6 +473,13 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
       *reinterpret_cast<uint32_t*>(ob + row1 * row_stride + 8 * j + col) =
           pack_bf16(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
   }
+  // m is the scaled scores' running max in natural-log units (the
+  // exponentials take (x - m) log2 e); the four threads of a row hold it
+  if (lse != nullptr && lane % 4 == 0) {
+    float* lb = lse + (static_cast<long long>(b) * H + h) * Sq;
+    if (row0 < Sq) lb[row0] = m0 + logf(d0);
+    if (row1 < Sq) lb[row1] = m1 + logf(d1);
+  }
 }
 
 // ---- host side ------------------------------------------------------------
@@ -524,9 +536,9 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int D, int heads,
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int Sq, int Skv, int H, int KV, int causal, int window,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int B, int Sq, int Skv, int H, int KV, int causal,
+                   int window, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   static bool configured = false;
   if (!configured) {
@@ -542,8 +554,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (Sq + kRows - 1) / kRows);
   flash_fwd_sm90<D><<<grid, kThreads, C::SMEM, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), Sq, Skv, H, KV, causal,
-      window, scale);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), Sq,
+      Skv, H, KV, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -574,19 +586,19 @@ extern "C" int flash_attention_attrs_bf16(int D, int* out) {
   }
 }
 
-// bf16 q, k, v, o; window <= 0 means no window. Returns the launch's
-// cudaError_t (cudaErrorInvalidValue for a head_dim other than 32, 64, 128
-// or a tensor the TMA cannot map).
+// bf16 q, k, v, o, fp32 lse (null: not written); window <= 0 means no
+// window. Returns the launch's cudaError_t (cudaErrorInvalidValue for a
+// head_dim other than 32, 64, 128 or a tensor the TMA cannot map).
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
-                                        const void* v, void* o, int B, int Sq,
-                                        int Skv, int H, int KV, int D,
-                                        int causal, int window, float scale,
-                                        void* stream) {
+                                        const void* v, void* o, void* lse,
+                                        int B, int Sq, int Skv, int H, int KV,
+                                        int D, int causal, int window,
+                                        float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<32>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale, s);
-    case 64: return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale, s);
-    case 128: return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale, s);
+    case 32: return launch<32>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
+    case 64: return launch<64>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
+    case 128: return launch<128>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

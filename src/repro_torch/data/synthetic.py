@@ -1,4 +1,5 @@
-"""Synthetic FMNIST-like data (the port's numpy copy of the JAX package's).
+"""Synthetic FMNIST-like data and LM token streams (the port's numpy
+copies of the JAX package's).
 
 ``make_fmnist_like`` builds a 10-class, 28x28 grayscale dataset with
 class-conditional structure (smoothed class prototypes + per-sample
@@ -55,3 +56,19 @@ def make_fmnist_like(n_samples: int = 20000, n_classes: int = 10,
         flip = rng.random(n_samples) < label_noise
         labels[flip] = rng.integers(0, n_classes, flip.sum())
     return imgs.astype(np.float32), labels
+
+
+def make_token_stream(n_tokens: int, vocab_size: int, seed: int = 0,
+                      order: int = 2) -> np.ndarray:
+    """Synthetic LM data: a sparse random Markov chain, so next-token loss
+    is genuinely reducible below log(V). The numpy calls are the
+    reference's, so both packages see identical ids."""
+    rng = np.random.default_rng(seed)
+    n_states = min(vocab_size, 512)
+    trans = rng.integers(0, n_states, size=(n_states, 8))
+    toks = np.empty(n_tokens, np.int32)
+    s = 0
+    for i in range(n_tokens):
+        s = int(trans[s, rng.integers(0, 8)])
+        toks[i] = s
+    return toks

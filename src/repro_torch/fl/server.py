@@ -624,8 +624,11 @@ class FederatedTrainer:
             _, u_norms, _ = self._client_step(
                 self.params, self._round_batches(r, self.keys.sample))
             u_norms = self._gather(u_norms)
+        # the reference calibrates on its eager gains(r), whose drift is
+        # associated otherwise than the scanned round's (C-20)
         self.controller.calibrate(u_norms.cpu().numpy(),
-                                  self.network.gains(r), self.network.power)
+                                  self.network.calibration_gains(r),
+                                  self.network.power)
         self.ctrl_state = self.controller.init(self.n_clients)
         self._calibrated = True
 

@@ -62,12 +62,12 @@ SIGNATURES = {
     # dynamic shared bytes of the top-k kernels
     "topk_rows_attrs": (_P,),
     "topk_block_attrs": (_I, _P),
-    # (q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, scale, stream):
-    # the fp32 SIMT kernel and the bf16 tensor-core kernel
-    "flash_attention_fwd_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                _I, _F, _P),
-    "flash_attention_fwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                 _I, _F, _P),
+    # (q, k, v, o, lse | null, B, Sq, Skv, H, KV, D, causal, window, scale,
+    # stream): the fp32 SIMT kernel and the bf16 tensor-core kernel
+    "flash_attention_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _F, _P),
+    "flash_attention_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _F, _P),
     # (D, out int[4]: registers, local bytes, static and dynamic shared bytes)
     "flash_attention_attrs_f32": (_I, _P),
     "flash_attention_attrs_bf16": (_I, _P),

@@ -32,7 +32,7 @@ import torch
 
 from ...core import channel
 from ...core.fairness import contribution_score
-from ...xla_math import exp2_xla, fma_f32, sum_xla
+from ...xla_math import exp2_xla, fma_f32, sum_fused_xla
 
 Tensor = torch.Tensor
 
@@ -230,7 +230,8 @@ def dual_ascent_ref(P: Tensor, h: Tensor, u_norms: Tensor, lam: Tensor,
     reference's loop: each product that feeds one sum rounded with it
     once (``xla_math.fma_f32``: the selection test's ``lam b + e`` and
     ``mu (1 - rho) + eta s``, the price step, the fairness step) and the
-    bandwidth sum in XLA's order (``xla_math.sum_xla``). The GSS oracle
+    bandwidth sum in XLA's order (``xla_math.sum_fused_xla``: the
+    vectorized loop XLA fuses the sum into). The GSS oracle
     takes it (ROADMAP C-18); the Newton path keeps the plain step, which
     its kernel holds to."""
     solve = dual_solve_ref if solve is None else solve
@@ -248,7 +249,7 @@ def dual_ascent_ref(P: Tensor, h: Tensor, u_norms: Tensor, lam: Tensor,
         x = (fma_f32(lam, b_i, e_i).to(dev)
              < fma_f32(eta, s, mu * (1.0 - rho)).to(dev)) & alive
         xf = x.to(torch.float32)
-        new_lam = torch.clamp(fma_f32(alpha_lambda, sum_xla(xf * b_i) - 1.0,
+        new_lam = torch.clamp(fma_f32(alpha_lambda, sum_fused_xla(xf * b_i) - 1.0,
                                       lam).to(dev), min=0.0)
         drive = fma_f32(-(1.0 - rho), xf, fma_f32(-rho, q, pi_min)).to(dev)
         new_mu = torch.clamp(fma_f32(alpha_mu * alive_f, drive, mu).to(dev),

@@ -3,20 +3,23 @@
 ``flash_attention(q, k, v, causal=, window=)`` computes causal or
 sliding-window GQA attention, q ``[B, Sq, H, D]`` and k, v
 ``[B, Skv, KV, D]`` (fp32 or bf16, all the same type) -> ``[B, Sq, H, D]``
-in q's type; query head h reads KV head ``h // (H // KV)``. CPU tensors
-run ``ref.attention_ref``. CUDA tensors launch, on the current stream, the
-kernel of their type or raise: bf16 the tensor-core kernel
-(``csrc/flash_attention_sm90.cu``: ``wgmma`` fed by TMA, P rounded to bf16
-before P V), fp32 the SIMT kernel (``csrc/flash_attention.cu``). Neither
-falls back to the other.
+in q's type; query head h reads KV head ``h // (H // KV)``. CUDA tensors
+launch, on the current stream, the kernel of their type or raise: bf16
+the tensor-core kernel (``csrc/flash_attention_sm90.cu``: ``wgmma`` fed by
+TMA, P rounded to bf16 before P V), fp32 the SIMT kernel
+(``csrc/flash_attention.cu``). Neither falls back to the other.
+
+Without grad (serving) CPU tensors run ``ref.attention_ref`` and the
+kernels write no log-sum-exp. When grad mode is on and q, k or v requires
+grad, the call goes through ``FlashAttention``: its forward is the kernel
+with its log-sum-exp output on CUDA tensors and ``ref.flash_fwd_ref`` on
+CPU tensors, and it saves (q, k, v, out, lse); its backward is
+``ref.flash_bwd_ref`` on every device, the JAX package's blockwise
+recompute (plain JAX there), so the CPU tests run the card's backward.
 
 ``flash_attention.launches`` counts every launch; ``.launches_bf16`` and
-``.launches_f32`` count each kernel's.
-
-The kernels compute the forward only. On CUDA tensors the wrapper raises
-while grad mode is on and q, k or v requires grad, rather than return an
-output with no autograd graph (ROADMAP C-14); the CPU plain version keeps
-its autograd.
+``.launches_f32`` count each kernel's, ``.launches_lse`` those that wrote
+the log-sum-exp, and ``.backward_calls`` the backward's calls.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import ctypes
 import torch
 
 from .. import _build, check_cuda, is_cpu
-from .ref import attention_ref
+from .ref import attention_ref, flash_bwd_ref, flash_fwd_ref
 
 HEAD_DIMS = (32, 64, 128)
 # dtype -> (C entry, attributes entry, per-kernel launch counter)
@@ -35,22 +38,18 @@ _ROUTES = {torch.float32: ("flash_attention_fwd_f32", "flash_attention_attrs_f32
                             "launches_bf16")}
 
 
-def refuse_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise if autograd would record a call of the kernels, which have no
-    backward: the attention path's gradient would be lost silently."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention on CUDA tensors has no backward "
-                           "(ROADMAP C-14): call it under torch.no_grad() or "
-                           "with inputs that do not require grad")
-
-
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int | None = None) -> torch.Tensor:
+def _check_window(window) -> None:
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
-    if is_cpu(q):
-        return attention_ref(q, k, v, causal=causal, window=window)
-    refuse_grad(q, k, v)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, window: int | None = None,
+                         with_lse: bool = False):
+    """One launch of the kernel of q's type on CUDA tensors: ``out``, or
+    ``(out, lse)`` with ``lse`` ``[B, KV, G, Sq]`` fp32 (the log-sum-exp
+    of each row's scaled scores, natural log) when ``with_lse``."""
+    _check_window(window)
     dev = q.device
     if q.dtype not in _ROUTES:
         raise TypeError(f"q has dtype {q.dtype}, expected float32 or bfloat16")
@@ -70,23 +69,62 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if B * H > 65535:
         raise ValueError(f"B * H = {B * H} exceeds the grid's y limit")
     o = torch.empty_like(q)
-    if Sq == 0:
-        return o
-    entry, _, counter = _ROUTES[q.dtype]
-    err = getattr(_build.library(), entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        B, Sq, Skv, H, KV, D, int(causal),
-        0 if window is None else int(window), 1.0 / D ** 0.5,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, entry)
-    flash_attention.launches += 1
-    setattr(flash_attention, counter, getattr(flash_attention, counter) + 1)
-    return o
+    lse = (torch.empty((B, KV, H // KV, Sq), dtype=torch.float32, device=dev)
+           if with_lse else None)
+    if Sq > 0:
+        entry, _, counter = _ROUTES[q.dtype]
+        err = getattr(_build.library(), entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            B, Sq, Skv, H, KV, D, int(causal),
+            0 if window is None else int(window), 1.0 / D ** 0.5,
+            torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, entry)
+        flash_attention.launches += 1
+        setattr(flash_attention, counter, getattr(flash_attention, counter) + 1)
+        flash_attention.launches_lse += int(with_lse)
+    return (o, lse) if with_lse else o
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the JAX package's custom VJP: the forward saves
+    (q, k, v, out, lse), the backward is ``flash_bwd_ref``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if is_cpu(q):
+            out, lse = flash_fwd_ref(q, k, v, causal=causal, window=window)
+        else:
+            out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                            window=window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd_ref(q, k, v, out, lse, dout, causal=ctx.causal,
+                                   window=ctx.window)
+        flash_attention.backward_calls += 1
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None) -> torch.Tensor:
+    _check_window(window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window)
+    if is_cpu(q):
+        return attention_ref(q, k, v, causal=causal, window=window)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)
 
 
 flash_attention.launches = 0
 flash_attention.launches_f32 = 0
 flash_attention.launches_bf16 = 0
+flash_attention.launches_lse = 0
+flash_attention.backward_calls = 0
 
 
 def kernel_attributes(dtype: torch.dtype, head_dim: int) -> dict:

@@ -37,8 +37,20 @@ the JAX package's weights for the seed.
 defended aggregator), ``--clusters``/``--pool-frac`` (the hierarchy) and
 ``--mobility-sigma`` (the pathloss drift) take the reference's semantics:
 with a scenario they override its preset, without one they build the
-reference's configs. ``--shard-clients`` is not ported and raises
-``NotImplementedError`` naming ROADMAP A-10b (one process a card).
+reference's configs.
+
+``--shard-clients`` shards the client axis over a ``clients`` mesh
+(``sharding.make_clients_mesh``; N is ghost-padded to the mesh), one rank
+a card, as ``launch/multipod.py`` starts them: inside a process group the
+caller already made (the tests' gloo ranks) the CLI runs on it; under
+``torchrun`` it joins the given one; otherwise it spawns one rank per
+visible card (one gloo rank with ``--device cpu``) through a ``file://``
+store. Every rank runs ``run_all`` on the mesh; rank 0 alone prints and
+writes the JSON, which equals the unsharded run's (C-17).
+
+    # 4 ranks, one a card
+    PYTHONPATH=src python -m repro_torch.launch.experiments --clients 50 \
+        --rounds 60 --shard-clients
 """
 from __future__ import annotations
 
@@ -47,12 +59,14 @@ import dataclasses
 import itertools
 import json
 import os
+import tempfile
 import time
 import warnings
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import random as prng
 from ..configs import ChannelConfig, FairEnergyConfig, FLConfig
@@ -63,19 +77,16 @@ from ..core.hierarchy import HierarchyConfig
 from ..core.link import LinkConfig
 from ..core.rounds import AsyncConfig
 from ..data import ClientDataset, dirichlet_partition, make_fmnist_like
-from ..devices import resolve_device
+from ..devices import rank_device, resolve_device
 from ..fl import FederatedTrainer
 from ..models import CNN, cnn_loss, init_cnn
 from ..scenarios import available_scenarios, get_scenario
+from ..sharding import make_clients_mesh
 
 DATA_KW = dict(confusion=0.55, label_noise=0.05, noise=0.9)
 DEFAULT_OUT = "experiments/fl_results_torch.json"
 # the JAX package's recorded example: never written by this module
 PROTECTED_OUT = "experiments/fl_example.json"
-
-# build() options of the reference whose trainer parts the port has not,
-# and the ROADMAP item that brings each
-UNPORTED = {"shard_clients": "A-10b"}
 
 
 def build(n_clients=20, rounds=60, n_train=12000, n_test=2000, seed=0,
@@ -83,17 +94,12 @@ def build(n_clients=20, rounds=60, n_train=12000, n_test=2000, seed=0,
           staleness_a=None, fault_rate=None, crash_rate=None, churn=None,
           defense=None, clusters=None, pool_frac=None, mobility_sigma=None,
           max_retx=None, burst_p=None, price_outage=None, bits_grid=None,
-          device=None, **unported):
+          mesh=None, device=None):
     """The experiment's recipe: returns ``(make, fl_cfg)``, where
     ``make(controller, **trainer_kw)`` builds a ``FederatedTrainer`` on
-    the shared data, weights and channel. ``device=None`` is the GPU."""
-    for name, value in unported.items():
-        if name not in UNPORTED:
-            raise TypeError(f"build() got an unexpected argument {name!r}")
-        if value:
-            raise NotImplementedError(
-                f"fl_experiments option {name!r} is not ported yet: "
-                f"ROADMAP {UNPORTED[name]}")
+    the shared data, weights and channel, sharded over ``mesh`` (a
+    ``clients`` mesh) unless ``trainer_kw`` names another.
+    ``device=None`` is the GPU."""
     dev = resolve_device(device)
     cfg = CNN_FULL
     scn = get_scenario(scenario) if isinstance(scenario, str) else scenario
@@ -164,6 +170,7 @@ def build(n_clients=20, rounds=60, n_train=12000, n_test=2000, seed=0,
         return torch.mean((torch.argmax(logits, -1) == tl_t).to(torch.float32))
 
     def make(controller, **kw):
+        kw.setdefault("mesh", mesh)
         return FederatedTrainer(model_loss=cnn_loss(model), model_params=params,
                                 client_datasets=datasets, eval_fn=eval_fn,
                                 fl_cfg=fl_cfg, fe_cfg=fe_cfg, ch_cfg=ch_cfg,
@@ -316,17 +323,72 @@ def _json_safe(obj):
     return obj
 
 
-def main(out=DEFAULT_OUT, **kw):
-    """``run_all(**kw)``, its JSON written to ``out``, and the summary."""
+def main(out=DEFAULT_OUT, write=True, **kw):
+    """``run_all(**kw)``, its JSON written to ``out``, and the summary
+    (``write=False``: neither, as on the ranks other than 0)."""
     if os.path.abspath(out).endswith(os.path.normpath(PROTECTED_OUT)):
         raise ValueError(f"{PROTECTED_OUT} is the JAX package's recorded "
                          "example; write elsewhere")
     res = run_all(**kw)
-    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
-    with open(out, "w") as f:
-        json.dump(_json_safe(res), f, indent=1)
-    summarize(res)
+    if write:
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(_json_safe(res), f, indent=1)
+        summarize(res)
     return res
+
+
+def _sharded_main(kw: dict, dev: torch.device):
+    """``main`` on a ``clients`` mesh over the current process group, this
+    rank on ``dev``."""
+    rank = dist.get_rank()
+    if rank == 0:
+        print(f"sharding the client axis over {dist.get_world_size()} ranks")
+    return main(**dict(kw, device=dev, mesh=make_clients_mesh(device=dev),
+                       write=rank == 0,
+                       verbose=rank == 0 and kw.get("verbose", True)))
+
+
+def _rank(rank: int, world: int, kw: dict, init: str,
+          local_rank: Optional[int] = None):
+    """One rank: its card (``local_rank``, by default ``rank``), a process
+    group through ``init``, ``main`` on the mesh, the group torn down."""
+    dev = rank_device(kw.get("device"), rank if local_rank is None else local_rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=init, rank=rank, world_size=world)
+    try:
+        return _sharded_main(kw, dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded(**kw):
+    """``--shard-clients``: run ``main`` with one rank a card. Inside a
+    process group the caller made, on it, each rank on its current card
+    (returns this rank's results); under ``torchrun``, in the group it
+    describes; otherwise on one spawned rank per visible card (one gloo
+    rank on the CPU), returning rank 0's JSON as written."""
+    if dist.is_initialized():
+        # the caller has set this rank's card as the current device
+        dev = resolve_device(kw.get("device"))
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return _sharded_main(kw, dev)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:     # torchrun
+        return _rank(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+                     kw, "env://", int(os.environ.get("LOCAL_RANK", 0)))
+    dev = resolve_device(kw.get("device"))
+    world = torch.cuda.device_count() if dev.type == "cuda" else 1
+    with tempfile.TemporaryDirectory() as tmp:
+        init = f"file://{os.path.join(tmp, 'store')}"
+        if world == 1:
+            return _rank(0, 1, kw, init)
+        torch.multiprocessing.spawn(_rank, args=(world, kw, init),
+                                    nprocs=world, join=True)
+    with open(kw.get("out", DEFAULT_OUT)) as f:
+        return json.load(f)
 
 
 def summarize(res):
@@ -455,8 +517,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(core.channel.MobilityConfig); overrides the "
                          "scenario preset (0 disables)")
     ap.add_argument("--shard-clients", action="store_true",
-                    help="not ported yet (ROADMAP A-10b, one process a "
-                         "card): raises")
+                    help="shard the client axis over a `clients` mesh, one "
+                         "rank a visible card (or the ranks of the process "
+                         "group it runs in); N is ghost-padded to the mesh")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' for the CPU)")
     ap.add_argument("--out", default=DEFAULT_OUT)
@@ -477,15 +540,17 @@ def cli(argv=None) -> dict:
               fault_rate=a.fault_rate, crash_rate=a.crash_rate,
               churn=a.churn, defense=a.defense, clusters=a.clusters,
               pool_frac=a.pool_frac, mobility_sigma=a.mobility_sigma,
-              shard_clients=a.shard_clients, max_retx=a.max_retx, burst_p=a.burst_p,
+              max_retx=a.max_retx, burst_p=a.burst_p,
               price_outage=a.price_outage,
               bits_grid=([float(b) for b in a.bits_grid.split(",")]
                          if a.bits_grid else None),
               sweep_seeds=list(range(a.seeds)) if a.seeds else None,
               config_sweep=config_sweep, device=a.device)
     if a.paper:
-        return main(n_clients=50, rounds=150, **kw)
-    return main(n_clients=a.clients, rounds=a.rounds, **kw)
+        kw.update(n_clients=50, rounds=150)
+    else:
+        kw.update(n_clients=a.clients, rounds=a.rounds)
+    return sharded(**kw) if a.shard_clients else main(**kw)
 
 
 if __name__ == "__main__":

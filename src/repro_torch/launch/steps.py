@@ -1,16 +1,27 @@
-"""Model-agnostic step builders of the serving path.
+"""Model-agnostic step functions and meta-device input specs.
 
+  train_step  (model, opt_state, batch)  -> (model, opt_state, loss)
   prefill_step(model, batch)             -> (last logits, decode cache)
   serve_step  (model, cache, token, pos) -> (logits, cache)
 
-Ports of ``repro.launch.steps`` for the CNN and the dense LM. The train
-step, ``input_specs`` and the encoder-decoder (whisper) steps wait for
-ROADMAP A-19.
+Ports of ``repro.launch.steps`` for the CNN and the dense LM. The model is
+an ``nn.Module`` whose fp32 parameters the train step updates in place
+(AdamW, ``optim.adamw``); the optimizer state is a dict over the
+parameters' names. ``input_specs``, ``params_shape`` and ``opt_shape``
+return tensors on the ``meta`` device (shapes and types, no storage) where
+the JAX package returns ``ShapeDtypeStruct``s. The encoder-decoder
+(whisper) and VLM steps wait for their families (ROADMAP A-19).
 """
 from __future__ import annotations
 
+import torch
+
+from ..configs import SHAPES, get_config
 from ..models import cnn
 from ..models import transformer as tfm
+from ..optim import adamw_init, adamw_update
+
+META = torch.device("meta")
 
 
 def _not_ported(cfg, what: str):
@@ -28,6 +39,14 @@ def cache_len_for(cfg, shape) -> int:
     return shape.seq_len
 
 
+def loss_for(cfg):
+    """``loss(model, batch) -> (loss, metrics)``."""
+    if cfg.family == "cnn":
+        return lambda model, b: cnn.cnn_loss(model)(dict(model.named_parameters()), b)
+    tfm.check_family(cfg)
+    return lambda model, b: tfm.lm_loss(model, b, cfg)
+
+
 def init_for(cfg):
     """``init(generator) -> model``, its weights drawn from ``generator``
     on the generator's device."""
@@ -35,6 +54,77 @@ def init_for(cfg):
         return lambda generator: cnn.CNN(cfg, generator)
     tfm.check_family(cfg)
     return lambda generator: tfm.LM(cfg, generator)
+
+
+def params_shape(cfg) -> dict:
+    """The model's parameters (name -> tensor) on the meta device."""
+    with META:
+        model = init_for(cfg)(None)
+    return dict(model.named_parameters())
+
+
+def opt_shape(p_sds: dict, moment_dtype=torch.float32) -> dict:
+    """The AdamW state of ``p_sds`` on their (meta) device."""
+    return adamw_init(p_sds, moment_dtype=moment_dtype)
+
+
+# ----------------------------------------------------------- input specs ----
+def input_specs(arch: str, shape_name: str, cfg=None) -> dict:
+    """Meta-device stand-ins for the step function's data arguments."""
+    cfg = cfg or get_config(arch)
+    shape = SHAPES[shape_name]
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.family in ("audio", "vlm"):
+        _not_ported(cfg, "input_specs")
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        return {"tokens": torch.empty((B, S), dtype=i32, device=META)}
+    # decode: one token against a seq_len-deep cache
+    cache = tfm.init_lm_cache(cfg, B, cache_len_for(cfg, shape), device=META)
+    return {"token": torch.empty((B, 1), dtype=i32, device=META),
+            "cache": cache, "pos": torch.empty((), dtype=i32, device=META)}
+
+
+# ------------------------------------------------------------ step fns ----
+def build_train_step(cfg, *, lr: float = 3e-4, microbatches: int = 1):
+    """AdamW train step. With ``microbatches`` M > 1 the batch's rows split
+    into M consecutive slices, each slice's loss back-propagated in turn
+    and the gradients summed in fp32 (the parameters' ``.grad``, the JAX
+    package's fp32 accumulator), then divided by M: the activations of one
+    slice at a time. The loss returned is the mean of the slices'."""
+    loss_fn = loss_for(cfg)
+    M = microbatches
+
+    def train_step(model, opt_state, batch):
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        if M == 1:
+            loss, _ = loss_fn(model, batch)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            loss = None
+            for i in range(M):
+                mb = {k: t.reshape((M, t.shape[0] // M) + tuple(t.shape[1:]))[i]
+                      for k, t in batch.items()}
+                li, _ = loss_fn(model, mb)
+                li.backward()
+                loss = li.detach() if loss is None else loss + li.detach()
+            # true divisions (a CUDA tensor divided by a Python scalar is
+            # multiplied by its reciprocal)
+            m_t = torch.tensor(float(M), device=loss.device)
+            for p in params.values():
+                if p.grad is not None:
+                    p.grad = torch.div(p.grad, m_t)
+            loss = torch.div(loss, m_t)
+        grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
+                 for k, p in params.items()}
+        adamw_update(grads, opt_state, params, lr)
+        for p in params.values():
+            p.grad = None
+        return model, opt_state, loss
+    return train_step
 
 
 def build_prefill_step(cfg, shape):

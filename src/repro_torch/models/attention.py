@@ -9,7 +9,10 @@ A port of ``repro.models.attention`` for self-attention, in the JAX layout
   ``_FLASH_THRESHOLD`` take the flash branch, which is
   ``kernels.flash_attention`` (the CUDA kernel for CUDA tensors, its plain
   version on the CPU) where the JAX package runs its chunked online-softmax
-  jnp scan. The branch rule is the JAX package's.
+  jnp scan. Under grad the wrapper goes through its autograd Function (the
+  kernel's forward with its log-sum-exp, the JAX package's blockwise
+  recompute backward), so the gradient reaches q, k and v. The branch rule
+  is the JAX package's.
 * ``attention_decode`` — one new token against a ring KV cache of
   ``cache_len`` slots with per-slot absolute positions (``slot_pos``),
   plain PyTorch. The cache tensors are updated in place (the JAX package

@@ -5,14 +5,18 @@ qwen2.5-32b, glm4-9b, qwen2-72b). The LM is an ``nn.Module`` whose
 ``layers`` is a list of blocks where the JAX package stacks them for
 ``lax.scan``; ``repro_torch.convert.lm_params_from_numpy`` unstacks the
 JAX package's leaves onto it. The moe, ssm, hybrid, audio and vlm families
-raise ``NotImplementedError`` (ROADMAP A-19), as do ``lm_loss`` and
-training.
+raise ``NotImplementedError`` (ROADMAP A-19).
 
-Parameters are fp32 masters; activations run in ``cfg.dtype``.
-``for_compute(model, cfg)`` returns a serving copy whose dense weights and
-embedding table are already in that type (the same bits as the JAX
-package's per-call cast), with the norm scales and the head kept fp32.
-Caches are ``{"layers": [per-layer ring KV cache]}``.
+Parameters are fp32 masters; activations run in ``cfg.dtype``, each dense
+weight and the embedding table cast per call, as the JAX package's
+``dense``/``embed`` do, so training's gradients land on the fp32
+parameters. ``for_compute(model, cfg)`` returns a serving copy whose dense
+weights and embedding table are already in that type (the same bits as the
+per-call cast), with the norm scales and the head kept fp32. With
+``cfg.remat`` each block of a forward under grad runs under
+``torch.utils.checkpoint`` (non-reentrant), as the JAX package's
+``jax.checkpoint`` of the scanned block: the backward recomputes it, flash
+attention included. Caches are ``{"layers": [per-layer ring KV cache]}``.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from .layers import RMSNorm, SwiGLU, rmsnorm, swiglu
@@ -99,10 +104,34 @@ def lm_forward(model: LM, tokens: torch.Tensor, cfg, *,
     x = model.embed(tokens, dtype_of(cfg))
     if window is None:
         window = cfg.sliding_window
+    remat = cfg.remat and torch.is_grad_enabled()
     for layer in model.layers:
-        x = _dense_block(layer, x, cfg, window)
+        if remat:
+            x = checkpoint(_dense_block, layer, x, cfg, window,
+                           use_reentrant=False)
+        else:
+            x = _dense_block(layer, x, cfg, window)
     x = rmsnorm(model.ln_f.scale, x, cfg.norm_eps)
     return unembed(model.head(), x), torch.zeros((), device=x.device)
+
+
+def lm_loss(model: LM, batch: dict, cfg) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy. batch: {"tokens": [B,S]} (+ optional
+    "labels" [B,S], whose entries < 0 are masked out). Without labels the
+    labels are ``tokens[:, 1:]`` against the logits of positions 0..S-2.
+    Returns (loss + aux, {"xent": loss, "aux": aux})."""
+    tokens = batch["tokens"]
+    logits, aux = lm_forward(model, tokens, cfg)
+    labels = batch.get("labels")
+    if labels is None:
+        labels = tokens[:, 1:]
+        logits = logits[:, :-1]
+    mask = (labels >= 0).to(torch.float32)
+    lab = torch.clamp(labels, min=0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return loss + aux, {"xent": loss, "aux": aux}
 
 
 def lm_prefill(model: LM, tokens: torch.Tensor, cfg, *, cache_len: int,

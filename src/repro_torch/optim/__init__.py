@@ -1,12 +1,14 @@
 """Functional optimizers on dicts of tensors."""
+from .adamw import adamw_init, adamw_update
 from .sgd import sgd_init, sgd_update
 
-__all__ = ["sgd_init", "sgd_update", "make_optimizer"]
+__all__ = ["adamw_init", "adamw_update", "sgd_init", "sgd_update",
+           "make_optimizer"]
 
 
 def make_optimizer(name: str, **kw):
     """Returns (init_fn(params) -> state, update_fn(grads, state, params, lr)
-    -> (new_params, new_state)). AdamW arrives with the LLM zoo's port."""
+    -> (new_params, new_state))."""
     if name == "sgd":
         momentum = kw.get("momentum", 0.0)
         return (lambda p: sgd_init(p, momentum=momentum),

@@ -222,6 +222,33 @@ def sum_xla(v: torch.Tensor) -> torch.Tensor:
     return sum_xla(acc)
 
 
+def sum_fused_xla(v: torch.Tensor) -> torch.Tensor:
+    """The sum of a 1-D float32 vector that XLA:CPU fuses into the loop
+    computing its terms (the GSS oracle's masked bandwidth sum): from 16
+    to 32 elements LLVM vectorizes that loop 8 lanes wide, unrolled twice,
+    so lane j of two accumulators adds elements j + 16 k and j + 8 + 16 k
+    in turn, the two accumulators are added lane by lane, the 8 lanes
+    halved to 4, 2 and 1, and the n mod 16 elements left added one after
+    another. Below 16 elements the loop is not vectorized (``sum_xla``);
+    above 32 XLA sums through a reduce window first (``sum_xla``)."""
+    n = v.shape[0]
+    if n < 16 or n > _REDUCE_WINDOW:
+        return sum_xla(v)
+    m = n // 16 * 16
+    a0, a1 = v[0:8], v[8:16]
+    for k in range(16, m, 16):
+        a0 = a0 + v[k:k + 8]
+        a1 = a1 + v[k + 8:k + 16]
+    acc = a0 + a1
+    while acc.shape[0] > 1:
+        half = acc.shape[0] // 2
+        acc = acc[:half] + acc[half:]
+    r = acc[0]
+    for i in range(m, n):
+        r = r + v[i]
+    return r
+
+
 # Cephes expf as XLA:CPU emits it: the clamp, log2(e), the two parts of
 # ln 2 and the polynomial, highest power first
 _EXP_LO = _c(0xC055F33340000000)               # -88.37626

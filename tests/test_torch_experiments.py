@@ -118,9 +118,10 @@ def test_sweep_of_one_strategy_matches(runs):
 def test_cli_writes_json_and_refuses_unported_options(tmp_path, monkeypatch,
                                                       capsys):
     """The CLI end to end at a tiny size (4 clients, 3 rounds, the smoke
-    CNN), the config lanes crossed, NaN written as null; options of
-    unported parts raise naming their item, and the reference's recorded
-    example is never overwritten."""
+    CNN), the config lanes crossed, NaN written as null; with
+    ``--shard-clients`` (A-10b, no longer refused) handed to the sharded
+    runner; the reference's configs built from the options, and the
+    reference's recorded example never overwritten."""
     monkeypatch.setattr(tex, "CNN_FULL", T_SMOKE)
     out = tmp_path / "res.json"
     res = tex.cli(["--device", "cpu", "--clients", "4", "--rounds", "3",
@@ -133,9 +134,18 @@ def test_cli_writes_json_and_refuses_unported_options(tmp_path, monkeypatch,
         {"eta": pytest.approx(1e-3), "rho": pytest.approx(0.6)},
         {"eta": pytest.approx(2e-3), "rho": pytest.approx(0.6)}]
     assert res["k"] >= 1 and "FL results" in capsys.readouterr().out
-    for flags, item in ((["--shard-clients"], "A-10b"),):
-        with pytest.raises(NotImplementedError, match=item):
-            tex.cli(["--device", "cpu", "--out", str(out)] + flags)
+    # --shard-clients (A-10b) no longer raises: the CLI hands main's
+    # arguments to the sharded runner (its JSON is held to the unsharded
+    # CLI's on 2 gloo ranks in test_torch_experiments_sharded.py)
+    seen = []
+    with monkeypatch.context() as m:
+        m.setattr(tex, "sharded", lambda **kw: seen.append(kw) or {})
+        m.setattr(tex, "main", lambda **kw: seen.append(("main", kw)))
+        tex.cli(["--device", "cpu", "--clients", "4", "--out", str(out),
+                 "--shard-clients"])
+        tex.cli(["--device", "cpu", "--clients", "4", "--out", str(out)])
+    assert seen[0] == seen[1][1] and seen[1][0] == "main"
+    assert seen[0]["n_clients"] == 4 and seen[0]["out"] == str(out)
     # the timed-round, fault, hierarchy and mobility options build the
     # reference's configs (a scenario's mobility preset is overridden)
     for kw, attr, want in ((dict(deadline=1.0), "async_cfg",

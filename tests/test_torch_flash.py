@@ -25,7 +25,7 @@ import torch
 from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
-from repro_torch.kernels.flash_attention.ops import refuse_grad
+from repro_torch.kernels.flash_attention import ops
 
 TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 
@@ -109,23 +109,28 @@ def test_wrapper_rejects_a_window_below_one():
 
 
 def test_kernel_calls_under_grad_raise_and_the_plain_version_keeps_autograd():
-    """C-14: the CUDA kernels compute the forward only, so on CUDA tensors
-    the wrapper raises (``refuse_grad``) while grad mode is on and an input
-    requires grad; the CPU plain version still back-propagates."""
+    """C-14 (closed): a call under grad no longer raises on any device; it
+    goes through the wrapper's ``FlashAttention`` (the kernel, or on the CPU
+    ``flash_fwd_ref``, forward; ``flash_bwd_ref`` backward), so the
+    gradient reaches q, k and v. Inputs that need no grad, or grad mode
+    off, keep the serve path: no graph, no backward call."""
     _, (q, k, v) = _inputs(8, 1, 16, 2, 1, 32)
-    q.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="ROADMAP C-14"):
-        refuse_grad(q, k, v)
-    with pytest.raises(RuntimeError, match="no backward"):
-        refuse_grad(q.detach(), k, v.requires_grad_(True))
-    v.requires_grad_(False)
+    calls = ops.flash_attention.backward_calls
     with torch.no_grad():
-        refuse_grad(q, k, v)
-    refuse_grad(q.detach(), k, v)
-    out = flash_attention(q, k, v, causal=True)
+        assert flash_attention(q.requires_grad_(True), k, v).grad_fn is None
+    assert flash_attention(q.detach(), k, v).grad_fn is None
+    out = flash_attention(q, k, v.requires_grad_(True), causal=True)
+    assert "FlashAttention" in type(out.grad_fn).__name__
     out.square().sum().backward()
-    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
-    assert float(q.grad.abs().sum()) > 0
+    assert ops.flash_attention.backward_calls == calls + 1
+    for t in (q, v):
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+        assert float(t.grad.abs().sum()) > 0
+    assert k.grad is None
+    qf, vf = (t.detach().clone().requires_grad_(True) for t in (q, v))
+    attention_ref(qf, k, vf, causal=True).square().sum().backward()
+    np.testing.assert_allclose(q.grad.numpy(), qf.grad.numpy(), atol=1e-6)
+    np.testing.assert_allclose(v.grad.numpy(), vf.grad.numpy(), atol=1e-6)
 
 
 def test_wrapper_rejects_other_devices():

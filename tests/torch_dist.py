@@ -233,3 +233,14 @@ def hierarchy_mesh_body(rank, params, hier_kw, out_dir):
     _save(out_dir, rank, **history_arrays(tr), pools=np.stack(pools),
           assign=tr.ctrl_state.assign.numpy(),
           mesh_shape=np.array(tuple(mesh.shape)))
+
+
+def experiments_cli_body(rank, argv, out_dir):
+    """The experiment CLI with ``--shard-clients`` inside this gloo group,
+    on the smoke CNN; every rank saves the results it returns."""
+    from repro_torch.configs.fmnist_cnn import SMOKE
+    from repro_torch.launch import experiments
+    experiments.CNN_FULL = SMOKE
+    res = experiments.cli(argv + ["--shard-clients"])
+    _save(out_dir, rank, k=np.array(res["k"]),
+          energy=np.array(res["strategies"]["fairenergy"]["energy_per_round_J"]))
