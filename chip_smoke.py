@@ -33,7 +33,10 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    bf16 on the tensor cores and
    fp32 on the register-tiled SIMT kernel (the serve path's [4, 2048, 32|4, 64] bf16
    causal, a 256 window, fp32, a ragged S = 1000, D = 32 and D = 128 in
-   both types, and phase 11's [4, 4096, 32|4, 64]), each case also launched
+   both types, phase 11's [4, 4096, 32|4, 64], and head dims 80 and 96:
+   zamba2's [4, 2048, 32|32, 80] and phi-3-vision's D at [2, 2048, 32|32, 96], causal, in both
+   types, each timed beside its bound and SDPA, a 512 window at D = 80, a
+   ragged S = 1000 at D = 96), each case also launched
    with its log-sum-exp output (out unchanged, lse within 1e-5 in fp32 and
    1e-2 in bf16 of ``flash_fwd_ref``'s), and at phase 11's shape the
    autograd Function's gradients (the kernel forward, ``flash_bwd_ref``
@@ -179,7 +182,29 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    and the CPU from the same weights: fp32 first-step gradients within
    1e-5 of their scale, losses rtol 1e-5, params within 1e-5 of their
    scale but for at most 0.1% of a leaf (AdamW's near-zero-gradient
-   elements), which stay within 3 lr; bf16 losses within 2e-2.
+   elements), which stay within 3 lr; bf16 losses within 2e-2;
+12. the moe, ssm and hybrid LM families served through ``serve.generate``
+   at full width, bf16, seeded random weights cast to the serving copy in
+   place (``for_compute(..., inplace=True)``: qwen2-moe's fp32 masters and
+   copy would not fit together), each freed before the next:
+   qwen2-moe-a2.7b (24 layers, 60 experts top-4 + 4 shared), mixtral-8x22b
+   at 4 of its 56 layers (1 prompt of 8,192 ids, 16 tokens: its 4,096
+   window bites on the flash branch), rwkv6-1.6b and zamba2-2.7b (54
+   Mamba2 layers, the shared block every 6, head_dim 80); otherwise 4
+   prompts of 2,048 ids and 32 tokens. Each: set-up s, prefill ms, decode
+   ms a step, tokens/s, peak memory, launches (the bf16 flash kernel once
+   per attention layer of the prefill: 24 / 4 / 0 / 9, none in a decode
+   step, no other kernel), ids in the vocabulary, finite logits, and the
+   first decode step against ``lm_forward`` (5% of the logits' scale; the
+   MoE at capacity 8 with the token's routing pinned to the decode's,
+   the ring at mixtral's window); ``--profile`` adds each one's prefill
+   and decode-step breakdown and idle share;
+12b. each family's smoke model (qwen2-moe, rwkv6, zamba2 at head_dim 80),
+   prompt 2,048, card against CPU in fp32 and bf16 as phase 6: equal ids,
+   logits within phase 6's gates, and the MoE's experts and dispatch
+   slots equal on both devices but for routing ties (fp32: a gap under
+   1e-5; bf16: under 5% of the larger probability), whose count is
+   printed.
 
 ``--cards K`` runs phase 7 alone across K cards (one NCCL rank a card,
 after the build): the exchanges on a (2, K/2, 1) mesh against the pod mean
@@ -791,7 +816,27 @@ FLASH_CASES = (
     # phase 11's call: train_4k's sequence, a microbatch of 4
     (4, 4096, 32, 4, 64, torch.bfloat16, True, None, None),
     (4, 4096, 32, 4, 64, torch.float32, True, None, None),
+    # head dims 80 (zamba2's serve call, phase 12 (d)) and 96 (phi-3-vision):
+    # D = 80 computes on 96 columns, the padding zero-filled
+    (4, 2048, 32, 32, 80, torch.bfloat16, True, None, None),
+    (4, 2048, 32, 32, 80, torch.float32, True, None, None),
+    (2, 2048, 32, 32, 96, torch.bfloat16, True, None, None),
+    (2, 2048, 32, 32, 96, torch.float32, True, None, None),
+    (2, 2048, 32, 32, 80, torch.bfloat16, True, 512, None),
+    (2, 2048, 32, 32, 80, torch.float32, True, 512, None),
+    (2, 1000, 32, 8, 96, torch.bfloat16, True, None, None),
+    (2, 1000, 32, 8, 96, torch.float32, True, None, None),
+    # the MoE prefills of phase 12 at D = 128 (key tiles of 64 in bf16):
+    # qwen2-moe's call, and mixtral's under its 4,096-token window; then a
+    # window that ends inside a key tile
+    (4, 2048, 16, 16, 128, torch.bfloat16, True, None, None),
+    (4, 2048, 16, 16, 128, torch.float32, True, None, None),
+    (1, 8192, 48, 8, 128, torch.bfloat16, True, 4096, None),
+    (1, 8192, 48, 8, 128, torch.float32, True, 4096, None),
+    (1, 300, 8, 2, 128, torch.bfloat16, True, 77, None),
 )
+# the head-dim cases timed at their serve shapes (B, S, H, KV, D)
+FLASH_HEAD_DIMS = {80: (4, 2048, 32, 32, 80), 96: (2, 2048, 32, 32, 96)}
 FLASH_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # the kernels' log-sum-exp against flash_fwd_ref's: both take the max of
 # the same fp32 scores and the log of an fp32 sum (the bf16 kernel's terms
@@ -811,8 +856,6 @@ def check_flash(dev) -> list[dict]:
     kernel); each timed at the serve path's call (the fp32 kernel on the
     same values in fp32), beside SDPA on the same inputs. Returns the
     entries of the bf16 (tensor-core) and the fp32 (SIMT) kernel."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels.flash_attention import ops, ref
     log(json.dumps({"flash_instances": {
         f"{str(dt)[6:]}/D{d}": ops.kernel_attributes(dt, d)
@@ -861,31 +904,55 @@ def check_flash(dev) -> list[dict]:
              PEAK_BF16_S),
             (torch.float32, "flash_attention_f32", "src/repro_torch/csrc/flash_attention.cu",
              PEAK_FP32_S)):
-        q, k, v = (t.to(dt) for t in timed)
-        B, S, H, D = q.shape
-        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True), 20)
-        ms_lse = cuda_ms(lambda: ops.flash_attention_cuda(
-            q, k, v, causal=True, with_lse=True), 20)
-        plain = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), 3, warmup=1)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        library = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-        # QK^T and PV over the causal pairs, S(S+1)/2 per (batch, head), 2 D
-        # operations each; q, k, v read and o written once
-        n_ops = 2 * 2 * B * H * D * S * (S + 1) / 2
-        n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-        b_ms, b_by = bound(n_bytes, n_ops, peak)
+        t = time_flash(*(x.to(dt) for x in timed), peak)
         entry = dict(name=name, route="cuda", source=source,
                      replaces="src/repro/kernels/flash_attention/kernel.py:25",
-                     max_abs_err=err[dt], ms=ms, plain_ms=plain, bound_ms=b_ms,
-                     bound_by=b_by, library_ms=library, ms_with_lse=ms_lse,
+                     max_abs_err=err[dt], ms=t["ms"], plain_ms=t["plain_ms"],
+                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                     library_ms=t["library_ms"], ms_with_lse=t["ms_with_lse"],
                      lse_max_abs_err=lse_err[dt])
         entry.update(check_flash_grad(dev, dt, peak))
+        for D, (B, S, H, KV, _) in FLASH_HEAD_DIMS.items():
+            gen = torch.Generator(device=dev).manual_seed(D)
+            entry[f"head_dim_{D}"] = time_flash(
+                *(torch.randn(B, S, n, D, device=dev, generator=gen).to(dt)
+                  for n in (H, KV, KV)), peak)
         out.append(entry)
     log(json.dumps({"flash_serve_shape_ms": {e["name"]: e["ms"] for e in out},
                     "with_lse_ms": {e["name"]: e["ms_with_lse"] for e in out},
                     "sdpa_ms": {e["name"]: e["library_ms"] for e in out}}))
     return out
+
+
+def flash_fwd_bound(q: torch.Tensor, k: torch.Tensor, peak: float) -> tuple[float, str]:
+    """A causal forward's least time: QK^T and PV over the causal pairs,
+    S(S+1)/2 per (batch, head), 2 D operations each (the D real columns);
+    q, k, v read and o written once."""
+    B, S, H, D = q.shape
+    n_ops = 2 * 2 * B * H * D * S * (S + 1) / 2
+    return bound(q.element_size() * (2 * q.numel() + 2 * k.numel()), n_ops, peak)
+
+
+def time_flash(q, k, v, peak) -> dict:
+    """The kernel of q's type at one causal call: its ms with and without
+    the lse output (CUDA events), the plain version's and SDPA's on the
+    same inputs, and its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+    ms = cuda_ms(lambda: ops.flash_attention_cuda(q, k, v, causal=True), 20)
+    ms_lse = cuda_ms(lambda: ops.flash_attention_cuda(
+        q, k, v, causal=True, with_lse=True), 20)
+    plain = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), 3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    b_ms, b_by = flash_fwd_bound(q, k, peak)
+    res = {"shape": [*q.shape[:3], k.shape[2], q.shape[3]], "ms": ms,
+           "ms_with_lse": ms_lse, "plain_ms": plain, "library_ms": library,
+           "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms}
+    log(json.dumps({"flash_timed": dict(res, dtype=str(q.dtype))}))
+    return res
 
 
 def flash_bwd_bound(B: int, S: int, H: int, KV: int, D: int, esize: int
@@ -940,8 +1007,7 @@ def check_flash_grad(dev, dt, peak) -> dict:
     o_k, lse_k = ops.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
     bwd_ms = cuda_ms(lambda: ref.flash_bwd_ref(q, k, v, o_k, lse_k, dout,
                                                causal=True), 3, warmup=1)
-    n_ops = 2 * 2 * B * H * D * S * (S + 1) / 2
-    fwd_bound = bound(q.element_size() * (2 * q.numel() + 2 * k.numel()), n_ops, peak)
+    fwd_bound = flash_fwd_bound(q, k, peak)
     bwd_bound = flash_bwd_bound(B, S, H, KV, D, q.element_size())
     res = {"train_shape": [B, S, H, KV, D], "train_shape_ms": ms,
            "train_shape_ms_with_lse": ms_lse, "train_shape_bound_ms": fwd_bound[0],
@@ -2197,15 +2263,17 @@ def serve_path(dev, profile: bool = False) -> dict:
     return summary
 
 
-def profile_serve(model, cfg, dev):
+def profile_serve(model, cfg, dev, batch=None, prompt_len=None, gen=None):
     """torch.profiler over one more prefill and one decode step at the serve
-    shapes: device time by kernel and the device's busy share of each."""
+    shapes (phase 5's unless given): device time by kernel and the device's
+    busy share of each."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import transformer as tfm
-    prompt = torch.randint(0, cfg.vocab_size, (SERVE["batch"], SERVE["prompt_len"]),
-                           device=dev, generator=torch.Generator(device=dev).manual_seed(9))
-    P, G = SERVE["prompt_len"], SERVE["gen"]
+    B = batch or SERVE["batch"]
+    P, G = prompt_len or SERVE["prompt_len"], gen or SERVE["gen"]
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(9))
     with torch.no_grad():
         _, cache = tfm.lm_prefill(model, prompt, cfg, cache_len=P + G)
         tok = prompt[:, -1:]
@@ -2225,7 +2293,8 @@ def profile_serve(model, cfg, dev):
                       and "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
             busy_us = sum(e.self_device_time_total for e in events)
             top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
-            log(json.dumps({"profile_serve": label, "wall_ms": wall * 1e3,
+            log(json.dumps({"profile_serve": label, "model": cfg.name,
+                            "wall_ms": wall * 1e3,
                             "device_busy_ms": busy_us / 1e3,
                             "device_idle_share": 1.0 - busy_us / 1e3 / (wall * 1e3),
                             "kernel_launches": sum(e.count for e in events),
@@ -2389,6 +2458,422 @@ def serve_card_against_cpu(dev, dtype: str = "float32") -> dict:
            "steps_compared": n_same, "logits_max_abs": err, "logit_scale": scale,
            "logits_atol": atol, "flash_launches": n_kernel,
            "ids_cuda": got.ids.tolist(), "ids_cpu": want.ids.tolist()}
+    log(json.dumps(res))
+    return res
+
+
+# ----------------------------------------------------------- phase 12 ----
+# arch -> (config cut, batch, prompt, new tokens, flash launches a prefill):
+# full width; mixtral's 56 layers (282 GB in bf16) cut to 4 (~20 GB), one
+# prompt of 8,192 ids so that its 4,096-token window bites on the flash
+# branch
+FAMILIES = {
+    "qwen2-moe-a2.7b": ({}, 4, 2048, 32, 24),
+    "mixtral-8x22b": ({"n_layers": 4}, 1, 8192, 16, 4),
+    "rwkv6-1.6b": ({}, 4, 2048, 32, 0),
+    "zamba2-2.7b": ({}, 4, 2048, 32, 9),
+}
+
+
+def _chunk_unit(cfg) -> int:
+    """The forward's sequence must be a multiple of this: the MoE group,
+    RWKV6's chunk (128) or the Mamba2 chunk."""
+    return {"moe": cfg.moe_group, "ssm": 128, "hybrid": cfg.ssm_chunk}.get(cfg.family, 1)
+
+
+def serve_family(dev, arch: str, profile: bool = False) -> dict:
+    """Phase 12, one family: ``serve.generate`` at full width (the serving
+    copy cast in place from the seeded fp32 masters, so both are never on
+    the card together), warmed up, then timed with the counts zeroed: the
+    flash kernel once per attention layer of the prefill, never in a
+    decode step, no other kernel; ids in the vocabulary, finite logits;
+    the first decode step against ``lm_forward`` (SERVE_REL_TOL of its
+    scale)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import transformer as tfm
+
+    cut, B, P, G, n_flash = FAMILIES[arch]
+    cfg = get_config(arch).replace(**cut)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = tfm.for_compute(steps.init_for(cfg)(torch.Generator(device=dev).manual_seed(0)),
+                            cfg, inplace=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 12: {cfg.name} ({cfg.family}) {cfg.n_layers} layers, "
+        f"{n_params / 1e9:.3f}B params, set-up {setup_s:.1f} s")
+    kw = dict(prompt_len=P, batch=B, temperature=1.0, seed=0, device=dev)
+    serve.generate(cfg, model, gen=2, **kw)                          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fns = counters()
+    for fn, attr in fns.values():
+        setattr(fn, attr, 0)
+    out = serve.generate(cfg, model, gen=G, **kw)
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in fns.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches["flash_attention"] != n_flash:
+        raise AssertionError(f"phase 12 {arch}: the bf16 flash kernel launched "
+                             f"{launches['flash_attention']} times, not {n_flash}")
+    others = {n: c for n, c in launches.items() if n != "flash_attention" and c}
+    if others:
+        raise AssertionError(f"phase 12 {arch}: other kernels launched: {others}")
+    if tuple(out.ids.shape) != (B, 1 + G):
+        raise AssertionError(f"phase 12 {arch}: ids {tuple(out.ids.shape)}")
+    if not (0 <= int(out.ids.min()) and int(out.ids.max()) < cfg.vocab_size):
+        raise AssertionError(f"phase 12 {arch}: sampled ids outside the vocabulary")
+    if not all(bool(torch.isfinite(lg).all())
+               for lg in [out.first_logits, *out.decode_logits]):
+        raise AssertionError(f"phase 12 {arch}: non-finite logits")
+
+    # attribution, and the first decode step against the full forward. The
+    # MoE's forward routes position P as the decode step did
+    # (``pinned_routing``): in bf16 the two attention paths round apart,
+    # which moves the router's probabilities by up to ~10% of themselves,
+    # and among qwen2-moe's 60 experts the 4th and 5th often lie closer
+    # than that, so an unpinned forward routes some layers' token at P to
+    # another expert. Each routing the pin changes must be such a tie of
+    # the forward's own probabilities, and none may move by PIN_TIE
+    # (``routing_apart``). The MoE runs both at capacity 8, the JAX package's own recipe
+    # (tests/test_decode.py): at the default capacity the forward's groups
+    # of 512 tokens drop tokens that a decode step (a group of one) keeps,
+    # so the two differ by design. The forward runs over the prompt, the
+    # first sampled token and filler ids up to a whole number of groups or
+    # chunks: causal attention and recurrences, and a dispatch that drops
+    # nothing, leave position P unchanged by what follows it.
+    # A decode step attends to every slot of its ring, so the ring holds a
+    # sliding window's keys only when it has the window's size, as
+    # steps.cache_len_for sizes it (generate's ring of P + G slots, the
+    # reference's serve flow, decodes mixtral over every cached position).
+    chk = cfg.replace(capacity_factor=8.0) if cfg.family == "moe" else cfg
+    ring = min(P + G, cfg.sliding_window or P + G)
+    with torch.no_grad():
+        flash_attention.launches = 0
+        _, cache = tfm.lm_prefill(model, out.prompt.to(dev), chk, cache_len=ring)
+        n_prefill = flash_attention.launches
+        flash_attention.launches = 0
+        with recorded_routing() as rec_dec:
+            step, _ = tfm.lm_decode(model, out.ids[:, :1].to(dev), cache, P, chk)
+        n_decode = flash_attention.launches
+        del cache
+        if (n_prefill, n_decode) != (n_flash, 0):
+            raise AssertionError(f"phase 12 {arch}: flash launches prefill "
+                                 f"{n_prefill}, decode {n_decode}")
+        unit = _chunk_unit(cfg)
+        n = -(-(P + 1) // unit) * unit
+        toks = torch.cat([out.prompt, out.ids[:, :1],
+                          torch.zeros(B, n - P - 1, dtype=out.prompt.dtype)], dim=1)
+        with pinned_routing([r["probs"] for r in rec_dec], P) as own:
+            full, _ = tfm.lm_forward(model, toks.to(dev), chk)
+        want = full[:, P]
+        del full
+    pinned = None
+    if own:
+        _, pinned = routing_apart(torch.stack(own), torch.stack(
+            [r["probs"][:, -1] for r in rec_dec]), cfg.n_experts_per_tok,
+            PIN_TIE, f"phase 12 {arch} decode against the forward")
+    diff = float((step[:, -1] - want).abs().max())
+    scale = float(want.abs().max())
+    per_row = (step[:, -1] - want).abs().amax(-1).tolist()
+    if not diff <= SERVE_REL_TOL * scale:
+        raise AssertionError(f"phase 12 {arch}: the first decode step differs from "
+                             f"lm_forward by {diff} > {SERVE_REL_TOL} x {scale} "
+                             f"(rows {per_row})")
+    res = {"serve_family": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
+           "params_B": n_params / 1e9, "batch": B, "prompt_len": P, "gen": G,
+           "setup_s": setup_s, "prefill_ms": out.prefill_s * 1e3,
+           "decode_ms_per_step": out.decode_s * 1e3 / G,
+           "decode_tokens_per_s": G * B / out.decode_s,
+           "prefill_tokens_per_s": P * B / out.prefill_s,
+           "peak_mem_GB": peak / 1e9, "launches": launches,
+           "flash_launches_prefill": n_prefill, "flash_launches_decode_step": n_decode,
+           "first_decode_vs_forward_max_abs": diff, "logit_scale": scale,
+           "first_decode_vs_forward_by_row": per_row,
+           "pinned_routing": pinned,
+           "forward_len": n, "ids_first_request": out.ids[0, :16].tolist()}
+    log(json.dumps({"phase12": res}))
+    if profile:
+        profile_serve(model, cfg, dev, B, P, G)
+    del model, out, step, want
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_families(dev, profile: bool = False) -> dict:
+    """Phase 12: each family of FAMILIES served in turn, each model freed
+    before the next."""
+    return {arch: serve_family(dev, arch, profile) for arch in FAMILIES}
+
+
+# ---------------------------------------------------------- phase 12b ----
+# (absolute gap, share of the larger probability) within which two runs'
+# router probabilities may move, and so order a token's experts apart
+# (``routing_apart``): an fp tie in fp32 (1e-5; card and CPU moved them by
+# at most 1.2e-6); in bf16 the devices round the hidden states apart (the
+# card's flash kernel rounds the unnormalized P to bf16, the CPU's plain
+# version the normalized one; their GEMMs round apart), which moved the
+# smoke qwen2-moe's by at most 2.9% of themselves on an H100, so 5%
+# (phase 5's rule)
+ROUTING_TIE = {"float32": (1e-5, 0.0), "bfloat16": (0.0, SERVE_REL_TOL)}
+# phase 12's decode step against the full forward at full width, bf16: two
+# attention paths (the ring cache against the flash kernel) whose rounding
+# drifts apart over 24 layers moved qwen2-moe's router probabilities by at
+# most 11.1% of themselves on an H100; a fault upstream of a router moves
+# them by about their own size (a token whose layer-0 experts differ
+# moved a layer-1 probability by 85%)
+PIN_TIE = (0.0, 0.2)
+# the most of the routings (token x MoE layer) that phase 12b lets two
+# devices' runs order apart, and the least of the logit rows it compares
+ROUTING_TIE_SHARE = 0.02
+LOGIT_ROWS_SHARE = 0.75
+# (arch, config cut): one per family; zamba2's smoke at its real head_dim
+# 80, so that the kernel's D = 80 path meets the CPU's plain version inside
+# a model (prompt 2,048: the flash branch)
+FAMILIES_SMOKE = (("qwen2-moe-a2.7b", {}), ("rwkv6-1.6b", {}),
+                  ("zamba2-2.7b", {"head_dim": 80}))
+
+
+@contextlib.contextmanager
+def recorded_routing():
+    """Each ``moe_forward`` call's fp32 router probabilities [B, S, E] and
+    the slot of each (token, expert) in its dispatch (-1: none), on the
+    host."""
+    from repro_torch.models import moe
+    rec = []
+    real_probs, real_dispatch = moe.router_probs, moe._dispatch_tensors
+
+    def probs(params, x):
+        p = real_probs(params, x)
+        rec.append({"probs": p.float().cpu()})
+        return p
+
+    def dispatch(pr, k, capacity):
+        d, c = real_dispatch(pr, k, capacity)
+        slot = torch.where(d.sum(-1) > 0, d.argmax(-1), -1)
+        rec[-1]["slot"] = slot.reshape(rec[-1]["probs"].shape).cpu()
+        return d, c
+    moe.router_probs, moe._dispatch_tensors = probs, dispatch
+    try:
+        yield rec
+    finally:
+        moe.router_probs, moe._dispatch_tensors = real_probs, real_dispatch
+
+
+@contextlib.contextmanager
+def pinned_routing(probs_at: list, pos: int):
+    """The router probabilities at position ``pos`` replaced, call by
+    call, by ``probs_at`` (each ``[B, 1, E]``: a decode step's, layer by
+    layer), so that token is routed to the same experts with the same
+    weights. Yields the list of the replaced probabilities ``[B, E]``, on
+    the host, call by call."""
+    from repro_torch.models import moe
+    real = moe.router_probs
+    calls = iter(probs_at)
+    own = []
+
+    def probs(params, x):
+        p = real(params, x)
+        own.append(p[:, pos].float().cpu())
+        p[:, pos] = next(calls).to(p.device)[:, -1]
+        return p
+    moe.router_probs = probs
+    try:
+        yield own
+    finally:
+        moe.router_probs = real
+
+
+def routing_apart(p_ref: torch.Tensor, p_run: torch.Tensor, k: int, tie: tuple,
+                  where: str, skip: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, dict]:
+    """Two runs' routings of the same tokens (fp32 router probabilities
+    [..., E] on the host). Returns the tokens whose k experts, in the order
+    the dispatch's rounds pick them, differ ([...] bool), and what bounds
+    them. Every pair of experts of either top k that the runs order apart
+    must be a tie on ``p_ref`` (closer than ``tie``'s absolute gap or its
+    share of the larger of the two), and no probability of ``p_ref``'s top
+    k + 1 or ``p_run``'s top k may move by as much (its absolute part or
+    its share of the probability); raises otherwise.
+    Tokens in ``skip`` (routed to other experts in an earlier layer, so no
+    longer the same hidden state in both runs) are not held."""
+    picks = [torch.topk(p, k, dim=-1).indices for p in (p_ref, p_run)]
+    apart = (picks[0] != picks[1]).any(-1)
+    sets = [torch.zeros_like(p, dtype=torch.bool).scatter_(-1, i, True)
+            for p, i in zip((p_ref, p_run), picks)]
+    held = torch.ones_like(apart) if skip is None else ~skip
+    near = torch.cat([torch.topk(p_ref, k + 1, dim=-1).indices, picks[1]], -1)[held]
+    ref_near, run_near = p_ref[held].gather(-1, near), p_run[held].gather(-1, near)
+    moved = (run_near - ref_near).abs()
+    over = moved >= torch.clamp(tie[1] * ref_near, min=tie[0])
+    # the union of both top k of each held token routed apart: each pair
+    # that the two runs order apart, and its gap on p_ref
+    sel = apart & held
+    u = torch.cat(picks, -1)[sel]                                   # [n, 2k]
+    r, o = p_ref[sel].gather(-1, u), p_run[sel].gather(-1, u)
+    dr = r[:, :, None] - r[:, None, :]
+    swapped = torch.sign(dr) * torch.sign(o[:, :, None] - o[:, None, :]) < 0
+    gap = dr.abs()
+    hi = torch.maximum(r[:, :, None], r[:, None, :])
+    untied = swapped & (gap >= torch.clamp(tie[1] * hi, min=tie[0]))
+    set_apart = (sets[0] != sets[1]).any(-1) & held
+    top = torch.topk(p_ref[set_apart], k + 1, dim=-1).values
+    k_gap = (top[:, k - 1] - top[:, k]) / top[:, k - 1]
+    stats = {"routings": apart.numel(), "apart": int(apart.sum()),
+             "sets_apart": int(set_apart.sum()),
+             "widest_set_change_k_gap_share": float(k_gap.max()) if k_gap.numel() else 0.0,
+             "not_held": int((~held).sum()),
+             "moved_max_abs": float(moved.max()) if moved.numel() else 0.0,
+             "moved_max_share": float((moved / ref_near.clamp(min=1e-30)).max())
+             if moved.numel() else 0.0,
+             "widest_tie_abs": float(gap[swapped].max()) if bool(swapped.any()) else 0.0,
+             "widest_tie_share": float((gap / hi)[swapped].max())
+             if bool(swapped.any()) else 0.0}
+    if bool(over.any()):
+        i, j = torch.nonzero(over)[0].tolist()
+        raise AssertionError(f"{where}: a router probability moved by "
+                             f"{float(moved[i, j])} from {float(ref_near[i, j])}, "
+                             f"the tie {tie} or more; {stats}")
+    if bool(untied.any()):
+        n, x, y = torch.nonzero(untied)[0].tolist()
+        raise AssertionError(f"{where}: experts {int(u[n, x])} and {int(u[n, y])} of "
+                             f"a token ordered apart at a gap of {float(gap[n, x, y])} "
+                             f"between {float(r[n, x])} and {float(r[n, y])}, beyond "
+                             f"the tie {tie}; {stats}")
+    return apart, stats
+
+
+def routing_flips(card: list, cpu: list, k: int, group: int, tie: tuple,
+                  n_moe: int):
+    """Card against CPU, call by call (``routing_apart``, the CPU's
+    probabilities the reference; ``n_moe`` calls a forward pass, one a
+    layer): a token's k experts may differ only by ties, on at most
+    ROUTING_TIE_SHARE of the routings, a token whose experts or kept slots
+    differ in one layer not held in the pass's later ones; in every group of ``group``
+    tokens without one the dispatch slots must be equal (bit-for-bit
+    masks; a tie moves the slots of its whole group through the capacity
+    counts). Returns ([B, S] bool a call: the tokens whose experts or kept
+    slots differ, to leave out of the logits' comparison; the routings'
+    statistics summed over the calls)."""
+    apart_calls = []
+    total = {}
+    for n, (a, b) in enumerate(zip(card, cpu)):
+        if n % n_moe == 0:
+            taken = torch.zeros(b["probs"].shape[:-1], dtype=torch.bool)
+        flip, stats = routing_apart(b["probs"], a["probs"], k, tie,
+                                    f"phase 12b MoE call {n}", skip=taken)
+        for key, val in stats.items():
+            total[key] = max(total.get(key, 0), val) if key.startswith(("moved", "widest")) \
+                else total.get(key, 0) + val
+        Bsz, S = flip.shape
+        g = min(group, S)
+        tied_group = flip.reshape(Bsz, S // g, g).any(-1, keepdim=True)
+        tied_group = tied_group.expand(Bsz, S // g, g).reshape(Bsz, S)
+        slots_apart = (a["slot"] != b["slot"]).any(-1)
+        if bool((slots_apart & ~tied_group).any()):
+            b_, t_ = torch.nonzero(slots_apart & ~tied_group)[0].tolist()
+            raise AssertionError(f"dispatch slots differ on card and CPU in a group "
+                                 f"without a routing tie: row {b_} position {t_}")
+        picks = [torch.topk(r["probs"], k, dim=-1).indices for r in (a, b)]
+        sets = [torch.zeros_like(r["probs"], dtype=torch.bool).scatter_(-1, idx, True)
+                for r, idx in zip((a, b), picks)]
+        kept = [r["slot"] >= 0 for r in (a, b)]
+        taken = taken | (sets[0] != sets[1]).any(-1) | (kept[0] != kept[1]).any(-1)
+        apart_calls.append(taken)
+    if total["apart"] > ROUTING_TIE_SHARE * total["routings"]:
+        raise AssertionError(f"card and CPU routed {total['apart']} of "
+                             f"{total['routings']} routings apart, more than "
+                             f"{ROUTING_TIE_SHARE:.0%}: {total}")
+    return apart_calls, total
+
+
+def family_card_against_cpu(dev, arch: str, cut: dict, dtype: str) -> dict:
+    """Phase 12b: a family's smoke model in ``dtype``, prompt 2048, 8
+    tokens, batch 2, card against CPU from the same weights and seed, as
+    phase 6: equal ids (or a documented tie), logits within phase 6's
+    gates while both saw the same tokens. MoE: each token routed alike on
+    both devices but for ties (``routing_flips``), their count reported;
+    bf16 runs at capacity 8 (no drops, so a flip moves no other token),
+    and a position routed apart is left out of the logits' comparison, at
+    most 1 - LOGIT_ROWS_SHARE of the rows."""
+    import copy
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import serve, steps
+
+    cfg = get_smoke(arch).replace(dtype=dtype, **cut)
+    if cfg.family == "moe" and dtype == "bfloat16":
+        cfg = cfg.replace(capacity_factor=8.0)
+    cpu_model = steps.init_for(cfg)(torch.Generator().manual_seed(1))
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    P, G, B = 2048, 8, 2
+    kw = dict(prompt_len=P, gen=G, batch=B, temperature=1.0, seed=3)
+    n_attn = {"moe": cfg.n_layers, "ssm": 0,
+              "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}[cfg.family]
+    counter = "launches_f32" if dtype == "float32" else "launches_bf16"
+    flash_attention.launches = 0
+    setattr(flash_attention, counter, 0)
+    with recorded_routing() as rec_card:
+        got = serve.generate(cfg, card_model, **kw, device=dev)
+    n_kernel = getattr(flash_attention, counter)
+    if (flash_attention.launches, n_kernel) != (n_attn, n_attn):
+        raise AssertionError(f"phase 12b {arch} {dtype}: flash launches "
+                             f"{flash_attention.launches}, the {dtype} kernel's "
+                             f"{n_kernel}, want {n_attn}")
+    with recorded_routing() as rec_cpu:
+        want = serve.generate(cfg, cpu_model, **kw, device="cpu")
+    if not torch.equal(got.prompt, want.prompt):
+        raise AssertionError(f"phase 12b {arch}: prompt ids differ")
+    got_l = [got.first_logits.float().cpu(), *(lg.float().cpu() for lg in got.decode_logits)]
+    want_l = [want.first_logits.float(), *(lg.float() for lg in want.decode_logits)]
+    if dtype == "float32":
+        rtol, atol = 1e-4, 1e-5
+    else:
+        rtol, atol = 0.0, SERVE_REL_TOL * float(want_l[0].abs().max())
+    col, tie = _first_tie(got.ids, want.ids, want_l, kw["seed"], kw["temperature"],
+                          rtol, atol)
+    n_same = len(got_l) if col is None else col + 1
+    # the routing of the calls both devices made on the same tokens: the
+    # prefill's layers, then one call a layer a decode step
+    n_moe = cfg.n_layers if cfg.family == "moe" else 0
+    flips, routing = routing_flips(rec_card[:n_moe * n_same], rec_cpu[:n_moe * n_same],
+                                   cfg.n_experts_per_tok, cfg.moe_group,
+                                   ROUTING_TIE[dtype], n_moe) if n_moe else ([], None)
+    # positions routed apart in some layer: the prompt's last, then each
+    # decode step's token
+    apart = torch.zeros(B, n_same, dtype=torch.bool)
+    for i, f in enumerate(flips):
+        step = i // n_moe
+        apart[:, step] |= f[:, -1]
+    if col is not None and not tie:
+        rows = got.ids[:, col] != want.ids[:, col]
+        if not bool(apart[rows, col].all()):        # nor routed apart there
+            raise AssertionError(f"phase 12b {arch} {dtype}: sampled ids differ at "
+                                 f"step {col} without a tie:\ncuda {got.ids.tolist()}"
+                                 f"\ncpu {want.ids.tolist()}")
+    err = scale = 0.0
+    compared = 0
+    for i, (a, b) in enumerate(zip(got_l[:n_same], want_l[:n_same])):
+        rows = ~apart[:, i]
+        if bool(rows.any()):
+            torch.testing.assert_close(a[rows], b[rows], rtol=rtol, atol=max(atol, 1e-5))
+            err = max(err, float((a[rows] - b[rows]).abs().max()))
+            scale = max(scale, float(b[rows].abs().max()))
+            compared += int(rows.sum())
+    if compared < LOGIT_ROWS_SHARE * B * n_same:
+        raise AssertionError(f"phase 12b {arch} {dtype}: {compared} of {B * n_same} "
+                             f"logit rows compared, fewer than {LOGIT_ROWS_SHARE:.0%}")
+    res = {"family_card_vs_cpu": cfg.name, "family": cfg.family, "dtype": dtype,
+           "head_dim": cfg.resolved_head_dim, "prompt_len": P, "gen": G, "batch": B,
+           "capacity_factor": cfg.capacity_factor if cfg.family == "moe" else None,
+           "ids_equal": col is None, "first_diff_step": col,
+           "steps_compared": n_same, "logit_rows_compared": compared,
+           "logits_max_abs": err, "logit_scale": scale, "logits_atol": atol,
+           "routing": routing, "routing_tie": ROUTING_TIE[dtype] if n_moe else None,
+           "positions_routed_apart": int(apart.sum()), "flash_launches": n_kernel}
     log(json.dumps(res))
     return res
 
@@ -3307,6 +3792,19 @@ def main(argv) -> int:
         trained["launches_per_step"]["flash_bwd_ref_calls"] * TRAIN["steps"]
     for dtype in ("float32", "bfloat16"):
         train_card_against_cpu(dev, dtype)
+
+    # ---- phase 12: the moe, ssm and hybrid families served at full width,
+    # each run's counts zeroed before it; 12b: each family's smoke model
+    # card against CPU in fp32 and bf16
+    served = serve_families(dev, profile="--profile" in argv)
+    flash["launches_phase12"] = {arch: r["launches"]["flash_attention"]
+                                 for arch, r in served.items()}
+    smoke = [family_card_against_cpu(dev, arch, cut, dtype)
+             for arch, cut in FAMILIES_SMOKE for dtype in ("float32", "bfloat16")]
+    flash["launches_phase12b"] = {r["family_card_vs_cpu"]: r["flash_launches"]
+                                  for r in smoke if r["dtype"] == "bfloat16"}
+    flash_f32["launches_phase12b"] = {r["family_card_vs_cpu"]: r["flash_launches"]
+                                      for r in smoke if r["dtype"] == "float32"}
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -58,6 +58,13 @@
 //   for every key loads one float4 of P and D / 32 of V.
 // - Rows of Q, K, V and P are padded by 4 floats, so the float4 reads of a
 //   warp fall on distinct banks.
+// - Head dims 80 and 96 (zamba2, phi-3-vision): the rows of K and V in
+//   shared memory hold DP = D rounded up to 32 columns (96 at both), the
+//   16-byte copies of columns D..DP-1 zero-filled (cp.async with src-size
+//   0). Each score sums d = 0..D-1 only (D is a multiple of 4), so the
+//   order of its sum is that of every other D; O += P V runs over DP / 32
+//   float4s a thread, the padded columns of O stay zero, and only the D
+//   real ones are stored. At D = 80 a sixth of the P V products are zeros.
 // The heavy (late) query tiles of a causal mask are scheduled first, over
 // every (batch, head). Every multiply-add is an explicit fmaf (the library
 // is built with --fmad=false).
@@ -74,11 +81,12 @@ constexpr float kMasked = -1e30f;
 
 template <int D>
 struct Tile {
+  static constexpr int DP = (D + 31) / 32 * 32;  // columns of K, V and O held
   static constexpr int BK = D <= 32 ? 64 : 32;   // keys a tile
   static constexpr int kMinCtas = D <= 64 ? 3 : 2;  // CTAs an SM
   static constexpr int TN = BK / 8;              // keys a thread: tx + 8 i
-  static constexpr int DC = D / 32;              // float4s of O a row: 4 tx + 32 c
-  static constexpr int LD = D + 4;               // row stride of Q, K, V (floats)
+  static constexpr int DC = DP / 32;             // float4s of O a row: 4 tx + 32 c
+  static constexpr int LD = DP + 4;              // row stride of Q, K, V (floats)
   static constexpr int LDP = kBQ + 4;            // row stride of P
   static constexpr int kQ = kBQ * LD;
   static constexpr int kKV = BK * LD;
@@ -102,19 +110,21 @@ __device__ __forceinline__ void cp_async_wait_one() {
 }
 
 // The key tile [k0, k0 + BK) of K and V into Ks and Vs: one 16-byte copy a
-// (key, 4 values of d), keys past Skv zero-filled.
+// (key, 4 values of d) over the DP held columns, keys past Skv and columns
+// past D zero-filled.
 template <int D>
 __device__ __forceinline__ void load_kv(float* Ks, float* Vs, const float* kb,
                                         const float* vb, int k0, int Skv,
                                         long long stride) {
   using T = Tile<D>;
-  constexpr int kChunks = D / 4;
+  constexpr int kChunks = T::DP / 4;
+  static_assert(D % 4 == 0, "whole 16-byte copies a row");
   static_assert(T::BK * kChunks % kThreads == 0, "whole copies a thread");
 #pragma unroll
   for (int it = 0; it < T::BK * kChunks / kThreads; ++it) {
     const int idx = it * kThreads + threadIdx.x;
     const int j = idx / kChunks, c = idx % kChunks;
-    const bool in = k0 + j < Skv;
+    const bool in = k0 + j < Skv && 4 * c < D;
     const long long off = in ? (k0 + j) * stride + 4 * c : 0;
     cp_async16(Ks + j * T::LD + 4 * c, kb + off, in);
     cp_async16(Vs + j * T::LD + 4 * c, vb + off, in);
@@ -308,9 +318,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float* op = o + ((static_cast<long long>(b) * Sq + row) * H + h) * D;
 #pragma unroll
       for (int c = 0; c < DC; ++c)
-        *reinterpret_cast<float4*>(op + 4 * tx + 32 * c) =
-            make_float4(acc[j][4 * c] / l_safe, acc[j][4 * c + 1] / l_safe,
-                        acc[j][4 * c + 2] / l_safe, acc[j][4 * c + 3] / l_safe);
+        if (32 * (c + 1) <= D || 4 * tx + 32 * c < D)   // a real column
+          *reinterpret_cast<float4*>(op + 4 * tx + 32 * c) =
+              make_float4(acc[j][4 * c] / l_safe, acc[j][4 * c + 1] / l_safe,
+                          acc[j][4 * c + 2] / l_safe, acc[j][4 * c + 3] / l_safe);
       // m is in units of the scaled scores (q was scaled before QK^T)
       if (lse != nullptr && tx == 0)
         lse[(static_cast<long long>(b) * H + h) * Sq + row] = m[j] + logf(l_safe);
@@ -355,6 +366,8 @@ extern "C" int flash_attention_attrs_f32(int D, int* out) {
   switch (D) {
     case 32: return attrs<32>(out);
     case 64: return attrs<64>(out);
+    case 80: return attrs<80>(out);
+    case 96: return attrs<96>(out);
     case 128: return attrs<128>(out);
     default: return cudaErrorInvalidValue;
   }
@@ -362,7 +375,7 @@ extern "C" int flash_attention_attrs_f32(int D, int* out) {
 
 // fp32 q, k, v, o, lse (null: not written); window <= 0 means no window.
 // Returns the launch's cudaError_t (cudaErrorInvalidValue for a head_dim it
-// does not take: 32, 64 and 128 are instantiated).
+// does not take: 32, 64, 80, 96 and 128 are instantiated).
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        int B, int Sq, int Skv, int H, int KV,
@@ -372,6 +385,8 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
   switch (D) {
     case 32: return launch<32>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
     case 64: return launch<64>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
+    case 80: return launch<80>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
+    case 96: return launch<96>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
     case 128: return launch<128>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }

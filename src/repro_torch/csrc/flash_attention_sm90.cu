@@ -44,26 +44,42 @@
 //     warpgroup c (c = 0, 1) its rows 64c .. 64c + 63, plus one producer
 //     warpgroup of which one thread issues every TMA load; setmaxnreg moves
 //     registers from the producer (24) to the consumers (240);
-//   * Q is loaded once; K and V tiles of BK keys (128 for D <= 64, 64 for
-//     D = 128) stream through a ring of kStages stages in dynamic shared
+//   * Q is loaded once; K and V tiles of BK keys (128 for D <= 64, 64
+//     above) stream through a ring of kStages stages in dynamic shared
 //     memory, each stage guarded by a "full" mbarrier (expect_tx bytes) and
 //     an "empty" one (one arrival per consumer warp);
 //   * the tensor maps are 4-D over (D, heads, S, B) with a box of
 //     (D-chunk, 1, rows, 1): one head's rows at stride heads * D load as a
-//     dense tile. A chunk is 64 columns (128 B, 128-byte swizzle) or, for
-//     D = 32, 32 columns (64 B, 64-byte swizzle); D = 128 loads two chunks.
-//     The wgmma descriptors name the same swizzle;
+//     dense tile. A chunk is 64 columns (128 B, 128-byte swizzle) when the
+//     computed width DP is a multiple of 64, else 32 columns (64 B, 64-byte
+//     swizzle): D = 32 loads one chunk, 64 one, 96 three, 128 two. The
+//     wgmma descriptors name the same swizzle;
 //   * S = Q K^T is wgmma m64n{BK}k16 with both operands in shared memory
 //     (K's rows are keys with D contiguous: K-major); O += P V is wgmma
-//     m64n{D}k16 with P from registers (the accumulator layout of S is the
-//     A-fragment layout of the next product) and V read through the
-//     descriptor's transpose (V is MN-major for this product): no copy;
+//     m64n{DP}k16 (DP = 96 at D = 80, else D) with P from registers (the
+//     accumulator layout of S is the A-fragment layout of the next product)
+//     and V read through the descriptor's transpose (V is MN-major for this
+//     product, its chunks a leading byte offset of BK * SW apart): no copy;
 //   * row max and row sum are shuffles across the four threads of a row;
 //     the mask is applied only on tiles that cross the diagonal, the window
 //     edge or Skv;
 //   * the grid is (B * H, ceil(Sq / 128)) with the heavy (late) causal query
 //     tiles launched first across all heads, so the short tiles fill the
 //     tail of the wave.
+// Head dims 80 and 96 (zamba2, phi-3-vision). D = 96 is the D = 32 layout
+// three times: three 32-column chunks, the 64-byte swizzle, PV as wgmma
+// m64n96k16, keys in tiles of 64. D = 80 computes on DP = 96 columns: the
+// tensor maps' innermost extent stays 80, so the TMA zero-fills columns
+// 80..95 of each row's third box (and counts the whole box in expect_tx);
+// those zeros add exact zeros to every score, give zero columns of O, and
+// only the 80 real columns are stored; the scale stays 1/sqrt(80). The
+// other design, five 16-column chunks under the 32-byte swizzle and PV as
+// m64n80k16, would save the padded sixth of the products but add a third
+// swizzle mode and a fifth descriptor layout to hold; padding reuses the
+// D = 96 instance's layouts, whose one new piece (an MN-major V operand
+// spanning three 64-byte swizzle atoms, at a leading byte offset of one
+// chunk) D = 96 needs anyway. At most 80/96 = 83% of the bound's rate is
+// reachable at D = 80.
 // Left for later: ping-pong scheduling of the two consumers, overlap of the
 // softmax with the next tile's QK^T, and one K/V tile shared by the query
 // heads of a GQA group.
@@ -89,12 +105,13 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Cfg {
+  static constexpr int DP = D == 80 ? 96 : D;          // computed columns
   static constexpr int BK = D <= 64 ? 128 : 64;        // keys per tile
-  static constexpr int SW = D * 2 >= 128 ? 128 : D * 2;  // bytes per chunk row
+  static constexpr int SW = DP % 64 == 0 ? 128 : 64;   // bytes per chunk row
   static constexpr int COLS = SW / 2;                  // bf16 columns per chunk
-  static constexpr int CHUNKS = D / COLS;
-  static constexpr int Q_BYTES = kRows * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;          // one K or V tile
+  static constexpr int CHUNKS = DP / COLS;
+  static constexpr int Q_BYTES = kRows * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;         // one K or V tile
   static constexpr int TILE_BYTES = Q_BYTES + 2 * kStages * KV_BYTES;
   static constexpr int N_BARS = 1 + 2 * kStages;
   static constexpr int SMEM = 1024 + TILE_BYTES + 8 * N_BARS;  // + alignment
@@ -189,7 +206,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// ---- wgmma m64n{32,64,128}k16, bf16 x bf16 -> fp32 ----------------------
+// ---- wgmma m64n{32,64,96,128}k16, bf16 x bf16 -> fp32 -------------------
 // d[0..16) += A(desc) * B(desc), m64n32k16, B K-major
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
                                               uint64_t b, int scale_d) {
@@ -234,6 +251,18 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[0..48) += A(registers) * B(desc), m64n96k16, B MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // d[0..64) += A(desc) * B(desc), m64n128k16, B K-major
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
                                               uint64_t b, int scale_d) {
@@ -269,6 +298,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
   if constexpr (N == 32) wgmma_rs_n32(d, a, b);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+  else if constexpr (N == 96) wgmma_rs_n96(d, a, b);
   else wgmma_rs_n128(d, a, b);
 }
 
@@ -281,7 +311,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq,
                int Skv, int H, int KV, int causal, int window, float scale) {
   using C = Cfg<D>;
-  constexpr int BK = C::BK, SW = C::SW, COLS = C::COLS;
+  constexpr int BK = C::BK, SW = C::SW, COLS = C::COLS, DP = C::DP;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;   // swizzle atoms: 1024 B
@@ -352,9 +382,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   const int col = 2 * (lane % 4);                     // + 8 j (+ 1)
   const bool dead = r_lo >= Sq;
 
-  float acc[D / 2];
+  float acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
   mbar_wait(q_full, 0);
@@ -370,7 +400,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(sc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DP / 16; ++kk) {
         const int c = (kk * 16) / COLS, off = (kk * 16) % COLS * 2;
         const uint64_t da = make_desc(q_s + c * kRows * SW + wg * kRowsWG * SW + off,
                                       16, 8 * SW, C::LAYOUT);
@@ -415,7 +445,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
       l0 *= corr0;
       l1 *= corr1;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DP / 8; ++j) {
         acc[4 * j] *= corr0;
         acc[4 * j + 1] *= corr0;
         acc[4 * j + 2] *= corr1;
@@ -443,7 +473,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
           pa[r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
         const uint64_t dv = make_desc(v_s + s * C::KV_BYTES + kk * 16 * SW,
                                       BK * SW, 8 * SW, C::LAYOUT);
-        wgmma_rs<D>(acc, pa, dv);
+        wgmma_rs<DP>(acc, pa, dv);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -453,7 +483,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
     if (lane == 0) mbar_arrive(empty(s));   // this warp is done with stage s
   }
 
-  // epilogue: full row sums, divide in fp32, store rows < Sq
+  // epilogue: full row sums, divide in fp32, store rows < Sq and the D
+  // real columns (8 j + col < D: D is a multiple of 8)
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
@@ -511,7 +542,8 @@ EncodeTiled encode_tiled() {
 }
 
 // A 4-D map over (D, heads, S, B) of a contiguous [B, S, heads, D] bf16
-// tensor, box (cols, 1, rows, 1), swizzled by the chunk's row bytes.
+// tensor, box (cols, 1, rows, 1), swizzled by the chunk's row bytes. A box
+// past column D (D = 80's third) is zero-filled there.
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int D, int heads,
                      int S, int B, int cols, int rows) {
   EncodeTiled enc = encode_tiled();
@@ -581,6 +613,8 @@ extern "C" int flash_attention_attrs_bf16(int D, int* out) {
   switch (D) {
     case 32: return attrs<32>(out);
     case 64: return attrs<64>(out);
+    case 80: return attrs<80>(out);
+    case 96: return attrs<96>(out);
     case 128: return attrs<128>(out);
     default: return cudaErrorInvalidValue;
   }
@@ -588,7 +622,7 @@ extern "C" int flash_attention_attrs_bf16(int D, int* out) {
 
 // bf16 q, k, v, o, fp32 lse (null: not written); window <= 0 means no
 // window. Returns the launch's cudaError_t (cudaErrorInvalidValue for a
-// head_dim other than 32, 64, 128 or a tensor the TMA cannot map).
+// head_dim other than 32, 64, 80, 96, 128 or a tensor the TMA cannot map).
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
                                         int B, int Sq, int Skv, int H, int KV,
@@ -598,6 +632,8 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
   switch (D) {
     case 32: return launch<32>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
     case 64: return launch<64>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
+    case 80: return launch<80>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
+    case 96: return launch<96>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
     case 128: return launch<128>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }

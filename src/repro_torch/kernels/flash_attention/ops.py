@@ -30,7 +30,7 @@ import torch
 from .. import _build, check_cuda, is_cpu
 from .ref import attention_ref, flash_bwd_ref, flash_fwd_ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 96, 128)
 # dtype -> (C entry, attributes entry, per-kernel launch counter)
 _ROUTES = {torch.float32: ("flash_attention_fwd_f32", "flash_attention_attrs_f32",
                            "launches_f32"),

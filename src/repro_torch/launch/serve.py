@@ -4,6 +4,9 @@
       --prompt-len 2048 --gen 32 --batch 4            # on the GPU
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --smoke --prompt-len 64 --gen 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+      --prompt-len 2048 --gen 32 --batch 4            # also qwen2-moe-a2.7b,
+                                                      # zamba2-2.7b, mixtral-8x22b
 
 The port of ``repro.launch.serve``, with its flow and its printed line.
 One seed keys the weights, the prompt and the sampling, as one PRNG key
@@ -16,6 +19,10 @@ round an ulp apart, ROADMAP C-9); the weights are drawn from a
 package's). The first token after prefill is the argmax at any
 temperature, and decode step i runs at position ``prompt_len + i``, as in
 the reference. The device is the GPU unless ``--device cpu`` is given.
+The CLI casts its freshly drawn fp32 weights to the serving type in place
+(``transformer.for_compute(..., inplace=True)``), so the fp32 masters and
+a serving copy are never on the card together: qwen2-moe-a2.7b's 57 GB of
+masters and 28.6 GB copy would not fit an 80 GB card.
 fp32 matmuls on the card must run in full float32
 (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default,
 which ``chip_smoke.py`` also sets for its card-against-CPU check); the
@@ -52,7 +59,7 @@ def generate(cfg, params, *, prompt_len: int, gen: int, batch: int,
     ``gen`` tokens each against a ring cache of ``prompt_len + gen`` slots.
     ``params`` is the model (``steps.init_for(cfg)``) on ``device``; it
     runs in ``cfg.dtype`` through a serving copy
-    (``transformer.for_compute``)."""
+    (``transformer.for_compute``), or as given when it is one already."""
     dev = resolve_device(device)
     model = tfm.for_compute(params, cfg)
     key = prng.PRNGKey(seed)
@@ -107,6 +114,7 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     params = steps_mod.init_for(cfg)(torch.Generator(dev).manual_seed(0))
+    params = tfm.for_compute(params, cfg, inplace=True)
     out = generate(cfg, params, prompt_len=args.prompt_len, gen=args.gen,
                    batch=args.batch, temperature=args.temperature, seed=0,
                    device=dev)

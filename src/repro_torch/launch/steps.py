@@ -4,12 +4,14 @@
   prefill_step(model, batch)             -> (last logits, decode cache)
   serve_step  (model, cache, token, pos) -> (logits, cache)
 
-Ports of ``repro.launch.steps`` for the CNN and the dense LM. The model is
+Ports of ``repro.launch.steps`` for the CNN and the dense, moe, ssm and
+hybrid LM families (the MoE's aux loss is in ``lm_loss``). The model is
 an ``nn.Module`` whose fp32 parameters the train step updates in place
 (AdamW, ``optim.adamw``); the optimizer state is a dict over the
 parameters' names. ``input_specs``, ``params_shape`` and ``opt_shape``
 return tensors on the ``meta`` device (shapes and types, no storage) where
-the JAX package returns ``ShapeDtypeStruct``s. The encoder-decoder
+the JAX package returns ``ShapeDtypeStruct``s; a decode's ``cache`` is the
+family's (ring KV caches, RWKV or Mamba2 states). The encoder-decoder
 (whisper) and VLM steps wait for their families (ROADMAP A-19).
 """
 from __future__ import annotations

@@ -1,9 +1,10 @@
-"""Shared layers of the dense LM: RMSNorm, RoPE and the SwiGLU MLP.
+"""Shared layers of the LMs: RMSNorm, LayerNorm, the group norm, RoPE and
+the SwiGLU MLP.
 
-Ports of ``repro.models.layers`` with the same numerics: the norm and RoPE
-compute in fp32 and cast back to the activation's type; the MLP's dense
-layers compute in the activation's type. The other layers (layernorm,
-group norm, sinusoidal positions, GELU MLP) come with their families
+Ports of ``repro.models.layers`` with the same numerics: the norms and
+RoPE compute in fp32 (the norms with a biased variance) and cast back to
+the activation's type; the MLP's dense layers compute in the activation's
+type. The GELU MLP and the sinusoidal positions wait for the audio family
 (ROADMAP A-19).
 """
 from __future__ import annotations
@@ -31,6 +32,36 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Te
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * scale
     return y.to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """Holds the fp32 ``scale`` (ones) and ``bias`` (zeros) ``[d]``."""
+
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, device=device))
+        self.bias = nn.Parameter(torch.zeros(d, device=device))
+
+    def forward(self, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+        return layernorm(self, x, eps)
+
+
+def layernorm(params: LayerNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps) * params.scale + params.bias
+    return y.to(x.dtype)
+
+
+def groupnorm(x: torch.Tensor, n_groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """Per-head group norm of RWKV6's output: no affine."""
+    shape = x.shape
+    xf = x.float().reshape(*shape[:-1], n_groups, shape[-1] // n_groups)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.reshape(shape).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -63,6 +63,17 @@ class Dense(nn.Module):
         return y + self.b.to(x.dtype) if self.b is not None else y
 
 
+def trunc_normal_fan_in(shape, fan_in: int, generator: torch.Generator | None = None,
+                        device=None, scale: float = 1.0) -> nn.Parameter:
+    """A raw weight drawn as ``dense_init``'s: truncated normal on [-2, 2]
+    times ``scale / sqrt(fan_in)`` (the expert stacks, RWKV6's decay LoRA)."""
+    w = torch.empty(shape, device=device)
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        w.mul_(scale / math.sqrt(fan_in))
+    return nn.Parameter(w)
+
+
 class Embed(nn.Module):
     """Token embedding with ``table`` stored ``[vocab, d]``."""
 

@@ -1,22 +1,36 @@
-"""Decoder-only LM of the dense family (GQA attention + SwiGLU).
+"""Decoder-only LMs of the dense, moe, ssm and hybrid families.
 
-A port of ``repro.models.transformer`` for ``family="dense"`` (tinyllama,
-qwen2.5-32b, glm4-9b, qwen2-72b). The LM is an ``nn.Module`` whose
-``layers`` is a list of blocks where the JAX package stacks them for
-``lax.scan``; ``repro_torch.convert.lm_params_from_numpy`` unstacks the
-JAX package's leaves onto it. The moe, ssm, hybrid, audio and vlm families
-raise ``NotImplementedError`` (ROADMAP A-19).
+A port of ``repro.models.transformer``:
+
+  dense   GQA attention + SwiGLU        (tinyllama, qwen2.5-32b, glm4-9b,
+                                         qwen2-72b)
+  moe     GQA attention + MoE FFN       (qwen2-moe, mixtral-8x22b)
+  ssm     RWKV6 time mix + channel mix  (rwkv6-1.6b)
+  hybrid  Mamba2 layers + ONE shared attention block (its parameters
+          shared) applied after every ``attn_every`` of them (zamba2)
+
+The audio and vlm families raise ``NotImplementedError`` (ROADMAP A-19).
+The LM is an ``nn.Module`` whose ``layers`` is a list of blocks where the
+JAX package stacks them for ``lax.scan``; ``repro_torch.convert`` unstacks
+the JAX package's leaves onto it.
 
 Parameters are fp32 masters; activations run in ``cfg.dtype``, each dense
-weight and the embedding table cast per call, as the JAX package's
-``dense``/``embed`` do, so training's gradients land on the fp32
-parameters. ``for_compute(model, cfg)`` returns a serving copy whose dense
-weights and embedding table are already in that type (the same bits as the
-per-call cast), with the norm scales and the head kept fp32. With
-``cfg.remat`` each block of a forward under grad runs under
-``torch.utils.checkpoint`` (non-reentrant), as the JAX package's
-``jax.checkpoint`` of the scanned block: the backward recomputes it, flash
-attention included. Caches are ``{"layers": [per-layer ring KV cache]}``.
+weight, expert stack and the embedding table cast per call, as the JAX
+package's ``dense``/``embed``/``moe_forward`` do, so training's gradients
+land on the fp32 parameters. ``for_compute(model, cfg)`` gives a serving
+copy whose leaves that are cast per call are already in that type (the
+same bits as the per-call cast); the rest stays fp32 (the router, norms,
+RWKV's ``mu``/``w0``/``wA``/``wB``/``u``, Mamba2's ``conv_w``/``conv_b``/
+``A_log``/``dt_bias``/``D``, the head). With ``cfg.remat`` each block of a
+forward under grad runs under ``torch.utils.checkpoint`` (non-reentrant),
+as the JAX package's ``jax.checkpoint`` of the scanned block: the hybrid
+checkpoints each Mamba layer, and the shared block once a group.
+
+Caches are per-layer lists where the JAX package stacks: ``{"layers":
+[ring KV cache]}`` (dense, moe), ``{"layers": [{"shift", "state",
+"ffn_shift"}]}`` (ssm), ``{"layers": [{"conv", "state"}], "shared_attn":
+[ring KV cache a group]}`` (hybrid). ``lm_decode`` updates the cache dict
+in place.
 """
 from __future__ import annotations
 
@@ -28,17 +42,20 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
-from .layers import RMSNorm, SwiGLU, rmsnorm, swiglu
+from .layers import LayerNorm, RMSNorm, SwiGLU, layernorm, rmsnorm, swiglu
 from .module import Dense, Embed, _device_of, dtype_of, unembed
+from .moe import MoE, moe_forward
+from .rwkv import RWKV6, RWKVFFN, make_rwkv_cache, rwkv6_decode, rwkv6_forward, rwkv_ffn
+from .ssm import Mamba2, make_ssm_cache, mamba2_decode, mamba2_forward
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_family(cfg) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: the port "
-            "runs the dense LM family only (ROADMAP A-19)")
+            "runs the dense, moe, ssm and hybrid LM families (ROADMAP A-19)")
 
 
 class DenseBlock(nn.Module):
@@ -51,6 +68,37 @@ class DenseBlock(nn.Module):
         self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, generator)
 
 
+class MoEBlock(nn.Module):
+    def __init__(self, cfg, generator: torch.Generator | None = None):
+        super().__init__()
+        dev = _device_of(generator)
+        self.ln1 = RMSNorm(cfg.d_model, device=dev)
+        self.attn = attn.Attention(cfg, generator)
+        self.ln2 = RMSNorm(cfg.d_model, device=dev)
+        self.moe = MoE(cfg, generator)
+
+
+class RWKVBlock(nn.Module):
+    def __init__(self, cfg, generator: torch.Generator | None = None):
+        super().__init__()
+        dev = _device_of(generator)
+        self.ln1 = LayerNorm(cfg.d_model, device=dev)
+        self.time = RWKV6(cfg, generator)
+        self.ln2 = LayerNorm(cfg.d_model, device=dev)
+        self.ffn = RWKVFFN(cfg, generator)
+
+
+class MambaBlock(nn.Module):
+    def __init__(self, cfg, generator: torch.Generator | None = None):
+        super().__init__()
+        self.ln = RMSNorm(cfg.d_model, device=_device_of(generator))
+        self.mamba = Mamba2(cfg, generator)
+
+
+_BLOCKS = {"dense": DenseBlock, "moe": MoEBlock, "ssm": RWKVBlock,
+           "hybrid": MambaBlock}
+
+
 class LM(nn.Module):
     """Weights drawn from ``generator`` with the JAX init's distributions,
     on the generator's device."""
@@ -61,34 +109,68 @@ class LM(nn.Module):
         self.cfg = cfg
         dev = _device_of(generator)
         self.embed = Embed(cfg.vocab_size, cfg.d_model, generator)
-        self.ln_f = RMSNorm(cfg.d_model, device=dev)
-        self.layers = nn.ModuleList(DenseBlock(cfg, generator)
-                                    for _ in range(cfg.n_layers))
+        self.ln_f = (LayerNorm if cfg.family == "ssm" else RMSNorm)(cfg.d_model,
+                                                                    device=dev)
+        block = _BLOCKS[cfg.family]
+        self.layers = nn.ModuleList(block(cfg, generator) for _ in range(cfg.n_layers))
+        if cfg.family == "hybrid":
+            if not cfg.attn_every or cfg.n_layers % cfg.attn_every:
+                raise ValueError(f"{cfg.n_layers} layers are not groups of "
+                                 f"attn_every = {cfg.attn_every}")
+            self.shared_attn = DenseBlock(cfg, generator)
         if not cfg.tie_embeddings:
             self.lm_head = Embed(cfg.vocab_size, cfg.d_model, generator)
 
     def head(self) -> torch.Tensor:
         return self.embed.table if self.cfg.tie_embeddings else self.lm_head.table
 
+    def groups(self):
+        """The hybrid's Mamba layers in groups of ``attn_every``."""
+        k = self.cfg.attn_every
+        return [self.layers[i:i + k] for i in range(0, len(self.layers), k)]
 
-def for_compute(model: LM, cfg) -> LM:
-    """A copy of ``model`` with every dense weight and bias and the
-    embedding table cast to ``cfg.dtype`` once; norm scales and ``lm_head``
-    stay fp32. ``model`` itself when the compute type is fp32 or its dense
-    weights are already in it."""
-    dt = dtype_of(cfg)
-    if all(m.w.dtype == dt for m in model.modules() if isinstance(m, Dense)):
-        return model
-    out = copy.deepcopy(model)
-    with torch.no_grad():
-        for m in out.modules():
-            if isinstance(m, Dense):
-                m.w.data = m.w.data.to(dt)
-                if m.b is not None:
-                    m.b.data = m.b.data.to(dt)
-        if not cfg.tie_embeddings:     # a tied table is also the fp32 head
-            out.embed.table.data = out.embed.table.data.to(dt)
+
+def _per_call_casts(model: LM, cfg) -> list:
+    """(module, parameter name) of every leaf the JAX package casts to the
+    activation's type per call: each dense weight and bias but the MoE
+    router's, the expert stacks, and the embedding table unless it is tied
+    (then it is also the fp32 head)."""
+    routers = {id(m.router) for m in model.modules() if isinstance(m, MoE)}
+    out = []
+    for m in model.modules():
+        if isinstance(m, Dense) and id(m) not in routers:
+            out += [(m, "w")] + ([(m, "b")] if m.b is not None else [])
+        elif isinstance(m, MoE):
+            out += [(m, "w_gate"), (m, "w_up"), (m, "w_down")]
+    if not cfg.tie_embeddings:
+        out.append((model.embed, "table"))
     return out
+
+
+def for_compute(model: LM, cfg, *, inplace: bool = False) -> LM:
+    """A serving copy of ``model``: each leaf the JAX package casts per
+    call (``_per_call_casts``) cast to ``cfg.dtype`` once, every other leaf
+    fp32. ``model`` itself when those leaves are already in that type (an
+    fp32 model, or a serving copy). ``inplace`` casts ``model``'s own
+    leaves, one at a time, and returns it: the fp32 master and a full copy
+    are never on the device together (qwen2-moe's 57 GB of fp32 masters and
+    its 28.6 GB copy would not fit an 80 GB card)."""
+    dt = dtype_of(cfg)
+    leaves = _per_call_casts(model, cfg)
+    if all(getattr(m, n).dtype == dt for m, n in leaves):
+        return model
+    if not inplace:
+        # the copy takes each cast leaf from memo: no fp32 duplicate of it
+        memo = {}
+        for m, n in leaves:
+            p = getattr(m, n)
+            memo[id(p)] = nn.Parameter(p.detach().to(dt), requires_grad=p.requires_grad)
+        return copy.deepcopy(model, memo)
+    with torch.no_grad():
+        for m, n in leaves:
+            p = getattr(m, n)
+            p.data = p.data.to(dt)
+    return model
 
 
 def _dense_block(layer: DenseBlock, x, cfg, window):
@@ -97,22 +179,64 @@ def _dense_block(layer: DenseBlock, x, cfg, window):
     return x + swiglu(layer.mlp, rmsnorm(layer.ln2.scale, x, cfg.norm_eps))
 
 
+def _moe_block(layer: MoEBlock, x, cfg, window):
+    x = x + attn.attention_forward(layer.attn, rmsnorm(layer.ln1.scale, x, cfg.norm_eps),
+                                   cfg, window=window)
+    y, aux = moe_forward(layer.moe, rmsnorm(layer.ln2.scale, x, cfg.norm_eps), cfg)
+    return x + y, aux
+
+
+def _rwkv_block(layer: RWKVBlock, x, cfg):
+    x = x + rwkv6_forward(layer.time, layernorm(layer.ln1, x, cfg.norm_eps), cfg)
+    return x + rwkv_ffn(layer.ffn, layernorm(layer.ln2, x, cfg.norm_eps))
+
+
+def _mamba_block(layer: MambaBlock, x, cfg):
+    return x + mamba2_forward(layer.mamba, rmsnorm(layer.ln.scale, x, cfg.norm_eps), cfg)
+
+
+def _final_norm(model: LM, x, cfg):
+    if cfg.family == "ssm":
+        return layernorm(model.ln_f, x, cfg.norm_eps)
+    return rmsnorm(model.ln_f.scale, x, cfg.norm_eps)
+
+
 def lm_forward(model: LM, tokens: torch.Tensor, cfg, *,
                window: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens: [B, S] int. Returns (logits [B,S,V] fp32, aux loss 0)."""
+    """tokens: [B, S] int. Returns (logits [B,S,V] fp32, aux loss: the MoE
+    layers' load-balance losses summed, else 0)."""
     check_family(cfg)
     x = model.embed(tokens, dtype_of(cfg))
     if window is None:
         window = cfg.sliding_window
     remat = cfg.remat and torch.is_grad_enabled()
-    for layer in model.layers:
+
+    def run(fn, *args):
         if remat:
-            x = checkpoint(_dense_block, layer, x, cfg, window,
-                           use_reentrant=False)
-        else:
-            x = _dense_block(layer, x, cfg, window)
-    x = rmsnorm(model.ln_f.scale, x, cfg.norm_eps)
-    return unembed(model.head(), x), torch.zeros((), device=x.device)
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    auxs = []
+    fam = cfg.family
+    if fam == "dense":
+        for layer in model.layers:
+            x = run(_dense_block, layer, x, cfg, window)
+    elif fam == "moe":
+        for layer in model.layers:
+            x, aux = run(_moe_block, layer, x, cfg, window)
+            auxs.append(aux)
+    elif fam == "ssm":
+        for layer in model.layers:
+            x = run(_rwkv_block, layer, x, cfg)
+    else:                                           # hybrid
+        for group in model.groups():
+            for layer in group:
+                x = run(_mamba_block, layer, x, cfg)
+            x = run(_dense_block, model.shared_attn, x, cfg, window)
+    x = _final_norm(model, x, cfg)
+    aux = (torch.stack(auxs).sum() if auxs
+           else torch.zeros((), device=x.device))
+    return unembed(model.head(), x), aux
 
 
 def lm_loss(model: LM, batch: dict, cfg) -> tuple[torch.Tensor, dict]:
@@ -134,33 +258,85 @@ def lm_loss(model: LM, batch: dict, cfg) -> tuple[torch.Tensor, dict]:
     return loss + aux, {"xent": loss, "aux": aux}
 
 
+def _attn_prefill(block, x, cfg, window, cache_len, dt):
+    """An attention block's prefill: (x, its ring KV cache). The block's
+    FFN is its SwiGLU, or its MoE (the aux loss dropped)."""
+    y, (k, v) = attn.attention_forward(
+        block.attn, rmsnorm(block.ln1.scale, x, cfg.norm_eps), cfg,
+        window=window, return_kv=True)
+    x = x + y
+    h = rmsnorm(block.ln2.scale, x, cfg.norm_eps)
+    x = x + (moe_forward(block.moe, h, cfg)[0] if isinstance(block, MoEBlock)
+             else swiglu(block.mlp, h))
+    return x, attn.fill_kv_cache(k, v, cache_len, dt)
+
+
 def lm_prefill(model: LM, tokens: torch.Tensor, cfg, *, cache_len: int,
                window: Optional[int] = None) -> tuple[torch.Tensor, dict]:
-    """Serving prefill: the forward pass that also builds each layer's ring
-    KV cache. Returns (last-token logits [B,1,V], cache)."""
+    """Serving prefill: the forward pass that also builds the decode cache
+    (ring KV caches, RWKV and Mamba2 states). Returns (last-token logits
+    [B,1,V], cache)."""
     check_family(cfg)
     dt = dtype_of(cfg)
     x = model.embed(tokens, dt)
     if window is None:
         window = cfg.sliding_window
     caches = []
-    for layer in model.layers:
-        y, (k, v) = attn.attention_forward(
-            layer.attn, rmsnorm(layer.ln1.scale, x, cfg.norm_eps), cfg,
-            window=window, return_kv=True)
-        x = x + y
-        x = x + swiglu(layer.mlp, rmsnorm(layer.ln2.scale, x, cfg.norm_eps))
-        caches.append(attn.fill_kv_cache(k, v, cache_len, dt))
-    x = rmsnorm(model.ln_f.scale, x[:, -1:], cfg.norm_eps)
-    return unembed(model.head(), x), {"layers": caches}
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        for layer in model.layers:
+            x, kv = _attn_prefill(layer, x, cfg, window, cache_len, dt)
+            caches.append(kv)
+        cache = {"layers": caches}
+    elif fam == "ssm":
+        for layer in model.layers:
+            y, st = rwkv6_forward(layer.time, layernorm(layer.ln1, x, cfg.norm_eps),
+                                  cfg, return_state=True)
+            x = x + y
+            ln2 = layernorm(layer.ln2, x, cfg.norm_eps)
+            x = x + rwkv_ffn(layer.ffn, ln2)
+            caches.append(dict(st, ffn_shift=ln2[:, -1:, :]))
+        cache = {"layers": caches}
+    else:                                           # hybrid
+        kvs = []
+        for group in model.groups():
+            for layer in group:
+                y, st = mamba2_forward(layer.mamba,
+                                       rmsnorm(layer.ln.scale, x, cfg.norm_eps),
+                                       cfg, return_state=True)
+                x = x + y
+                caches.append(st)
+            x, kv = _attn_prefill(model.shared_attn, x, cfg, window, cache_len, dt)
+            kvs.append(kv)
+        cache = {"layers": caches, "shared_attn": kvs}
+    x = _final_norm(model, x[:, -1:], cfg)
+    return unembed(model.head(), x), cache
 
 
 def init_lm_cache(cfg, batch: int, cache_len: int, device=None) -> dict:
-    """Empty per-layer ring caches."""
+    """Empty per-layer caches (``device`` may be ``meta``)."""
     check_family(cfg)
     dt = dtype_of(cfg)
-    return {"layers": [attn.make_kv_cache(cfg, batch, cache_len, dt, device)
-                       for _ in range(cfg.n_layers)]}
+
+    def kv():
+        return attn.make_kv_cache(cfg, batch, cache_len, dt, device)
+    if cfg.family in ("dense", "moe"):
+        return {"layers": [kv() for _ in range(cfg.n_layers)]}
+    if cfg.family == "ssm":
+        return {"layers": [make_rwkv_cache(cfg, batch, dt, device)
+                           for _ in range(cfg.n_layers)]}
+    return {"layers": [make_ssm_cache(cfg, batch, dt, device)
+                       for _ in range(cfg.n_layers)],
+            "shared_attn": [kv() for _ in range(cfg.n_layers // cfg.attn_every)]}
+
+
+def _attn_decode(block, x, kv, pos, cfg):
+    y, _ = attn.attention_decode(block.attn, rmsnorm(block.ln1.scale, x, cfg.norm_eps),
+                                 kv, pos, cfg)
+    x = x + y
+    h = rmsnorm(block.ln2.scale, x, cfg.norm_eps)
+    return x + (moe_forward(block.moe, h, cfg)[0] if isinstance(block, MoEBlock)
+                else swiglu(block.mlp, h))
 
 
 def lm_decode(model: LM, token: torch.Tensor, cache: dict, pos: int, cfg
@@ -169,10 +345,28 @@ def lm_decode(model: LM, token: torch.Tensor, cache: dict, pos: int, cfg
     [B,1,V], cache), the cache updated in place."""
     check_family(cfg)
     x = model.embed(token, dtype_of(cfg))
-    for layer, kv in zip(model.layers, cache["layers"]):
-        y, _ = attn.attention_decode(layer.attn, rmsnorm(layer.ln1.scale, x, cfg.norm_eps),
-                                     kv, pos, cfg)
-        x = x + y
-        x = x + swiglu(layer.mlp, rmsnorm(layer.ln2.scale, x, cfg.norm_eps))
-    x = rmsnorm(model.ln_f.scale, x, cfg.norm_eps)
+    fam = cfg.family
+    layers = cache["layers"]
+    if fam in ("dense", "moe"):
+        for layer, kv in zip(model.layers, layers):
+            x = _attn_decode(layer, x, kv, pos, cfg)
+    elif fam == "ssm":
+        for i, layer in enumerate(model.layers):
+            y, c = rwkv6_decode(layer.time, layernorm(layer.ln1, x, cfg.norm_eps),
+                                layers[i], cfg)
+            x = x + y
+            ffn_in = layernorm(layer.ln2, x, cfg.norm_eps)
+            x = x + rwkv_ffn(layer.ffn, ffn_in, prev=c["ffn_shift"])
+            layers[i] = dict(c, ffn_shift=ffn_in)
+    else:                                           # hybrid
+        i = 0
+        for group, kv in zip(model.groups(), cache["shared_attn"]):
+            for layer in group:
+                y, layers[i] = mamba2_decode(layer.mamba,
+                                             rmsnorm(layer.ln.scale, x, cfg.norm_eps),
+                                             layers[i], cfg)
+                x = x + y
+                i += 1
+            x = _attn_decode(model.shared_attn, x, kv, pos, cfg)
+    x = _final_norm(model, x, cfg)
     return unembed(model.head(), x), cache

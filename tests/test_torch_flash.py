@@ -30,6 +30,17 @@ from repro_torch.kernels.flash_attention import ops
 TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's side on one intra-op thread: the suite runs several
+    workers on the machine's cores, and a process with a thread a core
+    each slows all of them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, B, Sq, H, KV, D, Skv=None, dtype="float32"):
     rng = np.random.default_rng(seed)
     Skv = Skv or Sq
@@ -148,18 +159,21 @@ def _sm90_emulated(q, k, v, *, causal, window):
     diagonal or before its window; S = Q K^T in fp32 times 1/sqrt(D);
     masked scores -1e30, keys past Skv (zero-filled by the TMA) -inf;
     online softmax with exp2((s - m) log2 e); l sums the fp32 P, and
-    O += bf16(P) V in fp32; o = O / max(l, 1e-30) in bf16."""
+    O += bf16(P) V in fp32; o = O / max(l, 1e-30) in bf16. At D = 80 the
+    kernel computes on 96 columns, the TMA zero-filling 80..95 of Q, K and
+    V (the scale stays 1/sqrt(80)), and stores 80."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     BK = 128 if D <= 64 else 64
+    DP = 96 if D == 80 else D                                   # padded width
     n_kt = -(-Skv // BK)
     pad = n_kt * BK - Skv
-    qf = q.float().permute(0, 2, 1, 3)                          # [B,H,Sq,D]
-    kf, vf = (torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad))
+    qf = torch.nn.functional.pad(q.float(), (0, DP - D)).permute(0, 2, 1, 3)
+    kf, vf = (torch.nn.functional.pad(t.float(), (0, DP - D, 0, 0, 0, pad))
               .permute(0, 2, 1, 3).repeat_interleave(H // KV, dim=1)
-              for t in (k, v))                                  # [B,H,n_kt*BK,D]
+              for t in (k, v))                                  # [B,H,n_kt*BK,DP]
     scale, log2e = 1.0 / math.sqrt(D), 1.4426950408889634
-    out = torch.zeros(B, H, Sq, D)
+    out = torch.zeros(B, H, Sq, DP)
     for q0 in range(0, Sq, 128):
         q_last = min(q0 + 128, Sq) - 1
         orphans = window is not None and q_last >= Skv - 1 + window
@@ -172,7 +186,7 @@ def _sm90_emulated(q, k, v, *, causal, window):
             rows = torch.arange(r_lo, r_lo + 64)
             m = torch.full((B, H, 64), -1e30)
             l = torch.zeros(B, H, 64)
-            o = torch.zeros(B, H, 64, D)
+            o = torch.zeros(B, H, 64, DP)
             qt = torch.nn.functional.pad(qf[:, :, r_lo:r_lo + 64],
                                          (0, 0, 0, 64 - qf[:, :, r_lo:r_lo + 64].shape[2]))
             for k0 in range(k_begin, k_end, BK):
@@ -196,7 +210,8 @@ def _sm90_emulated(q, k, v, *, causal, window):
                 m = m_new
             n = min(64, Sq - r_lo)
             out[:, :, r_lo:r_lo + n] = (o / torch.clamp(l, min=1e-30)[..., None])[:, :, :n]
-    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+    assert not out[..., D:].any()                # the padded columns stay zero
+    return out[..., :D].permute(0, 2, 1, 3).to(torch.bfloat16)
 
 
 @pytest.mark.parametrize("B,S,H,KV,D,causal,window,Skv", [
@@ -206,7 +221,13 @@ def _sm90_emulated(q, k, v, *, causal, window):
     (1, 2048, 4, 1, 32, True, None, None),
     (1, 2048, 8, 1, 128, True, None, None),
     (1, 300, 8, 2, 128, False, None, 333),     # Skv != Sq, past-Skv keys
+    (1, 2048, 4, 1, 128, True, 1024, None),    # mixtral's call (half-S window), cut
+    (1, 300, 8, 2, 128, True, 77, None),       # a window ending inside a key tile
     (1, 200, 4, 1, 64, False, 50, 77),         # rows that see no key
+    (1, 2048, 4, 4, 80, True, None, None),     # zamba2's serve call, cut
+    (1, 2048, 4, 2, 80, True, 256, None),      # D = 80 with a window
+    (1, 2048, 4, 4, 96, True, None, None),     # phi-3-vision's head dim
+    (1, 1000, 4, 2, 96, True, None, None),     # D = 96, ragged S
 ])
 def test_sm90_numerics_emulated_fit_the_bf16_gate(B, S, H, KV, D, causal,
                                                    window, Skv):
@@ -247,18 +268,22 @@ def _simt_f32_emulated(q, k, v, *, causal, window):
     max over the tile and one rescale a tile; l held as 8 shares (share tx
     sums the tile's keys tx + 8 i in order, then is added to its rescaled
     self) added at the end in the shuffles' tree; O rescaled, then a chain
-    of fmaf over the tile's keys in order; o = O / max(l, 1e-30)."""
+    of fmaf over the tile's keys in order; o = O / max(l, 1e-30). At D = 80
+    the rows of K and V in shared memory hold 96 columns, 80..95
+    zero-filled: each score sums d = 0..79 only, O's padded columns stay
+    zero and 80 are stored."""
     B, Sq, H, D = q.shape
+    DP = -(-D // 32) * 32                                       # padded width
     Skv, KV = k.shape[1], k.shape[2]
     BK = 64 if D <= 32 else 32
     n_kt = -(-Skv // BK)
     pad = n_kt * BK - Skv
     scale = torch.tensor(1.0 / D ** 0.5, dtype=torch.float32)
     qf = (q.float() * scale).permute(0, 2, 1, 3)                # [B,H,Sq,D]
-    kf, vf = (torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad))
+    kf, vf = (torch.nn.functional.pad(t.float(), (0, DP - D, 0, 0, 0, pad))
               .permute(0, 2, 1, 3).repeat_interleave(H // KV, dim=1)
-              for t in (k, v))                                  # [B,H,n_kt*BK,D]
-    out = torch.zeros(B, H, Sq, D)
+              for t in (k, v))                                  # [B,H,n_kt*BK,DP]
+    out = torch.zeros(B, H, Sq, DP)
     for q0 in range(0, Sq, 64):
         q_last = min(q0 + 64, Sq) - 1
         k_end = min(Skv, q_last + 1) if causal else Skv
@@ -270,7 +295,7 @@ def _simt_f32_emulated(q, k, v, *, causal, window):
                                      (0, 0, 0, 64 - qf[:, :, q0:q0 + 64].shape[2]))
         m = torch.full((B, H, 64), -1e30)
         shares = torch.zeros(B, H, 64, 8)
-        acc = torch.zeros(B, H, 64, D)
+        acc = torch.zeros(B, H, 64, DP)
         for k0 in range(k_begin, k_end, BK):
             keys = torch.arange(k0, k0 + BK)
             kt, vt = kf[:, :, k0:k0 + BK], vf[:, :, k0:k0 + BK]
@@ -300,7 +325,8 @@ def _simt_f32_emulated(q, k, v, *, causal, window):
         l = b[..., 0] + b[..., 1]                            # xor 4
         n = min(64, Sq - q0)
         out[:, :, q0:q0 + n] = (acc / torch.clamp(l, min=1e-30)[..., None])[:, :, :n]
-    return out.permute(0, 2, 1, 3)
+    assert not out[..., D:].any()                # the padded columns stay zero
+    return out[..., :D].permute(0, 2, 1, 3)
 
 
 @pytest.mark.parametrize("B,S,H,KV,D,causal,window,Skv", [
@@ -309,6 +335,10 @@ def _simt_f32_emulated(q, k, v, *, causal, window):
     (1, 256, 4, 2, 32, True, None, None),      # phase 6's call, cut
     (1, 300, 8, 2, 128, True, 77, None),       # D = 128
     (1, 200, 4, 1, 64, False, 50, 77),         # rows that see no key
+    (1, 256, 4, 4, 80, True, None, None),      # zamba2's call, cut
+    (1, 200, 4, 2, 80, True, 64, None),        # D = 80 with a window
+    (1, 256, 4, 4, 96, True, None, None),      # D = 96
+    (1, 130, 4, 2, 96, False, None, 150),      # D = 96, Skv != Sq
 ])
 def test_simt_f32_numerics_emulated_fit_the_fp32_gate(B, S, H, KV, D, causal,
                                                       window, Skv):
