@@ -36,13 +36,18 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    both types, phase 11's [4, 4096, 32|4, 64], and head dims 80 and 96:
    zamba2's [4, 2048, 32|32, 80] and phi-3-vision's D at [2, 2048, 32|32, 96], causal, in both
    types, each timed beside its bound and SDPA, a 512 window at D = 80, a
-   ragged S = 1000 at D = 96), each case also launched
+   ragged S = 1000 at D = 96, and whisper's decoder calls of phase 13 at
+   [4, 4096, 6|6, 64], G = 1: the non-causal cross-attention against 1,500
+   keys, a ragged last key tile, and the causal self-attention, both types,
+   each timed beside its bound and SDPA), each case also launched
    with its log-sum-exp output (out unchanged, lse within 1e-5 in fp32 and
    1e-2 in bf16 of ``flash_fwd_ref``'s), and at phase 11's shape the
    autograd Function's gradients (the kernel forward, ``flash_bwd_ref``
    backward) against the all-plain forward's through the same backward
-   (within 1e-5 of their scale in fp32, 2e-2 in bf16), the kernel's ms with
-   and without lse and ``flash_bwd_ref``'s beside its fp32 bound — and time
+   (within 1e-5 of their scale in fp32, 2e-2 in bf16; also at whisper's
+   non-causal cross shape, 4,096 queries against 1,500 keys), the kernel's
+   ms with and without lse and ``flash_bwd_ref``'s beside its fp32 bound —
+   and time
    both (CUDA events) and the library call computing the same function
    where there is one (a fused ascent also beside the host loop over the
    one-step kernel that it replaced; the top-k rows kernel also at the ks
@@ -204,7 +209,33 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    logits within phase 6's gates, and the MoE's experts and dispatch
    slots equal on both devices but for routing ties (fp32: a gap under
    1e-5; bf16: under 5% of the larger probability), whose count is
-   printed.
+   printed;
+13. the audio and VLM families at full width, bf16, seeded, each run's
+   counts zeroed before it and read after: (a) whisper-tiny (4 + 4 layers,
+   d 384, vocab 51,865, 1,500 frames) through ``serve.generate``, batch 4,
+   32 tokens: no kernel at all (the encoder's 1,500 frames take the direct
+   branch, decode is plain), the first decode step against
+   ``decode_train`` over that token (5% of the logits' scale), encode and
+   decode ms, tokens/s, peak memory; (b) its prefill step at the
+   reference's prefill_32k shape, 32 x 32,768 decoder tokens against 32 x
+   1,500 frames (the batch cut, and the cut printed, only if it does not
+   fit): 8 bf16 flash launches (4 causal self, 4 non-causal cross
+   attentions) and no other kernel, then 8 decode steps from its fresh
+   cache (ROADMAP C-25); (c) its training, 8 x 4,096 decoder tokens in 2
+   microbatches, AdamW lr 3e-4, 1 warm-up and 6 timed steps: 32 launches
+   with lse and 16 ``flash_bwd_ref`` calls a step; (d) phi-3-vision-4.2b
+   (32 layers, d 3,072, head dim 96) through ``serve.generate``, 4 x 2,048
+   ids, 32 tokens (32 launches a prefill, none a decode step, the first
+   step against ``lm_forward``), then its vision path: the prefill step
+   with 576 vision embeddings + 1,472 ids (32 launches) and 8 serve steps,
+   the first against ``lm_forward`` with the same embeddings; (e) its
+   training at a cut depth that fits the card with fp32 masters, AdamW
+   moments and gradients, 4 x (576 + 3,520) positions, gated as (c); (f)
+   the smoke whisper (2,048 decoder ids against 64 frames: both attentions
+   on the flash branch) and phi-3-vision (16 + 2,032 positions), card
+   against CPU in fp32 and bf16 as phase 6 (a prefill step and 4 greedy
+   serve steps: equal ids or a documented tie, logits within phase 6's
+   gates), and 3 AdamW steps of each in fp32 as phase 11b.
 
 ``--cards K`` runs phase 7 alone across K cards (one NCCL rank a card,
 after the build): the exchanges on a (2, K/2, 1) mesh against the pod mean
@@ -222,8 +253,8 @@ ranks at N = 50 against the unsharded CLI on one card (equal JSON), and
 ``sharded_engine_bench`` size; 60,000 images) sharded against one card:
 masks, energies and params, and both round times.
 
-Output: one JSON line per kernel check, per round and per path, a
-``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
+Output: one JSON line per kernel check, per round and per path, one with
+the elapsed seconds at the end of each phase, a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a visible GPU, or without the rest of the repository beside it, the
 script exits non-zero and prints no result.
@@ -257,6 +288,14 @@ ROUNDS = 5
 
 def log(*args):
     print(*args, flush=True)
+
+
+START = time.perf_counter()
+
+
+def stamp(phase: str) -> None:
+    """The script's elapsed seconds at the end of ``phase``."""
+    log(json.dumps({"phase_done": phase, "elapsed_s": time.perf_counter() - START}))
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -834,9 +873,20 @@ FLASH_CASES = (
     (1, 8192, 48, 8, 128, torch.bfloat16, True, 4096, None),
     (1, 8192, 48, 8, 128, torch.float32, True, 4096, None),
     (1, 300, 8, 2, 128, torch.bfloat16, True, 77, None),
+    # whisper's decoder calls of phase 13 (c) at train_4k's sequence, a
+    # microbatch of 4, G = 1: the non-causal cross-attention against the
+    # encoder's 1,500 frames (a ragged last key tile) and the causal
+    # self-attention
+    (4, 4096, 6, 6, 64, torch.bfloat16, False, None, 1500),
+    (4, 4096, 6, 6, 64, torch.float32, False, None, 1500),
+    (4, 4096, 6, 6, 64, torch.bfloat16, True, None, None),
+    (4, 4096, 6, 6, 64, torch.float32, True, None, None),
 )
 # the head-dim cases timed at their serve shapes (B, S, H, KV, D)
 FLASH_HEAD_DIMS = {80: (4, 2048, 32, 32, 80), 96: (2, 2048, 32, 32, 96)}
+# whisper's decoder calls, timed: (B, Sq, H, KV, D, Skv, causal)
+FLASH_WHISPER = {"whisper_cross": (4, 4096, 6, 6, 64, 1500, False),
+                 "whisper_self": (4, 4096, 6, 6, 64, 4096, True)}
 FLASH_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # the kernels' log-sum-exp against flash_fwd_ref's: both take the max of
 # the same fp32 scores and the log of an fp32 sum (the bf16 kernel's terms
@@ -917,6 +967,12 @@ def check_flash(dev) -> list[dict]:
             entry[f"head_dim_{D}"] = time_flash(
                 *(torch.randn(B, S, n, D, device=dev, generator=gen).to(dt)
                   for n in (H, KV, KV)), peak)
+        for label, (B, S, H, KV, D, Skv, causal) in FLASH_WHISPER.items():
+            gen = torch.Generator(device=dev).manual_seed(23)
+            entry[label] = time_flash(
+                *(torch.randn(B, n, h, D, device=dev, generator=gen).to(dt)
+                  for n, h in ((S, H), (Skv, KV), (Skv, KV))), peak, causal=causal)
+        entry["whisper_cross_grad"] = check_cross_grad(dev, dt)
         out.append(entry)
     log(json.dumps({"flash_serve_shape_ms": {e["name"]: e["ms"] for e in out},
                     "with_lse_ms": {e["name"]: e["ms_with_lse"] for e in out},
@@ -924,83 +980,119 @@ def check_flash(dev) -> list[dict]:
     return out
 
 
-def flash_fwd_bound(q: torch.Tensor, k: torch.Tensor, peak: float) -> tuple[float, str]:
-    """A causal forward's least time: QK^T and PV over the causal pairs,
-    S(S+1)/2 per (batch, head), 2 D operations each (the D real columns);
-    q, k, v read and o written once."""
-    B, S, H, D = q.shape
-    n_ops = 2 * 2 * B * H * D * S * (S + 1) / 2
+def flash_fwd_bound(q: torch.Tensor, k: torch.Tensor, peak: float,
+                    causal: bool = True) -> tuple[float, str]:
+    """A forward's least time: QK^T and PV over the visible pairs, 2 D
+    operations each (the D real columns) — causal (Sq = Skv = S):
+    S(S+1)/2 per (batch, head), else Sq Skv; q, k, v read and o written
+    once."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    pairs = Sq * (Sq + 1) / 2 if causal else Sq * Skv
+    n_ops = 2 * 2 * B * H * D * pairs
     return bound(q.element_size() * (2 * q.numel() + 2 * k.numel()), n_ops, peak)
 
 
-def time_flash(q, k, v, peak) -> dict:
-    """The kernel of q's type at one causal call: its ms with and without
-    the lse output (CUDA events), the plain version's and SDPA's on the
-    same inputs, and its bound."""
+def time_flash(q, k, v, peak, causal: bool = True) -> dict:
+    """The kernel of q's type at one call without a window: its ms with
+    and without the lse output (CUDA events), the plain version's and
+    SDPA's on the same inputs, and its bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops, ref
-    ms = cuda_ms(lambda: ops.flash_attention_cuda(q, k, v, causal=True), 20)
+    ms = cuda_ms(lambda: ops.flash_attention_cuda(q, k, v, causal=causal), 20)
     ms_lse = cuda_ms(lambda: ops.flash_attention_cuda(
-        q, k, v, causal=True, with_lse=True), 20)
-    plain = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), 3, warmup=1)
+        q, k, v, causal=causal, with_lse=True), 20)
+    plain = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=causal), 3, warmup=1)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     library = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    b_ms, b_by = flash_fwd_bound(q, k, peak)
-    res = {"shape": [*q.shape[:3], k.shape[2], q.shape[3]], "ms": ms,
+        qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
+    b_ms, b_by = flash_fwd_bound(q, k, peak, causal)
+    res = {"shape": [*q.shape[:3], k.shape[2], q.shape[3]], "Skv": k.shape[1],
+           "causal": causal, "ms": ms,
            "ms_with_lse": ms_lse, "plain_ms": plain, "library_ms": library,
            "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms}
     log(json.dumps({"flash_timed": dict(res, dtype=str(q.dtype))}))
     return res
 
 
-def flash_bwd_bound(B: int, S: int, H: int, KV: int, D: int, esize: int
-                    ) -> tuple[float, str]:
+def flash_bwd_bound(B: int, S: int, H: int, KV: int, D: int, esize: int,
+                    Skv: int | None = None) -> tuple[float, str]:
     """The plain backward's least time at fp32 peak: its five fp32 block
     products (S, dP, dV, dQ, dK) over every (query, key) chunk pair it
     computes, masked ones included, against reading q, k, v, out, dout
-    and lse once and writing dq, dk, dv once."""
+    and lse once and writing dq, dk, dv once (S queries, Skv keys)."""
     from repro_torch.kernels.flash_attention.ref import KV_CHUNK, Q_CHUNK, chunk_of
-    qc, kc = chunk_of(S, Q_CHUNK), chunk_of(S, KV_CHUNK)
-    n_ops = 5 * 2 * B * H * qc * kc * D * (S // qc) * (S // kc)
-    n_bytes = esize * (2 * 2 * B * S * H * D + 2 * 2 * B * S * KV * D) + 4 * B * H * S
+    Skv = Skv or S
+    qc, kc = chunk_of(S, Q_CHUNK), chunk_of(Skv, KV_CHUNK)
+    n_ops = 5 * 2 * B * H * qc * kc * D * (S // qc) * (Skv // kc)
+    n_bytes = esize * (2 * 2 * B * S * H * D + 2 * 2 * B * Skv * KV * D) + 4 * B * H * S
     return bound(n_bytes, n_ops)
 
 
-def check_flash_grad(dev, dt, peak) -> dict:
-    """The training path's flash at phase 11's shape (TRAIN_FLASH, causal):
-    the wrapper's Function under grad (the kernel with its lse forward,
+def hold_flash_grad(dev, dt, B, S, H, KV, D, Skv, causal, seed) -> dict:
+    """The wrapper's Function under grad (the kernel with its lse forward,
     ``flash_bwd_ref`` backward) against the all-plain forward
-    (``flash_fwd_ref``) through the same backward, within FLASH_GRAD_TOL
-    of each gradient's scale; then the kernel's ms with and without lse,
-    and ``flash_bwd_ref``'s ms beside its fp32 bound (CUDA events)."""
+    (``flash_fwd_ref``) through the same backward, at q ``[B, S, H, D]``
+    and k, v ``[B, Skv, KV, D]``: within FLASH_GRAD_TOL of each gradient's
+    scale. Returns the errors and the inputs (q, k, v, dout)."""
     from repro_torch.kernels.flash_attention import ops, ref
-    B, S, H, KV, D = TRAIN_FLASH
-    gen = torch.Generator(device=dev).manual_seed(11)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, S, H, D, device=dev, generator=gen).to(dt)
-    k = torch.randn(B, S, KV, D, device=dev, generator=gen).to(dt)
-    v = torch.randn(B, S, KV, D, device=dev, generator=gen).to(dt)
+    k = torch.randn(B, Skv, KV, D, device=dev, generator=gen).to(dt)
+    v = torch.randn(B, Skv, KV, D, device=dev, generator=gen).to(dt)
     dout = torch.randn(B, S, H, D, device=dev, generator=gen).to(dt)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     calls, lse_launches = ops.flash_attention.backward_calls, ops.flash_attention.launches_lse
-    out = ops.flash_attention(*leaves, causal=True)
+    out = ops.flash_attention(*leaves, causal=causal)
     got = torch.autograd.grad(out, leaves, dout)
     if (ops.flash_attention.backward_calls - calls,
             ops.flash_attention.launches_lse - lse_launches) != (1, 1):
         raise AssertionError("the Function under grad did not launch the kernel "
                              "with lse once and call flash_bwd_ref once")
     del out, leaves
-    out_p, lse_p = ref.flash_fwd_ref(q, k, v, causal=True)
-    want = ref.flash_bwd_ref(q, k, v, out_p, lse_p, dout, causal=True)
+    out_p, lse_p = ref.flash_fwd_ref(q, k, v, causal=causal)
+    want = ref.flash_bwd_ref(q, k, v, out_p, lse_p, dout, causal=causal)
     errs = {n: float((g.float() - w.float()).abs().max() / w.float().abs().max())
             for n, g, w in zip(("dq", "dk", "dv"), got, want)}
     del got, want, out_p, lse_p
-    log(json.dumps({"flash_grad": {"dtype": str(dt), "shape": [B, S, H, KV, D],
+    shape = [B, S, H, KV, D, Skv, causal]
+    log(json.dumps({"flash_grad": {"dtype": str(dt), "shape": shape,
                                    "err_over_scale": errs}}))
     if not max(errs.values()) <= FLASH_GRAD_TOL[dt]:
         raise AssertionError(f"{dt} flash gradients differ from the all-plain "
-                             f"ones by {errs} of their scale > {FLASH_GRAD_TOL[dt]}")
+                             f"ones by {errs} of their scale > {FLASH_GRAD_TOL[dt]} "
+                             f"at {shape}")
+    return {"shape": shape, "err_over_scale": errs, "inputs": (q, k, v, dout)}
+
+
+def check_cross_grad(dev, dt) -> dict:
+    """``hold_flash_grad`` at whisper's cross-attention (non-causal, 4,096
+    queries against 1,500 keys, chunks of 1,024 rows and 750 keys in
+    ``flash_bwd_ref``), and ``flash_bwd_ref``'s ms there beside its fp32
+    bound."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    B, S, H, KV, D, Skv, causal = FLASH_WHISPER["whisper_cross"]
+    held = hold_flash_grad(dev, dt, B, S, H, KV, D, Skv, causal, seed=24)
+    q, k, v, dout = held.pop("inputs")
+    o, lse = ops.flash_attention_cuda(q, k, v, causal=causal, with_lse=True)
+    held["flash_bwd_ref_ms"] = cuda_ms(lambda: ref.flash_bwd_ref(
+        q, k, v, o, lse, dout, causal=causal), 3, warmup=1)
+    held["flash_bwd_ref_bound_ms"], held["flash_bwd_ref_bound_by"] = flash_bwd_bound(
+        B, S, H, KV, D, q.element_size(), Skv)
+    log(json.dumps({"flash_cross_grad": dict(held, dtype=str(dt))}))
+    return held
+
+
+def check_flash_grad(dev, dt, peak) -> dict:
+    """The training path's flash at phase 11's shape (TRAIN_FLASH, causal):
+    ``hold_flash_grad``; then the kernel's ms with and without lse, and
+    ``flash_bwd_ref``'s ms beside its fp32 bound (CUDA events)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    B, S, H, KV, D = TRAIN_FLASH
+    held = hold_flash_grad(dev, dt, B, S, H, KV, D, S, True, seed=11)
+    q, k, v, dout = held.pop("inputs")
+    errs = held["err_over_scale"]
     ms = cuda_ms(lambda: ops.flash_attention_cuda(q, k, v, causal=True), 10)
     ms_lse = cuda_ms(lambda: ops.flash_attention_cuda(q, k, v, causal=True,
                                                       with_lse=True), 10)
@@ -2481,6 +2573,19 @@ def _chunk_unit(cfg) -> int:
     return {"moe": cfg.moe_group, "ssm": 128, "hybrid": cfg.ssm_chunk}.get(cfg.family, 1)
 
 
+def _served_copy(dev, cfg):
+    """The seeded fp32 masters cast to the serving copy in place, and the
+    set-up seconds."""
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = tfm.for_compute(steps.init_for(cfg)(torch.Generator(device=dev).manual_seed(0)),
+                            cfg, inplace=True)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
 def serve_family(dev, arch: str, profile: bool = False) -> dict:
     """Phase 12, one family: ``serve.generate`` at full width (the serving
     copy cast in place from the seeded fp32 masters, so both are never on
@@ -2491,17 +2596,12 @@ def serve_family(dev, arch: str, profile: bool = False) -> dict:
     scale)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.launch import serve, steps
+    from repro_torch.launch import serve
     from repro_torch.models import transformer as tfm
 
     cut, B, P, G, n_flash = FAMILIES[arch]
     cfg = get_config(arch).replace(**cut)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model = tfm.for_compute(steps.init_for(cfg)(torch.Generator(device=dev).manual_seed(0)),
-                            cfg, inplace=True)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
+    model, setup_s = _served_copy(dev, cfg)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"phase 12: {cfg.name} ({cfg.family}) {cfg.n_layers} layers, "
         f"{n_params / 1e9:.3f}B params, set-up {setup_s:.1f} s")
@@ -2878,6 +2978,544 @@ def family_card_against_cpu(dev, arch: str, cut: dict, dtype: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------- phase 13 ----
+WHISPER, PHI3V = "whisper-tiny", "phi-3-vision-4.2b"
+# (a) whisper-tiny's serve flow (the reference's: frames from the prompt's
+# key, decode from token 0; the prompt is drawn, not read)
+AUDIO_SERVE = dict(batch=4, prompt_len=32, gen=32)
+# (b) the reference's prefill_32k shape (32 x 32,768 decoder tokens
+# against 32 x 1,500 frames), then decode steps from its fresh cache
+AUDIO_PREFILL = dict(shape="prefill_32k", steps=8)
+# (c) train_4k's sequence, its global batch of 256 cut to 8 for one card
+AUDIO_TRAIN = dict(batch=8, seq=4096, microbatches=2, lr=3e-4, warmup=1, steps=6)
+# (d) phi-3-vision-4.2b served: the dense flow (4 x 2,048 ids), then the
+# vision path's prefill step (576 vision embeddings + 1,472 ids)
+VLM_SERVE = dict(batch=4, prompt_len=2048, gen=32, steps=8)
+# (e) 4 x (576 + 3,520) positions, depth cut to what fits the card with
+# fp32 masters, AdamW moments and gradients. The vision embeddings are
+# seeded normals, not the reference's zeros: an all-zero row stays zero
+# through every layer, and RMSNorm's derivative there is 1/sqrt(eps) ~ 316
+# a layer, so the gradient overflows to NaN from about 24 layers on, in
+# both packages (ROADMAP C-26)
+VLM_TRAIN = dict(layers=32, batch=4, seq=3520, microbatches=2, lr=3e-4,
+                 warmup=1, steps=6, vision_embeds="normal")
+# (f) the smoke models, card against CPU: whisper's decoder prompt of 2,048
+# against 64 frames (both its attentions take the flash branch), the VLM's
+# 16 vision + 2,032 text positions; 4 decode steps
+FAMILY13_SMOKE = dict(prompt=2048, batch=2, steps=4)
+
+
+def _zero_counts() -> dict:
+    fns = counters()
+    for fn, attr in fns.values():
+        setattr(fn, attr, 0)
+    return fns
+
+
+def _read_counts(fns) -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in fns.items()}
+
+
+def _only_flash(launches: dict, n: int, what: str) -> None:
+    """The bf16 flash kernel launched ``n`` times and no other kernel."""
+    if launches["flash_attention"] != n:
+        raise AssertionError(f"{what}: the bf16 flash kernel launched "
+                             f"{launches['flash_attention']} times, not {n}")
+    others = {k: c for k, c in launches.items() if k != "flash_attention" and c}
+    if others:
+        raise AssertionError(f"{what}: other kernels launched: {others}")
+
+
+def _within_serve_tol(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
+    diff = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not diff <= SERVE_REL_TOL * scale:
+        raise AssertionError(f"{what}: differs by {diff} > {SERVE_REL_TOL} x {scale}")
+    return {"max_abs": diff, "logit_scale": scale}
+
+
+def _check_ids(ids: torch.Tensor, vocab: int, what: str) -> None:
+    if not (0 <= int(ids.min()) and int(ids.max()) < vocab):
+        raise AssertionError(f"{what}: ids outside the vocabulary")
+
+
+def serve_audio(dev):
+    """Phase 13 (a): ``serve.generate`` on whisper-tiny at full width (4 +
+    4 layers, d 384, 6 heads, vocab 51,865, 1,500 frames, bf16), batch 4,
+    32 new tokens, warmed up, then timed with the counts zeroed: no kernel
+    at all (the encoder's 1,500 frames take the direct branch by the
+    reference's rule, decode is plain PyTorch); ids in the vocabulary,
+    finite logits; the first decode step (token 0 at position 0) against
+    ``decode_train`` over that token against the same encoder states
+    (SERVE_REL_TOL of its scale), which holds the cross cache and the ring
+    against the direct path. Returns (summary, model)."""
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec
+
+    cfg = get_config(WHISPER)
+    model, setup_s = _served_copy(dev, cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    B, P, G = AUDIO_SERVE["batch"], AUDIO_SERVE["prompt_len"], AUDIO_SERVE["gen"]
+    kw = dict(prompt_len=P, batch=B, temperature=1.0, seed=0, device=dev)
+    serve.generate(cfg, model, gen=2, **kw)                          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fns = _zero_counts()
+    out = serve.generate(cfg, model, gen=G, **kw)
+    launches = _read_counts(fns)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if any(launches.values()):
+        raise AssertionError(f"phase 13 (a): kernels launched: {launches}")
+    if out.first_logits is not None or tuple(out.ids.shape) != (B, 1 + G):
+        raise AssertionError(f"phase 13 (a): ids {tuple(out.ids.shape)}")
+    _check_ids(out.ids, cfg.vocab_size, "phase 13 (a)")
+    if not all(bool(torch.isfinite(lg).all()) for lg in out.decode_logits):
+        raise AssertionError("phase 13 (a): non-finite logits")
+    with torch.no_grad():
+        frames = prng.normal(prng.PRNGKey(0), (B, cfg.n_audio_frames, cfg.d_model)).to(dev)
+        enc_ms = cuda_ms(lambda: encdec.encode(model, frames, cfg), 5)
+        enc = encdec.encode(model, frames, cfg)
+        want = encdec.decode_train(model, out.ids[:, :1].to(dev), enc, cfg)[:, 0]
+    first = _within_serve_tol(out.decode_logits[0], want,
+                              "phase 13 (a) first decode step against decode_train")
+    res = {"serve_audio": cfg.name, "params_B": n_params / 1e9, "batch": B,
+           "frames": cfg.n_audio_frames, "gen": G, "setup_s": setup_s,
+           "encode_ms": enc_ms, "encode_and_cache_ms": out.prefill_s * 1e3,
+           "decode_ms_per_step": out.decode_s * 1e3 / G,
+           "decode_tokens_per_s": G * B / out.decode_s, "peak_mem_GB": peak / 1e9,
+           "launches": launches, "first_decode_vs_decode_train": first,
+           "ids_first_request": out.ids[0, :16].tolist()}
+    log(json.dumps({"phase13a": res}))
+    return res, model
+
+
+def prefill_audio(dev, model) -> dict:
+    """Phase 13 (b): whisper-tiny's prefill step (``steps.
+    build_prefill_step``) at the reference's ``prefill_32k`` shape, 32 x
+    32,768 decoder tokens against 32 x 1,500 frames (cut to a smaller
+    batch only if it does not fit, and the cut printed): exactly 8 bf16
+    flash launches (each decoder layer's causal self-attention and
+    non-causal cross-attention, q [B, 32768, 6, 64] against k/v [B, 1500,
+    6, 64]) and no other kernel, finite last-position logits; then 8
+    decode steps (``build_serve_step``) from its cache: no kernel, finite
+    logits, ids in the vocabulary. The cache is fresh, as the reference's
+    (ROADMAP C-25): these steps are not held against ``decode_train``;
+    phase 13 (f) holds them card against CPU."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import steps
+
+    cfg = model.cfg
+    shape = SHAPES[AUDIO_PREFILL["shape"]]
+    S, n = shape.seq_len, AUDIO_PREFILL["steps"]
+    prefill, serve_step = steps.build_prefill_step(cfg, shape), steps.build_serve_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def batch_of(B):
+        return {"frames": torch.randn(B, cfg.n_audio_frames, cfg.d_model, device=dev,
+                                      generator=gen).to(torch.bfloat16),
+                "tokens": torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                                        generator=gen, dtype=torch.int32)}
+    with torch.no_grad():
+        prefill(model, batch_of(1))                                   # warm-up
+        for B in (shape.global_batch, shape.global_batch // 2, shape.global_batch // 4):
+            batch = batch_of(B)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            fns = _zero_counts()
+            try:
+                t0 = time.perf_counter()
+                logits, cache = prefill(model, batch)
+                torch.cuda.synchronize()
+            except torch.cuda.OutOfMemoryError:
+                log(f"phase 13 (b): batch {B} x {S} does not fit; cutting the batch")
+                del batch
+                torch.cuda.empty_cache()
+                continue
+            break
+        else:
+            raise AssertionError(f"phase 13 (b): no batch of {S} tokens fits")
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        launches = _read_counts(fns)
+        _only_flash(launches, 2 * cfg.n_layers, "phase 13 (b) prefill")
+        if tuple(logits.shape) != (B, 1, cfg.vocab_size) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"phase 13 (b): prefill logits {tuple(logits.shape)}")
+        fns = _zero_counts()
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        ids = [tok]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            lg, cache = serve_step(model, cache, tok, S + i)
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None].to(torch.int32)
+            ids.append(tok)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / n
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError("phase 13 (b): non-finite decode logits")
+        ids = torch.cat(ids, dim=1).cpu()
+        _check_ids(ids, cfg.vocab_size, "phase 13 (b)")
+        if any(_read_counts(fns).values()):
+            raise AssertionError(f"phase 13 (b): decode launched {_read_counts(fns)}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    res = {"prefill_audio": cfg.name, "shape": shape.name, "batch": B,
+           "batch_cut_from": shape.global_batch if B != shape.global_batch else None,
+           "decoder_tokens": S, "frames": cfg.n_audio_frames, "prefill_ms": prefill_ms,
+           "prefill_tokens_per_s": B * S / (prefill_ms / 1e3),
+           "decode_steps": n, "decode_ms_per_step": decode_ms,
+           "decode_tokens_per_s": B / (decode_ms / 1e3), "peak_mem_GB": peak / 1e9,
+           "launches": launches, "ids_first_request": ids[0].tolist()}
+    log(json.dumps({"phase13b": res}))
+    del cache, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_vlm(dev) -> dict:
+    """Phase 13 (d): phi-3-vision-4.2b at full width (32 layers, d 3,072,
+    32|32 heads, head dim 96, bf16, the serving copy cast in place): (i)
+    ``serve.generate``, 4 prompts of 2,048 ids and 32 tokens, warmed up,
+    then timed with the counts zeroed: 32 bf16 flash launches in the
+    prefill, none in a decode step, no other kernel; the first decode step
+    against ``lm_forward``; (ii) the vision path, ``steps.
+    build_prefill_step`` with 576 vision embeddings and 1,472 ids (32
+    launches) and 8 ``build_serve_step`` steps from its cache (no kernel),
+    the cache sized by a shape of 2,048 + 8 positions (at 2,048,
+    ``cache_len_for`` gives 2,048 slots and the first step would evict
+    position 0); the first step against ``lm_forward`` with the same
+    ``extra_embeds`` (SERVE_REL_TOL of its scale)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config(PHI3V)
+    model, setup_s = _served_copy(dev, cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    B, P, G, n = (VLM_SERVE[k] for k in ("batch", "prompt_len", "gen", "steps"))
+    kw = dict(prompt_len=P, batch=B, temperature=1.0, seed=0, device=dev)
+    serve.generate(cfg, model, gen=2, **kw)                          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fns = _zero_counts()
+    out = serve.generate(cfg, model, gen=G, **kw)
+    launches = _read_counts(fns)
+    peak = torch.cuda.max_memory_allocated(dev)
+    _only_flash(launches, cfg.n_layers, "phase 13 (d) generate")
+    _check_ids(out.ids, cfg.vocab_size, "phase 13 (d)")
+    if not all(bool(torch.isfinite(lg).all())
+               for lg in [out.first_logits, *out.decode_logits]):
+        raise AssertionError("phase 13 (d): non-finite logits")
+    with torch.no_grad():
+        flash_attention.launches = 0
+        _, cache = tfm.lm_prefill(model, out.prompt.to(dev), cfg, cache_len=P + G)
+        n_prefill = flash_attention.launches
+        flash_attention.launches = 0
+        tfm.lm_decode(model, out.ids[:, :1].to(dev), cache, P, cfg)
+        n_decode = flash_attention.launches
+        del cache
+        if (n_prefill, n_decode) != (cfg.n_layers, 0):
+            raise AssertionError(f"phase 13 (d): flash launches prefill {n_prefill}, "
+                                 f"decode {n_decode}")
+        full, _ = tfm.lm_forward(model, torch.cat([out.prompt, out.ids[:, :1]],
+                                                  dim=1).to(dev), cfg)
+        want = full[:, P]
+        del full
+    first = _within_serve_tol(out.decode_logits[0], want,
+                              "phase 13 (d) first decode step against lm_forward")
+
+    # (ii) the vision path
+    nv = cfg.n_vision_tokens
+    shape = ShapeConfig("phase13_vlm", P + n, B, "prefill")
+    prefill, serve_step = steps.build_prefill_step(cfg, shape), steps.build_serve_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, P - nv), device=dev,
+                                     generator=gen, dtype=torch.int32),
+             "extra_embeds": torch.randn(B, nv, cfg.d_model, device=dev,
+                                         generator=gen).to(torch.bfloat16)}
+    with torch.no_grad():
+        prefill(model, batch)                                         # warm-up
+        torch.cuda.synchronize()
+        fns = _zero_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, batch)
+        torch.cuda.synchronize()
+        vis_prefill_ms = (time.perf_counter() - t0) * 1e3
+        vis_launches = _read_counts(fns)
+        _only_flash(vis_launches, cfg.n_layers, "phase 13 (d) vision prefill step")
+        fns = _zero_counts()
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        ids, steps_logits = [tok], []
+        t0 = time.perf_counter()
+        for i in range(n):
+            lg, cache = serve_step(model, cache, tok, P + i)
+            steps_logits.append(lg[:, -1])
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None].to(torch.int32)
+            ids.append(tok)
+        torch.cuda.synchronize()
+        vis_decode_ms = (time.perf_counter() - t0) * 1e3 / n
+        if any(_read_counts(fns).values()):
+            raise AssertionError(f"phase 13 (d): decode launched {_read_counts(fns)}")
+        ids = torch.cat(ids, dim=1).cpu()
+        _check_ids(ids, cfg.vocab_size, "phase 13 (d) vision path")
+        if not all(bool(torch.isfinite(x).all()) for x in [logits, *steps_logits]):
+            raise AssertionError("phase 13 (d): non-finite vision-path logits")
+        del cache
+        full, _ = tfm.lm_forward(model, torch.cat([batch["tokens"], ids[:, :1].to(dev)],
+                                                  dim=1), cfg,
+                                 extra_embeds=batch["extra_embeds"])
+        want = full[:, P]
+        del full
+    vis_first = _within_serve_tol(steps_logits[0], want,
+                                  "phase 13 (d) vision path's first decode step "
+                                  "against lm_forward")
+    res = {"serve_vlm": cfg.name, "params_B": n_params / 1e9, "layers": cfg.n_layers,
+           "batch": B, "prompt_len": P, "gen": G, "setup_s": setup_s,
+           "prefill_ms": out.prefill_s * 1e3, "decode_ms_per_step": out.decode_s * 1e3 / G,
+           "decode_tokens_per_s": G * B / out.decode_s,
+           "prefill_tokens_per_s": P * B / out.prefill_s, "peak_mem_GB": peak / 1e9,
+           "launches": launches, "flash_launches_prefill": n_prefill,
+           "flash_launches_decode_step": n_decode, "first_decode_vs_forward": first,
+           "vision_tokens": nv, "text_tokens": P - nv,
+           "vision_cache_len": steps.cache_len_for(cfg, shape),
+           "vision_prefill_ms": vis_prefill_ms, "vision_decode_ms_per_step": vis_decode_ms,
+           "vision_launches": vis_launches["flash_attention"],
+           "vision_first_decode_vs_forward": vis_first,
+           "ids_first_request": out.ids[0, :16].tolist()}
+    log(json.dumps({"phase13d": res}))
+    del model, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def _greedy_apart(ids_card, ids_cpu, cpu_logits, rtol, atol):
+    """The first column where the two devices' greedy ids differ (None if
+    equal; column c is the argmax of ``cpu_logits[c]``), and whether each
+    request that differs there has a tie: the CPU's top two logits within
+    the gate."""
+    cols = torch.nonzero((ids_card != ids_cpu).any(dim=0)).flatten().tolist()
+    if not cols:
+        return None, True
+    c = cols[0]
+    rows = ids_card[:, c] != ids_cpu[:, c]
+    top2 = torch.topk(cpu_logits[c], 2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).abs()
+    return c, bool((gap <= rtol * top2[:, 0].abs() + atol)[rows].all())
+
+
+def family13_card_against_cpu(dev, arch: str, dtype: str) -> dict:
+    """Phase 13 (f), serving: ``arch``'s smoke model in ``dtype`` on the
+    card and on the CPU from the same weights and inputs: the prefill step
+    (whisper: a decoder prompt of 2,048 ids against 64 frames, so both its
+    attentions take the flash branch, Skv = 64 on the cross one; the VLM:
+    16 vision embeddings + 2,032 ids), then 4 greedy serve steps from its
+    cache. The card launches the kernel of ``dtype`` once per flash-branch
+    attention call of the prefill; equal ids (or a documented tie: the
+    CPU's top two within the gate), logits within phase 6's gates (fp32
+    rtol 1e-4, bf16 5% of their scale) while both saw the same tokens."""
+    import copy
+
+    from repro_torch.configs import ShapeConfig, get_smoke
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import steps
+
+    cfg = get_smoke(arch).replace(dtype=dtype)
+    c = FAMILY13_SMOKE
+    B, P, n = c["batch"], c["prompt"], c["steps"]
+    cpu_model = steps.init_for(cfg)(torch.Generator().manual_seed(1))
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    shape = ShapeConfig("phase13f", P + n, B, "prefill")
+    gen = torch.Generator().manual_seed(7)
+    dt = getattr(torch, dtype)
+    if cfg.family == "audio":
+        batch = {"frames": torch.randn(B, cfg.n_audio_frames, cfg.d_model,
+                                       generator=gen).to(dt),
+                 "tokens": torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                                         dtype=torch.int32)}
+        n_attn = 2 * cfg.n_layers
+    else:
+        nv = cfg.n_vision_tokens
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, P - nv), generator=gen,
+                                         dtype=torch.int32),
+                 "extra_embeds": torch.randn(B, nv, cfg.d_model, generator=gen).to(dt)}
+        n_attn = cfg.n_layers
+    prefill, serve_step = steps.build_prefill_step(cfg, shape), steps.build_serve_step(cfg)
+    counter = "launches_f32" if dtype == "float32" else "launches_bf16"
+
+    def run(model, where):
+        logits, cache = prefill(model, {k: t.to(where) for k, t in batch.items()})
+        out = [logits[:, -1].float().cpu()]
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        ids = [tok.cpu()]
+        for i in range(n):
+            lg, cache = serve_step(model, cache, tok, P + i)
+            out.append(lg[:, -1].float().cpu())
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None].to(torch.int32)
+            ids.append(tok.cpu())
+        return torch.cat(ids, dim=1), out
+
+    with torch.no_grad():
+        flash_attention.launches = 0
+        setattr(flash_attention, counter, 0)
+        ids_card, got = run(card_model, dev)
+        n_kernel = getattr(flash_attention, counter)
+        if (flash_attention.launches, n_kernel) != (n_attn, n_attn):
+            raise AssertionError(f"phase 13 (f) {arch} {dtype}: flash launches "
+                                 f"{flash_attention.launches}, the {dtype} kernel's "
+                                 f"{n_kernel}, want {n_attn}")
+        ids_cpu, want = run(cpu_model, "cpu")
+    if dtype == "float32":
+        rtol, atol = 1e-4, 1e-5
+    else:
+        rtol, atol = 0.0, SERVE_REL_TOL * float(want[0].abs().max())
+    col, tie = _greedy_apart(ids_card, ids_cpu, want, rtol, atol)
+    if col is not None and not tie:
+        raise AssertionError(f"phase 13 (f) {arch} {dtype}: ids differ at step {col} "
+                             f"without a tie:\ncuda {ids_card.tolist()}\n"
+                             f"cpu {ids_cpu.tolist()}")
+    n_same = len(got) if col is None else col + 1     # logits of the same tokens
+    err = scale = 0.0
+    for a, b in zip(got[:n_same], want[:n_same]):
+        torch.testing.assert_close(a, b, rtol=rtol, atol=max(atol, 1e-5))
+        err = max(err, float((a - b).abs().max()))
+        scale = max(scale, float(b.abs().max()))
+    res = {"family13_card_vs_cpu": cfg.name, "family": cfg.family, "dtype": dtype,
+           "prompt": P, "batch": B, "steps": n, "ids_equal": col is None,
+           "first_diff_step": col, "logits_compared": n_same, "logits_max_abs": err,
+           "logit_scale": scale, "logits_atol": atol, "flash_launches": n_kernel}
+    log(json.dumps(res))
+    return res
+
+
+def _attention_f64(q, k, v, *, causal=True, window=None):
+    """Softmax attention in float64 (no window: phase 13's calls have
+    none), autograd's own backward."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.reshape(B, Sq, KV, H // KV, D), k) / D ** 0.5
+    if causal:
+        s = torch.where(torch.arange(Skv)[None, :] <= torch.arange(Sq)[:, None],
+                        s, -1e300)
+    out = torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(s, dim=-1), v)
+    return out.reshape(B, Sq, H, D)
+
+
+def fp32_grad_floor(model, cfg, batch, g32: dict) -> dict:
+    """Each leaf's fp32 gradient ``g32`` (the CPU's) against the same
+    weights' gradient in float64 on the CPU (the model cast to float64, the
+    attention patched, in this script only, to ``_attention_f64``), as a
+    share of the float64 gradient's scale: the rounding noise of fp32 sums
+    for this model and batch."""
+    import copy
+
+    from repro_torch.launch import steps
+    from repro_torch.models import attention, module
+    cfg64 = cfg.replace(dtype="float64")
+    model64 = copy.deepcopy(model).double()
+    batch64 = {k: t.double() if t.is_floating_point() else t for k, t in batch.items()}
+    module.DTYPES["float64"] = torch.float64
+    orig = attention.flash_attention
+    attention.flash_attention = _attention_f64
+    try:
+        loss, _ = steps.loss_for(cfg64)(model64, batch64)
+        g64 = torch.autograd.grad(loss, list(model64.parameters()))
+    finally:
+        attention.flash_attention = orig
+        del module.DTYPES["float64"]
+    return {n: float((g32[n].double() - g).abs().max() / g.abs().max().clamp(min=1e-300))
+            for (n, _), g in zip(model64.named_parameters(), g64)}
+
+
+# phase 13 (f)'s gradient gate, a multiple of a leaf's fp32 floor: the
+# card's and the CPU's fp32 gradients each carry rounding noise of about
+# the CPU's floor against float64 (the card sums in other orders), so they
+# may lie up to about twice the floor apart; 4x leaves that much again
+GRAD_FLOOR_FACTOR = 4.0
+
+
+def family13_train_card_against_cpu(dev, arch: str, seq: int, n_attn: int) -> dict:
+    """Phase 13 (f), training: 3 AdamW steps of ``arch``'s smoke model in
+    fp32 (``_train_card_and_cpu``; whisper: 2,048 decoder tokens against
+    64 frames, both attentions on the flash branch; the VLM: 16 + 2,032
+    positions), card against CPU: the card's kernel launched with lse 2 x
+    ``n_attn`` times a step; the first step's gradients within 1e-5 of
+    each leaf's scale, or, where the CPU's own fp32 gradient lies further
+    than that from float64 (``fp32_grad_floor``; whisper's decoder
+    self-attention wq/wk, whose terms cancel), within GRAD_FLOOR_FACTOR
+    times that floor; losses rtol 1e-5; every parameter within 3 lr after
+    the steps (how far beyond 1e-5 of their scale they lie is printed:
+    AdamW amplifies differences on elements with near-zero gradients, as
+    phase 11b says)."""
+    from repro_torch.configs import get_smoke
+
+    cfg = get_smoke(arch).replace(dtype="float32")
+    c = TRAIN_CARD_CPU
+    r = _train_card_and_cpu(dev, cfg, seq)
+    names = r["names"]
+    floor = fp32_grad_floor(r["initial"], cfg, r["batches"][0], r["g_cpu"])
+    err = {n: float((r["g_card"][n] - r["g_cpu"][n]).abs().max()
+                    / r["g_cpu"][n].abs().max().clamp(min=1e-30)) for n in names}
+    gate = {n: max(1e-5, GRAD_FLOOR_FACTOR * floor[n]) for n in names}
+    worst = sorted(names, key=lambda n: -err[n] / gate[n])[:3]
+    want = 2 * n_attn * c["steps"]
+    res = {"family13_train_card_vs_cpu": cfg.name, "seq": seq, "batch": c["batch"],
+           "steps": c["steps"], "losses_cuda": r["losses_cuda"],
+           "losses_cpu": r["losses_cpu"], "flash_launches_with_lse": r["launches_cuda"],
+           "first_grad_err_over_scale": max(err.values()),
+           "first_grad_worst": {n: {"err": err[n], "fp32_floor": floor[n],
+                                    "gate": gate[n]} for n in worst},
+           **param_spread(r["params_cuda"], r["params_cpu"])}
+    log(json.dumps(res))
+    if (r["launches_cuda"], r["launches_cpu"]) != (want, 0):
+        raise AssertionError(f"phase 13 (f) {arch}: lse launches card "
+                             f"{r['launches_cuda']} (want {want}), CPU {r['launches_cpu']}")
+    bad = {n: (err[n], gate[n]) for n in names if not err[n] <= gate[n]}
+    if bad:
+        raise AssertionError(f"phase 13 (f) {arch}: first gradients card/CPU: {bad}")
+    np.testing.assert_allclose(r["losses_cuda"], r["losses_cpu"], rtol=1e-5)
+    if not res["param_moved_max"] <= c["steps"] * c["lr"]:
+        raise AssertionError(f"phase 13 (f) {arch}: params moved apart: {res}")
+    return res
+
+
+def audio_and_vlm_paths(dev) -> dict:
+    """Phase 13: (a)-(f), each run's counts zeroed just before it and read
+    just after; the models freed between them."""
+    from repro_torch.configs import get_config, get_smoke
+    out = {}
+    out["a"], model = serve_audio(dev)
+    out["b"] = prefill_audio(dev, model)
+    del model
+    torch.cuda.empty_cache()
+    cfg = get_config(WHISPER)
+    res, _, model, opt, _ = train_steps(dev, cfg, AUDIO_TRAIN, 2 * cfg.n_layers)
+    log(json.dumps({"phase13c": res}))
+    out["c"] = res
+    del model, opt
+    torch.cuda.empty_cache()
+    out["d"] = serve_vlm(dev)
+    cfg = get_config(PHI3V).replace(n_layers=VLM_TRAIN["layers"])
+    log(f"phase 13 (e): {cfg.name} at {cfg.n_layers} of 32 layers")
+    res, _, model, opt, _ = train_steps(dev, cfg, VLM_TRAIN, cfg.n_layers)
+    log(json.dumps({"phase13e": res}))
+    out["e"] = res
+    del model, opt
+    torch.cuda.empty_cache()
+    out["f"] = [family13_card_against_cpu(dev, arch, dtype)
+                for arch in (WHISPER, PHI3V) for dtype in ("float32", "bfloat16")]
+    # 3 AdamW steps of each smoke model in fp32, as phase 11b: whisper's
+    # 2,048 decoder tokens against 64 frames (2 flash-branch calls a
+    # layer), the VLM's 16 + 2,032 positions
+    P = FAMILY13_SMOKE["prompt"]
+    out["f_train"] = [
+        family13_train_card_against_cpu(dev, WHISPER, P, 2 * get_smoke(WHISPER).n_layers),
+        family13_train_card_against_cpu(dev, PHI3V, P - get_smoke(PHI3V).n_vision_tokens,
+                                        get_smoke(PHI3V).n_layers)]
+    return out
+
+
 # ------------------------------------------------------------ phase 7 ----
 SILO_GAMMA = 0.25
 
@@ -3091,38 +3729,44 @@ def train_profile(step, model, opt, batch, calls: int) -> dict:
                              "ms": e.self_device_time_total / 1e3} for e in top]}
 
 
-def train_path(dev, profile: bool = False) -> dict:
-    """Phase 11: ``launch.steps.build_train_step`` on TinyLlama-1.1B at
-    full width (22 layers, d 2048, 32/4 heads, d_ff 5632, vocab 32000;
-    bf16 activations, fp32 master weights from a seeded generator on the
-    card, remat on), AdamW at lr 3e-4, microbatches 2, batch 8 x 4096
-    tokens of ``launch.train.make_lm_batches``: 1 warm-up step, then 6
+def train_steps(dev, cfg, spec: dict, n_attn: int, extra: int = 0):
+    """``launch.steps.build_train_step`` on ``cfg`` (fp32 master weights
+    from a seeded generator on the card, ``cfg.dtype`` activations, remat),
+    AdamW at ``spec["lr"]``, ``spec["microbatches"]`` microbatches of
+    ``launch.train.make_lm_batches``' batches (``spec["batch"]`` x
+    ``spec["seq"]`` tokens, and the family's frames or vision
+    embeddings): ``spec["warmup"]`` warm-up steps, then ``spec["steps"]``
     timed steps with every count zeroed just before them. Asserts finite
     losses, the last below the first, the bf16 flash kernel launched with
-    lse 2 x 22 x 2 times a step (forward and remat recompute, 2
-    microbatches), ``flash_bwd_ref`` called 22 x 2 times a step, and no
-    other kernel or flash route."""
-    from repro_torch.configs import get_config
+    lse 2 x ``n_attn`` x M times a step (forward and remat recompute of
+    the model's ``n_attn`` flash-branch attention calls), ``flash_bwd_ref``
+    called ``n_attn`` x M times a step, and no other kernel or flash
+    route. Returns (summary, step, model, optimizer state, the ``extra``
+    batches after the timed ones)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.launch import steps
     from repro_torch.launch.train import make_lm_batches
     from repro_torch.optim import adamw_init
 
-    cfg = get_config(TRAIN["arch"])
     t0 = time.perf_counter()
     model = steps.init_for(cfg)(torch.Generator(device=dev).manual_seed(0))
     opt = adamw_init(dict(model.named_parameters()))
-    step = steps.build_train_step(cfg, lr=TRAIN["lr"],
-                                  microbatches=TRAIN["microbatches"])
-    n_steps = TRAIN["warmup"] + TRAIN["steps"] + 1 + int(profile)
-    batches = list(make_lm_batches(cfg, TRAIN["batch"], TRAIN["seq"], n_steps,
-                                   device=dev))
+    step = steps.build_train_step(cfg, lr=spec["lr"], microbatches=spec["microbatches"])
+    n_steps = spec["warmup"] + spec["steps"] + extra
+    batches = list(make_lm_batches(cfg, spec["batch"], spec["seq"], n_steps, device=dev))
+    if spec.get("vision_embeds") == "normal":
+        # seeded normal vision embeddings where the reference's batches
+        # hold zeros: zero rows overflow the gradient at depth (C-26)
+        gen = torch.Generator(device=dev).manual_seed(15)
+        for b in batches:
+            b["extra_embeds"] = torch.randn(b["extra_embeds"].shape, device=dev,
+                                            generator=gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"train: {cfg.name} {n_params / 1e9:.3f}B params, {cfg.dtype}, remat "
-        f"{cfg.remat}, set-up {time.perf_counter() - t0:.1f} s")
+    log(f"train: {cfg.name} {cfg.n_layers} layers, {n_params / 1e9:.3f}B params, "
+        f"{cfg.dtype}, remat {cfg.remat}, set-up {time.perf_counter() - t0:.1f} s")
     losses = []
-    for b in batches[:TRAIN["warmup"]]:
+    for b in batches[:spec["warmup"]]:
         losses.append(float(step(model, opt, b)[2]))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3132,7 +3776,7 @@ def train_path(dev, profile: bool = False) -> dict:
     flash_attention.launches = flash_attention.launches_lse = 0
     flash_attention.backward_calls = 0
     step_ms = []
-    for b in batches[TRAIN["warmup"]:TRAIN["warmup"] + TRAIN["steps"]]:
+    for b in batches[spec["warmup"]:spec["warmup"] + spec["steps"]]:
         t1 = time.perf_counter()
         loss = float(step(model, opt, b)[2])        # float() waits for the step
         step_ms.append((time.perf_counter() - t1) * 1e3)
@@ -3142,39 +3786,56 @@ def train_path(dev, profile: bool = False) -> dict:
               "launches_lse": flash_attention.launches_lse,
               "backward_calls": flash_attention.backward_calls}
     peak = torch.cuda.max_memory_allocated(dev)
-    n, L, M = TRAIN["steps"], cfg.n_layers, TRAIN["microbatches"]
-    log(json.dumps({"train_losses": losses, "step_ms": step_ms}))
+    n, M = spec["steps"], spec["microbatches"]
+    log(json.dumps({"train_losses": losses, "step_ms": step_ms, "model": cfg.name}))
     if not np.isfinite(losses).all():
-        raise AssertionError(f"non-finite train loss: {losses}")
+        raise AssertionError(f"{cfg.name}: non-finite train loss: {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"no learning: {losses[0]} -> {losses[-1]}")
-    want = 2 * L * M * n
+        raise AssertionError(f"{cfg.name}: no learning: {losses[0]} -> {losses[-1]}")
+    want = 2 * n_attn * M * n
     if (launches["flash_attention"], routes["launches"], routes["launches_lse"]) \
             != (want, want, want):
-        raise AssertionError(f"train launched the bf16 flash kernel "
+        raise AssertionError(f"{cfg.name}: train launched the bf16 flash kernel "
                              f"{launches['flash_attention']} times ({routes}), "
                              f"want {want} with lse")
-    if routes["backward_calls"] != L * M * n:
-        raise AssertionError(f"flash_bwd_ref called {routes['backward_calls']} "
-                             f"times, want {L * M * n}")
+    if routes["backward_calls"] != n_attn * M * n:
+        raise AssertionError(f"{cfg.name}: flash_bwd_ref called "
+                             f"{routes['backward_calls']} times, want {n_attn * M * n}")
     others = {k: c for k, c in launches.items() if k != "flash_attention" and c}
     if others:
-        raise AssertionError(f"train launched other kernels: {others}")
-    tokens = TRAIN["batch"] * TRAIN["seq"]
+        raise AssertionError(f"{cfg.name}: train launched other kernels: {others}")
+    tokens = spec["batch"] * spec["seq"]
     mean_ms = sum(step_ms) / len(step_ms)
-    res = {"train": cfg.name, "dtype": cfg.dtype, "remat": cfg.remat,
-           "batch": TRAIN["batch"], "seq": TRAIN["seq"],
-           "microbatches": M, "lr": TRAIN["lr"], "steps": n,
+    res = {"train": cfg.name, "layers": cfg.n_layers, "params_B": n_params / 1e9,
+           "dtype": cfg.dtype, "remat": cfg.remat,
+           "batch": spec["batch"], "seq": spec["seq"],
+           "microbatches": M, "lr": spec["lr"], "steps": n,
            "step_ms": step_ms, "step_ms_mean": mean_ms,
            "tokens_per_s": tokens / (mean_ms / 1e3),
            "peak_mem_GB": peak / 1e9, "losses": losses,
            "launches_per_step": {"flash_attention": launches["flash_attention"] / n,
                                  "flash_bwd_ref_calls": routes["backward_calls"] / n}}
-    res["split"] = train_split(step, model, opt, batches[TRAIN["warmup"] + n], dev)
+    return res, step, model, opt, batches[spec["warmup"] + n:]
+
+
+def train_path(dev, profile: bool = False) -> dict:
+    """Phase 11: ``train_steps`` on TinyLlama-1.1B at full width (22
+    layers, d 2048, 32/4 heads, d_ff 5632, vocab 32000; bf16 activations,
+    remat on), AdamW at lr 3e-4, microbatches 2, batch 8 x 4096 tokens: 1
+    warm-up step, then 6 timed steps, the bf16 flash kernel launched with
+    lse 2 x 22 x 2 times a step and ``flash_bwd_ref`` called 22 x 2 times;
+    then one more step split by CUDA events (``--profile``: and profiled)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(TRAIN["arch"])
+    res, step, model, opt, rest = train_steps(dev, cfg, TRAIN, cfg.n_layers,
+                                              extra=1 + int(profile))
+    res["split"] = train_split(step, model, opt, rest[0], dev)
     if profile:
-        res["profile"] = train_profile(step, model, opt, batches[-1], L * M)
+        res["profile"] = train_profile(step, model, opt, rest[-1],
+                                       cfg.n_layers * TRAIN["microbatches"])
     log(json.dumps({"train_summary": res}))
-    del model, opt, batches
+    del model, opt, rest
     torch.cuda.empty_cache()
     return res
 
@@ -3183,56 +3844,73 @@ def train_path(dev, profile: bool = False) -> dict:
 TRAIN_CARD_CPU = dict(batch=2, seq=2048, steps=3, lr=3e-4)
 
 
-def train_card_against_cpu(dev, dtype: str) -> dict:
-    """Phase 11b: 3 AdamW steps of the smoke TinyLlama in ``dtype`` at
-    seq 2048 (the flash branch: the card's kernel of that type with lse,
-    ``flash_bwd_ref``), batch 2, on the card and on the CPU from the same
-    weights and tokens. fp32: the first step's gradients within 1e-5 of
-    each leaf's scale, losses rtol 1e-5, and the parameters after 3 steps
-    within 1e-5 of each leaf's scale but for at most 0.1% of a leaf's
-    elements, which stay within 3 lr: AdamW's update g / (|g| + 1e-8)
-    turns ~1e-9 gradient differences on elements whose gradient is near
-    zero into update differences of up to ~0.1 of lr, and the elements
-    they move shift the later steps' gradients. bf16: losses within
-    2e-2."""
+def _train_card_and_cpu(dev, cfg, seq: int) -> dict:
+    """``cfg``'s smoke model from seeded weights (generator seed 2) on the
+    CPU and a copy on the card, ``make_lm_batches``' batches (seed 4, batch
+    2, ``seq`` tokens): each device's first-step gradients, then
+    TRAIN_CARD_CPU's AdamW steps on each (the lse launches of each
+    counted). Returns the names, gradients, losses, parameters, launches,
+    batches and a copy of the initial CPU model."""
     import copy
 
-    from repro_torch.configs import get_smoke
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.launch import steps
     from repro_torch.launch.train import make_lm_batches
-    from repro_torch.models import transformer as tfm
     from repro_torch.optim import adamw_init
 
-    cfg = get_smoke(TRAIN["arch"]).replace(dtype=dtype)
     c = TRAIN_CARD_CPU
+    loss_fn = steps.loss_for(cfg)
     cpu_model = steps.init_for(cfg)(torch.Generator().manual_seed(2))
+    initial = copy.deepcopy(cpu_model)
     card_model = copy.deepcopy(cpu_model).to(dev)
-    batches = list(make_lm_batches(cfg, c["batch"], c["seq"], c["steps"],
+    batches = list(make_lm_batches(cfg, c["batch"], seq, c["steps"],
                                    seed=4, device="cpu"))
     names = [n for n, _ in cpu_model.named_parameters()]
 
+    def on(model, b):
+        dv = next(model.parameters()).device
+        return {k: t.to(dv) for k, t in b.items()}
+
     def first_grads(model):
-        loss, _ = tfm.lm_loss(model, {k: t.to(model.embed.table.device)
-                                      for k, t in batches[0].items()}, cfg)
+        loss, _ = loss_fn(model, on(model, batches[0]))
         return {n: g.float().cpu() for n, g in zip(
             names, torch.autograd.grad(loss, list(model.parameters())))}
 
-    g_cpu, g_card = first_grads(cpu_model), first_grads(card_model)
-    grad_err = max(float((g_card[n] - g_cpu[n]).abs().max()
-                         / g_cpu[n].abs().max().clamp(min=1e-30)) for n in names)
-    runs = {}
+    out = {"names": names, "batches": batches, "initial": initial,
+           "g_cpu": first_grads(cpu_model), "g_card": first_grads(card_model)}
     for where, model in (("cuda", card_model), ("cpu", cpu_model)):
         opt = adamw_init(dict(model.named_parameters()))
         step = steps.build_train_step(cfg, lr=c["lr"])
         before = flash_attention.launches_lse
-        losses = [float(step(model, opt, {k: t.to(model.embed.table.device)
-                                          for k, t in b.items()})[2])
-                  for b in batches]
-        runs[where] = (losses, {n: p.detach().cpu()
-                                for n, p in model.named_parameters()},
-                       flash_attention.launches_lse - before)
-    (l_card, p_card, n_card), (l_cpu, p_cpu, n_cpu) = runs["cuda"], runs["cpu"]
+        out[f"losses_{where}"] = [float(step(model, opt, on(model, b))[2])
+                                  for b in batches]
+        out[f"params_{where}"] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        out[f"launches_{where}"] = flash_attention.launches_lse - before
+    return out
+
+
+def train_card_against_cpu(dev, dtype: str) -> dict:
+    """Phase 11b: 3 AdamW steps of the smoke TinyLlama in ``dtype`` at
+    seq 2048 (the flash branch: the card's kernel of that type with lse,
+    ``flash_bwd_ref``), batch 2, on the card and on the CPU from the same
+    weights and tokens (``_train_card_and_cpu``). fp32: the first step's
+    gradients within 1e-5 of each leaf's scale, losses rtol 1e-5, and the
+    parameters after 3 steps within 1e-5 of each leaf's scale but for at
+    most 0.1% of a leaf's elements, which stay within 3 lr: AdamW's update
+    g / (|g| + 1e-8) turns ~1e-9 gradient differences on elements whose
+    gradient is near zero into update differences of up to ~0.1 of lr,
+    and the elements they move shift the later steps' gradients. bf16:
+    losses within 2e-2."""
+    from repro_torch.configs import get_smoke
+
+    cfg = get_smoke(TRAIN["arch"]).replace(dtype=dtype)
+    c = TRAIN_CARD_CPU
+    r = _train_card_and_cpu(dev, cfg, c["seq"])
+    names, g_cpu, g_card = r["names"], r["g_cpu"], r["g_card"]
+    grad_err = max(float((g_card[n] - g_cpu[n]).abs().max()
+                         / g_cpu[n].abs().max().clamp(min=1e-30)) for n in names)
+    l_card, p_card, n_card = r["losses_cuda"], r["params_cuda"], r["launches_cuda"]
+    l_cpu, p_cpu, n_cpu = r["losses_cpu"], r["params_cpu"], r["launches_cpu"]
     want_launches = 2 * cfg.n_layers * c["steps"]
     def check_launches():
         if (n_card, n_cpu) != (want_launches, 0):
@@ -3244,24 +3922,12 @@ def train_card_against_cpu(dev, dtype: str) -> dict:
            "batch": c["batch"], "steps": c["steps"], "losses_cuda": l_card,
            "losses_cpu": l_cpu, "flash_launches_with_lse": n_card}
     if dtype == "float32":
-        off_frac, worst, moved = {}, {}, 0.0
-        for k, w in p_cpu.items():
-            d = (p_card[k] - w).abs()
-            scale = float(w.abs().max())
-            off_frac[k] = float((d > 1e-5 * scale).float().mean())
-            worst[k] = float(d.max()) / scale
-            moved = max(moved, float(d.max()))
-        res.update(first_grad_err_over_scale=grad_err,
-                   param_err_over_scale_max=max(worst.values()),
-                   params_off_1e5_frac_max=max(off_frac.values()),
-                   params_off_1e5_count=int(sum(
-                       off_frac[k] * p_cpu[k].numel() for k in p_cpu)),
-                   param_moved_max=moved)
+        res.update(first_grad_err_over_scale=grad_err, **param_spread(p_card, p_cpu))
         log(json.dumps(res))
         check_launches()
         np.testing.assert_allclose(l_card, l_cpu, rtol=1e-5)
-        if not (grad_err <= 1e-5 and max(off_frac.values()) <= 1e-3
-                and moved <= c["steps"] * c["lr"]):
+        if not (grad_err <= 1e-5 and res["params_off_1e5_frac_max"] <= 1e-3
+                and res["param_moved_max"] <= c["steps"] * c["lr"]):
             raise AssertionError(f"fp32 train params differ card/CPU: {res}")
     else:
         res["loss_max_abs"] = max(abs(a - b) for a, b in zip(l_card, l_cpu))
@@ -3271,6 +3937,24 @@ def train_card_against_cpu(dev, dtype: str) -> dict:
             raise AssertionError(f"bf16 train losses differ card/CPU by "
                                  f"{res['loss_max_abs']} > 2e-2")
     return res
+
+
+def param_spread(p_card: dict, p_cpu: dict) -> dict:
+    """How far two runs' parameters lie apart: the largest difference over
+    each leaf's scale, the largest share (and the count) of a leaf's
+    elements beyond 1e-5 of its scale, and the largest difference."""
+    off_frac, worst, moved = {}, {}, 0.0
+    for k, w in p_cpu.items():
+        d = (p_card[k] - w).abs()
+        scale = float(w.abs().max())
+        off_frac[k] = float((d > 1e-5 * scale).float().mean())
+        worst[k] = float(d.max()) / scale
+        moved = max(moved, float(d.max()))
+    return {"param_err_over_scale_max": max(worst.values()),
+            "params_off_1e5_frac_max": max(off_frac.values()),
+            "params_off_1e5_count": int(sum(off_frac[k] * p_cpu[k].numel()
+                                            for k in p_cpu)),
+            "param_moved_max": moved}
 
 
 # ------------------------------------------- phase 7 across the cards ----
@@ -3698,6 +4382,8 @@ def main(argv) -> int:
     for k in kernels:
         log(json.dumps(k))
 
+    stamp("2")
+
     # ---- phase 3: the paths, each with its launch counts zeroed before it
     runs = {}
     for label in PATHS:
@@ -3725,17 +4411,24 @@ def main(argv) -> int:
         if k["name"] in DUAL_VARIANTS:
             k["on_path"] = False
 
+    stamp("3")
+
     # ---- phase 4: card against CPU
     for variant in DUAL_VARIANTS:
         solver_card_against_cpu(dev, variant)
     gss_card_against_cpu(dev)
+    stamp("4 solver")
     card_against_cpu(dev)
     card_against_cpu(dev, "bursty-interference", price_outage=True, bits_grid=BITS)
     topk_mask_on_card(dev)
+    stamp("4 paths")
     for strategy in BASELINES:
         card_against_cpu(dev, strategy=strategy)
+    stamp("4 baselines")
     robust_card_against_cpu(dev)
+    stamp("4 robust")
     hierarchy_card_against_cpu(dev)
+    stamp("4")
 
     # ---- phase 5: the serve path, its launch counts zeroed before the timed run
     serve = serve_path(dev, profile="--profile" in argv)
@@ -3753,14 +4446,20 @@ def main(argv) -> int:
                              + serve_card_against_cpu(dev)["flash_launches"])
     serve_card_against_cpu(dev, "bfloat16")
 
+    stamp("5-6")
+
     # ---- phase 7: the multi-rank paths on one rank
     block = next(k for k in kernels if k["name"] == "topk_block")
     block["launches"] = multirank_paths(dev, flat, runs["main"])
+
+    stamp("7")
 
     # ---- phase 8: the paper's experiment, each run's counts zeroed before
     # it; then the CLI with and without --shard-clients on this card
     paper_experiment(dev)
     sharded_cli_one_card(dev)
+
+    stamp("8")
 
     # ---- phase 9: the timed, fault and defense paths at full width, each
     # run's counts zeroed before it, and the checkpoint on the card
@@ -3769,6 +4468,8 @@ def main(argv) -> int:
     norms["launches_defended_clip"] = (
         robust["byzantine_lite"]["launches"]["row_sq_sum"] - ROBUST_ROUNDS - 1)
     norms["second_call_site"] = "src/repro_torch/core/faults/defense.py"
+
+    stamp("9")
 
     # ---- phase 10: hierarchy and mobility at full width, each run's counts
     # zeroed before it; the launches of each run beside the main path's
@@ -3782,6 +4483,8 @@ def main(argv) -> int:
             k["launches_phase10"] = {run: got[k["name"]]
                                      for run, got in pop_launches.items()}
 
+    stamp("10")
+
     # ---- phase 11: TinyLlama-1.1B training at full width, its counts
     # zeroed before the timed steps; 11b: the smoke model's steps card
     # against CPU in fp32 and bf16
@@ -3792,6 +4495,8 @@ def main(argv) -> int:
         trained["launches_per_step"]["flash_bwd_ref_calls"] * TRAIN["steps"]
     for dtype in ("float32", "bfloat16"):
         train_card_against_cpu(dev, dtype)
+
+    stamp("11")
 
     # ---- phase 12: the moe, ssm and hybrid families served at full width,
     # each run's counts zeroed before it; 12b: each family's smoke model
@@ -3805,6 +4510,30 @@ def main(argv) -> int:
                                   for r in smoke if r["dtype"] == "bfloat16"}
     flash_f32["launches_phase12b"] = {r["family_card_vs_cpu"]: r["flash_launches"]
                                       for r in smoke if r["dtype"] == "float32"}
+    stamp("12")
+
+    # ---- phase 13: the audio (whisper-tiny) and VLM (phi-3-vision-4.2b)
+    # families served and trained at full width, each run's counts zeroed
+    # before it; (f) the smoke models card against CPU
+    p13 = audio_and_vlm_paths(dev)
+    flash["launches_phase13"] = {
+        "a_whisper_serve": p13["a"]["launches"]["flash_attention"],
+        "b_whisper_prefill_32k": p13["b"]["launches"]["flash_attention"],
+        "c_whisper_train": p13["c"]["launches_per_step"]["flash_attention"]
+        * AUDIO_TRAIN["steps"],
+        "c_whisper_train_flash_bwd_ref_calls":
+            p13["c"]["launches_per_step"]["flash_bwd_ref_calls"] * AUDIO_TRAIN["steps"],
+        "d_phi3v_serve": p13["d"]["launches"]["flash_attention"],
+        "d_phi3v_vision_prefill": p13["d"]["vision_launches"],
+        "e_phi3v_train": p13["e"]["launches_per_step"]["flash_attention"]
+        * VLM_TRAIN["steps"],
+        "f_bf16": {r["family13_card_vs_cpu"]: r["flash_launches"]
+                   for r in p13["f"] if r["dtype"] == "bfloat16"}}
+    flash_f32["launches_phase13f"] = {r["family13_card_vs_cpu"]: r["flash_launches"]
+                                      for r in p13["f"] if r["dtype"] == "float32"}
+    flash_f32["launches_phase13f_train"] = {
+        r["family13_train_card_vs_cpu"]: r["flash_launches_with_lse"] for r in p13["f_train"]}
+    stamp("13")
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -3,8 +3,8 @@
 ``ChannelConfig``, ``FairEnergyConfig`` and ``FLConfig`` are copied field
 for field from the JAX package, defaults included, so a config built for
 one package means the same run in the other. ``ModelConfig``,
-``ShapeConfig`` and ``SHAPES`` are copied whole too, though the port runs
-only the CNN and the dense LM family so far (ROADMAP A-19 lists the rest).
+``ShapeConfig`` and ``SHAPES`` are copied whole too: the port runs every
+model family among them.
 
 ``FairEnergyConfig.use_pallas_solver`` stays for field parity and is
 ignored here: in the port the tensors' device picks the path (the CUDA

@@ -6,7 +6,10 @@
       --smoke --prompt-len 64 --gen 8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
       --prompt-len 2048 --gen 32 --batch 4            # also qwen2-moe-a2.7b,
-                                                      # zamba2-2.7b, mixtral-8x22b
+                                                      # zamba2-2.7b, mixtral-8x22b,
+                                                      # phi-3-vision-4.2b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+      --gen 32 --batch 4
 
 The port of ``repro.launch.serve``, with its flow and its printed line.
 One seed keys the weights, the prompt and the sampling, as one PRNG key
@@ -18,11 +21,18 @@ round an ulp apart, ROADMAP C-9); the weights are drawn from a
 ``torch.Generator`` seeded with it (``repro_torch.convert`` loads the JAX
 package's). The first token after prefill is the argmax at any
 temperature, and decode step i runs at position ``prompt_len + i``, as in
-the reference. The device is the GPU unless ``--device cpu`` is given.
-The CLI casts its freshly drawn fp32 weights to the serving type in place
-(``transformer.for_compute(..., inplace=True)``), so the fp32 masters and
-a serving copy are never on the card together: qwen2-moe-a2.7b's 57 GB of
-masters and 28.6 GB copy would not fit an 80 GB card.
+the reference. The audio family (whisper) follows the reference's own
+flow: frames ``normal(key, (batch, n_audio_frames, d_model))`` drawn from
+the same key as the prompt, the encoder's states and an empty self cache
+of ``prompt_len + gen`` slots (no prefill: the prompt is drawn but not
+read), then decode from token 0 at position 0. The VLM serves through the
+dense flow, without vision embeddings, as the reference's does (its
+vision path is ``steps.build_prefill_step``). The device is the GPU
+unless ``--device cpu`` is given. The CLI casts its freshly drawn fp32
+weights to the serving type in place (``transformer.for_compute(...,
+inplace=True)``), so the fp32 masters and a serving copy are never on the
+card together: qwen2-moe-a2.7b's 57 GB of masters and 28.6 GB copy would
+not fit an 80 GB card.
 fp32 matmuls on the card must run in full float32
 (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default,
 which ``chip_smoke.py`` also sets for its card-against-CPU check); the
@@ -39,6 +49,7 @@ import torch
 from .. import random as prng
 from ..configs import ARCH_IDS, get_config, get_smoke
 from ..devices import resolve_device
+from ..models import encdec
 from ..models import transformer as tfm
 from . import steps as steps_mod
 
@@ -46,8 +57,10 @@ from . import steps as steps_mod
 @dataclass
 class Generation:
     prompt: torch.Tensor             # [batch, prompt_len] int32 (host)
-    ids: torch.Tensor                # [batch, 1 + gen] int32 (host): argmax, then samples
-    first_logits: torch.Tensor       # [batch, V] fp32: the prefill's last position
+    ids: torch.Tensor                # [batch, 1 + gen] int32 (host): argmax
+                                     # (audio: token 0), then samples
+    first_logits: torch.Tensor | None  # [batch, V] fp32: the prefill's last
+                                       # position (audio: None, no prefill)
     decode_logits: list              # gen x [batch, V] fp32, one per decode step
     prefill_s: float
     decode_s: float
@@ -69,16 +82,24 @@ def generate(cfg, params, *, prompt_len: int, gen: int, batch: int,
     with torch.no_grad():
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = tfm.lm_prefill(model, prompt.to(dev), cfg, cache_len=cache_len)
-        first = logits[:, -1]
-        tok = torch.argmax(first, dim=-1)[:, None].to(torch.int32)
+        if cfg.family == "audio":
+            frames = prng.normal(key, (batch, cfg.n_audio_frames, cfg.d_model))
+            enc = encdec.encode(model, frames.to(dev), cfg)
+            cache = encdec.init_encdec_cache(model, enc, cfg, batch, cache_len)
+            first, pos0, decode = None, 0, encdec.encdec_decode
+            tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+        else:
+            logits, cache = tfm.lm_prefill(model, prompt.to(dev), cfg,
+                                           cache_len=cache_len)
+            first, pos0, decode = logits[:, -1], prompt_len, tfm.lm_decode
+            tok = torch.argmax(first, dim=-1)[:, None].to(torch.int32)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
 
         toks, decode_logits = [tok], []
         t0 = time.perf_counter()
         for i in range(gen):
-            logits, cache = tfm.lm_decode(model, tok, cache, prompt_len + i, cfg)
+            logits, cache = decode(model, tok, cache, pos0 + i, cfg)
             last = logits[:, -1]
             decode_logits.append(last)
             if temperature > 0:
@@ -123,7 +144,7 @@ def main(argv=None):
           f"({args.gen * args.batch / max(out.decode_s, 1e-9):.1f} tok/s)")
     print("sampled ids (first request):", out.ids[0][:16].tolist(), "...")
     last = out.decode_logits[-1] if out.decode_logits else out.first_logits
-    if not bool(torch.isfinite(last).all()):
+    if last is not None and not bool(torch.isfinite(last).all()):
         raise RuntimeError("non-finite logits")
 
 

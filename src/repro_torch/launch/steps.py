@@ -4,31 +4,34 @@
   prefill_step(model, batch)             -> (last logits, decode cache)
   serve_step  (model, cache, token, pos) -> (logits, cache)
 
-Ports of ``repro.launch.steps`` for the CNN and the dense, moe, ssm and
-hybrid LM families (the MoE's aux loss is in ``lm_loss``). The model is
-an ``nn.Module`` whose fp32 parameters the train step updates in place
-(AdamW, ``optim.adamw``); the optimizer state is a dict over the
-parameters' names. ``input_specs``, ``params_shape`` and ``opt_shape``
-return tensors on the ``meta`` device (shapes and types, no storage) where
-the JAX package returns ``ShapeDtypeStruct``s; a decode's ``cache`` is the
-family's (ring KV caches, RWKV or Mamba2 states). The encoder-decoder
-(whisper) and VLM steps wait for their families (ROADMAP A-19).
+Ports of ``repro.launch.steps`` for the CNN, every LM family (the MoE's
+aux loss is in ``lm_loss``; the VLM's batch carries ``extra_embeds``) and
+the audio encoder-decoder (``models.encdec``: a batch of ``frames`` and
+``tokens``). The model is an ``nn.Module`` whose fp32 parameters the
+train step updates in place (AdamW, ``optim.adamw``); the optimizer state
+is a dict over the parameters' names. ``input_specs``, ``params_shape``
+and ``opt_shape`` return tensors on the ``meta`` device (shapes and types,
+no storage) where the JAX package returns ``ShapeDtypeStruct``s; a
+decode's ``cache`` is the family's (ring KV caches, RWKV or Mamba2
+states, or the encoder-decoder's self and cross caches).
+
+The audio prefill step keeps the JAX package's flow: it encodes the
+frames, runs the decoder over the prompt for the last position's logits,
+and returns a fresh cache (empty self caches, the cross K/V), so decode
+steps after it attend to the encoder's states and their own tokens, not
+to the prompt's (ROADMAP C-25).
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs import SHAPES, get_config
-from ..models import cnn
+from ..models import cnn, encdec
 from ..models import transformer as tfm
+from ..models.module import dtype_of
 from ..optim import adamw_init, adamw_update
 
 META = torch.device("meta")
-
-
-def _not_ported(cfg, what: str):
-    raise NotImplementedError(f"{what} for family {cfg.family!r} is not "
-                              "ported yet (ROADMAP A-19)")
 
 
 def cache_len_for(cfg, shape) -> int:
@@ -46,6 +49,8 @@ def loss_for(cfg):
     if cfg.family == "cnn":
         return lambda model, b: cnn.cnn_loss(model)(dict(model.named_parameters()), b)
     tfm.check_family(cfg)
+    if cfg.family == "audio":
+        return lambda model, b: encdec.encdec_loss(model, b, cfg)
     return lambda model, b: tfm.lm_loss(model, b, cfg)
 
 
@@ -55,14 +60,19 @@ def init_for(cfg):
     if cfg.family == "cnn":
         return lambda generator: cnn.CNN(cfg, generator)
     tfm.check_family(cfg)
+    if cfg.family == "audio":
+        return lambda generator: encdec.EncDec(cfg, generator)
     return lambda generator: tfm.LM(cfg, generator)
+
+
+def _meta_model(cfg):
+    with META:
+        return init_for(cfg)(None)
 
 
 def params_shape(cfg) -> dict:
     """The model's parameters (name -> tensor) on the meta device."""
-    with META:
-        model = init_for(cfg)(None)
-    return dict(model.named_parameters())
+    return dict(_meta_model(cfg).named_parameters())
 
 
 def opt_shape(p_sds: dict, moment_dtype=torch.float32) -> dict:
@@ -76,13 +86,25 @@ def input_specs(arch: str, shape_name: str, cfg=None) -> dict:
     cfg = cfg or get_config(arch)
     shape = SHAPES[shape_name]
     B, S = shape.global_batch, shape.seq_len
-    if cfg.family in ("audio", "vlm"):
-        _not_ported(cfg, "input_specs")
-    i32 = torch.int32
+    i32, dt = torch.int32, dtype_of(cfg)
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=META)
     if shape.kind in ("train", "prefill"):
-        return {"tokens": torch.empty((B, S), dtype=i32, device=META)}
+        if cfg.family == "audio":
+            return {"frames": empty((B, cfg.n_audio_frames, cfg.d_model), dt),
+                    "tokens": empty((B, S), i32)}
+        if cfg.family == "vlm":
+            return {"tokens": empty((B, S - cfg.n_vision_tokens), i32),
+                    "extra_embeds": empty((B, cfg.n_vision_tokens, cfg.d_model), dt)}
+        return {"tokens": empty((B, S), i32)}
     # decode: one token against a seq_len-deep cache
-    cache = tfm.init_lm_cache(cfg, B, cache_len_for(cfg, shape), device=META)
+    cl = cache_len_for(cfg, shape)
+    if cfg.family == "audio":
+        enc = empty((B, cfg.n_audio_frames, cfg.d_model), dt)
+        cache = encdec.init_encdec_cache(_meta_model(cfg), enc, cfg, B, cl)
+    else:
+        cache = tfm.init_lm_cache(cfg, B, cl, device=META)
     return {"token": torch.empty((B, 1), dtype=i32, device=META),
             "cache": cache, "pos": torch.empty((), dtype=i32, device=META)}
 
@@ -130,18 +152,29 @@ def build_train_step(cfg, *, lr: float = 3e-4, microbatches: int = 1):
 
 
 def build_prefill_step(cfg, shape):
-    if cfg.family == "audio":
-        _not_ported(cfg, "the prefill step")
     cl = cache_len_for(cfg, shape)
 
+    if cfg.family == "audio":
+        def prefill_step(model, batch):
+            enc_out = encdec.encode(model, batch["frames"], cfg)
+            logits = encdec.decode_train(model, batch["tokens"], enc_out, cfg,
+                                         last_only=True)
+            cache = encdec.init_encdec_cache(model, enc_out, cfg,
+                                             batch["tokens"].shape[0], cl)
+            return logits, cache
+        return prefill_step
+
     def prefill_step(model, batch):
-        return tfm.lm_prefill(model, batch["tokens"], cfg, cache_len=cl)
+        return tfm.lm_prefill(model, batch["tokens"], cfg, cache_len=cl,
+                              extra_embeds=batch.get("extra_embeds"))
     return prefill_step
 
 
 def build_serve_step(cfg):
     if cfg.family == "audio":
-        _not_ported(cfg, "the serve step")
+        def serve_step(model, cache, token, pos):
+            return encdec.encdec_decode(model, token, cache, pos, cfg)
+        return serve_step
 
     def serve_step(model, cache, token, pos):
         return tfm.lm_decode(model, token, cache, pos, cfg)

@@ -9,12 +9,16 @@ is given; nothing falls back to the CPU.
         --smoke --steps 20 --batch 8 --seq 256 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
         --steps 10 --batch 2 --seq 4096
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \\
+        --smoke --steps 20 --device cpu        # also phi-3-vision-4.2b
 
 Weights come from ``steps.init_for(cfg)`` with a generator seeded 0 on the
 device. ``--ckpt-dir`` saves the parameters at the end in the JAX
-package's checkpoint layout (``convert.lm_params_to_numpy``: stacked layer
-leaves), so either package's CLI resumes from the other's; ``--resume``
-restores the newest valid one and continues the token stream at its step.
+package's checkpoint layout (``convert.model_params_to_numpy``: stacked
+layer leaves), so either package's CLI resumes from the other's;
+``--resume`` restores the newest valid one and continues the token stream
+at its step. The VLM's batches carry zero ``extra_embeds`` and the audio
+family's seeded normal ``frames``, as the reference's do.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ import torch
 from ..checkpoint import (latest_checkpoint, load_metadata, restore_checkpoint,
                           save_checkpoint)
 from ..configs import ARCH_IDS, get_config, get_smoke
-from ..convert import lm_params_from_numpy, lm_params_to_numpy
+from ..convert import model_params_from_numpy, model_params_to_numpy
 from ..data import make_token_stream
 from ..devices import resolve_device
 from ..models import param_count
@@ -40,14 +44,25 @@ def make_lm_batches(cfg, batch: int, seq: int, steps: int, seed: int = 0,
     """Batches for steps [start_step, start_step + steps) of the stream —
     a resumed run continues the token stream where it left off instead of
     retraining on the prefix. Each is ``{"tokens": [batch, seq] int32}`` on
-    ``device`` (None: the GPU)."""
+    ``device`` (None: the GPU); the VLM's also ``"extra_embeds"``, zeros
+    ``[batch, n_vision_tokens, d_model]``, and the audio family's
+    ``"frames"`` ``[batch, n_audio_frames, d_model]``, standard normals
+    from ``np.random.default_rng(seed + step)`` (fp32)."""
     dev = resolve_device(device)
     total = start_step + steps
     toks = make_token_stream(batch * (seq + 1) * total + 1, cfg.vocab_size, seed)
     for i in range(start_step, total):
         start = i * batch * (seq + 1)
         chunk = toks[start:start + batch * (seq + 1)].reshape(batch, seq + 1)
-        yield {"tokens": torch.as_tensor(chunk[:, :seq], device=dev)}
+        b = {"tokens": torch.as_tensor(chunk[:, :seq], device=dev)}
+        if cfg.family == "vlm":
+            b["extra_embeds"] = torch.zeros((batch, cfg.n_vision_tokens, cfg.d_model),
+                                            device=dev)
+        if cfg.family == "audio":
+            frames = np.random.default_rng(seed + i).normal(
+                size=(batch, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+            b = {"frames": torch.as_tensor(frames, device=dev), "tokens": b["tokens"]}
+        yield b
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -76,6 +91,8 @@ def main(argv=None) -> list:
     args = parse_args(argv)
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "vlm":
+        args.seq = max(args.seq, cfg.n_vision_tokens + 32)
 
     model = steps_mod.init_for(cfg)(torch.Generator(device=dev).manual_seed(0))
     start_step = 0
@@ -85,13 +102,13 @@ def main(argv=None) -> list:
             print(f"--resume: no valid checkpoint in {args.ckpt_dir}; "
                   "starting fresh")
         else:
-            like = lm_params_to_numpy(dict(model.named_parameters()), cfg)
+            like = model_params_to_numpy(dict(model.named_parameters()), cfg)
             tree = restore_checkpoint(path, like)
             meta = load_metadata(path)
             if meta.get("arch", args.arch) != args.arch:
                 raise SystemExit(f"checkpoint {path} is for arch "
                                  f"{meta['arch']!r}, not {args.arch!r}")
-            model.load_state_dict(lm_params_from_numpy(tree, cfg, dev))
+            model.load_state_dict(model_params_from_numpy(tree, cfg, dev))
             start_step = int(meta.get("step", 0))
             print(f"resumed {path} (step {start_step})")
     params = dict(model.named_parameters())
@@ -119,7 +136,7 @@ def main(argv=None) -> list:
     if args.ckpt_dir:
         end = start_step + args.steps
         print("saved:", save_checkpoint(
-            args.ckpt_dir, end, lm_params_to_numpy(params, cfg),
+            args.ckpt_dir, end, model_params_to_numpy(params, cfg),
             {"arch": args.arch, "step": end, "loss": losses[-1]}))
     return losses
 

@@ -1,24 +1,29 @@
-"""GQA attention: RoPE, optional QKV bias, causal / sliding-window masks.
+"""GQA attention: RoPE, optional QKV bias, causal / sliding-window masks,
+and cross-attention.
 
-A port of ``repro.models.attention`` for self-attention, in the JAX layout
-(``wq``, ``wk``, ``wv``, ``wo``, each ``[in, out]``). Two execution paths:
+A port of ``repro.models.attention``, in the JAX layout (``wq``, ``wk``,
+``wv``, ``wo``, each ``[in, out]``). Three execution paths:
 
 * ``attention_forward`` — train/prefill. Short sequences take the direct
   softmax(QK^T)V in plain PyTorch (probabilities rounded to v's type
-  before PV, as the JAX package does); sequences at or above
-  ``_FLASH_THRESHOLD`` take the flash branch, which is
-  ``kernels.flash_attention`` (the CUDA kernel for CUDA tensors, its plain
-  version on the CPU) where the JAX package runs its chunked online-softmax
-  jnp scan. Under grad the wrapper goes through its autograd Function (the
-  kernel's forward with its log-sum-exp, the JAX package's blockwise
-  recompute backward), so the gradient reaches q, k and v. The branch rule
-  is the JAX package's.
+  before PV, as the JAX package does); long ones take the flash branch,
+  which is ``kernels.flash_attention`` (the CUDA kernel for CUDA tensors,
+  its plain version on the CPU) where the JAX package runs its chunked
+  online-softmax jnp scan. Under grad the wrapper goes through its
+  autograd Function (the kernel's forward with its log-sum-exp, the JAX
+  package's blockwise recompute backward), so the gradient reaches q, k
+  and v. The branch rule is the JAX package's: the flash branch when
+  ``max(Sq, Skv) >= _FLASH_THRESHOLD`` and both lengths split into
+  chunks (``_chunk_of``) of more than one row.
 * ``attention_decode`` — one new token against a ring KV cache of
   ``cache_len`` slots with per-slot absolute positions (``slot_pos``),
   plain PyTorch. The cache tensors are updated in place (the JAX package
   returns new arrays; nothing reads the old ones).
-
-Cross-attention (whisper) waits for its family (ROADMAP A-19).
+* cross-attention (whisper) — ``kv_x`` gives the keys and values of
+  ``attention_forward`` (positions ``arange(Skv)``, no RoPE on whisper's
+  calls; non-causal, ``Skv`` != ``Sq``, through either branch);
+  ``make_cross_cache`` projects the encoder's states once for decode and
+  ``cross_attention_decode`` attends one token to them, plain PyTorch.
 """
 from __future__ import annotations
 
@@ -84,40 +89,51 @@ def _direct_attention(q, k, v, *, scale, causal, window, q_positions, kv_positio
     return torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
 
 
+def uses_flash(Sq: int, Skv: int) -> bool:
+    """The JAX package's branch rule: the flash branch for long sequences
+    whose lengths both split into chunks of more than one row."""
+    return (max(Sq, Skv) >= _FLASH_THRESHOLD and _chunk_of(Sq, _Q_CHUNK) > 1
+            and _chunk_of(Skv, _KV_CHUNK) > 1)
+
+
 def attention_forward(params: Attention, x: torch.Tensor, cfg, *,
                       causal: bool = True,
                       window: Optional[int] = None,
                       positions: Optional[torch.Tensor] = None,
+                      kv_x: Optional[torch.Tensor] = None,
                       use_rope: bool = True,
                       return_kv: bool = False):
-    """x: [B, S, d]. With return_kv=True also returns the post-RoPE (k, v)
-    ``[B, S, KV, hd]`` for prefill cache construction."""
+    """x: [B, Sq, d]; kv_x (cross-attention source): [B, Skv, d]. With
+    return_kv=True also returns the post-RoPE (k, v) ``[B, Skv, KV, hd]``
+    for prefill cache construction."""
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
     G = H // KV
-    B, S = x.shape[0], x.shape[1]
+    B, Sq = x.shape[0], x.shape[1]
+    src = kv_x if kv_x is not None else x
+    Skv = src.shape[1]
 
     q = _split_heads(params.wq(x), H, hd)
-    k = _split_heads(params.wk(x), KV, hd)
-    v = _split_heads(params.wv(x), KV, hd)
+    k = _split_heads(params.wk(src), KV, hd)
+    v = _split_heads(params.wv(src), KV, hd)
 
-    if positions is None:
-        positions = torch.arange(S, device=x.device)
+    q_positions = (positions if positions is not None
+                   else torch.arange(Sq, device=x.device))
+    kv_positions = (torch.arange(Skv, device=x.device)
+                    if kv_x is not None or positions is None else positions)
     if use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, q_positions, cfg.rope_theta)
+        k = apply_rope(k, kv_positions, cfg.rope_theta)
 
-    use_flash = (S >= _FLASH_THRESHOLD and _chunk_of(S, _Q_CHUNK) > 1
-                 and _chunk_of(S, _KV_CHUNK) > 1)
-    if use_flash:
+    if uses_flash(Sq, Skv):
         # positions are arange here, as on the JAX package's flash branch
         out = flash_attention(q, k, v, causal=causal, window=window)
     else:
-        out = _direct_attention(q.reshape(B, S, KV, G, hd), k, v,
+        out = _direct_attention(q.reshape(B, Sq, KV, G, hd), k, v,
                                 scale=1.0 / float(hd) ** 0.5, causal=causal,
-                                window=window, q_positions=positions,
-                                kv_positions=positions)
-    out = out.reshape(B, S, H * hd).to(x.dtype)
+                                window=window, q_positions=q_positions,
+                                kv_positions=kv_positions)
+    out = out.reshape(B, Sq, H * hd).to(x.dtype)
     y = params.wo(out)
     if return_kv:
         return y, (k, v)
@@ -193,3 +209,27 @@ def attention_decode(params: Attention, x: torch.Tensor, cache: dict, pos: int,
     out = torch.einsum("bkgs,bskd->bkgd", probs.to(new_v.dtype), new_v)
     out = out.reshape(B, 1, H * hd).to(x.dtype)
     return params.wo(out), cache
+
+
+# ------------------------------------------------- cross-attention cache ----
+def make_cross_cache(params: Attention, enc_out: torch.Tensor, cfg) -> dict:
+    """The encoder's keys and values ``[B, F, KV, hd]`` in the activation's
+    type, projected once for decode (whisper's cross-attention)."""
+    hd = cfg.resolved_head_dim
+    return {"k": _split_heads(params.wk(enc_out), cfg.n_kv_heads, hd),
+            "v": _split_heads(params.wv(enc_out), cfg.n_kv_heads, hd)}
+
+
+def cross_attention_decode(params: Attention, x: torch.Tensor, cross: dict,
+                           cfg) -> torch.Tensor:
+    """One token x ``[B, 1, d]`` against every encoder position of
+    ``cross`` (no mask)."""
+    hd = cfg.resolved_head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    B = x.shape[0]
+    q = _split_heads(params.wq(x), H, hd).reshape(B, 1, KV, H // KV, hd)
+    root = torch.full((), math.sqrt(hd), dtype=torch.float32, device=x.device)
+    scores = torch.einsum("bqkgd,bskd->bkgs", q.float(), cross["k"].float()) / root
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs.to(cross["v"].dtype), cross["v"])
+    return params.wo(out.reshape(B, 1, H * hd).to(x.dtype))

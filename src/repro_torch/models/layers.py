@@ -1,11 +1,13 @@
-"""Shared layers of the LMs: RMSNorm, LayerNorm, the group norm, RoPE and
-the SwiGLU MLP.
+"""Shared layers of the models: RMSNorm, LayerNorm, the group norm, RoPE,
+the sinusoidal positions and the SwiGLU and GELU MLPs.
 
 Ports of ``repro.models.layers`` with the same numerics: the norms and
 RoPE compute in fp32 (the norms with a biased variance) and cast back to
-the activation's type; the MLP's dense layers compute in the activation's
-type. The GELU MLP and the sinusoidal positions wait for the audio family
-(ROADMAP A-19).
+the activation's type; the MLPs' dense layers compute in the activation's
+type. The GELU is the tanh form, ``jax.nn.gelu``'s default. The
+sinusoidal table follows the JAX package's eager ops in float32, its
+powers of 10000 through XLA's ``powf`` (``xla_math.pow_xla``), so that
+the angles at a thousand positions are the same floats.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..xla_math import pow_xla
 from .module import Dense, _device_of
 
 
@@ -82,6 +85,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """``[n, d]`` fp32: sin of ``pos / 10000^(2i/d)`` in the even columns,
+    cos in the odd ones."""
+    dim = torch.arange(0, d, 2, dtype=torch.float32)[None, :]
+    # true divisions of tensors (a CUDA tensor divided by a Python scalar
+    # is multiplied by its reciprocal)
+    power = pow_xla(10000.0, dim / torch.tensor(float(d))).to(device)
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    angle = pos / power
+    pe = torch.zeros((n, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle)
+    return pe
+
+
 class SwiGLU(nn.Module):
     """down(silu(gate(x)) * up(x)); fan-in truncated-normal init."""
 
@@ -100,3 +118,23 @@ class SwiGLU(nn.Module):
 
 def swiglu(mlp: SwiGLU, x: torch.Tensor) -> torch.Tensor:
     return mlp.down(F.silu(mlp.gate(x)) * mlp.up(x))
+
+
+class GeluMLP(nn.Module):
+    """fc2(gelu(fc1(x))), both with a bias (zeros at init); fan-in
+    truncated-normal weights."""
+
+    def __init__(self, d_model: int, d_ff: int, generator: torch.Generator | None = None):
+        super().__init__()
+        dev = _device_of(generator)
+        self.fc1 = Dense(d_model, d_ff, device=dev)
+        self.fc2 = Dense(d_ff, d_model, device=dev)
+        for m in (self.fc1, self.fc2):
+            m.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return gelu_mlp(self, x)
+
+
+def gelu_mlp(mlp: GeluMLP, x: torch.Tensor) -> torch.Tensor:
+    return mlp.fc2(F.gelu(mlp.fc1(x), approximate="tanh"))

@@ -1,15 +1,18 @@
-"""Decoder-only LMs of the dense, moe, ssm and hybrid families.
+"""Decoder-only LMs of the dense, vlm, moe, ssm and hybrid families.
 
 A port of ``repro.models.transformer``:
 
   dense   GQA attention + SwiGLU        (tinyllama, qwen2.5-32b, glm4-9b,
                                          qwen2-72b)
+  vlm     the dense stack + ``vision_proj``, a bias-free dense layer that
+          projects stub patch embeddings (``extra_embeds``), prepended to
+          the token embeddings (phi-3-vision)
   moe     GQA attention + MoE FFN       (qwen2-moe, mixtral-8x22b)
   ssm     RWKV6 time mix + channel mix  (rwkv6-1.6b)
   hybrid  Mamba2 layers + ONE shared attention block (its parameters
           shared) applied after every ``attn_every`` of them (zamba2)
 
-The audio and vlm families raise ``NotImplementedError`` (ROADMAP A-19).
+The audio family (whisper) is the encoder-decoder of ``models.encdec``.
 The LM is an ``nn.Module`` whose ``layers`` is a list of blocks where the
 JAX package stacks them for ``lax.scan``; ``repro_torch.convert`` unstacks
 the JAX package's leaves onto it.
@@ -48,14 +51,22 @@ from .moe import MoE, moe_forward
 from .rwkv import RWKV6, RWKVFFN, make_rwkv_cache, rwkv6_decode, rwkv6_forward, rwkv_ffn
 from .ssm import Mamba2, make_ssm_cache, mamba2_decode, mamba2_forward
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# every model family of the configs: the LM's, and the encoder-decoder's
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 def check_family(cfg) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the port "
-            "runs the dense, moe, ssm and hybrid LM families (ROADMAP A-19)")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown model family {cfg.family!r} ({cfg.name})")
+
+
+def check_lm_family(cfg) -> None:
+    """``check_family``, and the family is an LM's (not the audio
+    encoder-decoder's, ``models.encdec``)."""
+    check_family(cfg)
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.name} is of family 'audio': an encoder-decoder "
+                         "(models.encdec.EncDec), not an LM")
 
 
 class DenseBlock(nn.Module):
@@ -95,8 +106,8 @@ class MambaBlock(nn.Module):
         self.mamba = Mamba2(cfg, generator)
 
 
-_BLOCKS = {"dense": DenseBlock, "moe": MoEBlock, "ssm": RWKVBlock,
-           "hybrid": MambaBlock}
+_BLOCKS = {"dense": DenseBlock, "vlm": DenseBlock, "moe": MoEBlock,
+           "ssm": RWKVBlock, "hybrid": MambaBlock}
 
 
 class LM(nn.Module):
@@ -105,7 +116,7 @@ class LM(nn.Module):
 
     def __init__(self, cfg, generator: torch.Generator | None = None):
         super().__init__()
-        check_family(cfg)
+        check_lm_family(cfg)
         self.cfg = cfg
         dev = _device_of(generator)
         self.embed = Embed(cfg.vocab_size, cfg.d_model, generator)
@@ -120,6 +131,9 @@ class LM(nn.Module):
             self.shared_attn = DenseBlock(cfg, generator)
         if not cfg.tie_embeddings:
             self.lm_head = Embed(cfg.vocab_size, cfg.d_model, generator)
+        if cfg.family == "vlm":
+            self.vision_proj = Dense(cfg.d_model, cfg.d_model, bias=False, device=dev)
+            self.vision_proj.reset_parameters(generator)
 
     def head(self) -> torch.Tensor:
         return self.embed.table if self.cfg.tie_embeddings else self.lm_head.table
@@ -201,12 +215,24 @@ def _final_norm(model: LM, x, cfg):
     return rmsnorm(model.ln_f.scale, x, cfg.norm_eps)
 
 
+def _embed(model: LM, tokens, cfg, extra_embeds):
+    """The token embeddings, after the projected ``extra_embeds`` (vlm:
+    [B, S_vis, d]) when given."""
+    dt = dtype_of(cfg)
+    x = model.embed(tokens, dt)
+    if extra_embeds is None:
+        return x
+    return torch.cat([model.vision_proj(extra_embeds.to(dt)), x], dim=1)
+
+
 def lm_forward(model: LM, tokens: torch.Tensor, cfg, *,
+               extra_embeds: Optional[torch.Tensor] = None,
                window: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens: [B, S] int. Returns (logits [B,S,V] fp32, aux loss: the MoE
-    layers' load-balance losses summed, else 0)."""
-    check_family(cfg)
-    x = model.embed(tokens, dtype_of(cfg))
+    """tokens: [B, S_text] int; extra_embeds (vlm): [B, S_vis, d]
+    prepended. Returns (logits [B,S,V] fp32, aux loss: the MoE layers'
+    load-balance losses summed, else 0)."""
+    check_lm_family(cfg)
+    x = _embed(model, tokens, cfg, extra_embeds)
     if window is None:
         window = cfg.sliding_window
     remat = cfg.remat and torch.is_grad_enabled()
@@ -218,7 +244,7 @@ def lm_forward(model: LM, tokens: torch.Tensor, cfg, *,
 
     auxs = []
     fam = cfg.family
-    if fam == "dense":
+    if fam in ("dense", "vlm"):
         for layer in model.layers:
             x = run(_dense_block, layer, x, cfg, window)
     elif fam == "moe":
@@ -241,11 +267,15 @@ def lm_forward(model: LM, tokens: torch.Tensor, cfg, *,
 
 def lm_loss(model: LM, batch: dict, cfg) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy. batch: {"tokens": [B,S]} (+ optional
+    "extra_embeds" [B,S_vis,d], whose positions' logits are dropped, and
     "labels" [B,S], whose entries < 0 are masked out). Without labels the
     labels are ``tokens[:, 1:]`` against the logits of positions 0..S-2.
     Returns (loss + aux, {"xent": loss, "aux": aux})."""
     tokens = batch["tokens"]
-    logits, aux = lm_forward(model, tokens, cfg)
+    extra = batch.get("extra_embeds")
+    logits, aux = lm_forward(model, tokens, cfg, extra_embeds=extra)
+    if extra is not None:
+        logits = logits[:, extra.shape[1]:]                 # the text region
     labels = batch.get("labels")
     if labels is None:
         labels = tokens[:, 1:]
@@ -272,18 +302,19 @@ def _attn_prefill(block, x, cfg, window, cache_len, dt):
 
 
 def lm_prefill(model: LM, tokens: torch.Tensor, cfg, *, cache_len: int,
+               extra_embeds: Optional[torch.Tensor] = None,
                window: Optional[int] = None) -> tuple[torch.Tensor, dict]:
     """Serving prefill: the forward pass that also builds the decode cache
-    (ring KV caches, RWKV and Mamba2 states). Returns (last-token logits
-    [B,1,V], cache)."""
-    check_family(cfg)
+    (ring KV caches, RWKV and Mamba2 states); extra_embeds (vlm) as in
+    ``lm_forward``. Returns (last-token logits [B,1,V], cache)."""
+    check_lm_family(cfg)
     dt = dtype_of(cfg)
-    x = model.embed(tokens, dt)
+    x = _embed(model, tokens, cfg, extra_embeds)
     if window is None:
         window = cfg.sliding_window
     caches = []
     fam = cfg.family
-    if fam in ("dense", "moe"):
+    if fam in ("dense", "vlm", "moe"):
         for layer in model.layers:
             x, kv = _attn_prefill(layer, x, cfg, window, cache_len, dt)
             caches.append(kv)
@@ -315,12 +346,12 @@ def lm_prefill(model: LM, tokens: torch.Tensor, cfg, *, cache_len: int,
 
 def init_lm_cache(cfg, batch: int, cache_len: int, device=None) -> dict:
     """Empty per-layer caches (``device`` may be ``meta``)."""
-    check_family(cfg)
+    check_lm_family(cfg)
     dt = dtype_of(cfg)
 
     def kv():
         return attn.make_kv_cache(cfg, batch, cache_len, dt, device)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe"):
         return {"layers": [kv() for _ in range(cfg.n_layers)]}
     if cfg.family == "ssm":
         return {"layers": [make_rwkv_cache(cfg, batch, dt, device)
@@ -343,11 +374,11 @@ def lm_decode(model: LM, token: torch.Tensor, cache: dict, pos: int, cfg
               ) -> tuple[torch.Tensor, dict]:
     """One decode step. token: [B,1] int; pos: int. Returns (logits
     [B,1,V], cache), the cache updated in place."""
-    check_family(cfg)
+    check_lm_family(cfg)
     x = model.embed(token, dtype_of(cfg))
     fam = cfg.family
     layers = cache["layers"]
-    if fam in ("dense", "moe"):
+    if fam in ("dense", "vlm", "moe"):
         for layer, kv in zip(model.layers, layers):
             x = _attn_decode(layer, x, kv, pos, cfg)
     elif fam == "ssm":

@@ -228,13 +228,18 @@ def _sm90_emulated(q, k, v, *, causal, window):
     (1, 2048, 4, 2, 80, True, 256, None),      # D = 80 with a window
     (1, 2048, 4, 4, 96, True, None, None),     # phi-3-vision's head dim
     (1, 1000, 4, 2, 96, True, None, None),     # D = 96, ragged S
+    # whisper's cross-attention, G = 1, heads and S cut: non-causal, a
+    # ragged last key tile (150 = 128 + 22; 1500 = 11 x 128 + 92)
+    (1, 256, 6, 6, 64, False, None, 150),
+    (1, 256, 6, 6, 64, False, None, 1500),
 ])
 def test_sm90_numerics_emulated_fit_the_bf16_gate(B, S, H, KV, D, causal,
                                                    window, Skv):
     """The bf16 FLASH_CASES of ``chip_smoke.py`` (batch and heads cut, the
     card's unit-variance inputs), emulated as the tensor-core kernel
     computes them, against the plain version (fp32 P) and, where its tiling
-    applies, the interpreted Pallas kernel: within the unchanged 2e-2."""
+    applies, the interpreted Pallas kernel, or else (non-causal) the JAX
+    package's oracle: within the unchanged 2e-2."""
     Skv = Skv or S
     rng = np.random.default_rng(11)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
@@ -249,6 +254,10 @@ def test_sm90_numerics_emulated_fit_the_bf16_gate(B, S, H, KV, D, causal,
         pallas = flash_attention_pallas(jq, jk, jv, causal=True, window=window,
                                         interpret=True)
         np.testing.assert_allclose(_f32(got), _f32(pallas), atol=2e-2, rtol=0)
+    if not causal:
+        oracle = j_attention_ref(*(jnp.asarray(t.float().numpy()).astype("bfloat16")
+                                   for t in (q, k, v)), causal=False, window=window)
+        np.testing.assert_allclose(_f32(got), _f32(oracle), atol=2e-2, rtol=0)
 
 
 # ---- the fp32 SIMT kernel's numerics, modelled on the CPU ------------------
@@ -339,6 +348,7 @@ def _simt_f32_emulated(q, k, v, *, causal, window):
     (1, 200, 4, 2, 80, True, 64, None),        # D = 80 with a window
     (1, 256, 4, 4, 96, True, None, None),      # D = 96
     (1, 130, 4, 2, 96, False, None, 150),      # D = 96, Skv != Sq
+    (1, 256, 6, 6, 64, False, None, 150),      # whisper's cross call, cut
 ])
 def test_simt_f32_numerics_emulated_fit_the_fp32_gate(B, S, H, KV, D, causal,
                                                       window, Skv):

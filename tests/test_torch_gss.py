@@ -33,6 +33,7 @@ from repro_torch.core.channel import comm_energy
 from repro_torch.core.fairenergy import init_state, solve_round
 from repro_torch.core.gss import golden_section_minimize
 from repro_torch.kernels.dual_solve.ref import bandwidth_best_response
+from test_torch_train import one_torch_thread  # noqa: F401  (torch on one thread)
 
 N0, S_BITS, I_BITS, B_TOT = 4e-21, 6.4e7, 2e6, 10e6
 GSS_RTOL = 1e-5            # C-18: where a flat minimum's search ends

@@ -134,7 +134,8 @@ def test_mesh_and_weight_entry_points_without_device_raise_when_no_gpu(
         monkeypatch):
     """The clients mesh, the silo mesh, the multipod CLI and the weight
     converters mean the GPU by ``device=None``, like every entry point."""
-    from repro_torch.convert import lm_params_from_numpy, params_from_numpy
+    from repro_torch.convert import (encdec_params_from_numpy, lm_params_from_numpy,
+                                     params_from_numpy)
     from repro_torch.fl.collectives import make_silo_mesh
     from repro_torch.launch import multipod
     from repro_torch.sharding import make_clients_mesh
@@ -143,7 +144,8 @@ def test_mesh_and_weight_entry_points_without_device_raise_when_no_gpu(
                  lambda: multipod.main(["--pods", "1", "--data", "1",
                                         "--model", "1"]),
                  lambda: params_from_numpy({"w": [1.0]}),
-                 lambda: lm_params_from_numpy({"w": [1.0]}, None)):
+                 lambda: lm_params_from_numpy({"w": [1.0]}, None),
+                 lambda: encdec_params_from_numpy({"w": [1.0]}, None)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert params_from_numpy({"w": [1.0]}, "cpu")["w"].device.type == "cpu"

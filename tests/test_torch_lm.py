@@ -301,15 +301,18 @@ def test_serving_copy_has_the_per_call_cast_bits():
                                ttfm.lm_forward(master, toks, fcfg)[0]), arch
 
 
-@pytest.mark.parametrize("arch", ["whisper-tiny", "phi-3-vision-4.2b"])
-def test_other_families_raise_naming_the_roadmap_item(arch):
-    cfg = tconfigs.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="A-19"):
-        ttfm.LM(cfg)
-    with pytest.raises(NotImplementedError, match="A-19"):
-        steps.init_for(cfg)
-    with pytest.raises(NotImplementedError, match="A-19"):
-        ttfm.init_lm_cache(cfg, 1, 8)
+def test_an_unknown_family_raises():
+    """Every family of the configs is ported; another one raises
+    ``ValueError``, as the JAX package's ``init_lm`` does."""
+    for arch in tconfigs.ARCH_IDS:
+        ttfm.check_family(tconfigs.get_smoke(arch))
+    cfg = tconfigs.get_smoke("tinyllama-1.1b").replace(family="retnet")
+    for call in (ttfm.check_family, ttfm.LM, steps.init_for, steps.loss_for,
+                 lambda c: ttfm.init_lm_cache(c, 1, 8)):
+        with pytest.raises(ValueError, match="retnet"):
+            call(cfg)
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        ttfm.init_lm_cache(tconfigs.get_smoke("whisper-tiny"), 1, 8)
 
 
 def test_converted_names_are_the_modules_parameters():

@@ -21,6 +21,7 @@ from repro_torch import random as prng
 from repro_torch import xla_math
 from repro_torch.core import channel as tchannel
 from repro_torch.data.pipeline import client_sample_keys
+from test_torch_train import one_torch_thread  # noqa: F401  (torch on one thread)
 
 SEEDS = [0, 1, 7, 12345, 2**31 - 1]
 

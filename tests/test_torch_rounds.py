@@ -41,6 +41,7 @@ from repro_torch.scenarios import get_scenario
 from test_torch_trainer import ACC_TOL, N_CLIENTS, ROUNDS, _mlp_data
 from torch_dist import (history_arrays, mlp_trainer, sharded_trainer_body,
                         spawn)
+from test_torch_train import one_torch_thread  # noqa: F401  (torch on one thread)
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 N0 = 4e-21

@@ -19,6 +19,7 @@ from repro.core.fairenergy import solve_round as j_solve
 
 from repro_torch.configs.base import FairEnergyConfig as TFE
 from repro_torch.core.fairenergy import init_state, solve_round
+from test_torch_train import one_torch_thread  # noqa: F401  (torch on one thread)
 
 N0, S_BITS, I_BITS, B_TOT = 4e-21, 6.4e7, 2e6, 10e6
 

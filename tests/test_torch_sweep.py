@@ -17,6 +17,7 @@ from repro_torch.configs.base import FairEnergyConfig as TFE
 
 import torch_dist
 from torch_dist import mlp_data, mlp_trainer
+from test_torch_train import one_torch_thread  # noqa: F401  (torch on one thread)
 
 ACC_TOL = 1.0 / 128 + 1e-9
 PARAMS = mlp_data()[0]
