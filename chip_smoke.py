@@ -67,8 +67,11 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    below 32 bits, (b) and (c) must retransmit;
 4. card against CPU: ``solve_round`` at the main path's setting (N = 50,
    full-width payload, default solver config) for 5 rounds, for each
-   dual-solve variant, and with ``bw_solver="gss"`` (plain PyTorch;
-   energies within 2e-3, ROADMAP C-18), then the smoke CNN with N = 8 for
+   dual-solve variant, and with ``bw_solver="gss"`` for its warm-started
+   rounds 0-2 (plain PyTorch, launch-bound: 18-52 s a round on the card,
+   by the host; the cut from 5 rounds; energies within 2e-3, ROADMAP
+   C-18), whose card and CPU sides run in child processes during phase
+   14, then the smoke CNN with N = 8 for
    2 rounds of the legacy trainer, of path (c) and of the five other
    strategies (``scoremax``, ``ecorandom``, ``randomfull``,
    ``channelgreedy``, ``tilted``), each on ``cuda`` and on ``cpu`` from
@@ -235,7 +238,32 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    on the flash branch) and phi-3-vision (16 + 2,032 positions), card
    against CPU in fp32 and bf16 as phase 6 (a prefill step and 4 greedy
    serve steps: equal ids or a documented tie, logits within phase 6's
-   gates), and 3 AdamW steps of each in fp32 as phase 11b.
+   gates), and 3 AdamW steps of each in fp32 as phase 11b;
+14. the sharding plan and the other families' training: (a)
+   qwen2-moe-a2.7b (3 of its 24 layers: 4 do not fit the card with fp32
+   masters, moments and gradients), rwkv6-1.6b and zamba2-2.7b (full
+   depth) trained at full width, bf16, 8 x 4,096 tokens in 2
+   microbatches, remat, AdamW: 1 warm-up and 2 timed steps (qwen2-moe)
+   or 1 (rwkv6, zamba2: 13-26 s a step), each run's counts zeroed before
+   them (finite, falling losses; the bf16 flash
+   kernel with lse twice and ``flash_bwd_ref`` once a flash-branch
+   attention call a microbatch: 12 / 0 / 36 launches a step; no other
+   kernel), ms a step, tokens/s, peak memory; then each smoke model's 3
+   fp32 AdamW steps card against CPU as phase 13 (f) (first gradients
+   within 1e-5 of each leaf's scale, 1e-4 for rwkv6 and zamba2); (b) a
+   one-rank NCCL group, ``launch.mesh.make_host_mesh()`` (1 x 1), the
+   smoke TinyLlama's fp32 parameters as DTensors laid out by
+   ``sharding.param_specs``, and 3 AdamW steps at S = 2,048 under
+   ``activation_rules``, against the same steps on plain tensors: the
+   flash kernel reached through the DTensors' local shards (12 launches
+   with lse, 6 backward calls, as the plain run's), losses and
+   parameters bit for bit or within phase 11b's gates; (c) the dry-run
+   CLI (``python -m repro_torch.launch.dryrun``) for tinyllama-1.1b
+   train_4k on the 16 x 16 mesh and whisper-tiny decode_32k on 2 x 16 x
+   16, each in its own process on the CPU while (a) and (b) run, its JSON
+   printed on a line of its own. Phase 4's GSS check runs meanwhile
+   (its card side a second process on the card), so (a)'s step times
+   carry that contention.
 
 ``--cards K`` runs phase 7 alone across K cards (one NCCL rank a card,
 after the build): the exchanges on a (2, K/2, 1) mesh against the pod mean
@@ -1356,49 +1384,103 @@ def _split_gap(label: str, r: int, a, b, scores) -> str:
     return msg
 
 
-def gss_card_against_cpu(dev):
-    """``solve_round`` with ``bw_solver="gss"`` (plain PyTorch on either
-    device) at the main path's setting, 5 warm-started rounds on the card
-    and on the CPU: masks, gammas and n_inner equal; energies, widths and
-    lam to rtol 2e-3, the golden-section search's own reach (ROADMAP
-    C-18: it ends on float32 noise in a flat minimum), measured and
-    logged; no fused ascent is launched."""
-    import dataclasses
+# the GSS check's warm-started rounds: 0-2 of the solver checks' 5 (the
+# card's plain-PyTorch GSS takes 18-52 s a round, launch-bound)
+GSS_ROUNDS = 3
 
+
+def _gss_setting():
+    import dataclasses
+    ctrl, P, hs, us, _ = solver_setting("dual_solve")
+    return ctrl, dataclasses.replace(ctrl.fe_cfg, bw_solver="gss"), P, hs, us
+
+
+def _gss_rounds(dv) -> list:
+    """GSS_ROUNDS warm-started ``solve_round`` calls with
+    ``bw_solver="gss"`` at the main path's setting on ``dv``: each round's
+    decision as numpy arrays and its seconds."""
     from repro_torch.core.fairenergy import solve_round
 
-    ctrl, P, hs, us, _ = solver_setting("dual_solve")
-    fe = dataclasses.replace(ctrl.fe_cfg, bw_solver="gss")
-    states = {"cpu": ctrl.init(N_CLIENTS)}
-    states["cuda"] = to_device(states["cpu"], dev)
+    ctrl, fe, P, hs, us = _gss_setting()
+    state = to_device(ctrl.init(N_CLIENTS), dv)
+    out = []
+    for r in range(GSS_ROUNDS):
+        t0 = time.perf_counter()
+        dec, state = solve_round(us[r].to(dv), hs[r].to(dv), P.to(dv), state,
+                                 fe_cfg=fe)
+        got = {k: getattr(dec, k).cpu().numpy()
+               for k in ("x", "gamma", "lam", "energy", "bandwidth")}
+        got["n_inner"] = int(dec.n_inner)
+        got["s"] = time.perf_counter() - t0
+        out.append(got)
+    return out
+
+
+def gss_side(src: str, device: str) -> tuple:
+    """``_gss_rounds`` on ``device`` in a child process (``src``: the
+    repository's ``src`` directory): the rounds, and whether a dual-solve
+    kernel was launched meanwhile (the GSS path launches none)."""
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    dv = torch.device(device)
+    if dv.type == "cuda":
+        torch.cuda.set_device(dv)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(2)
     fns = counters()
-    before = {k: getattr(fn, attr) for k, (fn, attr) in fns.items()
-              if k.startswith("dual_")}
-    for r in range(5):
-        dec = {}
-        for name in ("cuda", "cpu"):
-            dv = dev if name == "cuda" else torch.device("cpu")
-            dec[name], states[name] = solve_round(us[r].to(dv), hs[r].to(dv),
-                                                  P.to(dv), states[name],
-                                                  fe_cfg=fe)
-        a, b = dec["cuda"], dec["cpu"]
-        if not torch.equal(a.x.cpu(), b.x):
-            raise AssertionError(f"gss solver round {r}: masks differ, cuda "
-                                 f"{a.x.int().tolist()} cpu {b.x.int().tolist()}")
-        if not torch.equal(a.gamma.cpu(), b.gamma) or int(a.n_inner) != int(b.n_inner):
-            raise AssertionError(f"gss solver round {r}: gamma or n_inner differ")
-        rel = {name: float(torch.max(torch.abs(getattr(a, name).cpu() - getattr(b, name))
-                                     / torch.clamp(torch.abs(getattr(b, name)), min=1e-30)))
-               for name in ("lam", "energy", "bandwidth")}
-        log(json.dumps({"gss_card_vs_cpu": r, "n_inner": int(b.n_inner),
-                        "selected": int(b.x.sum()), "max_rel": rel}))
-        for name in ("lam", "energy", "bandwidth"):
-            torch.testing.assert_close(getattr(a, name).cpu(), getattr(b, name),
-                                       rtol=2e-3, atol=1e-12)
-    after = {k: getattr(fn, attr) for k, (fn, attr) in fns.items()
-             if k.startswith("dual_")}
-    if after != before:
+    count = lambda: {k: getattr(fn, attr) for k, (fn, attr) in fns.items()  # noqa: E731
+                     if k.startswith("dual_")}
+    before = count()
+    rounds = _gss_rounds(dv)
+    return rounds, count() != before
+
+
+def start_gss_check(dev):
+    """The GSS check's two sides, each in a spawned child process: they
+    run while the script goes on (phase 14), the card's beside its other
+    work on the same card. Returns (executor, card future, CPU future)."""
+    import concurrent.futures
+    import multiprocessing
+    ex = concurrent.futures.ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    src = str(HERE / "src")
+    return ex, ex.submit(gss_side, src, str(dev)), ex.submit(gss_side, src, "cpu")
+
+
+def gss_card_against_cpu(check):
+    """``solve_round`` with ``bw_solver="gss"`` (plain PyTorch on either
+    device) at the main path's setting, GSS_ROUNDS warm-started rounds on
+    the card and on the CPU (``check``: ``start_gss_check``'s): masks,
+    gammas and n_inner equal; energies, widths and lam to rtol 2e-3, the
+    golden-section search's own reach (ROADMAP C-18: it ends on float32
+    noise in a flat minimum), measured and logged; no dual-solve kernel
+    is launched."""
+    ex, card_f, cpu_f = check
+    try:
+        (card, card_launched), (cpu, _) = card_f.result(), cpu_f.result()
+    finally:
+        ex.shutdown()
+    if card_launched:
         raise AssertionError("the gss solver launched a dual-solve kernel")
+    if len(card) != GSS_ROUNDS or len(cpu) != GSS_ROUNDS:
+        raise AssertionError(f"gss rounds: card {len(card)}, cpu {len(cpu)}")
+    for r, (a, b) in enumerate(zip(card, cpu)):
+        if not np.array_equal(a["x"], b["x"]):
+            raise AssertionError(f"gss solver round {r}: masks differ, cuda "
+                                 f"{a['x'].astype(int).tolist()} cpu "
+                                 f"{b['x'].astype(int).tolist()}")
+        if not np.array_equal(a["gamma"], b["gamma"]) or a["n_inner"] != b["n_inner"]:
+            raise AssertionError(f"gss solver round {r}: gamma or n_inner differ")
+        rel = {name: float(np.max(np.abs(a[name] - b[name])
+                                  / np.maximum(np.abs(b[name]), 1e-30)))
+               for name in ("lam", "energy", "bandwidth")}
+        log(json.dumps({"gss_card_vs_cpu": r, "n_inner": b["n_inner"],
+                        "selected": int(b["x"].sum()), "max_rel": rel,
+                        "card_s": a["s"], "cpu_s": b["s"]}))
+        for name in ("lam", "energy", "bandwidth"):
+            np.testing.assert_allclose(a[name], b[name], rtol=2e-3, atol=1e-12)
 
 
 def topk_mask_on_card(dev):
@@ -3435,7 +3517,9 @@ def fp32_grad_floor(model, cfg, batch, g32: dict) -> dict:
 GRAD_FLOOR_FACTOR = 4.0
 
 
-def family13_train_card_against_cpu(dev, arch: str, seq: int, n_attn: int) -> dict:
+def family13_train_card_against_cpu(dev, arch: str, seq: int, n_attn: int,
+                                    label: str = "phase 13 (f)",
+                                    flat_gate: float | None = None) -> dict:
     """Phase 13 (f), training: 3 AdamW steps of ``arch``'s smoke model in
     fp32 (``_train_card_and_cpu``; whisper: 2,048 decoder tokens against
     64 frames, both attentions on the flash branch; the VLM: 16 + 2,032
@@ -3454,10 +3538,13 @@ def family13_train_card_against_cpu(dev, arch: str, seq: int, n_attn: int) -> di
     c = TRAIN_CARD_CPU
     r = _train_card_and_cpu(dev, cfg, seq)
     names = r["names"]
-    floor = fp32_grad_floor(r["initial"], cfg, r["batches"][0], r["g_cpu"])
+    # ``flat_gate``: that share of each leaf's scale instead of the float64
+    # floor (which a model whose scans hold fp32 states cannot give)
+    floor = (fp32_grad_floor(r["initial"], cfg, r["batches"][0], r["g_cpu"])
+             if flat_gate is None else {n: 0.0 for n in names})
     err = {n: float((r["g_card"][n] - r["g_cpu"][n]).abs().max()
                     / r["g_cpu"][n].abs().max().clamp(min=1e-30)) for n in names}
-    gate = {n: max(1e-5, GRAD_FLOOR_FACTOR * floor[n]) for n in names}
+    gate = {n: max(flat_gate or 1e-5, GRAD_FLOOR_FACTOR * floor[n]) for n in names}
     worst = sorted(names, key=lambda n: -err[n] / gate[n])[:3]
     want = 2 * n_attn * c["steps"]
     res = {"family13_train_card_vs_cpu": cfg.name, "seq": seq, "batch": c["batch"],
@@ -3469,14 +3556,14 @@ def family13_train_card_against_cpu(dev, arch: str, seq: int, n_attn: int) -> di
            **param_spread(r["params_cuda"], r["params_cpu"])}
     log(json.dumps(res))
     if (r["launches_cuda"], r["launches_cpu"]) != (want, 0):
-        raise AssertionError(f"phase 13 (f) {arch}: lse launches card "
+        raise AssertionError(f"{label} {arch}: lse launches card "
                              f"{r['launches_cuda']} (want {want}), CPU {r['launches_cpu']}")
     bad = {n: (err[n], gate[n]) for n in names if not err[n] <= gate[n]}
     if bad:
-        raise AssertionError(f"phase 13 (f) {arch}: first gradients card/CPU: {bad}")
+        raise AssertionError(f"{label} {arch}: first gradients card/CPU: {bad}")
     np.testing.assert_allclose(r["losses_cuda"], r["losses_cpu"], rtol=1e-5)
     if not res["param_moved_max"] <= c["steps"] * c["lr"]:
-        raise AssertionError(f"phase 13 (f) {arch}: params moved apart: {res}")
+        raise AssertionError(f"{label} {arch}: params moved apart: {res}")
     return res
 
 
@@ -3514,6 +3601,238 @@ def audio_and_vlm_paths(dev) -> dict:
         family13_train_card_against_cpu(dev, PHI3V, P - get_smoke(PHI3V).n_vision_tokens,
                                         get_smoke(PHI3V).n_layers)]
     return out
+
+
+# ----------------------------------------------------------- phase 14 ----
+# (a) the moe, ssm and hybrid families trained at full width: phase 11's
+# batch (train_4k's 4,096 tokens, its global batch of 256 cut to 8, in 2
+# microbatches); rwkv6 and zamba2 at full depth, qwen2-moe at the depth
+# one card holds with fp32 masters, AdamW moments and gradients: 3 of 24
+# (~9.1 GB of state a layer, ~10 GB for the embedding and the head, and
+# the 151,936-wide fp32 logits of a microbatch, ~10 GB each for them,
+# their log-softmax and its gradient; 4 layers ran out of memory)
+FAMILY_TRAIN = dict(batch=8, seq=4096, microbatches=2, lr=3e-4, warmup=1)
+# arch -> (layers, or None for all; timed steps after the warm-up: one
+# for the two whose steps take 13-26 s, host-bound on their scans)
+FAMILY_TRAIN_RUNS = {"qwen2-moe-a2.7b": (3, 2), "rwkv6-1.6b": (None, 1),
+                     "zamba2-2.7b": (None, 1)}
+# (a)'s smoke models card against CPU, 3 fp32 AdamW steps as phase 11b
+# (seq 2,048: the flash branch of qwen2-moe's and zamba2's attention), the
+# first gradients within this share of each leaf's scale: 1e-5 as 11b,
+# 1e-4 for the recurrent families, whose decay leaves (RWKV6's u, Mamba2's
+# A_log and dt_bias) sum a derivative over every position and head in
+# terms that cancel (measured 1.6e-5 and 1.9e-5 card vs CPU; their scans
+# hold fp32 states, so the float64 floor of phase 13 (f) cannot be had)
+FAMILY_TRAIN_SMOKE = {"qwen2-moe-a2.7b": 1e-5, "rwkv6-1.6b": 1e-4, "zamba2-2.7b": 1e-4}
+# (b) one real step through the sharding plan
+PLAN_STEP = dict(arch="tinyllama-1.1b", batch=2, seq=2048, steps=3, lr=3e-4)
+# (c) the dry-run on this machine's torch: (arch, shape, multi-pod)
+DRYRUN_ON_CARD = (("tinyllama-1.1b", "train_4k", False),
+                  ("whisper-tiny", "decode_32k", True))
+DRYRUN_OUT = HERE / "build" / "chip_smoke" / "dryrun"
+DRYRUN_KEYS = {"arch", "shape", "microbatches", "mesh", "n_devices", "kind",
+               "compile_s", "flops_per_device", "bytes_accessed_per_device",
+               "collectives", "memory"}
+
+
+def _flash_calls_a_forward(cfg) -> int:
+    """The flash-branch attention calls of one forward at 4,096 tokens."""
+    if cfg.family == "moe":
+        return cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return 0
+
+
+def family_train_paths(dev) -> dict:
+    """Phase 14 (a): ``train_steps`` (phase 11's checks: finite, falling
+    losses; the bf16 flash kernel with lse twice and ``flash_bwd_ref`` once
+    a flash-branch call a microbatch; no other kernel) on qwen2-moe-a2.7b
+    (cut), rwkv6-1.6b and zamba2-2.7b at full width, FAMILY_TRAIN's batch;
+    then each smoke model's 3 fp32 AdamW steps card against CPU."""
+    from repro_torch.configs import get_config, get_smoke
+    out = {}
+    for arch, (layers, steps) in FAMILY_TRAIN_RUNS.items():
+        cfg = get_config(arch)
+        full = cfg.n_layers
+        if layers:
+            cfg = cfg.replace(n_layers=layers)
+        res, _, model, opt, _ = train_steps(dev, cfg, dict(FAMILY_TRAIN, steps=steps),
+                                            _flash_calls_a_forward(cfg))
+        res["layers_of"] = full
+        log(json.dumps({"phase14a": res}))
+        out[arch] = res
+        del model, opt
+        torch.cuda.empty_cache()
+    out["smoke"] = [family13_train_card_against_cpu(
+        dev, arch, TRAIN_CARD_CPU["seq"], _flash_calls_a_forward(get_smoke(arch)),
+        label="phase 14 (a)", flat_gate=gate) for arch, gate in FAMILY_TRAIN_SMOKE.items()]
+    return out
+
+
+def plan_step_on_card(dev) -> dict:
+    """Phase 14 (b): the sharding plan on the card. A one-rank NCCL group
+    (``file://`` store), ``launch.mesh.make_host_mesh()`` (the (1, 1)
+    ``("data", "model")`` mesh), the smoke TinyLlama's fp32 parameters
+    replaced by DTensors laid out by ``sharding.param_specs`` (each
+    ``Replicate``: no axis of size 1 shards), the batch by ``data_specs``,
+    and PLAN_STEP's AdamW steps at S = 2,048 (the flash branch) under
+    ``activation_rules`` with the dry-run's logical map; against the same
+    steps on plain tensors from the same weights and tokens. The DTensors
+    reach the flash kernel through their local shards (``to_local``): the
+    kernel's launches with lse and ``flash_bwd_ref``'s calls are those of
+    the plain run. Losses and parameters bit for bit, or, where not (the
+    embedding's backward adds repeated ids' rows in no fixed order), the
+    first step's gradients within 1e-6 of each leaf's scale, losses rtol
+    1e-6, and the parameters within 1e-6 of each leaf's scale on all but
+    0.1% of its elements, those within 3 lr (phase 11b's AdamW
+    amplification); the gaps are printed."""
+    import copy
+    import tempfile
+
+    import torch.distributed as dist
+    from torch import nn
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import make_lm_batches
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.act import activation_rules
+    from repro_torch.sharding.specs import (batch_axes, data_specs, param_specs,
+                                            to_placements)
+
+    c = PLAN_STEP
+    cfg = get_smoke(c["arch"]).replace(dtype="float32")
+    base = steps.init_for(cfg)(torch.Generator(device=dev).manual_seed(3))
+    batches = list(make_lm_batches(cfg, c["batch"], c["seq"], c["steps"], seed=5,
+                                   device=dev))
+
+    def local(t):
+        return (t.to_local() if isinstance(t, DTensor) else t).detach().cpu()
+
+    def run(model, data, scope):
+        """(first-step gradients, losses, parameters, (lse launches,
+        backward calls) of the steps)."""
+        opt = adamw_init(dict(model.named_parameters()))
+        step = steps.build_train_step(cfg, lr=c["lr"])
+        names = [n for n, _ in model.named_parameters()]
+        with scope():
+            loss, _ = steps.loss_for(cfg)(model, data[0])
+            grads = dict(zip(names, map(local, torch.autograd.grad(
+                loss, list(model.parameters())))))
+            flash_attention.launches_lse = flash_attention.backward_calls = 0
+            losses = [step(model, opt, b)[2] for b in data]
+        torch.cuda.synchronize()
+        params = {n: local(p) for n, p in model.named_parameters()}
+        return (grads, [float(local(x)) for x in losses], params,
+                (flash_attention.launches_lse, flash_attention.backward_calls))
+
+    plain = run(copy.deepcopy(base), batches, contextlib.nullcontext)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"file://{tmp}/store", rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh(dev)
+            model = copy.deepcopy(base)
+            specs = param_specs(dict(model.named_parameters()), mesh)
+            placements = {n: to_placements(sp, mesh) for n, sp in specs.items()}
+            if any(not p.is_replicate() for pl in placements.values() for p in pl):
+                raise AssertionError(f"a (1, 1) mesh sharded a parameter: {placements}")
+            for prefix, mod in model.named_modules():
+                for name, p in list(mod._parameters.items()):
+                    full = f"{prefix}.{name}" if prefix else name
+                    mod._parameters[name] = nn.Parameter(DTensor.from_local(
+                        p.detach(), mesh, placements[full], run_check=False))
+            B = c["batch"]
+            data = [{k: DTensor.from_local(t, mesh, to_placements(
+                data_specs(t, mesh, B), mesh), run_check=False) for k, t in b.items()}
+                for b in batches]
+
+            @contextlib.contextmanager
+            def plan_scope():
+                with activation_rules(mesh, batch=batch_axes(mesh, B), vocab="model",
+                                      heads="model", ff="model", kv_seq="data",
+                                      seq_tp="model"), implicit_replication():
+                    yield
+            planned = run(model, data, plan_scope)
+        finally:
+            dist.destroy_process_group()
+    (g_plain, l_plain, p_plain, n_plain), (g_plan, l_plan, p_plan, n_plan) = \
+        plain, planned
+    bitwise = l_plain == l_plan and all(torch.equal(p_plain[n], p_plan[n])
+                                        for n in p_plain)
+    grad_gap = max(float((g_plan[n] - g_plain[n]).abs().max()
+                         / g_plain[n].abs().max().clamp(min=1e-30)) for n in g_plain)
+    spread = param_spread(p_plan, p_plain)
+    off_1e6 = max(float(((p_plan[n] - w).abs() > 1e-6 * w.abs().max()).float().mean())
+                  for n, w in p_plain.items())
+    want = (2 * cfg.n_layers * c["steps"], cfg.n_layers * c["steps"])
+    res = {"plan_step": cfg.name, "mesh": "1x1", "seq": c["seq"], "batch": c["batch"],
+           "steps": c["steps"], "losses_plan": l_plan, "losses_plain": l_plain,
+           "bitwise": bitwise, "first_grad_gap_over_scale": grad_gap,
+           "params_off_1e6_frac_max": off_1e6, **spread,
+           "flash_launches_with_lse_plan": n_plan[0],
+           "flash_bwd_ref_calls_plan": n_plan[1],
+           "flash_launches_with_lse_plain": n_plain[0]}
+    log(json.dumps(res))
+    if n_plan != want or n_plain != want:
+        raise AssertionError(f"phase 14 (b): flash launches with lse / backward "
+                             f"calls plan {n_plan}, plain {n_plain}, want {want}")
+    # not bit for bit where the embedding's backward sums repeated ids'
+    # rows by atomic adds in no fixed order (two plain runs differ alike);
+    # AdamW's g / (|g| + eps) then moves elements with near-zero gradients
+    # apart by up to ~0.1 lr (phase 11b)
+    np.testing.assert_allclose(l_plan, l_plain, rtol=1e-6)
+    if not (grad_gap <= 1e-6 and off_1e6 <= 1e-3
+            and spread["param_moved_max"] <= c["steps"] * c["lr"]):
+        raise AssertionError(f"phase 14 (b): the planned step left the plain one: {res}")
+    return res
+
+
+def start_dryruns() -> list:
+    """Phase 14 (c): ``python -m repro_torch.launch.dryrun`` for each of
+    DRYRUN_ON_CARD, each in a process of its own (the fake process group
+    is process-wide), on the CPU while the card runs (a) and (b)."""
+    procs = []
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"), CUDA_VISIBLE_DEVICES="")
+    for arch, shape, multi in DRYRUN_ON_CARD:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+               "--shape", shape, "--out", str(DRYRUN_OUT)] + (["--multi-pod"] if multi else [])
+        procs.append(((arch, shape, multi), subprocess.Popen(
+            cmd, env=env, cwd=str(HERE), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def finish_dryruns(procs: list) -> list:
+    """Each dry-run's exit, its JSON (the reference's keys, a positive
+    flop count, every memory figure) printed on a line of its own."""
+    out = []
+    for (arch, shape, multi), proc in procs:
+        stdout, stderr = proc.communicate(timeout=900)
+        if proc.returncode:
+            raise AssertionError(f"phase 14 (c) dry-run {arch} {shape} multi={multi} "
+                                 f"exited {proc.returncode}: {stdout[-2000:]} {stderr[-4000:]}")
+        name = f"{arch}__{shape}__{'multi' if multi else 'single'}.json"
+        with open(DRYRUN_OUT / name) as f:
+            res = json.load(f)
+        log(json.dumps({"dryrun_on_card": res}))
+        if set(res) != DRYRUN_KEYS or not res["flops_per_device"] > 0 \
+                or not res["memory"]["argument_bytes"] > 0:
+            raise AssertionError(f"phase 14 (c) dry-run {name}: {res}")
+        out.append(res)
+    return out
+
+
+def stop_dryruns(procs: list) -> None:
+    for _, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 # ------------------------------------------------------------ phase 7 ----
@@ -4413,10 +4732,12 @@ def main(argv) -> int:
 
     stamp("3")
 
-    # ---- phase 4: card against CPU
+    # ---- phase 4: card against CPU (its GSS check runs during phase 14)
     for variant in DUAL_VARIANTS:
+        t0 = time.perf_counter()
         solver_card_against_cpu(dev, variant)
-    gss_card_against_cpu(dev)
+        log(json.dumps({"solver_card_vs_cpu_s": variant,
+                        "s": time.perf_counter() - t0}))
     stamp("4 solver")
     card_against_cpu(dev)
     card_against_cpu(dev, "bursty-interference", price_outage=True, bits_grid=BITS)
@@ -4534,6 +4855,32 @@ def main(argv) -> int:
     flash_f32["launches_phase13f_train"] = {
         r["family13_train_card_vs_cpu"]: r["flash_launches_with_lse"] for r in p13["f_train"]}
     stamp("13")
+
+    # ---- phase 14: (a) the moe, ssm and hybrid families trained at full
+    # width, each run's counts zeroed before it, and their smoke models card
+    # against CPU; (b) one step through the sharding plan on a (1, 1) mesh;
+    # (c) the dry-run, started first, on the CPU meanwhile; and phase 4's
+    # GSS check, its card and CPU sides each in a child process meanwhile
+    gss = start_gss_check(dev)
+    dryruns = start_dryruns()
+    try:
+        p14 = family_train_paths(dev)
+        plan = plan_step_on_card(dev)
+        finish_dryruns(dryruns)
+    finally:
+        stop_dryruns(dryruns)
+    gss_card_against_cpu(gss)
+    stamp("14 and 4 gss")
+    flash["launches_phase14a"] = {
+        arch: p14[arch]["launches_per_step"]["flash_attention"] * p14[arch]["steps"]
+        for arch in FAMILY_TRAIN_RUNS}
+    flash["flash_bwd_ref_calls_phase14a"] = {
+        arch: p14[arch]["launches_per_step"]["flash_bwd_ref_calls"] * p14[arch]["steps"]
+        for arch in FAMILY_TRAIN_RUNS}
+    flash_f32["launches_phase14a_smoke"] = {
+        r["family13_train_card_vs_cpu"]: r["flash_launches_with_lse"] for r in p14["smoke"]}
+    flash_f32["launches_phase14b_plan"] = plan["flash_launches_with_lse_plan"]
+    stamp("14")
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -12,9 +12,10 @@ import torch
 
 
 def is_cpu(t: torch.Tensor) -> bool:
-    """True for CPU tensors (plain version); False for CUDA tensors
-    (kernel). Any other device raises."""
-    if t.device.type == "cpu":
+    """True for CPU tensors and for ``meta`` tensors (plain version: the
+    dry-run's shapes, ``launch.dryrun``); False for CUDA tensors (kernel).
+    Any other device raises."""
+    if t.device.type in ("cpu", "meta"):
         return True
     if t.device.type != "cuda":
         raise ValueError(f"unsupported device {t.device}: the port runs on "

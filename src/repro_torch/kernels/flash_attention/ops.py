@@ -26,8 +26,10 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from .. import _build, check_cuda, is_cpu
+from ...sharding.act import contiguous_stride
 from .ref import attention_ref, flash_bwd_ref, flash_fwd_ref
 
 HEAD_DIMS = (32, 64, 80, 96, 128)
@@ -110,11 +112,47 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _local_placements(mine, other) -> list:
+    """Placements of an attention operand under which each rank attends
+    on its own: the batch (dim 0) stays sharded, the heads (dim 2) where
+    the other operand's heads are sharded alike, every other dim
+    replicated."""
+    out = []
+    for p, o in zip(mine, other):
+        keep = (p.is_shard(0) and o.is_shard(0)) or (p.is_shard(2) and o.is_shard(2))
+        out.append(p if keep else Replicate())
+    return out
+
+
+def _flash_dtensor(q, k, v, causal, window):
+    """DTensors reach the kernel (or, on ``meta`` shards, the plain
+    version) through their local shards: q, k and v are redistributed to
+    placements under which each rank's attention is local
+    (``_local_placements``), the wrapper runs on ``to_local()``, and the
+    result is q's placements' DTensor."""
+    mesh = q.device_mesh
+    q_pl = _local_placements(q.placements, k.placements)
+    k_pl = _local_placements(k.placements, q.placements)
+    q = q.redistribute(mesh, q_pl)
+    k, v = k.redistribute(mesh, k_pl), v.redistribute(mesh, k_pl)
+    out = flash_attention(q.to_local(), k.to_local(), v.to_local(),
+                          causal=causal, window=window).contiguous()
+    return DTensor.from_local(out, mesh, q_pl, run_check=False,
+                              shape=q.shape, stride=contiguous_stride(q.shape))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None) -> torch.Tensor:
     _check_window(window)
+    if isinstance(q, DTensor):
+        return _flash_dtensor(q, k, v, causal, window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, window)
+    if q.device.type == "meta":
+        # the dry-run's shapes: the blockwise plain version, whose memory
+        # is the kernel's (the JAX package's dry-run traces its blockwise
+        # attention), not attention_ref's S x S scores
+        return flash_fwd_ref(q, k, v, causal=causal, window=window)[0]
     if is_cpu(q):
         return attention_ref(q, k, v, causal=causal, window=window)
     return flash_attention_cuda(q, k, v, causal=causal, window=window)

@@ -23,6 +23,8 @@ to the prompt's (ROADMAP C-25).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..configs import SHAPES, get_config
@@ -30,6 +32,7 @@ from ..models import cnn, encdec
 from ..models import transformer as tfm
 from ..models.module import dtype_of
 from ..optim import adamw_init, adamw_update
+from ..sharding.act import microbatch
 
 META = torch.device("meta")
 
@@ -110,31 +113,41 @@ def input_specs(arch: str, shape_name: str, cfg=None) -> dict:
 
 
 # ------------------------------------------------------------ step fns ----
-def build_train_step(cfg, *, lr: float = 3e-4, microbatches: int = 1):
+def build_train_step(cfg, *, lr: float = 3e-4, microbatches: int = 1,
+                     counted_micro=None):
     """AdamW train step. With ``microbatches`` M > 1 the batch's rows split
     into M consecutive slices, each slice's loss back-propagated in turn
     and the gradients summed in fp32 (the parameters' ``.grad``, the JAX
     package's fp32 accumulator), then divided by M: the activations of one
-    slice at a time. The loss returned is the mean of the slices'."""
+    slice at a time. The loss returned is the mean of the slices'.
+
+    ``counted_micro`` is for cost reports (``launch.dryrun``): a factory
+    of the context manager that scales what it counts by M. With it the
+    step runs the first slice's forward and backward alone, inside that
+    context (the M slices have one shape), then the rest of the step
+    once; its loss is the first slice's over M."""
     loss_fn = loss_for(cfg)
     M = microbatches
+    scope = counted_micro or contextlib.nullcontext
+
+    def micro(model, mb):
+        with scope():
+            li, _ = loss_fn(model, mb)
+            li.backward()
+        return li.detach()
 
     def train_step(model, opt_state, batch):
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
         if M == 1:
-            loss, _ = loss_fn(model, batch)
-            loss.backward()
-            loss = loss.detach()
+            loss = micro(model, batch)
         else:
             loss = None
-            for i in range(M):
-                mb = {k: t.reshape((M, t.shape[0] // M) + tuple(t.shape[1:]))[i]
-                      for k, t in batch.items()}
-                li, _ = loss_fn(model, mb)
-                li.backward()
-                loss = li.detach() if loss is None else loss + li.detach()
+            for i in range(1 if counted_micro else M):
+                mb = {k: microbatch(t, M, i) for k, t in batch.items()}
+                li = micro(model, mb)
+                loss = li if loss is None else loss + li
             # true divisions (a CUDA tensor divided by a Python scalar is
             # multiplied by its reciprocal)
             m_t = torch.tensor(float(M), device=loss.device)

@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from ..kernels.flash_attention import flash_attention
+from ..sharding import act
 from .layers import apply_rope
 from .module import Dense, _device_of
 
@@ -67,7 +68,7 @@ class Attention(nn.Module):
 
 
 def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
-    return x.reshape(*x.shape[:-1], n_heads, head_dim)
+    return act.split_last(x, n_heads, head_dim)
 
 
 def _mask(q_positions, kv_positions, causal, window) -> torch.Tensor:
@@ -129,11 +130,11 @@ def attention_forward(params: Attention, x: torch.Tensor, cfg, *,
         # positions are arange here, as on the JAX package's flash branch
         out = flash_attention(q, k, v, causal=causal, window=window)
     else:
-        out = _direct_attention(q.reshape(B, Sq, KV, G, hd), k, v,
+        out = _direct_attention(act.split_dim(q, 2, KV, G), k, v,
                                 scale=1.0 / float(hd) ** 0.5, causal=causal,
                                 window=window, q_positions=q_positions,
                                 kv_positions=kv_positions)
-    out = out.reshape(B, Sq, H * hd).to(x.dtype)
+    out = act.reshape(out, (B, Sq, H * hd)).to(x.dtype)
     y = params.wo(out)
     if return_kv:
         return y, (k, v)
@@ -150,11 +151,18 @@ def fill_kv_cache(k: torch.Tensor, v: torch.Tensor, cache_len: int,
     keep = min(S, cache_len)
     pos = torch.arange(S - keep, S, device=k.device)
     slots = torch.remainder(pos, cache_len)
-    kk = torch.zeros((k.shape[0], cache_len) + tuple(k.shape[2:]), dtype=dtype,
-                     device=k.device)
-    vv = torch.zeros_like(kk)
-    kk[:, slots] = k[:, S - keep:].to(dtype)
-    vv[:, slots] = v[:, S - keep:].to(dtype)
+
+    def ring(t):
+        # position p at slot p % cache_len: the kept tail rotated by the
+        # first kept slot, or the prompt then empty slots (built, not
+        # written in place, so a DTensor k stays one)
+        t = t[:, S - keep:].to(dtype)
+        if keep == cache_len:
+            return torch.roll(t, S % cache_len, dims=1)
+        pad = torch.zeros((t.shape[0], cache_len - keep) + tuple(t.shape[2:]),
+                          dtype=dtype, device=t.device)
+        return torch.cat([t, pad], dim=1)
+    kk, vv = ring(k), ring(v)
     slot_pos = torch.full((cache_len,), -1, dtype=torch.int32, device=k.device)
     slot_pos[slots] = pos.to(torch.int32)
     return {"k": kk, "v": vv, "slot_pos": slot_pos}
@@ -198,7 +206,7 @@ def attention_decode(params: Attention, x: torch.Tensor, cache: dict, pos: int,
     cache["slot_pos"][slot] = pos
     new_k, new_v, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
 
-    qg = q.reshape(B, 1, KV, G, hd)
+    qg = act.split_dim(q, 2, KV, G)
     root = torch.full((), math.sqrt(hd), dtype=torch.float32, device=x.device)
     scores = torch.einsum("bqkgd,bskd->bkgs", qg.float(), new_k.float()) / root
     valid = (slot_pos >= 0) & (slot_pos <= pos)
@@ -207,7 +215,7 @@ def attention_decode(params: Attention, x: torch.Tensor, cache: dict, pos: int,
     scores = torch.where(valid, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs.to(new_v.dtype), new_v)
-    out = out.reshape(B, 1, H * hd).to(x.dtype)
+    out = act.reshape(out, (B, 1, H * hd)).to(x.dtype)
     return params.wo(out), cache
 
 
@@ -227,9 +235,9 @@ def cross_attention_decode(params: Attention, x: torch.Tensor, cross: dict,
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
     B = x.shape[0]
-    q = _split_heads(params.wq(x), H, hd).reshape(B, 1, KV, H // KV, hd)
+    q = act.split_dim(_split_heads(params.wq(x), H, hd), 2, KV, H // KV)
     root = torch.full((), math.sqrt(hd), dtype=torch.float32, device=x.device)
     scores = torch.einsum("bqkgd,bskd->bkgs", q.float(), cross["k"].float()) / root
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs.to(cross["v"].dtype), cross["v"])
-    return params.wo(out.reshape(B, 1, H * hd).to(x.dtype))
+    return params.wo(act.reshape(out, (B, 1, H * hd)).to(x.dtype))

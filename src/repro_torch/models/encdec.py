@@ -34,7 +34,8 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from .layers import GeluMLP, LayerNorm, gelu_mlp, layernorm, sinusoidal_positions
-from .module import Embed, _device_of, dtype_of, unembed
+from .module import Embed, _device_of, dtype_of, token_nll, unembed
+from ..sharding.act import constrain
 
 
 class EncLayer(nn.Module):
@@ -99,10 +100,10 @@ def encode(model: EncDec, frames: torch.Tensor, cfg) -> torch.Tensor:
     in ``cfg.dtype``."""
     dt = dtype_of(cfg)
     pe = sinusoidal_positions(frames.shape[1], cfg.d_model, frames.device)
-    x = frames.to(dt) + pe.to(dt)
+    x = constrain(frames.to(dt) + pe.to(dt), "batch", None, None)
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in model.enc_layers:
-        x = _run(remat, _enc_block, layer, x, cfg)
+        x = _run(remat, _enc_block, layer, constrain(x, "batch", "seq_tp", None), cfg)
     return layernorm(model.enc_ln, x, cfg.norm_eps)
 
 
@@ -129,9 +130,11 @@ def decode_train(model: EncDec, tokens: torch.Tensor, enc_out: torch.Tensor, cfg
     dt = dtype_of(cfg)
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     x = model.tok_embed(tokens, dt) + _dec_positions(model, pos, dt)[None]
+    x = constrain(x, "batch", None, None)
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in model.dec_layers:
-        x = _run(remat, _dec_block, layer, x, enc_out, cfg, window)
+        x = _run(remat, _dec_block, layer, constrain(x, "batch", "seq_tp", None),
+                 enc_out, cfg, window)
     if last_only:
         x = x[:, -1:]
     x = layernorm(model.dec_ln, x, cfg.norm_eps)
@@ -145,7 +148,7 @@ def encdec_loss(model: EncDec, batch: dict, cfg) -> tuple[torch.Tensor, dict]:
     logits = decode_train(model, batch["tokens"], enc_out, cfg)
     labels = batch["tokens"][:, 1:]
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
-    nll = -torch.gather(logp, -1, torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    nll = token_nll(logp, torch.clamp(labels, min=0))
     mask = (labels >= 0).to(torch.float32)
     loss = torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
     return loss, {"xent": loss}
@@ -171,6 +174,7 @@ def encdec_decode(model: EncDec, token: torch.Tensor, cache: dict, pos: int, cfg
     dt = dtype_of(cfg)
     p = torch.full((1,), int(pos), dtype=torch.int64, device=token.device)
     x = model.tok_embed(token, dt) + _dec_positions(model, p, dt)[None]
+    x = constrain(x, "batch", None, None)
     for layer, kv, cross in zip(model.dec_layers, cache["self"], cache["cross"]):
         y, _ = attn.attention_decode(layer.self_attn,
                                      layernorm(layer.ln1, x, cfg.norm_eps),

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..sharding import act
 from ..xla_math import pow_xla
 from .module import Dense, _device_of
 
@@ -60,11 +61,11 @@ def layernorm(params: LayerNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Te
 def groupnorm(x: torch.Tensor, n_groups: int, eps: float = 1e-5) -> torch.Tensor:
     """Per-head group norm of RWKV6's output: no affine."""
     shape = x.shape
-    xf = x.float().reshape(*shape[:-1], n_groups, shape[-1] // n_groups)
+    xf = act.split_last(x.float(), n_groups, shape[-1] // n_groups)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, correction=0)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    return y.reshape(shape).to(x.dtype)
+    return act.reshape(y, shape).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..sharding import act
+
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -59,7 +61,7 @@ class Dense(nn.Module):
                 self.b.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.w.to(x.dtype)
+        y = act.matmul(x, self.w.to(x.dtype))
         return y + self.b.to(x.dtype) if self.b is not None else y
 
 
@@ -85,12 +87,23 @@ class Embed(nn.Module):
             self.table.normal_(0.0, 1.0, generator=generator).mul_(0.02)
 
     def forward(self, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return self.table.to(dtype)[ids]
+        return act.take_rows(self.table.to(dtype), ids)
+
+
+def token_nll(logp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """-logp[..., label] of each position: ``logp`` [..., V], ``labels``
+    [...] in [0, V). ``nll_loss`` without reduction picks the same values
+    as a gather; its backward has a sharded strategy in DTensor, where a
+    gather's builds the global gradient on every rank (``launch.dryrun``)."""
+    n = labels.numel()
+    flat = F.nll_loss(act.reshape(logp, (n, logp.shape[-1])),
+                      act.reshape(labels, (n,)).long(), reduction="none")
+    return act.reshape(flat, labels.shape)
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Vocab logits in fp32 (for a stable softmax): x @ table^T."""
-    return x.float() @ table.float().T
+    return act.matmul(x.float(), table.float().T)
 
 
 class Conv3x3(nn.Module):

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..sharding import act
 from .layers import SwiGLU, swiglu
 from .module import Dense, _device_of, trunc_normal_fan_in
 
@@ -74,7 +75,7 @@ def _dispatch_tensors(router_probs: torch.Tensor, k: int, capacity: int):
 
 def router_probs(params: MoE, x: torch.Tensor) -> torch.Tensor:
     """Softmax of the fp32 router logits: [B, S, d] -> [B, S, E] fp32."""
-    logits = x.float() @ params.router.w.float()
+    logits = act.matmul(x.float(), params.router.w.float())
     return torch.softmax(logits, dim=-1)
 
 
@@ -89,16 +90,20 @@ def moe_forward(params: MoE, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.
     capacity = max(1, int(cfg.capacity_factor * k * g / E))
 
     probs = router_probs(params, x)
-    dispatch, combine = _dispatch_tensors(probs.reshape(B * ng, g, E), k, capacity)
+    dispatch, combine = _dispatch_tensors(act.reshape(probs, (B * ng, g, E)), k, capacity)
     dispatch = dispatch.to(x.dtype)                              # [Bg, g, E, C]
     combine = combine.to(x.dtype)
 
-    xg = x.reshape(B * ng, g, d)
-    xin = torch.einsum("tsec,tsd->tecd", dispatch, xg)           # [Bg, E, C, d]
+    xg = act.reshape(x, (B * ng, g, d))
+    # the token groups sharded as the batch, the experts whole (a layout
+    # for the sharding plan: no-op outside activation_rules)
+    xin = act.constrain(torch.einsum("tsec,tsd->tecd", dispatch, xg),  # [Bg, E, C, d]
+                        "batch", None, None, None)
     h = F.silu(torch.einsum("tecd,edf->tecf", xin, params.w_gate.to(x.dtype))) \
         * torch.einsum("tecd,edf->tecf", xin, params.w_up.to(x.dtype))
+    h = act.constrain(h, "batch", None, None, "ff")
     out = torch.einsum("tecf,efd->tecd", h, params.w_down.to(x.dtype))
-    y = torch.einsum("tsec,tecd->tsd", combine, out).reshape(B, S, d)
+    y = act.reshape(torch.einsum("tsec,tecd->tsd", combine, out), (B, S, d))
 
     if hasattr(params, "shared"):
         y = y + swiglu(params.shared, x)

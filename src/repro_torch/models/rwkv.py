@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..sharding import act
 from .layers import groupnorm
 from .module import Dense, _device_of, trunc_normal_fan_in
 
@@ -77,7 +78,8 @@ def _projections(params: RWKV6, x, xx):
     v = params.wv(_mix(x, xx, mu[2]))
     xw = _mix(x, xx, mu[3]).float()
     g = params.wg(_mix(x, xx, mu[4]))
-    log_w = -torch.exp(params.w0 + torch.tanh(xw @ params.wA) @ params.wB)  # < 0
+    log_w = -torch.exp(params.w0 + act.matmul(torch.tanh(act.matmul(xw, params.wA)),
+                                              params.wB))                # < 0
     return r, k, v, g, log_w
 
 
@@ -89,8 +91,8 @@ def rwkv6_forward(params: RWKV6, x: torch.Tensor, cfg, *, chunk: int = 128,
     M = cfg.rwkv_head_size
     H = d // M
     r, k, v, g, log_w = _projections(params, x, _token_shift(x))
-    r, k, v = (t.float().reshape(B, S, H, M) for t in (r, k, v))
-    log_w = log_w.reshape(B, S, H, M)
+    r, k, v = (act.split_last(t.float(), H, M) for t in (r, k, v))
+    log_w = act.split_last(log_w, H, M)
     u = params.u                                                 # [H, M]
 
     Q = min(chunk, S)
@@ -116,7 +118,7 @@ def rwkv6_forward(params: RWKV6, x: torch.Tensor, cfg, *, chunk: int = 128,
         sc = torch.einsum("bshm,bshn->bhmn", kq * torch.exp(L[:, -1:] - L), vq)
         state = torch.exp(L[:, -1])[..., None] * state + sc
         ys.append(y)
-    y = torch.cat(ys, dim=1).reshape(B, S, d)
+    y = act.reshape(torch.cat(ys, dim=1), (B, S, d))
     y = groupnorm(y, H, cfg.norm_eps)
     y = y * F.silu(g.float())
     out = params.wo(y.to(x.dtype))
@@ -139,13 +141,13 @@ def rwkv6_decode(params: RWKV6, x: torch.Tensor, cache: dict, cfg
     M = cfg.rwkv_head_size
     H = d // M
     r, k, v, g, log_w = _projections(params, x, cache["shift"])
-    r, k, v = (t.float().reshape(B, H, M) for t in (r, k, v))
-    w = torch.exp(log_w).reshape(B, H, M)                        # this step's decay
+    r, k, v = (act.split_last(t.float(), H, M)[:, 0] for t in (r, k, v))
+    w = act.split_last(torch.exp(log_w), H, M)[:, 0]             # this step's decay
     s_prev = cache["state"]
     kv = torch.einsum("bhm,bhn->bhmn", k, v)
     y = torch.einsum("bhm,bhmn->bhn", r, s_prev + params.u[None, :, :, None] * kv)
     state = w[..., None] * s_prev + kv
-    y = groupnorm(y.reshape(B, 1, d), H, cfg.norm_eps)
+    y = groupnorm(act.reshape(y, (B, 1, d)), H, cfg.norm_eps)
     y = y * F.silu(g.float())
     out = params.wo(y.to(x.dtype))
     return out, {"shift": x, "state": state, "ffn_shift": cache["ffn_shift"]}

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..sharding import act
 from .layers import RMSNorm, rmsnorm
 from .module import Dense, _device_of
 
@@ -89,7 +90,7 @@ def mamba2_forward(params: Mamba2, x: torch.Tensor, cfg, *, return_state: bool =
     xBC_raw = xBC
     xBC = _causal_conv(xBC, params.conv_w, params.conv_b)
     xs, Bmat, Cmat = torch.split(xBC, [d_inner, N, N], dim=-1)
-    xh = xs.reshape(B, S, H, P)
+    xh = act.split_last(xs, H, P)
 
     # JAX's softplus is logaddexp(x, 0); torch's returns x above 20, where
     # log1p(exp(-x)) < 2.1e-9 is below half an fp32 ulp of x: equal in fp32
@@ -122,7 +123,7 @@ def mamba2_forward(params: Mamba2, x: torch.Tensor, cfg, *, return_state: bool =
         ys.append(y_intra + y_inter)
     y = torch.cat(ys, dim=1)
     y = y + params.D[None, None, :, None] * xf
-    y = y.reshape(B, S, d_inner).to(x.dtype)
+    y = act.reshape(y, (B, S, d_inner)).to(x.dtype)
     y = rmsnorm(params.norm.scale, y * F.silu(z), cfg.norm_eps)
     out = params.out_proj(y)
     if return_state:
@@ -152,13 +153,13 @@ def mamba2_decode(params: Mamba2, x: torch.Tensor, cache: dict, cfg
     conv = torch.einsum("bkc,kc->bc", window.float(), params.conv_w) + params.conv_b
     xBC1 = F.silu(conv)[:, None, :].to(x.dtype)
     xs, Bmat, Cmat = torch.split(xBC1, [d_inner, N, N], dim=-1)
-    xh = xs.reshape(B, H, P).float()
+    xh = act.split_last(xs, H, P)[:, 0].float()
     Bv, Cv = Bmat[:, 0].float(), Cmat[:, 0].float()              # [B, N]
     dtv = F.softplus(dt[:, 0].float() + params.dt_bias)          # [B, H]
     a = torch.exp(dtv * (-torch.exp(params.A_log))[None, :])
     state = a[:, :, None, None] * cache["state"] + \
         torch.einsum("bn,bhp->bhnp", Bv, xh * dtv[..., None])
     y = torch.einsum("bn,bhnp->bhp", Cv, state) + params.D[None, :, None] * xh
-    y = y.reshape(B, 1, d_inner).to(x.dtype)
+    y = act.reshape(y, (B, 1, d_inner)).to(x.dtype)
     y = rmsnorm(params.norm.scale, y * F.silu(z), cfg.norm_eps)
     return params.out_proj(y), {"conv": window[:, 1:], "state": state}

@@ -46,10 +46,11 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from .layers import LayerNorm, RMSNorm, SwiGLU, layernorm, rmsnorm, swiglu
-from .module import Dense, Embed, _device_of, dtype_of, unembed
+from .module import Dense, Embed, _device_of, dtype_of, token_nll, unembed
 from .moe import MoE, moe_forward
 from .rwkv import RWKV6, RWKVFFN, make_rwkv_cache, rwkv6_decode, rwkv6_forward, rwkv_ffn
 from .ssm import Mamba2, make_ssm_cache, mamba2_decode, mamba2_forward
+from ..sharding.act import constrain
 
 # every model family of the configs: the LM's, and the encoder-decoder's
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
@@ -232,7 +233,7 @@ def lm_forward(model: LM, tokens: torch.Tensor, cfg, *,
     prepended. Returns (logits [B,S,V] fp32, aux loss: the MoE layers'
     load-balance losses summed, else 0)."""
     check_lm_family(cfg)
-    x = _embed(model, tokens, cfg, extra_embeds)
+    x = constrain(_embed(model, tokens, cfg, extra_embeds), "batch", None, None)
     if window is None:
         window = cfg.sliding_window
     remat = cfg.remat and torch.is_grad_enabled()
@@ -242,27 +243,31 @@ def lm_forward(model: LM, tokens: torch.Tensor, cfg, *,
             return checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
 
+    def block_in(h):
+        return constrain(h, "batch", "seq_tp", None)
+
     auxs = []
     fam = cfg.family
     if fam in ("dense", "vlm"):
         for layer in model.layers:
-            x = run(_dense_block, layer, x, cfg, window)
+            x = run(_dense_block, layer, block_in(x), cfg, window)
     elif fam == "moe":
         for layer in model.layers:
-            x, aux = run(_moe_block, layer, x, cfg, window)
+            x, aux = run(_moe_block, layer, block_in(x), cfg, window)
             auxs.append(aux)
     elif fam == "ssm":
         for layer in model.layers:
-            x = run(_rwkv_block, layer, x, cfg)
+            x = run(_rwkv_block, layer, block_in(x), cfg)
     else:                                           # hybrid
         for group in model.groups():
+            x = block_in(x)                         # a group's input
             for layer in group:
                 x = run(_mamba_block, layer, x, cfg)
             x = run(_dense_block, model.shared_attn, x, cfg, window)
     x = _final_norm(model, x, cfg)
     aux = (torch.stack(auxs).sum() if auxs
            else torch.zeros((), device=x.device))
-    return unembed(model.head(), x), aux
+    return constrain(unembed(model.head(), x), "batch", None, "vocab"), aux
 
 
 def lm_loss(model: LM, batch: dict, cfg) -> tuple[torch.Tensor, dict]:
@@ -283,7 +288,7 @@ def lm_loss(model: LM, batch: dict, cfg) -> tuple[torch.Tensor, dict]:
     mask = (labels >= 0).to(torch.float32)
     lab = torch.clamp(labels, min=0).long()
     logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    nll = token_nll(logp, lab)
     loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return loss + aux, {"xent": loss, "aux": aux}
 
@@ -309,14 +314,15 @@ def lm_prefill(model: LM, tokens: torch.Tensor, cfg, *, cache_len: int,
     ``lm_forward``. Returns (last-token logits [B,1,V], cache)."""
     check_lm_family(cfg)
     dt = dtype_of(cfg)
-    x = _embed(model, tokens, cfg, extra_embeds)
+    x = constrain(_embed(model, tokens, cfg, extra_embeds), "batch", None, None)
     if window is None:
         window = cfg.sliding_window
     caches = []
     fam = cfg.family
     if fam in ("dense", "vlm", "moe"):
         for layer in model.layers:
-            x, kv = _attn_prefill(layer, x, cfg, window, cache_len, dt)
+            x, kv = _attn_prefill(layer, constrain(x, "batch", "seq_tp", None),
+                                  cfg, window, cache_len, dt)
             caches.append(kv)
         cache = {"layers": caches}
     elif fam == "ssm":
@@ -375,7 +381,7 @@ def lm_decode(model: LM, token: torch.Tensor, cache: dict, pos: int, cfg
     """One decode step. token: [B,1] int; pos: int. Returns (logits
     [B,1,V], cache), the cache updated in place."""
     check_lm_family(cfg)
-    x = model.embed(token, dtype_of(cfg))
+    x = constrain(model.embed(token, dtype_of(cfg)), "batch", None, None)
     fam = cfg.family
     layers = cache["layers"]
     if fam in ("dense", "vlm", "moe"):

@@ -24,7 +24,10 @@ from ..xla_math import pow_xla
 
 def adamw_init(params: dict, *, moment_dtype=torch.float32) -> dict:
     def zeros(p):
-        return torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
+        # laid out as the parameter: a DTensor parameter's moments are
+        # DTensors of its placements
+        return torch.zeros_like(p, dtype=moment_dtype,
+                                memory_format=torch.contiguous_format)
     dev = next(iter(params.values())).device if params else None
     return {"m": {k: zeros(p) for k, p in params.items()},
             "v": {k: zeros(p) for k, p in params.items()},

@@ -145,9 +145,18 @@ def test_kernel_calls_under_grad_raise_and_the_plain_version_keeps_autograd():
 
 
 def test_wrapper_rejects_other_devices():
-    _, (q, k, v) = _inputs(7, 1, 8, 2, 1, 32)
+    """A device that is neither the CPU nor CUDA raises; a ``meta`` tensor
+    (the dry-run's shapes, ``launch.dryrun``) takes the blockwise plain
+    version and gives q's shape on ``meta``."""
+    from repro_torch.kernels import is_cpu
+
+    class OtherDevice:
+        device = torch.device("xpu")
     with pytest.raises(ValueError, match="unsupported device"):
-        flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+        is_cpu(OtherDevice())
+    _, (q, k, v) = _inputs(7, 1, 8, 2, 1, 32)
+    out = flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape
 
 
 # ---- the bf16 tensor-core kernel's numerics, emulated on the CPU -----------

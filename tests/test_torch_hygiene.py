@@ -45,7 +45,9 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.core.rounds.harvest", "repro_torch.core.faults.config",
             "repro_torch.core.faults.inject",
             "repro_torch.core.faults.defense", "repro_torch.checkpoint.ckpt",
-            "repro_torch.checkpoint"} <= set(mods)
+            "repro_torch.checkpoint", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun", "repro_torch.sharding.specs",
+            "repro_torch.sharding.act"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -180,3 +182,35 @@ def test_timed_fault_and_checkpoint_entry_points_mean_the_gpu(monkeypatch,
     p = checkpoint.save_checkpoint(str(tmp_path), 1, {"a": st})
     back = checkpoint.restore_checkpoint(p, {"a": st})
     assert back["a"].buf.device.type == "cpu"
+
+
+def test_importing_the_mesh_and_the_dry_run_starts_no_process_group():
+    """As the JAX package's ``launch/mesh.py`` touches no device state when
+    imported, importing the port's mesh, dry-run and sharding-plan modules
+    starts no process group; ``make_production_mesh`` starts the fake one
+    and ``release_production_mesh`` ends it."""
+    code = ("import torch.distributed as dist\n"
+            "import repro_torch.launch.mesh as mesh, repro_torch.launch.dryrun\n"
+            "import repro_torch.sharding.specs, repro_torch.sharding.act\n"
+            "assert not dist.is_initialized()\n"
+            "m = mesh.make_production_mesh(multi_pod=True)\n"
+            "assert dist.is_initialized() and dist.get_world_size() == 512\n"
+            "assert m.mesh_dim_names == ('pod', 'data', 'model')\n"
+            "assert tuple(m.mesh.shape) == (2, 16, 16)\n"
+            "m = mesh.make_production_mesh()\n"
+            "assert dist.get_world_size() == 256 and tuple(m.mesh.shape) == (16, 16)\n"
+            "mesh.release_production_mesh()\n"
+            "assert not dist.is_initialized()\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(ROOT), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_host_mesh_without_device_raises_when_no_gpu(monkeypatch):
+    from repro_torch.launch.mesh import make_host_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_host_mesh()
