@@ -20,7 +20,11 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    priced), the four fused dual ascents (phase 4's inputs, 5 warm-started
    rounds, capped and stopped early with dead clients: masks, gammas,
    widths and n_inner equal, lam, mu and the last two residuals that the
-   solver's fallback guard reads rtol 1e-5), the per-row block
+   solver's fallback guard reads rtol 1e-5), both kernels of every
+   variant past 32 levels (L = 33, 40, 50, 100: gamma-only grids of L even
+   steps, joint grids of 11 x 3, 10 x 4, 10 x 5 and 10 x 10 levels; phase
+   4's inputs, 2 rounds, capped, early exit and dead clients, the same
+   gates; each fused variant timed at L = 40 and 100), the per-row block
    top-k (main-path rows, NaN/Inf/-0.0/tie rows with a 0x7fffffff NaN and
    a row of one value, rows of denormals, which compare as zero (C-16),
    all-full, rows of odd length and inputs off a 16-byte word), the block
@@ -45,8 +49,15 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    autograd Function's gradients (the kernel forward, ``flash_bwd_ref``
    backward) against the all-plain forward's through the same backward
    (within 1e-5 of their scale in fp32, 2e-2 in bf16; also at whisper's
-   non-causal cross shape, 4,096 queries against 1,500 keys), the kernel's
-   ms with and without lse and ``flash_bwd_ref``'s beside its fp32 bound —
+   non-causal cross shape, 4,096 queries against 1,500 keys, and at one
+   D = 256 shape), the kernel's ms with and without lse and
+   ``flash_bwd_ref``'s beside its fp32 bound and SDPA's backward; head
+   dims 16, 36, 48, 112, 160, 192, 224 and 256 in both types (a causal
+   call, windows, ragged S, non-causal calls with Skv != Sq; Gemma-2B's
+   [4, 2048, 8|1, 256]), each compiled width's registers and spills, and
+   a call at each new width and at Gemma-2B's and Gemma-7B's [2, 2048,
+   16|16, 256] timed beside its bound and SDPA; the norms kernel timed in
+   five turns with ``vector_norm`` (medians) —
    and time
    both (CUDA events) and the library call computing the same function
    where there is one (a fused ascent also beside the host loop over the
@@ -59,7 +70,8 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    ``init_cnn``), on ``cuda``, four
    times: the legacy main path, (a) the ``quantized`` scenario, (b)
    ``bursty-interference`` with ``price_outage``, and (c) (b) with the
-   joint grid (8, 16, 32). Each path's launch counts are zeroed just
+   joint grid (8, 16, 32), then (d) and (e): (a) and (c) on the 40-level
+   grid of the paper's gammas x (4, 8, 16, 32). Each path's launch counts are zeroed just
    before it and read just after: its own fused dual ascent exactly once
    a round, no other variant and no one-step dual solve, and the top-k
    and the norms must have launched; params,
@@ -72,7 +84,8 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    by the host; the cut from 5 rounds; energies within 2e-3, ROADMAP
    C-18), whose card and CPU sides run in child processes during phase
    14, then the smoke CNN with N = 8 for
-   2 rounds of the legacy trainer, of path (c) and of the five other
+   2 rounds of the legacy trainer, of paths (c), (d) and (e) (the last two
+   on the paper's 10 gammas x (4, 8, 16, 32): 40 levels) and of the five other
    strategies (``scoremax``, ``ecorandom``, ``randomfull``,
    ``channelgreedy``, ``tilted``), each on ``cuda`` and on ``cpu`` from
    the same inputs: equal masks (a split is reported with its score gap),
@@ -263,7 +276,12 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    16, each in its own process on the CPU while (a) and (b) run, its JSON
    printed on a line of its own. Phase 4's GSS check runs meanwhile
    (its card side a second process on the card), so (a)'s step times
-   carry that contention.
+   carry that contention;
+15. the smoke TinyLlama with ``head_dim=256`` (``dataclasses.replace``;
+   Gemma's head dim) at 2,048 tokens on the flash branch, card against
+   CPU under phase 13 (f)'s gates: a prefill and 4 greedy serve steps in
+   fp32 and bf16 (one launch of the kernel of the type a layer), and 3
+   fp32 AdamW steps (2 lse launches a layer a step).
 
 ``--cards K`` runs phase 7 alone across K cards (one NCCL rank a card,
 after the build): the exchanges on a (2, K/2, 1) mesh against the pod mean
@@ -405,6 +423,18 @@ DUAL_VARIANTS = {
                                 "src/repro/kernels/dual_solve/kernel.py:183"),
 }
 BITS = (8.0, 16.0, 32.0)
+# the 40-level joint grid's widths: the paper's 10 gammas x 4
+# (fl_experiments --bits-grid 4,8,16,32), paths (d) and (e)
+BITS40 = (4.0, 8.0, 16.0, 32.0)
+# phase 2's grids past the 32 levels of one lane group:
+# L -> (the gamma-only grid of L even steps (L = 50: 0.02), the joint grid
+# of L levels (gammas, widths))
+WIDE_LEVELS = {
+    L: (tuple((i + 1) / L for i in range(L)), joint)
+    for L, joint in ((33, ((0.05,) + GRID, BITS)), (40, (GRID, BITS40)),
+                     (50, (GRID, (2.0, 4.0, 8.0, 16.0, 32.0))),
+                     (100, (GRID, (2.0, 4.0, 6.0, 8.0, 10.0, 12.0, 16.0, 20.0,
+                                   24.0, 32.0))))}
 # each one-step variant -> the fused ascent of the same variant
 FUSED = {name: name.replace("dual_solve", "dual_ascent") for name in DUAL_VARIANTS}
 
@@ -526,29 +556,46 @@ def hold_ascent(args, kw, where: str) -> tuple[float, float, int]:
     return err, res_err, int(want.n_inner)
 
 
-def check_dual_ascent(dev, name: str) -> dict:
+def wide_grid(name: str, L: int) -> tuple:
+    """The variant's (gamma grid, bits grid or None) of ``L`` levels from
+    WIDE_LEVELS."""
+    gammas, joint_grid = WIDE_LEVELS[L]
+    return joint_grid if DUAL_VARIANTS[name][1] else (gammas, None)
+
+
+def check_dual_ascent(dev, name: str, grid=None, rounds: int = 5,
+                      timed: bool = True) -> dict:
     """The fused dual ascent of one variant against its plain version (the
     host loop over the plain best response) on the card, at phase 4's
-    inputs: each of 5 warm-started rounds capped (the default dual_tol:
-    30 iterations) and stopped early (EARLY_TOLS, with every 7th client
-    dead). Selection masks, gammas, widths and n_inner exactly equal; lam,
-    mu, b*, e* and the last two residuals (res, res_prev: +inf equal where
-    no iteration set them) within rtol 1e-5. Timed: one fused launch, the
-    plain host
-    loop, and the host loop over the one-step kernel (the design it
-    replaces), at round 0's capped setting."""
+    inputs: each of ``rounds`` warm-started rounds capped (the default
+    dual_tol: 30 iterations) and stopped early (EARLY_TOLS, with every 7th
+    client dead). Selection masks, gammas, widths and n_inner exactly
+    equal; lam, mu, b*, e* and the last two residuals (res, res_prev: +inf
+    equal where no iteration set them) within rtol 1e-5. ``grid`` ((gamma
+    grid, bits grid or None)) replaces the paper's grid of the variant.
+    Timed (``timed``): one fused launch, the plain host loop, and the host
+    loop over the one-step kernel (the design it replaces), at round 0's
+    capped setting; else the held numbers alone."""
+    import dataclasses
+
     from repro_torch.core.fairenergy import solve_round, static_of
     from repro_torch.kernels.dual_solve import ops, ref
     scaled, joint, replaces = DUAL_VARIANTS[name]
     ctrl, P, hs, us, ess = solver_setting(name)
-    static = static_of(ctrl.fe_cfg)
+    fe = ctrl.fe_cfg
+    if grid is not None:
+        fe = dataclasses.replace(fe, gamma_grid=grid[0],
+                                 bits_grid=grid[1] or (32.0,))
+    static = static_of(fe)
+    bits_grid = (grid[1] if grid is not None else BITS) if joint else None
+    L = len(ops.ascent_levels(static.gamma_grid, bits_grid)) // 5
     state = to_device(ctrl.init(N_CLIENTS), dev)
     P = P.to(dev)
     all_alive = torch.ones(N_CLIENTS, dtype=torch.bool, device=dev)
     some_dead = all_alive.clone()
     some_dead[::7] = False
-    err, res_err, n_inner, timed = 0.0, 0.0, [], None
-    for r in range(5):
+    err, res_err, n_inner, first = 0.0, 0.0, [], None
+    for r in range(rounds):
         h, u = hs[r].to(dev), us[r].to(dev)
         es = ess[r].to(dev) if scaled else None
         p = state.params
@@ -561,15 +608,18 @@ def check_dual_ascent(dev, name: str) -> dict:
                       s_bits=p.s_bits, i_bits=p.i_bits, n0=p.n0,
                       b_lo=p.b_min_frac, inner_iters=static.inner_iters,
                       newton_iters=static.newton_iters, e_cmp=state.e_cmp,
-                      e_scale=es, bits_grid=BITS if joint else None)
+                      e_scale=es, bits_grid=bits_grid)
             e_abs, e_res, iters = hold_ascent(
-                args, kw, f"{FUSED[name]} round {r} dual_tol {float(tol)}")
+                args, kw, f"{FUSED[name]} L={L} round {r} dual_tol {float(tol)}")
             err, res_err = max(err, e_abs), max(res_err, e_res)
             n_inner.append(iters)
-            if timed is None:
-                timed = (args, kw)
-        _, state = solve_round(u, h, P, state, fe_cfg=ctrl.fe_cfg, e_scale=es)
-    args, kw = timed
+            if first is None:
+                first = (args, kw)
+        _, state = solve_round(u, h, P, state, fe_cfg=fe, e_scale=es)
+    if not timed:
+        return dict(max_abs_err=err, res_max_rel_err=res_err, n_inner=n_inner,
+                    first=first)
+    args, kw = first
     # the kernel's device time (the profiler), and a wrapper call's time
     # between CUDA events (back-to-back calls: the host side of a launch)
     ms = device_ms(lambda: ops.dual_ascent(*args, **kw), "dual_ascent_kernel")
@@ -600,6 +650,69 @@ def check_dual_ascent(dev, name: str) -> dict:
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, call_ms=call,
                 host_loop_ms=host_loop, res_max_rel_err=res_err)
+
+
+def hold_dual_solve_wide(dev, name: str, grid, rounds: int = 2) -> float:
+    """The one-step kernel of one variant on ``grid`` at phase 4's inputs
+    (``solver_setting``: each of ``rounds`` rounds' observations, the
+    initial state's scalars), at the state's price and at 1e-5, 1e-4 and
+    3e-3: gamma* and bits* exactly equal, b*, e* and phi* within rtol 1e-5
+    (atol 1e-8). Returns the largest absolute error."""
+    from repro_torch.kernels.dual_solve import ops, ref
+    scaled, joint, _ = DUAL_VARIANTS[name]
+    ctrl, P, hs, us, ess = solver_setting(name)
+    state = to_device(ctrl.init(N_CLIENTS), dev)
+    p, P = state.params, P.to(dev)
+    kw = dict(gamma_grid=grid[0], eta=p.eta, b_tot=p.b_tot, s_bits=p.s_bits,
+              i_bits=p.i_bits, n0=p.n0, b_lo=p.b_min_frac, e_cmp=state.e_cmp,
+              bits_grid=grid[1] if joint else None)
+    err = 0.0
+    for r in range(rounds):
+        h, u = hs[r].to(dev), us[r].to(dev)
+        es = ess[r].to(dev) if scaled else None
+        for lam in (state.lam, *(torch.tensor(v, device=dev) for v in (1e-5, 1e-4, 3e-3))):
+            got = ops.dual_solve(P, h, u, lam, **kw, e_scale=es)
+            want = ref.dual_solve_ref(P, h, u, lam, **kw, e_scale=es)
+            where = f"{name} L={len(ops.ascent_levels(*grid)) // 5} round {r} lam {float(lam)}"
+            for i in ((0, 4) if joint else (0,)):
+                if not torch.equal(got[i], want[i]):
+                    raise AssertionError(f"{where}: {('gamma*', '', '', '', 'bits*')[i]} differs")
+            for g, w, what in zip(got[1:4], want[1:4], ("b*", "e*", "phi*")):
+                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-8,
+                                           msg=lambda m: f"{where} {what}: {m}")
+                err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def check_dual_wide(dev, name: str) -> dict:
+    """Both kernels of one variant past 32 levels (WIDE_LEVELS: L = 33, 40,
+    50, 100), each on phase 4's inputs: the one-step kernel
+    (``hold_dual_solve_wide``) and the fused ascent (``check_dual_ascent``,
+    2 rounds, capped, early exit and dead clients), every launch counted.
+    The fused kernel is timed at L = 40 and 100 (its device time, as phase
+    2's at the paper's grid). Returns the one-step and the fused results by
+    L."""
+    from repro_torch.kernels.dual_solve import ops
+    one, fused = {}, {}
+    for L in WIDE_LEVELS:
+        grid = wide_grid(name, L)
+        before = (getattr(ops.dual_solve, ops.COUNTERS[DUAL_VARIANTS[name][:2]]),
+                  getattr(ops.dual_ascent, ops.COUNTERS[DUAL_VARIANTS[name][:2]]))
+        one[L] = {"max_abs_err": hold_dual_solve_wide(dev, name, grid)}
+        held = check_dual_ascent(dev, name, grid=grid, rounds=2, timed=False)
+        args, kw = held.pop("first")
+        if L in (40, 100):
+            held["ms"] = device_ms(lambda: ops.dual_ascent(*args, **kw),
+                                   "dual_ascent_kernel")
+        fused[L] = held
+        after = (getattr(ops.dual_solve, ops.COUNTERS[DUAL_VARIANTS[name][:2]]),
+                 getattr(ops.dual_ascent, ops.COUNTERS[DUAL_VARIANTS[name][:2]]))
+        if not (after[0] > before[0] and after[1] > before[1]):
+            raise AssertionError(f"{name} at L = {L}: a kernel did not launch "
+                                 f"({before} -> {after})")
+        log(json.dumps({"dual_wide": name, "levels": L, "one_step": one[L],
+                        "fused": fused[L]}))
+    return {"one_step": one, "fused": fused}
 
 
 def _tricky_rows(dev) -> tuple[torch.Tensor, torch.Tensor]:
@@ -850,9 +963,17 @@ def check_row_norms(dev, mat: torch.Tensor) -> dict:
         raise AssertionError(f"norms of the NaN/Inf rows: {got_b.tolist()}")
     torch.testing.assert_close(got_b[5], got[5] * 1e3, rtol=1e-6, atol=0)
     log(json.dumps({"row_norms_special_rows": got_b.tolist()}))
-    ms = cuda_ms(lambda: ops.row_l2_norms(mat), 50)
+    # five alternating (kernel, vector_norm) pairs of 50 calls each: their
+    # medians are the entry's ms and library_ms (single timings of the two
+    # have come out in either order across calls)
+    pairs = [(cuda_ms(lambda: ops.row_l2_norms(mat), 50),
+              cuda_ms(lambda: torch.linalg.vector_norm(mat, dim=1), 50))
+             for _ in range(5)]
+    ms = float(np.median([a for a, _ in pairs]))
+    library = float(np.median([b for _, b in pairs]))
+    log(json.dumps({"row_norms_pairs_ms": pairs, "median_ms": ms,
+                    "median_vector_norm_ms": library}))
     plain = cuda_ms(lambda: ref.row_l2_norms_ref(mat, ops.BLOCK), 10)
-    library = cuda_ms(lambda: torch.linalg.vector_norm(mat, dim=1), 50)
     n, d = mat.shape
     b_ms, b_by = bound(n * d * 4 + n * -(-d // ops.BLOCK) * 4, 2 * n * d)
     return dict(name="row_sq_sum", route="triton",
@@ -909,9 +1030,35 @@ FLASH_CASES = (
     (4, 4096, 6, 6, 64, torch.float32, False, None, 1500),
     (4, 4096, 6, 6, 64, torch.bfloat16, True, None, None),
     (4, 4096, 6, 6, 64, torch.float32, True, None, None),
+    # head dims 16 to 256, each computed on D rounded up to 32 and,
+    # where D's rows are no whole 16-byte copies (36 in bf16), zero-padded
+    # by the wrapper: causal calls, windows, ragged S and non-causal calls
+    # with Skv != Sq among them; the last is Gemma-2B's call
+    *((B, S, H, KV, D, dt, causal, window, Skv)
+      for B, S, H, KV, D, causal, window, Skv in (
+          (2, 2048, 8, 2, 16, True, None, None),
+          (1, 1000, 8, 8, 36, True, 128, None),
+          (2, 700, 8, 4, 48, False, None, 333),
+          (2, 2048, 8, 1, 112, True, None, None),
+          (1, 1000, 8, 2, 160, True, 256, None),
+          (1, 1500, 8, 8, 192, False, None, 1000),
+          (1, 2048, 8, 1, 224, True, 512, None),
+          (4, 2048, 8, 1, 256, True, None, None))
+      for dt in (torch.bfloat16, torch.float32)),
 )
-# the head-dim cases timed at their serve shapes (B, S, H, KV, D)
-FLASH_HEAD_DIMS = {80: (4, 2048, 32, 32, 80), 96: (2, 2048, 32, 32, 96)}
+# the head-dim calls timed (B, S, H, KV, D): zamba2's and phi-3-vision's
+# serve calls, a call at each new width, Gemma-2B's and Gemma-7B's
+# (arXiv:2403.08295: 8 query heads on 1 KV head, 16 on 16, D = 256)
+FLASH_HEAD_DIMS = {"head_dim_80": (4, 2048, 32, 32, 80),
+                   "head_dim_96": (2, 2048, 32, 32, 96),
+                   "head_dim_36": (2, 2048, 16, 16, 36),
+                   "head_dim_160": (2, 2048, 16, 16, 160),
+                   "head_dim_192": (2, 2048, 16, 16, 192),
+                   "head_dim_224": (2, 2048, 16, 16, 224),
+                   "gemma_2b": (4, 2048, 8, 1, 256),
+                   "gemma_7b": (2, 2048, 16, 16, 256)}
+# the D = 256 shape of the gradient check (B, S, H, KV, D)
+FLASH_GRAD_D256 = (1, 2048, 8, 1, 256)
 # whisper's decoder calls, timed: (B, Sq, H, KV, D, Skv, causal)
 FLASH_WHISPER = {"whisper_cross": (4, 4096, 6, 6, 64, 1500, False),
                  "whisper_self": (4, 4096, 6, 6, 64, 4096, True)}
@@ -935,9 +1082,11 @@ def check_flash(dev) -> list[dict]:
     same values in fp32), beside SDPA on the same inputs. Returns the
     entries of the bf16 (tensor-core) and the fp32 (SIMT) kernel."""
     from repro_torch.kernels.flash_attention import ops, ref
-    log(json.dumps({"flash_instances": {
-        f"{str(dt)[6:]}/D{d}": ops.kernel_attributes(dt, d)
-        for dt in (torch.bfloat16, torch.float32) for d in ops.HEAD_DIMS}}))
+    # each width's two instances: D == DP (a compile-time D) and D < DP
+    attrs = {f"{str(dt)[6:]}/DP{d}{tag}": ops.kernel_attributes(dt, d - less)
+             for dt in (torch.bfloat16, torch.float32) for d in ops.COMPILED_WIDTHS
+             for tag, less in (("", 0), ("-padded", ops.ROW_MULTIPLE[dt]))}
+    log(json.dumps({"flash_instances": attrs}))
     gen = torch.Generator(device=dev).manual_seed(5)
     err = {torch.bfloat16: 0.0, torch.float32: 0.0}
     lse_err = dict(err)
@@ -990,11 +1139,17 @@ def check_flash(dev) -> list[dict]:
                      library_ms=t["library_ms"], ms_with_lse=t["ms_with_lse"],
                      lse_max_abs_err=lse_err[dt])
         entry.update(check_flash_grad(dev, dt, peak))
-        for D, (B, S, H, KV, _) in FLASH_HEAD_DIMS.items():
+        B, S, H, KV, D = FLASH_GRAD_D256
+        held = hold_flash_grad(dev, dt, B, S, H, KV, D, S, True, seed=25)
+        del held["inputs"]
+        entry["grad_d256"] = held
+        for label, (B, S, H, KV, D) in FLASH_HEAD_DIMS.items():
             gen = torch.Generator(device=dev).manual_seed(D)
-            entry[f"head_dim_{D}"] = time_flash(
+            entry[label] = time_flash(
                 *(torch.randn(B, S, n, D, device=dev, generator=gen).to(dt)
                   for n in (H, KV, KV)), peak)
+        entry["instances"] = {k.split("/")[1]: a for k, a in attrs.items()
+                              if k.startswith(str(dt)[6:])}
         for label, (B, S, H, KV, D, Skv, causal) in FLASH_WHISPER.items():
             gen = torch.Generator(device=dev).manual_seed(23)
             entry[label] = time_flash(
@@ -1094,6 +1249,20 @@ def hold_flash_grad(dev, dt, B, S, H, KV, D, Skv, causal, seed) -> dict:
     return {"shape": shape, "err_over_scale": errs, "inputs": (q, k, v, dout)}
 
 
+def sdpa_backward_ms(q, k, v, dout, causal: bool) -> float:
+    """Row 9's library yardstick: the backward alone of one SDPA call
+    (``enable_gqa=True``) on the same q, k, v and output gradient (CUDA
+    events; the forward's graph is built once and kept)."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                         enable_gqa=True)
+    gt = dout.transpose(1, 2).contiguous()
+    return cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
+                                               retain_graph=True), 5, warmup=1)
+
+
 def check_cross_grad(dev, dt) -> dict:
     """``hold_flash_grad`` at whisper's cross-attention (non-causal, 4,096
     queries against 1,500 keys, chunks of 1,024 rows and 750 keys in
@@ -1108,6 +1277,7 @@ def check_cross_grad(dev, dt) -> dict:
         q, k, v, o, lse, dout, causal=causal), 3, warmup=1)
     held["flash_bwd_ref_bound_ms"], held["flash_bwd_ref_bound_by"] = flash_bwd_bound(
         B, S, H, KV, D, q.element_size(), Skv)
+    held["sdpa_bwd_ms"] = sdpa_backward_ms(q, k, v, dout, causal)
     log(json.dumps({"flash_cross_grad": dict(held, dtype=str(dt))}))
     return held
 
@@ -1127,13 +1297,14 @@ def check_flash_grad(dev, dt, peak) -> dict:
     o_k, lse_k = ops.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
     bwd_ms = cuda_ms(lambda: ref.flash_bwd_ref(q, k, v, o_k, lse_k, dout,
                                                causal=True), 3, warmup=1)
+    sdpa_bwd = sdpa_backward_ms(q, k, v, dout, True)
     fwd_bound = flash_fwd_bound(q, k, peak)
     bwd_bound = flash_bwd_bound(B, S, H, KV, D, q.element_size())
     res = {"train_shape": [B, S, H, KV, D], "train_shape_ms": ms,
            "train_shape_ms_with_lse": ms_lse, "train_shape_bound_ms": fwd_bound[0],
            "grad_err_over_scale": errs, "flash_bwd_ref_ms": bwd_ms,
            "flash_bwd_ref_bound_ms": bwd_bound[0],
-           "flash_bwd_ref_bound_by": bwd_bound[1]}
+           "flash_bwd_ref_bound_by": bwd_bound[1], "sdpa_bwd_ms": sdpa_bwd}
     log(json.dumps({"flash_train_shape": dict(res, dtype=str(dt))}))
     return res
 
@@ -1180,6 +1351,12 @@ PATHS = {
     "c_bursty_priced_joint": (dict(scenario="bursty-interference",
                                    price_outage=True, bits_grid=BITS),
                               "dual_ascent_joint_scaled"),
+    # (a) and (c) on the 40-level joint grid (10 gammas x BITS40)
+    "d_quantized_40": (dict(scenario="quantized", bits_grid=BITS40),
+                       "dual_ascent_joint"),
+    "e_bursty_priced_joint_40": (dict(scenario="bursty-interference",
+                                      price_outage=True, bits_grid=BITS40),
+                                 "dual_ascent_joint_scaled"),
 }
 
 
@@ -3387,7 +3564,8 @@ def _greedy_apart(ids_card, ids_cpu, cpu_logits, rtol, atol):
     return c, bool((gap <= rtol * top2[:, 0].abs() + atol)[rows].all())
 
 
-def family13_card_against_cpu(dev, arch: str, dtype: str) -> dict:
+def family13_card_against_cpu(dev, arch: str, dtype: str, cfg=None,
+                              label: str = "phase 13 (f)") -> dict:
     """Phase 13 (f), serving: ``arch``'s smoke model in ``dtype`` on the
     card and on the CPU from the same weights and inputs: the prefill step
     (whisper: a decoder prompt of 2,048 ids against 64 frames, so both its
@@ -3396,14 +3574,15 @@ def family13_card_against_cpu(dev, arch: str, dtype: str) -> dict:
     cache. The card launches the kernel of ``dtype`` once per flash-branch
     attention call of the prefill; equal ids (or a documented tie: the
     CPU's top two within the gate), logits within phase 6's gates (fp32
-    rtol 1e-4, bf16 5% of their scale) while both saw the same tokens."""
+    rtol 1e-4, bf16 5% of their scale) while both saw the same tokens.
+    ``cfg`` replaces ``arch``'s smoke config (a dense model: 2,048 ids)."""
     import copy
 
     from repro_torch.configs import ShapeConfig, get_smoke
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.launch import steps
 
-    cfg = get_smoke(arch).replace(dtype=dtype)
+    cfg = (cfg or get_smoke(arch)).replace(dtype=dtype)
     c = FAMILY13_SMOKE
     B, P, n = c["batch"], c["prompt"], c["steps"]
     cpu_model = steps.init_for(cfg)(torch.Generator().manual_seed(1))
@@ -3417,6 +3596,10 @@ def family13_card_against_cpu(dev, arch: str, dtype: str) -> dict:
                  "tokens": torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
                                          dtype=torch.int32)}
         n_attn = 2 * cfg.n_layers
+    elif cfg.family == "dense":
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                                         dtype=torch.int32)}
+        n_attn = cfg.n_layers
     else:
         nv = cfg.n_vision_tokens
         batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, P - nv), generator=gen,
@@ -3444,7 +3627,7 @@ def family13_card_against_cpu(dev, arch: str, dtype: str) -> dict:
         ids_card, got = run(card_model, dev)
         n_kernel = getattr(flash_attention, counter)
         if (flash_attention.launches, n_kernel) != (n_attn, n_attn):
-            raise AssertionError(f"phase 13 (f) {arch} {dtype}: flash launches "
+            raise AssertionError(f"{label} {arch} {dtype}: flash launches "
                                  f"{flash_attention.launches}, the {dtype} kernel's "
                                  f"{n_kernel}, want {n_attn}")
         ids_cpu, want = run(cpu_model, "cpu")
@@ -3454,7 +3637,7 @@ def family13_card_against_cpu(dev, arch: str, dtype: str) -> dict:
         rtol, atol = 0.0, SERVE_REL_TOL * float(want[0].abs().max())
     col, tie = _greedy_apart(ids_card, ids_cpu, want, rtol, atol)
     if col is not None and not tie:
-        raise AssertionError(f"phase 13 (f) {arch} {dtype}: ids differ at step {col} "
+        raise AssertionError(f"{label} {arch} {dtype}: ids differ at step {col} "
                              f"without a tie:\ncuda {ids_card.tolist()}\n"
                              f"cpu {ids_cpu.tolist()}")
     n_same = len(got) if col is None else col + 1     # logits of the same tokens
@@ -3463,7 +3646,8 @@ def family13_card_against_cpu(dev, arch: str, dtype: str) -> dict:
         torch.testing.assert_close(a, b, rtol=rtol, atol=max(atol, 1e-5))
         err = max(err, float((a - b).abs().max()))
         scale = max(scale, float(b.abs().max()))
-    res = {"family13_card_vs_cpu": cfg.name, "family": cfg.family, "dtype": dtype,
+    res = {"family13_card_vs_cpu": cfg.name, "family": cfg.family,
+           "head_dim": cfg.resolved_head_dim, "dtype": dtype,
            "prompt": P, "batch": B, "steps": n, "ids_equal": col is None,
            "first_diff_step": col, "logits_compared": n_same, "logits_max_abs": err,
            "logit_scale": scale, "logits_atol": atol, "flash_launches": n_kernel}
@@ -3519,7 +3703,8 @@ GRAD_FLOOR_FACTOR = 4.0
 
 def family13_train_card_against_cpu(dev, arch: str, seq: int, n_attn: int,
                                     label: str = "phase 13 (f)",
-                                    flat_gate: float | None = None) -> dict:
+                                    flat_gate: float | None = None,
+                                    cfg=None) -> dict:
     """Phase 13 (f), training: 3 AdamW steps of ``arch``'s smoke model in
     fp32 (``_train_card_and_cpu``; whisper: 2,048 decoder tokens against
     64 frames, both attentions on the flash branch; the VLM: 16 + 2,032
@@ -3531,10 +3716,10 @@ def family13_train_card_against_cpu(dev, arch: str, seq: int, n_attn: int,
     times that floor; losses rtol 1e-5; every parameter within 3 lr after
     the steps (how far beyond 1e-5 of their scale they lie is printed:
     AdamW amplifies differences on elements with near-zero gradients, as
-    phase 11b says)."""
+    phase 11b says). ``cfg`` replaces ``arch``'s smoke config."""
     from repro_torch.configs import get_smoke
 
-    cfg = get_smoke(arch).replace(dtype="float32")
+    cfg = (cfg or get_smoke(arch)).replace(dtype="float32")
     c = TRAIN_CARD_CPU
     r = _train_card_and_cpu(dev, cfg, seq)
     names = r["names"]
@@ -3547,7 +3732,8 @@ def family13_train_card_against_cpu(dev, arch: str, seq: int, n_attn: int,
     gate = {n: max(flat_gate or 1e-5, GRAD_FLOOR_FACTOR * floor[n]) for n in names}
     worst = sorted(names, key=lambda n: -err[n] / gate[n])[:3]
     want = 2 * n_attn * c["steps"]
-    res = {"family13_train_card_vs_cpu": cfg.name, "seq": seq, "batch": c["batch"],
+    res = {"family13_train_card_vs_cpu": cfg.name,
+           "head_dim": cfg.resolved_head_dim, "seq": seq, "batch": c["batch"],
            "steps": c["steps"], "losses_cuda": r["losses_cuda"],
            "losses_cpu": r["losses_cpu"], "flash_launches_with_lse": r["launches_cuda"],
            "first_grad_err_over_scale": max(err.values()),
@@ -3600,6 +3786,34 @@ def audio_and_vlm_paths(dev) -> dict:
         family13_train_card_against_cpu(dev, WHISPER, P, 2 * get_smoke(WHISPER).n_layers),
         family13_train_card_against_cpu(dev, PHI3V, P - get_smoke(PHI3V).n_vision_tokens,
                                         get_smoke(PHI3V).n_layers)]
+    return out
+
+
+# ----------------------------------------------------------- phase 15 ----
+# the smoke TinyLlama at head_dim 256 (Gemma-2B's and Gemma-7B's head dim,
+# arXiv:2403.08295), built here with dataclasses.replace: no config of the
+# port has it
+HEAD_DIM_256 = dict(arch="tinyllama-1.1b", head_dim=256)
+
+
+def head_dim_256_path(dev) -> dict:
+    """Phase 15: the smoke TinyLlama with head_dim 256 on the flash branch,
+    card against CPU under phase 13 (f)'s gates: a 2,048-token prefill and
+    4 greedy serve steps in fp32 and bf16 (``family13_card_against_cpu``:
+    one launch of the kernel of the type a layer), and the fp32 train steps
+    (``family13_train_card_against_cpu``: 2 lse launches a layer a step,
+    the first gradients within 1e-5 of scale or 4x the fp32 floor)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    arch = HEAD_DIM_256["arch"]
+    cfg = dataclasses.replace(get_smoke(arch), head_dim=HEAD_DIM_256["head_dim"])
+    out = {"prefill": [family13_card_against_cpu(dev, arch, dtype, cfg=cfg,
+                                                 label="phase 15")
+                       for dtype in ("float32", "bfloat16")],
+           "train": family13_train_card_against_cpu(
+               dev, arch, FAMILY13_SMOKE["prompt"], cfg.n_layers,
+               label="phase 15", cfg=cfg)}
     return out
 
 
@@ -4686,6 +4900,14 @@ def main(argv) -> int:
         return 0
     kernels = [check_dual_solve(dev, name) for name in DUAL_VARIANTS]
     kernels += [check_dual_ascent(dev, name) for name in DUAL_VARIANTS]
+    # both kernels past 32 levels; the fused one timed at L = 40
+    by_name = {k["name"]: k for k in kernels}
+    for name in DUAL_VARIANTS:
+        wide = check_dual_wide(dev, name)
+        by_name[name]["levels_past_32"] = wide["one_step"]
+        by_name[FUSED[name]]["levels_past_32"] = wide["fused"]
+        by_name[FUSED[name]]["ms_L40"] = wide["fused"][40]["ms"]
+        by_name[FUSED[name]]["ms_L100"] = wide["fused"][100]["ms"]
     gen = torch.Generator(device=dev).manual_seed(0)
     mat = torch.randn(N_CLIENTS, 1_630_090, device=dev, generator=gen) * 1e-3
     flat = mat[0].clone()          # one client's flat CNN update, phase 7's
@@ -4722,13 +4944,18 @@ def main(argv) -> int:
     # the rows kernel at the ks of the main path's last round
     time_topk_round(dev, next(k for k in kernels if k["name"] == "topk_rows"),
                     runs["main"]["history"][-1])
-    carrier = {own: label for label, (_, own) in PATHS.items()}
+    carrier = {}
+    for label, (_, own) in PATHS.items():      # the first path of a variant
+        carrier.setdefault(own, label)
     carrier.update({one: carrier[FUSED[one]] for one in DUAL_VARIANTS})
     for k in kernels:
         if k["name"] not in ("flash_attention", "flash_attention_f32", "topk_block"):
             k["launches"] = runs[carrier.get(k["name"], "main")]["launches"][k["name"]]
         if k["name"] in DUAL_VARIANTS:
             k["on_path"] = False
+    for label in ("d_quantized_40", "e_bursty_priced_joint_40"):
+        own = PATHS[label][1]
+        by_name[own][f"launches_{label}"] = runs[label]["launches"][own]
 
     stamp("3")
 
@@ -4741,6 +4968,12 @@ def main(argv) -> int:
     stamp("4 solver")
     card_against_cpu(dev)
     card_against_cpu(dev, "bursty-interference", price_outage=True, bits_grid=BITS)
+    # paths (d) and (e): the 40-level joint grid (the paper's 10 gammas)
+    card_against_cpu(dev, "quantized", bits_grid=BITS40,
+                     fe_kw=dict(gamma_grid=GRID), label="d_quantized_40")
+    card_against_cpu(dev, "bursty-interference", price_outage=True,
+                     bits_grid=BITS40, fe_kw=dict(gamma_grid=GRID),
+                     label="e_bursty_priced_joint_40")
     topk_mask_on_card(dev)
     stamp("4 paths")
     for strategy in BASELINES:
@@ -4881,6 +5114,15 @@ def main(argv) -> int:
         r["family13_train_card_vs_cpu"]: r["flash_launches_with_lse"] for r in p14["smoke"]}
     flash_f32["launches_phase14b_plan"] = plan["flash_launches_with_lse_plan"]
     stamp("14")
+
+    # ---- phase 15: the smoke TinyLlama at head_dim 256, card against CPU,
+    # each run's counts zeroed before it
+    p15 = head_dim_256_path(dev)
+    flash["launches_phase15"] = {"prefill_bf16": p15["prefill"][1]["flash_launches"]}
+    flash_f32["launches_phase15"] = {
+        "prefill": p15["prefill"][0]["flash_launches"],
+        "train_with_lse": p15["train"]["flash_launches_with_lse"]}
+    stamp("15")
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -1,0 +1,114 @@
+#!/usr/bin/env python3
+"""Time the port's flash and fused dual-ascent kernels of two checkouts in
+turns on one card: ``--compare A B`` runs A, B, B, A (one process each, so
+each builds and loads its own ``libkernels.so``) and prints every run's
+times and the medians by checkout.
+
+    python3 scripts/kernel_ab.py --compare build/parent/src src
+    python3 scripts/kernel_ab.py --src src          # one run, one JSON line
+
+Times are CUDA events around back-to-back launches (flash: 20 after 3
+warm-up calls) and the profiler's device time of the fused ascent (20
+launches), at the shapes of chip_smoke.py's phase 2: flash at the serve
+shape, zamba2's D = 80, phi-3-vision's D = 96 and the train shape, in bf16
+and fp32; the ascent on the paper's 10 gammas (L = 10) and x (8, 16, 32)
+(L = 30) at N = 50.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+
+FLASH = {"serve_d64": (4, 2048, 32, 4, 64), "zamba2_d80": (4, 2048, 32, 32, 80),
+         "phi3v_d96": (2, 2048, 32, 32, 96), "train_d64": (4, 4096, 32, 4, 64)}
+GRID = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
+
+
+def one_run(src: str) -> dict:
+    sys.path.insert(0, src)
+    import torch
+
+    from repro_torch.kernels.dual_solve import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    dev = torch.device("cuda:0")
+
+    def events_ms(fn, iters=20, warmup=3):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / iters
+
+    def device_ms(fn, kernel, iters=20):
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if kernel in e.key]
+        return sum(e.self_device_time_total for e in ev) / 1e3 / sum(e.count for e in ev)
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for label, (B, S, H, KV, D) in FLASH.items():
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(B, S, n, D, device=dev, generator=gen).to(dt)
+                       for n in (H, KV, KV))
+            out[f"flash_{str(dt)[6:]}_{label}"] = events_ms(
+                lambda: fops.flash_attention_cuda(q, k, v, causal=True))
+            del q, k, v
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    g = torch.Generator().manual_seed(4)
+    n = 50
+    P = (1e-4 + 2e-4 * torch.rand(n, generator=g)).to(dev)
+    h = (1e-3 * (50 + 450 * torch.rand(n, generator=g)) ** -3.0
+         * torch.empty(n).exponential_(generator=g)).to(dev)
+    u = (0.1 + 5.0 * torch.rand(n, generator=g)).to(dev)
+    mu, q = torch.zeros(n, device=dev), torch.rand(n, generator=g).to(dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    for label, bits in (("L10", None), ("L30", (8.0, 16.0, 32.0))):
+        kw = dict(gamma_grid=GRID, eta=f(1e-3), rho=f(0.5), pi_min=f(0.2),
+                  alpha_lambda=f(2e-4), alpha_mu=f(0.1), dual_tol=f(0.0),
+                  b_tot=f(1e7), s_bits=f(32 * 1_630_090.0), i_bits=f(1_630_090.0),
+                  n0=f(4e-21), b_lo=f(1e-4), inner_iters=30, bits_grid=bits)
+        out[f"ascent_{label}"] = device_ms(
+            lambda: dops.dual_ascent(P, h, u, f(1e-4), mu, q, alive, **kw),
+            "dual_ascent_kernel")
+    return out
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src")
+    ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
+    args = ap.parse_args(argv)
+    if args.src:
+        print(json.dumps(one_run(args.src)), flush=True)
+        return 0
+    a, b = args.compare
+    runs = []
+    for src in (a, b, b, a):
+        res = subprocess.run([sys.executable, __file__, "--src", src],
+                             capture_output=True, text=True, check=True)
+        line = json.loads(res.stdout.strip().splitlines()[-1])
+        runs.append((src, line))
+        print(json.dumps({"src": src, "ms": line}), flush=True)
+    for src in (a, b):
+        got = [r for s, r in runs if s == src]
+        print(json.dumps({"median_ms": src, **{k: statistics.median(r[k] for r in got)
+                                               for k in got[0]}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

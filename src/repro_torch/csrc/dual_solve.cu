@@ -31,11 +31,17 @@
 // only that: one thread per client (no padding to 128 lanes; the ragged
 // tail is masked), the 7 solver scalars read from a device array (the dual
 // price lam is updated on the card, so a launch needs no host round trip
-// for it), the level table passed by value (kernel parameters live in the
-// constant bank) and walked with a runtime count (up to 32 levels: the
-// paper's 10 gammas x 3 widths). Precise logf/log1pf/expf and --fmad=false
-// keep every rounding equal to the plain PyTorch version's separate ops,
-// so near-tied levels pick the same argmin on both.
+// for it), and the level table a device buffer that the wrapper makes once
+// per (grid, device), walked with a runtime count of any size. Precise
+// logf/log1pf/expf and --fmad=false keep every rounding equal to the plain
+// PyTorch version's separate ops, so near-tied levels pick the same argmin
+// on both.
+//
+// The level table: 5 blocks of L float32s, [gamma | payload gamma | score
+// coefficient | width | fidelity] (kernels/dual_solve/ops.ascent_levels),
+// read through the read-only (L1) path: 20 bytes a level, so any grid the
+// reference takes (its Pallas kernels take a static tuple of any length)
+// fits, and no level count is refused.
 //
 // The fused ascent (dual_ascent_kernel) replaces the same four TPU kernels
 // together with the loop around them: the reference's lax.while_loop in
@@ -58,24 +64,28 @@
 // calls) and one reduction of [N] to a scalar; the bytes (~50 N) and the
 // operations are nothing for the card. The design cuts each iteration's
 // critical path: one CTA of up to 1024 threads, each client owned by a
-// group of 16 lanes (at most 16 levels: the gamma grid) or 32 (at most 32:
-// the joint grid), one level per lane, so an iteration costs about one
-// level's latency instead of L serial ones; the argmin is a butterfly of
-// shuffles inside the group under a total order that picks exactly the
-// level of the one-step kernel's strict-< running minimum (the lowest level
-// on ties; level 0 when its phi is NaN, and a later NaN never); clients
-// beyond one wave of groups loop inside the CTA; sum(x b) and max |d mu|
-// are deterministic trees (warp shuffles, then one warp over the warps'
-// partials: no atomics, the same order every run); lam lives in shared
-// memory, two CTA barriers an iteration. Both kernels evaluate a level
-// through the same __device__ functions (client_head, level_response), so
-// their float operations cannot drift apart.
+// group of 16 lanes (at most 16 levels: the gamma grid) or 32 (more), lane
+// l evaluating levels l, l + 32, ... (one level a lane up to 32 levels: the
+// paper's 10 gammas x 3 widths), so an iteration costs about ceil(L / 32)
+// levels' latency instead of L serial ones. The argmin is a total order
+// that picks exactly the level of the one-step kernel's strict-< running
+// minimum (the lowest level on ties; level 0 when its phi is NaN, and a
+// later NaN never): each lane first reduces its own levels, in increasing
+// order, under that order (a later level wins only by a lower class or,
+// both numbers, a strictly smaller phi: a running strict-< alone would let
+// a NaN at a lane's first level hide its later numbers), then a butterfly
+// of shuffles inside the group combines the lanes. Clients beyond one wave
+// of groups loop inside the CTA; sum(x b) and max |d mu| are deterministic
+// trees (warp shuffles, then one warp over the warps' partials: no
+// atomics, the same order every run); lam lives in shared memory, two CTA
+// barriers an iteration. Both kernels evaluate a level through the same
+// __device__ functions (client_head, level_response), so their float
+// operations cannot drift apart.
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kMaxLevels = 32;
 // scalar vector layout (the JAX kernel's S_* layout)
 constexpr int S_LAM = 0, S_ETA = 1, S_BTOT = 2, S_SBITS = 3, S_IBITS = 4,
               S_N0 = 5, S_BLO = 6;
@@ -87,14 +97,17 @@ constexpr float kRateEps = 1e-9f;      // core.channel.RATE_EPS
 // ascent scalars beyond the best response's seven
 constexpr int S_RHO = 7, S_PIMIN = 8, S_ALAM = 9, S_AMU = 10, S_TOL = 11;
 
-// per level: gamma, payload gamma, score coefficient, width (bits), and the
-// float32 score fidelity of the width (the ascent's selection test)
+// The level table on the device, n levels: per level its gamma, payload
+// gamma, score coefficient, width (bits), and the float32 score fidelity of
+// the width (the ascent's selection test), each block n long
 struct Levels {
-  float g[kMaxLevels];
-  float pay[kMaxLevels];
-  float score[kMaxLevels];
-  float bits[kMaxLevels];
-  float fid[kMaxLevels];
+  const float* __restrict__ p;
+  int n;
+  __device__ __forceinline__ float g(int l) const { return __ldg(p + l); }
+  __device__ __forceinline__ float pay(int l) const { return __ldg(p + n + l); }
+  __device__ __forceinline__ float score(int l) const { return __ldg(p + 2 * n + l); }
+  __device__ __forceinline__ float bits(int l) const { return __ldg(p + 3 * n + l); }
+  __device__ __forceinline__ float fid(int l) const { return __ldg(p + 4 * n + l); }
 };
 
 // NaN-propagating min/max, as torch.minimum/maximum and jnp.minimum/maximum
@@ -206,8 +219,7 @@ __global__ void dual_solve_kernel(const float* __restrict__ P_in,
                                   const float* __restrict__ ec_in,
                                   const float* __restrict__ es_in,
                                   const float* __restrict__ sc,
-                                  const Levels lv, int n_levels,
-                                  int newton_iters, int n,
+                                  const Levels lv, int newton_iters, int n,
                                   float* __restrict__ gam_out,
                                   float* __restrict__ b_out,
                                   float* __restrict__ e_out,
@@ -222,12 +234,12 @@ __global__ void dual_solve_kernel(const float* __restrict__ P_in,
   float best_g = 0.0f, best_b = 0.0f, best_e = 0.0f, best_phi = 0.0f;
   float best_bits = 0.0f;
 #pragma unroll 2
-  for (int l = 0; l < n_levels; ++l) {
-    const LevelOut r = level_response<SCALED>(cl, hd, k, lv.pay[l],
-                                              lv.score[l], newton_iters);
+  for (int l = 0; l < lv.n; ++l) {
+    const LevelOut r = level_response<SCALED>(cl, hd, k, lv.pay(l),
+                                              lv.score(l), newton_iters);
     if (l == 0 || r.phi < best_phi) {
-      best_g = lv.g[l]; best_b = r.b; best_e = r.e; best_phi = r.phi;
-      if (JOINT) best_bits = lv.bits[l];
+      best_g = lv.g(l); best_b = r.b; best_e = r.e; best_phi = r.phi;
+      if (JOINT) best_bits = lv.bits(l);
     }
   }
   gam_out[i] = best_g;
@@ -258,38 +270,59 @@ struct Choice {
 };
 
 // Every lane of the CTA calls this (shuffles need the whole warp); the
-// LANES lanes of a group evaluate client i's levels, one each, and agree
-// on the argmin. Order: level 0 with a NaN phi first; then the non-NaN
-// phis by value, ties to the lower level; then the NaN phis and the idle
-// lanes. That is the one-step kernel's running strict-< minimum, which
-// keeps level 0 when its phi is NaN and never takes a later NaN.
+// LANES lanes of a group evaluate client i's levels, lane l the levels l,
+// l + LANES, ..., and agree on the argmin. Order: level 0 with a NaN phi
+// first; then the non-NaN phis by value, ties to the lower level; then the
+// NaN phis and the idle lanes, by level. That is the one-step kernel's
+// running strict-< minimum, which keeps level 0 when its phi is NaN and
+// never takes a later NaN. A lane's own levels come in increasing order,
+// so a later one replaces its best only by a lower class or, both numbers,
+// a strictly smaller phi; with at most LANES levels each lane holds one,
+// and the pass is that level's evaluation alone (16-lane groups, which
+// the dispatch gives grids of at most 16 levels, compile no loop).
 template <bool SCALED, int LANES>
 __device__ __forceinline__ Choice best_level(bool valid, const Client& cl,
                                              const Consts& k,
-                                             const Levels& lv, int n_levels,
+                                             const Levels& lv,
                                              int newton_iters) {
-  const int l = threadIdx.x % LANES;
+  const int lane = threadIdx.x % LANES;
   LevelOut r{0.0f, 0.0f, 0.0f};
-  int cls = 2;                          // 0: NaN at level 0, 1: a number, 2: last
-  if (valid && l < n_levels) {
+  int idx = lane;
+  int c = 2;                            // 0: NaN at level 0, 1: a number, 2: last
+  if (valid && lane < lv.n) {
     const ClientHead hd = client_head<SCALED>(cl, k);
-    r = level_response<SCALED>(cl, hd, k, lv.pay[l], lv.score[l], newton_iters);
-    cls = r.phi != r.phi ? (l == 0 ? 0 : 2) : 1;
+    r = level_response<SCALED>(cl, hd, k, lv.pay(lane), lv.score(lane),
+                               newton_iters);
+    c = r.phi != r.phi ? (lane == 0 ? 0 : 2) : 1;
+    // the levels past the group's lanes (16-lane groups take at most 16)
+    if (LANES == 32) {
+      for (int l = lane + LANES; l < lv.n; l += LANES) {
+        const LevelOut o = level_response<SCALED>(cl, hd, k, lv.pay(l),
+                                                  lv.score(l), newton_iters);
+        const int cls = o.phi != o.phi ? 2 : 1;
+        if (cls < c || (cls == 1 && c == 1 && o.phi < r.phi)) {
+          r = o;
+          idx = l;
+          c = cls;
+        }
+      }
+    }
   }
   float phi = r.phi;
-  int idx = l, c = cls;
+  int best = idx;
 #pragma unroll
   for (int o = LANES / 2; o > 0; o >>= 1) {
     const float phi_o = __shfl_xor_sync(kFull, phi, o, LANES);
-    const int idx_o = __shfl_xor_sync(kFull, idx, o, LANES);
+    const int idx_o = __shfl_xor_sync(kFull, best, o, LANES);
     const int c_o = __shfl_xor_sync(kFull, c, o, LANES);
     const bool take = c_o < c ||
-        (c_o == c && (c == 1 ? (phi_o < phi || (phi_o == phi && idx_o < idx))
-                             : idx_o < idx));
-    if (take) { phi = phi_o; idx = idx_o; c = c_o; }
+        (c_o == c && (c == 1 ? (phi_o < phi || (phi_o == phi && idx_o < best))
+                             : idx_o < best));
+    if (take) { phi = phi_o; best = idx_o; c = c_o; }
   }
-  return Choice{idx, __shfl_sync(kFull, r.b, idx, LANES),
-                __shfl_sync(kFull, r.e, idx, LANES), phi};
+  // the lane that holds the chosen level kept its b and e
+  return Choice{best, __shfl_sync(kFull, r.b, best % LANES, LANES),
+                __shfl_sync(kFull, r.e, best % LANES, LANES), phi};
 }
 
 template <bool SCALED, bool JOINT, int LANES>
@@ -300,8 +333,7 @@ dual_ascent_kernel(const float* __restrict__ P_in, const float* __restrict__ h_i
                    const bool* __restrict__ alive_in,
                    const float* __restrict__ q_in,
                    const float* __restrict__ mu_in,
-                   const float* __restrict__ sc,
-                   const __grid_constant__ Levels lv, int n_levels,
+                   const float* __restrict__ sc, const Levels lv,
                    int newton_iters, int cap, int n,
                    float* __restrict__ gam_out, float* __restrict__ b_out,
                    float* __restrict__ e_out, float* __restrict__ phi_out,
@@ -339,13 +371,12 @@ dual_ascent_kernel(const float* __restrict__ P_in, const float* __restrict__ h_i
       const bool valid = i < n;
       const Client cl = valid ? load_client<SCALED>(i, P_in, h_in, u_in, ec_in, es_in)
                               : Client{1.0f, 1.0f, 0.0f, 0.0f, 1.0f};
-      const Choice ch = best_level<SCALED, LANES>(valid, cl, k, lv, n_levels,
-                                                  newton_iters);
+      const Choice ch = best_level<SCALED, LANES>(valid, cl, k, lv, newton_iters);
       if (leader && valid) {
         const float mu = it == 0 ? mu_in[i] : mu_out[i];
         const float alive = alive_in[i] ? 1.0f : 0.0f;
-        float s = cl.u * lv.g[ch.level];                 // contribution_score
-        if (JOINT) s = s * lv.fid[ch.level];
+        float s = cl.u * lv.g(ch.level);                 // contribution_score
+        if (JOINT) s = s * lv.fid(ch.level);
         const bool x = (ch.e + k.lam * ch.b < k.eta * s + mu * one_rho) &&
                        alive_in[i];
         const float xf = x ? 1.0f : 0.0f;
@@ -387,15 +418,14 @@ dual_ascent_kernel(const float* __restrict__ P_in, const float* __restrict__ h_i
     const bool valid = i < n;
     const Client cl = valid ? load_client<SCALED>(i, P_in, h_in, u_in, ec_in, es_in)
                             : Client{1.0f, 1.0f, 0.0f, 0.0f, 1.0f};
-    const Choice ch = best_level<SCALED, LANES>(valid, cl, k, lv, n_levels,
-                                                newton_iters);
+    const Choice ch = best_level<SCALED, LANES>(valid, cl, k, lv, newton_iters);
     if (leader && valid) {
       if (it == 0) mu_out[i] = mu_in[i];        // no iteration ran (cap 0)
-      gam_out[i] = lv.g[ch.level];
+      gam_out[i] = lv.g(ch.level);
       b_out[i] = ch.b;
       e_out[i] = ch.e;
       phi_out[i] = ch.phi;
-      if (JOINT) bits_out[i] = lv.bits[ch.level];
+      if (JOINT) bits_out[i] = lv.bits(ch.level);
     }
   }
   if (tid == 0) {
@@ -408,61 +438,46 @@ dual_ascent_kernel(const float* __restrict__ P_in, const float* __restrict__ h_i
 
 template <bool SCALED, bool JOINT>
 void launch(const float* P, const float* h, const float* u, const float* ec,
-            const float* es, const float* sc, const Levels& lv, int n_levels,
+            const float* es, const float* sc, const Levels& lv,
             int newton_iters, int n, float* gam, float* b, float* e,
             float* phi, float* bits, cudaStream_t stream) {
   constexpr int kThreads = 128;
   const int blocks = (n + kThreads - 1) / kThreads;
   dual_solve_kernel<SCALED, JOINT><<<blocks, kThreads, 0, stream>>>(
-      P, h, u, ec, es, sc, lv, n_levels, newton_iters, n, gam, b, e, phi,
-      bits);
+      P, h, u, ec, es, sc, lv, newton_iters, n, gam, b, e, phi, bits);
 }
 
 template <bool SCALED, bool JOINT, int LANES>
 void launch_ascent(const float* P, const float* h, const float* u,
                    const float* ec, const float* es, const bool* alive,
                    const float* q, const float* mu, const float* sc,
-                   const Levels& lv, int n_levels, int newton_iters, int cap,
-                   int n, float* gam, float* b, float* e, float* phi,
-                   float* bits, float* mu_out, float* lam_out, float* res_out,
-                   int* n_out, cudaStream_t stream) {
+                   const Levels& lv, int newton_iters, int cap, int n,
+                   float* gam, float* b, float* e, float* phi, float* bits,
+                   float* mu_out, float* lam_out, float* res_out, int* n_out,
+                   cudaStream_t stream) {
   const int lanes = n * LANES;
   const int threads = lanes >= 1024 ? 1024 : ((lanes + 31) / 32) * 32;
   dual_ascent_kernel<SCALED, JOINT, LANES><<<1, threads, 0, stream>>>(
-      P, h, u, ec, es, alive, q, mu, sc, lv, n_levels, newton_iters, cap, n,
-      gam, b, e, phi, bits, mu_out, lam_out, res_out, n_out);
+      P, h, u, ec, es, alive, q, mu, sc, lv, newton_iters, cap, n, gam, b, e,
+      phi, bits, mu_out, lam_out, res_out, n_out);
 }
 
 template <int LANES>
 void dispatch_ascent(bool scaled, bool joint, const float* P, const float* h,
                      const float* u, const float* ec, const float* es,
                      const bool* alive, const float* q, const float* mu,
-                     const float* sc, const Levels& lv, int L, int newton_iters,
+                     const float* sc, const Levels& lv, int newton_iters,
                      int cap, int n, float* gam, float* b, float* e, float* phi,
                      float* bits, float* mu_out, float* lam_out, float* res_out,
                      int* n_out, cudaStream_t s) {
   if (scaled && joint)
-    launch_ascent<true, true, LANES>(P, h, u, ec, es, alive, q, mu, sc, lv, L, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, res_out, n_out, s);
+    launch_ascent<true, true, LANES>(P, h, u, ec, es, alive, q, mu, sc, lv, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, res_out, n_out, s);
   else if (scaled)
-    launch_ascent<true, false, LANES>(P, h, u, ec, es, alive, q, mu, sc, lv, L, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, res_out, n_out, s);
+    launch_ascent<true, false, LANES>(P, h, u, ec, es, alive, q, mu, sc, lv, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, res_out, n_out, s);
   else if (joint)
-    launch_ascent<false, true, LANES>(P, h, u, ec, es, alive, q, mu, sc, lv, L, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, res_out, n_out, s);
+    launch_ascent<false, true, LANES>(P, h, u, ec, es, alive, q, mu, sc, lv, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, res_out, n_out, s);
   else
-    launch_ascent<false, false, LANES>(P, h, u, ec, es, alive, q, mu, sc, lv, L, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, res_out, n_out, s);
-}
-
-// host array of 5 * L floats: [gamma | payload gamma | score coefficient |
-// bits | fidelity], each block L long (the one-step entry passes 4 blocks)
-Levels read_levels(const float* levels, int L, bool with_fidelity) {
-  Levels lv{};
-  for (int l = 0; l < L; ++l) {
-    lv.g[l] = levels[l];
-    lv.pay[l] = levels[L + l];
-    lv.score[l] = levels[2 * L + l];
-    lv.bits[l] = levels[3 * L + l];
-    lv.fid[l] = with_fidelity ? levels[4 * L + l] : 1.0f;
-  }
-  return lv;
+    launch_ascent<false, false, LANES>(P, h, u, ec, es, alive, q, mu, sc, lv, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, res_out, n_out, s);
 }
 
 }  // namespace
@@ -470,11 +485,12 @@ Levels read_levels(const float* levels, int L, bool with_fidelity) {
 // The whole dual ascent and the final best response in one launch (one
 // CTA). alive: [n] bools; q, mu: [n] floats; scalars: 12 floats on the
 // device (lam, eta, b_tot, s_bits, i_bits, n0, b_lo, rho, pi_min,
-// alpha_lambda, alpha_mu, dual_tol); levels: the host table of 5 * L
-// floats. e_scale may be null (unpriced), bits null (gamma grid). Writes
-// gamma, b, e, phi (bits) at the final price, mu_out [n], lam_out [1],
-// res_out [2] (the last residual and the one before it, +inf where no
-// iteration set them) and n_out [1] (iterations run, int32).
+// alpha_lambda, alpha_mu, dual_tol); levels: the device table of 5 * L
+// floats, [gamma | payload gamma | score coefficient | bits | fidelity],
+// each block L long, any L >= 1. e_scale may be null (unpriced), bits null
+// (gamma grid). Writes gamma, b, e, phi (bits) at the final price, mu_out
+// [n], lam_out [1], res_out [2] (the last residual and the one before it,
+// +inf where no iteration set them) and n_out [1] (iterations run, int32).
 extern "C" int dual_ascent_f32(const float* P, const float* h, const float* u,
                                const float* e_cmp, const float* e_scale,
                                const bool* alive, const float* q,
@@ -484,20 +500,19 @@ extern "C" int dual_ascent_f32(const float* P, const float* h, const float* u,
                                float* phi, float* bits, float* mu_out,
                                float* lam_out, float* res_out, int* n_out,
                                void* stream) {
-  if (L < 1 || L > kMaxLevels || n < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Levels lv = read_levels(levels, L, true);
+  if (L < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Levels lv{levels, L};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool scaled = e_scale != nullptr, joint = bits != nullptr;
   if (L <= 16)
-    dispatch_ascent<16>(scaled, joint, P, h, u, e_cmp, e_scale, alive, q, mu, scalars, lv, L, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, res_out, n_out, s);
+    dispatch_ascent<16>(scaled, joint, P, h, u, e_cmp, e_scale, alive, q, mu, scalars, lv, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, res_out, n_out, s);
   else
-    dispatch_ascent<32>(scaled, joint, P, h, u, e_cmp, e_scale, alive, q, mu, scalars, lv, L, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, res_out, n_out, s);
+    dispatch_ascent<32>(scaled, joint, P, h, u, e_cmp, e_scale, alive, q, mu, scalars, lv, newton_iters, cap, n, gam, b, e, phi, bits, mu_out, lam_out, res_out, n_out, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-// levels: host array of 4 * L floats, [gamma | payload gamma | score
-// coefficient | bits], each block L long. e_scale may be null (unpriced),
+// levels: the device table of 5 * L floats (the fused entry's; the
+// fidelity block is not read), any L >= 1. e_scale may be null (unpriced),
 // bits null (gamma grid: the width block is ignored).
 extern "C" int dual_solve_levels_f32(const float* P, const float* h,
                                      const float* u, const float* e_cmp,
@@ -507,19 +522,19 @@ extern "C" int dual_solve_levels_f32(const float* P, const float* h,
                                      int newton_iters, int n, float* gam,
                                      float* b, float* e, float* phi,
                                      float* bits, void* stream) {
-  if (L < 1 || L > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
+  if (L < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n < 1) return 0;
-  const Levels lv = read_levels(levels, L, false);
+  const Levels lv{levels, L};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool scaled = e_scale != nullptr, joint = bits != nullptr;
   if (scaled && joint)
-    launch<true, true>(P, h, u, e_cmp, e_scale, scalars, lv, L, newton_iters, n, gam, b, e, phi, bits, s);
+    launch<true, true>(P, h, u, e_cmp, e_scale, scalars, lv, newton_iters, n, gam, b, e, phi, bits, s);
   else if (scaled)
-    launch<true, false>(P, h, u, e_cmp, e_scale, scalars, lv, L, newton_iters, n, gam, b, e, phi, bits, s);
+    launch<true, false>(P, h, u, e_cmp, e_scale, scalars, lv, newton_iters, n, gam, b, e, phi, bits, s);
   else if (joint)
-    launch<false, true>(P, h, u, e_cmp, e_scale, scalars, lv, L, newton_iters, n, gam, b, e, phi, bits, s);
+    launch<false, true>(P, h, u, e_cmp, e_scale, scalars, lv, newton_iters, n, gam, b, e, phi, bits, s);
   else
-    launch<false, false>(P, h, u, e_cmp, e_scale, scalars, lv, L, newton_iters, n, gam, b, e, phi, bits, s);
+    launch<false, false>(P, h, u, e_cmp, e_scale, scalars, lv, newton_iters, n, gam, b, e, phi, bits, s);
   return static_cast<int>(cudaGetLastError());
 }
 

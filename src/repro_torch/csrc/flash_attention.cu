@@ -35,8 +35,9 @@
 // fp32 on the CUDA cores; 151 MB of q, k, v and o, 0.045 ms at 3.35 TB/s.
 // So the CUDA cores' FMA issue rate bounds it, and the design keeps them fed:
 //
-// - A CTA of 128 threads owns a 64-row query tile of one (batch, head);
-//   thread (ty, tx) = (tid / 8, tid % 8) owns rows ty + 16 j (j < 4) of it.
+// - A CTA of 128 threads owns a 64-row query tile of one (batch, head)
+//   (32 rows above DP = 128, below); thread (ty, tx) = (tid / 8, tid % 8)
+//   owns rows ty + 16 j (j < 4) of it.
 //   Q (scaled) stays in shared memory; K and V stream through it in tiles
 //   of BK keys (64 at D = 32, else 32), double-buffered: the next tile's
 //   16-byte cp.async copies are in flight while this one computes. At
@@ -54,17 +55,28 @@
 //   summed on its own keys, the shares added once at the end.
 // - P goes to shared memory (transposed, each thread's 4 rows in one
 //   float4), and O += P V is the same outer product again: a thread holds
-//   the 4 x (D / 8) accumulators of its rows and columns 4 tx + 32 c, and
-//   for every key loads one float4 of P and D / 32 of V.
+//   the 4 x (DP / 8) accumulators of its rows and columns 4 tx + 32 c, and
+//   for every key loads one float4 of P and DP / 32 of V.
 // - Rows of Q, K, V and P are padded by 4 floats, so the float4 reads of a
 //   warp fall on distinct banks.
-// - Head dims 80 and 96 (zamba2, phi-3-vision): the rows of K and V in
-//   shared memory hold DP = D rounded up to 32 columns (96 at both), the
-//   16-byte copies of columns D..DP-1 zero-filled (cp.async with src-size
-//   0). Each score sums d = 0..D-1 only (D is a multiple of 4), so the
-//   order of its sum is that of every other D; O += P V runs over DP / 32
-//   float4s a thread, the padded columns of O stay zero, and only the D
-//   real ones are stored. At D = 80 a sixth of the P V products are zeros.
+// - Head dims: the kernel is compiled for DP = D rounded up to 32 (32, 64,
+//   ..., 256) and takes D, a multiple of 4 (whole 16-byte copies), at run
+//   time (each DP also has an EXACT instance for D == DP, whose D is a
+//   compile-time constant: a multiple of 32 runs the code of a kernel
+//   compiled for its D); the wrapper zero-pads q, k and v of any other D to the next
+//   multiple of 4 and slices o (kernels/flash_attention/ops.py). The rows
+//   of K and V in shared memory hold DP columns, the 16-byte copies of
+//   columns D..DP-1 zero-filled (cp.async with src-size 0). Each score sums
+//   d = 0..D-1 only, in order, so the order of its sum is that of every
+//   other D; O += P V runs over DP / 32 float4s a thread, the padded
+//   columns of O stay zero, and only the D real ones are stored.
+// - Above DP = 128 the 4 x DP / 8 accumulators of 4 rows would be 128 a
+//   thread at DP = 256, too many beside the scores: there a CTA owns 32
+//   query rows, thread (ty, tx) rows ty and ty + 16 (2 x DP / 8
+//   accumulators, 64 at DP = 256), P a float2 of 2 rows a key; the keys and
+//   columns of a thread, each score's d order and O's key order are those
+//   of the narrower widths. At DP = 256 a CTA holds 171 KB of shared memory
+//   (one an SM), at 160 110 KB (two).
 // The heavy (late) query tiles of a causal mask are scheduled first, over
 // every (batch, head). Every multiply-add is an explicit fmaf (the library
 // is built with --fmad=false).
@@ -74,16 +86,17 @@
 
 namespace {
 
-constexpr int kBQ = 64;          // query rows a CTA
 constexpr int kThreads = 128;    // 16 row groups (ty) x 8 column groups (tx)
-constexpr int kTM = 4;           // query rows a thread: ty + 16 j
 constexpr float kMasked = -1e30f;
 
-template <int D>
+template <int DP_>
 struct Tile {
-  static constexpr int DP = (D + 31) / 32 * 32;  // columns of K, V and O held
-  static constexpr int BK = D <= 32 ? 64 : 32;   // keys a tile
-  static constexpr int kMinCtas = D <= 64 ? 3 : 2;  // CTAs an SM
+  static_assert(DP_ % 32 == 0 && DP_ <= 256, "DP: a multiple of 32 up to 256");
+  static constexpr int DP = DP_;                 // columns of K, V and O held
+  static constexpr int kTM = DP <= 128 ? 4 : 2;  // query rows a thread: ty + 16 j
+  static constexpr int kBQ = 16 * kTM;           // query rows a CTA
+  static constexpr int BK = DP <= 32 ? 64 : 32;  // keys a tile
+  static constexpr int kMinCtas = DP <= 64 ? 3 : DP <= 128 ? 2 : 1;  // CTAs an SM
   static constexpr int TN = BK / 8;              // keys a thread: tx + 8 i
   static constexpr int DC = DP / 32;             // float4s of O a row: 4 tx + 32 c
   static constexpr int LD = DP + 4;              // row stride of Q, K, V (floats)
@@ -111,14 +124,13 @@ __device__ __forceinline__ void cp_async_wait_one() {
 
 // The key tile [k0, k0 + BK) of K and V into Ks and Vs: one 16-byte copy a
 // (key, 4 values of d) over the DP held columns, keys past Skv and columns
-// past D zero-filled.
-template <int D>
+// past D (a multiple of 4) zero-filled.
+template <int DP>
 __device__ __forceinline__ void load_kv(float* Ks, float* Vs, const float* kb,
-                                        const float* vb, int k0, int Skv,
+                                        const float* vb, int k0, int Skv, int D,
                                         long long stride) {
-  using T = Tile<D>;
-  constexpr int kChunks = T::DP / 4;
-  static_assert(D % 4 == 0, "whole 16-byte copies a row");
+  using T = Tile<DP>;
+  constexpr int kChunks = DP / 4;
   static_assert(T::BK * kChunks % kThreads == 0, "whole copies a thread");
 #pragma unroll
   for (int it = 0; it < T::BK * kChunks / kThreads; ++it) {
@@ -131,14 +143,18 @@ __device__ __forceinline__ void load_kv(float* Ks, float* Vs, const float* kb,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, Tile<D>::kMinCtas)
+// EXACT: D == DP, a compile-time width (the instance a multiple of 32 runs;
+// its code is that of a kernel compiled for D)
+template <int DP, bool EXACT>
+__global__ void __launch_bounds__(kThreads, Tile<DP>::kMinCtas)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int Sq, int Skv, int H, int KV,
+                 float* __restrict__ lse, int Sq, int Skv, int H, int KV, int D,
                  int causal, int window, float scale) {
-  using T = Tile<D>;
+  if constexpr (EXACT) D = DP;
+  using T = Tile<DP>;
   constexpr int BK = T::BK, TN = T::TN, DC = T::DC, LD = T::LD, LDP = T::LDP;
+  constexpr int kTM = T::kTM, kBQ = T::kBQ;
   extern __shared__ __align__(16) float smem[];
   float* const Qs = smem;
   float* const KV0 = smem + T::kQ;            // stage s: K at KV0 + 2 s kKV, V after it
@@ -194,7 +210,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < 4 * DC; ++c) acc[j][c] = 0.f;
   }
 
-  if (n_tiles > 0) load_kv<D>(KV0, KV0 + T::kKV, kb, vb, k_begin, Skv, kv_stride);
+  if (n_tiles > 0) load_kv<DP>(KV0, KV0 + T::kKV, kb, vb, k_begin, Skv, D, kv_stride);
   cp_async_commit();
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -203,20 +219,21 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* Vs = Ks + T::kKV;
     if (t + 1 < n_tiles) {
       float* Kn = KV0 + ((t + 1) & 1) * 2 * T::kKV;
-      load_kv<D>(Kn, Kn + T::kKV, kb, vb, k0 + BK, Skv, kv_stride);
+      load_kv<DP>(Kn, Kn + T::kKV, kb, vb, k0 + BK, Skv, D, kv_stride);
     }
     cp_async_commit();     // an empty group on the last tile
     cp_async_wait_one();   // this tile's copies (this thread's) have landed
     __syncthreads();       // ... every thread's, and Q on the first tile
 
-    // S = (q scale) K^T: a 4 x TN micro-tile, d in order
+    // S = (q scale) K^T: a kTM x TN micro-tile, d in order
     float s[kTM][TN];
 #pragma unroll
     for (int j = 0; j < kTM; ++j)
 #pragma unroll
       for (int i = 0; i < TN; ++i) s[j][i] = 0.f;
 #pragma unroll
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DP; d += 4) {
+      if (d >= D) break;                  // the held columns past D are zeros
       float4 qv[kTM], kv[TN];
 #pragma unroll
       for (int j = 0; j < kTM; ++j)
@@ -275,22 +292,33 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       l[j] = l[j] * corr[j] + sum;
     }
-    // P transposed: key i's 4 rows in one float4
+    // P transposed: key i's kTM rows in one float4 (float2)
 #pragma unroll
-    for (int i = 0; i < TN; ++i)
-      *reinterpret_cast<float4*>(Ps + (tx + 8 * i) * LDP + 4 * ty) =
-          make_float4(s[0][i], s[1][i], s[2][i], s[3][i]);
+    for (int i = 0; i < TN; ++i) {
+      if constexpr (kTM == 4)
+        *reinterpret_cast<float4*>(Ps + (tx + 8 * i) * LDP + 4 * ty) =
+            make_float4(s[0][i], s[1][i], s[2][i], s[3][i]);
+      else
+        *reinterpret_cast<float2*>(Ps + (tx + 8 * i) * LDP + 2 * ty) =
+            make_float2(s[0][i], s[1][i]);
+    }
 #pragma unroll
     for (int j = 0; j < kTM; ++j)
 #pragma unroll
       for (int c = 0; c < 4 * DC; ++c) acc[j][c] *= corr[j];
     __syncthreads();
 
-    // O += P V: a 4 x 4 DC micro-tile, keys in order (past Skv p = 0, V = 0)
+    // O += P V: a kTM x 4 DC micro-tile, keys in order (past Skv p = 0, V = 0)
 #pragma unroll 8
     for (int kk = 0; kk < BK; ++kk) {
-      const float4 p4 = *reinterpret_cast<const float4*>(Ps + kk * LDP + 4 * ty);
-      const float p[kTM] = {p4.x, p4.y, p4.z, p4.w};
+      float p[kTM];
+      if constexpr (kTM == 4) {
+        const float4 p4 = *reinterpret_cast<const float4*>(Ps + kk * LDP + 4 * ty);
+        p[0] = p4.x; p[1] = p4.y; p[2] = p4.z; p[3] = p4.w;
+      } else {
+        const float2 p2 = *reinterpret_cast<const float2*>(Ps + kk * LDP + 2 * ty);
+        p[0] = p2.x; p[1] = p2.y;
+      }
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
         const float4 vv = *reinterpret_cast<const float4*>(Vs + kk * LD + 4 * tx + 32 * c);
@@ -318,7 +346,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float* op = o + ((static_cast<long long>(b) * Sq + row) * H + h) * D;
 #pragma unroll
       for (int c = 0; c < DC; ++c)
-        if (32 * (c + 1) <= D || 4 * tx + 32 * c < D)   // a real column
+        if (4 * tx + 32 * c < D)   // a real column (D is a multiple of 4)
           *reinterpret_cast<float4*>(op + 4 * tx + 32 * c) =
               make_float4(acc[j][4 * c] / l_safe, acc[j][4 * c + 1] / l_safe,
                           acc[j][4 * c + 2] / l_safe, acc[j][4 * c + 3] / l_safe);
@@ -329,65 +357,86 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int B, int Sq, int Skv, int H, int KV, int causal,
-                   int window, float scale, cudaStream_t stream) {
-  constexpr int kBytes = Tile<D>::kBytes;
+template <int DP, bool EXACT>
+cudaError_t launch_instance(const void* q, const void* k, const void* v,
+                            void* o, void* lse, int B, int Sq, int Skv, int H,
+                            int KV, int D, int causal, int window, float scale,
+                            cudaStream_t stream) {
+  using T = Tile<DP>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+      flash_fwd_kernel<DP, EXACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::kBytes);
   if (err != cudaSuccess) return err;
-  dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<D><<<grid, kThreads, kBytes, stream>>>(
+  dim3 grid(B * H, (Sq + T::kBQ - 1) / T::kBQ);
+  flash_fwd_kernel<DP, EXACT><<<grid, kThreads, T::kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), Sq, Skv, H, KV, causal, window, scale);
+      static_cast<float*>(lse), Sq, Skv, H, KV, D, causal, window, scale);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t attrs(int* out) {
+template <int DP>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int B, int Sq, int Skv, int H, int KV, int D,
+                   int causal, int window, float scale, cudaStream_t stream) {
+  return D == DP
+      ? launch_instance<DP, true>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, stream)
+      : launch_instance<DP, false>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, stream);
+}
+
+template <int DP>
+cudaError_t attrs(int D, int* out) {
   cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, flash_fwd_kernel<D>);
+  cudaError_t err = D == DP
+      ? cudaFuncGetAttributes(&a, flash_fwd_kernel<DP, true>)
+      : cudaFuncGetAttributes(&a, flash_fwd_kernel<DP, false>);
   if (err == cudaSuccess) {
     out[0] = a.numRegs;
     out[1] = static_cast<int>(a.localSizeBytes);
     out[2] = static_cast<int>(a.sharedSizeBytes);
-    out[3] = Tile<D>::kBytes;
+    out[3] = Tile<DP>::kBytes;
   }
   return err;
 }
 
 }  // namespace
 
-// The compiled instance's registers a thread, local (spill) bytes a thread,
+// The compiled instance for head dim D (DP = D rounded up to 32; the EXACT
+// one when D == DP): its registers a thread, local (spill) bytes a thread,
 // static and dynamic shared bytes a CTA, into out[0..3].
 extern "C" int flash_attention_attrs_f32(int D, int* out) {
-  switch (D) {
-    case 32: return attrs<32>(out);
-    case 64: return attrs<64>(out);
-    case 80: return attrs<80>(out);
-    case 96: return attrs<96>(out);
-    case 128: return attrs<128>(out);
+  switch ((D + 31) / 32 * 32) {
+    case 32: return attrs<32>(D, out);
+    case 64: return attrs<64>(D, out);
+    case 96: return attrs<96>(D, out);
+    case 128: return attrs<128>(D, out);
+    case 160: return attrs<160>(D, out);
+    case 192: return attrs<192>(D, out);
+    case 224: return attrs<224>(D, out);
+    case 256: return attrs<256>(D, out);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // fp32 q, k, v, o, lse (null: not written); window <= 0 means no window.
-// Returns the launch's cudaError_t (cudaErrorInvalidValue for a head_dim it
-// does not take: 32, 64, 80, 96 and 128 are instantiated).
+// Returns the launch's cudaError_t (cudaErrorInvalidValue for a head_dim
+// that is not a multiple of 4 in 4..256).
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        int B, int Sq, int Skv, int H, int KV,
                                        int D, int causal, int window,
                                        float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return launch<32>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
-    case 64: return launch<64>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
-    case 80: return launch<80>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
-    case 96: return launch<96>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
-    case 128: return launch<128>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
+  if (D < 4 || D % 4) return cudaErrorInvalidValue;
+  switch ((D + 31) / 32 * 32) {
+    case 32: return launch<32>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+    case 64: return launch<64>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+    case 96: return launch<96>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+    case 128: return launch<128>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+    case 160: return launch<160>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+    case 192: return launch<192>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+    case 224: return launch<224>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+    case 256: return launch<256>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

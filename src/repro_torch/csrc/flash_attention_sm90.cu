@@ -44,19 +44,20 @@
 //     warpgroup c (c = 0, 1) its rows 64c .. 64c + 63, plus one producer
 //     warpgroup of which one thread issues every TMA load; setmaxnreg moves
 //     registers from the producer (24) to the consumers (240);
-//   * Q is loaded once; K and V tiles of BK keys (128 for D <= 64, 64
-//     above) stream through a ring of kStages stages in dynamic shared
+//   * Q is loaded once; K and V tiles of BK keys (128 for DP <= 64, 64 up
+//     to 160, 32 above) stream through a ring of kStages stages in dynamic shared
 //     memory, each stage guarded by a "full" mbarrier (expect_tx bytes) and
 //     an "empty" one (one arrival per consumer warp);
 //   * the tensor maps are 4-D over (D, heads, S, B) with a box of
 //     (D-chunk, 1, rows, 1): one head's rows at stride heads * D load as a
 //     dense tile. A chunk is 64 columns (128 B, 128-byte swizzle) when the
 //     computed width DP is a multiple of 64, else 32 columns (64 B, 64-byte
-//     swizzle): D = 32 loads one chunk, 64 one, 96 three, 128 two. The
-//     wgmma descriptors name the same swizzle;
+//     swizzle): DP = 32 loads one chunk, 64 one, 96 three, 128 two, 160
+//     five, 192 three, 224 seven, 256 four. The wgmma descriptors name the
+//     same swizzle;
 //   * S = Q K^T is wgmma m64n{BK}k16 with both operands in shared memory
 //     (K's rows are keys with D contiguous: K-major); O += P V is wgmma
-//     m64n{DP}k16 (DP = 96 at D = 80, else D) with P from registers (the
+//     m64n{DP}k16 (DP = D rounded up to 32) with P from registers (the
 //     accumulator layout of S is the A-fragment layout of the next product)
 //     and V read through the descriptor's transpose (V is MN-major for this
 //     product, its chunks a leading byte offset of BK * SW apart): no copy;
@@ -66,20 +67,28 @@
 //   * the grid is (B * H, ceil(Sq / 128)) with the heavy (late) causal query
 //     tiles launched first across all heads, so the short tiles fill the
 //     tail of the wave.
-// Head dims 80 and 96 (zamba2, phi-3-vision). D = 96 is the D = 32 layout
-// three times: three 32-column chunks, the 64-byte swizzle, PV as wgmma
-// m64n96k16, keys in tiles of 64. D = 80 computes on DP = 96 columns: the
-// tensor maps' innermost extent stays 80, so the TMA zero-fills columns
-// 80..95 of each row's third box (and counts the whole box in expect_tx);
+// Head dims. The kernel is compiled for a computed width DP = D rounded up
+// to 32 (32, 64, ..., 256) and takes D, a multiple of 8 (the TMA's 16-byte
+// row stride), at run time (each DP also has an EXACT instance for D ==
+// DP, whose D is a compile-time constant); the wrapper zero-pads q, k and v of any other D
+// to the next multiple of 8 and slices o (kernels/flash_attention/ops.py).
+// The tensor maps' innermost extent stays D, so the TMA zero-fills columns
+// D..DP-1 of each row's last box (and counts the whole box in expect_tx);
 // those zeros add exact zeros to every score, give zero columns of O, and
-// only the 80 real columns are stored; the scale stays 1/sqrt(80). The
-// other design, five 16-column chunks under the 32-byte swizzle and PV as
-// m64n80k16, would save the padded sixth of the products but add a third
-// swizzle mode and a fifth descriptor layout to hold; padding reuses the
-// D = 96 instance's layouts, whose one new piece (an MN-major V operand
-// spanning three 64-byte swizzle atoms, at a leading byte offset of one
-// chunk) D = 96 needs anyway. At most 80/96 = 83% of the bound's rate is
-// reachable at D = 80.
+// only the D real columns are stored; the scale stays the wrapper's
+// 1/sqrt(D). DP a multiple of 64 (64, 128, 192, 256) takes 64-column
+// chunks under the 128-byte swizzle; the others (32, 96, 160, 224) 32-column
+// chunks under the 64-byte swizzle: D = 96 is the D = 32 layout three
+// times, 160 and 224 the same five and seven times. P V is wgmma
+// m64n{DP}k16 with V MN-major across the CHUNKS swizzle atoms, a leading
+// byte offset of one chunk apart. Keys come in tiles of 128 at DP <= 64, of
+// 64 up to DP = 160 and of 32 above: ptxas allocates a consumer thread the
+// launch's 168 registers (not setmaxnreg's 240), and at 64 keys the 32 fp32
+// scores beside O's DP / 2 accumulators spilled at DP = 224 and 256 (252
+// and 288 bytes) and serialized the wgmma at 192; at 32 keys they hold 16.
+// At DP = 256 the Q tile (64 KB) and two stages of K and V tiles (64 KB)
+// fit the 227 KB of shared memory. At D < DP at most D / DP of the bound's
+// rate is reachable.
 // Left for later: ping-pong scheduling of the two consumers, overlap of the
 // softmax with the next tile's QK^T, and one K/V tile shared by the query
 // heads of a GQA group.
@@ -103,10 +112,13 @@ constexpr int kStages = 2;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+template <int DP_>
 struct Cfg {
-  static constexpr int DP = D == 80 ? 96 : D;          // computed columns
-  static constexpr int BK = D <= 64 ? 128 : 64;        // keys per tile
+  static_assert(DP_ % 32 == 0 && DP_ <= 256, "DP: a multiple of 32 up to 256");
+  static constexpr int DP = DP_;                       // computed columns
+  // keys per tile: 32 from DP = 192, where S's 32 fp32 registers at 64 keys
+  // beside O's DP / 2 would spill
+  static constexpr int BK = DP <= 64 ? 128 : DP <= 160 ? 64 : 32;
   static constexpr int SW = DP % 64 == 0 ? 128 : 64;   // bytes per chunk row
   static constexpr int COLS = SW / 2;                  // bf16 columns per chunk
   static constexpr int CHUNKS = DP / COLS;
@@ -206,7 +218,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// ---- wgmma m64n{32,64,96,128}k16, bf16 x bf16 -> fp32 -------------------
+// ---- wgmma m64n{32,64,...,256}k16, bf16 x bf16 -> fp32 ------------------
 // d[0..16) += A(desc) * B(desc), m64n32k16, B K-major
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
                                               uint64_t b, int scale_d) {
@@ -285,6 +297,55 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[0..80) += A(registers) * B(desc), m64n160k16, B MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n160(float (&d)[80],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[0..96) += A(registers) * B(desc), m64n192k16, B MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[0..112) += A(registers) * B(desc), m64n224k16, B MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n224(float (&d)[112],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %117, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111}, {%112, %113, %114, %115}, %116, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[0..128) += A(registers) * B(desc), m64n256k16, B MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
 
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
@@ -299,18 +360,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   if constexpr (N == 32) wgmma_rs_n32(d, a, b);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, b);
   else if constexpr (N == 96) wgmma_rs_n96(d, a, b);
-  else wgmma_rs_n128(d, a, b);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, b);
+  else if constexpr (N == 160) wgmma_rs_n160(d, a, b);
+  else if constexpr (N == 192) wgmma_rs_n192(d, a, b);
+  else if constexpr (N == 224) wgmma_rs_n224(d, a, b);
+  else wgmma_rs_n256(d, a, b);
 }
 
 // ---- the kernel -----------------------------------------------------------
-template <int D>
+// EXACT: D == DP, a compile-time width (the instance a multiple of 32 runs;
+// its code is that of a kernel compiled for D)
+template <int DP_, bool EXACT>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v,
                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq,
-               int Skv, int H, int KV, int causal, int window, float scale) {
-  using C = Cfg<D>;
+               int Skv, int H, int KV, int D, int causal, int window,
+               float scale) {
+  if constexpr (EXACT) D = DP_;
+  using C = Cfg<DP_>;
   constexpr int BK = C::BK, SW = C::SW, COLS = C::COLS, DP = C::DP;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -484,7 +553,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   }
 
   // epilogue: full row sums, divide in fp32, store rows < Sq and the D
-  // real columns (8 j + col < D: D is a multiple of 8)
+  // real columns (8 j + col + 1 < D iff 8 j < D: D is a multiple of 8)
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
@@ -494,15 +563,17 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   __nv_bfloat16* ob = o + (static_cast<long long>(b) * Sq * H + h) * D;
   if (row0 < Sq) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(ob + row0 * row_stride + 8 * j + col) =
-          pack_bf16(acc[4 * j] / d0, acc[4 * j + 1] / d0);
+    for (int j = 0; j < DP / 8; ++j)
+      if (8 * j < D)
+        *reinterpret_cast<uint32_t*>(ob + row0 * row_stride + 8 * j + col) =
+            pack_bf16(acc[4 * j] / d0, acc[4 * j + 1] / d0);
   }
   if (row1 < Sq) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(ob + row1 * row_stride + 8 * j + col) =
-          pack_bf16(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
+    for (int j = 0; j < DP / 8; ++j)
+      if (8 * j < D)
+        *reinterpret_cast<uint32_t*>(ob + row1 * row_stride + 8 * j + col) =
+            pack_bf16(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
   }
   // m is the scaled scores' running max in natural-log units (the
   // exponentials take (x - m) log2 e); the four threads of a row hold it
@@ -543,7 +614,7 @@ EncodeTiled encode_tiled() {
 
 // A 4-D map over (D, heads, S, B) of a contiguous [B, S, heads, D] bf16
 // tensor, box (cols, 1, rows, 1), swizzled by the chunk's row bytes. A box
-// past column D (D = 80's third) is zero-filled there.
+// past column D (the last chunk when D < DP) is zero-filled there.
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int D, int heads,
                      int S, int B, int cols, int rows) {
   EncodeTiled enc = encode_tiled();
@@ -567,15 +638,17 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int D, int heads,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int B, int Sq, int Skv, int H, int KV, int causal,
-                   int window, float scale, cudaStream_t stream) {
-  using C = Cfg<D>;
+template <int DP, bool EXACT>
+cudaError_t launch_instance(const void* q, const void* k, const void* v,
+                            void* o, void* lse, int B, int Sq, int Skv, int H,
+                            int KV, int D, int causal, int window, float scale,
+                            cudaStream_t stream) {
+  using C = Cfg<DP>;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+        flash_fwd_sm90<DP, EXACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::SMEM);
     if (err != cudaSuccess) return err;
     configured = true;
   }
@@ -585,56 +658,75 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err == cudaSuccess) err = make_map(&mv, v, D, KV, Skv, B, C::COLS, C::BK);
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (Sq + kRows - 1) / kRows);
-  flash_fwd_sm90<D><<<grid, kThreads, C::SMEM, stream>>>(
+  flash_fwd_sm90<DP, EXACT><<<grid, kThreads, C::SMEM, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), Sq,
-      Skv, H, KV, causal, window, scale);
+      Skv, H, KV, D, causal, window, scale);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t attrs(int* out) {
+template <int DP>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int B, int Sq, int Skv, int H, int KV, int D,
+                   int causal, int window, float scale, cudaStream_t stream) {
+  return D == DP
+      ? launch_instance<DP, true>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, stream)
+      : launch_instance<DP, false>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, stream);
+}
+
+template <int DP>
+cudaError_t attrs(int D, int* out) {
   cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, flash_fwd_sm90<D>);
+  cudaError_t err = D == DP
+      ? cudaFuncGetAttributes(&a, flash_fwd_sm90<DP, true>)
+      : cudaFuncGetAttributes(&a, flash_fwd_sm90<DP, false>);
   if (err == cudaSuccess) {
     out[0] = a.numRegs;
     out[1] = static_cast<int>(a.localSizeBytes);
     out[2] = static_cast<int>(a.sharedSizeBytes);
-    out[3] = Cfg<D>::SMEM;
+    out[3] = Cfg<DP>::SMEM;
   }
   return err;
 }
 
 }  // namespace
 
-// The compiled instance's registers a thread (at launch, before setmaxnreg),
-// local (spill) bytes a thread, static and dynamic shared bytes a CTA, into
-// out[0..3].
+// The compiled instance for head dim D (computed width DP = D rounded up to
+// 32; the EXACT one when D == DP): its registers a thread (at launch, before setmaxnreg), local (spill)
+// bytes a thread, static and dynamic shared bytes a CTA, into out[0..3].
 extern "C" int flash_attention_attrs_bf16(int D, int* out) {
-  switch (D) {
-    case 32: return attrs<32>(out);
-    case 64: return attrs<64>(out);
-    case 80: return attrs<80>(out);
-    case 96: return attrs<96>(out);
-    case 128: return attrs<128>(out);
+  switch ((D + 31) / 32 * 32) {
+    case 32: return attrs<32>(D, out);
+    case 64: return attrs<64>(D, out);
+    case 96: return attrs<96>(D, out);
+    case 128: return attrs<128>(D, out);
+    case 160: return attrs<160>(D, out);
+    case 192: return attrs<192>(D, out);
+    case 224: return attrs<224>(D, out);
+    case 256: return attrs<256>(D, out);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // bf16 q, k, v, o, fp32 lse (null: not written); window <= 0 means no
 // window. Returns the launch's cudaError_t (cudaErrorInvalidValue for a
-// head_dim other than 32, 64, 80, 96, 128 or a tensor the TMA cannot map).
+// head_dim that is not a multiple of 8 in 8..256, or a tensor the TMA
+// cannot map).
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
                                         int B, int Sq, int Skv, int H, int KV,
                                         int D, int causal, int window,
                                         float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return launch<32>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
-    case 64: return launch<64>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
-    case 80: return launch<80>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
-    case 96: return launch<96>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
-    case 128: return launch<128>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
+  if (D < 8 || D % 8) return cudaErrorInvalidValue;
+  switch ((D + 31) / 32 * 32) {
+    case 32: return launch<32>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+    case 64: return launch<64>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+    case 96: return launch<96>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+    case 128: return launch<128>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+    case 160: return launch<160>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+    case 192: return launch<192>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+    case 224: return launch<224>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, s);
+    case 256: return launch<256>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -6,26 +6,27 @@ the joint (gamma, bits) grid. CPU tensors run the plain version; CUDA
 tensors launch the one-step kernel on the current stream (one thread per
 client, no padding), with the 7 scalars packed into a device float32
 vector so the dual price never leaves the card for a launch, and the
-per-level constants folded on the host as the plain version folds them.
+per-level constants folded on the host as the plain version folds them
+(``ascent_levels``), in the level table's device buffer.
 
 ``dual_ascent`` has ``ref.dual_ascent_ref``'s contract: Algorithm 1's
 whole dual ascent and the best response at the final price, with the last
 two residuals, returned as ``ref.Ascent``. CPU tensors run the plain host
 loop; CUDA tensors launch the fused kernel once (one CTA), with 12
 scalars in a device vector and the level table, per-level fidelity
-included, by value: the loop's exit test never reads the card from the
-host, and the iteration count and the residuals come back as device
-tensors.
+included: the loop's exit test never reads the card from the host, and
+the iteration count and the residuals come back as device tensors.
 
-The plain versions take a grid of any size, as the reference does; the
-kernels take at most ``MAX_LEVELS`` levels, so CUDA tensors on a larger
-grid raise ``ValueError`` (ROADMAP B-1c (d)). Launches are counted per variant on each wrapper: ``.launches`` (gamma
-grid), ``.launches_scaled`` (with ``e_scale``), ``.launches_joint`` (with
-``bits_grid``) and ``.launches_joint_scaled`` (both).
+Both kernels take a grid of any size, as the plain versions and the
+reference do: the level table is a device buffer of 5 x L float32s, made
+once per (grid, device) and cached (``level_table``), so a round copies
+nothing to the card for it. Launches are counted per variant on each
+wrapper: ``.launches`` (gamma grid), ``.launches_scaled`` (with
+``e_scale``), ``.launches_joint`` (with ``bits_grid``) and
+``.launches_joint_scaled`` (both).
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
@@ -33,17 +34,6 @@ import torch
 from .. import _build, check_cuda, is_cpu
 from .ref import (Ascent, dual_ascent_ref, dual_solve_ref, level_coefficients,
                   score_fidelity)
-
-MAX_LEVELS = 32
-
-
-
-def check_kernel_levels(n_levels: int) -> None:
-    """Raise unless the kernels take a grid of ``n_levels`` levels."""
-    if not 1 <= n_levels <= MAX_LEVELS:
-        raise ValueError(f"the grid has {n_levels} levels; the kernel takes "
-                         f"1..{MAX_LEVELS} (ROADMAP B-1c (d))")
-
 
 COUNTERS = {(False, False): "launches", (True, False): "launches_scaled",
             (False, True): "launches_joint", (True, True): "launches_joint_scaled"}
@@ -60,10 +50,8 @@ def dual_solve(P, h, u_norms, lam, *, gamma_grid, eta, b_tot, s_bits, i_bits,
                               i_bits=i_bits, n0=n0, b_lo=b_lo,
                               newton_iters=newton_iters, e_cmp=e_cmp,
                               e_scale=e_scale, bits_grid=bits_grid)
-    coef = level_coefficients(gamma_grid, bits_grid)
-    n_levels = len(coef["gamma"])
-    check_kernel_levels(n_levels)
     dev = P.device
+    table = level_table(gamma_grid, bits_grid, dev)
     n = P.shape[0]
     vectors = [("P", P), ("h", h), ("u_norms", u_norms), ("e_cmp", e_cmp)]
     if e_scale is not None:
@@ -72,19 +60,16 @@ def dual_solve(P, h, u_norms, lam, *, gamma_grid, eta, b_tot, s_bits, i_bits,
         check_cuda(name, t, dtype=torch.float32, ndim=1, device=dev)
         if t.shape[0] != n:
             raise ValueError(f"{name} has {t.shape[0]} clients, P has {n}")
-    joint = coef["bits"] is not None
-    table = (coef["gamma"] + coef["pay"] + coef["score"]
-             + (coef["bits"] if joint else [0.0] * n_levels))
+    joint = bits_grid is not None
     scalars = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=dev)
                            for v in (lam, eta, b_tot, s_bits, i_bits, n0,
                                      b_lo)])
     outs = [torch.empty(n, dtype=torch.float32, device=dev)
             for _ in range(5 if joint else 4)]
-    table_arr = (ctypes.c_float * len(table))(*table)
     err = _build.library().dual_solve_levels_f32(
         P.data_ptr(), h.data_ptr(), u_norms.data_ptr(), e_cmp.data_ptr(),
         None if e_scale is None else e_scale.data_ptr(), scalars.data_ptr(),
-        ctypes.cast(table_arr, ctypes.c_void_p), n_levels, int(newton_iters),
+        table.data_ptr(), table.shape[0] // 5, int(newton_iters),
         n, *(o.data_ptr() for o in outs[:4]),
         outs[4].data_ptr() if joint else None,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -98,12 +83,20 @@ for _attr in COUNTERS.values():
     setattr(dual_solve, _attr, 0)
 
 
+def level_table(gamma_grid, bits_grid, device: torch.device) -> torch.Tensor:
+    """The kernels' level table (``ascent_levels``) as a float32 buffer of
+    5 x L on ``device``, made on the first call for a (grid, device) and
+    cached: a launch passes its pointer and copies nothing to the card.
+    Every caller gets the same buffer; the kernels only read it."""
+    return _level_table(tuple(gamma_grid),
+                        None if bits_grid is None else tuple(bits_grid), device)
+
+
 @functools.cache
-def _ascent_table(gamma_grid: tuple, bits_grid: tuple | None):
-    """The level table as the ctypes array the C entry reads, made once a
-    grid (the launch copies it into the kernel's parameters)."""
-    table = ascent_levels(gamma_grid, bits_grid)
-    return (ctypes.c_float * len(table))(*table), len(table) // 5
+def _level_table(gamma_grid: tuple, bits_grid: tuple | None,
+                 device: torch.device) -> torch.Tensor:
+    return torch.tensor(ascent_levels(gamma_grid, bits_grid),
+                        dtype=torch.float32, device=device)
 
 
 def ascent_levels(gamma_grid, bits_grid=None) -> list:
@@ -114,7 +107,6 @@ def ascent_levels(gamma_grid, bits_grid=None) -> list:
     test takes no fidelity)."""
     coef = level_coefficients(gamma_grid, bits_grid)
     n_levels = len(coef["gamma"])
-    check_kernel_levels(n_levels)
     if coef["bits"] is None:
         bits, fid = [0.0] * n_levels, [1.0] * n_levels
     else:
@@ -145,9 +137,8 @@ def dual_ascent(P, h, u_norms, lam, mu, q, alive, *, gamma_grid, eta, rho,
               e_scale=e_scale, bits_grid=bits_grid)
     if is_cpu(P):
         return dual_ascent_ref(P, h, u_norms, lam, mu, q, alive, **kw)
-    table, n_levels = _ascent_table(tuple(gamma_grid),
-                                    None if bits_grid is None else tuple(bits_grid))
     dev = P.device
+    table = level_table(gamma_grid, bits_grid, dev)
     n = P.shape[0]
     if n < 1:
         raise ValueError("the dual ascent needs at least one client")
@@ -177,7 +168,7 @@ def dual_ascent(P, h, u_norms, lam, mu, q, alive, *, gamma_grid, eta, rho,
         P.data_ptr(), h.data_ptr(), u_norms.data_ptr(), e_cmp.data_ptr(),
         None if e_scale is None else e_scale.data_ptr(), alive.data_ptr(),
         q.data_ptr(), mu.data_ptr(), scalars.data_ptr(),
-        ctypes.cast(table, ctypes.c_void_p), n_levels, int(newton_iters),
+        table.data_ptr(), table.shape[0] // 5, int(newton_iters),
         int(inner_iters), n, *(o.data_ptr() for o in outs[:4]),
         outs[5].data_ptr() if joint else None, outs[4].data_ptr(),
         lam_out.data_ptr(), res_out.data_ptr(), n_out.data_ptr(),

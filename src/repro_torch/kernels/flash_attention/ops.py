@@ -7,7 +7,13 @@ in q's type; query head h reads KV head ``h // (H // KV)``. CUDA tensors
 launch, on the current stream, the kernel of their type or raise: bf16
 the tensor-core kernel (``csrc/flash_attention_sm90.cu``: ``wgmma`` fed by
 TMA, P rounded to bf16 before P V), fp32 the SIMT kernel
-(``csrc/flash_attention.cu``). Neither falls back to the other.
+(``csrc/flash_attention.cu``). Neither falls back to the other. Both take
+every head dim from 1 to ``MAX_HEAD_DIM`` (256): each is compiled for the
+widths of ``COMPILED_WIDTHS`` (D rounded up to 32) and takes D at run time
+when its rows are whole 16-byte copies (D a multiple of 8 in bf16, of 4 in
+fp32); for any other D the wrapper zero-pads q, k and v to the next such
+width (``pad_head_dim``), keeps the scale 1/sqrt(D), launches and slices
+o. A larger D raises (ROADMAP B-8g).
 
 Without grad (serving) CPU tensors run ``ref.attention_ref`` and the
 kernels write no log-sum-exp. When grad mode is on and q, k or v requires
@@ -32,7 +38,11 @@ from .. import _build, check_cuda, is_cpu
 from ...sharding.act import contiguous_stride
 from .ref import attention_ref, flash_bwd_ref, flash_fwd_ref
 
-HEAD_DIMS = (32, 64, 80, 96, 128)
+MAX_HEAD_DIM = 256
+COMPILED_WIDTHS = (32, 64, 96, 128, 160, 192, 224, 256)
+# the head-dim multiple of each kernel's 16-byte rows: the TMA's strides
+# (bf16), the cp.async copies (fp32)
+ROW_MULTIPLE = {torch.float32: 4, torch.bfloat16: 8}
 # dtype -> (C entry, attributes entry, per-kernel launch counter)
 _ROUTES = {torch.float32: ("flash_attention_fwd_f32", "flash_attention_attrs_f32",
                            "launches_f32"),
@@ -43,6 +53,14 @@ _ROUTES = {torch.float32: ("flash_attention_fwd_f32", "flash_attention_attrs_f32
 def _check_window(window) -> None:
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
+
+
+def pad_head_dim(t: torch.Tensor, multiple: int) -> torch.Tensor:
+    """``t`` ``[..., D]`` zero-padded to the next multiple of ``multiple``
+    columns (``t`` itself when D is one): the zero columns add exact zeros
+    to every score and give zero columns of the output."""
+    pad = -t.shape[-1] % multiple
+    return torch.nn.functional.pad(t, (0, pad)) if pad else t
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -57,8 +75,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise TypeError(f"q has dtype {q.dtype}, expected float32 or bfloat16")
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_cuda(name, t, dtype=q.dtype, ndim=4, device=dev)
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
     B, Sq, H, D = q.shape
     _, Skv, KV, _ = k.shape
     if tuple(v.shape) != tuple(k.shape) or k.shape[0] != B or k.shape[3] != D:
@@ -66,25 +82,32 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"v {tuple(v.shape)} do not fit [B,Sq,H,D] / [B,Skv,KV,D]")
     if H % KV:
         raise ValueError(f"{H} query heads are not a multiple of {KV} KV heads")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {D} is outside the kernels' 1..{MAX_HEAD_DIM} "
+                         "(ROADMAP B-8g)")
     if B * H > 65535:
         raise ValueError(f"B * H = {B * H} exceeds the grid's y limit")
-    o = torch.empty_like(q)
+    qk, kk, vk = (pad_head_dim(t, ROW_MULTIPLE[q.dtype]) for t in (q, k, v))
+    for name, t in (("q", qk), ("k", kk), ("v", vk)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    o = torch.empty_like(qk)
     lse = (torch.empty((B, KV, H // KV, Sq), dtype=torch.float32, device=dev)
            if with_lse else None)
     if Sq > 0:
         entry, _, counter = _ROUTES[q.dtype]
         err = getattr(_build.library(), entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            B, Sq, Skv, H, KV, D, int(causal),
+            B, Sq, Skv, H, KV, qk.shape[3], int(causal),
             0 if window is None else int(window), 1.0 / D ** 0.5,
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, entry)
         flash_attention.launches += 1
         setattr(flash_attention, counter, getattr(flash_attention, counter) + 1)
         flash_attention.launches_lse += int(with_lse)
+    if o.shape[3] != D:
+        o = o[..., :D].contiguous()
     return (o, lse) if with_lse else o
 
 
@@ -167,8 +190,8 @@ flash_attention.backward_calls = 0
 
 def kernel_attributes(dtype: torch.dtype, head_dim: int) -> dict:
     """Registers a thread (at launch), spill (local) bytes a thread, and
-    static and dynamic shared bytes a CTA of the compiled instance for
-    (dtype, head_dim)."""
+    static and dynamic shared bytes a CTA of the compiled instance that
+    takes (dtype, head_dim): the one of width head_dim rounded up to 32."""
     out = (ctypes.c_int * 4)()
     entry = _ROUTES[dtype][1]
     err = getattr(_build.library(), entry)(head_dim, out)

@@ -12,7 +12,9 @@ tiles, masks and skipped tiles, P rounded to bf16 before P V) shows that
 its one numeric change fits the bf16 gate before it runs on a card; a CPU
 model of the fp32 SIMT kernel (``csrc/flash_attention.cu``: its tiles, the
 order of its sums and its per-tile rescale) holds its arithmetic to the
-fp32 gate the same way.
+fp32 gate the same way. Both run at head dims 16 to 256, zero-padded to
+the width each kernel computes on, as the kernels and their wrapper
+(``ops.pad_head_dim``) pad.
 """
 import math
 
@@ -105,6 +107,40 @@ def test_pallas_kernel_fp32_agrees_with_plain_version():
     np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-6, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [36, 160, 256])
+def test_plain_version_matches_pallas_kernel_at_other_head_dims(dtype, D):
+    """Head dims the kernels compute on padded widths (36: 64 columns,
+    bf16 rows padded to 40; 160; 256, Gemma's): the interpreted Pallas
+    kernel, which takes any D, against the port's plain version, within
+    TOL."""
+    (jq, jk, jv), (q, k, v) = _inputs(9, 1, 256, 4, 2, D, dtype=dtype)
+    want = flash_attention_pallas(jq, jk, jv, causal=True, interpret=True)
+    got = flash_attention(q, k, v, causal=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("D,multiple", [(1, 4), (3, 4), (36, 8), (13, 8), (256, 8)])
+def test_head_dim_padding_keeps_the_function(D, multiple):
+    """``pad_head_dim`` zero-pads the last dim to the next multiple (and
+    leaves a whole one alone); attention on the padded q, k and v with the
+    scale of the real D, sliced to D columns, is the attention of the
+    unpadded inputs within 1e-6: what the wrapper launches for a D whose
+    rows are no whole 16-byte copies."""
+    _, (q, k, v) = _inputs(10, 1, 40, 4, 2, D, Skv=56)
+    qp, kp, vp = (ops.pad_head_dim(t, multiple) for t in (q, k, v))
+    Dp = -(-D // multiple) * multiple
+    assert qp.shape == (1, 40, 4, Dp) and kp.shape == vp.shape == (1, 56, 2, Dp)
+    assert (qp is q) == (Dp == D)
+    assert torch.equal(qp[..., :D], q) and not qp[..., D:].any()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qp.reshape(1, 40, 2, 2, Dp), kp) / D ** 0.5
+    out = torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(s, dim=-1), vp)
+    got = out.reshape(1, 40, 4, Dp)
+    assert not got[..., D:].any()
+    want = attention_ref(q, k, v, causal=False)
+    np.testing.assert_allclose(got[..., :D].numpy(), want.numpy(), atol=1e-6, rtol=0)
+
+
 def test_wrapper_on_cpu_runs_the_plain_version_and_counts_no_launch():
     _, (q, k, v) = _inputs(5, 1, 24, 4, 2, 32)
     before = flash_attention.launches
@@ -159,6 +195,20 @@ def test_wrapper_rejects_other_devices():
     assert out.device.type == "meta" and out.shape == q.shape
 
 
+# head dims 16 to 256 (B, S, H, KV, D, causal, window, Skv), heads and S cut:
+# causal calls, windows, ragged S and non-causal calls with Skv != Sq
+HEAD_DIM_CASES = [
+    (1, 256, 4, 2, 16, True, None, None),
+    (1, 300, 4, 4, 36, True, 64, None),
+    (1, 200, 4, 2, 48, False, None, 150),
+    (1, 256, 4, 1, 112, True, None, None),
+    (1, 300, 4, 2, 160, True, 100, None),
+    (1, 200, 4, 4, 192, False, None, 77),
+    (1, 256, 4, 1, 224, True, None, None),
+    (1, 256, 4, 1, 256, True, None, None),      # Gemma's head dim
+]
+
+
 # ---- the bf16 tensor-core kernel's numerics, emulated on the CPU -----------
 def _sm90_emulated(q, k, v, *, causal, window):
     """What ``csrc/flash_attention_sm90.cu`` computes, in float32 torch ops:
@@ -168,13 +218,15 @@ def _sm90_emulated(q, k, v, *, causal, window):
     diagonal or before its window; S = Q K^T in fp32 times 1/sqrt(D);
     masked scores -1e30, keys past Skv (zero-filled by the TMA) -inf;
     online softmax with exp2((s - m) log2 e); l sums the fp32 P, and
-    O += bf16(P) V in fp32; o = O / max(l, 1e-30) in bf16. At D = 80 the
-    kernel computes on 96 columns, the TMA zero-filling 80..95 of Q, K and
-    V (the scale stays 1/sqrt(80)), and stores 80."""
+    O += bf16(P) V in fp32; o = O / max(l, 1e-30) in bf16. The kernel
+    computes on DP = D rounded up to 32 columns, the TMA zero-filling D..DP-1
+    of Q, K and V (the wrapper's padding to a multiple of 8 adds zeros
+    alike; the scale stays 1/sqrt(D)), with key tiles of BK = 128 at DP <=
+    64, 64 up to 160 and 32 above, and stores D."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
-    BK = 128 if D <= 64 else 64
-    DP = 96 if D == 80 else D                                   # padded width
+    DP = -(-D // 32) * 32                                       # padded width
+    BK = 128 if DP <= 64 else 64 if DP <= 160 else 32
     n_kt = -(-Skv // BK)
     pad = n_kt * BK - Skv
     qf = torch.nn.functional.pad(q.float(), (0, DP - D)).permute(0, 2, 1, 3)
@@ -241,6 +293,7 @@ def _sm90_emulated(q, k, v, *, causal, window):
     # ragged last key tile (150 = 128 + 22; 1500 = 11 x 128 + 92)
     (1, 256, 6, 6, 64, False, None, 150),
     (1, 256, 6, 6, 64, False, None, 1500),
+    *HEAD_DIM_CASES,
 ])
 def test_sm90_numerics_emulated_fit_the_bf16_gate(B, S, H, KV, D, causal,
                                                    window, Skv):
@@ -279,19 +332,21 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 def _simt_f32_emulated(q, k, v, *, causal, window):
     """What ``csrc/flash_attention.cu`` computes, in torch ops: CTAs of 64
-    query rows, key tiles of BK (64 for D = 32, else 32) from the CTA's
+    query rows (32 above DP = 128), key tiles of BK (64 for D = 32, else 32) from the CTA's
     first tile that can hold a visible key (every tile when some row sees
     none) to its last; q times 1/sqrt(D) in fp32; each score a chain of
     fmaf over d in order; masked scores -1e30, keys past Skv -inf; a row's
     max over the tile and one rescale a tile; l held as 8 shares (share tx
     sums the tile's keys tx + 8 i in order, then is added to its rescaled
     self) added at the end in the shuffles' tree; O rescaled, then a chain
-    of fmaf over the tile's keys in order; o = O / max(l, 1e-30). At D = 80
-    the rows of K and V in shared memory hold 96 columns, 80..95
-    zero-filled: each score sums d = 0..79 only, O's padded columns stay
-    zero and 80 are stored."""
+    of fmaf over the tile's keys in order; o = O / max(l, 1e-30). The
+    rows of K and V in shared memory hold DP = D rounded up to 32 columns,
+    D..DP-1 zero-filled: each score sums d = 0..D-1 only, O's padded
+    columns stay zero and D are stored. Above DP = 128 a CTA holds 32
+    query rows."""
     B, Sq, H, D = q.shape
     DP = -(-D // 32) * 32                                       # padded width
+    BQ = 64 if DP <= 128 else 32                                # rows a CTA
     Skv, KV = k.shape[1], k.shape[2]
     BK = 64 if D <= 32 else 32
     n_kt = -(-Skv // BK)
@@ -302,25 +357,25 @@ def _simt_f32_emulated(q, k, v, *, causal, window):
               .permute(0, 2, 1, 3).repeat_interleave(H // KV, dim=1)
               for t in (k, v))                                  # [B,H,n_kt*BK,DP]
     out = torch.zeros(B, H, Sq, DP)
-    for q0 in range(0, Sq, 64):
-        q_last = min(q0 + 64, Sq) - 1
+    for q0 in range(0, Sq, BQ):
+        q_last = min(q0 + BQ, Sq) - 1
         k_end = min(Skv, q_last + 1) if causal else Skv
         k_begin = (max(0, q0 - window + 1)
                    if window and q_last < Skv - 1 + window else 0)
         k_begin = k_begin // BK * BK
-        rows = torch.arange(q0, q0 + 64)
-        qt = torch.nn.functional.pad(qf[:, :, q0:q0 + 64],
-                                     (0, 0, 0, 64 - qf[:, :, q0:q0 + 64].shape[2]))
-        m = torch.full((B, H, 64), -1e30)
-        shares = torch.zeros(B, H, 64, 8)
-        acc = torch.zeros(B, H, 64, DP)
+        rows = torch.arange(q0, q0 + BQ)
+        qt = torch.nn.functional.pad(qf[:, :, q0:q0 + BQ],
+                                     (0, 0, 0, BQ - qf[:, :, q0:q0 + BQ].shape[2]))
+        m = torch.full((B, H, BQ), -1e30)
+        shares = torch.zeros(B, H, BQ, 8)
+        acc = torch.zeros(B, H, BQ, DP)
         for k0 in range(k_begin, k_end, BK):
             keys = torch.arange(k0, k0 + BK)
             kt, vt = kf[:, :, k0:k0 + BK], vf[:, :, k0:k0 + BK]
-            s = torch.zeros(B, H, 64, BK)
+            s = torch.zeros(B, H, BQ, BK)
             for d in range(D):
                 s = _fma(qt[..., d, None], kt[..., None, :, d], s)
-            vis = torch.ones(64, BK, dtype=torch.bool)
+            vis = torch.ones(BQ, BK, dtype=torch.bool)
             if causal:
                 vis &= keys[None, :] <= rows[:, None]
             if window:
@@ -330,7 +385,7 @@ def _simt_f32_emulated(q, k, v, *, causal, window):
             m_new = torch.maximum(m, s.amax(-1))
             corr = torch.exp(m - m_new)
             p = torch.exp(s - m_new[..., None])
-            own = torch.zeros(B, H, 64, 8)
+            own = torch.zeros(B, H, BQ, 8)
             for i in range(BK // 8):
                 own = own + p[..., 8 * i:8 * i + 8]
             shares = shares * corr[..., None] + own
@@ -341,7 +396,7 @@ def _simt_f32_emulated(q, k, v, *, causal, window):
         a = shares[..., 0::2] + shares[..., 1::2]           # xor 1
         b = a[..., 0::2] + a[..., 1::2]                      # xor 2
         l = b[..., 0] + b[..., 1]                            # xor 4
-        n = min(64, Sq - q0)
+        n = min(BQ, Sq - q0)
         out[:, :, q0:q0 + n] = (acc / torch.clamp(l, min=1e-30)[..., None])[:, :, :n]
     assert not out[..., D:].any()                # the padded columns stay zero
     return out[..., :D].permute(0, 2, 1, 3)
@@ -358,6 +413,7 @@ def _simt_f32_emulated(q, k, v, *, causal, window):
     (1, 256, 4, 4, 96, True, None, None),      # D = 96
     (1, 130, 4, 2, 96, False, None, 150),      # D = 96, Skv != Sq
     (1, 256, 6, 6, 64, False, None, 150),      # whisper's cross call, cut
+    *HEAD_DIM_CASES,
 ])
 def test_simt_f32_numerics_emulated_fit_the_fp32_gate(B, S, H, KV, D, causal,
                                                       window, Skv):

@@ -9,7 +9,9 @@ runs it, so ``solve_round`` reproduces the reference's duals, iteration
 counts and masks exactly as before the loop moved (lam and mu rtol 1e-5,
 n_inner and masks equal), for the four variants (gamma grid, outage
 priced, joint (gamma, bits), both), capped and stopped early, with dead
-clients. ``chip_smoke.py`` holds the CUDA kernel against the same plain
+clients, and on the 40-level joint grid (the paper's 10 gammas x 4
+widths) that the kernels take since their level table became a device
+buffer. ``chip_smoke.py`` holds the CUDA kernel against the same plain
 version on the card.
 """
 import jax
@@ -28,6 +30,7 @@ from repro_torch.kernels.dual_solve import ops, ref
 
 N0, S_BITS, I_BITS, B_TOT = 4e-21, 6.4e7, 2e6, 10e6
 BITS = (8.0, 16.0, 32.0)
+BITS40 = (4.0, 8.0, 16.0, 32.0)          # x the 10 default gammas: 40 levels
 # (priced, joint grid)
 VARIANTS = {"gamma": (False, False), "scaled": (True, False),
             "joint": (False, True), "joint_scaled": (True, True)}
@@ -62,11 +65,23 @@ def test_dual_ascent_ref_matches_reference_solver(variant, case):
     gives the reference's lam, mu and n_inner, and ``solve_round`` (which
     calls the wrapper, hence the plain version on the CPU) its masks,
     gammas and widths."""
+    _hold_rounds(variant, case, BITS)
+
+
+@pytest.mark.parametrize("variant", ["joint", "joint_scaled"])
+@pytest.mark.parametrize("case", ["capped", "dead_clients"])
+def test_dual_ascent_ref_matches_reference_solver_at_40_levels(variant, case):
+    """The same four rounds on the 40-level joint grid (10 gammas x
+    ``BITS40``), past the 32 levels of one lane group."""
+    _hold_rounds(variant, case, BITS40)
+
+
+def _hold_rounds(variant, case, bits):
     priced, joint = VARIANTS[variant]
     n = 24
     u, h, P, es = _draws(n, 3)
     kw = dict(eta_auto=False, eta=1e-3,
-              bits_grid=BITS if joint else (32.0,))
+              bits_grid=bits if joint else (32.0,))
     if case == "early_exit":
         kw["dual_tol"] = EARLY_TOL
     jfe, tfe = JFE(**kw), TFE(**kw)
@@ -154,8 +169,22 @@ def test_ascent_packing_equals_the_plain_versions_constants():
         want = ref.score_fidelity(decided)
         got = torch.tensor(blocks[4], dtype=torch.float32)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    with pytest.raises(ValueError, match="levels"):
-        ops.ascent_levels(tuple(range(1, 12)), BITS)
+    # past the 32 levels of one lane group: 11 x 3 = 33, 40, 100 levels,
+    # packed alike, and the cached device buffer holds the same floats
+    for grid, bits_grid in ((tuple(range(1, 12)), BITS),
+                            ((0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0), BITS40),
+                            (tuple((i + 1) / 100 for i in range(100)), None)):
+        table = ops.ascent_levels(grid, bits_grid)
+        coef = ref.level_coefficients(grid, bits_grid)
+        L = len(coef["gamma"])
+        assert L in (33, 40, 100) and len(table) == 5 * L
+        assert table[:3 * L] == coef["gamma"] + coef["pay"] + coef["score"]
+        if bits_grid is not None:
+            assert table[3 * L:4 * L] == coef["bits"]
+        buf = ops.level_table(grid, bits_grid, torch.device("cpu"))
+        assert buf.dtype == torch.float32 and buf.shape == (5 * L,)
+        assert torch.equal(buf, torch.tensor(table, dtype=torch.float32))
+        assert ops.level_table(list(grid), bits_grid, torch.device("cpu")) is buf
 
     tfe = TFE(eta_auto=False, eta=1e-3, dual_tol=0.25)
     st = init_state(tfe, 4, b_tot=B_TOT, s_bits=S_BITS, i_bits=I_BITS, n0=N0,
@@ -185,17 +214,28 @@ def _scan_argmin(phi):
 
 def _butterfly_argmin(phi, lanes):
     """A model of ``best_level`` in ``csrc/dual_solve.cu``: lane l holds
-    level l (idle beyond the grid); log2(lanes) xor-shuffle rounds, each
-    lane keeping the better of itself and its partner under the order
-    (level 0 with a NaN phi) < (numbers by value, then level) < (NaN phis
-    and idle lanes, by level). Returns every lane's result."""
-    def key(lane):
+    levels l, l + lanes, ... (idle beyond the grid) and first reduces them
+    in increasing order, a later level replacing its best only by a lower
+    class or, both numbers, a strictly smaller phi; then log2(lanes)
+    xor-shuffle rounds, each lane keeping the better of itself and its
+    partner under the order (level 0 with a NaN phi) < (numbers by value,
+    then level) < (NaN phis and idle lanes, by level). Returns every
+    lane's result."""
+    def key(level):
+        v = phi[level]
+        if v != v:
+            return (0 if level == 0 else 2, 0.0, level)
+        return (1, v, level)
+
+    def lane_best(lane):           # the lane-strided pass
         if lane >= len(phi):
             return (2, 0.0, lane)
-        v = phi[lane]
-        if v != v:
-            return (0 if lane == 0 else 2, 0.0, lane)
-        return (1, v, lane)
+        best = key(lane)
+        for level in range(lane + lanes, len(phi), lanes):
+            k = key(level)
+            if k[0] < best[0] or (k[0] == best[0] == 1 and k[1] < best[1]):
+                best = k
+        return best
 
     def better(a, b):              # the kernel's `take` test, b over a
         if b[0] != a[0]:
@@ -204,7 +244,7 @@ def _butterfly_argmin(phi, lanes):
             return b[1] < a[1] or (b[1] == a[1] and b[2] < a[2])
         return b[2] < a[2]
 
-    state = [key(i) for i in range(lanes)]
+    state = [lane_best(i) for i in range(lanes)]
     o = lanes // 2
     while o:
         state = [state[i ^ o] if better(state[i], state[i ^ o]) else state[i]
@@ -214,17 +254,22 @@ def _butterfly_argmin(phi, lanes):
 
 
 def test_shuffle_argmin_combine_rule_matches_the_running_minimum():
-    """Ties, +-inf, -0.0 against +0.0 and NaN anywhere (level 0 included):
-    the butterfly picks the running minimum's level, and every lane of the
-    group agrees on it."""
+    """Ties, +-inf, -0.0 against +0.0 and NaN anywhere (level 0 included),
+    on grids of 1 to 200 levels (above 32 a lane holds several): the
+    lane-strided pass and the butterfly pick the running minimum's level,
+    and every lane of the group agrees on it."""
     rng = np.random.default_rng(0)
     nan, inf = float("nan"), float("inf")
     rows = [[1.0, 1.0, 0.5, 0.5], [nan, 0.1, -1.0], [0.3, nan, 0.2, nan],
             [nan, nan, nan], [inf, inf, 2.0, inf], [inf, inf, inf],
             [-0.0, 0.0, -0.0], [0.0, -0.0], [2.0], [nan],
             [-inf, -inf, nan, -inf], [5.0, nan, 5.0, 4.0, 4.0]]
+    # a NaN at a lane's first level beside numbers at its later ones, which
+    # a running strict-< pass alone would hide
+    rows += [[0.5] + [nan] * 31 + [0.1], [0.5, nan] + [1.0] * 31 + [-2.0],
+             [nan] * 40 + [-1.0], [1.0] * 64 + [-0.0, 0.0, -0.0]]
     for _ in range(400):
-        L = int(rng.integers(1, 33))
+        L = int(rng.integers(1, 201)) if _ % 2 else int(rng.integers(1, 33))
         row = np.round(rng.normal(size=L), 1).tolist()   # many ties
         for i in np.flatnonzero(rng.random(L) < 0.15):
             row[i] = [nan, inf, -inf, -0.0][int(rng.integers(0, 4))]
@@ -232,8 +277,7 @@ def test_shuffle_argmin_combine_rule_matches_the_running_minimum():
     for row in rows:
         phi = [float(np.float32(v)) for v in row]
         want = _scan_argmin(phi)
-        for lanes in (16, 32):
-            if len(phi) > lanes:
-                continue
+        # the kernel's groups: 16 lanes up to 16 levels, 32 above
+        for lanes in ((16, 32) if len(phi) <= 16 else (32,)):
             got = _butterfly_argmin(phi, lanes)
             assert got == [want] * lanes, (row, lanes, got, want)

@@ -34,9 +34,8 @@ from repro.kernels.dual_solve import ref as j_ref
 from repro_torch.configs.base import FairEnergyConfig as TFE
 from repro_torch.core.fairenergy import init_state, solve_round
 from repro_torch.core.link import expected_attempts as t_expected
-from repro_torch.kernels.dual_solve.ops import (MAX_LEVELS,
-                                                check_kernel_levels,
-                                                dual_solve)
+from repro_torch.kernels.dual_solve.ops import (ascent_levels, dual_solve,
+                                                level_table)
 from repro_torch.kernels.dual_solve.ref import dual_solve_ref
 
 GRID = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
@@ -125,40 +124,40 @@ def test_unit_pricing_and_a_32_bit_grid_are_the_legacy_solve():
     assert torch.equal(wide[4], torch.full((50,), 32.0))
 
 
-def test_the_wrapper_refuses_grids_beyond_the_kernel_cap():
-    """The kernels take at most MAX_LEVELS levels: a larger grid on CUDA
-    tensors raises (ROADMAP B-1c (d)), while the plain version that CPU
-    tensors run takes it, as the reference does (C-15)."""
+def test_the_wrapper_takes_grids_beyond_32_levels():
+    """The kernels take a grid of any size, as the reference does (C-15):
+    33 and 100 levels are packed into the level table (5 blocks of L
+    float32s, the buffer a CUDA launch reads), and on CPU tensors the
+    wrapper runs the plain version on them and counts no launch."""
     P, h, u, _, _ = _inputs(8)
     tf, tkw = _scalars("torch")
     args = tuple(map(torch.tensor, (P, h, u)))
     before = {k: getattr(dual_solve, k) for k in
               ("launches", "launches_scaled", "launches_joint",
                "launches_joint_scaled")}
-    out = dual_solve(*args, tf(1e-4), gamma_grid=GRID, bits_grid=(8.0, 16.0,
-                                                                  24.0),
-                     **tkw)
-    assert len(out) == 5 and len(GRID) * 3 <= MAX_LEVELS
-    with pytest.raises(ValueError, match=r"33 levels.*B-1c \(d\)"):
-        check_kernel_levels(33)
-    check_kernel_levels(MAX_LEVELS)
-    wide = dict(gamma_grid=tuple(range(1, 12)), bits_grid=BITS)
-    got = dual_solve(*args, tf(1e-4), **wide, **tkw)
-    want = dual_solve_ref(*args, tf(1e-4), **wide, **tkw)
-    assert len(got) == 5
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    for wide, L in ((dict(gamma_grid=tuple(range(1, 12)), bits_grid=BITS), 33),
+                    (dict(gamma_grid=GRID, bits_grid=tuple(
+                        float(b) for b in range(2, 32, 3))), 100)):
+        table = ascent_levels(wide["gamma_grid"], wide["bits_grid"])
+        assert len(table) == 5 * L
+        assert level_table(wide["gamma_grid"], wide["bits_grid"],
+                           torch.device("cpu")).shape == (5 * L,)
+        got = dual_solve(*args, tf(1e-4), **wide, **tkw)
+        want = dual_solve_ref(*args, tf(1e-4), **wide, **tkw)
+        assert len(got) == 5
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
     # CPU tensors run the plain version: no kernel launch is counted
     assert before == {k: getattr(dual_solve, k) for k in before}
 
 
 def test_solve_round_takes_a_40_level_grid_as_the_reference_does():
     """C-15: bits 4, 8, 16, 32 over the default 10-point gamma grid is 40
-    levels, above the kernels' MAX_LEVELS; the plain version runs it.
-    Masks, gammas and widths equal the reference's, energies within rtol
-    1e-4, over 4 warm-started rounds."""
+    levels, past the 32 of one lane group of the fused kernel, which takes
+    it; the plain version runs it here. Masks, gammas and widths equal the
+    reference's, energies within rtol 1e-4, over 4 warm-started rounds."""
     bits_grid = (4.0, 8.0, 16.0, 32.0)
-    assert len(TFE().gamma_grid) * len(bits_grid) == 40 > MAX_LEVELS
+    assert len(TFE().gamma_grid) * len(bits_grid) == 40
     u, h, P, _ = _draws(8, 4)
     runs = _run_both(u, h, P, 4, bits_grid=bits_grid, eta=1e-3,
                      alpha_lambda=5e-5)
