@@ -282,8 +282,24 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    CPU under phase 13 (f)'s gates: a prefill and 4 greedy serve steps in
    fp32 and bf16 (one launch of the kernel of the type a layer), and 3
    fp32 AdamW steps (2 lse launches a layer a step).
+16. (run after phase 2) (a) both top-k kernels at block widths 1, 100,
+   128, 256, 1,000, 1,024, 2,048, 4,096, 8,192, 65,536 and a whole row
+   of the CNN (1,630,090: in-register instances up to 4,096 lanes, the
+   streaming kernel above) against their plain versions bit for bit:
+   ``block_topk_rows`` with and without the all-full skip and the rows
+   entry ``block_topk_sparsify_rows`` at literal ks (0, -3, 1, w, w + 7)
+   on phase 2's tricky rows and on four tricky rows of the CNN's D, the
+   block kernel in fp32 and bf16; each width timed on the device beside
+   its bytes bound and ``torch.topk`` + ``scatter_``; (b) ``l2_norm`` on
+   the card against ``l2_norm_ref`` and the reference's block rule (fp32
+   rtol 1e-6), timed beside ``vector_norm``; (c) ``make_scan_engine`` on
+   the golden MLP 12 rounds card against CPU at blocks 4,096 (and against
+   the golden file) and 1,024 (a grid without 1.0), each card run's
+   launches zeroed before it and asserted after (an ascent, a norms and a
+   rows launch a round), and one ``make_round_engine`` round at 1,024.
 
-``--cards K`` runs phase 7 alone across K cards (one NCCL rank a card,
+``--only 16`` runs phase 16 alone after the build. ``--cards K`` runs
+phase 7 alone across K cards (one NCCL rank a card,
 after the build): the exchanges on a (2, K/2, 1) mesh against the pod mean
 of the block top-k computed on each card, the main path's recipe sharded
 over the K cards against rank 0's one-card run (masks and gammas equal,
@@ -780,13 +796,14 @@ def topk_attributes() -> dict:
             "block_bf16": ops.kernel_attributes("block", torch.bfloat16)}
 
 
-def topk_rows_bound(n: int, d: int, ks: torch.Tensor) -> tuple[float, str]:
+def topk_rows_bound(n: int, d: int, ks: torch.Tensor,
+                    block: int = 4096) -> tuple[float, str]:
     """The rows kernel's bound, by the formula of every earlier measurement
     (PERF.md row 5): one read and one write of every element; per sparsified
     block 31 counting passes (compare + add per element) and ~8 operations
     per element for the tests, the tie scan and the product."""
-    sparsified = int((ks < 4096).sum()) * -(-d // 4096)
-    return bound(2 * n * d * 4 + n * 4, sparsified * 4096 * (31 * 2 + 8))
+    sparsified = int((ks < block).sum()) * -(-d // block)
+    return bound(2 * n * d * 4 + n * 4, sparsified * block * (31 * 2 + 8))
 
 
 def check_topk(dev, mat: torch.Tensor) -> dict:
@@ -937,6 +954,175 @@ def check_topk_block(dev, vec: torch.Tensor) -> dict:
                 replaces="src/repro/kernels/topk_sparsify/kernel.py:26",
                 max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib, call_ms=call)
+
+
+# phase 16 (a): the block widths both top-k kernels take, from one lane to
+# a whole row of the paper CNN (D = 1,630,090): widths up to 4,096 run an
+# in-register instance (the next larger power of two of 256-lane steps),
+# wider ones the streaming kernel
+TOPK_WIDTHS = (1, 100, 128, 256, 1000, 1024, 2048, 4096, 8192, 65536, 1_630_090)
+
+
+def _long_tricky(dev) -> torch.Tensor:
+    """Four rows of the CNN's D = 1,630,090: normals; ties (values on a
+    grid of halves); NaN, +-Inf, -0.0 and denormals; and normals beside a
+    NaN with every mantissa bit set (0x7fffffff, the wrapped bisection)."""
+    gen = torch.Generator().manual_seed(5)
+    d = 1_630_090
+    rows = torch.randn(4, d, generator=gen) * 1e-3
+    rows[1] = torch.round(rows[1] * 4000) / 2
+    rows[2, ::7] = float("nan")
+    rows[2, 1::11] = float("inf")
+    rows[2, 4::11] = float("-inf")
+    rows[2, 2::13] = -0.0
+    m = len(range(3, d, 5))
+    den = torch.randint(1, 1 << 23, (m,), generator=gen, dtype=torch.int32)
+    rows[2, 3::5] = den.view(torch.float32)
+    rows.view(torch.int32)[3, 12345] = 0x7FFFFFFF
+    return rows.to(dev)
+
+
+def _width_ks(tks: torch.Tensor, w: int) -> torch.Tensor:
+    """The tricky rows' ks (chosen for 4,096-wide blocks) scaled to blocks
+    of ``w`` lanes, within [1, w]."""
+    return torch.clamp(torch.round(tks.double() * w / 4096), 1, w).to(torch.int32)
+
+
+def kernel_ms(fn, kernel: str, iters: int) -> tuple[float, str]:
+    """The mean device time of one launch of the kernels whose name holds
+    ``kernel`` over ``iters`` calls of ``fn`` (torch.profiler's CUDA
+    activity), over the launches the profiler saw: it has been seen to drop
+    some of a session's events, so the timer string gives the count seen.
+    Where it sees none, CUDA events around the ``iters`` back-to-back
+    calls (which count the host's time between launches too)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    count = sum(e.count for e in events)
+    if count:
+        return (sum(e.self_device_time_total for e in events) / 1e3 / count,
+                f"profiler, {count} of {iters} launches seen")
+    log(json.dumps({"profiler_saw_no_launches": kernel}))
+    return cuda_ms(fn, iters), "cuda_events"
+
+
+def check_topk_widths(dev, mat: torch.Tensor, flat: torch.Tensor) -> dict:
+    """Both top-k kernels at every width of ``TOPK_WIDTHS`` against their
+    plain versions, bit for bit: the rows kernel (``block_topk_rows`` with
+    and without the all-full skip, and the rows entry
+    ``block_topk_sparsify_rows`` at literal ks: 0, -3, 1, w, w + 7) on
+    phase 2's tricky rows (widths up to 65,536) and on four tricky rows of
+    the CNN's D (widths from 8,192); the block kernel on the tricky rows
+    flattened in fp32 and bf16, and on the long rows flattened. Then each
+    width timed on the device (the profiler) on the main path's matrix
+    ``mat`` (rows, ks from the gamma grid) and on ``flat`` (block, gamma
+    0.25), beside its bound and ``torch.topk`` + ``scatter_`` at the same
+    width. Launches here are comparisons, not the main path's."""
+    from repro_torch.kernels.topk_sparsify import ops, ref
+    tricky, tks = _tricky_rows(dev)
+    longr = _long_tricky(dev)
+    t16 = tricky.flatten().bfloat16()
+    t16.view(torch.int16)[5] = 0x7FFF
+    t16.view(torch.int16)[4096 + 7] = -1
+    l16 = longr.bfloat16()
+    for w in TOPK_WIDTHS:
+        sets = []
+        if w <= 65536:
+            sets.append(("tricky", tricky, _width_ks(tks, w)))
+        if w >= 8192:
+            sets.append(("long", longr, torch.tensor(
+                [max(1, w // 10), max(1, w // 2), w, max(1, w // 4)],
+                dtype=torch.int32, device=dev)))
+        for what, m, ks in sets:
+            for skip in (True, False):
+                got = ops.block_topk_rows(m, ks, block=w, skip_full=skip)
+                want = ref.block_topk_rows(m, ks, block=w, skip_full=skip)
+                if not same_bits(got, want):
+                    raise AssertionError(
+                        f"top-k rows kernel differs from its plain version at "
+                        f"block {w} on the {what} rows (skip_full={skip}):\n"
+                        f"{diff_report(got, want, ks)}")
+            full = torch.full_like(ks, w)
+            if not same_bits(ops.block_topk_rows(m, full, block=w), m):
+                raise AssertionError(f"all-full rows at block {w} did not copy")
+            # the rows entry: [R, w] rows of the same values, literal ks
+            n_r = min(m.numel() // w, 96)
+            rows = m.reshape(-1)[:n_r * w].view(n_r, w)
+            lit = torch.tensor([0, -3, 1, w, w + 7, max(1, w // 3)],
+                               dtype=torch.int32, device=dev)
+            # shifted so that the rows holding 0x7fffffff take k = 0
+            lit = lit[(torch.arange(n_r, device=dev) + 3) % len(lit)]
+            got = ops.block_topk_sparsify_rows(rows, lit)
+            want = ref.block_topk_sparsify_rows(rows, lit)
+            if not same_bits(got, want):
+                raise AssertionError(
+                    f"the rows entry differs from its plain version at block "
+                    f"{w} on the {what} rows:\n{diff_report(got, want, lit)}")
+        vecs = [(tricky.flatten(), (0.1, 0.5, 1.0)), (t16.flatten(), (0.1, 0.5))]
+        if w >= 8192:
+            vecs += [(longr.flatten(), (0.25,)), (l16.flatten(), (0.25,))]
+        for v, gammas in vecs:
+            for gamma in gammas:
+                got, k = ops.block_topk_sparsify(v, gamma, block=w)
+                want, k_ref = ref.block_topk_ref(v, gamma, block=w)
+                same = (same_bits(got, want) if v.dtype == torch.float32 else
+                        torch.equal(got.view(torch.int16), want.view(torch.int16)))
+                if k != k_ref or not same:
+                    raise AssertionError(
+                        f"block top-k kernel differs from its plain version "
+                        f"at block {w}: n={v.numel()} {v.dtype} gamma={gamma}")
+        log(json.dumps({"topk_width": w, "bit_identical": True,
+                        "rows_instance": ops.kernel_attributes("rows", block=w)}))
+    del longr, l16
+
+    n, d = mat.shape
+    gen = torch.Generator().manual_seed(3)
+    out = {"rows": {}, "block": {}}
+    for w in TOPK_WIDTHS:
+        levels = torch.tensor([max(1, min(w, math.ceil(g * w))) for g in GRID]
+                              + [1], dtype=torch.int32)
+        ks = levels[torch.randint(0, len(levels), (n,), generator=gen)].to(dev)
+        ms, timer = kernel_ms(lambda: ops.block_topk_rows(mat, ks, block=w),
+                              "topk_rows", 5)
+        nb = -(-d // w)
+        blocks = torch.nn.functional.pad(mat, (0, nb * w - d)).view(n * nb, w)
+        kb = ks.long().repeat_interleave(nb)
+        k_max = int(kb.max())
+        first_k = torch.arange(k_max, device=dev)[None, :] < kb[:, None]
+
+        def library():
+            idx = torch.topk(blocks.abs(), k_max, dim=1).indices
+            vals = torch.where(first_k, torch.gather(blocks, 1, idx), 0.0)
+            return torch.zeros_like(blocks).scatter_(1, idx, vals)
+
+        lib = cuda_ms(library, 2, warmup=1)
+        del blocks, kb, first_k
+        b_ms, b_by = topk_rows_bound(n, d, ks, w)
+        out["rows"][w] = {"ms": ms, "timer": timer, "bound_ms": b_ms,
+                          "bound_by": b_by, "library_ms": lib}
+        # the block kernel on one flat update
+        k = max(1, min(w, math.ceil(0.25 * w)))
+        nb = -(-flat.numel() // w)
+        rows = torch.nn.functional.pad(flat, (0, nb * w - flat.numel())).view(nb, w)
+        ms_b, timer_b = kernel_ms(
+            lambda: ops.block_topk_sparsify(flat, 0.25, block=w), "topk_block", 10)
+
+        def library_b():
+            idx = torch.topk(rows.abs(), k, dim=1).indices
+            return torch.zeros_like(rows).scatter_(1, idx, torch.gather(rows, 1, idx))
+
+        lib_b = cuda_ms(library_b, 5, warmup=1)
+        bb_ms, bb_by = bound(2 * 4 * flat.numel(), nb * w * (31 * 2 + 8))
+        out["block"][w] = {"ms": ms_b, "timer": timer_b, "bound_ms": bb_ms,
+                           "bound_by": bb_by, "library_ms": lib_b}
+        log(json.dumps({"topk_width_times": w, "rows": out["rows"][w],
+                        "block": out["block"][w]}))
+    return out
 
 
 def check_row_norms(dev, mat: torch.Tensor) -> dict:
@@ -4865,6 +5051,186 @@ def multicard(world: int) -> None:
                                     nprocs=world, join=True)
 
 
+def check_l2_norm(dev, flat: torch.Tensor) -> dict:
+    """Phase 16 (b): ``l2_norm`` (the norms kernel on one vector) on the
+    card against ``l2_norm_ref`` and the reference's block rule
+    (``l2_norm_blocks``), fp32 rtol 1e-6, on the CNN's flat update and on
+    vectors of 1, 100 and 300,001 lanes; on the flat update timed on the
+    device beside its bound, the plain version and ``vector_norm``."""
+    from repro_torch.kernels.score_norm import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(16)
+    errs = {}
+    for n in (1, 100, 300_001, flat.numel()):
+        v = flat if n == flat.numel() else torch.randn(n, device=dev, generator=gen)
+        got = ops.l2_norm(v)
+        for name, want in (("ref", ref.l2_norm_ref(v)),
+                           ("blocks", ref.l2_norm_blocks(v))):
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+            errs[f"{n}_{name}"] = float(abs(got - want) / want)
+    ms, timer = kernel_ms(lambda: ops.l2_norm(flat), "_sq_sum_rows", 20)
+    plain = cuda_ms(lambda: ref.l2_norm_blocks(flat), 20)
+    lib = cuda_ms(lambda: torch.linalg.vector_norm(flat), 20)
+    b_ms, b_by = bound(4 * flat.numel() + 4, 2 * flat.numel())
+    out = {"ms": ms, "timer": timer, "plain_ms": plain, "library_ms": lib,
+           "bound_ms": b_ms, "bound_by": b_by, "rel_err": errs}
+    log(json.dumps({"l2_norm": out}))
+    return out
+
+
+def _golden_mlp_trainer(dev, gamma_grid=None):
+    """The golden MLP on ``dev``: the draws of the reference's
+    ``tests/test_scan_engine.make_trainer`` (N = 8 clients of 40 + 7 i
+    examples, a 16-24-5 tanh MLP, 128 eval examples), whose 12 rounds
+    ``tests/golden/fairenergy_main_12round.json`` pins; ``gamma_grid``
+    replaces the solver's grid."""
+    from repro_torch.configs import ChannelConfig, FairEnergyConfig, FLConfig
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.fl import FederatedTrainer
+    rng = np.random.default_rng(7)
+    params = {"w1": rng.normal(size=(16, 24)).astype(np.float32) * 0.1,
+              "w2": rng.normal(size=(24, 5)).astype(np.float32) * 0.1}
+    datasets = [{"x": rng.normal(size=(40 + 7 * i, 16)).astype(np.float32),
+                 "y": rng.integers(0, 5, size=40 + 7 * i)} for i in range(8)]
+    tx = torch.tensor(rng.normal(size=(128, 16)).astype(np.float32), device=dev)
+    ty = torch.tensor(rng.integers(0, 5, size=128), device=dev)
+
+    def loss_fn(p, batch):
+        hid = torch.tanh(batch["x"] @ p["w1"])
+        ll = torch.log_softmax(hid @ p["w2"], dim=-1)
+        return -torch.mean(torch.gather(ll, 1, batch["y"][:, None])), {}
+
+    def eval_fn(p):
+        lg = torch.tanh(tx @ p["w1"]) @ p["w2"]
+        return torch.mean((torch.argmax(lg, -1) == ty).to(torch.float32))
+
+    fe = (FairEnergyConfig(gamma_grid=gamma_grid) if gamma_grid
+          else FairEnergyConfig())
+    return FederatedTrainer(
+        model_loss=loss_fn, model_params=params_from_numpy(params, device=dev),
+        client_datasets=datasets, eval_fn=eval_fn,
+        fl_cfg=FLConfig(local_steps=2, local_batch=16, lr=0.05), fe_cfg=fe,
+        ch_cfg=ChannelConfig(n_clients=8), device=dev)
+
+
+def engines_card_against_cpu(dev) -> dict:
+    """Phase 16 (c): ``make_scan_engine`` on the golden MLP, 12 rounds on
+    the card and on the CPU, at the default block (held to the golden
+    file too) and at ``block=1024`` on a grid without 1.0, so that every
+    selected update is sparsified: masks and gammas equal, bandwidths and
+    energies rtol 1e-4 (the main path's card-against-CPU gate), accuracy
+    within one of 128 eval examples. The card run's launch counts are
+    zeroed just before it and read after: one fused ascent, one norms and
+    one rows launch a round (the all-full skip copies inside the kernel).
+    Then one
+    ``make_round_engine`` round at ``block=1024`` on both devices from the
+    same updates."""
+    from repro_torch import random as prng
+    from repro_torch.core.channel import round_gains
+    from repro_torch.fl.server import make_round_engine, make_scan_engine
+    cpu = torch.device("cpu")
+    golden = json.loads((HERE / "tests" / "golden"
+                         / "fairenergy_main_12round.json").read_text())
+    fns = counters()
+    report = {}
+    for block, grid in ((4096, None), (1024, (0.1, 0.25, 0.5))):
+        outs = {}
+        for name, d in (("cuda", dev), ("cpu", cpu)):
+            tr = _golden_mlp_trainer(d, grid)
+            tr._maybe_calibrate(0)
+            scan = make_scan_engine(**tr._engine_kwargs(), block=block)
+            for fn, attr in fns.values():
+                setattr(fn, attr, 0)
+            _, *_, o = scan(tr.params, tr.ctrl_state, tr._battery, tr._astate,
+                            tr._fstate, tr._lstate, tr._data, tr.keys, 0, 11,
+                            1, 12)
+            if name == "cuda":
+                torch.cuda.synchronize()
+                launches = {k: getattr(fn, attr) for k, (fn, attr) in fns.items()}
+            outs[name] = {k: v.cpu().numpy() for k, v in o.items()}
+        c, h = outs["cuda"], outs["cpu"]
+        for k in ("x", "gamma"):
+            if not np.array_equal(c[k], h[k]):
+                raise AssertionError(f"engine block {block}: {k} differs card "
+                                     f"against CPU:\n{c[k]}\n{h[k]}")
+        for k in ("bandwidth", "energy"):
+            np.testing.assert_allclose(c[k], h[k], rtol=1e-4, atol=0,
+                                       err_msg=f"engine block {block} {k}")
+        if np.abs(c["accuracy"] - h["accuracy"]).max() > 1 / 128 + 1e-9:
+            raise AssertionError(f"engine block {block}: accuracy apart")
+        sparsified = int(((c["gamma"] > 0) & (c["gamma"] < 1)).any(1).sum())
+        want = {"dual_ascent": 12, "row_sq_sum": 12, "topk_rows": 12}
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f"engine block {block}: launches {got}, "
+                                 f"expected {want}")
+        if block == 4096:
+            np.testing.assert_array_equal(c["x"].astype(int), golden["selected"])
+            np.testing.assert_array_equal(c["gamma"],
+                                          np.float32(golden["gamma"]))
+            np.testing.assert_allclose(c["energy"], golden["energy"],
+                                       rtol=1e-4, atol=0)
+        elif sparsified == 0:
+            raise AssertionError("the block-1024 engine run sparsified nothing")
+        report[block] = {"launches": got, "sparsified_rounds": sparsified,
+                         "energy_rel": float(np.max(np.abs(c["energy"] - h["energy"])
+                                                    / np.maximum(h["energy"], 1e-30)))}
+        log(json.dumps({"engine_card_vs_cpu": block, **report[block]}))
+    # one make_round_engine round at block 1024 from the same updates
+    rng = np.random.default_rng(16)
+    updates = (rng.normal(size=(8, 504)) * 1e-2).astype(np.float32)
+    u_norms = np.sqrt((updates.astype(np.float64) ** 2).sum(1)).astype(np.float32)
+    res = {}
+    for name, d in (("cuda", dev), ("cpu", cpu)):
+        tr = _golden_mlp_trainer(d, (0.1, 0.25, 0.5))
+        tr._maybe_calibrate(0)
+        kw = tr._engine_kwargs()
+        core = make_round_engine(block=1024, **{k: kw[k] for k in (
+            "controller", "spec", "weights", "server_lr", "fault_rt",
+            "aggregator", "physics")})
+        h3 = round_gains(tr.keys.fade, tr._pathloss, 3, tr.ch_cfg.rayleigh).to(d)
+        p, dec, _, _ = core(tr.params, torch.tensor(updates, device=d),
+                            torch.tensor(u_norms, device=d), h3, tr._P, 3,
+                            prng.fold_in(tr.keys.ctrl, 3), tr.ctrl_state,
+                            tr._battery.clone())
+        res[name] = {"dec": dec, "params": p}
+    dc, dh = res["cuda"]["dec"], res["cpu"]["dec"]
+    if not (torch.equal(dc.x.cpu(), dh.x) and torch.equal(dc.gamma.cpu(), dh.gamma)):
+        raise AssertionError(f"round engine at block 1024: decisions differ "
+                             f"card against CPU: {dc.x} {dh.x}")
+    for k, v in res["cpu"]["params"].items():
+        torch.testing.assert_close(res["cuda"]["params"][k].cpu(), v,
+                                   rtol=1e-5, atol=1e-7)
+    log(json.dumps({"round_engine_card_vs_cpu": 1024,
+                    "selected": int(dh.x.sum()),
+                    "sparsified": int(((dh.gamma > 0) & (dh.gamma < 1)).sum())}))
+    return report
+
+
+def phase16(dev, kernels) -> None:
+    """(a) both top-k kernels at every width of ``TOPK_WIDTHS`` against
+    their plain versions, each width timed; (b) ``l2_norm`` against its
+    plain versions; (c) the engine factories card against CPU. With
+    ``kernels`` (phase 2's entries) the results go into the top-k and
+    norms entries."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mat = torch.randn(N_CLIENTS, 1_630_090, device=dev, generator=gen) * 1e-3
+    flat = mat[0].clone()
+    widths = check_topk_widths(dev, mat, flat)
+    del mat
+    norm = check_l2_norm(dev, flat)
+    engines = engines_card_against_cpu(dev)
+    if kernels is not None:
+        for k in kernels:
+            if k["name"] == "topk_rows":
+                k["widths"] = widths["rows"]
+                k["launches_phase16c"] = {b: r["launches"]["topk_rows"]
+                                          for b, r in engines.items()}
+            elif k["name"] == "topk_block":
+                k["widths"] = widths["block"]
+            elif k["name"] == "row_sq_sum":
+                k["l2_norm"] = norm
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4892,6 +5258,13 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     _build.library()
     log(f"built {_build.BUILD_DIR / _build.LIB_NAME} in {time.perf_counter() - t0:.1f} s")
+    if "--only" in argv and argv[argv.index("--only") + 1] == "16":
+        # phase 16 alone (a short check of the slice's kernels and engines)
+        phase16(dev, None)
+        log(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     if "--cards" in argv:
         multicard(int(argv[argv.index("--cards") + 1]))
         log(smi)
@@ -4924,6 +5297,12 @@ def main(argv) -> int:
         log(json.dumps(k))
 
     stamp("2")
+
+    # ---- phase 16 (run here, beside phase 2's kernel checks): both top-k
+    # kernels at every block width, l2_norm, and the engine factories
+    # card against CPU, each engine run's counts zeroed before it
+    phase16(dev, kernels)
+    stamp("16")
 
     # ---- phase 3: the paths, each with its launch counts zeroed before it
     runs = {}

@@ -53,6 +53,13 @@ def snr_coeff(P, h, n0=THERMAL_N0) -> Tensor:
     return P * h / n0
 
 
+def bandwidth_from_snr(c, t):
+    """The bandwidth (Hz) at which the SNR is ``t``, given the SNR
+    coefficient ``c = P h / N0``: B = c / t, the inverse of ``snr_coeff``'s
+    rate variable."""
+    return c / t
+
+
 def payload_bits(gamma, s_bits, i_bits, value_bits=None):
     """``gamma*S*(value_bits/32) + I``: the full-precision value payload
     scaled by the keep ratio and the width (``None``: 32 bits), plus the

@@ -5,8 +5,8 @@
 // kernels/topk_sparsify/ops.block_topk_sparsify and fl/compression.block_topk
 // (the cross-silo aggregation of fl/collectives.py).
 //
-// Input: x [n] fp32 or bf16, a static k and a block width (a multiple of 128
-// up to 4096). The vector is cut into blocks of that width (the last one
+// Input: x [n] fp32 or bf16, a static k and a block width (any, from 1 to
+// the whole vector). The vector is cut into blocks of that width (the last one
 // ragged: read in place, its missing tail competes as zeros, as the
 // reference's zero padding does, and is never written). In every block the
 // k largest magnitudes are kept, ties to the lower index — the exact mask
@@ -26,7 +26,10 @@
 // 4-pass radix select of topk_common.cuh in place of 31 bisection passes,
 // the block staged by one bulk async copy and written back one 16-byte word
 // a thread, and five CTAs of 256 threads an SM, so that all 398 blocks run
-// in one wave. Lanes past the block width are ignored.
+// in one wave. Lanes past the block width are ignored. The instance holds
+// the block's width rounded up to 256 lanes times a power of two; a block
+// wider than 4096 lanes is streamed from device memory, one CTA a block
+// (topk_common.cuh: stream_block), a simple kernel whose passes re-read it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -36,21 +39,55 @@ namespace {
 
 using topk::kThreads;
 
-template <typename T>
+template <typename T, int Per>
 __global__ void __launch_bounds__(kThreads, topk::kMinCtas)
 topk_block_kernel(const T* __restrict__ x, T* __restrict__ out, long long n,
                   int block, int k) {
   const long long start = static_cast<long long>(blockIdx.x) * block;
   const long long rem = n - start;
   const int valid = rem < block ? static_cast<int>(rem) : block;
-  topk::sparsify_block(x + start, out + start, valid, x, x + n, block, k,
-                       false);
+  topk::sparsify_block<T, Per>(x + start, out + start, valid, x, x + n, block,
+                               k, false);
 }
 
 template <typename T>
-cudaError_t attrs(int* out) {
+__global__ void __launch_bounds__(kThreads)
+topk_block_stream_kernel(const T* __restrict__ x, T* __restrict__ out,
+                         long long n, int block, int k) {
+  const long long start = static_cast<long long>(blockIdx.x) * block;
+  const long long rem = n - start;
+  const int valid = rem < block ? static_cast<int>(rem) : block;
+  topk::stream_block<T>(x + start, out + start, valid, block, k, false);
+}
+
+template <typename T>
+using BlockKernel = void (*)(const T*, T*, long long, int, int);
+
+// the instance for a block of `block` lanes
+template <typename T>
+BlockKernel<T> block_kernel_for(long long block) {
+  switch (topk::lanes_a_thread(block)) {
+    case 1: return topk_block_kernel<T, 1>;
+    case 2: return topk_block_kernel<T, 2>;
+    case 4: return topk_block_kernel<T, 4>;
+    case 8: return topk_block_kernel<T, 8>;
+    case 16: return topk_block_kernel<T, 16>;
+    default: return topk_block_stream_kernel<T>;
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* x, void* out, long long n, int block, int k,
+                   unsigned nb, cudaStream_t s) {
+  block_kernel_for<T>(block)<<<nb, kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), n, block, k);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t attrs(int block, int* out) {
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, topk_block_kernel<T>);
+  const cudaError_t err = cudaFuncGetAttributes(&a, block_kernel_for<T>(block));
   if (err == cudaSuccess) {
     out[0] = a.numRegs;
     out[1] = static_cast<int>(a.localSizeBytes);
@@ -65,28 +102,23 @@ cudaError_t attrs(int* out) {
 // dtype: 0 = float32, 1 = bfloat16 (passed as its 16-bit pattern)
 extern "C" int topk_block(const void* x, void* out, long long n, int block,
                           int k, int dtype, void* stream) {
-  if (block < 128 || block > topk::kMaxBlock || block % 128 != 0 ||
-      (dtype != 0 && dtype != 1))
+  if (block < 1 || block > topk::kMaxStreamBlock || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n < 1) return 0;
   const long long nb = (n + block - 1) / block;
   if (nb > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    topk_block_kernel<float><<<static_cast<unsigned>(nb), kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<float*>(out), n, block, k);
-  else
-    topk_block_kernel<uint16_t><<<static_cast<unsigned>(nb), kThreads, 0, s>>>(
-        static_cast<const uint16_t*>(x), static_cast<uint16_t*>(out), n, block,
-        k);
-  return static_cast<int>(cudaGetLastError());
+  const unsigned grid = static_cast<unsigned>(nb);
+  return static_cast<int>(dtype == 0
+                              ? launch<float>(x, out, n, block, k, grid, s)
+                              : launch<uint16_t>(x, out, n, block, k, grid, s));
 }
 
-// The compiled instance's (dtype as above) registers a thread, local
-// (spill) bytes a thread, static and dynamic shared bytes a CTA, into
-// out[0..3].
-extern "C" int topk_block_attrs(int dtype, int* out) {
-  if (dtype == 0) return static_cast<int>(attrs<float>(out));
-  if (dtype == 1) return static_cast<int>(attrs<uint16_t>(out));
+// The instance's (dtype as above, blocks of `block` lanes) registers a
+// thread, local (spill) bytes a thread, static and dynamic shared bytes a
+// CTA, into out[0..3].
+extern "C" int topk_block_attrs(int dtype, int block, int* out) {
+  if (dtype == 0) return static_cast<int>(attrs<float>(block, out));
+  if (dtype == 1) return static_cast<int>(attrs<uint16_t>(block, out));
   return static_cast<int>(cudaErrorInvalidValue);
 }

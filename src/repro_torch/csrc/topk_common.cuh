@@ -25,16 +25,27 @@
 // max(bits) + 1 wraps to INT_MIN, and the kernel runs that wrapped
 // bisection itself to keep the reference's mask.
 //
-// Layout: a CTA of kThreads = 256 threads owns a block of at most kMaxBlock
-// = 4096 lanes; thread t holds lanes t + 256 p (p < 16) in registers, so
+// Layout: a CTA of kThreads = 256 threads owns a block of at most
+// Per * 256 lanes, Per (the lanes a thread holds, a template parameter) one
+// of 1, 2, 4, 8 and 16, so up to kMaxBlock = 4096 lanes; a block of another
+// width runs the smallest instance that holds it, the lanes past the block
+// not counted. Thread t holds lanes t + 256 p (p < Per) in registers, so
 // neighbouring threads read neighbouring shared words, and the passes and
 // the tie scan never touch device memory again. The tie scan follows index
 // order through (p, warp, lane): a ballot a (p, warp), an exclusive scan of
-// the 128 (p, warp) counts, a popcount below the lane. At 48 registers five
-// such CTAs share an SM: while some select, others load or store, and the
-// 398 blocks of the cross-silo exchange's vector run in one wave. (On the
-// card, 1024 threads of 4 lanes, and a persistent grid of CTAs with a
+// the Per * 8 (p, warp) counts, a popcount below the lane. At 48 registers
+// five such CTAs share an SM: while some select, others load or store, and
+// the 398 blocks of the cross-silo exchange's vector run in one wave. (On
+// the card, 1024 threads of 4 lanes, and a persistent grid of CTAs with a
 // two-stage ring of blocks, each measured slower.)
+//
+// A block wider than kMaxBlock does not fit a CTA's registers: it is
+// streamed (stream_block below). One CTA a block reads it from device
+// memory once a pass (L2 keeps it between passes for a few blocks in
+// flight): the same four digit passes (or the wrapped bisection), a pass
+// that counts the lanes above the threshold, and a last pass in index
+// order, 4096 lanes a tile, that writes the block with the ties ranked by
+// the same (p, warp, lane) scan and a carry from the tiles before.
 //
 // Memory: the block comes into shared memory by one bulk async copy
 // (cp.async.bulk, completed on an mbarrier) of the 16-byte words that cover
@@ -52,14 +63,23 @@
 
 namespace topk {
 
-constexpr int kMaxBlock = 4096;               // lanes of a block at most
+constexpr int kMaxBlock = 4096;               // lanes a CTA holds at most
 constexpr int kThreads = 256;                 // a CTA
-constexpr int kPer = kMaxBlock / kThreads;    // lanes a thread: 16
+constexpr int kMaxPer = kMaxBlock / kThreads; // lanes a thread at most: 16
 constexpr int kWarps = kThreads / 32;
 constexpr int kMinCtas = 5;                   // CTAs an SM: 48 registers
 constexpr int kPasses = 4;                    // digits 30..23, 22..15, 14..7, 6..0
 constexpr int kBins = 256;                    // bins of an 8-bit digit
-constexpr int kTieEntries = kMaxBlock / 32;   // (p, warp) tie counts: 128
+constexpr int kTile = kMaxBlock;              // lanes a tile of stream_block
+// the widest streamed block: int lane indices with a tile to spare
+constexpr int kMaxStreamBlock = INT_MAX - kTile;
+
+// the lanes a thread holds in the smallest instance for a block of `block`
+// lanes, or 0 where the block is streamed
+__host__ __device__ constexpr int lanes_a_thread(long long block) {
+  return block <= 256 ? 1 : block <= 512 ? 2 : block <= 1024 ? 4
+       : block <= 2048 ? 8 : block <= kMaxBlock ? 16 : 0;
+}
 
 __host__ __device__ constexpr int digit_shift(int pass) {
   return pass < kPasses - 1 ? 23 - 8 * pass : 0;
@@ -153,22 +173,25 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
+
 // ---- shared state -----------------------------------------------------------
+template <int Per>
 struct SelectShared {
+  static constexpr int kTies = Per * kWarps;   // (p, warp) tie counts
   unsigned hist[kBins];
   int part[kWarps];              // the bin scan's warp totals
-  int tie[kTieEntries];          // ties a (p, warp), then their exclusive scan
+  int tie[kTies];                // ties a (p, warp), then their exclusive scan
   int gt[kWarps];                // lanes above the threshold a warp
   int red[2][kWarps];            // the wrapped bisection's counts
-  int digit, rank;               // a pass's result
+  int result[2];                 // a pass's (digit, rank)
   int total_gt;
 };
 
 // One block staged in shared memory: lane e at data[e + shift]
-template <typename T>
+template <typename T, int Per>
 struct Stage {
   static constexpr int kVec = 16 / static_cast<int>(sizeof(T));
-  alignas(16) T data[kMaxBlock + 2 * kVec];
+  alignas(16) T data[Per * kThreads + 2 * kVec];
 };
 
 // ---- load and store ---------------------------------------------------------
@@ -200,9 +223,9 @@ __device__ __forceinline__ Window window_of(const T* x, int valid, const T* lo,
 
 // One thread: start the bulk copy of the window into `st`, completing on
 // `bar` (nothing for a window that is not bulk).
-template <typename T>
+template <typename T, int Per>
 __device__ __forceinline__ void start_load(const T* x, const Window& w,
-                                           Stage<T>& st, uint32_t bar) {
+                                           Stage<T, Per>& st, uint32_t bar) {
   if (!w.bulk) return;
   mbar_expect_tx(bar, w.words * 16);
   bulk_load(smem_u32(st.data), x - w.shift, w.words * 16, bar);
@@ -211,9 +234,9 @@ __device__ __forceinline__ void start_load(const T* x, const Window& w,
 // Every thread: wait for the window's bulk copy (the first phase of `bar`),
 // or load its lanes one by one; either way the block is then visible to
 // the thread.
-template <typename T>
+template <typename T, int Per>
 __device__ __forceinline__ void finish_load(const T* x, const Window& w,
-                                            Stage<T>& st, uint32_t bar) {
+                                            Stage<T, Per>& st, uint32_t bar) {
   if (w.bulk) {
     mbar_wait(bar, 0);
   } else {
@@ -226,10 +249,10 @@ __device__ __forceinline__ void finish_load(const T* x, const Window& w,
 // Write st.data (lane e at e + shift) to out[0, valid): its whole 16-byte
 // words one a thread, neighbouring threads on neighbouring words, the
 // partial words at either end lane by lane.
-template <typename T>
+template <typename T, int Per>
 __device__ __forceinline__ void store_block(T* out, int valid, int shift,
-                                            const Stage<T>& st) {
-  constexpr int kVec = Stage<T>::kVec;
+                                            const Stage<T, Per>& st) {
+  constexpr int kVec = Stage<T, Per>::kVec;
   const int tid = threadIdx.x;
   const int out_shift =
       static_cast<int>((reinterpret_cast<uintptr_t>(out) & 15) / sizeof(T));
@@ -253,20 +276,76 @@ __device__ __forceinline__ void store_block(T* out, int valid, int shift,
 }
 
 // ---- the select -------------------------------------------------------------
+// One digit of the radix select, from the histogram `hist` of its nb bins:
+// the bin holding the kk-th largest pattern among the lanes counted, and
+// the rank left inside it. Thread t owns bin nb - 1 - t (if any), so a scan
+// over t sums the bins from the top; it zeroes its bin for the next pass.
+// Every thread of the CTA calls it and gets the same (digit, rank).
+__device__ __forceinline__ void pick_bin(unsigned* hist, int* part, int* result,
+                                         int nb, int kk, int& digit,
+                                         int& rank) {
+  static_assert(kThreads == kBins, "one thread a bin in the scan");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int d = nb - 1 - tid;
+  int cnt = 0;
+  if (d >= 0) {
+    cnt = hist[d];
+    hist[d] = 0;
+  }
+  int incl = warp_incl_scan(cnt);
+  if (lane == 31) part[warp] = incl;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) incl += part[w];
+  const int excl = incl - cnt;
+  if (excl < kk && kk <= incl) {      // one bin: cnt > 0 there
+    result[0] = d;
+    result[1] = kk - excl;
+  }
+  __syncthreads();
+  digit = result[0];
+  rank = result[1];
+}
+
+// warp 0: the exclusive scan, in place, of the n (p, warp) counts in
+// tie[0, n), plus `carry`; returns (in lane 0 of warp 0) their total plus
+// carry. The other warps return 0.
+__device__ __forceinline__ int scan_ties(int* tie, int n, int carry) {
+  const int lane = threadIdx.x & 31;
+  if ((threadIdx.x >> 5) != 0) return 0;
+  const int per = (n + 31) / 32;         // counts a lane: 1, 2 or 4
+  int v[4], s = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int i = lane * per + j;
+    v[j] = (j < per && i < n) ? tie[i] : 0;
+    s += v[j];
+  }
+  const int incl = warp_incl_scan(s);
+  int run = incl - s + carry;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int i = lane * per + j;
+    if (j < per && i < n) tie[i] = run;
+    run += v[j];
+  }
+  return __shfl_sync(0xffffffffu, incl, 31) + carry;
+}
+
 // keep[p] for lane p * kThreads + threadIdx.x. bits[p] is the pattern of |x|
 // there (0 for a lane of the ragged tail, which competes as a zero); lanes
-// >= n_lanes are not counted (bits 0). 1 <= k < n_lanes <= kMaxBlock. Every
-// thread of the CTA calls it with the same k and n_lanes.
-__device__ __forceinline__ void keep_mask(const int (&bits)[kPer], int n_lanes,
-                                          int k, SelectShared& sh,
-                                          bool (&keep)[kPer]) {
-  static_assert(kThreads == kBins, "one thread a bin in the scan");
-  static_assert(kTieEntries == 4 * 32, "warp 0 scans 4 tie counts a lane");
+// >= n_lanes are not counted (bits 0). k < n_lanes <= Per * kThreads, and
+// k may be 0 or negative (the rows entry's literal k): the bisection then
+// keeps nothing, or, wrapped, every lane above its negative threshold.
+// Every thread of the CTA calls it with the same k and n_lanes.
+template <int Per>
+__device__ __forceinline__ void keep_mask(const int (&bits)[Per], int n_lanes,
+                                          int k, SelectShared<Per>& sh,
+                                          bool (&keep)[Per]) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  bool counted[kPer];
+  bool counted[Per];
   bool all_ones = false;
 #pragma unroll
-  for (int p = 0; p < kPer; ++p) {
+  for (int p = 0; p < Per; ++p) {
     counted[p] = p * kThreads + tid < n_lanes;
     all_ones |= bits[p] == 0x7fffffff;
   }
@@ -274,42 +353,33 @@ __device__ __forceinline__ void keep_mask(const int (&bits)[kPer], int n_lanes,
   // rank of the threshold among the lanes that share them
   int prefix = 0, kk = k;
   bool wrapped = false;
+  if (k <= 0) {
+    // the bisection's lo climbs to max(bits): no lane is above it and no
+    // tie fits; +inf gives the same tests. Unless max + 1 wraps (below)
+    wrapped = __syncthreads_or(all_ones);
+    prefix = 0x7f800000;
+  } else {
 #pragma unroll
-  for (int pass = 0; pass < kPasses; ++pass) {
-    const int shift = digit_shift(pass), width = digit_bits(pass);
-    const int nb = 1 << width, top = shift + width;
+    for (int pass = 0; pass < kPasses; ++pass) {
+      const int shift = digit_shift(pass), width = digit_bits(pass);
+      const int top = shift + width;
 #pragma unroll
-    for (int p = 0; p < kPer; ++p)
-      if (counted[p] && (bits[p] >> top) == prefix)
-        atomicAdd(&sh.hist[(bits[p] >> shift) & (nb - 1)], 1u);
-    if (pass == 0) {
-      if (__syncthreads_or(all_ones)) {   // max(bits) = 0x7fffffff
-        wrapped = true;
-        break;
+      for (int p = 0; p < Per; ++p)
+        if (counted[p] && (bits[p] >> top) == prefix)
+          atomicAdd(&sh.hist[(bits[p] >> shift) & ((1 << width) - 1)], 1u);
+      if (pass == 0) {
+        if (__syncthreads_or(all_ones)) {   // max(bits) = 0x7fffffff
+          wrapped = true;
+          break;
+        }
+      } else {
+        __syncthreads();
       }
-    } else {
-      __syncthreads();
+      int digit, rank;
+      pick_bin(sh.hist, sh.part, sh.result, 1 << width, kk, digit, rank);
+      prefix = (prefix << width) | digit;
+      kk = rank;
     }
-    // thread t owns bin nb - 1 - t (if any), so a scan over t sums the bins
-    // from the top; it zeroes its bin for the next pass
-    const int d = nb - 1 - tid;
-    int cnt = 0;
-    if (d >= 0) {
-      cnt = sh.hist[d];
-      sh.hist[d] = 0;
-    }
-    int incl = warp_incl_scan(cnt);
-    if (lane == 31) sh.part[warp] = incl;
-    __syncthreads();
-    for (int w = 0; w < warp; ++w) incl += sh.part[w];
-    const int excl = incl - cnt;
-    if (excl < kk && kk <= incl) {      // one bin: cnt > 0 there
-      sh.digit = d;
-      sh.rank = kk - excl;
-    }
-    __syncthreads();
-    prefix = (prefix << width) | sh.digit;
-    kk = sh.rank;
   }
 
   if (wrapped) {
@@ -319,7 +389,7 @@ __device__ __forceinline__ void keep_mask(const int (&bits)[kPer], int n_lanes,
       const int mid = wrap_add(lo, wrap_sub(hi, lo) >> 1);
       int cnt = 0;
 #pragma unroll
-      for (int p = 0; p < kPer; ++p) cnt += counted[p] && bits[p] >= mid;
+      for (int p = 0; p < Per; ++p) cnt += counted[p] && bits[p] >= mid;
       cnt = warp_sum(cnt);
       int* buf = sh.red[it & 1];
       if (lane == 0) buf[warp] = cnt;
@@ -336,7 +406,7 @@ __device__ __forceinline__ void keep_mask(const int (&bits)[kPer], int n_lanes,
   // the float tests, and the ties in index order: (p, warp, lane)
   int n_gt = 0;
 #pragma unroll
-  for (int p = 0; p < kPer; ++p) {
+  for (int p = 0; p < Per; ++p) {
     const float mag = daz_float(bits[p]);
     n_gt += counted[p] && mag > thresh;
     const unsigned ties = __ballot_sync(0xffffffffu, counted[p] && mag == thresh);
@@ -345,19 +415,8 @@ __device__ __forceinline__ void keep_mask(const int (&bits)[kPer], int n_lanes,
   n_gt = warp_sum(n_gt);
   if (lane == 0) sh.gt[warp] = n_gt;
   __syncthreads();
-  if (warp == 0) {            // exclusive scan of the 128 counts, 4 a lane
-    int v[kTieEntries / 32], s = 0;
-#pragma unroll
-    for (int j = 0; j < kTieEntries / 32; ++j) {
-      v[j] = sh.tie[lane * (kTieEntries / 32) + j];
-      s += v[j];
-    }
-    int run = warp_incl_scan(s) - s;
-#pragma unroll
-    for (int j = 0; j < kTieEntries / 32; ++j) {
-      sh.tie[lane * (kTieEntries / 32) + j] = run;
-      run += v[j];
-    }
+  scan_ties(sh.tie, SelectShared<Per>::kTies, 0);
+  if (warp == 0) {
     const int g = warp_sum(lane < kWarps ? sh.gt[lane] : 0);
     if (lane == 0) sh.total_gt = g;
   }
@@ -365,8 +424,8 @@ __device__ __forceinline__ void keep_mask(const int (&bits)[kPer], int n_lanes,
   const int room = k - sh.total_gt;        // ties that still fit
   const unsigned below = (1u << lane) - 1u;
 #pragma unroll
-  for (int p = 0; p < kPer; ++p) {
-    // the ballot again: cheaper than holding kPer of them across barriers
+  for (int p = 0; p < Per; ++p) {
+    // the ballot again: cheaper than holding Per of them across barriers
     const float mag = daz_float(bits[p]);
     const bool equal = counted[p] && mag == thresh;
     const unsigned ties = __ballot_sync(0xffffffffu, equal);
@@ -377,37 +436,38 @@ __device__ __forceinline__ void keep_mask(const int (&bits)[kPer], int n_lanes,
 
 // The block in st.data sparsified in place: the k largest magnitudes of its
 // n_lanes lanes kept (lanes of [valid, n_lanes) compete as zeros), the
-// others set to +0.0. 1 <= k < n_lanes.
-template <typename T>
-__device__ __forceinline__ void sparsify(Stage<T>& st, SelectShared& sh,
-                                         int shift, int valid, int n_lanes,
-                                         int k) {
+// others set to +0.0. k < n_lanes.
+template <typename T, int Per>
+__device__ __forceinline__ void sparsify(Stage<T, Per>& st,
+                                         SelectShared<Per>& sh, int shift,
+                                         int valid, int n_lanes, int k) {
   const int tid = threadIdx.x;
-  int bits[kPer];
+  int bits[Per];
 #pragma unroll
-  for (int p = 0; p < kPer; ++p) {
+  for (int p = 0; p < Per; ++p) {
     const int e = p * kThreads + tid;
     bits[p] = e < valid ? mag_bits(st.data[e + shift]) : 0;
   }
-  bool keep[kPer];
-  keep_mask(bits, n_lanes, k, sh, keep);
+  bool keep[Per];
+  keep_mask<Per>(bits, n_lanes, k, sh, keep);
 #pragma unroll
-  for (int p = 0; p < kPer; ++p) {
+  for (int p = 0; p < Per; ++p) {
     const int e = p * kThreads + tid;
     if (e < valid && !keep[p]) st.data[e + shift] = T(0);
   }
 }
 
-// A CTA's whole work on one block x[0, valid) of the tensor [lo, hi): stage
-// it, keep every lane (`copy`, the same in every thread), every lane but a
-// NaN (k >= n_lanes: the mask there), or the k largest magnitudes of its
-// n_lanes lanes, and write it to out[0, valid).
-template <typename T>
+// A CTA's whole work on one block x[0, valid) of the tensor [lo, hi), for a
+// block of n_lanes <= Per * kThreads lanes: stage it, keep every lane
+// (`copy`, the same in every thread), every lane but a NaN (k >= n_lanes:
+// the mask there), or the k largest magnitudes of its n_lanes lanes, and
+// write it to out[0, valid).
+template <typename T, int Per>
 __device__ __forceinline__ void sparsify_block(const T* x, T* out, int valid,
                                                const T* lo, const T* hi,
                                                int n_lanes, int k, bool copy) {
-  __shared__ Stage<T> stage;
-  __shared__ SelectShared sel;
+  __shared__ Stage<T, Per> stage;
+  __shared__ SelectShared<Per> sel;
   __shared__ unsigned long long bar;               // the bulk load's mbarrier
   const int tid = threadIdx.x;
   const Window w = window_of(x, valid, lo, hi);
@@ -423,11 +483,155 @@ __device__ __forceinline__ void sparsify_block(const T* x, T* out, int valid,
         if (mag_bits(stage.data[e + w.shift]) > 0x7f800000)
           stage.data[e + w.shift] = T(0);
     } else {
-      sparsify(stage, sel, w.shift, valid, n_lanes, k < 1 ? 1 : k);
+      sparsify(stage, sel, w.shift, valid, n_lanes, k);
     }
   }
   __syncthreads();
   store_block(out, valid, w.shift, stage);
+}
+
+// ---- the streaming select: a block wider than kMaxBlock -------------------
+struct StreamShared {
+  unsigned hist[kBins];
+  int part[kWarps];
+  int tie[kMaxPer * kWarps];     // a tile's (p, warp) tie counts, then scan
+  int red[kWarps];
+  int result[2];                 // pick_bin's (digit, rank)
+  int carry;                     // ties in the tiles before
+};
+
+// the sum of v over the CTA, in every thread
+__device__ __forceinline__ int cta_sum(int v, int* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) total += red[w];
+  __syncthreads();
+  return total;
+}
+
+// A CTA's whole work on one block x[0, valid) of n_lanes lanes (any width:
+// lanes of [valid, n_lanes) compete as zeros and are not written), read
+// from device memory in passes: keep every lane (`copy`), every lane but a
+// NaN (k >= n_lanes), or the k largest magnitudes, writing out[0, valid).
+// The same mask as keep_mask: the same digit passes, wrapped bisection,
+// float tests and ties in index order (tile, p, warp, lane).
+template <typename T>
+__device__ __forceinline__ void stream_block(const T* __restrict__ x,
+                                             T* __restrict__ out, int valid,
+                                             int n_lanes, int k, bool copy) {
+  __shared__ StreamShared sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (copy || k >= n_lanes) {
+    for (int e = tid; e < valid; e += kThreads) {
+      const T v = x[e];
+      out[e] = (!copy && mag_bits(v) > 0x7f800000) ? T(0) : v;
+    }
+    return;
+  }
+  const int pad = n_lanes - valid;             // zeros past the tail
+  sh.hist[tid] = 0;
+  __syncthreads();
+  // pass 0 (the exponent, every lane) and the all-ones NaN test
+  bool all_ones = false;
+  for (int base = 0; base < valid; base += kThreads) {
+    const int e = base + tid;
+    const int b = e < valid ? mag_bits(x[e]) : -1;
+    all_ones |= b == 0x7fffffff;
+    if (k > 0) {
+      // lanes of a warp that share a bin add once
+      const int bin = b >= 0 ? b >> digit_shift(0) : -1;
+      const unsigned peers = __match_any_sync(0xffffffffu, bin);
+      if (bin >= 0 && lane == __ffs(peers) - 1)
+        atomicAdd(&sh.hist[bin], static_cast<unsigned>(__popc(peers)));
+    }
+  }
+  if (tid == 0 && pad > 0 && k > 0) atomicAdd(&sh.hist[0], static_cast<unsigned>(pad));
+  const bool wrapped = __syncthreads_or(all_ones);
+  int prefix = 0x7f800000;                     // k <= 0: as keep_mask
+  if (wrapped) {
+    // the reference's bisection with hi = max + 1 wrapped to INT_MIN
+    int lo = 0, hi = INT_MIN;
+    for (int it = 0; it < 31; ++it) {
+      const int mid = wrap_add(lo, wrap_sub(hi, lo) >> 1);
+      int cnt = 0;
+      for (int e = tid; e < valid; e += kThreads) cnt += mag_bits(x[e]) >= mid;
+      if (tid == 0 && 0 >= mid) cnt += pad;
+      if (cta_sum(cnt, sh.red) >= k) lo = mid; else hi = mid;
+    }
+    prefix = lo;
+  } else if (k > 0) {
+    prefix = 0;
+    int kk = k;
+    for (int pass = 0; pass < kPasses; ++pass) {
+      const int shift = digit_shift(pass), width = digit_bits(pass);
+      const int top = shift + width, mask = (1 << width) - 1;
+      if (pass > 0) {
+        for (int base = 0; base < valid; base += kThreads) {
+          const int e = base + tid;
+          const int b = e < valid ? mag_bits(x[e]) : -1;
+          const int bin = (b >= 0 && (b >> top) == prefix) ? (b >> shift) & mask : -1;
+          const unsigned peers = __match_any_sync(0xffffffffu, bin);
+          if (bin >= 0 && lane == __ffs(peers) - 1)
+            atomicAdd(&sh.hist[bin], static_cast<unsigned>(__popc(peers)));
+        }
+        if (tid == 0 && pad > 0 && prefix == 0)
+          atomicAdd(&sh.hist[0], static_cast<unsigned>(pad));
+        __syncthreads();
+      }
+      int digit, rank;
+      pick_bin(sh.hist, sh.part, sh.result, 1 << width, kk, digit, rank);
+      prefix = (prefix << width) | digit;
+      kk = rank;
+    }
+  }
+  const float thresh = daz_float(prefix);      // the k-th largest |x|
+
+  // the lanes above the threshold, the padding zeros among them
+  int n_gt = 0;
+  for (int e = tid; e < valid; e += kThreads)
+    n_gt += daz_float(mag_bits(x[e])) > thresh;
+  if (tid == 0 && 0.0f > thresh) n_gt += pad;
+  const int room = k - cta_sum(n_gt, sh.red);  // ties that still fit
+
+  // the write, a tile of kTile lanes at a time in index order; the padding
+  // zeros come after every lane, so they never rank ahead of one
+  const unsigned below = (1u << lane) - 1u;
+  int carry = 0;
+  for (int t0 = 0; t0 < valid; t0 += kTile) {
+    T v[kMaxPer];
+    unsigned gt = 0, eq = 0;                   // bit p: lane p's tests
+#pragma unroll
+    for (int p = 0; p < kMaxPer; ++p) {
+      const int e = t0 + p * kThreads + tid;
+      const bool in = e < valid;
+      v[p] = in ? x[e] : T(0);
+      const float mag = daz_float(in ? mag_bits(v[p]) : 0);
+      gt |= static_cast<unsigned>(in && mag > thresh) << p;
+      const bool equal = in && mag == thresh;
+      eq |= static_cast<unsigned>(equal) << p;
+      const unsigned ties = __ballot_sync(0xffffffffu, equal);
+      if (lane == 0) sh.tie[p * kWarps + warp] = __popc(ties);
+    }
+    __syncthreads();
+    const int next = scan_ties(sh.tie, kMaxPer * kWarps, carry);
+    if (tid == 0) sh.carry = next;
+    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < kMaxPer; ++p) {
+      const int e = t0 + p * kThreads + tid;
+      const bool equal = (eq >> p) & 1u;
+      const unsigned ties = __ballot_sync(0xffffffffu, equal);
+      const int rank = sh.tie[p * kWarps + warp] + __popc(ties & below) + 1;
+      const bool keep = ((gt >> p) & 1u) || (equal && rank <= room);
+      if (e < valid) out[e] = keep ? v[p] : T(0);
+    }
+    carry = sh.carry;
+    __syncthreads();                           // sh.tie is the next tile's
+  }
 }
 
 }  // namespace topk

@@ -6,7 +6,8 @@
   a common length and resident on the device as ``[N, L, ...]`` stacks,
   with batch selection a pure function of (key, round, client): the
   uniforms come from ``repro_torch.random`` exactly as the JAX package
-  draws them, so both packages train on the same minibatches.
+  draws them, so both packages train on the same minibatches;
+  ``sample_round_batches`` is a round's draw for every client.
 """
 from __future__ import annotations
 
@@ -138,3 +139,17 @@ def sample_client_batches(arrays: dict, lengths: torch.Tensor,
     idx = torch.minimum(idx, (lengths - 1)[:, None, None]).clamp(min=0).long()
     rows = torch.arange(lengths.shape[0], device=lengths.device)[:, None, None]
     return {k: v[rows, idx] for k, v in arrays.items()}
+
+
+def sample_round_batches(data: ClientData, key: torch.Tensor, round_idx: int,
+                         local_steps: int, batch: int,
+                         n_real: int | None = None) -> dict:
+    """A round's minibatches, field -> ``[N, local_steps, batch, ...]``:
+    one key a client (``client_sample_keys``), indices drawn uniformly
+    below the client's shard length (``sample_client_batches``). For a
+    ghost-padded stack pass ``n_real`` (the true client count) so the real
+    clients keep their unpadded key stream."""
+    n = data.n_clients
+    ckeys = client_sample_keys(key, round_idx, n_real or n, n)
+    return sample_client_batches(data.arrays, data.lengths, ckeys,
+                                 local_steps, batch)

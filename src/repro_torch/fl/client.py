@@ -1,4 +1,5 @@
-"""FL client: all clients' local training at once, as one batched step.
+"""FL client: local training, one client at a time (``make_local_step``,
+``local_update``) or all clients at once as one batched step.
 
 With ``local_steps=1`` the update equals the (negative-scaled) gradient —
 the paper's setting; larger values give standard FedAvg deltas.
@@ -22,6 +23,52 @@ from .updates import flatten_update
 # where it sits in it (ROADMAP C-17: the sharded trainer's rank holds fewer
 # clients than one card). The value is measured on the H100 (PERF.md).
 CLIENT_CHUNK = 50
+
+
+def _to_tensors(batch: dict, device) -> dict:
+    """A host batch (numpy arrays, as ``ClientDataset.next_batch`` gives)
+    as tensors on ``device``: floating fields float32, integer ones int64
+    (``stack_client_datasets``' types)."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        t = t.to(torch.float32) if t.is_floating_point() else t.to(torch.int64)
+        out[k] = t.to(device)
+    return out
+
+
+def make_local_step(loss_fn: Callable, lr: float, opt_name: str = "sgd",
+                    **opt_kw):
+    """Returns ``fn(params, batch, opt_state=None) -> (new_params,
+    opt_state, metrics)``: one optimizer step of one client on ``loss_fn(
+    params, batch) -> (loss, aux dict)``, its gradient by
+    ``torch.func.grad_and_value``. Pass the returned ``opt_state`` back into
+    the next call (momentum and AdamW moments accumulate); ``None``
+    initializes a fresh one. ``metrics`` is the aux dict with ``loss``.
+    ``batch`` may hold numpy arrays; the caller's params are not changed."""
+    opt_init, opt_update = make_optimizer(opt_name, **opt_kw)
+    value_and_grad = grad_and_value(loss_fn, has_aux=True)
+
+    def step(params, batch, opt_state=None):
+        dev = next(iter(params.values())).device
+        batch = _to_tensors(batch, dev)
+        if opt_state is None:
+            opt_state = opt_init(params)
+        grads, (loss, metrics) = value_and_grad(params, batch)
+        new_params, opt_state = opt_update(grads, opt_state, params, lr)
+        return new_params, opt_state, dict(metrics, loss=loss)
+
+    return step
+
+
+def local_update(params: dict, dataset, local_step, n_steps: int):
+    """``n_steps`` minibatch steps of ``local_step`` on
+    ``dataset.next_batch()``, the optimizer state threaded through the
+    loop; returns (the delta dict, the last step's metrics)."""
+    p, state, metrics = params, None, None
+    for _ in range(n_steps):
+        p, state, metrics = local_step(p, dataset.next_batch(), state)
+    return {k: p[k] - params[k] for k in params}, metrics
 
 
 def make_batched_client_step(loss_fn: Callable, lr: float,

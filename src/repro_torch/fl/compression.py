@@ -1,11 +1,11 @@
 """Update compression: block top-k sparsification (per client, or of one
 vector), exact global top-k, and the symmetric fixed-point quantizers.
 
-``batch_block_topk`` keeps, in every ``DEFAULT_BLOCK``-wide block of
-client i's flat update, the ``k_i = ceil(gamma_i * DEFAULT_BLOCK)``
-largest magnitudes (ties
-to the lower index) — the JAX package's keep rule, so the payload is
-exactly gamma per block and the energy model's gamma*S charge holds. The
+``batch_block_topk`` keeps, in every ``block``-wide block of client i's
+flat update (``DEFAULT_BLOCK`` = 4096 by default), the ``k_i = ceil(
+gamma_i * block)`` largest magnitudes (ties to the lower index) — the
+JAX package's keep rule, so the payload is exactly gamma per block and
+the energy model's gamma*S charge holds. The
 work is one call of ``kernels.topk_sparsify.ops.block_topk_rows``: the CUDA
 kernel on the card, its plain version on the CPU. ``block_topk`` does the
 same with one static gamma for a 1-D vector, at a block width of its own
@@ -51,16 +51,18 @@ def block_topk(vec: torch.Tensor, gamma, block: int = DEFAULT_BLOCK
     return block_topk_sparsify(vec, gamma, block=block)
 
 
-def batch_block_topk(mat: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+def batch_block_topk(mat: torch.Tensor, gamma: torch.Tensor,
+                     block: int = DEFAULT_BLOCK,
+                     skip_full: bool = True) -> torch.Tensor:
     """mat: [N, D] stacked flat updates; gamma: [N] fp32 keep ratios.
-    D is cut into whole blocks, the ragged tail padded with zeros that
-    compete like any value and are dropped again. When every client has
-    gamma = 1 the matrix passes through unchanged (the reference's
-    all-full skip); otherwise a gamma = 1 row loses only its NaN lanes,
-    as under the reference's mask."""
-    ks = torch.clamp(torch.ceil(gamma * DEFAULT_BLOCK).to(torch.int32), 1,
-                     DEFAULT_BLOCK)
-    return block_topk_rows(mat, ks)
+    D is cut into whole ``block``-wide blocks, the ragged tail padded with
+    zeros that compete like any value and are dropped again; client i keeps
+    ``clip(ceil(gamma_i * block), 1, block)`` lanes a block. With
+    ``skip_full``, when every client has gamma = 1 the matrix passes
+    through unchanged (the reference's all-full skip); otherwise a gamma =
+    1 row loses only its NaN lanes, as under the reference's mask."""
+    ks = torch.clamp(torch.ceil(gamma * block).to(torch.int32), 1, block)
+    return block_topk_rows(mat, ks, block=block, skip_full=skip_full)
 
 
 def quantize_rows(rows: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
@@ -99,9 +101,9 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
-def effective_gamma(gamma) -> torch.Tensor:
+def effective_gamma(gamma, block: int = DEFAULT_BLOCK) -> torch.Tensor:
     """The keep fraction the block scheme realizes:
-    ``clip(ceil(gamma*DEFAULT_BLOCK), 1, DEFAULT_BLOCK) / DEFAULT_BLOCK``
-    — the same k rule as ``batch_block_topk``."""
-    return torch.clamp(torch.ceil(torch.as_tensor(gamma) * DEFAULT_BLOCK),
-                       1, DEFAULT_BLOCK) / DEFAULT_BLOCK
+    ``clip(ceil(gamma*block), 1, block) / block`` — the same k rule as
+    ``batch_block_topk``."""
+    return torch.clamp(torch.ceil(torch.as_tensor(gamma) * block),
+                       1, block) / block

@@ -42,12 +42,15 @@ over ``clusters``; params, controller, battery, defense and link state
 and the logs are replicated. The trimmed mean gathers the whole update
 matrix.
 
-The round body runs the reference's steps in its order (``_round``), on
-a lane's key streams (``RoundKeys``: fading, controller, sampling,
-harvest, fault and link keys off one base key) and its carry (``Carry``:
-params, controller state, battery, stale buffer, defense and link state).
+The round body runs the reference's steps in its order
+(``_make_round_core``, after the client step of ``_round``), on a lane's
+key streams (``RoundKeys``: fading, controller, sampling, harvest, fault
+and link keys off one base key) and its carry (``Carry``: params,
+controller state, battery, stale buffer, defense and link state).
 ``run_round``, ``run``, ``run_scanned`` and ``run_sweep`` all drive that
-one body. PyTorch runs eagerly, so ``run_scanned`` is a loop over rounds
+one body, and so do the reference's engine factories, ``make_round_engine``
+(one round over explicit state) and ``make_scan_engine`` (the multi-round
+program). PyTorch runs eagerly, so ``run_scanned`` is a loop over rounds
 that materializes its logs on the host once per chunk, and ``run_sweep``
 runs its seed and config lanes one after another (the reference's
 sharded sweep does the same).
@@ -95,7 +98,8 @@ from .client import make_batched_client_step
 from .updates import tree_spec, unflatten_update, weighted_sum
 
 __all__ = ["Carry", "FederatedTrainer", "RoundKeys", "RoundLog", "UNLIMITED_J",
-           "resolve_device", "seed_keys", "weighted_sum"]
+           "make_round_engine", "make_scan_engine", "resolve_device",
+           "seed_keys", "weighted_sum"]
 
 
 class RoundKeys(NamedTuple):
@@ -238,6 +242,607 @@ def _unnest(tree: dict, prefix: str = "") -> dict:
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class _Physics:
+    """What the round's energy and time accounting reads besides the
+    decision: the clients' computation energy and time and the channel
+    scalars (the reference carries them inside each runtime). ``b_tot`` is
+    the trainer's own B_tot, under a config lane too (the lane's rides in
+    the controller state): it only prices the unselected rows, which are
+    masked."""
+    e_cmp: torch.Tensor               # [N] J computation energy a round
+    t_cmp: torch.Tensor               # [N] s computation time a round
+    b_tot: float
+    s_bits: float
+    i_bits: float
+    n0: float
+
+
+@dataclasses.dataclass(frozen=True)
+class _QuantRuntime:
+    """The quantized-payload path: the [N] width a controller without the
+    joint (gamma, bits) grid transmits at (32 unless the device profile
+    carries tier widths)."""
+    default_bits: torch.Tensor
+
+
+class _ClientShard:
+    """This rank's rows ``[i0, i0 + n_local)`` of the ghost-padded client
+    axis (``n_padded`` rows, the first ``n_real`` real) and the collectives
+    over a clients mesh; without a mesh the rows are all of them and every
+    collective is the identity. ``group`` spans every rank of the mesh in
+    shard order (gathers); ``reduce_groups`` are the all-reduce stages, the
+    innermost axis first."""
+
+    def __init__(self, n_real: int, n_padded: Optional[int] = None,
+                 n_local: Optional[int] = None, i0: int = 0, group=None,
+                 reduce_groups: tuple = ()):
+        self.n_real = n_real
+        self.n_padded = n_real if n_padded is None else n_padded
+        self.n_local = self.n_padded if n_local is None else n_local
+        self.i0, self.group, self.reduce_groups = i0, group, reduce_groups
+
+    @classmethod
+    def of_mesh(cls, mesh, mesh_axis, n_real: int, n_padded: int):
+        """The shard of this rank on ``mesh`` (None: the whole axis)."""
+        if mesh is None:
+            return cls(n_real, n_padded)
+        axes = check_clients_mesh(mesh, mesh_axis)
+        n_dev = client_shard_count(mesh, mesh_axis)
+        if n_padded % n_dev:
+            raise ValueError(f"padded client count {n_padded} does not divide "
+                             f"the {axes} mesh axes ({n_dev}); stack the "
+                             f"datasets with pad_to_multiple={n_dev}")
+        n_local = n_padded // n_dev
+        group = (mesh.get_group(axes[0]) if len(axes) == 1
+                 else dist.group.WORLD)
+        return cls(n_real, n_padded, n_local,
+                   client_shard_index(mesh, mesh_axis) * n_local, group,
+                   tuple(mesh.get_group(a) for a in reversed(axes)))
+
+    def gather_rows(self, local: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a [n_local, ...] tensor, in rank order: the
+        [n_padded, ...] tensor."""
+        if self.group is None:
+            return local
+        parts = [torch.empty_like(local)
+                 for _ in range(dist.get_world_size(self.group))]
+        dist.all_gather(parts, local.contiguous(), group=self.group)
+        return torch.cat(parts)
+
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        """The [n_real] vector from every rank's [n_local] rows."""
+        return self.gather_rows(local)[:self.n_real]
+
+    def local(self, vec: torch.Tensor, fill) -> torch.Tensor:
+        """This rank's rows of an [n_real] vector, ghost rows taking
+        ``fill``."""
+        if self.group is None:
+            return vec
+        pad = vec.new_full((self.n_padded - self.n_real,), fill)
+        return torch.cat([vec, pad])[self.i0:self.i0 + self.n_local]
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over every rank, in place: one all-reduce a stage
+        (``clients``, then ``clusters`` on a hierarchy mesh)."""
+        for group in self.reduce_groups:
+            dist.all_reduce(t, group=group)
+        return t
+
+
+def _make_round_core(*, controller, spec, weights, server_lr: float,
+                     block: int = compression.DEFAULT_BLOCK,
+                     skip_full_sparsify: bool = True,
+                     shard: Optional[_ClientShard] = None,
+                     async_rt: Optional[_AsyncRuntime] = None,
+                     fault_rt: Optional[_FaultsRuntime] = None,
+                     aggregator=None, link_rt: Optional[_LinkRuntime] = None,
+                     quant_rt: Optional[_QuantRuntime] = None,
+                     physics: Optional[_Physics] = None):
+    """The round body after the client step: observe, decide, hard mask,
+    energy and time accounting, battery debit, sparsify, quantize,
+    corrupt, aggregate, stale fold, apply — in the reference's order. One
+    body for ``FederatedTrainer`` (``_round``: ``run_round``, ``run``,
+    ``run_scanned``, ``run_sweep``) and both engine factories.
+
+    Returns ``core(params, updates, u_norms, h, P, r, key, ctrl_state,
+    battery=None, astate=None, hkey=None, fstate=None, fkey=None,
+    lstate=None, lkey=None) -> (params, RoundDecision, ctrl_state, battery,
+    astate, fstate, lstate, extras)``. ``updates`` [n_local, D] and
+    ``u_norms`` [n_local] are this rank's rows (``shard``; the norms are
+    gathered to the [N] observation here); ``key`` is the controller's key
+    for the round; ``hkey``, ``fkey``, ``lkey`` the harvest, fault and link
+    streams' keys. ``weights`` [n_padded] are the |D_i| weights of the
+    whole padded axis. ``extras`` holds the log lanes the active paths add
+    (timed, fault, link, quantized). Without ``battery`` the decision is
+    not hard-masked and nothing is debited (the reference's battery-free
+    core); the timed, fault, link and quantized paths need it, and
+    ``physics``."""
+    shard = shard if shard is not None else _ClientShard(int(weights.shape[0]))
+    agg = make_aggregator(aggregator if aggregator is not None else "mean")
+    faulty, link, arun, frun = (fault_rt is not None, link_rt,
+                                async_rt, fault_rt)
+    telemetry = faulty or bool(getattr(agg, "enabled", False))
+    quant = quant_rt is not None
+    link_out = link is not None and link.outage
+    link_burst = link is not None and link.bursty
+    if (arun is not None or faulty or link is not None or quant) \
+            and physics is None:
+        raise ValueError("the timed, fault, link and quantized paths need "
+                         "the round's physics (_Physics)")
+    w_data = torch.as_tensor(weights, dtype=torch.float32)[
+        shard.i0:shard.i0 + shard.n_local]
+    gather = None if shard.group is None else shard.gather_rows
+    n_shards = shard.n_padded // shard.n_local
+
+    def core(params, updates, u_norms, h, P, r, key, ctrl_state,
+             battery=None, astate=None, hkey=None, fstate=None, fkey=None,
+             lstate=None, lkey=None):
+        if battery is None and (arun is not None or faulty or link is not None
+                                or quant):
+            raise ValueError("the timed, fault, link and quantized paths need "
+                             "the battery carry (pass battery=torch.full((n,), "
+                             "inf) for unlimited capacities)")
+        dev = updates.device
+        wd = w_data.to(dev)
+        # the controller sees the real clients' [N] observation in every
+        # layout: gather before any use, ghosts cut off
+        u_norms = shard.gather(u_norms)
+        n = u_norms.shape[0]
+        if physics is not None:
+            b_tot, n0 = physics.b_tot, physics.n0
+            s_bits, i_bits = physics.s_bits, physics.i_bits
+            e_cmp, t_cmp = physics.e_cmp, physics.t_cmp
+        if link_burst:
+            # one Gilbert-Elliott transition a round; the burst derates
+            # the physics channel (a raised noise floor is a scaled gain)
+            burst = burst_step(lkey, r, lstate.burst, link.burst_p,
+                               link.burst_q)
+            lstate = LinkState(burst=burst)
+            h_phys = burst_channel(h, burst, link.noise_rise)
+        else:
+            h_phys = h
+        # the controller's channel belief: the quiet-state channel unless
+        # it observes the burst, then lognormal-noised under the
+        # channel-estimate fault; the transmission realizes on h_phys
+        h_obs = h_phys if (link_burst and link.observe_burst) else h
+        if faulty and frun.h_err_std > 0.0:
+            h_obs = channel_estimate(fkey, r, h_obs, frun.h_err_std)
+        h = h_phys
+        alive = alive_mask(battery) if battery is not None else None
+        if faulty and frun.churn_dwell > 0:
+            # departed clients join the hard mask; (re)arrivals get fresh
+            # per-client controller state
+            present, arrived = arrival_mask(fkey, r, n, frun.churn_away,
+                                            frun.churn_dwell)
+            alive = alive & present.to(dev)
+            if hasattr(controller, "reset_clients"):
+                ctrl_state = controller.reset_clients(ctrl_state,
+                                                      arrived.to(dev))
+        t_obs = None
+        if arun is not None:
+            # best-case round time: a client that cannot make the deadline
+            # under any allocation is priced out through the hard mask
+            t_obs = best_case_round_time(
+                t_cmp, P, h_obs, b_tot=b_tot, gamma_floor=arun.gamma_floor,
+                s_bits=s_bits, i_bits=i_bits, n0=n0)
+            alive = alive & (t_obs <= arun.deadline)
+        p_out = e_scale = None
+        if link_out:
+            # per-attempt outage at the decided operating point: the belief
+            # sets the design SNR, the physics the realized fade mean; a
+            # per-client scalar, priceable before the decision
+            p_out = outage_probability(h_obs, h, link.margin)
+            if link.price_outage:
+                e_scale = expected_attempts(p_out)
+        obs = RoundObservation(u_norms=u_norms, h=h_obs, P=P, round=r,
+                               key=key, alive=alive, t_round=t_obs,
+                               e_scale=e_scale)
+        dec, ctrl_state = controller.decide(obs, ctrl_state)
+        if battery is not None:
+            # hard mask, whatever the controller decided: a depleted client
+            # transmits nothing and is charged nothing
+            x = dec.x & alive
+            mf = x.to(torch.float32)
+            dec = dec._replace(x=x, gamma=dec.gamma * mf,
+                               bandwidth=dec.bandwidth * mf,
+                               energy=dec.energy * mf,
+                               bw_used=torch.sum(dec.bandwidth * mf))
+        xf_sel = dec.x.to(torch.float32)
+        bits_w = bits_fac = None
+        if quant:
+            # transmitted width: the solver's joint decision, else the
+            # profile default; 32 on unselected rows
+            bits_dec = (dec.bits if dec.bits is not None
+                        else quant_rt.default_bits)
+            bits_w = torch.where(dec.x, bits_dec, 32.0)
+            bits_fac = bits_w / 32.0
+            if dec.bits is None:
+                # the controller priced a 32-bit payload but the wire
+                # carries the default width: re-charge at the payload
+                # gamma (same allocation, realized channel)
+                b_q = torch.where(dec.x, dec.bandwidth, b_tot)
+                g_q = torch.where(dec.x, dec.gamma, 1.0)
+                dec = dec._replace(energy=xf_sel * (
+                    comm_energy(g_q * bits_fac, b_q, P, h, s_bits, i_bits,
+                                n0) + e_cmp))
+
+        def pay(g):
+            # payload-equivalent gamma: a bits-wide payload is gamma*bits/32
+            # of the full-precision one
+            return g * bits_fac if quant else g
+
+        if (battery is not None and arun is None and not faulty
+                and link is None):
+            # debit the round's spend; charge floors at 0 (inf stays inf)
+            battery = torch.clamp(battery - dec.energy, min=0.0)
+        if (faulty and frun.h_err_std > 0.0) or (link_burst and not link_out):
+            # the controller priced its belief (h_est and/or the quiet
+            # channel); the transmission pays the physics channel, same
+            # allocation (b/gamma guards keep the unselected lanes finite).
+            # With outages on, the retry accounting below re-prices instead
+            b_safe = torch.where(dec.x, dec.bandwidth, b_tot)
+            g_safe = torch.where(dec.x, dec.gamma, 1.0)
+            dec = dec._replace(energy=xf_sel * (
+                comm_energy(pay(g_safe), b_safe, P, h, s_bits, i_bits, n0)
+                + e_cmp))
+        crashed = cfrac = None
+        if faulty and frun.crash_rate > 0.0:
+            crashed_m, cfrac = crash_draw(fkey, r, n, frun.crash_rate)
+            crashed, cfrac = dec.x & crashed_m.to(dev), cfrac.to(dev)
+        delivered = lost = t_link = None
+        if link_out:
+            # bounded HARQ: each attempt a full airtime of the decided
+            # allocation, a backoff slot before each retry; the realized
+            # cost replaces the priced energy
+            b_safe = torch.where(dec.x, dec.bandwidth, b_tot)
+            g_safe = torch.where(dec.x, dec.gamma, 1.0)
+            t1 = comm_time(pay(g_safe), b_safe, P, h, s_bits, i_bits, n0)
+            attempts, delivered = attempt_outcomes(lkey, r, p_out,
+                                                   link.max_retx)
+            attempts_f = attempts.to(torch.float32)
+            t_link = attempt_time(attempts_f, t1, link.backoff_s)
+            e_retx_vec = xf_sel * (attempts_f - 1.0) * P * t1
+            dec = dec._replace(energy=xf_sel * (
+                attempt_energy(attempts_f, t1, P) + e_cmp))
+            # a crashed client counts as a crash, not an outage
+            lost = dec.x & ~delivered
+            if crashed is not None:
+                lost = lost & ~crashed
+
+        made = late = None
+        extras = {}
+        if arun is not None:
+            # realized round time under the actual allocation (inf on
+            # unselected rows, read only through the selection mask); with
+            # outages, the whole retry timeline
+            t_comm = (t_link if link_out else
+                      comm_time(pay(dec.gamma), dec.bandwidth, P, h, s_bits,
+                                i_bits, n0))
+            t_total = t_cmp + t_comm
+            feasible = dec.x & (t_total <= arun.deadline)
+            # a crashed client is neither made nor late; a retx-exhausted
+            # one neither, but it pays like a late one
+            made = feasible if crashed is None else feasible & ~crashed
+            late = (dec.x & ~feasible if crashed is None
+                    else dec.x & ~feasible & ~crashed)
+            if delivered is not None:
+                made = made & delivered
+                late = late & delivered
+            e_full = dec.energy
+            if not arun.staleness:
+                # a dropped update is abandoned at the deadline: computation
+                # first, then the prorated transmission (never above full)
+                drop = late if lost is None else late | lost
+                e_part = partial_round_energy(t_cmp, t_comm, e_cmp, P,
+                                              arun.deadline)
+                dec = dec._replace(energy=torch.where(
+                    made, dec.energy,
+                    torch.where(drop, torch.minimum(e_part, dec.energy),
+                                0.0)))
+            # with staleness the transmission completes in the background:
+            # late clients pay their full energy
+            if crashed is not None:
+                # a crash at the fraction cfrac of the client's own round
+                # (capped at the deadline unless the transmission would
+                # have gone on in the background)
+                t_cap = (t_total if arun.staleness
+                         else torch.clamp(t_total, max=arun.deadline))
+                t_c = cfrac * torch.where(dec.x, t_cap, 0.0)
+                e_crash = partial_round_energy(t_cmp, t_comm, e_cmp, P, t_c)
+                dec = dec._replace(energy=torch.where(
+                    crashed, torch.minimum(e_crash, e_full), dec.energy))
+            battery = torch.clamp(battery - dec.energy, min=0.0)
+            battery = apply_harvest(battery, arun.cap, hkey, r, arun.rates)
+            t_wall = round_wall_clock(dec.x, t_total, arun.deadline)
+            extras = dict(t_round=t_wall, made=made,
+                          n_late=torch.sum(late.to(torch.int32)),
+                          n_stale=torch.zeros((), dtype=torch.int32,
+                                              device=dev))
+        elif faulty or link is not None:
+            if crashed is not None:
+                # untimed rounds prorate a crash over the client's own
+                # comp+comm (the retry timeline with outages on)
+                t_comm_f = (t_link if link_out else comm_time(
+                    pay(torch.where(dec.x, dec.gamma, 1.0)),
+                    torch.where(dec.x, dec.bandwidth, b_tot), P, h, s_bits,
+                    i_bits, n0))
+                t_c = cfrac * torch.where(dec.x, t_cmp + t_comm_f, 0.0)
+                e_crash = partial_round_energy(t_cmp, t_comm_f, e_cmp, P, t_c)
+                dec = dec._replace(energy=torch.where(
+                    crashed, torch.minimum(e_crash, dec.energy), dec.energy))
+            # the deferred debit, after the link and crash accounting
+            battery = torch.clamp(battery - dec.energy, min=0.0)
+
+        # only clients inside the deadline, not crashed and delivered enter
+        # this round's aggregate
+        part = made if made is not None else dec.x
+        if crashed is not None and made is None:
+            part = dec.x & ~crashed
+        if delivered is not None and made is None:
+            part = part & delivered
+        cm = flavor = None
+        if faulty and frun.corrupt_rate > 0.0:
+            # corruption hits the transmitted payload: drawn over every
+            # client, applied to this rank's rows below
+            cm, flavor = corrupt_draw(fkey, r, n, frun.corrupt_rate)
+            cm, flavor = cm.to(dev), flavor.to(dev)
+        # unselected rows carry zero weight; gamma=1 lets them copy
+        # through. Late rows keep their gamma: the buffered update is the
+        # sparsified payload the client transmits. Sparsify, quantize,
+        # corrupt and the partial aggregate run on this rank's rows (ghost
+        # rows: weight 0, gamma 1, 32 bits); the sums are all-reduced
+        gamma = torch.where(dec.x, torch.clamp(dec.gamma, 1e-6, 1.0), 1.0)
+        sparse = compression.batch_block_topk(updates, shard.local(gamma, 1.0),
+                                              block=block,
+                                              skip_full=skip_full_sparsify)
+        if quant:
+            # client-side quantization of the sparse payload at the
+            # transmitted width, dequantized right back; before the
+            # in-transit corruption, which the quantizer must not screen
+            sparse = compression.quantize_rows(sparse,
+                                               shard.local(bits_w, 32.0))
+        if cm is not None:
+            sparse = corrupt_payload(sparse, shard.local(cm, False),
+                                     shard.local(flavor, 0.0),
+                                     frun.corrupt_mode, frun.corrupt_scale)
+        # the aggregator: the legacy weighted mean, or the defended one,
+        # which returns the screened and clipped rows the buffer must hold
+        partial, wsum, fstate, dstats, sparse = agg(
+            sparse, shard.local(part.to(torch.float32), 0.0), wd, fstate,
+            gather=gather, n_shards=n_shards)
+        if arun is not None and arun.staleness:
+            # the staleness buffer (this rank's rows): age the pending
+            # slots by the round's wall-clock, fold the completed ones in
+            # with the w(tau) discount, then buffer this round's late
+            # updates (a newer one replaces an older, staler one)
+            buf, age, t_rem = astate
+            pending = age >= 0
+            age = torch.where(pending, age + 1, age)
+            t_rem = torch.where(pending, t_rem - extras["t_round"], t_rem)
+            ready = pending & (t_rem <= 0.0)
+            w_stale = (wd * staleness_weight(age, arun.staleness_a)
+                       * ready.to(torch.float32))
+            wsum = wsum + torch.sum(w_stale.double())
+            partial = partial + weighted_sum(w_stale, buf)
+            late_l = shard.local(late, False)
+            t_new = shard.local(torch.clamp(t_total - arun.deadline, min=0.0),
+                                0.0)
+            buf = torch.where(late_l[:, None], sparse, buf)
+            age = torch.where(late_l, 0, torch.where(ready, -1, age))
+            t_rem = torch.where(late_l, t_new, torch.where(ready, 0.0, t_rem))
+            astate = AsyncState(buf=buf, age=age, t_rem=t_rem)
+            extras["n_stale"] = shard.all_reduce(
+                torch.sum(ready.to(torch.int32)))
+        partial, wsum = shard.all_reduce(partial), shard.all_reduce(wsum)
+        agg_vec = (partial / torch.clamp(wsum, min=1e-12)).to(torch.float32)
+        agg_vec = torch.where(wsum > 0.0, agg_vec * server_lr, 0.0)
+        if telemetry:
+            n_part = torch.sum(part.to(torch.int32))
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            n_rej = shard.all_reduce(dstats.get("n_rejected", zero).clone())
+            n_clip = shard.all_reduce(dstats.get("n_clipped", zero).clone())
+            # last-resort guard: whatever slipped past the defenses (or an
+            # undefended run's corrupted payloads) must not poison the
+            # params — reject the whole round, every accepted participant
+            # counted rejected
+            ok_round = torch.all(torch.isfinite(agg_vec))
+            agg_vec = torch.where(ok_round, agg_vec, 0.0)
+            n_rej = n_rej + torch.where(ok_round, 0,
+                                        torch.clamp(n_part - n_rej, min=0))
+            n_faulted = zero
+            if crashed is not None:
+                n_faulted = n_faulted + torch.sum(crashed.to(torch.int32))
+            if cm is not None:
+                n_faulted = n_faulted + torch.sum((cm & part).to(torch.int32))
+            extras.update(
+                n_faulted=n_faulted, n_rejected=n_rej,
+                clip_frac=(n_clip.to(torch.float32)
+                           / torch.clamp(n_part - n_rej, min=1)
+                           .to(torch.float32)),
+                fallback=torch.as_tensor(dec.fallback, dtype=torch.bool,
+                                         device=dev))
+        delta = unflatten_update(agg_vec, spec)
+        params = {k: p + delta[k].to(p.dtype) for k, p in params.items()}
+        if quant:
+            # e_saved: the same allocation at a 32-bit payload minus the
+            # realized single-attempt quantized charge
+            b_q = torch.where(dec.x, dec.bandwidth, b_tot)
+            g_q = torch.where(dec.x, dec.gamma, 1.0)
+            de = (comm_energy(g_q, b_q, P, h, s_bits, i_bits, n0)
+                  - comm_energy(pay(g_q), b_q, P, h, s_bits, i_bits, n0))
+            extras.update(bits=torch.where(dec.x, bits_w, 0.0),
+                          e_saved=torch.sum(xf_sel * de))
+        if link_out:
+            # link telemetry over the selected clients that did not crash;
+            # goodput is link-layer: only exhausted payloads are dead air
+            nc_f = (xf_sel if crashed is None
+                    else xf_sel * (~crashed).to(torch.float32))
+            ok_m = dec.x & delivered
+            if crashed is not None:
+                ok_m = ok_m & ~crashed
+            d_bits = pay(g_safe) * s_bits + i_bits
+            tx_bits = torch.sum(nc_f * attempts_f * d_bits)
+            ok_bits = torch.sum(torch.where(ok_m, d_bits, 0.0))
+            extras.update(
+                n_retx=torch.sum(nc_f * (attempts_f - 1.0)).to(torch.int32),
+                n_outage=torch.sum(lost.to(torch.int32)),
+                goodput_frac=torch.where(
+                    tx_bits > 0.0, ok_bits / torch.clamp(tx_bits, min=1e-30),
+                    1.0),
+                e_retx=torch.sum(nc_f * e_retx_vec))
+        elif link is not None:
+            # burst-only: one lossless attempt per selection
+            zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+            extras.update(n_retx=zero_i, n_outage=zero_i,
+                          goodput_frac=torch.ones((), device=dev),
+                          e_retx=torch.zeros((), device=dev))
+        return (params, dec, ctrl_state, battery, astate, fstate, lstate,
+                extras)
+
+    return core
+
+
+def make_round_engine(*, controller, spec, weights, server_lr: float,
+                      use_pallas: bool = False,
+                      block: int = compression.DEFAULT_BLOCK,
+                      skip_full_sparsify: bool = True,
+                      fault_rt: Optional[_FaultsRuntime] = None,
+                      aggregator=None, physics: Optional[_Physics] = None):
+    """One round over explicit state, the reference's standalone engine:
+    ``core(params, updates, u_norms, h, P, r, key, ctrl_state[, battery,
+    astate, hkey, fstate, fkey]) -> (new_params, RoundDecision,
+    ctrl_state[, battery])``, or with faults or a defended ``aggregator``
+    ``(new_params, dec, ctrl_state, battery, astate, fstate, extras)``.
+
+    ``controller`` is a port controller (``make_controller``), ``spec`` the
+    params' ``TreeSpec`` (``updates.tree_spec``), ``weights`` the [N]
+    |D_i| weights, ``fault_rt`` and ``aggregator`` the port's runtime
+    objects as ``FederatedTrainer`` builds them (``physics`` with a fault
+    runtime). ``block`` and ``skip_full_sparsify`` set the top-k's block
+    width and all-full skip. ``use_pallas`` is taken for the reference's
+    signature: as everywhere in the port, the tensors' device picks the
+    route (the plain versions on the CPU, the kernels on the card). PyTorch
+    runs eagerly, so nothing is compiled: the returned function is the
+    round body itself."""
+    del use_pallas
+    body = _make_round_core(controller=controller, spec=spec, weights=weights,
+                            server_lr=server_lr, block=block,
+                            skip_full_sparsify=skip_full_sparsify,
+                            fault_rt=fault_rt, aggregator=aggregator,
+                            physics=physics)
+    telemetry = (fault_rt is not None
+                 or bool(getattr(aggregator, "enabled", False)))
+
+    def core(params, updates, u_norms, h, P, r, key, ctrl_state,
+             battery=None, astate=None, hkey=None, fstate=None, fkey=None):
+        (params, dec, ctrl_state, battery, astate, fstate, _,
+         extras) = body(params, updates, u_norms, h, P, r, key, ctrl_state,
+                        battery, astate, hkey, fstate, fkey)
+        if telemetry:
+            return params, dec, ctrl_state, battery, astate, fstate, extras
+        if battery is not None:
+            return params, dec, ctrl_state, battery
+        return params, dec, ctrl_state
+
+    return core
+
+
+def make_scan_engine(*, controller, spec, weights, server_lr: float,
+                     client_step, eval_fn, pathloss, P, rayleigh: bool,
+                     local_steps: int, batch: int, use_pallas: bool = False,
+                     block: int = compression.DEFAULT_BLOCK, unroll: int = 1,
+                     mesh=None, mesh_axis: str = CLIENTS_AXIS,
+                     n_real: Optional[int] = None,
+                     async_rt: Optional[_AsyncRuntime] = None,
+                     fault_rt: Optional[_FaultsRuntime] = None,
+                     aggregator=None, mobility=None,
+                     link_rt: Optional[_LinkRuntime] = None,
+                     quant_rt: Optional[_QuantRuntime] = None,
+                     physics: Optional[_Physics] = None):
+    """The multi-round program: ``scan_fn(params, ctrl_state, battery,
+    astate, fstate, lstate, data, keys, start_round, last_round,
+    eval_every, n_rounds) -> (params, ctrl_state, battery, astate, fstate,
+    lstate, outs)`` runs rounds ``start_round .. start_round + n_rounds -
+    1``: each round's fading (``round_gains`` on ``pathloss``, with
+    ``mobility``), minibatches (``sample_client_batches`` of ``data``, a
+    ``ClientData``, at ``local_steps`` x ``batch``), ``client_step(params,
+    batches) -> (updates, u_norms, losses)`` (``make_batched_client_step``),
+    the round body ``FederatedTrainer`` runs (``_make_round_core``), and
+    ``eval_fn`` on rounds ``r % eval_every == 0`` and on ``last_round``
+    (NaN elsewhere). ``outs`` are the reference's stacked per-round logs
+    as [n_rounds, ...] tensors: ``x``, ``gamma``, ``bandwidth``,
+    ``energy``, ``accuracy``, ``loss``, ``battery``, plus ``t_round``,
+    ``made``, ``n_late``, ``n_stale`` (``async_rt``), ``n_faulted``,
+    ``n_rejected``, ``clip_frac``, ``fallback`` (faults or a defended
+    aggregator), ``n_retx``, ``n_outage``, ``goodput_frac``, ``e_retx``
+    (``link_rt``) and ``bits``, ``e_saved`` (``quant_rt``).
+
+    ``keys`` is ``seed_keys(base)`` or the reference's dict ``(fade=...,
+    sample=..., ctrl=..., harvest=..., fault=..., link=...)`` (unused
+    streams may be left out); ``astate``, ``fstate``, ``lstate`` are None
+    where their paths are off. The runtime arguments are the port's own
+    (``_AsyncRuntime``, ``_FaultsRuntime``, ``_LinkRuntime``,
+    ``_QuantRuntime``, the aggregator, and ``physics`` when any path is on),
+    as ``FederatedTrainer`` builds them.
+
+    PyTorch runs eagerly: the rounds are a Python loop, one after another.
+    ``unroll`` (the reference's ``lax.scan`` unroll factor) therefore
+    changes nothing and must be at least 1; ``n_rounds`` is a plain int.
+    With ``mesh`` (a clients mesh, ``repro_torch.sharding``), ``mesh_axis``
+    names its client axis as the trainer's does: ``data`` holds this
+    rank's rows of the ghost-padded stack (``shard_client_data``),
+    ``weights`` the whole padded axis, ``n_real`` the true client count;
+    the rank samples, trains and sparsifies its rows, and the outputs are
+    replicated. ``use_pallas`` is taken for the reference's signature: the
+    tensors' device picks the route."""
+    del use_pallas
+    if unroll < 1:
+        raise ValueError(f"unroll must be >= 1, got {unroll}")
+    n_pad = int(weights.shape[0])
+    n_real = n_real if n_real is not None else n_pad
+    shard = _ClientShard.of_mesh(mesh, mesh_axis, n_real, n_pad)
+    core = _make_round_core(controller=controller, spec=spec, weights=weights,
+                            server_lr=server_lr, block=block, shard=shard,
+                            async_rt=async_rt, fault_rt=fault_rt,
+                            aggregator=aggregator, link_rt=link_rt,
+                            quant_rt=quant_rt, physics=physics)
+    pathloss = torch.as_tensor(pathloss, dtype=torch.float32)
+
+    def scan_fn(params, ctrl_state, battery, astate, fstate, lstate, data,
+                keys, start_round, last_round, eval_every, n_rounds: int):
+        if isinstance(keys, dict):
+            keys = RoundKeys(**{f: keys.get(f) for f in RoundKeys._fields})
+        dev = battery.device if battery is not None else P.device
+        outs = []
+        with torch.no_grad():
+            for r in range(int(start_round), int(start_round) + n_rounds):
+                h = round_gains(keys.fade, pathloss, r, rayleigh,
+                                mobility=mobility).to(dev)
+                ckeys = client_sample_keys(keys.sample, r, n_real, n_pad)
+                ckeys = ckeys[shard.i0:shard.i0 + shard.n_local]
+                batches = sample_client_batches(data.arrays, data.lengths,
+                                                ckeys, local_steps, batch)
+                updates, u_norms, losses = client_step(params, batches)
+                (params, dec, ctrl_state, battery, astate, fstate, lstate,
+                 extras) = core(params, updates, u_norms, h, P, r,
+                                prng.fold_in(keys.ctrl, r), ctrl_state,
+                                battery, astate, keys.harvest, fstate,
+                                keys.fault, lstate, keys.link)
+                losses = shard.gather(losses)
+                acc = (eval_fn(params).to(torch.float32)
+                       if r % eval_every == 0 or r == last_round
+                       else torch.tensor(float("nan"), device=dev))
+                outs.append(dict(x=dec.x, gamma=dec.gamma,
+                                 bandwidth=dec.bandwidth, energy=dec.energy,
+                                 accuracy=acc, loss=torch.mean(losses),
+                                 battery=battery, **extras))
+        stacked = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        return params, ctrl_state, battery, astate, fstate, lstate, stacked
+
+    return scan_fn
+
+
 class FederatedTrainer:
     """Drives FL rounds for a given controller.
 
@@ -347,18 +952,11 @@ class FederatedTrainer:
                 raise TypeError(f"{name} must be a {kind.__name__} instance "
                                 f"or None, got {type(value).__name__}")
         self.mesh, self.mesh_axis = mesh, mesh_axis
-        # _group spans every rank of the mesh in shard order (gathers);
-        # _reduce_groups are the all-reduce stages, the innermost axis first
-        self._group, self._reduce_groups = None, ()
         if mesh is not None:
-            axes = check_clients_mesh(mesh, mesh_axis)
+            check_clients_mesh(mesh, mesh_axis)
             if mesh.device_type != dev.type:
                 raise ValueError(f"the mesh is on {mesh.device_type}, the "
                                  f"trainer on {dev.type}")
-            self._group = (mesh.get_group(axes[0]) if len(axes) == 1
-                           else dist.group.WORLD)
-            self._reduce_groups = tuple(mesh.get_group(a)
-                                        for a in reversed(axes))
         self.loss_fn = model_loss
         self.params = {k: torch.as_tensor(v).detach().to(dev, copy=True)
                        for k, v in model_params.items()}
@@ -395,6 +993,10 @@ class FederatedTrainer:
         zeros = torch.zeros(self.n_clients, dtype=torch.float32)
         self._e_cmp = (zeros if e_cmp is None else e_cmp).to(dev)
         self._t_cmp = (zeros if t_cmp is None else t_cmp).to(dev)
+        self.physics = _Physics(
+            e_cmp=self._e_cmp, t_cmp=self._t_cmp,
+            b_tot=float(ch_cfg.bandwidth_total), s_bits=self.s_bits,
+            i_bits=self.i_bits, n0=float(ch_cfg.noise_density))
         self.controller = make_controller(controller, ctx)
         self.controller_name = (controller if isinstance(controller, str)
                                 else getattr(controller, "name",
@@ -437,13 +1039,10 @@ class FederatedTrainer:
         # this rank's rows are [i0, i0 + n_local) of the padded axis
         lengths = lengths.cpu().numpy().astype(np.float64)
         self.n_padded = len(lengths)
-        self.n_local = self._data.n_clients
-        self._i0 = (0 if mesh is None
-                    else client_shard_index(mesh, mesh_axis) * self.n_local)
+        self._shard = _ClientShard.of_mesh(mesh, mesh_axis, self.n_clients,
+                                           self.n_padded)
+        self.n_local, self._i0 = self._shard.n_local, self._shard.i0
         self.weights = lengths / lengths.sum()
-        self._weights = torch.as_tensor(
-            self.weights[self._i0:self._i0 + self.n_local],
-            dtype=torch.float32, device=dev)
         # battery charge carried across rounds: the profile's capacities,
         # unlimited without a profile; every sweep lane starts from _battery0
         self._battery0 = (
@@ -476,11 +1075,20 @@ class FederatedTrainer:
         self._lstate0 = (init_link_state(self.n_clients, dev)
                          if self._link_rt is not None and self._link_rt.bursty
                          else None)
-        # [N] width a controller without the joint grid transmits at, or
-        # None off the quantized path
+        # the [N] width a controller without the joint grid transmits at,
+        # or None off the quantized path
         self._default_bits = self._resolve_default_bits()
+        self._quant_rt = (None if self._default_bits is None
+                          else _QuantRuntime(self._default_bits))
         (self._battery, self._astate, self._fstate,
          self._lstate) = self._starting_state()
+        # the round body after the client step, shared with the engine
+        # factories
+        kw = self._engine_kwargs()
+        self._core = _make_round_core(
+            shard=self._shard, **{k: kw[k] for k in (
+                "controller", "spec", "weights", "server_lr", "async_rt",
+                "fault_rt", "aggregator", "link_rt", "quant_rt", "physics")})
         self._calibrated = False
         self.history: list[RoundLog] = []
 
@@ -601,6 +1209,27 @@ class FederatedTrainer:
         return Carry({k: v.clone() for k, v in self.params.items()},
                      ctrl_state, *self._starting_state())
 
+    def _engine_kwargs(self) -> dict:
+        """The keywords with which ``make_scan_engine`` rebuilds this
+        trainer's rounds (the reference trainer's ``_get_scan_engine``);
+        ``make_round_engine`` takes its ``controller``, ``spec``,
+        ``weights``, ``server_lr``, ``fault_rt``, ``aggregator`` and
+        ``physics``."""
+        return dict(
+            controller=self.controller, spec=self.spec,
+            weights=torch.as_tensor(self.weights, dtype=torch.float32,
+                                    device=self.device),
+            server_lr=self.fl_cfg.server_lr, client_step=self._client_step,
+            eval_fn=self.eval_fn, pathloss=self._pathloss, P=self._P,
+            rayleigh=self.ch_cfg.rayleigh,
+            local_steps=self.fl_cfg.local_steps,
+            batch=self.fl_cfg.local_batch, mesh=self.mesh,
+            mesh_axis=self.mesh_axis, n_real=self.n_clients,
+            async_rt=self._async_rt, fault_rt=self._fault_rt,
+            aggregator=self.aggregator, mobility=self.mobility,
+            link_rt=self._link_rt, quant_rt=self._quant_rt,
+            physics=self.physics)
+
     def _round_batches(self, r: int, sample_key: torch.Tensor) -> dict:
         """Round-r minibatches [n_local, steps, batch, ...] on the device:
         this rank's rows of the padded client axis."""
@@ -623,7 +1252,7 @@ class FederatedTrainer:
         with torch.no_grad():
             _, u_norms, _ = self._client_step(
                 self.params, self._round_batches(r, self.keys.sample))
-            u_norms = self._gather(u_norms)
+            u_norms = self._shard.gather(u_norms)
         # the reference calibrates on its eager gains(r), whose drift is
         # associated otherwise than the scanned round's (C-20)
         self.controller.calibrate(u_norms.cpu().numpy(),
@@ -632,376 +1261,33 @@ class FederatedTrainer:
         self.ctrl_state = self.controller.init(self.n_clients)
         self._calibrated = True
 
-    def _gather_rows(self, local: torch.Tensor) -> torch.Tensor:
-        """Every rank's rows of a [n_local, ...] tensor, in rank order: the
-        [n_padded, ...] tensor (identity without a mesh)."""
-        if self._group is None:
-            return local
-        parts = [torch.empty_like(local)
-                 for _ in range(dist.get_world_size(self._group))]
-        dist.all_gather(parts, local.contiguous(), group=self._group)
-        return torch.cat(parts)
-
-    def _gather(self, local: torch.Tensor) -> torch.Tensor:
-        """The [N] real-client vector from every rank's [n_local] rows
-        (identity without a mesh)."""
-        return self._gather_rows(local)[:self.n_clients]
-
-    def _local(self, vec: torch.Tensor, fill) -> torch.Tensor:
-        """This rank's rows of an [N] vector, ghost rows taking ``fill``
-        (identity without a mesh)."""
-        if self._group is None:
-            return vec
-        pad = vec.new_full((self.n_padded - self.n_clients,), fill)
-        return torch.cat([vec, pad])[self._i0:self._i0 + self.n_local]
-
-    def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum over every rank, in place: one all-reduce a stage
-        (``clients``, then ``clusters`` on a hierarchy mesh)."""
-        for group in self._reduce_groups:
-            dist.all_reduce(t, group=group)
-        return t
-
     @torch.no_grad()
     def _round(self, r: int, evaluate: bool, keys: RoundKeys,
                carry: Carry) -> tuple[dict, Carry]:
-        """One round of the lane with ``keys`` from ``carry``: observe,
-        decide, hard mask, energy and time accounting, battery debit,
-        sparsify, quantize, corrupt, aggregate, stale fold, apply, eval —
-        in the reference's order. Returns the round's outputs as device
-        tensors and the next carry; the trainer itself is not changed."""
+        """One round of the lane with ``keys`` from ``carry``: fading,
+        minibatches and the client step, then the round body
+        (``_make_round_core``: decide, hard mask, energy and time
+        accounting, battery debit, sparsify, quantize, corrupt, aggregate,
+        stale fold, apply), then eval — in the reference's order. Returns
+        the round's outputs as device tensors and the next carry; the
+        trainer itself is not changed."""
         params, ctrl_state, battery, astate, fstate, lstate = carry
-        link, default_bits = self._link_rt, self._default_bits
-        arun, frun = self._async_rt, self._fault_rt
-        quant = default_bits is not None
-        faulty = frun is not None
-        telemetry = faulty or self.aggregator.enabled
         dev = self.device
-        n = self.n_clients
-        # the trainer's own B_tot, as the reference's round body takes it,
-        # under a config lane too (the lane's rides in the controller
-        # state): it only prices the unselected rows, which are masked
-        b_tot = float(self.ch_cfg.bandwidth_total)
-        n0 = float(self.ch_cfg.noise_density)
-        s_bits, i_bits = self.s_bits, self.i_bits
-        e_cmp, t_cmp = self._e_cmp, self._t_cmp
-        link_out = link is not None and link.outage
-        link_burst = link is not None and link.bursty
         h = round_gains(keys.fade, self._pathloss, r, self.ch_cfg.rayleigh,
                         mobility=self.mobility).to(dev)
         updates, u_norms, losses = self._client_step(
             params, self._round_batches(r, keys.sample))
-        # the controller sees the real clients' [N] observation in every
-        # layout: gather before any use, ghosts cut off
-        u_norms, losses = self._gather(u_norms), self._gather(losses)
-        P = self._P
-        if link_burst:
-            # one Gilbert-Elliott transition a round; the burst derates
-            # the physics channel (a raised noise floor is a scaled gain)
-            burst = burst_step(keys.link, r, lstate.burst, link.burst_p,
-                               link.burst_q)
-            lstate = LinkState(burst=burst)
-            h_phys = burst_channel(h, burst, link.noise_rise)
-        else:
-            h_phys = h
-        # the controller's channel belief: the quiet-state channel unless
-        # it observes the burst, then lognormal-noised under the
-        # channel-estimate fault; the transmission realizes on h_phys
-        h_obs = h_phys if (link_burst and link.observe_burst) else h
-        if faulty and frun.h_err_std > 0.0:
-            h_obs = channel_estimate(keys.fault, r, h_obs, frun.h_err_std)
-        h = h_phys
-        alive = alive_mask(battery)
-        if faulty and frun.churn_dwell > 0:
-            # departed clients join the hard mask; (re)arrivals get fresh
-            # per-client controller state
-            present, arrived = arrival_mask(keys.fault, r, n,
-                                            frun.churn_away, frun.churn_dwell)
-            alive = alive & present.to(dev)
-            if hasattr(self.controller, "reset_clients"):
-                ctrl_state = self.controller.reset_clients(ctrl_state,
-                                                           arrived.to(dev))
-        t_obs = None
-        if arun is not None:
-            # best-case round time: a client that cannot make the deadline
-            # under any allocation is priced out through the hard mask
-            t_obs = best_case_round_time(
-                t_cmp, P, h_obs, b_tot=b_tot, gamma_floor=arun.gamma_floor,
-                s_bits=s_bits, i_bits=i_bits, n0=n0)
-            alive = alive & (t_obs <= arun.deadline)
-        p_out = e_scale = None
-        if link_out:
-            # per-attempt outage at the decided operating point: the belief
-            # sets the design SNR, the physics the realized fade mean; a
-            # per-client scalar, priceable before the decision
-            p_out = outage_probability(h_obs, h, link.margin)
-            if link.price_outage:
-                e_scale = expected_attempts(p_out)
-        obs = RoundObservation(u_norms=u_norms, h=h_obs, P=P, round=r,
-                               key=prng.fold_in(keys.ctrl, r), alive=alive,
-                               t_round=t_obs, e_scale=e_scale)
-        dec, ctrl_state = self.controller.decide(obs, ctrl_state)
-        # hard mask, whatever the controller decided: a depleted client
-        # transmits nothing and is charged nothing
-        x = dec.x & alive
-        mf = x.to(torch.float32)
-        dec = dec._replace(x=x, gamma=dec.gamma * mf,
-                           bandwidth=dec.bandwidth * mf,
-                           energy=dec.energy * mf,
-                           bw_used=torch.sum(dec.bandwidth * mf))
-        xf_sel = dec.x.to(torch.float32)
-        bits_w = bits_fac = None
-        if quant:
-            # transmitted width: the solver's joint decision, else the
-            # profile default; 32 on unselected rows
-            bits_dec = dec.bits if dec.bits is not None else default_bits
-            bits_w = torch.where(dec.x, bits_dec, 32.0)
-            bits_fac = bits_w / 32.0
-            if dec.bits is None:
-                # the controller priced a 32-bit payload but the wire
-                # carries the default width: re-charge at the payload
-                # gamma (same allocation, realized channel)
-                b_q = torch.where(dec.x, dec.bandwidth, b_tot)
-                g_q = torch.where(dec.x, dec.gamma, 1.0)
-                dec = dec._replace(energy=xf_sel * (
-                    comm_energy(g_q * bits_fac, b_q, P, h, s_bits, i_bits,
-                                n0) + e_cmp))
-
-        def pay(g):
-            # payload-equivalent gamma: a bits-wide payload is gamma*bits/32
-            # of the full-precision one
-            return g * bits_fac if quant else g
-
-        if arun is None and not faulty and link is None:
-            # debit the round's spend; charge floors at 0 (inf stays inf)
-            battery = torch.clamp(battery - dec.energy, min=0.0)
-        if (faulty and frun.h_err_std > 0.0) or (link_burst and not link_out):
-            # the controller priced its belief (h_est and/or the quiet
-            # channel); the transmission pays the physics channel, same
-            # allocation (b/gamma guards keep the unselected lanes finite).
-            # With outages on, the retry accounting below re-prices instead
-            b_safe = torch.where(dec.x, dec.bandwidth, b_tot)
-            g_safe = torch.where(dec.x, dec.gamma, 1.0)
-            dec = dec._replace(energy=xf_sel * (
-                comm_energy(pay(g_safe), b_safe, P, h, s_bits, i_bits, n0)
-                + e_cmp))
-        crashed = cfrac = None
-        if faulty and frun.crash_rate > 0.0:
-            crashed_m, cfrac = crash_draw(keys.fault, r, n, frun.crash_rate)
-            crashed, cfrac = dec.x & crashed_m.to(dev), cfrac.to(dev)
-        delivered = lost = t_link = None
-        if link_out:
-            # bounded HARQ: each attempt a full airtime of the decided
-            # allocation, a backoff slot before each retry; the realized
-            # cost replaces the priced energy
-            b_safe = torch.where(dec.x, dec.bandwidth, b_tot)
-            g_safe = torch.where(dec.x, dec.gamma, 1.0)
-            t1 = comm_time(pay(g_safe), b_safe, P, h, s_bits, i_bits, n0)
-            attempts, delivered = attempt_outcomes(keys.link, r, p_out,
-                                                   link.max_retx)
-            attempts_f = attempts.to(torch.float32)
-            t_link = attempt_time(attempts_f, t1, link.backoff_s)
-            e_retx_vec = xf_sel * (attempts_f - 1.0) * P * t1
-            dec = dec._replace(energy=xf_sel * (
-                attempt_energy(attempts_f, t1, P) + e_cmp))
-            # a crashed client counts as a crash, not an outage
-            lost = dec.x & ~delivered
-            if crashed is not None:
-                lost = lost & ~crashed
-
-        made = late = None
-        extras = {}
-        if arun is not None:
-            # realized round time under the actual allocation (inf on
-            # unselected rows, read only through the selection mask); with
-            # outages, the whole retry timeline
-            t_comm = (t_link if link_out else
-                      comm_time(pay(dec.gamma), dec.bandwidth, P, h, s_bits,
-                                i_bits, n0))
-            t_total = t_cmp + t_comm
-            feasible = dec.x & (t_total <= arun.deadline)
-            # a crashed client is neither made nor late; a retx-exhausted
-            # one neither, but it pays like a late one
-            made = feasible if crashed is None else feasible & ~crashed
-            late = (dec.x & ~feasible if crashed is None
-                    else dec.x & ~feasible & ~crashed)
-            if delivered is not None:
-                made = made & delivered
-                late = late & delivered
-            e_full = dec.energy
-            if not arun.staleness:
-                # a dropped update is abandoned at the deadline: computation
-                # first, then the prorated transmission (never above full)
-                drop = late if lost is None else late | lost
-                e_part = partial_round_energy(t_cmp, t_comm, e_cmp, P,
-                                              arun.deadline)
-                dec = dec._replace(energy=torch.where(
-                    made, dec.energy,
-                    torch.where(drop, torch.minimum(e_part, dec.energy),
-                                0.0)))
-            # with staleness the transmission completes in the background:
-            # late clients pay their full energy
-            if crashed is not None:
-                # a crash at the fraction cfrac of the client's own round
-                # (capped at the deadline unless the transmission would
-                # have gone on in the background)
-                t_cap = (t_total if arun.staleness
-                         else torch.clamp(t_total, max=arun.deadline))
-                t_c = cfrac * torch.where(dec.x, t_cap, 0.0)
-                e_crash = partial_round_energy(t_cmp, t_comm, e_cmp, P, t_c)
-                dec = dec._replace(energy=torch.where(
-                    crashed, torch.minimum(e_crash, e_full), dec.energy))
-            battery = torch.clamp(battery - dec.energy, min=0.0)
-            battery = apply_harvest(battery, arun.cap, keys.harvest, r,
-                                    arun.rates)
-            t_wall = round_wall_clock(dec.x, t_total, arun.deadline)
-            extras = dict(t_round=t_wall, made=made,
-                          n_late=torch.sum(late.to(torch.int32)),
-                          n_stale=torch.zeros((), dtype=torch.int32,
-                                              device=dev))
-        elif faulty or link is not None:
-            if crashed is not None:
-                # untimed rounds prorate a crash over the client's own
-                # comp+comm (the retry timeline with outages on)
-                t_comm_f = (t_link if link_out else comm_time(
-                    pay(torch.where(dec.x, dec.gamma, 1.0)),
-                    torch.where(dec.x, dec.bandwidth, b_tot), P, h, s_bits,
-                    i_bits, n0))
-                t_c = cfrac * torch.where(dec.x, t_cmp + t_comm_f, 0.0)
-                e_crash = partial_round_energy(t_cmp, t_comm_f, e_cmp, P, t_c)
-                dec = dec._replace(energy=torch.where(
-                    crashed, torch.minimum(e_crash, dec.energy), dec.energy))
-            # the deferred debit, after the link and crash accounting
-            battery = torch.clamp(battery - dec.energy, min=0.0)
-
-        # only clients inside the deadline, not crashed and delivered enter
-        # this round's aggregate
-        part = made if made is not None else dec.x
-        if crashed is not None and made is None:
-            part = dec.x & ~crashed
-        if delivered is not None and made is None:
-            part = part & delivered
-        cm = flavor = None
-        if faulty and frun.corrupt_rate > 0.0:
-            # corruption hits the transmitted payload: drawn over every
-            # client, applied to this rank's rows below
-            cm, flavor = corrupt_draw(keys.fault, r, n, frun.corrupt_rate)
-            cm, flavor = cm.to(dev), flavor.to(dev)
-        # unselected rows carry zero weight; gamma=1 lets them copy
-        # through. Late rows keep their gamma: the buffered update is the
-        # sparsified payload the client transmits. Sparsify, quantize,
-        # corrupt and the partial aggregate run on this rank's rows (ghost
-        # rows: weight 0, gamma 1, 32 bits); the sums are all-reduced
-        gamma = torch.where(dec.x, torch.clamp(dec.gamma, 1e-6, 1.0), 1.0)
-        sparse = compression.batch_block_topk(updates,
-                                              self._local(gamma, 1.0))
-        if quant:
-            # client-side quantization of the sparse payload at the
-            # transmitted width, dequantized right back; before the
-            # in-transit corruption, which the quantizer must not screen
-            sparse = compression.quantize_rows(sparse,
-                                               self._local(bits_w, 32.0))
-        if cm is not None:
-            sparse = corrupt_payload(sparse, self._local(cm, False),
-                                     self._local(flavor, 0.0),
-                                     frun.corrupt_mode, frun.corrupt_scale)
-        # the aggregator: the legacy weighted mean, or the defended one,
-        # which returns the screened and clipped rows the buffer must hold
-        partial, wsum, fstate, dstats, sparse = self.aggregator(
-            sparse, self._local(part.to(torch.float32), 0.0), self._weights,
-            fstate, gather=None if self._group is None else self._gather_rows,
-            n_shards=self.n_padded // self.n_local)
-        if arun is not None and arun.staleness:
-            # the staleness buffer (this rank's rows): age the pending
-            # slots by the round's wall-clock, fold the completed ones in
-            # with the w(tau) discount, then buffer this round's late
-            # updates (a newer one replaces an older, staler one)
-            buf, age, t_rem = astate
-            pending = age >= 0
-            age = torch.where(pending, age + 1, age)
-            t_rem = torch.where(pending, t_rem - extras["t_round"], t_rem)
-            ready = pending & (t_rem <= 0.0)
-            w_stale = (self._weights * staleness_weight(age, arun.staleness_a)
-                       * ready.to(torch.float32))
-            wsum = wsum + torch.sum(w_stale.double())
-            partial = partial + weighted_sum(w_stale, buf)
-            late_l = self._local(late, False)
-            t_new = self._local(torch.clamp(t_total - arun.deadline, min=0.0),
-                                0.0)
-            buf = torch.where(late_l[:, None], sparse, buf)
-            age = torch.where(late_l, 0, torch.where(ready, -1, age))
-            t_rem = torch.where(late_l, t_new, torch.where(ready, 0.0, t_rem))
-            astate = AsyncState(buf=buf, age=age, t_rem=t_rem)
-            extras["n_stale"] = self._all_reduce(
-                torch.sum(ready.to(torch.int32)))
-        partial, wsum = self._all_reduce(partial), self._all_reduce(wsum)
-        agg = (partial / torch.clamp(wsum, min=1e-12)).to(torch.float32)
-        agg = torch.where(wsum > 0.0, agg * self.fl_cfg.server_lr, 0.0)
-        if telemetry:
-            n_part = torch.sum(part.to(torch.int32))
-            zero = torch.zeros((), dtype=torch.int32, device=dev)
-            n_rej = self._all_reduce(dstats.get("n_rejected", zero).clone())
-            n_clip = self._all_reduce(dstats.get("n_clipped", zero).clone())
-            # last-resort guard: whatever slipped past the defenses (or an
-            # undefended run's corrupted payloads) must not poison the
-            # params — reject the whole round, every accepted participant
-            # counted rejected
-            ok_round = torch.all(torch.isfinite(agg))
-            agg = torch.where(ok_round, agg, 0.0)
-            n_rej = n_rej + torch.where(ok_round, 0,
-                                        torch.clamp(n_part - n_rej, min=0))
-            n_faulted = zero
-            if crashed is not None:
-                n_faulted = n_faulted + torch.sum(crashed.to(torch.int32))
-            if cm is not None:
-                n_faulted = n_faulted + torch.sum((cm & part).to(torch.int32))
-            extras.update(
-                n_faulted=n_faulted, n_rejected=n_rej,
-                clip_frac=(n_clip.to(torch.float32)
-                           / torch.clamp(n_part - n_rej, min=1)
-                           .to(torch.float32)),
-                fallback=torch.as_tensor(dec.fallback, dtype=torch.bool,
-                                         device=dev))
-        delta = unflatten_update(agg, self.spec)
-        params = {k: p + delta[k].to(p.dtype) for k, p in params.items()}
+        (params, dec, ctrl_state, battery, astate, fstate, lstate,
+         extras) = self._core(params, updates, u_norms, h, self._P, r,
+                              prng.fold_in(keys.ctrl, r), ctrl_state, battery,
+                              astate, keys.harvest, fstate, keys.fault,
+                              lstate, keys.link)
+        losses = self._shard.gather(losses)
         acc = (self.eval_fn(params).to(torch.float32) if evaluate
                else torch.tensor(float("nan"), device=dev))
         out = dict(x=dec.x, gamma=dec.gamma, bandwidth=dec.bandwidth,
                    energy=dec.energy, accuracy=acc,
                    loss=torch.mean(losses), battery=battery, **extras)
-        if quant:
-            # e_saved: the same allocation at a 32-bit payload minus the
-            # realized single-attempt quantized charge
-            b_q = torch.where(dec.x, dec.bandwidth, b_tot)
-            g_q = torch.where(dec.x, dec.gamma, 1.0)
-            de = (comm_energy(g_q, b_q, P, h, s_bits, i_bits, n0)
-                  - comm_energy(pay(g_q), b_q, P, h, s_bits, i_bits, n0))
-            out.update(bits=torch.where(dec.x, bits_w, 0.0),
-                       e_saved=torch.sum(xf_sel * de))
-        if link_out:
-            # link telemetry over the selected clients that did not crash;
-            # goodput is link-layer: only exhausted payloads are dead air
-            nc_f = (xf_sel if crashed is None
-                    else xf_sel * (~crashed).to(torch.float32))
-            ok_m = dec.x & delivered
-            if crashed is not None:
-                ok_m = ok_m & ~crashed
-            d_bits = pay(g_safe) * s_bits + i_bits
-            tx_bits = torch.sum(nc_f * attempts_f * d_bits)
-            ok_bits = torch.sum(torch.where(ok_m, d_bits, 0.0))
-            out.update(
-                n_retx=torch.sum(nc_f * (attempts_f - 1.0)).to(torch.int32),
-                n_outage=torch.sum(lost.to(torch.int32)),
-                goodput_frac=torch.where(
-                    tx_bits > 0.0, ok_bits / torch.clamp(tx_bits, min=1e-30),
-                    1.0),
-                e_retx=torch.sum(nc_f * e_retx_vec))
-        elif link is not None:
-            # burst-only: one lossless attempt per selection
-            zero_i = torch.zeros((), dtype=torch.int32, device=dev)
-            out.update(n_retx=zero_i, n_outage=zero_i,
-                       goodput_frac=torch.ones((), device=dev),
-                       e_retx=torch.zeros((), device=dev))
         return out, Carry(params, ctrl_state, battery, astate, fstate, lstate)
 
     @staticmethod
@@ -1138,9 +1424,9 @@ class FederatedTrainer:
         """The stale buffer over every (padded) client: under a mesh each
         rank's rows gathered in rank order, as the reference's sharded
         buffer reads back."""
-        if self._astate is None or self._group is None:
+        if self._astate is None or self._shard.group is None:
             return self._astate
-        return AsyncState(*[self._gather_rows(t) for t in self._astate])
+        return AsyncState(*[self._shard.gather_rows(t) for t in self._astate])
 
     def save_checkpoint(self, directory: str, next_round: int) -> str:
         """Persist the carry after round ``next_round - 1``; resuming at
@@ -1149,15 +1435,16 @@ class FederatedTrainer:
         and the mesh's first rank writes the file."""
         tree = self._carry_tree()
         path = _ckpt.checkpoint_path(directory, next_round)
-        if self._group is None or dist.get_rank(self._group) == 0:
+        group = self._shard.group
+        if group is None or dist.get_rank(group) == 0:
             path = _ckpt.save_checkpoint(
                 directory, next_round, tree,
                 metadata={"next_round": int(next_round),
                           "seed": int(self.seed),
                           "controller": self.controller_name,
                           "n_history": len(self.history)})
-        if self._group is not None:
-            dist.barrier(group=self._group)
+        if group is not None:
+            dist.barrier(group=group)
         return path
 
     def restore_checkpoint(self, path: str) -> int:

@@ -53,6 +53,15 @@ def unflatten_update(vec: Tensor, spec: TreeSpec) -> dict:
     return out
 
 
+def update_l2_norm(tree: dict) -> Tensor:
+    """||u||_2 of an update dict without the flat vector: one fp32 sum of
+    squares a leaf, the leaves added in JAX leaf order, then the root."""
+    sq = 0
+    for n in leaf_order(tree):
+        sq = sq + torch.sum(torch.square(tree[n].to(torch.float32)))
+    return torch.sqrt(sq)
+
+
 def finite_rows(mat: Tensor) -> Tensor:
     """[n] bool — rows of an [n, D] matrix with every coefficient finite."""
     return torch.all(torch.isfinite(mat), dim=1)

@@ -1,4 +1,4 @@
-from .ops import row_l2_norms
-from .ref import row_l2_norms_ref
+from .ops import l2_norm, row_l2_norms
+from .ref import l2_norm_ref, row_l2_norms_ref
 
-__all__ = ["row_l2_norms", "row_l2_norms_ref"]
+__all__ = ["l2_norm", "l2_norm_ref", "row_l2_norms", "row_l2_norms_ref"]

@@ -34,3 +34,18 @@ def norms_from_partials(partials: Tensor) -> Tensor:
 def row_l2_norms_ref(mat: Tensor, block: int) -> Tensor:
     """[N, D] -> [N] row L2 norms."""
     return norms_from_partials(sq_sum_partials_ref(mat, block))
+
+
+def l2_norm_blocks(vec: Tensor, block: int = 65536) -> Tensor:
+    """||vec||_2 by the JAX package's ``l2_norm`` rule: blocks of
+    ``min(block, max(128, next power of two >= n))`` lanes, the tail zero
+    padded, one fp32 partial a block, the root of their sum (in float64,
+    ``norms_from_partials``)."""
+    n = vec.shape[0]
+    block = min(block, max(128, 1 << (n - 1).bit_length()))
+    return norms_from_partials(sq_sum_partials_ref(vec[None], block))[0]
+
+
+def l2_norm_ref(vec: Tensor) -> Tensor:
+    """||vec||_2 in one fp32 sum of squares (the JAX package's oracle)."""
+    return torch.sqrt(torch.sum(torch.square(vec.to(torch.float32))))

@@ -18,10 +18,12 @@ C-16); the bisection works on the raw bits, as the reference's does.
 ``block_topk_rows_ref`` is the reference's sort-based oracle of the same
 mask on normal numbers.
 
-Two functions of the kernels: ``block_topk_rows`` (one k per row of a
-stacked ``[N, D]`` update matrix, ``csrc/topk_rows.cu``) and
-``block_topk_ref`` (one static k for a 1-D vector at a block width of
-its own, ``csrc/topk_block.cu``).
+Three functions of the kernels, at any block width: ``block_topk_rows``
+(one k per row of a stacked ``[N, D]`` update matrix,
+``csrc/topk_rows.cu``), ``block_topk_sparsify_rows`` (the rows entry: a k
+per ``[R, block]`` row, the same kernel) and ``block_topk_ref`` (one
+static k for a 1-D vector, ``csrc/topk_block.cu``); ``block_topk_mask_ref``
+is the keep mask of ``block_topk_ref``.
 
 Dropped lanes are +0.0 — ``torch.where(mask, x, 0)`` — which is what the
 reference's jitted ``x * mask`` returns (XLA rewrites the product into a
@@ -35,7 +37,7 @@ import torch
 
 Tensor = torch.Tensor
 
-DEFAULT_BLOCK = 4096   # the block width; csrc/topk_rows.cu is built for it
+DEFAULT_BLOCK = 4096   # the block width of the round's sparsify
 
 
 def daz(bits: Tensor) -> Tensor:
@@ -91,22 +93,33 @@ def block_topk_rows_ref(rows: Tensor, ks: Tensor) -> Tensor:
     return torch.where(mask, rows, 0.0)
 
 
-def block_topk_rows(mat: Tensor, ks: Tensor) -> Tensor:
+def block_topk_rows(mat: Tensor, ks: Tensor, *, block: int = DEFAULT_BLOCK,
+                    skip_full: bool = True) -> Tensor:
     """The kernel's function in plain PyTorch: ``mat`` [N, D] fp32 split
-    into ``DEFAULT_BLOCK``-wide blocks per row (the ragged tail
-    zero-padded), the top ``ks[n]`` magnitudes kept in every block of row
-    n. When every ``ks[n] >= DEFAULT_BLOCK`` the matrix copies through
-    (the reference's all-full skip); otherwise such a row takes the mask
-    at k = DEFAULT_BLOCK, which drops only NaN lanes. Returns [N, D]."""
+    into ``block``-wide blocks per row (the ragged tail zero-padded), the
+    top ``ks[n]`` magnitudes kept in every block of row n, ``ks`` clipped
+    to [1, block]. With ``skip_full``, when every ``ks[n] >= block`` the
+    matrix copies through (the reference's all-full skip); otherwise such a
+    row takes the mask at k = block, which drops only NaN lanes. Returns
+    [N, D]."""
     n, d = mat.shape
-    block = DEFAULT_BLOCK
-    if bool(torch.all(ks >= block)):
+    if skip_full and bool(torch.all(ks >= block)):
         return mat.clone()
     nb = -(-d // block)
     rows = torch.nn.functional.pad(mat, (0, nb * block - d)).reshape(n * nb, block)
     ks_rows = torch.repeat_interleave(ks.to(torch.int32), nb)[:, None]
     mask = topk_threshold_mask(rows, torch.clamp(ks_rows, 1, block))
     return torch.where(mask, rows, 0.0).reshape(n, nb * block)[:, :d]
+
+
+def block_topk_sparsify_rows(rows: Tensor, ks: Tensor) -> Tensor:
+    """The rows entry in plain PyTorch: ``rows`` [R, block], the top
+    ``ks[r]`` magnitudes of row r kept, ties to the lower index, as the
+    reference's Pallas rows kernel keeps them: k as given (the caller
+    clips it; at k <= 0 the bisection keeps nothing, at k >= block every
+    lane but a NaN), no all-full skip. Dropped lanes are +0.0."""
+    mask = topk_threshold_mask(rows, ks.to(torch.int32)[:, None])
+    return torch.where(mask, rows, 0.0)
 
 
 def keep_count(gamma, block: int) -> int:
@@ -140,3 +153,10 @@ def block_topk_ref(vec: Tensor, gamma, *, block: int = DEFAULT_BLOCK
     rows, n = _pad_to_blocks(vec, block)
     mask = topk_threshold_mask(rows, k)
     return torch.where(mask, rows, 0.0).reshape(-1)[:n], k
+
+
+def block_topk_mask_ref(vec: Tensor, gamma, *, block: int = DEFAULT_BLOCK
+                        ) -> Tensor:
+    """The keep mask of ``block_topk_ref``: its output's nonzero lanes."""
+    out, _ = block_topk_ref(vec, gamma, block=block)
+    return out != 0

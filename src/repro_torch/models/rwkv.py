@@ -101,9 +101,12 @@ def rwkv6_forward(params: RWKV6, x: torch.Tensor, cfg, *, chunk: int = 128,
     mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device),
                       diagonal=-1)[None, :, :, None]
     state = torch.zeros(B, H, M, M, device=x.device)
+    # chunk c is the slice [c Q, (c + 1) Q) of the sequence; one
+    # redistribution a tensor a layer under the sharding plan (act.chunked)
+    chunks = [act.chunked(t, Q) for t in (r, k, v, log_w)]
     ys = []
-    for c0 in range(0, S, Q):
-        rq, kq, vq, lwq = (t[:, c0:c0 + Q] for t in (r, k, v, log_w))
+    for c in range(S // Q):
+        rq, kq, vq, lwq = (t[:, c] for t in chunks)
         # L_t: the cumulative log decay through step t (applied after use)
         L = torch.cumsum(lwq, dim=1)
         ratio_t = torch.exp(L - lwq)                             # <= 1

@@ -104,9 +104,13 @@ def mamba2_forward(params: Mamba2, x: torch.Tensor, cfg, *, return_state: bool =
     xf, Bf, Cf = xh.float(), Bmat.float(), Cmat.float()
     mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))[None, :, :, None]
     state = torch.zeros(B, H, N, P, device=x.device)
+    # [B, S / Q, Q, ...] views: chunk c is the slice [c Q, (c + 1) Q) of the
+    # sequence, and under the sharding plan one redistribution a tensor
+    # a layer, not one a chunk (act.chunked)
+    chunks = [act.chunked(t, Q) for t in (xf, Bf, Cf, dt, log_a)]
     ys = []
-    for c0 in range(0, S, Q):
-        xq, Bq, Cq, dtq, laq = (t[:, c0:c0 + Q] for t in (xf, Bf, Cf, dt, log_a))
+    for c in range(S // Q):
+        xq, Bq, Cq, dtq, laq = (t[:, c] for t in chunks)
         L = torch.cumsum(laq, dim=1)                             # [B, Q, H]
         # intra-chunk: M[t, s] = (C_t . B_s) exp(L_t - L_s) dt_s, s <= t
         CB = torch.einsum("bqn,bsn->bqs", Cq, Bq)

@@ -170,6 +170,25 @@ def split_last(x, n: int, size: int):
     return split_dim(x, -1, n, size)
 
 
+def chunked(x, q: int):
+    """``x`` [B, S, ...] viewed as ``[B, S // q, q, ...]`` (``reshape``):
+    chunk c of a chunked scan is ``chunked(x, q)[:, c]``, on a plain
+    tensor the very view ``x[:, c q:(c + 1) q]``. On a DTensor all but a
+    sharded batch is redistributed to replicated once here (sharded dims
+    gathered, partial sums reduced), so that taking a chunk and the
+    chunk's products move nothing: a slice of a DTensor whose sequence is
+    sharded gathers the whole sequence again, once a chunk, a product over
+    heads sharded with the batch gathers the chunk's heads (DTensor's
+    einsum merges the two dims), and one over a partial sum reduces it."""
+    b, s = x.shape[:2]
+    y = reshape(x, (b, s // q, q, *x.shape[2:]))
+    if isinstance(y, DTensor):
+        placements = [p if p.is_shard(0) else Replicate() for p in y.placements]
+        if placements != list(y.placements):
+            y = y.redistribute(y.device_mesh, placements)
+    return y
+
+
 def microbatch(t, m: int, i: int):
     """Slice ``i`` of ``m`` along the batch (dim 0): the rows
     ``[i B/m, (i+1) B/m)`` of a plain tensor. On a DTensor whose batch is

@@ -27,6 +27,7 @@ from repro.kernels.topk_sparsify.ref import block_topk_ref as j_ref
 from repro_torch.fl.compression import (block_topk, dequantize_int8,
                                         global_topk, quantize_int8)
 from repro_torch.kernels.topk_sparsify import block_topk_sparsify, keep_count
+from repro_torch.kernels.topk_sparsify import ops as topk_ops
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -220,9 +221,12 @@ def test_keeps_exactly_k_per_block_and_the_largest():
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     v = torch.zeros(1000)
-    for block in (100, 4096 + 128, 0):
-        with pytest.raises(ValueError, match="multiple of 128 up to 4096"):
+    for block in (0, -128):
+        with pytest.raises(ValueError, match="at least 1"):
             block_topk_sparsify(v, 0.5, block=block)
+    # a width past the kernels' int lane indices raises on the card
+    with pytest.raises(ValueError, match="wider than the kernels take"):
+        topk_ops._check_block(topk_ops.MAX_BLOCK + 1, True)
     with pytest.raises(ValueError, match="1 dim"):
         block_topk_sparsify(torch.zeros(4, 256), 0.5, block=256)
 
