@@ -297,8 +297,24 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    the golden file) and 1,024 (a grid without 1.0), each card run's
    launches zeroed before it and asserted after (an ascent, a norms and a
    rows launch a round), and one ``make_round_engine`` round at 1,024.
+17. (a) both flash kernels at head dims 264, 288, 300, 320, 384, 512 and
+   1,024 (column groups of O, one a CTA; bf16 and fp16 on the tensor
+   cores, fp32 on the SIMT kernel) against ``attention_ref`` and
+   ``flash_fwd_ref``'s lse, causal GQA, windowed and cross (Skv != Sq),
+   each call's route counted; each D timed at ``[4, 2048, 32 | 4, D]``
+   beside its operations bound, the plain version and SDPA (its backend
+   named); (b) fp16 at D = 64, 80, 128 and 256 the same; (c) the smoke
+   TinyLlama at ``head_dim=512``, one of its two layers, card against CPU
+   under phase 15's gates
+   (prefill and 4 greedy steps in fp32, bf16 and fp16, 3 fp32 AdamW steps
+   with 2 lse launches a layer a step); (d) TinyLlama-1.1B served in fp16
+   at phase 5's shape (22 fp16 launches, each held against the plain
+   version; the first decode step within 5% of the forward's scale) and
+   the smoke model in fp16 card against CPU, as phase 6; (e) the fp16
+   block top-k at widths 256, 4,096 and 65,536 bit for bit on the tricky
+   rows and fp16's subnormals and NaNs; (f) a launch with B * H = 65,600.
 
-``--only 16`` runs phase 16 alone after the build. ``--cards K`` runs
+``--only 16`` and ``--only 17`` run that phase alone after the build. ``--cards K`` runs
 phase 7 alone across K cards (one NCCL rank a card,
 after the build): the exchanges on a (2, K/2, 1) mesh against the pod mean
 of the block top-k computed on each card, the main path's recipe sharded
@@ -1248,11 +1264,11 @@ FLASH_GRAD_D256 = (1, 2048, 8, 1, 256)
 # whisper's decoder calls, timed: (B, Sq, H, KV, D, Skv, causal)
 FLASH_WHISPER = {"whisper_cross": (4, 4096, 6, 6, 64, 1500, False),
                  "whisper_self": (4, 4096, 6, 6, 64, 4096, True)}
-FLASH_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+FLASH_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 # the kernels' log-sum-exp against flash_fwd_ref's: both take the max of
 # the same fp32 scores and the log of an fp32 sum (the bf16 kernel's terms
 # from ex2.approx), so fp32 holds 1e-5; bf16 gets 1e-2
-FLASH_LSE_ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+FLASH_LSE_ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
 # dq, dk, dv of the Function (kernel forward) against the all-plain
 # forward, both through flash_bwd_ref, relative to each gradient's scale:
 # fp32 1e-5 (the forwards agree to ~1e-6); bf16 2e-2 (out rounded to bf16,
@@ -1362,24 +1378,42 @@ def flash_fwd_bound(q: torch.Tensor, k: torch.Tensor, peak: float,
     return bound(q.element_size() * (2 * q.numel() + 2 * k.numel()), n_ops, peak)
 
 
-def time_flash(q, k, v, peak, causal: bool = True) -> dict:
+# torch's SDPBackend values (the enum of torch.nn.attention)
+SDPA_BACKENDS = {0: "math", 1: "flash", 2: "efficient", 3: "cudnn"}
+
+
+def sdpa_backend(qt, kt, vt, causal: bool) -> str:
+    """The backend SDPA's dispatcher picks for these [B, H, S, D] inputs
+    (torch's private chooser: its name may change between versions)."""
+    try:
+        choice = torch._fused_sdp_choice(qt, kt, vt, is_causal=causal,
+                                         enable_gqa=True)
+    except (AttributeError, RuntimeError, TypeError) as err:
+        return f"unknown ({type(err).__name__})"
+    return SDPA_BACKENDS.get(int(choice), str(choice))
+
+
+def time_flash(q, k, v, peak, causal: bool = True, iters: int = 20) -> dict:
     """The kernel of q's type at one call without a window: its ms with
-    and without the lse output (CUDA events), the plain version's and
-    SDPA's on the same inputs, and its bound."""
+    and without the lse output (CUDA events, ``iters`` calls), the plain
+    version's and SDPA's on the same inputs (and SDPA's backend), and its
+    bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops, ref
-    ms = cuda_ms(lambda: ops.flash_attention_cuda(q, k, v, causal=causal), 20)
+    ms = cuda_ms(lambda: ops.flash_attention_cuda(q, k, v, causal=causal), iters)
     ms_lse = cuda_ms(lambda: ops.flash_attention_cuda(
-        q, k, v, causal=causal, with_lse=True), 20)
+        q, k, v, causal=causal, with_lse=True), iters)
     plain = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=causal), 3, warmup=1)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     library = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
+        qt, kt, vt, is_causal=causal, enable_gqa=True), iters)
+    backend = sdpa_backend(qt, kt, vt, causal)
     b_ms, b_by = flash_fwd_bound(q, k, peak, causal)
     res = {"shape": [*q.shape[:3], k.shape[2], q.shape[3]], "Skv": k.shape[1],
            "causal": causal, "ms": ms,
            "ms_with_lse": ms_lse, "plain_ms": plain, "library_ms": library,
+           "sdpa_backend": backend,
            "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms}
     log(json.dumps({"flash_timed": dict(res, dtype=str(q.dtype))}))
     return res
@@ -1511,8 +1545,17 @@ def counters() -> dict:
                topk_block=(block_topk_sparsify, "launches"),
                row_sq_sum=(row_l2_norms, "launches"),
                flash_attention=(flash_attention, "launches_bf16"),
-               flash_attention_f32=(flash_attention, "launches_f32"))
+               flash_attention_f32=(flash_attention, "launches_f32"),
+               flash_attention_f16=(flash_attention, "launches_f16"))
     return out
+
+
+# a model dtype -> the flash wrapper's counter of its route, and the name of
+# its kernel in counters() and the kernels line
+FLASH_COUNTER = {"float32": "launches_f32", "bfloat16": "launches_bf16",
+                 "float16": "launches_f16"}
+FLASH_KERNEL = {"float32": "flash_attention_f32", "bfloat16": "flash_attention",
+                "float16": "flash_attention_f16"}
 
 
 def paper_trainer(dev, scenario=None, price_outage=None, bits_grid=None,
@@ -2719,14 +2762,22 @@ SERVE = dict(arch="tinyllama-1.1b", prompt_len=2048, gen=32, batch=4)
 SERVE_REL_TOL = 0.05
 
 
-def serve_path(dev, profile: bool = False) -> dict:
-    """Phase 5: generate() at TinyLlama-1.1B's full width on the card."""
+def serve_path(dev, profile: bool = False, dtype: str | None = None) -> dict:
+    """Phase 5: generate() at TinyLlama-1.1B's full width on the card (in
+    ``dtype`` instead of the config's bf16 where given: phase 17 (d), whose
+    attribution prefill also holds every flash launch against
+    ``attention_ref`` on the same inputs, within the 16-bit gate, 2e-2 of
+    the output's scale (at least 1))."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops, ref
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.launch import serve, steps
     from repro_torch.models import transformer as tfm
 
     cfg = get_config(SERVE["arch"])
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype)
+    kname = FLASH_KERNEL[cfg.dtype]
     t0 = time.perf_counter()
     master = steps.init_for(cfg)(torch.Generator(device=dev).manual_seed(0))
     model = tfm.for_compute(master, cfg)       # the bf16 serving copy, made once
@@ -2747,10 +2798,10 @@ def serve_path(dev, profile: bool = False) -> dict:
     launches = {name: getattr(fn, attr) for name, (fn, attr) in fns.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     B, P, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
-    if launches["flash_attention"] != cfg.n_layers:
+    if launches[kname] != cfg.n_layers:
         raise AssertionError(f"serve launched the flash kernel "
-                             f"{launches['flash_attention']} times, not {cfg.n_layers}")
-    others = {n: c for n, c in launches.items() if n != "flash_attention" and c}
+                             f"{launches[kname]} times, not {cfg.n_layers}")
+    others = {n: c for n, c in launches.items() if n != kname and c}
     if others:
         raise AssertionError(f"serve launched other kernels: {others}")
     if tuple(out.ids.shape) != (B, 1 + G) or tuple(out.prompt.shape) != (B, P):
@@ -2761,11 +2812,33 @@ def serve_path(dev, profile: bool = False) -> dict:
     if not all(bool(torch.isfinite(lg).all()) for lg in logits):
         raise AssertionError("non-finite serve logits")
 
-    # attribution: the prefill launches one kernel a layer, a decode step none
+    # attribution: the prefill launches one kernel a layer, a decode step
+    # none; each of the prefill's launches against the plain version
+    held = []
+    launch = ops.flash_attention_cuda
+
+    def holding(q, k, v, **kw):
+        got = launch(q, k, v, **kw)
+        want = ref.attention_ref(q, k, v, causal=kw.get("causal", True),
+                                 window=kw.get("window"))
+        err = float(((got[0] if isinstance(got, tuple) else got).float()
+                     - want.float()).abs().max())
+        held.append(err / max(1.0, float(want.abs().max())))
+        return got
+
     with torch.no_grad():
         flash_attention.launches = 0
-        _, cache = tfm.lm_prefill(model, out.prompt.to(dev), cfg, cache_len=P + G)
+        if dtype is not None:
+            ops.flash_attention_cuda = holding
+        try:
+            _, cache = tfm.lm_prefill(model, out.prompt.to(dev), cfg, cache_len=P + G)
+        finally:
+            ops.flash_attention_cuda = launch
         n_prefill = flash_attention.launches
+        if dtype is not None and (len(held) != n_prefill
+                                  or not max(held) <= FLASH_ATOL[torch.bfloat16]):
+            raise AssertionError(f"serve {cfg.dtype}: {n_prefill} flash launches, "
+                                 f"{len(held)} held, errors over scale {held}")
         flash_attention.launches = 0
         tfm.lm_decode(model, out.ids[:, :1].to(dev), cache, P, cfg)
         n_decode = flash_attention.launches
@@ -2793,6 +2866,7 @@ def serve_path(dev, profile: bool = False) -> dict:
                "flash_launches_prefill": n_prefill, "flash_launches_decode_step": n_decode,
                "first_decode_vs_forward_max_abs": diff, "logit_scale": scale,
                "first_decode_vs_forward_argmax_agree": agree,
+               "flash_launches_held_err_over_scale": max(held, default=None),
                "ids_first_request": out.ids[0, :16].tolist()}
     log(json.dumps({"serve_summary": summary}))
     if profile:
@@ -2959,7 +3033,7 @@ def serve_card_against_cpu(dev, dtype: str = "float32") -> dict:
     cpu_model = steps.init_for(cfg)(torch.Generator().manual_seed(1))
     card_model = copy.deepcopy(cpu_model).to(dev)
     kw = dict(prompt_len=2048, gen=8, batch=2, temperature=1.0, seed=3)
-    counter = "launches_f32" if dtype == "float32" else "launches_bf16"
+    counter = FLASH_COUNTER[dtype]
     flash_attention.launches = 0
     setattr(flash_attention, counter, 0)
     got = serve.generate(cfg, card_model, **kw, device=dev)
@@ -3358,7 +3432,7 @@ def family_card_against_cpu(dev, arch: str, cut: dict, dtype: str) -> dict:
     kw = dict(prompt_len=P, gen=G, batch=B, temperature=1.0, seed=3)
     n_attn = {"moe": cfg.n_layers, "ssm": 0,
               "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}[cfg.family]
-    counter = "launches_f32" if dtype == "float32" else "launches_bf16"
+    counter = FLASH_COUNTER[dtype]
     flash_attention.launches = 0
     setattr(flash_attention, counter, 0)
     with recorded_routing() as rec_card:
@@ -3793,7 +3867,7 @@ def family13_card_against_cpu(dev, arch: str, dtype: str, cfg=None,
                  "extra_embeds": torch.randn(B, nv, cfg.d_model, generator=gen).to(dt)}
         n_attn = cfg.n_layers
     prefill, serve_step = steps.build_prefill_step(cfg, shape), steps.build_serve_step(cfg)
-    counter = "launches_f32" if dtype == "float32" else "launches_bf16"
+    counter = FLASH_COUNTER[dtype]
 
     def run(model, where):
         logits, cache = prefill(model, {k: t.to(where) for k, t in batch.items()})
@@ -5231,6 +5305,232 @@ def phase16(dev, kernels) -> None:
                 k["l2_norm"] = norm
 
 
+# ----------------------------------------------------------- phase 17 ----
+# (a) head dims past 256, each at three calls (B, S, H, KV, causal, window,
+# Skv): causal GQA, a window, and cross-attention (Skv != Sq, non-causal);
+# each D timed at the serve shape [4, 2048, 32 | 4, D]
+WIDE_DIMS = (264, 288, 300, 320, 384, 512, 1024)
+WIDE_CASES = ((1, 600, 8, 2, True, None, None),
+              (1, 700, 8, 4, True, 128, None),
+              (1, 400, 8, 2, False, None, 333))
+WIDE_TIMED = (4, 2048, 32, 4)
+# timed calls a D: fp32 calls take 20-136 ms at the serve shape past 256,
+# and SDPA's math backend, beside the 16-bit ones, 22-54 ms
+WIDE_TIMED_ITERS = {torch.float32: 5, torch.bfloat16: 10, torch.float16: 10}
+# (b) fp16 at the head dims of the port's models, the same three calls
+F16_DIMS = (64, 80, 128, 256)
+# (c) the smoke TinyLlama at head_dim 512 (no config of the port has it),
+# cut to one of its two layers: its CPU side, train steps at 2 x 2,048
+# tokens, took 95 s at both on the card's host
+HEAD_DIM_512 = dict(arch="tinyllama-1.1b", head_dim=512, n_layers=1)
+# (e) the fp16 block top-k's widths
+F16_TOPK_WIDTHS = (256, 4096, 65536)
+# (f) B * H = 65,600 on grid x (past 65,535, where the wrapper's old check
+# stopped, ROADMAP C-30): B, S, H, KV, D
+GRID_X_CASE = (2050, 128, 32, 32, 32)
+PEAK = {torch.float32: PEAK_FP32_S, torch.bfloat16: PEAK_BF16_S,
+        torch.float16: PEAK_BF16_S}      # fp16's dense tensor-core rate is bf16's
+
+
+def hold_flash_cases(dev, dt, dims, seed: int) -> dict:
+    """The kernel of ``dt`` at each head dim of ``dims`` on WIDE_CASES
+    against ``attention_ref`` (out) and ``flash_fwd_ref`` (lse), under
+    FLASH_ATOL / FLASH_LSE_ATOL: each call launches the route of ``dt``
+    twice (out; out and lse) and nothing else, and out is the same both
+    times. Returns the largest errors."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    fa = ops.flash_attention
+    counter = ops._ROUTES[dt][2]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    err = lse_err = 0.0
+    for D in dims:
+        for B, S, H, KV, causal, window, Skv in WIDE_CASES:
+            Skv = Skv or S
+            q = torch.randn(B, S, H, D, device=dev, generator=gen).to(dt)
+            k = torch.randn(B, Skv, KV, D, device=dev, generator=gen).to(dt)
+            v = torch.randn(B, Skv, KV, D, device=dev, generator=gen).to(dt)
+            before = (fa.launches, getattr(fa, counter))
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            got_l, lse = ops.flash_attention_cuda(q, k, v, causal=causal,
+                                                  window=window, with_lse=True)
+            routed = (fa.launches - before[0], getattr(fa, counter) - before[1])
+            want = ref.attention_ref(q, k, v, causal=causal, window=window)
+            _, lse_want = ref.flash_fwd_ref(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            e = float((got.float() - want.float()).abs().max())
+            e_lse = float((lse - lse_want).abs().max())
+            case = [B, S, H, KV, D, str(dt), causal, window, Skv]
+            log(json.dumps({"phase17_flash_case": case, "max_abs_err": e,
+                            "lse_max_abs_err": e_lse, "launches": routed}))
+            if routed != (2, 2):
+                raise AssertionError(f"phase 17: {case} launched {routed} "
+                                     f"(all, {counter}), want (2, 2)")
+            if not (e <= FLASH_ATOL[dt] and e_lse <= FLASH_LSE_ATOL[dt]
+                    and torch.equal(got, got_l)):
+                raise AssertionError(f"phase 17: the kernel differs from its plain "
+                                     f"version at {case}: out {e}, lse {e_lse}")
+            err, lse_err = max(err, e), max(lse_err, e_lse)
+    return {"max_abs_err": err, "lse_max_abs_err": lse_err}
+
+
+def time_flash_dims(dev, dt, dims) -> dict:
+    """The kernel of ``dt`` at the serve shape ``WIDE_TIMED`` and each D of
+    ``dims`` (time_flash: beside its bound, the plain version, SDPA and
+    SDPA's backend)."""
+    B, S, H, KV = WIDE_TIMED
+    out = {}
+    for D in dims:
+        gen = torch.Generator(device=dev).manual_seed(D)
+        q, k, v = (torch.randn(B, S, n, D, device=dev, generator=gen).to(dt)
+                   for n in (H, KV, KV))
+        out[D] = time_flash(q, k, v, PEAK[dt], iters=WIDE_TIMED_ITERS[dt])
+        del q, k, v
+    return out
+
+
+def check_topk_block_f16(dev) -> dict:
+    """(e) The block top-k in fp16 against its plain version bit for bit at
+    F16_TOPK_WIDTHS, on phase 2's tricky rows and two of phase 16's CNN-wide
+    tricky rows (NaN, +-Inf, -0.0, ties), in fp16, with fp16's own edge
+    lanes: subnormals (normal in fp32, so they compare by value), a
+    signalling NaN, the all-ones NaN 0x7fff and one starting off a 16-byte
+    word. The plain version runs on the CPU copy, the reference's platform:
+    its widening of a signalling NaN (quiet bit set, payload kept) is the
+    CPU's, which the kernel repeats."""
+    from repro_torch.kernels.topk_sparsify import ops, ref
+    short = _tricky_rows(dev)[0].flatten().half()
+    long = _long_tricky(dev)[1:3].flatten().half()
+    gen = torch.Generator().manual_seed(17)
+    for vec in (short, long):
+        bits = vec.view(torch.int16)
+        n = vec.numel()
+        sub = torch.randint(1, 1024, (n // 9,), generator=gen, dtype=torch.int16)
+        bits[::9][:n // 9] = sub.to(dev)
+        bits[5], bits[7], bits[11] = 0x7C01, 0x7FFF, -1023       # sNaN, 0x7fff, 0xfc01
+    out = {}
+    launches = ops.block_topk_sparsify.launches
+    for name, vec in (("tricky", short), ("cnn_tricky", long), ("off_word", short[3:])):
+        for w in F16_TOPK_WIDTHS:
+            for gamma in (0.1, 0.5):
+                got, k = ops.block_topk_sparsify(vec, gamma, block=w)
+                want, k_ref = ref.block_topk_ref(vec.cpu(), gamma, block=w)
+                same = torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+                log(json.dumps({"topk_block_f16_case": [name, vec.numel(), w, gamma, k],
+                                "bit_identical": same}))
+                if k != k_ref or not same:
+                    raise AssertionError(f"phase 17 (e): the fp16 block top-k differs "
+                                         f"from its plain version: {name} w={w} "
+                                         f"gamma={gamma}")
+        out[name] = vec.numel()
+    out["launches"] = ops.block_topk_sparsify.launches - launches
+    if out["launches"] != 3 * len(F16_TOPK_WIDTHS) * 2:
+        raise AssertionError(f"phase 17 (e): {out['launches']} block top-k launches")
+    return out
+
+
+def check_grid_x(dev) -> dict:
+    """(f) One launch with B * H = 65,600 in bf16 and in fp32 against the
+    plain version on its last 3 batch rows (all rows run the same code)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    B, S, H, KV, D = GRID_X_CASE
+    gen = torch.Generator(device=dev).manual_seed(29)
+    res = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(B, S, n, D, device=dev, generator=gen).to(dt)
+                   for n in (H, KV, KV))
+        before = ops.flash_attention.launches
+        got = ops.flash_attention_cuda(q, k, v, causal=True)
+        want = ref.attention_ref(q[-3:], k[-3:], v[-3:], causal=True)
+        first = ref.attention_ref(q[:2], k[:2], v[:2], causal=True)
+        torch.cuda.synchronize()
+        e = max(float((got[-3:].float() - want.float()).abs().max()),
+                float((got[:2].float() - first.float()).abs().max()))
+        res[str(dt)] = e
+        if ops.flash_attention.launches - before != 1 or not e <= FLASH_ATOL[dt]:
+            raise AssertionError(f"phase 17 (f): B * H = {B * H} in {dt}: err {e}")
+        del q, k, v, got
+    log(json.dumps({"phase17_grid_x": {"B_times_H": B * H, "max_abs_err": res}}))
+    return res
+
+
+def phase17(dev) -> dict:
+    """(a) both flash kernels past head dim 256 (bf16 and fp16 on the
+    tensor cores, fp32 on the SIMT kernel) against their plain versions and
+    timed; (b) fp16 at D = 64, 80, 128, 256, the same; (c) the smoke
+    TinyLlama at head_dim 512 (one layer) card against CPU (prefill and 4 serve steps
+    in fp32, bf16 and fp16; 3 fp32 train steps with lse); (d) TinyLlama-1.1B
+    served in fp16 at phase 5's shape (every prefill launch held) and the
+    smoke model in fp16 card against CPU, as phase 6; (e) the fp16 block
+    top-k; (f) a launch past B * H = 65,535. Each run's counts zeroed just
+    before it and read just after. Returns the fp16 kernel's entry and the
+    wide results of the other two."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.flash_attention import ops
+    attrs = {f"{str(dt)[6:]}/D{D}": ops.kernel_attributes(dt, D)
+             for dt in (torch.bfloat16, torch.float16, torch.float32)
+             for D in (320, 384, 512, 1024)}
+    attrs.update({f"float16/DP{d}": ops.kernel_attributes(torch.float16, d)
+                  for d in ops.COMPILED_WIDTHS})
+    log(json.dumps({"phase17_instances": attrs}))
+    wide = {}
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        held = hold_flash_cases(dev, dt, WIDE_DIMS, seed=31)
+        wide[str(dt)] = dict(held, timed=time_flash_dims(dev, dt, WIDE_DIMS))
+    f16 = dict(hold_flash_cases(dev, torch.float16, F16_DIMS, seed=37),
+               timed=time_flash_dims(dev, torch.float16, F16_DIMS))
+    stamp("17 (a)-(b)")
+
+    arch = HEAD_DIM_512["arch"]
+    cfg = dataclasses.replace(get_smoke(arch), head_dim=HEAD_DIM_512["head_dim"],
+                              n_layers=HEAD_DIM_512["n_layers"])
+    d512 = {"prefill": [family13_card_against_cpu(dev, arch, dtype, cfg=cfg,
+                                                  label="phase 17 (c)")
+                        for dtype in ("float32", "bfloat16", "float16")],
+            # phase 15's first-gradient gate without its float64 floor
+            # allowance (that run doubles the phase's time): 1e-5 of scale
+            "train": family13_train_card_against_cpu(
+                dev, arch, FAMILY13_SMOKE["prompt"], cfg.n_layers,
+                label="phase 17 (c)", flat_gate=1e-5, cfg=cfg)}
+    stamp("17 (c)")
+
+    serve = serve_path(dev, dtype="float16")
+    smoke = serve_card_against_cpu(dev, "float16")
+    stamp("17 (d)")
+    topk = check_topk_block_f16(dev)
+    grid = check_grid_x(dev)
+
+    t = f16["timed"][64]
+    entry = dict(name="flash_attention_f16", route="cuda",
+                 source="src/repro_torch/csrc/flash_attention_sm90_f16.cu",
+                 replaces="src/repro/kernels/flash_attention/kernel.py:25",
+                 launches=serve["launches"]["flash_attention_f16"],
+                 max_abs_err=max(f16["max_abs_err"], wide["torch.float16"]["max_abs_err"]),
+                 ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                 bound_by=t["bound_by"], library_ms=t["library_ms"],
+                 sdpa_backend=t["sdpa_backend"], ms_with_lse=t["ms_with_lse"],
+                 lse_max_abs_err=max(f16["lse_max_abs_err"],
+                                     wide["torch.float16"]["lse_max_abs_err"]),
+                 head_dims={D: f16["timed"][D] for D in F16_DIMS[1:]},
+                 head_dims_past_256=wide["torch.float16"]["timed"],
+                 serve_fp16=serve, smoke_card_vs_cpu_launches=smoke["flash_launches"],
+                 launches_phase17c={r["dtype"]: r["flash_launches"]
+                                    for r in d512["prefill"]},
+                 instances={k.split("/")[1]: a for k, a in attrs.items()
+                            if k.startswith("float16")})
+    log(json.dumps({"phase17_summary": {
+        "wide_ms": {dt: {D: r["ms"] for D, r in w["timed"].items()}
+                    for dt, w in wide.items()},
+        "f16_ms": {D: r["ms"] for D, r in f16["timed"].items()},
+        "serve_fp16": {k: serve[k] for k in ("prefill_ms", "decode_ms_per_step",
+                                             "first_decode_vs_forward_max_abs",
+                                             "logit_scale")},
+        "topk_f16": topk, "grid_x": grid}}))
+    return {"entry": entry, "wide": wide, "d512": d512, "topk_f16": topk,
+            "grid_x": grid}
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -5261,6 +5561,13 @@ def main(argv) -> int:
     if "--only" in argv and argv[argv.index("--only") + 1] == "16":
         # phase 16 alone (a short check of the slice's kernels and engines)
         phase16(dev, None)
+        log(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+    if "--only" in argv and argv[argv.index("--only") + 1] == "17":
+        # phase 17 alone (head dims past 256, fp16, the grid's x limit)
+        log(json.dumps({"kernels": [phase17(dev)["entry"]]}))
         log(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
@@ -5328,7 +5635,8 @@ def main(argv) -> int:
         carrier.setdefault(own, label)
     carrier.update({one: carrier[FUSED[one]] for one in DUAL_VARIANTS})
     for k in kernels:
-        if k["name"] not in ("flash_attention", "flash_attention_f32", "topk_block"):
+        if k["name"] not in ("flash_attention", "flash_attention_f32",
+                             "flash_attention_f16", "topk_block"):
             k["launches"] = runs[carrier.get(k["name"], "main")]["launches"][k["name"]]
         if k["name"] in DUAL_VARIANTS:
             k["on_path"] = False
@@ -5502,6 +5810,23 @@ def main(argv) -> int:
         "prefill": p15["prefill"][0]["flash_launches"],
         "train_with_lse": p15["train"]["flash_launches_with_lse"]}
     stamp("15")
+
+    # ---- phase 17: head dims past 256 on both flash kernels, fp16 through
+    # the tensor-core kernel (its entry joins the kernels line) and the
+    # block top-k, and a launch past B * H = 65,535
+    p17 = phase17(dev)
+    kernels.append(p17["entry"])
+    for k in (flash, flash_f32):
+        w = p17["wide"][{"flash_attention": "torch.bfloat16",
+                         "flash_attention_f32": "torch.float32"}[k["name"]]]
+        k["head_dims_past_256"] = dict(w["timed"], max_abs_err=w["max_abs_err"],
+                                       lse_max_abs_err=w["lse_max_abs_err"])
+    flash["launches_phase17c"] = {"prefill_bf16": p17["d512"]["prefill"][1]["flash_launches"]}
+    flash_f32["launches_phase17c"] = {
+        "prefill": p17["d512"]["prefill"][0]["flash_launches"],
+        "train_with_lse": p17["d512"]["train"]["flash_launches_with_lse"]}
+    block["fp16"] = p17["topk_f16"]
+    stamp("17")
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

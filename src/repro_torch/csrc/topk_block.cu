@@ -5,13 +5,15 @@
 // kernels/topk_sparsify/ops.block_topk_sparsify and fl/compression.block_topk
 // (the cross-silo aggregation of fl/collectives.py).
 //
-// Input: x [n] fp32 or bf16, a static k and a block width (any, from 1 to
+// Input: x [n] fp32, bf16 or fp16, a static k and a block width (any, from 1 to
 // the whole vector). The vector is cut into blocks of that width (the last one
 // ragged: read in place, its missing tail competes as zeros, as the
 // reference's zero padding does, and is never written). In every block the
 // k largest magnitudes are kept, ties to the lower index — the exact mask
 // of ref.topk_threshold_mask, computed by topk_common.cuh on the fp32 value
-// of each lane (a bf16 lane widens exactly) — and written as
+// of each lane (a bf16 or fp16 lane widens exactly; fp16 subnormals are
+// normal fp32 numbers, so the denormals-as-zero compare leaves them be, as
+// the reference's does) — and written as
 //   out = mask ? x : +0.0 in the input's type, what the reference's jitted
 //   x * mask gives (XLA turns the product into a select).
 // At k >= block the mask keeps every lane but a NaN (a NaN magnitude passes
@@ -99,19 +101,21 @@ cudaError_t attrs(int block, int* out) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (passed as its 16-bit pattern)
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (the 16-bit types passed
+// as their patterns)
 extern "C" int topk_block(const void* x, void* out, long long n, int block,
                           int k, int dtype, void* stream) {
-  if (block < 1 || block > topk::kMaxStreamBlock || (dtype != 0 && dtype != 1))
+  if (block < 1 || block > topk::kMaxStreamBlock || dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n < 1) return 0;
   const long long nb = (n + block - 1) / block;
   if (nb > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>(nb);
-  return static_cast<int>(dtype == 0
-                              ? launch<float>(x, out, n, block, k, grid, s)
-                              : launch<uint16_t>(x, out, n, block, k, grid, s));
+  return static_cast<int>(
+      dtype == 0 ? launch<float>(x, out, n, block, k, grid, s)
+      : dtype == 1 ? launch<uint16_t>(x, out, n, block, k, grid, s)
+                   : launch<topk::f16_lane>(x, out, n, block, k, grid, s));
 }
 
 // The instance's (dtype as above, blocks of `block` lanes) registers a
@@ -120,5 +124,6 @@ extern "C" int topk_block(const void* x, void* out, long long n, int block,
 extern "C" int topk_block_attrs(int dtype, int block, int* out) {
   if (dtype == 0) return static_cast<int>(attrs<float>(block, out));
   if (dtype == 1) return static_cast<int>(attrs<uint16_t>(block, out));
+  if (dtype == 2) return static_cast<int>(attrs<topk::f16_lane>(block, out));
   return static_cast<int>(cudaErrorInvalidValue);
 }

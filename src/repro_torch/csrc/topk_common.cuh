@@ -111,13 +111,34 @@ __device__ __forceinline__ int warp_incl_scan(int v) {
   return v;
 }
 
-// bit pattern of |x| for an fp32 lane and for a bf16 lane (its fp32 value
-// is the bf16 bits shifted up 16, so the mask is the fp32 widening's)
+// An fp16 lane, passed as its 16-bit pattern: a type of its own beside the
+// bf16 lane's uint16_t, so that mag_bits widens it as fp16. T(0) is +0.0.
+struct f16_lane {
+  uint16_t bits;
+  f16_lane() = default;
+  __host__ __device__ constexpr explicit f16_lane(int zero)
+      : bits(static_cast<uint16_t>(zero)) {}
+};
+
+// bit pattern of |x| for an fp32 lane, a bf16 lane (its fp32 value is the
+// bf16 bits shifted up 16, so the mask is the fp32 widening's) and an fp16
+// lane: its exact fp32 value, as the reference's and the plain version's
+// conversion to fp32 on the CPU gives it — a subnormal becomes a normal
+// fp32 number (so the float tests keep it: it is no fp32 denormal), and a
+// NaN keeps its payload with the quiet bit set
 __device__ __forceinline__ int mag_bits(float v) {
   return __float_as_int(v) & 0x7fffffff;
 }
 __device__ __forceinline__ int mag_bits(uint16_t v) {
   return (static_cast<int>(v) << 16) & 0x7fffffff;
+}
+__device__ __forceinline__ int mag_bits(f16_lane v) {
+  const int e = (v.bits >> 10) & 0x1f, f = v.bits & 0x3ff;
+  if (e == 0x1f) return f ? 0x7fc00000 | (f << 13) : 0x7f800000;  // NaN, Inf
+  if (e != 0) return ((e + 112) << 23) | (f << 13);
+  if (f == 0) return 0;
+  const int p = 31 - __clz(f);                 // the leading bit: 2^(p - 24)
+  return ((p + 103) << 23) | ((f << (23 - p)) & 0x7fffff);
 }
 
 // The float that a compare on XLA's CPU sees for the pattern `bits`:

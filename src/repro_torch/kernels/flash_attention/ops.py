@@ -2,18 +2,29 @@
 
 ``flash_attention(q, k, v, causal=, window=)`` computes causal or
 sliding-window GQA attention, q ``[B, Sq, H, D]`` and k, v
-``[B, Skv, KV, D]`` (fp32 or bf16, all the same type) -> ``[B, Sq, H, D]``
-in q's type; query head h reads KV head ``h // (H // KV)``. CUDA tensors
-launch, on the current stream, the kernel of their type or raise: bf16
-the tensor-core kernel (``csrc/flash_attention_sm90.cu``: ``wgmma`` fed by
-TMA, P rounded to bf16 before P V), fp32 the SIMT kernel
-(``csrc/flash_attention.cu``). Neither falls back to the other. Both take
-every head dim from 1 to ``MAX_HEAD_DIM`` (256): each is compiled for the
-widths of ``COMPILED_WIDTHS`` (D rounded up to 32) and takes D at run time
-when its rows are whole 16-byte copies (D a multiple of 8 in bf16, of 4 in
-fp32); for any other D the wrapper zero-pads q, k and v to the next such
-width (``pad_head_dim``), keeps the scale 1/sqrt(D), launches and slices
-o. A larger D raises (ROADMAP B-8g).
+``[B, Skv, KV, D]`` (fp32, bf16 or fp16, all the same type) ->
+``[B, Sq, H, D]`` in q's type; query head h reads KV head
+``h // (H // KV)``. CUDA tensors launch, on the current stream, the kernel
+of their type or raise: bf16 and fp16 the tensor-core kernel
+(``csrc/flash_sm90.cuh``: ``wgmma`` fed by TMA, P rounded to the input's
+type before P V; one translation unit a type), fp32 the SIMT kernel
+(``csrc/flash_simt.cuh``). Neither falls back to the other. Both take every
+head dim from 1 to ``MAX_HEAD_DIM``, D at run time when its rows are whole
+16-byte copies (D a multiple of 8 in bf16 and fp16, of 4 in fp32); for any
+other D the wrapper zero-pads q, k and v to the next such width
+(``pad_head_dim``), keeps the scale 1/sqrt(D), launches and slices o. Up
+to 256 each kernel is compiled for the widths of ``COMPILED_WIDTHS`` (D
+rounded up to 32); above 256 it cuts O into ``column_groups(D, dtype)``
+groups of one of ``WIDE_GROUP_WIDTHS[dtype]`` columns (at most 224 on the
+tensor cores, 256 on the SIMT kernel), one group a CTA on grid z, each CTA
+computing the scores over all of D in chunks (``csrc/*_wide.cu``).
+``MAX_HEAD_DIM`` is the largest D whose column groups fit grid z on both
+kernels (65,535 groups of 224); the kernels' offsets are 64-bit wherever D
+multiplies a row index. ``check_grid`` holds a call to the kernels' grid
+limits: B * H on grid x (up to 2^31 - 1), the query tiles on y (up to
+65,535; 128 rows a tile on the tensor cores, 64 or, above a padded width
+of 128, 32 on the SIMT kernel), the column groups on z; a call past them
+raises.
 
 Without grad (serving) CPU tensors run ``ref.attention_ref`` and the
 kernels write no log-sum-exp. When grad mode is on and q, k or v requires
@@ -23,9 +34,10 @@ CPU tensors, and it saves (q, k, v, out, lse); its backward is
 ``ref.flash_bwd_ref`` on every device, the JAX package's blockwise
 recompute (plain JAX there), so the CPU tests run the card's backward.
 
-``flash_attention.launches`` counts every launch; ``.launches_bf16`` and
-``.launches_f32`` count each kernel's, ``.launches_lse`` those that wrote
-the log-sum-exp, and ``.backward_calls`` the backward's calls.
+``flash_attention.launches`` counts every launch; ``.launches_bf16``,
+``.launches_f16`` and ``.launches_f32`` count each route's,
+``.launches_lse`` those that wrote the log-sum-exp, and
+``.backward_calls`` the backward's calls.
 """
 from __future__ import annotations
 
@@ -38,16 +50,25 @@ from .. import _build, check_cuda, is_cpu
 from ...sharding.act import contiguous_stride
 from .ref import attention_ref, flash_bwd_ref, flash_fwd_ref
 
-MAX_HEAD_DIM = 256
+GRID_X_MAX = 2**31 - 1          # CUDA's grid limits
+GRID_YZ_MAX = 65535
+NARROW_MAX = 256                 # the widest head dim a CTA holds whole
+# above it, the widest column group of O a CTA holds: on the tensor cores a
+# group of 256 spilled beside its chunk loop (csrc/flash_sm90.cuh)
+GROUP_MAX = {torch.float32: 256, torch.bfloat16: 224, torch.float16: 224}
+MAX_HEAD_DIM = GRID_YZ_MAX * min(GROUP_MAX.values())
 COMPILED_WIDTHS = (32, 64, 96, 128, 160, 192, 224, 256)
+WIDE_GROUP_WIDTHS = {dt: tuple(range(160, g + 1, 32)) for dt, g in GROUP_MAX.items()}
 # the head-dim multiple of each kernel's 16-byte rows: the TMA's strides
-# (bf16), the cp.async copies (fp32)
-ROW_MULTIPLE = {torch.float32: 4, torch.bfloat16: 8}
-# dtype -> (C entry, attributes entry, per-kernel launch counter)
+# (bf16, fp16), the cp.async copies (fp32)
+ROW_MULTIPLE = {torch.float32: 4, torch.bfloat16: 8, torch.float16: 8}
+# dtype -> (C entry, attributes entry, per-route launch counter)
 _ROUTES = {torch.float32: ("flash_attention_fwd_f32", "flash_attention_attrs_f32",
                            "launches_f32"),
            torch.bfloat16: ("flash_attention_fwd_bf16", "flash_attention_attrs_bf16",
-                            "launches_bf16")}
+                            "launches_bf16"),
+           torch.float16: ("flash_attention_fwd_f16", "flash_attention_attrs_f16",
+                           "launches_f16")}
 
 
 def _check_window(window) -> None:
@@ -63,6 +84,43 @@ def pad_head_dim(t: torch.Tensor, multiple: int) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, pad)) if pad else t
 
 
+def column_groups(D: int, dtype: torch.dtype) -> tuple[int, int]:
+    """O's column groups for a (padded) head dim D on the kernel of
+    ``dtype``: ``(1, D)`` up to 256, else ``ng = ceil(D / GROUP_MAX)``
+    groups of ``gw`` = ceil(D / ng) rounded up to 32 columns, one of
+    ``WIDE_GROUP_WIDTHS[dtype]`` (the last group's columns past D are
+    computed on zeros and not stored)."""
+    if D <= NARROW_MAX:
+        return 1, D
+    ng = -(-D // GROUP_MAX[dtype])
+    return ng, -(-(-(-D // ng)) // 32) * 32
+
+
+def query_tile_rows(dtype: torch.dtype, D: int) -> int:
+    """The query rows a CTA of the kernel of ``dtype`` owns at (padded)
+    head dim D: 128 on the tensor cores; on the SIMT kernel 64 up to a
+    computed width of 128, else 32."""
+    if dtype != torch.float32:
+        return 128
+    return 64 if -(-D // 32) * 32 <= 128 else 32
+
+
+def check_grid(B: int, H: int, Sq: int, D: int, dtype: torch.dtype) -> None:
+    """Raise unless the launch's grid fits CUDA's limits: B * H on x, the
+    query tiles of ``query_tile_rows`` on y, the column groups on z. D is
+    the padded head dim the kernel is given."""
+    tiles = -(-Sq // query_tile_rows(dtype, D))
+    groups = column_groups(D, dtype)[0]
+    if B * H > GRID_X_MAX:
+        raise ValueError(f"B * H = {B * H} exceeds the grid's x limit {GRID_X_MAX}")
+    if tiles > GRID_YZ_MAX:
+        raise ValueError(f"{tiles} query tiles (Sq = {Sq}) exceed the grid's "
+                         f"y limit {GRID_YZ_MAX}")
+    if groups > GRID_YZ_MAX:
+        raise ValueError(f"{groups} column groups (D = {D}) exceed the grid's "
+                         f"z limit {GRID_YZ_MAX}")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int | None = None,
                          with_lse: bool = False):
@@ -72,7 +130,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_window(window)
     dev = q.device
     if q.dtype not in _ROUTES:
-        raise TypeError(f"q has dtype {q.dtype}, expected float32 or bfloat16")
+        raise TypeError(f"q has dtype {q.dtype}, expected float32, bfloat16 "
+                        "or float16")
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_cuda(name, t, dtype=q.dtype, ndim=4, device=dev)
     B, Sq, H, D = q.shape
@@ -83,10 +142,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if H % KV:
         raise ValueError(f"{H} query heads are not a multiple of {KV} KV heads")
     if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {D} is outside the kernels' 1..{MAX_HEAD_DIM} "
-                         "(ROADMAP B-8g)")
-    if B * H > 65535:
-        raise ValueError(f"B * H = {B * H} exceeds the grid's y limit")
+        raise ValueError(f"head_dim {D} is outside the kernels' 1..{MAX_HEAD_DIM}")
+    check_grid(B, H, Sq, -(-D // ROW_MULTIPLE[q.dtype]) * ROW_MULTIPLE[q.dtype],
+               q.dtype)
     qk, kk, vk = (pad_head_dim(t, ROW_MULTIPLE[q.dtype]) for t in (q, k, v))
     for name, t in (("q", qk), ("k", kk), ("v", vk)):
         if t.data_ptr() % 16:
@@ -184,6 +242,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 flash_attention.launches_f32 = 0
 flash_attention.launches_bf16 = 0
+flash_attention.launches_f16 = 0
 flash_attention.launches_lse = 0
 flash_attention.backward_calls = 0
 
@@ -191,7 +250,9 @@ flash_attention.backward_calls = 0
 def kernel_attributes(dtype: torch.dtype, head_dim: int) -> dict:
     """Registers a thread (at launch), spill (local) bytes a thread, and
     static and dynamic shared bytes a CTA of the compiled instance that
-    takes (dtype, head_dim): the one of width head_dim rounded up to 32."""
+    takes (dtype, head_dim): up to 256 the one of width head_dim rounded up
+    to 32, above it the wide one of ``column_groups(head_dim, dtype)``'s
+    width."""
     out = (ctypes.c_int * 4)()
     entry = _ROUTES[dtype][1]
     err = getattr(_build.library(), entry)(head_dim, out)

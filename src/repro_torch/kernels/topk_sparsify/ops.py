@@ -6,7 +6,7 @@ largest magnitudes; ``block_topk_sparsify_rows(rows, ks)`` is the same
 kernel on ``[R, block]`` rows with the reference's literal k and no
 all-full skip (the rows entry of the JAX package). ``block_topk_sparsify(
 vec, gamma, block=)`` (``csrc/topk_block.cu``) keeps ``ref.keep_count(gamma,
-block)`` per block of a 1-D fp32 or bf16 vector. Each runs its plain
+block)`` per block of a 1-D fp32, bf16 or fp16 vector. Each runs its plain
 PyTorch version (``ref.block_topk_rows``, ``ref.block_topk_sparsify_rows``,
 ``ref.block_topk_ref``) for CPU tensors. Any block width from 1 up to a
 whole row runs on either device: the kernels hold a block of up to 4,096
@@ -32,7 +32,7 @@ from .ref import block_topk_sparsify_rows as block_topk_sparsify_rows_plain
 # csrc/topk_common.cuh: kMaxStreamBlock, int lane indices with a 4,096-lane
 # tile to spare
 MAX_BLOCK = 2**31 - 1 - 4096
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SKIP_FULL, _CLIP_K = 1, 2                # csrc/topk_rows.cu: the flags
 
 
@@ -103,8 +103,8 @@ def block_topk_sparsify(vec: torch.Tensor, gamma, *,
     if is_cpu(vec):
         return block_topk_ref(vec, gamma, block=block)
     if vec.dtype not in _DTYPE_CODES:
-        raise TypeError(f"vec has dtype {vec.dtype}, expected float32 or "
-                        "bfloat16")
+        raise TypeError(f"vec has dtype {vec.dtype}, expected float32, "
+                        "bfloat16 or float16")
     check_cuda("vec", vec, dtype=vec.dtype, ndim=1, device=vec.device)
     _check_block(block, True)
     k = keep_count(gamma, block)

@@ -137,7 +137,7 @@ def _pad_to_blocks(vec: Tensor, block: int) -> tuple[Tensor, int]:
 
 def block_topk_ref(vec: Tensor, gamma, *, block: int = DEFAULT_BLOCK
                    ) -> tuple[Tensor, int]:
-    """The kernel's function in plain PyTorch: ``vec`` [n] (fp32 or bf16)
+    """The kernel's function in plain PyTorch: ``vec`` [n] (fp32, bf16 or fp16)
     cut into ``block``-wide blocks (the ragged tail zero-padded, then cut
     off again), the ``k = keep_count(gamma, block)`` largest magnitudes of
     every block kept, in the input's dtype. Returns (vector, k).

@@ -1,0 +1,193 @@
+"""CPU models of the two flash kernels' arithmetic at any head dim, for the
+port's tests (no JAX here).
+
+``sm90_model`` is the tensor-core kernel (``csrc/flash_sm90.cuh``) for bf16
+and fp16: CTAs of 128 query rows in two warpgroups of 64, key tiles of BK
+from the CTA's first visible tile, a warpgroup skipping the tiles wholly
+above its diagonal or before its window; S in fp32 times 1/sqrt(D); masked
+scores -1e30, keys past Skv -inf; online softmax with exp2((s - m) log2 e);
+l sums the fp32 P, and O += P V with P rounded to the input's type; o = O /
+max(l, 1e-30) in that type. Up to 256 the kernel computes on DP = D rounded
+up to 32 columns (BK 128 at DP <= 64, 64 up to 160, 32 above); above 256 on
+``ops.column_groups(D)``: each group (one CTA) sums S over chunks of 64
+columns in order, runs the same softmax, and accumulates only its GW
+columns of O (BK 64 at GW = 160, 32 above).
+
+``simt_model`` is the fp32 SIMT kernel (``csrc/flash_simt.cuh``) above 256:
+32-row query tiles, key tiles of 32, q times 1/sqrt(D) in fp32, each score
+a chain of fmaf over d in order, taken through chunks of 128 columns; a
+row's max over the tile and one rescale a tile; l as 8 shares added in the
+shuffles' tree; O's group columns updated by a chain of fmaf over the
+tile's keys.
+
+Both record each group's running max and sum (``record``), which the
+kernels rely on being equal across groups: group 0 alone writes lse.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.flash_attention import ops
+
+LOG2E = 1.4426950408889634
+
+
+def _padded(t: torch.Tensor, cols: int, rows: int = 0) -> torch.Tensor:
+    """[B, S, heads, D] -> float32 [B, heads, S + rows, cols], zero-padded."""
+    return torch.nn.functional.pad(t.float(), (0, cols - t.shape[-1], 0, 0, 0, rows)
+                                   ).permute(0, 2, 1, 3)
+
+
+def _key_range(q0, q_last, Skv, causal, window, BK):
+    orphans = window is not None and q_last >= Skv - 1 + window
+    k_end = min(Skv, q_last + 1) if causal else Skv
+    k_begin = max(0, q0 - window + 1) if window and not orphans else 0
+    return k_begin // BK * BK, k_end, orphans
+
+
+def _visible(rows, keys, Skv, causal, window, s):
+    vis = torch.ones(len(rows), len(keys), dtype=torch.bool)
+    if causal:
+        vis &= keys[None, :] <= rows[:, None]
+    if window:
+        vis &= rows[:, None] - keys[None, :] < window
+    s = torch.where(vis, s, -1e30)
+    return torch.where(keys[None, :] >= Skv, -math.inf, s)
+
+
+def sm90_model(q, k, v, *, causal, window, record=None):
+    """What the tensor-core kernel computes for q's type (bf16 or fp16) at
+    any D (the wrapper's padding to a multiple of 8 included); ``record``
+    (a list) gets (group, q0, wg, m, l) after each warpgroup's last tile."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    Dp = -(-D // 8) * 8
+    ng, gw = ops.column_groups(Dp, q.dtype)
+    if ng == 1:
+        DP = -(-Dp // 32) * 32
+        BK = 128 if DP <= 64 else 64 if DP <= 160 else 32
+        width, chunk = DP, DP
+    else:
+        BK = 64 if gw <= 160 else 32
+        width, chunk = ng * gw, 64
+    n_kt = -(-Skv // BK)
+    qf = _padded(q, width)
+    kf, vf = (_padded(t, width, n_kt * BK - Skv).repeat_interleave(H // KV, dim=1)
+              for t in (k, v))
+    scale = 1.0 / math.sqrt(D)
+    out = torch.zeros(B, H, Sq, width)
+    for g in range(ng):
+        cols = slice(g * (width // ng), (g + 1) * (width // ng))
+        for q0 in range(0, Sq, 128):
+            k_begin, k_end, orphans = _key_range(q0, min(q0 + 128, Sq) - 1, Skv,
+                                                 causal, window, BK)
+            for r_lo in (q0, q0 + 64):
+                if r_lo >= Sq:
+                    continue
+                rows = torch.arange(r_lo, r_lo + 64)
+                m = torch.full((B, H, 64), -1e30)
+                l = torch.zeros(B, H, 64)
+                o = torch.zeros(B, H, 64, width // ng)
+                qt = qf[:, :, r_lo:r_lo + 64]
+                qt = torch.nn.functional.pad(qt, (0, 0, 0, 64 - qt.shape[2]))
+                for k0 in range(k_begin, k_end, BK):
+                    if not orphans and ((causal and k0 > r_lo + 63) or (
+                            window and k0 + BK - 1 < r_lo - window + 1)):
+                        continue
+                    kt = kf[:, :, k0:k0 + BK]
+                    s = torch.zeros(B, H, 64, BK)
+                    for c0 in range(0, Dp if ng > 1 else width, chunk):
+                        s = s + qt[..., c0:c0 + chunk] @ kt[..., c0:c0 + chunk].transpose(-1, -2)
+                    s = _visible(rows, torch.arange(k0, k0 + BK), Skv, causal,
+                                 window, s * scale)
+                    m_new = torch.maximum(m, s.amax(-1))
+                    corr = torch.exp2((m - m_new) * LOG2E)
+                    p = torch.exp2((s - m_new[..., None]) * LOG2E)
+                    l = l * corr + p.sum(-1)
+                    o = (o * corr[..., None]
+                         + p.to(q.dtype).float() @ vf[:, :, k0:k0 + BK, cols])
+                    m = m_new
+                if record is not None:
+                    record.append((g, q0, r_lo, m, l))
+                n = min(64, Sq - r_lo)
+                out[:, :, r_lo:r_lo + n, cols] = (
+                    o / torch.clamp(l, min=1e-30)[..., None])[:, :, :n]
+    assert not out[..., D:].any()                # the padded columns stay zero
+    return out[..., :D].permute(0, 2, 1, 3).to(q.dtype)
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf(a, b, c) in float32: the product is exact in float64, and the
+    sum is rounded once more to float32 (a double rounding that fmaf does
+    not do; it moves a result by an ulp at most, and rarely)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def simt_scores(qt: torch.Tensor, kt: torch.Tensor, D: int, chunk: int | None):
+    """A tile's scores as the SIMT kernel sums them: qt [..., BQ, D'] (q
+    already scaled), kt [..., BK, D'], a chain of fmaf over d = 0..D-1; with
+    ``chunk``, taken through chunks of that many columns, the chain carried
+    from one chunk into the next."""
+    s = torch.zeros(*qt.shape[:-1], kt.shape[-2])
+    starts = range(0, D, chunk) if chunk else (0,)
+    for c0 in starts:
+        for d in range(c0, min(D, c0 + chunk) if chunk else D):
+            s = fma(qt[..., d, None], kt[..., None, :, d], s)
+    return s
+
+
+def simt_model(q, k, v, *, causal, window, record=None, chunked=True):
+    """What the fp32 SIMT kernel computes above D = 256 (D a multiple of 4):
+    the column groups of ``ops.column_groups``; each group's scores through
+    chunks of 128 columns (``chunked``) or in one chain; ``record`` gets
+    (group, q0, m, l) after each query tile's last key tile."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    ng, gw = ops.column_groups(D, torch.float32)
+    BQ, BK = 32, 32
+    n_kt = -(-Skv // BK)
+    scale = torch.tensor(1.0 / D ** 0.5, dtype=torch.float32)
+    qf = (q.float() * scale).permute(0, 2, 1, 3)
+    kf, vf = (_padded(t, ng * gw, n_kt * BK - Skv).repeat_interleave(H // KV, dim=1)
+              for t in (k, v))
+    out = torch.zeros(B, H, Sq, ng * gw)
+    for g in range(ng):
+        cols = slice(g * gw, (g + 1) * gw)
+        for q0 in range(0, Sq, BQ):
+            q_last = min(q0 + BQ, Sq) - 1
+            k_end = min(Skv, q_last + 1) if causal else Skv
+            k_begin = (max(0, q0 - window + 1)
+                       if window and q_last < Skv - 1 + window else 0)
+            rows = torch.arange(q0, q0 + BQ)
+            qt = qf[:, :, q0:q0 + BQ]
+            qt = torch.nn.functional.pad(qt, (0, 0, 0, BQ - qt.shape[2]))
+            m = torch.full((B, H, BQ), -1e30)
+            shares = torch.zeros(B, H, BQ, 8)
+            acc = torch.zeros(B, H, BQ, gw)
+            for k0 in range(k_begin // BK * BK, k_end, BK):
+                s = simt_scores(qt, kf[:, :, k0:k0 + BK], D, 128 if chunked else None)
+                s = _visible(rows, torch.arange(k0, k0 + BK), Skv, causal, window, s)
+                m_new = torch.maximum(m, s.amax(-1))
+                corr = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[..., None])
+                own = torch.zeros(B, H, BQ, 8)
+                for i in range(BK // 8):
+                    own = own + p[..., 8 * i:8 * i + 8]
+                shares = shares * corr[..., None] + own
+                acc = acc * corr[..., None]
+                vt = vf[:, :, k0:k0 + BK, cols]
+                for j in range(BK):
+                    acc = fma(p[..., j, None], vt[:, :, None, j], acc)
+                m = m_new
+            a = shares[..., 0::2] + shares[..., 1::2]           # xor 1
+            b = a[..., 0::2] + a[..., 1::2]                      # xor 2
+            l = b[..., 0] + b[..., 1]                            # xor 4
+            if record is not None:
+                record.append((g, q0, m, l))
+            n = min(BQ, Sq - q0)
+            out[:, :, q0:q0 + n, cols] = (
+                acc / torch.clamp(l, min=1e-30)[..., None])[:, :, :n]
+    assert not out[..., D:].any()
+    return out[..., :D].permute(0, 2, 1, 3)
