@@ -973,10 +973,20 @@ def check_topk_block(dev, vec: torch.Tensor) -> dict:
 
 
 # phase 16 (a): the block widths both top-k kernels take, from one lane to
-# a whole row of the paper CNN (D = 1,630,090): widths up to 4,096 run an
-# in-register instance (the next larger power of two of 256-lane steps),
-# wider ones the streaming kernel
-TOPK_WIDTHS = (1, 100, 128, 256, 1000, 1024, 2048, 4096, 8192, 65536, 1_630_090)
+# a whole row of the paper CNN (D = 1,630,090), each timed: widths up to
+# 255 run the narrow tier (several blocks a CTA), 256-4,096 a register
+# instance (the next larger power of two of 256-lane steps), wider ones the
+# staged tier (a block in shared memory) up to 192 KiB and the chunked tier
+# above (topk_common.cuh)
+TOPK_WIDTHS = (1, 2, 32, 100, 128, 256, 1000, 1024, 2048, 4096, 8192, 65536,
+               1_630_090)
+# checked bit for bit, not timed: each side of the narrow tier's segment
+# widths (16 | 17, 32 | 33) and of every tier's limit (255 | 256,
+# 4,096 | 4,097, 49,152 | 49,153 in fp32, 98,304 | 98,305 in 16 bits), and
+# +-1 around the chunk (8,192) and its multiples in the chunked tier
+TOPK_EDGE_WIDTHS = (3, 16, 17, 31, 33, 255, 257, 4095, 4097, 8191, 8193,
+                    49151, 49152, 49153, 57343, 57345, 65535, 65537, 98303,
+                    98304, 98305, 106495, 106497)
 
 
 def _long_tricky(dev) -> torch.Tensor:
@@ -1004,13 +1014,38 @@ def _width_ks(tks: torch.Tensor, w: int) -> torch.Tensor:
     return torch.clamp(torch.round(tks.double() * w / 4096), 1, w).to(torch.int32)
 
 
-def kernel_ms(fn, kernel: str, iters: int) -> tuple[float, str]:
-    """The mean device time of one launch of the kernels whose name holds
-    ``kernel`` over ``iters`` calls of ``fn`` (torch.profiler's CUDA
-    activity), over the launches the profiler saw: it has been seen to drop
-    some of a session's events, so the timer string gives the count seen.
-    Where it sees none, CUDA events around the ``iters`` back-to-back
-    calls (which count the host's time between launches too)."""
+def _widen_f16(v: torch.Tensor) -> torch.Tensor:
+    """fp16 lanes as the exact fp32 values the kernel compares: a NaN
+    quieted with its payload kept. (Torch's CPU widening does so in its
+    vector loop but gives 0x7fffffff in its scalar tail, and the card's
+    gives 0x7fffffff for every NaN, so the plain version's fp16 mask
+    depends on where a NaN falls: ROADMAP C-31.)"""
+    b = v.view(torch.int16).to(torch.int32) & 0xFFFF
+    nan = ((b & 0x7C00) == 0x7C00) & ((b & 0x3FF) != 0)
+    quiet = ((b & 0x8000) << 16) | 0x7FC00000 | ((b & 0x3FF) << 13)
+    return torch.where(nan, quiet, v.float().view(torch.int32)).view(torch.float32)
+
+
+def _f16_plain(v: torch.Tensor, gamma, w: int) -> torch.Tensor:
+    """``ref.block_topk_ref``'s rule on the exact widening of fp16 ``v``."""
+    from repro_torch.kernels.topk_sparsify import ref
+    n, k = v.numel(), ref.keep_count(gamma, w)
+    nb = -(-n // w)
+    rows = torch.nn.functional.pad(v, (0, nb * w - n)).view(nb, w)
+    wide = torch.nn.functional.pad(_widen_f16(v), (0, nb * w - n)).view(nb, w)
+    return torch.where(ref.topk_threshold_mask(wide, k), rows, 0.0).reshape(-1)[:n]
+
+
+def kernel_ms(fn, kernel: str, iters: int, per_call: int = 1) -> tuple[float, str]:
+    """The device time of one call of ``fn``: the sum of the device times
+    of a call's ``per_call`` launches of the kernels whose name holds
+    ``kernel``, from torch.profiler's CUDA activity over ``iters`` calls.
+    The profiler has been seen to drop some events of a profile, so the
+    sum over the launches it saw is divided by the calls they make up
+    (launches seen / per_call); the timer string gives the launches seen
+    and a call's. Where it sees none, CUDA events around the ``iters``
+    back-to-back calls (which count the host's time between launches
+    too)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1021,80 +1056,108 @@ def kernel_ms(fn, kernel: str, iters: int) -> tuple[float, str]:
     events = [e for e in prof.key_averages() if kernel in e.key]
     count = sum(e.count for e in events)
     if count:
-        return (sum(e.self_device_time_total for e in events) / 1e3 / count,
-                f"profiler, {count} of {iters} launches seen")
+        return (sum(e.self_device_time_total for e in events) / 1e3
+                / (count / per_call),
+                f"profiler, {count} launches seen of {iters} calls x {per_call}")
     log(json.dumps({"profiler_saw_no_launches": kernel}))
     return cuda_ms(fn, iters), "cuda_events"
 
 
-def check_topk_widths(dev, mat: torch.Tensor, flat: torch.Tensor) -> dict:
-    """Both top-k kernels at every width of ``TOPK_WIDTHS`` against their
-    plain versions, bit for bit: the rows kernel (``block_topk_rows`` with
-    and without the all-full skip, and the rows entry
-    ``block_topk_sparsify_rows`` at literal ks: 0, -3, 1, w, w + 7) on
-    phase 2's tricky rows (widths up to 65,536) and on four tricky rows of
-    the CNN's D (widths from 8,192); the block kernel on the tricky rows
-    flattened in fp32 and bf16, and on the long rows flattened. Then each
-    width timed on the device (the profiler) on the main path's matrix
-    ``mat`` (rows, ks from the gamma grid) and on ``flat`` (block, gamma
-    0.25), beside its bound and ``torch.topk`` + ``scatter_`` at the same
-    width. Launches here are comparisons, not the main path's."""
+def _check_width(dev, w: int, tricky, tks, longr, vecs16) -> None:
+    """Both top-k kernels at block width ``w`` against their plain
+    versions, bit for bit (see check_topk_widths)."""
     from repro_torch.kernels.topk_sparsify import ops, ref
+    sets = []
+    if w <= 65536:
+        sets.append(("tricky", tricky, _width_ks(tks, w)))
+    if w >= 8192:
+        sets.append(("long", longr, torch.tensor(
+            [max(1, w // 10), max(1, w // 2), w, max(1, w // 4)],
+            dtype=torch.int32, device=dev)))
+    for what, m, ks in sets:
+        for skip in (True, False):
+            got = ops.block_topk_rows(m, ks, block=w, skip_full=skip)
+            want = ref.block_topk_rows(m, ks, block=w, skip_full=skip)
+            if not same_bits(got, want):
+                raise AssertionError(
+                    f"top-k rows kernel differs from its plain version at "
+                    f"block {w} on the {what} rows (skip_full={skip}):\n"
+                    f"{diff_report(got, want, ks)}")
+        full = torch.full_like(ks, w)
+        if not same_bits(ops.block_topk_rows(m, full, block=w), m):
+            raise AssertionError(f"all-full rows at block {w} did not copy")
+        # the rows entry: [R, w] rows of the same values, literal ks
+        n_r = min(m.numel() // w, 96)
+        rows = m.reshape(-1)[:n_r * w].view(n_r, w)
+        lit = torch.tensor([0, -3, 1, w, w + 7, max(1, w // 3)],
+                           dtype=torch.int32, device=dev)
+        # shifted so that the rows holding 0x7fffffff take k = 0
+        lit = lit[(torch.arange(n_r, device=dev) + 3) % len(lit)]
+        got = ops.block_topk_sparsify_rows(rows, lit)
+        want = ref.block_topk_sparsify_rows(rows, lit)
+        if not same_bits(got, want):
+            raise AssertionError(
+                f"the rows entry differs from its plain version at block "
+                f"{w} on the {what} rows:\n{diff_report(got, want, lit)}")
+    vecs = [(tricky.flatten(), (0.1, 0.5, 1.0)), (vecs16[0], (0.1, 0.5)),
+            (vecs16[2], (0.1, 0.5))]
+    if w >= 8192:
+        vecs += [(longr.flatten(), (0.25,)), (vecs16[1], (0.25,)),
+                 (vecs16[3], (0.25,))]
+    for v, gammas in vecs:
+        for gamma in gammas:
+            got, k = ops.block_topk_sparsify(v, gamma, block=w)
+            if v.dtype == torch.float16:
+                want, k_ref = _f16_plain(v, gamma, w), ref.keep_count(gamma, w)
+            else:
+                want, k_ref = ref.block_topk_ref(v, gamma, block=w)
+            same = (same_bits(got, want) if v.dtype == torch.float32 else
+                    torch.equal(got.view(torch.int16), want.view(torch.int16)))
+            if k != k_ref or not same:
+                raise AssertionError(
+                    f"block top-k kernel differs from its plain version "
+                    f"at block {w}: n={v.numel()} {v.dtype} gamma={gamma}")
+
+
+def check_topk_widths(dev, mat: torch.Tensor, flat: torch.Tensor) -> dict:
+    """Both top-k kernels at every width of ``TOPK_WIDTHS`` and
+    ``TOPK_EDGE_WIDTHS`` against their plain versions, bit for bit: the
+    rows kernel (``block_topk_rows`` with and without the all-full skip,
+    and the rows entry ``block_topk_sparsify_rows`` at literal ks: 0, -3,
+    1, w, w + 7) on phase 2's tricky rows (widths up to 65,536) and on four
+    tricky rows of the CNN's D (widths from 8,192); the block kernel on the
+    tricky rows flattened in fp32, bf16 and fp16, and on the long rows
+    flattened (fp16: the plain version's rule on the exact widening,
+    ``_f16_plain``). Then each width of ``TOPK_WIDTHS`` timed on the
+    device, a call's launches summed (the profiler), on the main path's
+    matrix ``mat`` (rows, ks from the gamma grid) and on ``flat`` (block,
+    gamma 0.25), beside its bound and ``torch.topk`` + ``scatter_`` at the
+    same width. Launches here are comparisons, not the main path's."""
+    from repro_torch.kernels.topk_sparsify import ops
+    # why fp16 is held to the exact widening (C-31): the fp32 patterns of
+    # the fp16 NaN 0x7e00 widened on the card, and on the CPU in a vector
+    # loop (16 lanes) and alone
+    nan16 = torch.full((16,), 0x7E00, dtype=torch.int16).view(torch.float16)
+    log(json.dumps({"f16_nan_widened": {
+        where: f"{int(t.float().view(torch.int32)[0]) & 0xFFFFFFFF:#010x}"
+        for where, t in (("card", nan16.to(dev)), ("cpu_vector", nan16),
+                         ("cpu_alone", nan16[:1].clone()))}}))
     tricky, tks = _tricky_rows(dev)
     longr = _long_tricky(dev)
     t16 = tricky.flatten().bfloat16()
     t16.view(torch.int16)[5] = 0x7FFF
     t16.view(torch.int16)[4096 + 7] = -1
-    l16 = longr.bfloat16()
-    for w in TOPK_WIDTHS:
-        sets = []
-        if w <= 65536:
-            sets.append(("tricky", tricky, _width_ks(tks, w)))
-        if w >= 8192:
-            sets.append(("long", longr, torch.tensor(
-                [max(1, w // 10), max(1, w // 2), w, max(1, w // 4)],
-                dtype=torch.int32, device=dev)))
-        for what, m, ks in sets:
-            for skip in (True, False):
-                got = ops.block_topk_rows(m, ks, block=w, skip_full=skip)
-                want = ref.block_topk_rows(m, ks, block=w, skip_full=skip)
-                if not same_bits(got, want):
-                    raise AssertionError(
-                        f"top-k rows kernel differs from its plain version at "
-                        f"block {w} on the {what} rows (skip_full={skip}):\n"
-                        f"{diff_report(got, want, ks)}")
-            full = torch.full_like(ks, w)
-            if not same_bits(ops.block_topk_rows(m, full, block=w), m):
-                raise AssertionError(f"all-full rows at block {w} did not copy")
-            # the rows entry: [R, w] rows of the same values, literal ks
-            n_r = min(m.numel() // w, 96)
-            rows = m.reshape(-1)[:n_r * w].view(n_r, w)
-            lit = torch.tensor([0, -3, 1, w, w + 7, max(1, w // 3)],
-                               dtype=torch.int32, device=dev)
-            # shifted so that the rows holding 0x7fffffff take k = 0
-            lit = lit[(torch.arange(n_r, device=dev) + 3) % len(lit)]
-            got = ops.block_topk_sparsify_rows(rows, lit)
-            want = ref.block_topk_sparsify_rows(rows, lit)
-            if not same_bits(got, want):
-                raise AssertionError(
-                    f"the rows entry differs from its plain version at block "
-                    f"{w} on the {what} rows:\n{diff_report(got, want, lit)}")
-        vecs = [(tricky.flatten(), (0.1, 0.5, 1.0)), (t16.flatten(), (0.1, 0.5))]
-        if w >= 8192:
-            vecs += [(longr.flatten(), (0.25,)), (l16.flatten(), (0.25,))]
-        for v, gammas in vecs:
-            for gamma in gammas:
-                got, k = ops.block_topk_sparsify(v, gamma, block=w)
-                want, k_ref = ref.block_topk_ref(v, gamma, block=w)
-                same = (same_bits(got, want) if v.dtype == torch.float32 else
-                        torch.equal(got.view(torch.int16), want.view(torch.int16)))
-                if k != k_ref or not same:
-                    raise AssertionError(
-                        f"block top-k kernel differs from its plain version "
-                        f"at block {w}: n={v.numel()} {v.dtype} gamma={gamma}")
+    h16 = tricky.flatten().half()
+    h16.view(torch.int16)[5] = 0x7C01                   # a signalling NaN
+    vecs16 = (t16, longr.flatten().bfloat16(), h16, longr[1:3].flatten().half())
+    for w in sorted(TOPK_WIDTHS + TOPK_EDGE_WIDTHS):
+        _check_width(dev, w, tricky, tks, longr, vecs16)
         log(json.dumps({"topk_width": w, "bit_identical": True,
-                        "rows_instance": ops.kernel_attributes("rows", block=w)}))
-    del longr, l16
+                        "rows": ops.kernel_attributes("rows", block=w),
+                        "block_f32": ops.kernel_attributes("block", block=w),
+                        "block_bf16": ops.kernel_attributes(
+                            "block", torch.bfloat16, block=w)}))
+    del longr, vecs16
 
     n, d = mat.shape
     gen = torch.Generator().manual_seed(3)
@@ -1103,8 +1166,9 @@ def check_topk_widths(dev, mat: torch.Tensor, flat: torch.Tensor) -> dict:
         levels = torch.tensor([max(1, min(w, math.ceil(g * w))) for g in GRID]
                               + [1], dtype=torch.int32)
         ks = levels[torch.randint(0, len(levels), (n,), generator=gen)].to(dev)
+        calls = ops.launches_per_call(w)
         ms, timer = kernel_ms(lambda: ops.block_topk_rows(mat, ks, block=w),
-                              "topk_rows", 5)
+                              "topk_rows", 5, calls)
         nb = -(-d // w)
         blocks = torch.nn.functional.pad(mat, (0, nb * w - d)).view(n * nb, w)
         kb = ks.long().repeat_interleave(nb)
@@ -1119,14 +1183,16 @@ def check_topk_widths(dev, mat: torch.Tensor, flat: torch.Tensor) -> dict:
         lib = cuda_ms(library, 2, warmup=1)
         del blocks, kb, first_k
         b_ms, b_by = topk_rows_bound(n, d, ks, w)
-        out["rows"][w] = {"ms": ms, "timer": timer, "bound_ms": b_ms,
+        out["rows"][w] = {"ms": ms, "timer": timer, "launches_a_call": calls,
+                          "tier": ops.tier(w), "bound_ms": b_ms,
                           "bound_by": b_by, "library_ms": lib}
         # the block kernel on one flat update
         k = max(1, min(w, math.ceil(0.25 * w)))
         nb = -(-flat.numel() // w)
         rows = torch.nn.functional.pad(flat, (0, nb * w - flat.numel())).view(nb, w)
         ms_b, timer_b = kernel_ms(
-            lambda: ops.block_topk_sparsify(flat, 0.25, block=w), "topk_block", 10)
+            lambda: ops.block_topk_sparsify(flat, 0.25, block=w), "topk_block",
+            10, calls)
 
         def library_b():
             idx = torch.topk(rows.abs(), k, dim=1).indices
@@ -1134,7 +1200,8 @@ def check_topk_widths(dev, mat: torch.Tensor, flat: torch.Tensor) -> dict:
 
         lib_b = cuda_ms(library_b, 5, warmup=1)
         bb_ms, bb_by = bound(2 * 4 * flat.numel(), nb * w * (31 * 2 + 8))
-        out["block"][w] = {"ms": ms_b, "timer": timer_b, "bound_ms": bb_ms,
+        out["block"][w] = {"ms": ms_b, "timer": timer_b, "launches_a_call": calls,
+                           "tier": ops.tier(w), "bound_ms": bb_ms,
                            "bound_by": bb_by, "library_ms": lib_b}
         log(json.dumps({"topk_width_times": w, "rows": out["rows"][w],
                         "block": out["block"][w]}))

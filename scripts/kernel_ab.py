@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's flash and fused dual-ascent kernels of two checkouts in
-turns on one card: ``--compare A B`` runs A, B, B, A (one process each, so
-each builds and loads its own ``libkernels.so``) and prints every run's
-times and the medians by checkout.
+"""Time the port's flash, fused dual-ascent and block top-k kernels of two
+checkouts in turns on one card: ``--compare A B`` runs A, B, B, A (one
+process each, so each builds and loads its own ``libkernels.so``) and
+prints every run's times and the medians by checkout.
 
     python3 scripts/kernel_ab.py --compare build/parent/src src
     python3 scripts/kernel_ab.py --src src          # one run, one JSON line
@@ -12,12 +12,17 @@ warm-up calls) and the profiler's device time of the fused ascent (20
 launches), at the shapes of chip_smoke.py's phase 2: flash at the serve
 shape, zamba2's D = 80, phi-3-vision's D = 96 and the train shape, in bf16
 and fp32; the ascent on the paper's 10 gammas (L = 10) and x (8, 16, 32)
-(L = 30) at N = 50.
+(L = 30) at N = 50; both top-k kernels at block widths ``TOPK_WIDTHS``, the
+rows kernel on phase 2's ``[50, 1,630,090]`` matrix at ks of the gamma
+grid, the block kernel on one row at gamma 0.25: the profiler's device time
+of a call's launches (``topk_*_ms``, over 5 and 10 calls), the mean of one
+launch (``topk_*_launch_ms``) and the launches it saw a call.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -25,6 +30,7 @@ import sys
 FLASH = {"serve_d64": (4, 2048, 32, 4, 64), "zamba2_d80": (4, 2048, 32, 32, 80),
          "phi3v_d96": (2, 2048, 32, 32, 96), "train_d64": (4, 4096, 32, 4, 64)}
 GRID = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
+TOPK_WIDTHS = (1, 100, 4096, 8192, 65536, 1_630_090)
 
 
 def one_run(src: str) -> dict:
@@ -47,7 +53,9 @@ def one_run(src: str) -> dict:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / iters
 
-    def device_ms(fn, kernel, iters=20):
+    def profiled(fn, kernel, iters):
+        """(device ms of the launches seen, launches seen) of the kernels
+        whose name holds ``kernel`` over ``iters`` calls."""
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
@@ -56,7 +64,12 @@ def one_run(src: str) -> dict:
                 fn()
             torch.cuda.synchronize()
         ev = [e for e in prof.key_averages() if kernel in e.key]
-        return sum(e.self_device_time_total for e in ev) / 1e3 / sum(e.count for e in ev)
+        return (sum(e.self_device_time_total for e in ev) / 1e3,
+                sum(e.count for e in ev))
+
+    def device_ms(fn, kernel, iters=20):
+        ms, count = profiled(fn, kernel, iters)
+        return ms / count
 
     out = {}
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -84,6 +97,19 @@ def one_run(src: str) -> dict:
         out[f"ascent_{label}"] = device_ms(
             lambda: dops.dual_ascent(P, h, u, f(1e-4), mu, q, alive, **kw),
             "dual_ascent_kernel")
+    from repro_torch.kernels.topk_sparsify import ops as tops
+    mat = torch.randn(n, 1_630_090, device=dev, generator=gen) * 1e-3
+    flat = mat[0].clone()
+    for w in TOPK_WIDTHS:
+        ks = torch.tensor([max(1, min(w, math.ceil(g * w))) for g in GRID],
+                          dtype=torch.int32, device=dev)[torch.arange(n) % len(GRID)]
+        for name, fn, iters in (
+                ("rows", lambda: tops.block_topk_rows(mat, ks, block=w), 5),
+                ("block", lambda: tops.block_topk_sparsify(flat, 0.25, block=w), 10)):
+            ms, count = profiled(fn, f"topk_{name}", iters)
+            out[f"topk_{name}_{w}_ms"] = ms / iters
+            out[f"topk_{name}_{w}_launch_ms"] = ms / count
+            out[f"topk_{name}_{w}_launches_seen_a_call"] = count / iters
     return out
 
 

@@ -22,39 +22,41 @@
 // even when every lane hits one bin. The bisection equals the k-th largest
 // pattern whenever the block's largest pattern is below 0x7fffffff; at
 // 0x7fffffff (a NaN with every mantissa bit set) the reference's
-// max(bits) + 1 wraps to INT_MIN, and the kernel runs that wrapped
-// bisection itself to keep the reference's mask.
+// max(bits) + 1 wraps to INT_MIN: the register tier runs that wrapped
+// bisection itself, the other tiers take its closed form (below), to keep
+// the reference's mask.
 //
-// Layout: a CTA of kThreads = 256 threads owns a block of at most
-// Per * 256 lanes, Per (the lanes a thread holds, a template parameter) one
-// of 1, 2, 4, 8 and 16, so up to kMaxBlock = 4096 lanes; a block of another
-// width runs the smallest instance that holds it, the lanes past the block
-// not counted. Thread t holds lanes t + 256 p (p < Per) in registers, so
-// neighbouring threads read neighbouring shared words, and the passes and
-// the tie scan never touch device memory again. The tie scan follows index
-// order through (p, warp, lane): a ballot a (p, warp), an exclusive scan of
-// the Per * 8 (p, warp) counts, a popcount below the lane. At 48 registers
-// five such CTAs share an SM: while some select, others load or store, and
-// the 398 blocks of the cross-silo exchange's vector run in one wave. (On
-// the card, 1024 threads of 4 lanes, and a persistent grid of CTAs with a
-// two-stage ring of blocks, each measured slower.)
+// Four tiers by block width, each one kernel of both files:
+//   * register (256 to kMaxBlock = 4096 lanes; sparsify_block below): a CTA
+//     of kThreads = 256 threads owns a block of at most Per * 256 lanes, Per
+//     (the lanes a thread holds, a template parameter) one of 1, 2, 4, 8 and
+//     16; a block of another width runs the smallest instance that holds
+//     it, the lanes past the block not counted. Thread t holds lanes
+//     t + 256 p (p < Per) in registers, so neighbouring threads read
+//     neighbouring shared words, and the passes and the tie scan never touch
+//     device memory again. The tie scan follows index order through (p, warp,
+//     lane): a ballot a (p, warp), an exclusive scan of the Per * 8 (p, warp)
+//     counts, a popcount below the lane. At 48 registers five such CTAs share
+//     an SM: while some select, others load or store, and the 398 blocks of
+//     the cross-silo exchange's vector run in one wave. (On the card, 1024
+//     threads of 4 lanes, and a persistent grid of CTAs with a two-stage ring
+//     of blocks, each measured slower.)
+//   * narrow (1 to 255 lanes; narrow_blocks): a CTA takes a span of blocks,
+//     each warp selecting its own with no CTA barrier.
+//   * staged (wider, up to kStageBytes; staged_block): one CTA a block, the
+//     block staged whole in dynamic shared memory, every pass read there.
+//   * chunked (wider still; chunk_pass): chunks of kChunk lanes, one CTA a
+//     chunk, one launch a pass, the block's histograms summed in a
+//     workspace.
 //
-// A block wider than kMaxBlock does not fit a CTA's registers: it is
-// streamed (stream_block below). One CTA a block reads it from device
-// memory once a pass (L2 keeps it between passes for a few blocks in
-// flight): the same four digit passes (or the wrapped bisection), a pass
-// that counts the lanes above the threshold, and a last pass in index
-// order, 4096 lanes a tile, that writes the block with the ties ranked by
-// the same (p, warp, lane) scan and a carry from the tiles before.
-//
-// Memory: the block comes into shared memory by one bulk async copy
-// (cp.async.bulk, completed on an mbarrier) of the 16-byte words that cover
-// it (a row of odd length starts mid-word, so up to 12 bytes of each
-// neighbour come along); only where those words would leave the tensor (its
-// first or last block, when it starts or ends mid-word) is the block loaded
+// Memory: a block (or span, or chunk) comes into shared memory by one bulk
+// async copy (cp.async.bulk, completed on an mbarrier) of the 16-byte words
+// that cover it (a row of odd length starts mid-word, so up to 12 bytes of
+// each neighbour come along); only where those words would leave the tensor
+// (its first or last block, when it starts or ends mid-word) is it loaded
 // lane by lane. It goes back as one 16-byte store a thread, neighbouring
-// threads on neighbouring words, the partial words at its ends lane by
-// lane: only the block's own lanes are written.
+// threads on neighbouring words, the partial words at its ends lane by lane:
+// only its own lanes are written.
 #pragma once
 
 #include <climits>
@@ -70,15 +72,27 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMinCtas = 5;                   // CTAs an SM: 48 registers
 constexpr int kPasses = 4;                    // digits 30..23, 22..15, 14..7, 6..0
 constexpr int kBins = 256;                    // bins of an 8-bit digit
-constexpr int kTile = kMaxBlock;              // lanes a tile of stream_block
-// the widest streamed block: int lane indices with a tile to spare
-constexpr int kMaxStreamBlock = INT_MAX - kTile;
+constexpr int kNarrowMax = 255;               // the narrow tier's widest block
+constexpr int kWarpSpan = 512;                // lanes a warp takes there, at most
+constexpr int kStageBytes = 196608;           // the staged tier's widest block
+constexpr int kChunk = 8192;                  // lanes a CTA of the chunked tier
+// the widest block: int lane indices with a kMaxBlock tile to spare
+constexpr int kMaxWidth = INT_MAX - kMaxBlock;
 
-// the lanes a thread holds in the smallest instance for a block of `block`
-// lanes, or 0 where the block is streamed
+enum Tier { kTierNarrow, kTierRegister, kTierStaged, kTierChunked };
+
+// the tier of a block of `block` lanes of `esize` bytes
+__host__ __device__ constexpr Tier tier_of(long long block, int esize) {
+  return block <= kNarrowMax ? kTierNarrow
+       : block <= kMaxBlock ? kTierRegister
+       : block * esize <= kStageBytes ? kTierStaged : kTierChunked;
+}
+
+// the lanes a thread holds in the register tier's smallest instance for a
+// block of `block` lanes
 __host__ __device__ constexpr int lanes_a_thread(long long block) {
   return block <= 256 ? 1 : block <= 512 ? 2 : block <= 1024 ? 4
-       : block <= 2048 ? 8 : block <= kMaxBlock ? 16 : 0;
+       : block <= 2048 ? 8 : 16;
 }
 
 __host__ __device__ constexpr int digit_shift(int pass) {
@@ -242,38 +256,39 @@ __device__ __forceinline__ Window window_of(const T* x, int valid, const T* lo,
   return w;
 }
 
-// One thread: start the bulk copy of the window into `st`, completing on
-// `bar` (nothing for a window that is not bulk).
-template <typename T, int Per>
+// One thread: start the bulk copy of the window into `stage` (16-byte
+// aligned shared memory), completing on `bar` (nothing for a window that is
+// not bulk).
+template <typename T>
 __device__ __forceinline__ void start_load(const T* x, const Window& w,
-                                           Stage<T, Per>& st, uint32_t bar) {
+                                           T* stage, uint32_t bar) {
   if (!w.bulk) return;
   mbar_expect_tx(bar, w.words * 16);
-  bulk_load(smem_u32(st.data), x - w.shift, w.words * 16, bar);
+  bulk_load(smem_u32(stage), x - w.shift, w.words * 16, bar);
 }
 
 // Every thread: wait for the window's bulk copy (the first phase of `bar`),
 // or load its lanes one by one; either way the block is then visible to
 // the thread.
-template <typename T, int Per>
+template <typename T>
 __device__ __forceinline__ void finish_load(const T* x, const Window& w,
-                                            Stage<T, Per>& st, uint32_t bar) {
+                                            T* stage, uint32_t bar) {
   if (w.bulk) {
     mbar_wait(bar, 0);
   } else {
     for (int e = threadIdx.x; e < w.valid; e += kThreads)
-      st.data[e + w.shift] = x[e];
+      stage[e + w.shift] = x[e];
     __syncthreads();
   }
 }
 
-// Write st.data (lane e at e + shift) to out[0, valid): its whole 16-byte
+// Write `stage` (lane e at e + shift) to out[0, valid): its whole 16-byte
 // words one a thread, neighbouring threads on neighbouring words, the
 // partial words at either end lane by lane.
-template <typename T, int Per>
+template <typename T>
 __device__ __forceinline__ void store_block(T* out, int valid, int shift,
-                                            const Stage<T, Per>& st) {
-  constexpr int kVec = Stage<T, Per>::kVec;
+                                            const T* stage) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
   const int tid = threadIdx.x;
   const int out_shift =
       static_cast<int>((reinterpret_cast<uintptr_t>(out) & 15) / sizeof(T));
@@ -282,18 +297,18 @@ __device__ __forceinline__ void store_block(T* out, int valid, int shift,
   const int tail = head + n_words * kVec;
   uint4* dst = reinterpret_cast<uint4*>(out + head);
   if ((head + shift) % kVec == 0) {       // out and x start alike in a word
-    const uint4* src = reinterpret_cast<const uint4*>(st.data + head + shift);
+    const uint4* src = reinterpret_cast<const uint4*>(stage + head + shift);
     for (int j = tid; j < n_words; j += kThreads) dst[j] = src[j];
   } else {
     for (int j = tid; j < n_words; j += kThreads) {
       union { uint4 w; T v[kVec]; } u;
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) u.v[i] = st.data[head + shift + j * kVec + i];
+      for (int i = 0; i < kVec; ++i) u.v[i] = stage[head + shift + j * kVec + i];
       dst[j] = u.w;
     }
   }
-  for (int e = tid; e < head; e += kThreads) out[e] = st.data[e + shift];
-  for (int e = tail + tid; e < valid; e += kThreads) out[e] = st.data[e + shift];
+  for (int e = tid; e < head; e += kThreads) out[e] = stage[e + shift];
+  for (int e = tail + tid; e < valid; e += kThreads) out[e] = stage[e + shift];
 }
 
 // ---- the select -------------------------------------------------------------
@@ -496,8 +511,8 @@ __device__ __forceinline__ void sparsify_block(const T* x, T* out, int valid,
   if (tid == 0) mbar_init(bar_addr, 1);
   sel.hist[tid] = 0;                               // kThreads == kBins
   __syncthreads();
-  if (tid == 0) start_load(x, w, stage, bar_addr);
-  finish_load(x, w, stage, bar_addr);
+  if (tid == 0) start_load(x, w, stage.data, bar_addr);
+  finish_load(x, w, stage.data, bar_addr);
   if (!copy) {
     if (k >= n_lanes) {
       for (int e = tid; e < valid; e += kThreads)
@@ -508,16 +523,32 @@ __device__ __forceinline__ void sparsify_block(const T* x, T* out, int valid,
     }
   }
   __syncthreads();
-  store_block(out, valid, w.shift, stage);
+  store_block(out, valid, w.shift, stage.data);
 }
 
-// ---- the streaming select: a block wider than kMaxBlock -------------------
-struct StreamShared {
+// ---- the staged and chunked tiers: blocks wider than kMaxBlock -----------
+// Neither holds its lanes in registers: a CTA reads them from shared memory,
+// once a pass. The threshold comes from the same digits as keep_mask's, in
+// closed forms where they end early:
+//   * a block holding 0x7fffffff: the reference's bisection starts at
+//     hi = INT_MIN, so every mid is negative, every count is the whole block
+//     (>= k, as k < the block's width) and lo ends at INT_MIN + 1, whose
+//     exponent field is 0: the threshold compares as 0.0;
+//   * k <= 0 otherwise: the threshold is +Inf with no room (nothing kept);
+//   * a top digit (the exponent) of 0: the threshold is a zero or a
+//     denormal, which compares as 0.0 whatever its lower digits;
+//   * else the four digits give the pattern T. A NaN T keeps nothing.
+// The counts come from the histograms: at 0.0 the lanes above are those of
+// a non-zero exponent less the NaNs (NaN fails every float test) and the
+// ties those of exponent 0; at a normal T the lanes above are the k - rank
+// patterns above T less the NaNs, and the ties the lanes of T's last bin.
+// Ties are ranked in index order only where they do not all fit.
+struct SelShared {
   unsigned hist[kBins];
-  int part[kWarps];
+  int part[kWarps];              // the bin scan's warp totals
+  int red[kWarps];               // cta_sum's warp totals
+  int result[3];                 // pick_digit's (digit, rank, count)
   int tie[kMaxPer * kWarps];     // a tile's (p, warp) tie counts, then scan
-  int red[kWarps];
-  int result[2];                 // pick_bin's (digit, rank)
   int carry;                     // ties in the tiles before
 };
 
@@ -534,105 +565,94 @@ __device__ __forceinline__ int cta_sum(int v, int* red) {
   return total;
 }
 
-// A CTA's whole work on one block x[0, valid) of n_lanes lanes (any width:
-// lanes of [valid, n_lanes) compete as zeros and are not written), read
-// from device memory in passes: keep every lane (`copy`), every lane but a
-// NaN (k >= n_lanes), or the k largest magnitudes, writing out[0, valid).
-// The same mask as keep_mask: the same digit passes, wrapped bisection,
-// float tests and ties in index order (tile, p, warp, lane).
-template <typename T>
-__device__ __forceinline__ void stream_block(const T* __restrict__ x,
-                                             T* __restrict__ out, int valid,
-                                             int n_lanes, int k, bool copy) {
-  __shared__ StreamShared sh;
+// pick_bin on a histogram that stays as it is (shared or device memory):
+// the bin holding the kk-th largest pattern (1 <= kk <= the lanes counted),
+// the rank left in it and the bin's count, in every thread of the CTA.
+__device__ __forceinline__ void pick_digit(const unsigned* hist, int* part,
+                                           int* result, int nb, int kk,
+                                           int& digit, int& rank, int& count) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (copy || k >= n_lanes) {
+  const int d = nb - 1 - tid;
+  const int cnt = d >= 0 ? static_cast<int>(hist[d]) : 0;
+  int incl = warp_incl_scan(cnt);
+  if (lane == 31) part[warp] = incl;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) incl += part[w];
+  const int excl = incl - cnt;
+  if (excl < kk && kk <= incl) {
+    result[0] = d;
+    result[1] = kk - excl;
+    result[2] = cnt;
+  }
+  __syncthreads();
+  digit = result[0];
+  rank = result[1];
+  count = result[2];
+}
+
+// How a block's select ended: still picking digits, at a threshold of 0.0,
+// or keeping nothing (k <= 0 without the all-ones NaN)
+enum Mode { kPicking, kAtZero, kNothing };
+
+// The float tests' threshold, the ties that fit (k less the lanes above
+// it) and the block's real lanes that tie with it.
+struct Verdict {
+  float thresh;
+  int room, n_eq;
+};
+
+// at a threshold of 0.0: `zeros` lanes of exponent 0 (the `pad` padding
+// zeros among them) of n_lanes, n_nan NaNs
+__device__ __forceinline__ Verdict at_zero(int k, int n_lanes, int zeros,
+                                           int pad, int n_nan) {
+  return {0.0f, k - (n_lanes - zeros - n_nan), zeros - pad};
+}
+
+// after the four digits: pattern t, rank kk left in its bin of `count`
+__device__ __forceinline__ Verdict at_pattern(int t, int kk, int count,
+                                              int n_nan) {
+  if (t > 0x7f800000) return {__int_as_float(t), 0, 0};   // NaN: none
+  return {__int_as_float(t), kk + n_nan, count};
+}
+
+__device__ __forceinline__ Verdict nothing_kept(int k) {
+  return {__int_as_float(0x7f800000), k, 0};
+}
+
+// every lane of data[0, valid) but a NaN kept (the mask at k >= the width)
+template <typename T>
+__device__ __forceinline__ void drop_nans(T* data, int valid) {
+  for (int e = threadIdx.x; e < valid; e += kThreads)
+    if (mag_bits(data[e]) > 0x7f800000) data[e] = T(0);
+}
+
+// data[0, valid) (lanes of a block, `carry` of the block's ties before
+// them) with the lanes the verdict drops set to +0.0. Where every tie fits,
+// or none does, no rank is needed; else the ties are ranked in index order
+// a tile of kMaxBlock lanes at a time, as keep_mask ranks them: (p, warp,
+// lane), the tiles' counts carried. Every thread of the CTA calls it.
+template <typename T>
+__device__ __forceinline__ void keep_lanes(T* data, int valid, const Verdict& v,
+                                           int carry, SelShared& sh) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (v.room <= 0 || v.n_eq <= v.room) {
+    const bool ties = v.room > 0;
     for (int e = tid; e < valid; e += kThreads) {
-      const T v = x[e];
-      out[e] = (!copy && mag_bits(v) > 0x7f800000) ? T(0) : v;
+      const float mag = daz_float(mag_bits(data[e]));
+      if (!(mag > v.thresh || (ties && mag == v.thresh))) data[e] = T(0);
     }
     return;
   }
-  const int pad = n_lanes - valid;             // zeros past the tail
-  sh.hist[tid] = 0;
-  __syncthreads();
-  // pass 0 (the exponent, every lane) and the all-ones NaN test
-  bool all_ones = false;
-  for (int base = 0; base < valid; base += kThreads) {
-    const int e = base + tid;
-    const int b = e < valid ? mag_bits(x[e]) : -1;
-    all_ones |= b == 0x7fffffff;
-    if (k > 0) {
-      // lanes of a warp that share a bin add once
-      const int bin = b >= 0 ? b >> digit_shift(0) : -1;
-      const unsigned peers = __match_any_sync(0xffffffffu, bin);
-      if (bin >= 0 && lane == __ffs(peers) - 1)
-        atomicAdd(&sh.hist[bin], static_cast<unsigned>(__popc(peers)));
-    }
-  }
-  if (tid == 0 && pad > 0 && k > 0) atomicAdd(&sh.hist[0], static_cast<unsigned>(pad));
-  const bool wrapped = __syncthreads_or(all_ones);
-  int prefix = 0x7f800000;                     // k <= 0: as keep_mask
-  if (wrapped) {
-    // the reference's bisection with hi = max + 1 wrapped to INT_MIN
-    int lo = 0, hi = INT_MIN;
-    for (int it = 0; it < 31; ++it) {
-      const int mid = wrap_add(lo, wrap_sub(hi, lo) >> 1);
-      int cnt = 0;
-      for (int e = tid; e < valid; e += kThreads) cnt += mag_bits(x[e]) >= mid;
-      if (tid == 0 && 0 >= mid) cnt += pad;
-      if (cta_sum(cnt, sh.red) >= k) lo = mid; else hi = mid;
-    }
-    prefix = lo;
-  } else if (k > 0) {
-    prefix = 0;
-    int kk = k;
-    for (int pass = 0; pass < kPasses; ++pass) {
-      const int shift = digit_shift(pass), width = digit_bits(pass);
-      const int top = shift + width, mask = (1 << width) - 1;
-      if (pass > 0) {
-        for (int base = 0; base < valid; base += kThreads) {
-          const int e = base + tid;
-          const int b = e < valid ? mag_bits(x[e]) : -1;
-          const int bin = (b >= 0 && (b >> top) == prefix) ? (b >> shift) & mask : -1;
-          const unsigned peers = __match_any_sync(0xffffffffu, bin);
-          if (bin >= 0 && lane == __ffs(peers) - 1)
-            atomicAdd(&sh.hist[bin], static_cast<unsigned>(__popc(peers)));
-        }
-        if (tid == 0 && pad > 0 && prefix == 0)
-          atomicAdd(&sh.hist[0], static_cast<unsigned>(pad));
-        __syncthreads();
-      }
-      int digit, rank;
-      pick_bin(sh.hist, sh.part, sh.result, 1 << width, kk, digit, rank);
-      prefix = (prefix << width) | digit;
-      kk = rank;
-    }
-  }
-  const float thresh = daz_float(prefix);      // the k-th largest |x|
-
-  // the lanes above the threshold, the padding zeros among them
-  int n_gt = 0;
-  for (int e = tid; e < valid; e += kThreads)
-    n_gt += daz_float(mag_bits(x[e])) > thresh;
-  if (tid == 0 && 0.0f > thresh) n_gt += pad;
-  const int room = k - cta_sum(n_gt, sh.red);  // ties that still fit
-
-  // the write, a tile of kTile lanes at a time in index order; the padding
-  // zeros come after every lane, so they never rank ahead of one
   const unsigned below = (1u << lane) - 1u;
-  int carry = 0;
-  for (int t0 = 0; t0 < valid; t0 += kTile) {
-    T v[kMaxPer];
+  for (int t0 = 0; t0 < valid; t0 += kMaxBlock) {
     unsigned gt = 0, eq = 0;                   // bit p: lane p's tests
 #pragma unroll
     for (int p = 0; p < kMaxPer; ++p) {
       const int e = t0 + p * kThreads + tid;
       const bool in = e < valid;
-      v[p] = in ? x[e] : T(0);
-      const float mag = daz_float(in ? mag_bits(v[p]) : 0);
-      gt |= static_cast<unsigned>(in && mag > thresh) << p;
-      const bool equal = in && mag == thresh;
+      const float mag = daz_float(in ? mag_bits(data[e]) : 0);
+      gt |= static_cast<unsigned>(in && mag > v.thresh) << p;
+      const bool equal = in && mag == v.thresh;
       eq |= static_cast<unsigned>(equal) << p;
       const unsigned ties = __ballot_sync(0xffffffffu, equal);
       if (lane == 0) sh.tie[p * kWarps + warp] = __popc(ties);
@@ -647,12 +667,446 @@ __device__ __forceinline__ void stream_block(const T* __restrict__ x,
       const bool equal = (eq >> p) & 1u;
       const unsigned ties = __ballot_sync(0xffffffffu, equal);
       const int rank = sh.tie[p * kWarps + warp] + __popc(ties & below) + 1;
-      const bool keep = ((gt >> p) & 1u) || (equal && rank <= room);
-      if (e < valid) out[e] = keep ? v[p] : T(0);
+      const bool keep = ((gt >> p) & 1u) || (equal && rank <= v.room);
+      if (e < valid && !keep) data[e] = T(0);
     }
     carry = sh.carry;
     __syncthreads();                           // sh.tie is the next tile's
   }
+}
+
+// One thread's share of a pass over data[0, valid): digit `pass` of the
+// lanes whose higher digits equal `prefix` (every lane at pass 0) into
+// `hist`; at pass 0 also the thread's NaNs and whether it saw 0x7fffffff.
+template <typename T>
+__device__ __forceinline__ void histogram(const T* data, int valid, int pass,
+                                          int prefix, unsigned* hist,
+                                          bool& all_ones, int& nan) {
+  const int shift = digit_shift(pass), width = digit_bits(pass);
+  const int top = shift + width, mask = (1 << width) - 1;
+  for (int e = threadIdx.x; e < valid; e += kThreads) {
+    const int b = mag_bits(data[e]);
+    if (pass == 0) {
+      all_ones |= b == 0x7fffffff;
+      nan += b > 0x7f800000;
+    }
+    if ((b >> top) == prefix) atomicAdd(&hist[(b >> shift) & mask], 1u);
+  }
+}
+
+// (a) the staged tier: a block of up to kStageBytes, one CTA, staged whole
+// in dynamic shared memory by one bulk copy. The select over data[0, valid)
+// (lanes [valid, n_lanes) compete as zeros), k < n_lanes. Four passes over
+// shared memory at most, each histogramming into one shared histogram.
+template <typename T>
+__device__ __forceinline__ Verdict staged_select(const T* data, int valid,
+                                                 int n_lanes, int k,
+                                                 SelShared& sh) {
+  const int tid = threadIdx.x;
+  const int pad = n_lanes - valid;
+  sh.hist[tid] = 0;                            // kThreads == kBins
+  __syncthreads();
+  bool all_ones = false;
+  int nan = 0;
+  histogram(data, valid, 0, 0, sh.hist, all_ones, nan);
+  if (tid == 0 && pad > 0) atomicAdd(&sh.hist[0], static_cast<unsigned>(pad));
+  const int n_nan = cta_sum(nan, sh.red);      // its barrier ends the pass
+  const bool wrapped = __syncthreads_or(all_ones);
+  const int zeros = static_cast<int>(sh.hist[0]);
+  if (wrapped) return at_zero(k, n_lanes, zeros, pad, n_nan);
+  if (k <= 0) return nothing_kept(k);
+  int prefix, kk, count;
+  pick_digit(sh.hist, sh.part, sh.result, kBins, k, prefix, kk, count);
+  if (prefix == 0) return at_zero(k, n_lanes, zeros, pad, n_nan);
+  for (int pass = 1; pass < kPasses; ++pass) {
+    sh.hist[tid] = 0;
+    __syncthreads();
+    histogram(data, valid, pass, prefix, sh.hist, all_ones, nan);
+    __syncthreads();
+    int digit;
+    pick_digit(sh.hist, sh.part, sh.result, 1 << digit_bits(pass), kk, digit,
+               kk, count);
+    prefix = (prefix << digit_bits(pass)) | digit;
+  }
+  return at_pattern(prefix, kk, count, n_nan);
+}
+
+// bytes of dynamic shared memory that stage a block of `lanes` lanes of
+// `esize` bytes: its covering 16-byte words
+__host__ __device__ constexpr int stage_bytes(int lanes, int esize) {
+  return (lanes * esize + 47) / 16 * 16;
+}
+
+// A CTA's whole work on one block x[0, valid) of n_lanes lanes
+// (n_lanes * sizeof(T) <= kStageBytes): as sparsify_block, the select by
+// staged_select.
+template <typename T>
+__device__ __forceinline__ void staged_block(const T* x, T* out, int valid,
+                                             const T* lo, const T* hi,
+                                             int n_lanes, int k, bool copy) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  __shared__ SelShared sh;
+  __shared__ unsigned long long bar;
+  T* stage = reinterpret_cast<T*>(dyn_smem);
+  const Window w = window_of(x, valid, lo, hi);
+  const uint32_t bar_addr = smem_u32(&bar);
+  if (threadIdx.x == 0) mbar_init(bar_addr, 1);
+  __syncthreads();
+  if (threadIdx.x == 0) start_load(x, w, stage, bar_addr);
+  finish_load(x, w, stage, bar_addr);
+  T* data = stage + w.shift;
+  if (!copy) {
+    if (k >= n_lanes) {
+      drop_nans(data, valid);
+    } else {
+      const Verdict v = staged_select(data, valid, n_lanes, k, sh);
+      keep_lanes(data, valid, v, 0, sh);
+    }
+  }
+  __syncthreads();
+  store_block(out, valid, w.shift, stage);
+}
+
+// (b) the chunked tier: a wider block cut into chunks of kChunk lanes, one
+// CTA a chunk, in kPasses + 1 launches that each stage the chunk by one
+// bulk copy: launch p < 4 adds the chunk's histogram of digit p (of the
+// lanes that match the digits before, which every CTA picks again from the
+// block's histograms) into the block's; launch 4 picks the last digit and
+// writes the chunk, its ties ranked after the ties of the chunks before it
+// (chunk order is index order) by counts each chunk left in the workspace.
+// Workspace, unsigned words: a header a block (zeroed before launch 0 by a
+// clear kernel) — the four histograms at kBins * p, the NaN count, the
+// all-ones flag — then a record a chunk, written by its own CTA: its
+// lanes of exponent 0 (launch 0), and its bins of the last digit (launch 3).
+constexpr int kLastBins = 1 << digit_bits(kPasses - 1);
+constexpr int kNanWord = (kPasses - 1) * kBins + kLastBins;
+constexpr int kOnesWord = kNanWord + 1;
+constexpr int kHeaderWords = 1024;
+constexpr int kChunkWords = 1 + kLastBins;     // exponent-0 lanes, last bins
+static_assert(kOnesWord < kHeaderWords, "a block's header holds its words");
+
+__host__ __device__ constexpr long long chunks_a_block(long long block) {
+  return (block + kChunk - 1) / kChunk;
+}
+
+// the chunked tier's workspace for n_blocks blocks of `block` lanes
+__host__ __device__ constexpr long long chunk_ws_words(long long n_blocks,
+                                                       long long block) {
+  return n_blocks * (kHeaderWords + chunks_a_block(block) * kChunkWords);
+}
+
+// The picks of the first `passes` digits from a block's histograms: the
+// same in every CTA of the block (every thread calls it).
+struct Picked {
+  Mode mode;
+  int prefix, kk, count;
+};
+
+__device__ __forceinline__ Picked replay_picks(const unsigned* hdr, int k,
+                                               int passes, SelShared& sh) {
+  Picked s{kPicking, 0, k, 0};
+  if (hdr[kOnesWord]) {
+    s.mode = kAtZero;
+    return s;
+  }
+  if (k <= 0) {
+    s.mode = kNothing;
+    return s;
+  }
+  for (int p = 0; p < passes; ++p) {
+    int digit;
+    pick_digit(hdr + kBins * p, sh.part, sh.result, 1 << digit_bits(p), s.kk,
+               digit, s.kk, s.count);
+    s.prefix = (s.prefix << digit_bits(p)) | digit;
+    if (p == 0 && digit == 0) {
+      s.mode = kAtZero;
+      return s;
+    }
+  }
+  return s;
+}
+
+// A block's place: its first lane in the tensor, its lanes there (the rest
+// of its width competes as zeros) and its k.
+struct Blk {
+  long long start;
+  int valid, k;
+};
+
+// One CTA of launch `pass` of the chunked tier: chunk c of block b (`blk`),
+// `w` lanes wide, of a tensor of n_blocks blocks; `copy` keeps every lane.
+template <typename T>
+__device__ __forceinline__ void chunk_pass(const T* x, T* out, const T* lo,
+                                           const T* hi, unsigned* ws,
+                                           long long n_blocks, int w, int pass,
+                                           long long b, int c, const Blk& blk,
+                                           bool copy) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  __shared__ SelShared sh;
+  __shared__ unsigned long long bar;
+  const int tid = threadIdx.x;
+  const bool full = copy || blk.k >= w;
+  if (pass < kPasses && full) return;
+  unsigned* hdr = ws + b * kHeaderWords;
+  unsigned* rec = ws + n_blocks * kHeaderWords +
+                  (b * chunks_a_block(w) + c) * kChunkWords;
+  Picked s{kPicking, 0, blk.k, 0};
+  if (pass > 0 && !full) {
+    s = replay_picks(hdr, blk.k, pass, sh);
+    if (pass < kPasses && s.mode != kPicking) return;
+  }
+  // the chunk's lanes, staged
+  const long long c0 = static_cast<long long>(c) * kChunk;
+  const long long left = blk.valid - c0;
+  const int valid = left <= 0 ? 0 : left < kChunk ? static_cast<int>(left) : kChunk;
+  const T* xc = x + blk.start + c0;
+  T* stage = reinterpret_cast<T*>(dyn_smem);
+  const Window win = window_of(xc, valid, lo, hi);
+  const uint32_t bar_addr = smem_u32(&bar);
+  if (tid == 0) mbar_init(bar_addr, 1);
+  sh.hist[tid] = 0;                            // kThreads == kBins
+  __syncthreads();
+  if (valid > 0) {
+    if (tid == 0) start_load(xc, win, stage, bar_addr);
+    finish_load(xc, win, stage, bar_addr);
+  }
+  T* data = stage + win.shift;
+
+  bool all_ones = false;
+  int nan = 0;
+  if (pass < kPasses) histogram(data, valid, pass, s.prefix, sh.hist, all_ones, nan);
+  if (pass == 0) {                             // the exponent, NaNs, all-ones
+    nan = cta_sum(nan, sh.red);
+    const bool ones = __syncthreads_or(all_ones);
+    unsigned h = sh.hist[tid];
+    if (tid == 0) {
+      rec[0] = h;                              // the chunk's exponent-0 lanes
+      if (c == 0) h += static_cast<unsigned>(w - blk.valid);   // padding
+      if (nan) atomicAdd(&hdr[kNanWord], static_cast<unsigned>(nan));
+      if (ones) atomicOr(&hdr[kOnesWord], 1u);
+    }
+    if (h) atomicAdd(&hdr[tid], h);
+    return;
+  }
+  if (pass < kPasses) {                        // digit `pass` under the prefix
+    __syncthreads();
+    if (tid < (1 << digit_bits(pass))) {
+      const unsigned h = sh.hist[tid];
+      if (h) atomicAdd(&hdr[kBins * pass + tid], h);
+      if (pass == kPasses - 1) rec[1 + tid] = h;
+    }
+    return;
+  }
+
+  // the write
+  if (!full) {
+    const int pad = w - blk.valid;
+    const int n_nan = static_cast<int>(hdr[kNanWord]);
+    const Verdict v =
+        s.mode == kAtZero ? at_zero(blk.k, w, static_cast<int>(hdr[0]), pad, n_nan)
+        : s.mode == kNothing ? nothing_kept(blk.k)
+                             : at_pattern(s.prefix, s.kk, s.count, n_nan);
+    int carry = 0;
+    if (v.room > 0 && v.n_eq > v.room) {       // ties in the chunks before
+      const int word = s.mode == kAtZero ? 0 : 1 + (s.prefix & (kLastBins - 1));
+      const unsigned* first = rec - static_cast<long long>(c) * kChunkWords;
+      int n = 0;
+      for (int j = tid; j < c; j += kThreads) n += first[j * kChunkWords + word];
+      carry = cta_sum(n, sh.red);
+    }
+    keep_lanes(data, valid, v, carry, sh);
+  } else if (!copy) {
+    drop_nans(data, valid);
+  }
+  __syncthreads();
+  if (valid > 0) store_block(out + blk.start + c0, valid, win.shift, stage);
+}
+
+// Zero n words of the chunked tier's workspace (its block headers).
+__device__ __forceinline__ void clear_words(unsigned* ws, long long n) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x)
+    ws[i] = 0;
+}
+
+// ---- the narrow tier: blocks of 1 to kNarrowMax lanes, several a CTA ------
+// Consecutive blocks tile the tensor, so a CTA's blocks are one contiguous
+// span of at most kMaxBlock lanes: one bulk copy stages it and 16-byte
+// stores write it back, as for one block. Each warp takes narrow_bpw blocks
+// of the span (at most kWarpSpan lanes) and selects inside the warp, with
+// no CTA barrier: a block of 33 lanes or more on the whole warp, lane e at
+// (row e / 32, lane e % 32), narrow_per rows, one instance a row count;
+// blocks of 32 lanes or fewer side by side, one to a segment of narrow_seg
+// lanes (a power of two), 16 rows of them. The threshold takes the staged
+// tier's closed forms for the all-ones NaN (0.0) and k <= 0 (nothing
+// kept); else it is the k-th largest pattern: in a segment, the pattern of
+// the lane that k - 1 others precede (larger patterns, or equal ones at a
+// lower lane), each lane counting its predecessors over w shuffles; on the
+// whole warp, a bisection of the patterns from 0 to max + 1, each count a
+// warp reduction. Then the float tests and the ties in (row, lane) order,
+// which is index order. A block with k >= its width keeps every lane but a
+// NaN (the clipped k at width 1), and a warp whose blocks all do skips the
+// select.
+__host__ __device__ constexpr int narrow_seg(int w) {
+  return w > 16 ? 32 : w > 8 ? 16 : w > 4 ? 8 : w > 2 ? 4 : w;
+}
+__host__ __device__ constexpr int narrow_per(int w) {
+  return w <= 32 ? 1 : (w + 31) / 32;
+}
+// blocks a warp: 16 rows of 32 / narrow_seg segments, or kWarpSpan / w
+__host__ __device__ constexpr int narrow_bpw(int w) {
+  return w <= 32 ? kWarpSpan / narrow_seg(w) : kWarpSpan / w;
+}
+
+// One warp's blocks of at most 32 lanes, from block gw, the CTA's ending
+// before g1; lane e of the span (from s0) at data[e].
+template <typename T, typename Geo>
+__device__ __forceinline__ void narrow_segments(T* data, long long gw,
+                                                long long g1, long long s0,
+                                                int w, const Geo& geo) {
+  const int lane = threadIdx.x & 31;
+  const int seg = narrow_seg(w), sid = lane / seg, pos = lane - sid * seg;
+  const int base = lane - pos;                 // the segment's first lane
+  const unsigned seg_mask =
+      seg == 32 ? 0xffffffffu : ((1u << seg) - 1u) << base;
+  const unsigned below = (1u << lane) - 1u;
+  for (int r = 0; r < kWarpSpan / 32; ++r) {
+    const long long g = gw + static_cast<long long>(r) * (32 / seg) + sid;
+    const bool live = g < g1;
+    Blk blk{s0, 0, w};
+    if (live) blk = geo(g);
+    const int e = static_cast<int>(blk.start - s0) + pos;
+    const bool counted = live && pos < w;
+    const bool real = live && pos < blk.valid;
+    const int bits = real ? mag_bits(data[e]) : 0;
+    bool keep = bits <= 0x7f800000;            // k >= w: all but a NaN
+    if (__any_sync(0xffffffffu, counted && blk.k < w)) {
+      int before = 0;                          // lanes ahead of this one
+      for (int j = 0; j < w; ++j) {
+        const int b = __shfl_sync(0xffffffffu, bits, base + j);
+        before += b > bits || (b == bits && j < pos);
+      }
+      const unsigned kth =
+          __ballot_sync(0xffffffffu, counted && before == blk.k - 1) & seg_mask;
+      const int t = __shfl_sync(0xffffffffu, bits, __ffs(kth) - 1);
+      const bool wrapped =
+          (__ballot_sync(0xffffffffu, bits == 0x7fffffff) & seg_mask) != 0;
+      const float thresh =
+          daz_float(wrapped ? 0 : blk.k <= 0 ? 0x7f800000 : t);
+      const float mag = daz_float(bits);
+      const bool gt = counted && mag > thresh, eq = counted && mag == thresh;
+      const int n_gt = __popc(__ballot_sync(0xffffffffu, gt) & seg_mask);
+      const unsigned ties = __ballot_sync(0xffffffffu, eq) & seg_mask;
+      if (blk.k < w)
+        keep = gt || (eq && __popc(ties & below) + 1 <= blk.k - n_gt);
+    }
+    if (real && !keep) data[e] = T(0);
+  }
+}
+
+// One warp's blocks of 33 to kNarrowMax lanes, Per = narrow_per(w) rows of
+// 32, one block at a time.
+template <int Per, typename T, typename Geo>
+__device__ __forceinline__ void narrow_rows(T* data, long long gw,
+                                            long long g1, long long s0, int w,
+                                            const Geo& geo) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  for (int j = 0; j < narrow_bpw(w) && gw + j < g1; ++j) {
+    const Blk blk = geo(gw + j);
+    T* x = data + (blk.start - s0);
+    int bits[Per];                             // -1 past the block's width
+    bool all_ones = false;
+#pragma unroll
+    for (int p = 0; p < Per; ++p) {
+      const int e = p * 32 + lane;
+      bits[p] = e < blk.valid ? mag_bits(x[e]) : e < w ? 0 : -1;
+      all_ones |= bits[p] == 0x7fffffff;
+    }
+    if (blk.k >= w) {
+#pragma unroll
+      for (int p = 0; p < Per; ++p)
+        if (p * 32 + lane < blk.valid && bits[p] > 0x7f800000) x[p * 32 + lane] = T(0);
+      continue;
+    }
+    int t = 0;                                 // the all-ones NaN: 0.0
+    if (!__any_sync(0xffffffffu, all_ones)) {
+      t = 0x7f800000;                          // k <= 0: nothing kept
+      if (blk.k > 0) {
+        int m = 0;
+#pragma unroll
+        for (int p = 0; p < Per; ++p) m = max(m, bits[p]);
+        // count(bits >= lo) >= k > count(bits >= hi), every mid >= 0
+        int lo = 0, hi = __reduce_max_sync(0xffffffffu, m) + 1;
+        while (hi - lo > 1) {
+          const int mid = lo + ((hi - lo) >> 1);
+          int cnt = 0;
+#pragma unroll
+          for (int p = 0; p < Per; ++p) cnt += bits[p] >= mid;
+          if (__reduce_add_sync(0xffffffffu, cnt) >= blk.k) lo = mid; else hi = mid;
+        }
+        t = lo;
+      }
+    }
+    const float thresh = daz_float(t);
+    int n_gt = 0;
+#pragma unroll
+    for (int p = 0; p < Per; ++p) n_gt += bits[p] >= 0 && daz_float(bits[p]) > thresh;
+    const int room = blk.k - __reduce_add_sync(0xffffffffu, n_gt);
+    int carry = 0;
+#pragma unroll
+    for (int p = 0; p < Per; ++p) {
+      const int e = p * 32 + lane;
+      const float mag = daz_float(bits[p]);
+      const bool eq = bits[p] >= 0 && mag == thresh;
+      const unsigned ties = __ballot_sync(0xffffffffu, eq);
+      const bool keep = (bits[p] >= 0 && mag > thresh) ||
+                        (eq && carry + __popc(ties & below) + 1 <= room);
+      carry += __popc(ties);
+      if (e < blk.valid && !keep) x[e] = T(0);
+    }
+  }
+}
+
+// A CTA's whole work on its blocks of the narrow tier: blocks
+// [g0, g0 + kWarps * narrow_bpw(w)) of n_blocks, each `geo(g)`, in the
+// tensor [lo, hi); `copy` keeps every lane.
+template <typename T, typename Geo>
+__device__ __forceinline__ void narrow_blocks(const T* x, T* out, const T* lo,
+                                              const T* hi, long long n_blocks,
+                                              int w, const Geo& geo, bool copy) {
+  __shared__ Stage<T, kMaxPer> stage;
+  __shared__ unsigned long long bar;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int bpw = narrow_bpw(w);
+  const long long g0 = static_cast<long long>(blockIdx.x) * (kWarps * bpw);
+  const long long g1 =
+      g0 + kWarps * bpw < n_blocks ? g0 + kWarps * bpw : n_blocks;
+  const Blk first = geo(g0), last = geo(g1 - 1);
+  const long long s0 = first.start;
+  const int span = static_cast<int>(last.start + last.valid - s0);
+  const Window win = window_of(x + s0, span, lo, hi);
+  const uint32_t bar_addr = smem_u32(&bar);
+  if (tid == 0) mbar_init(bar_addr, 1);
+  __syncthreads();
+  if (tid == 0) start_load(x + s0, win, stage.data, bar_addr);
+  finish_load(x + s0, win, stage.data, bar_addr);
+  T* data = stage.data + win.shift;
+  if (!copy) {
+    const long long gw = g0 + static_cast<long long>(warp) * bpw;
+    switch (narrow_per(w)) {
+      case 1: narrow_segments(data, gw, g1, s0, w, geo); break;
+      case 2: narrow_rows<2>(data, gw, g1, s0, w, geo); break;
+      case 3: narrow_rows<3>(data, gw, g1, s0, w, geo); break;
+      case 4: narrow_rows<4>(data, gw, g1, s0, w, geo); break;
+      case 5: narrow_rows<5>(data, gw, g1, s0, w, geo); break;
+      case 6: narrow_rows<6>(data, gw, g1, s0, w, geo); break;
+      case 7: narrow_rows<7>(data, gw, g1, s0, w, geo); break;
+      default: narrow_rows<8>(data, gw, g1, s0, w, geo); break;
+    }
+  }
+  __syncthreads();
+  store_block(out + s0, span, win.shift, stage.data);
 }
 
 }  // namespace topk

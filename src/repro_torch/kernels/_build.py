@@ -54,13 +54,13 @@ SIGNATURES = {
     #  mu_out, lam_out, res_out, n_out, stream)
     "dual_ascent_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    # (x, out, ks, n_rows, d, block, flags, stream)
-    "topk_rows_f32": (_P, _P, _P, _I, _LL, _I, _I, _P),
-    # (x, out, n, block, k, dtype, stream)
-    "topk_block": (_P, _P, _LL, _I, _I, _I, _P),
+    # (x, out, ks, n_rows, d, block, flags, ws | null, ws_words, stream)
+    "topk_rows_f32": (_P, _P, _P, _I, _LL, _I, _I, _P, _LL, _P),
+    # (x, out, n, block, k, dtype, ws | null, ws_words, stream)
+    "topk_block": (_P, _P, _LL, _I, _I, _I, _P, _LL, _P),
     # (block, out int[4]) / (dtype, block, out int[4]): registers, local
-    # bytes, static and dynamic shared bytes of the top-k kernels' instance
-    # for that block width
+    # bytes, static and dynamic shared bytes of the top-k kernel for that
+    # block width
     "topk_rows_attrs": (_I, _P),
     "topk_block_attrs": (_I, _I, _P),
     # (q, k, v, o, lse | null, B, Sq, Skv, H, KV, D, causal, window, scale,

@@ -9,14 +9,24 @@ vec, gamma, block=)`` (``csrc/topk_block.cu``) keeps ``ref.keep_count(gamma,
 block)`` per block of a 1-D fp32, bf16 or fp16 vector. Each runs its plain
 PyTorch version (``ref.block_topk_rows``, ``ref.block_topk_sparsify_rows``,
 ``ref.block_topk_ref``) for CPU tensors. Any block width from 1 up to a
-whole row runs on either device: the kernels hold a block of up to 4,096
-lanes in registers (one instance a power of two of 256-lane steps) and
-stream a wider one from device memory; a width the card's int lane
-indices cannot take (``MAX_BLOCK``) raises on a CUDA tensor. The kernels
-read the ragged last block in place, so no padded copy is made; they find
-each block's k-th largest magnitude by a 4-pass radix select
-(``csrc/topk_common.cuh``), which gives the plain version's bisection
-threshold bit for bit.
+whole row runs on either device; a width the card's int lane indices
+cannot take (``MAX_BLOCK``) raises on a CUDA tensor. On the card the width
+picks one of four tiers (``tier``, ``csrc/topk_common.cuh``):
+
+* ``"narrow"`` (1-255 lanes): a CTA takes a span of up to 4,096 lanes of
+  consecutive blocks, each warp selecting its blocks; one launch a call.
+* ``"register"`` (256-4,096): one CTA a block, held in registers (one
+  instance a power of two of 256-lane steps); one launch.
+* ``"staged"`` (up to ``STAGE_BYTES`` a block: 49,152 fp32 lanes, 98,304
+  16-bit): one CTA a block, staged whole in shared memory; one launch.
+* ``"chunked"`` (wider): one CTA a ``CHUNK`` of a block, over six launches
+  (a clear of the workspace, four digit passes, the write) that share a
+  workspace this wrapper allocates (``torch.empty``).
+
+The kernels read the ragged last block in place, so no padded copy is
+made; they find each block's k-th largest magnitude by a radix select, a
+bisection or per-lane ranks, each giving the plain version's threshold bit
+for bit. ``launches`` counts wrapper calls that reached a kernel.
 """
 from __future__ import annotations
 
@@ -29,9 +39,14 @@ from .ref import DEFAULT_BLOCK, block_topk_ref, keep_count
 from .ref import block_topk_rows as block_topk_rows_plain
 from .ref import block_topk_sparsify_rows as block_topk_sparsify_rows_plain
 
-# csrc/topk_common.cuh: kMaxStreamBlock, int lane indices with a 4,096-lane
-# tile to spare
+# csrc/topk_common.cuh: kMaxWidth, int lane indices with a 4,096-lane tile
+# to spare; the tiers' limits (kNarrowMax, kMaxBlock, kStageBytes, kChunk);
+# the chunked tier's workspace words a block and a chunk (kHeaderWords,
+# kChunkWords)
 MAX_BLOCK = 2**31 - 1 - 4096
+NARROW_MAX, REGISTER_MAX, STAGE_BYTES, CHUNK = 255, 4096, 196608, 8192
+_HEADER_WORDS, _CHUNK_WORDS = 1024, 129
+_CHUNK_LAUNCHES = 6        # the workspace's clear, four digit passes, the write
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SKIP_FULL, _CLIP_K = 1, 2                # csrc/topk_rows.cu: the flags
 
@@ -44,6 +59,35 @@ def _check_block(block: int, on_card: bool) -> None:
                          f"the card ({MAX_BLOCK})")
 
 
+def tier(block: int, dtype: torch.dtype = torch.float32) -> str:
+    """The kernel tier that takes blocks of ``block`` lanes of ``dtype``."""
+    if block <= NARROW_MAX:
+        return "narrow"
+    if block <= REGISTER_MAX:
+        return "register"
+    if block * torch.finfo(dtype).bits // 8 <= STAGE_BYTES:
+        return "staged"
+    return "chunked"
+
+
+def launches_per_call(block: int, dtype: torch.dtype = torch.float32) -> int:
+    """CUDA launches one wrapper call makes at ``block`` lanes of ``dtype``."""
+    return _CHUNK_LAUNCHES if tier(block, dtype) == "chunked" else 1
+
+
+def _workspace(n_blocks: int, block: int, dtype: torch.dtype,
+               device: torch.device) -> tuple[torch.Tensor | None, int, int]:
+    """(buffer, pointer, words) of the chunked tier's workspace for
+    ``n_blocks`` blocks; (None, 0, 0) for another tier. The caller holds the
+    buffer until the launch is queued; the caching allocator hands its
+    memory on only to work queued after the kernels on the stream."""
+    if tier(block, dtype) != "chunked":
+        return None, 0, 0
+    words = n_blocks * (_HEADER_WORDS + -(-block // CHUNK) * _CHUNK_WORDS)
+    ws = torch.empty(words, dtype=torch.int32, device=device)
+    return ws, ws.data_ptr(), words
+
+
 def _launch_rows(mat: torch.Tensor, ks: torch.Tensor, block: int,
                  flags: int) -> torch.Tensor:
     dev = mat.device
@@ -54,9 +98,10 @@ def _launch_rows(mat: torch.Tensor, ks: torch.Tensor, block: int,
     if ks.shape[0] != n:
         raise ValueError(f"ks has {ks.shape[0]} rows, mat has {n}")
     out = torch.empty_like(mat)
+    _ws, ws, words = _workspace(n * -(-d // block), block, mat.dtype, dev)
     err = _build.library().topk_rows_f32(
-        mat.data_ptr(), out.data_ptr(), ks.data_ptr(), n, d, block, flags,
-        torch.cuda.current_stream(dev).cuda_stream)
+        mat.data_ptr(), out.data_ptr(), ks.data_ptr(), n, d, block, flags, ws,
+        words, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "topk_rows_f32")
     block_topk_rows.launches += 1
     return out
@@ -112,9 +157,12 @@ def block_topk_sparsify(vec: torch.Tensor, gamma, *,
     if vec.numel() == 0:
         return out, k
     stream = torch.cuda.current_stream(vec.device).cuda_stream
+    _ws, ws, words = _workspace(-(-vec.numel() // block), block, vec.dtype,
+                                vec.device)
     err = _build.library().topk_block(vec.data_ptr(), out.data_ptr(),
                                       vec.numel(), block, k,
-                                      _DTYPE_CODES[vec.dtype], stream)
+                                      _DTYPE_CODES[vec.dtype], ws, words,
+                                      stream)
     _build.check(err, "topk_block")
     block_topk_sparsify.launches += 1
     return out, k
@@ -125,10 +173,11 @@ block_topk_sparsify.launches = 0
 
 def kernel_attributes(kernel: str, dtype: torch.dtype = torch.float32, *,
                       block: int = DEFAULT_BLOCK) -> dict:
-    """Registers a thread, spill (local) bytes a thread, and static and
-    dynamic shared bytes a CTA of the ``"rows"`` kernel's or the
-    ``"block"`` kernel's instance (for ``dtype``) that takes blocks of
-    ``block`` lanes."""
+    """Registers a thread, spill (local) bytes a thread, static shared
+    bytes a CTA, and the dynamic shared bytes it is launched with, of the
+    ``"rows"`` or the ``"block"`` kernel (for ``dtype``) that takes blocks
+    of ``block`` lanes (the chunked tier: its pass kernel), with its tier
+    and its launches a call."""
     out = (ctypes.c_int * 4)()
     lib = _build.library()
     if kernel == "rows":
@@ -139,4 +188,6 @@ def kernel_attributes(kernel: str, dtype: torch.dtype = torch.float32, *,
         raise ValueError(f"kernel must be 'rows' or 'block', got {kernel!r}")
     _build.check(err, f"topk_{kernel}_attrs")
     return {"registers": out[0], "local_bytes": out[1],
-            "shared_bytes": out[2], "dynamic_shared_bytes": out[3]}
+            "shared_bytes": out[2], "dynamic_shared_bytes": out[3],
+            "tier": tier(block, dtype),
+            "launches_per_call": launches_per_call(block, dtype)}
