@@ -358,6 +358,10 @@ HERE = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_BF16_S = 989e12
+PEAK_TF32_S = 495e12          # dense TF32 on the tensor cores
+# an fp32 multiply-add in 3xTF32 is three TF32 products: the 3xTF32
+# kernel's operations run at a third of the TF32 rate
+PEAK_3XTF32_S = PEAK_TF32_S / 3
 
 GRID = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
 N_CLIENTS = 50
@@ -1014,28 +1018,6 @@ def _width_ks(tks: torch.Tensor, w: int) -> torch.Tensor:
     return torch.clamp(torch.round(tks.double() * w / 4096), 1, w).to(torch.int32)
 
 
-def _widen_f16(v: torch.Tensor) -> torch.Tensor:
-    """fp16 lanes as the exact fp32 values the kernel compares: a NaN
-    quieted with its payload kept. (Torch's CPU widening does so in its
-    vector loop but gives 0x7fffffff in its scalar tail, and the card's
-    gives 0x7fffffff for every NaN, so the plain version's fp16 mask
-    depends on where a NaN falls: ROADMAP C-31.)"""
-    b = v.view(torch.int16).to(torch.int32) & 0xFFFF
-    nan = ((b & 0x7C00) == 0x7C00) & ((b & 0x3FF) != 0)
-    quiet = ((b & 0x8000) << 16) | 0x7FC00000 | ((b & 0x3FF) << 13)
-    return torch.where(nan, quiet, v.float().view(torch.int32)).view(torch.float32)
-
-
-def _f16_plain(v: torch.Tensor, gamma, w: int) -> torch.Tensor:
-    """``ref.block_topk_ref``'s rule on the exact widening of fp16 ``v``."""
-    from repro_torch.kernels.topk_sparsify import ref
-    n, k = v.numel(), ref.keep_count(gamma, w)
-    nb = -(-n // w)
-    rows = torch.nn.functional.pad(v, (0, nb * w - n)).view(nb, w)
-    wide = torch.nn.functional.pad(_widen_f16(v), (0, nb * w - n)).view(nb, w)
-    return torch.where(ref.topk_threshold_mask(wide, k), rows, 0.0).reshape(-1)[:n]
-
-
 def kernel_ms(fn, kernel: str, iters: int, per_call: int = 1) -> tuple[float, str]:
     """The device time of one call of ``fn``: the sum of the device times
     of a call's ``per_call`` launches of the kernels whose name holds
@@ -1107,10 +1089,7 @@ def _check_width(dev, w: int, tricky, tks, longr, vecs16) -> None:
     for v, gammas in vecs:
         for gamma in gammas:
             got, k = ops.block_topk_sparsify(v, gamma, block=w)
-            if v.dtype == torch.float16:
-                want, k_ref = _f16_plain(v, gamma, w), ref.keep_count(gamma, w)
-            else:
-                want, k_ref = ref.block_topk_ref(v, gamma, block=w)
+            want, k_ref = ref.block_topk_ref(v, gamma, block=w)
             same = (same_bits(got, want) if v.dtype == torch.float32 else
                     torch.equal(got.view(torch.int16), want.view(torch.int16)))
             if k != k_ref or not same:
@@ -1127,21 +1106,14 @@ def check_topk_widths(dev, mat: torch.Tensor, flat: torch.Tensor) -> dict:
     1, w, w + 7) on phase 2's tricky rows (widths up to 65,536) and on four
     tricky rows of the CNN's D (widths from 8,192); the block kernel on the
     tricky rows flattened in fp32, bf16 and fp16, and on the long rows
-    flattened (fp16: the plain version's rule on the exact widening,
-    ``_f16_plain``). Then each width of ``TOPK_WIDTHS`` timed on the
+    flattened (fp16 against the plain version itself, whose integer
+    widening keeps every NaN's payload wherever it falls: C-31, closed).
+    Then each width of ``TOPK_WIDTHS`` timed on the
     device, a call's launches summed (the profiler), on the main path's
     matrix ``mat`` (rows, ks from the gamma grid) and on ``flat`` (block,
     gamma 0.25), beside its bound and ``torch.topk`` + ``scatter_`` at the
     same width. Launches here are comparisons, not the main path's."""
     from repro_torch.kernels.topk_sparsify import ops
-    # why fp16 is held to the exact widening (C-31): the fp32 patterns of
-    # the fp16 NaN 0x7e00 widened on the card, and on the CPU in a vector
-    # loop (16 lanes) and alone
-    nan16 = torch.full((16,), 0x7E00, dtype=torch.int16).view(torch.float16)
-    log(json.dumps({"f16_nan_widened": {
-        where: f"{int(t.float().view(torch.int32)[0]) & 0xFFFFFFFF:#010x}"
-        for where, t in (("card", nan16.to(dev)), ("cpu_vector", nan16),
-                         ("cpu_alone", nan16[:1].clone()))}}))
     tricky, tks = _tricky_rows(dev)
     longr = _long_tricky(dev)
     t16 = tricky.flatten().bfloat16()
@@ -1345,11 +1317,14 @@ TRAIN_FLASH = (4, 4096, 32, 4, 64)      # B (a microbatch), S, H, KV, D
 
 
 def check_flash(dev) -> list[dict]:
-    """Both flash kernels against their plain version on FLASH_CASES (fp32
+    """The flash kernels against their plain version on FLASH_CASES (fp32
     atol 1e-5; bf16 atol 2e-2, the JAX package's bf16 bound for its own
-    kernel); each timed at the serve path's call (the fp32 kernel on the
-    same values in fp32), beside SDPA on the same inputs. Returns the
-    entries of the bf16 (tensor-core) and the fp32 (SIMT) kernel."""
+    kernel), each fp32 case launching the kernel of its head dim's route
+    (``ops.f32_route``) twice; each timed at the serve path's call (the
+    fp32 kernel on the same values in fp32), beside SDPA on the same inputs.
+    Returns the entries of the bf16 (tensor-core), the fp32 (SIMT, head
+    dims up to 128) and the 3xTF32 kernel (129 to 256, timed at Gemma-7B's
+    call)."""
     from repro_torch.kernels.flash_attention import ops, ref
     # each width's two instances: D == DP (a compile-time D) and D < DP
     attrs = {f"{str(dt)[6:]}/DP{d}{tag}": ops.kernel_attributes(dt, d - less)
@@ -1357,7 +1332,8 @@ def check_flash(dev) -> list[dict]:
              for tag, less in (("", 0), ("-padded", ops.ROW_MULTIPLE[dt]))}
     log(json.dumps({"flash_instances": attrs}))
     gen = torch.Generator(device=dev).manual_seed(5)
-    err = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    # the largest errors by kernel: bf16, fp32 on the SIMT kernel, "tf32"
+    err = {torch.bfloat16: 0.0, torch.float32: 0.0, "tf32": 0.0}
     lse_err = dict(err)
     timed = None
     for B, S, H, KV, D, dt, causal, window, Skv in FLASH_CASES:
@@ -1365,6 +1341,12 @@ def check_flash(dev) -> list[dict]:
         q = torch.randn(B, S, H, D, device=dev, generator=gen).to(dt)
         k = torch.randn(B, Skv, KV, D, device=dev, generator=gen).to(dt)
         v = torch.randn(B, Skv, KV, D, device=dev, generator=gen).to(dt)
+        kernel, routed = dt, None
+        if dt == torch.float32:
+            route = ops.f32_route(-(-D // 4) * 4)
+            kernel = dt if route == "simt" else "tf32"
+            routed = (ops.F32_ROUTE_COUNTERS[route],
+                      getattr(ops.flash_attention, ops.F32_ROUTE_COUNTERS[route]))
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
         want = ref.attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
@@ -1380,7 +1362,10 @@ def check_flash(dev) -> list[dict]:
         case = [B, S, H, KV, D, str(dt), causal, window, Skv]
         log(json.dumps({"flash_case": case, "max_abs_err": e,
                         "lse_max_abs_err": e_lse,
-                        "out_equal_with_lse": bool(torch.equal(got_l, got))}))
+                        "out_equal_with_lse": bool(torch.equal(got_l, got)),
+                        "kernel": str(kernel)}))
+        if routed and getattr(ops.flash_attention, routed[0]) - routed[1] != 2:
+            raise AssertionError(f"{case} did not launch {routed[0]} twice")
         if not e <= FLASH_ATOL[dt]:
             raise AssertionError(f"flash kernel differs from its plain version by "
                                  f"{e} > {FLASH_ATOL[dt]} at {case}")
@@ -1389,8 +1374,8 @@ def check_flash(dev) -> list[dict]:
         if not e_lse <= FLASH_LSE_ATOL[dt]:
             raise AssertionError(f"flash kernel's lse differs from flash_fwd_ref's "
                                  f"by {e_lse} > {FLASH_LSE_ATOL[dt]} at {case}")
-        err[dt] = max(err[dt], e)
-        lse_err[dt] = max(lse_err[dt], e_lse)
+        err[kernel] = max(err[kernel], e)
+        lse_err[kernel] = max(lse_err[kernel], e_lse)
         if timed is None:
             timed = (q, k, v)
         del got, got_l, lse, lse_want
@@ -1426,6 +1411,24 @@ def check_flash(dev) -> list[dict]:
                   for n, h in ((S, H), (Skv, KV), (Skv, KV))), peak, causal=causal)
         entry["whisper_cross_grad"] = check_cross_grad(dev, dt)
         out.append(entry)
+    # fp32 past a head dim of 128: the 3xTF32 kernel's entry, timed at
+    # Gemma-7B's call, its bound the 3xTF32 one (the CUDA cores' beside it)
+    f32 = out[1]
+    moved = {label: f32.pop(label) for label, dims in FLASH_HEAD_DIMS.items()
+             if ops.f32_route(-(-dims[4] // 4) * 4) != "simt"}
+    t = moved["gemma_7b"]
+    out.append(dict(
+        name="flash_attention_f32_tf32", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_tf32.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:25",
+        max_abs_err=err["tf32"], lse_max_abs_err=lse_err["tf32"], ms=t["ms"],
+        plain_ms=t["plain_ms"], bound_ms=t["bound_3xtf32_ms"],
+        bound_by=t["bound_3xtf32_by"], bound_fp32_cores_ms=t["bound_ms"],
+        library_ms=t["library_ms"], sdpa_backend=t["sdpa_backend"],
+        ms_with_lse=t["ms_with_lse"], grad_d256=f32.pop("grad_d256"), **moved,
+        instances={d: a for d, a in f32["instances"].items() if a["route"] == "tf32"}))
+    f32["instances"] = {d: a for d, a in f32["instances"].items()
+                        if a["route"] == "simt"}
     log(json.dumps({"flash_serve_shape_ms": {e["name"]: e["ms"] for e in out},
                     "with_lse_ms": {e["name"]: e["ms_with_lse"] for e in out},
                     "sdpa_ms": {e["name"]: e["library_ms"] for e in out}}))
@@ -1482,6 +1485,13 @@ def time_flash(q, k, v, peak, causal: bool = True, iters: int = 20) -> dict:
            "ms_with_lse": ms_lse, "plain_ms": plain, "library_ms": library,
            "sdpa_backend": backend,
            "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms}
+    if q.dtype == torch.float32:
+        # fp32 past a head dim of 128 runs in 3xTF32: its share is read
+        # against that bound (and the CUDA cores' bound_ms beside it)
+        t_ms, t_by = flash_fwd_bound(q, k, PEAK_3XTF32_S, causal)
+        res.update(route=ops.f32_route(-(-q.shape[3] // 4) * 4),
+                   bound_3xtf32_ms=t_ms, bound_3xtf32_by=t_by,
+                   share_of_3xtf32_bound=t_ms / ms)
     log(json.dumps({"flash_timed": dict(res, dtype=str(q.dtype))}))
     return res
 
@@ -1613,7 +1623,12 @@ def counters() -> dict:
                row_sq_sum=(row_l2_norms, "launches"),
                flash_attention=(flash_attention, "launches_bf16"),
                flash_attention_f32=(flash_attention, "launches_f32"),
-               flash_attention_f16=(flash_attention, "launches_f16"))
+               flash_attention_f16=(flash_attention, "launches_f16"),
+               # fp32's 3xTF32 kernels (beside launches_f32, which counts
+               # every fp32 launch)
+               flash_attention_f32_tf32=(flash_attention, "launches_f32_tf32"),
+               flash_attention_f32_tf32_cluster=(flash_attention,
+                                                 "launches_f32_tf32_cluster"))
     return out
 
 
@@ -4135,13 +4150,36 @@ def head_dim_256_path(dev) -> dict:
     from repro_torch.configs import get_smoke
     arch = HEAD_DIM_256["arch"]
     cfg = dataclasses.replace(get_smoke(arch), head_dim=HEAD_DIM_256["head_dim"])
+    zero_f32_routes()
     out = {"prefill": [family13_card_against_cpu(dev, arch, dtype, cfg=cfg,
                                                  label="phase 15")
                        for dtype in ("float32", "bfloat16")],
            "train": family13_train_card_against_cpu(
                dev, arch, FAMILY13_SMOKE["prompt"], cfg.n_layers,
                label="phase 15", cfg=cfg)}
+    out["f32_routes"] = read_f32_routes("tf32", "phase 15")
     return out
+
+
+def zero_f32_routes() -> None:
+    """Set the fp32 flash routes' counters to 0 (the runs between this and
+    ``read_f32_routes`` zero the per-type counters themselves)."""
+    from repro_torch.kernels.flash_attention.ops import (F32_ROUTE_COUNTERS,
+                                                         flash_attention)
+    for name in F32_ROUTE_COUNTERS.values():
+        setattr(flash_attention, name, 0)
+
+
+def read_f32_routes(route: str, what: str) -> dict:
+    """The fp32 routes' counts since ``zero_f32_routes``: every fp32 launch
+    on ``route``, and at least one."""
+    from repro_torch.kernels.flash_attention.ops import (F32_ROUTE_COUNTERS,
+                                                         flash_attention)
+    counts = {r: getattr(flash_attention, n) for r, n in F32_ROUTE_COUNTERS.items()}
+    if not counts[route] > 0 or sum(counts.values()) != counts[route]:
+        raise AssertionError(f"{what}: fp32 flash launches by route {counts}, "
+                             f"want all on {route}")
+    return counts
 
 
 # ----------------------------------------------------------- phase 14 ----
@@ -5384,6 +5422,9 @@ WIDE_TIMED = (4, 2048, 32, 4)
 # timed calls a D: fp32 calls take 20-136 ms at the serve shape past 256,
 # and SDPA's math backend, beside the 16-bit ones, 22-54 ms
 WIDE_TIMED_ITERS = {torch.float32: 5, torch.bfloat16: 10, torch.float16: 10}
+# fp32 also at the 3xTF32 kernel's largest cluster (8 groups of 256) and
+# one past it, on the wide SIMT kernel
+F32_EDGE_DIMS = (2048, 2056)
 # (b) fp16 at the head dims of the port's models, the same three calls
 F16_DIMS = (64, 80, 128, 256)
 # (c) the smoke TinyLlama at head_dim 512 (no config of the port has it),
@@ -5403,24 +5444,29 @@ def hold_flash_cases(dev, dt, dims, seed: int) -> dict:
     """The kernel of ``dt`` at each head dim of ``dims`` on WIDE_CASES
     against ``attention_ref`` (out) and ``flash_fwd_ref`` (lse), under
     FLASH_ATOL / FLASH_LSE_ATOL: each call launches the route of ``dt``
-    twice (out; out and lse) and nothing else, and out is the same both
-    times. Returns the largest errors."""
+    (fp32: and of the head dim, ``ops.f32_route``) twice (out; out and lse)
+    and nothing else, and out is the same both times. Returns the largest
+    errors."""
     from repro_torch.kernels.flash_attention import ops, ref
     fa = ops.flash_attention
-    counter = ops._ROUTES[dt][2]
     gen = torch.Generator(device=dev).manual_seed(seed)
     err = lse_err = 0.0
     for D in dims:
+        # fp32: also the counter of the head dim's route
+        counters = [ops._ROUTES[dt][2]] + (
+            [ops.F32_ROUTE_COUNTERS[ops.f32_route(-(-D // 4) * 4)]]
+            if dt == torch.float32 else [])
         for B, S, H, KV, causal, window, Skv in WIDE_CASES:
             Skv = Skv or S
             q = torch.randn(B, S, H, D, device=dev, generator=gen).to(dt)
             k = torch.randn(B, Skv, KV, D, device=dev, generator=gen).to(dt)
             v = torch.randn(B, Skv, KV, D, device=dev, generator=gen).to(dt)
-            before = (fa.launches, getattr(fa, counter))
+            before = [fa.launches] + [getattr(fa, c) for c in counters]
             got = ops.flash_attention(q, k, v, causal=causal, window=window)
             got_l, lse = ops.flash_attention_cuda(q, k, v, causal=causal,
                                                   window=window, with_lse=True)
-            routed = (fa.launches - before[0], getattr(fa, counter) - before[1])
+            routed = tuple(n - b for n, b in zip(
+                [fa.launches] + [getattr(fa, c) for c in counters], before))
             want = ref.attention_ref(q, k, v, causal=causal, window=window)
             _, lse_want = ref.flash_fwd_ref(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
@@ -5429,9 +5475,9 @@ def hold_flash_cases(dev, dt, dims, seed: int) -> dict:
             case = [B, S, H, KV, D, str(dt), causal, window, Skv]
             log(json.dumps({"phase17_flash_case": case, "max_abs_err": e,
                             "lse_max_abs_err": e_lse, "launches": routed}))
-            if routed != (2, 2):
+            if set(routed) != {2}:
                 raise AssertionError(f"phase 17: {case} launched {routed} "
-                                     f"(all, {counter}), want (2, 2)")
+                                     f"(all, {counters}), want 2 each")
             if not (e <= FLASH_ATOL[dt] and e_lse <= FLASH_LSE_ATOL[dt]
                     and torch.equal(got, got_l)):
                 raise AssertionError(f"phase 17: the kernel differs from its plain "
@@ -5461,9 +5507,9 @@ def check_topk_block_f16(dev) -> dict:
     tricky rows (NaN, +-Inf, -0.0, ties), in fp16, with fp16's own edge
     lanes: subnormals (normal in fp32, so they compare by value), a
     signalling NaN, the all-ones NaN 0x7fff and one starting off a 16-byte
-    word. The plain version runs on the CPU copy, the reference's platform:
-    its widening of a signalling NaN (quiet bit set, payload kept) is the
-    CPU's, which the kernel repeats."""
+    word. The plain version runs on the card's copy and on the CPU copy,
+    the reference's platform: both widen a NaN quiet with its payload kept
+    (``ref.widen_f16``), as the kernel does."""
     from repro_torch.kernels.topk_sparsify import ops, ref
     short = _tricky_rows(dev)[0].flatten().half()
     long = _long_tricky(dev)[1:3].flatten().half()
@@ -5481,7 +5527,9 @@ def check_topk_block_f16(dev) -> dict:
             for gamma in (0.1, 0.5):
                 got, k = ops.block_topk_sparsify(vec, gamma, block=w)
                 want, k_ref = ref.block_topk_ref(vec.cpu(), gamma, block=w)
-                same = torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+                on_card = ref.block_topk_ref(vec, gamma, block=w)[0].cpu()
+                same = (torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+                        and torch.equal(on_card.view(torch.int16), want.view(torch.int16)))
                 log(json.dumps({"topk_block_f16_case": [name, vec.numel(), w, gamma, k],
                                 "bit_identical": same}))
                 if k != k_ref or not same:
@@ -5521,23 +5569,26 @@ def check_grid_x(dev) -> dict:
 
 
 def phase17(dev) -> dict:
-    """(a) both flash kernels past head dim 256 (bf16 and fp16 on the
-    tensor cores, fp32 on the SIMT kernel) against their plain versions and
-    timed; (b) fp16 at D = 64, 80, 128, 256, the same; (c) the smoke
-    TinyLlama at head_dim 512 (one layer) card against CPU (prefill and 4 serve steps
-    in fp32, bf16 and fp16; 3 fp32 train steps with lse); (d) TinyLlama-1.1B
+    """(a) the flash kernels past head dim 256 (bf16 and fp16 on the
+    tensor cores, fp32 on the 3xTF32 cluster kernel, and at F32_EDGE_DIMS
+    its largest cluster and the wide SIMT kernel past it) against their
+    plain versions and timed; (b) fp16 at D = 64, 80, 128, 256, the same;
+    (c) the smoke TinyLlama at head_dim 512 (one layer) card against CPU
+    (prefill and 4 serve steps in fp32, bf16 and fp16; 3 fp32 train steps
+    with lse; every fp32 launch on the cluster kernel); (d) TinyLlama-1.1B
     served in fp16 at phase 5's shape (every prefill launch held) and the
     smoke model in fp16 card against CPU, as phase 6; (e) the fp16 block
     top-k; (f) a launch past B * H = 65,535. Each run's counts zeroed just
-    before it and read just after. Returns the fp16 kernel's entry and the
-    wide results of the other two."""
+    before it and read just after. Returns the fp16 kernel's entry, the
+    fp32 cluster kernel's, and the wide results."""
     import dataclasses
 
     from repro_torch.configs import get_smoke
     from repro_torch.kernels.flash_attention import ops
     attrs = {f"{str(dt)[6:]}/D{D}": ops.kernel_attributes(dt, D)
              for dt in (torch.bfloat16, torch.float16, torch.float32)
-             for D in (320, 384, 512, 1024)}
+             for D in (320, 384, 512, 1024) + (F32_EDGE_DIMS if dt == torch.float32
+                                               else ())}
     attrs.update({f"float16/DP{d}": ops.kernel_attributes(torch.float16, d)
                   for d in ops.COMPILED_WIDTHS})
     log(json.dumps({"phase17_instances": attrs}))
@@ -5545,6 +5596,9 @@ def phase17(dev) -> dict:
     for dt in (torch.bfloat16, torch.float16, torch.float32):
         held = hold_flash_cases(dev, dt, WIDE_DIMS, seed=31)
         wide[str(dt)] = dict(held, timed=time_flash_dims(dev, dt, WIDE_DIMS))
+    wide["torch.float32"]["edges"] = {
+        D: hold_flash_cases(dev, torch.float32, (D,), seed=41 + i)
+        for i, D in enumerate(F32_EDGE_DIMS)}
     f16 = dict(hold_flash_cases(dev, torch.float16, F16_DIMS, seed=37),
                timed=time_flash_dims(dev, torch.float16, F16_DIMS))
     stamp("17 (a)-(b)")
@@ -5552,6 +5606,7 @@ def phase17(dev) -> dict:
     arch = HEAD_DIM_512["arch"]
     cfg = dataclasses.replace(get_smoke(arch), head_dim=HEAD_DIM_512["head_dim"],
                               n_layers=HEAD_DIM_512["n_layers"])
+    zero_f32_routes()
     d512 = {"prefill": [family13_card_against_cpu(dev, arch, dtype, cfg=cfg,
                                                   label="phase 17 (c)")
                         for dtype in ("float32", "bfloat16", "float16")],
@@ -5560,6 +5615,7 @@ def phase17(dev) -> dict:
             "train": family13_train_card_against_cpu(
                 dev, arch, FAMILY13_SMOKE["prompt"], cfg.n_layers,
                 label="phase 17 (c)", flat_gate=1e-5, cfg=cfg)}
+    d512["f32_routes"] = read_f32_routes("tf32_cluster", "phase 17 (c)")
     stamp("17 (c)")
 
     serve = serve_path(dev, dtype="float16")
@@ -5586,6 +5642,25 @@ def phase17(dev) -> dict:
                                     for r in d512["prefill"]},
                  instances={k.split("/")[1]: a for k, a in attrs.items()
                             if k.startswith("float16")})
+    # fp32 past 256: the 3xTF32 cluster kernel's entry, timed at D = 1,024
+    w32 = wide["torch.float32"]
+    t = w32["timed"][1024]
+    cluster = dict(
+        name="flash_attention_f32_tf32_cluster", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_tf32_wide.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:25",
+        launches=d512["f32_routes"]["tf32_cluster"],
+        max_abs_err=max(w32["max_abs_err"], w32["edges"][2048]["max_abs_err"]),
+        lse_max_abs_err=max(w32["lse_max_abs_err"],
+                            w32["edges"][2048]["lse_max_abs_err"]),
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_3xtf32_ms"],
+        bound_by=t["bound_3xtf32_by"], bound_fp32_cores_ms=t["bound_ms"],
+        library_ms=t["library_ms"], sdpa_backend=t["sdpa_backend"],
+        ms_with_lse=t["ms_with_lse"], head_dims_past_256=w32["timed"],
+        launches_phase17c={"prefill": d512["prefill"][0]["flash_launches"],
+                           "train_with_lse": d512["train"]["flash_launches_with_lse"]},
+        instances={k.split("/")[1]: a for k, a in attrs.items()
+                   if k.startswith("float32")})
     log(json.dumps({"phase17_summary": {
         "wide_ms": {dt: {D: r["ms"] for D, r in w["timed"].items()}
                     for dt, w in wide.items()},
@@ -5594,8 +5669,8 @@ def phase17(dev) -> dict:
                                              "first_decode_vs_forward_max_abs",
                                              "logit_scale")},
         "topk_f16": topk, "grid_x": grid}}))
-    return {"entry": entry, "wide": wide, "d512": d512, "topk_f16": topk,
-            "grid_x": grid}
+    return {"entry": entry, "entry_f32_cluster": cluster, "wide": wide,
+            "d512": d512, "topk_f16": topk, "grid_x": grid}
 
 
 def main(argv) -> int:
@@ -5634,7 +5709,8 @@ def main(argv) -> int:
         return 0
     if "--only" in argv and argv[argv.index("--only") + 1] == "17":
         # phase 17 alone (head dims past 256, fp16, the grid's x limit)
-        log(json.dumps({"kernels": [phase17(dev)["entry"]]}))
+        p17 = phase17(dev)
+        log(json.dumps({"kernels": [p17["entry"], p17["entry_f32_cluster"]]}))
         log(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
@@ -5703,7 +5779,8 @@ def main(argv) -> int:
     carrier.update({one: carrier[FUSED[one]] for one in DUAL_VARIANTS})
     for k in kernels:
         if k["name"] not in ("flash_attention", "flash_attention_f32",
-                             "flash_attention_f16", "topk_block"):
+                             "flash_attention_f16", "flash_attention_f32_tf32",
+                             "flash_attention_f32_tf32_cluster", "topk_block"):
             k["launches"] = runs[carrier.get(k["name"], "main")]["launches"][k["name"]]
         if k["name"] in DUAL_VARIANTS:
             k["on_path"] = False
@@ -5873,7 +5950,10 @@ def main(argv) -> int:
     # each run's counts zeroed before it
     p15 = head_dim_256_path(dev)
     flash["launches_phase15"] = {"prefill_bf16": p15["prefill"][1]["flash_launches"]}
-    flash_f32["launches_phase15"] = {
+    # fp32 at head_dim 256 runs the 3xTF32 kernel: its launches are phase 15's
+    tf32 = next(k for k in kernels if k["name"] == "flash_attention_f32_tf32")
+    tf32["launches"] = p15["f32_routes"]["tf32"]
+    tf32["launches_phase15"] = {
         "prefill": p15["prefill"][0]["flash_launches"],
         "train_with_lse": p15["train"]["flash_launches_with_lse"]}
     stamp("15")
@@ -5882,16 +5962,13 @@ def main(argv) -> int:
     # the tensor-core kernel (its entry joins the kernels line) and the
     # block top-k, and a launch past B * H = 65,535
     p17 = phase17(dev)
-    kernels.append(p17["entry"])
-    for k in (flash, flash_f32):
-        w = p17["wide"][{"flash_attention": "torch.bfloat16",
-                         "flash_attention_f32": "torch.float32"}[k["name"]]]
-        k["head_dims_past_256"] = dict(w["timed"], max_abs_err=w["max_abs_err"],
+    kernels += [p17["entry"], p17["entry_f32_cluster"]]
+    w = p17["wide"]["torch.bfloat16"]
+    flash["head_dims_past_256"] = dict(w["timed"], max_abs_err=w["max_abs_err"],
                                        lse_max_abs_err=w["lse_max_abs_err"])
     flash["launches_phase17c"] = {"prefill_bf16": p17["d512"]["prefill"][1]["flash_launches"]}
-    flash_f32["launches_phase17c"] = {
-        "prefill": p17["d512"]["prefill"][0]["flash_launches"],
-        "train_with_lse": p17["d512"]["train"]["flash_launches_with_lse"]}
+    # fp32 past 2,048 keeps the wide SIMT kernel (phase 17's edge dims)
+    flash_f32["past_2048"] = p17["wide"]["torch.float32"]["edges"][2056]
     block["fp16"] = p17["topk_f16"]
     stamp("17")
 

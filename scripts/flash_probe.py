@@ -1,0 +1,183 @@
+#!/usr/bin/env python3
+"""Probe the fp32 flash kernels on the card: build the library, print
+ptxas's registers and spills for the 3xTF32 units, hold every fp32 route
+(``ops.f32_route``: SIMT up to 128, 3xTF32 to 256, its clusters to 2,048,
+the wide SIMT kernel above) against the plain version at the head dims
+below, each at a causal GQA call, a window with a ragged S and a
+non-causal call with Skv != Sq, listing every failing case (out within
+``chip_smoke.FLASH_ATOL``, lse within ``FLASH_LSE_ATOL``, out the same with
+and without lse, one launch of the right route each; without a window also
+the kernel's and the plain version's distances to float64), then time the
+fp32 kernel at Gemma-7B's call and at ``[4, 2048, 32 | 4, D]``, and both
+types at phase 11's train shape ``[4, 4096, 32 | 4, 64]``, beside SDPA.
+
+    python3 scripts/flash_probe.py                 # every head dim below
+    python3 scripts/flash_probe.py 160,256,1024    # these head dims
+    python3 scripts/flash_probe.py 160 --no-time   # checks only
+    python3 scripts/flash_probe.py 256 --smoke     # and the smoke TinyLlama
+                                                   # at head_dim 256 and 512
+                                                   # card against CPU in fp32
+                                                   # (phases 15 and 17 (c))
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+DIMS = (64, 132, 160, 164, 192, 224, 256, 264, 300, 320, 384, 512, 1024,
+        2048, 2056)
+CASES = ((1, 600, 8, 2, True, None, None),        # B, S, H, KV, causal, window, Skv
+         (2, 333, 4, 4, True, 100, None),
+         (1, 200, 4, 1, False, None, 150))
+# label -> (B, S, H, KV, D, dtype); the train shape of phase 11 in both types
+TIMED = {"gemma_7b": (2, 2048, 16, 16, 256, "float32"),
+         "d160": (2, 2048, 16, 16, 160, "float32"),
+         "d512": (4, 2048, 32, 4, 512, "float32"),
+         "d1024": (4, 2048, 32, 4, 1024, "float32"),
+         "train_bf16": (4, 4096, 32, 4, 64, "bfloat16"),
+         "train_f32": (4, 4096, 32, 4, 64, "float32")}
+
+
+def ptxas_lines(_build) -> None:
+    for f in ("flash_attention_tf32.cu", "flash_attention_tf32_wide.cu"):
+        r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+                            "-c", str(ROOT / "src/repro_torch/csrc" / f),
+                            "-o", str(_build.BUILD_DIR / f"{f}.probe.o")],
+                           capture_output=True, text=True)
+        name = None
+        for line in (r.stdout + r.stderr).splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+            elif "Used" in line and name and "tf32" in name:
+                print(f, name[:70], line.strip()[-90:], flush=True)
+            elif "spill" in line and name and "tf32" in name:
+                print(f, name[:70], line.strip(), flush=True)
+
+
+def _f64(torch, q, k, v, causal):
+    """Softmax attention of fp32 q, k, v in float64 (no window)."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    qd, kd, vd = (t.double().transpose(1, 2) for t in (q, k, v))
+    kd, vd = (t.repeat_interleave(H // KV, dim=1) for t in (kd, vd))
+    s = qd @ kd.transpose(-1, -2) / D ** 0.5
+    if causal:
+        keys = torch.arange(Skv, device=q.device)
+        s = s.masked_fill(keys[None, :] > torch.arange(Sq, device=q.device)[:, None],
+                          -1e300)
+    return (torch.softmax(s, dim=-1) @ vd).transpose(1, 2)
+
+
+def check(cs, ops, ref, torch, dev, dims) -> list:
+    fa = ops.flash_attention
+    fails = []
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for D in dims:
+        route = ops.F32_ROUTE_COUNTERS[ops.f32_route(-(-D // 4) * 4)]
+        for B, S, H, KV, causal, window, Skv in CASES:
+            Skv = Skv or S
+            case = [B, S, H, KV, D, causal, window, Skv]
+            try:
+                q = torch.randn(B, S, H, D, device=dev, generator=gen)
+                k = torch.randn(B, Skv, KV, D, device=dev, generator=gen)
+                v = torch.randn(B, Skv, KV, D, device=dev, generator=gen)
+                before = getattr(fa, route)
+                got = ops.flash_attention_cuda(q, k, v, causal=causal, window=window)
+                got_l, lse = ops.flash_attention_cuda(q, k, v, causal=causal,
+                                                      window=window, with_lse=True)
+                want = ref.attention_ref(q, k, v, causal=causal, window=window)
+                _, lse_want = ref.flash_fwd_ref(q, k, v, causal=causal, window=window)
+                torch.cuda.synchronize()
+                e = float((got - want).abs().max())
+                e_lse = float((lse - lse_want).abs().max())
+                far = {}
+                if window is None:
+                    # both sides' distance to softmax attention in float64
+                    exact = _f64(torch, q, k, v, causal)
+                    far = {"kernel_vs_f64": float((got.double() - exact).abs().max()),
+                           "plain_vs_f64": float((want.double() - exact).abs().max())}
+                    del exact
+                ok = (e <= cs.FLASH_ATOL[torch.float32]
+                      and e_lse <= cs.FLASH_LSE_ATOL[torch.float32]
+                      and torch.equal(got, got_l) and getattr(fa, route) - before == 2)
+                print(json.dumps({"case": case, "route": route, "max_abs_err": e,
+                                  "lse_max_abs_err": e_lse, **far, "ok": ok}), flush=True)
+                if not ok:
+                    fails.append(case)
+            except Exception:
+                fails.append(case)
+                traceback.print_exc()
+                torch.cuda.synchronize()
+        print(json.dumps({"D": D, "attributes": ops.kernel_attributes(torch.float32, D)}),
+              flush=True)
+    return fails
+
+
+def timed(cs, torch, dev) -> None:
+    for label, (B, S, H, KV, D, dtype) in TIMED.items():
+        dt = getattr(torch, dtype)
+        gen = torch.Generator(device=dev).manual_seed(D)
+        q, k, v = (torch.randn(B, S, n, D, device=dev, generator=gen).to(dt)
+                   for n in (H, KV, KV))
+        res = cs.time_flash(q, k, v, cs.PEAK[dt], iters=5 if D > 256 else 20)
+        print(json.dumps({"timed": label, **{k: res[k] for k in (
+            "ms", "ms_with_lse", "library_ms", "sdpa_backend", "bound_ms")}}),
+            flush=True)
+        del q, k, v
+
+
+def smoke_models(cs, torch, dev) -> None:
+    """The fp32 halves of chip_smoke's phases 15 and 17 (c): the smoke
+    TinyLlama at head_dim 256 (two layers) and 512 (one) card against CPU,
+    a 2,048-token prefill and serve steps, then 3 train steps (their
+    gates)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    for head_dim, layers, flat in ((256, None, None), (512, 1, 1e-5)):
+        cfg = dataclasses.replace(get_smoke("tinyllama-1.1b"), head_dim=head_dim,
+                                  **({"n_layers": layers} if layers else {}))
+        cs.family13_card_against_cpu(dev, "tinyllama-1.1b", "float32", cfg=cfg,
+                                     label=f"probe D={head_dim}")
+        cs.family13_train_card_against_cpu(dev, "tinyllama-1.1b",
+                                           cs.FAMILY13_SMOKE["prompt"], cfg.n_layers,
+                                           label=f"probe D={head_dim}",
+                                           flat_gate=flat, cfg=cfg)
+
+
+def main(argv) -> int:
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import torch
+    if not torch.cuda.is_available():
+        print("flash_probe: no CUDA device is visible", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+    t0 = time.time()
+    _build.library()
+    print("build_s", round(time.time() - t0, 1), flush=True)
+    ptxas_lines(_build)
+    import chip_smoke as cs
+    from repro_torch.kernels.flash_attention import ops, ref
+    dev = torch.device("cuda")
+    args = [a for a in argv if not a.startswith("--")]
+    dims = [int(a) for a in args[0].split(",")] if args else DIMS
+    fails = check(cs, ops, ref, torch, dev, dims)
+    print("FAILS", fails, flush=True)
+    if "--smoke" in argv:
+        smoke_models(cs, torch, dev)
+    if "--no-time" not in argv:
+        timed(cs, torch, dev)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    return 1 if fails else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -8,10 +8,13 @@ prints every run's times and the medians by checkout.
     python3 scripts/kernel_ab.py --src src          # one run, one JSON line
 
 Times are CUDA events around back-to-back launches (flash: 20 after 3
-warm-up calls) and the profiler's device time of the fused ascent (20
-launches), at the shapes of chip_smoke.py's phase 2: flash at the serve
-shape, zamba2's D = 80, phi-3-vision's D = 96 and the train shape, in bf16
-and fp32; the ascent on the paper's 10 gammas (L = 10) and x (8, 16, 32)
+warm-up calls; 5 after 1 past a head dim of 256) and the profiler's device
+time of the fused ascent (20 launches), at the shapes of chip_smoke.py's
+phases 2 and 17: flash at the serve shape, zamba2's D = 80, phi-3-vision's
+D = 96 and the train shape, in bf16 and fp32, the serve shape in fp16; in
+fp32 also the head dims of phase 2's ``FLASH_HEAD_DIMS`` past 128 (160,
+192, 224 at ``[2, 2048, 16 | 16, D]``, Gemma-2B's and Gemma-7B's calls)
+and phase 17's ``WIDE_DIMS`` at ``[4, 2048, 32 | 4, D]``; the ascent on the paper's 10 gammas (L = 10) and x (8, 16, 32)
 (L = 30) at N = 50; both top-k kernels at block widths ``TOPK_WIDTHS``, the
 rows kernel on phase 2's ``[50, 1,630,090]`` matrix at ks of the gamma
 grid, the block kernel on one row at gamma 0.25: the profiler's device time
@@ -29,6 +32,12 @@ import sys
 
 FLASH = {"serve_d64": (4, 2048, 32, 4, 64), "zamba2_d80": (4, 2048, 32, 32, 80),
          "phi3v_d96": (2, 2048, 32, 32, 96), "train_d64": (4, 4096, 32, 4, 64)}
+# fp32 alone: the head dims the 3xTF32 kernel takes
+FLASH_F32 = {"d160": (2, 2048, 16, 16, 160), "d192": (2, 2048, 16, 16, 192),
+             "d224": (2, 2048, 16, 16, 224), "gemma_2b": (4, 2048, 8, 1, 256),
+             "gemma_7b": (2, 2048, 16, 16, 256),
+             **{f"wide_d{D}": (4, 2048, 32, 4, D)
+                for D in (264, 288, 300, 320, 384, 512, 1024)}}
 GRID = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
 TOPK_WIDTHS = (1, 100, 4096, 8192, 65536, 1_630_090)
 
@@ -73,13 +82,17 @@ def one_run(src: str) -> dict:
 
     out = {}
     gen = torch.Generator(device=dev).manual_seed(0)
-    for label, (B, S, H, KV, D) in FLASH.items():
-        for dt in (torch.bfloat16, torch.float32):
-            q, k, v = (torch.randn(B, S, n, D, device=dev, generator=gen).to(dt)
-                       for n in (H, KV, KV))
-            out[f"flash_{str(dt)[6:]}_{label}"] = events_ms(
-                lambda: fops.flash_attention_cuda(q, k, v, causal=True))
-            del q, k, v
+    runs = [(label, shape, dt) for label, shape in FLASH.items()
+            for dt in (torch.bfloat16, torch.float32)]
+    runs += [("serve_d64", FLASH["serve_d64"], torch.float16)]
+    runs += [(label, shape, torch.float32) for label, shape in FLASH_F32.items()]
+    for label, (B, S, H, KV, D), dt in runs:
+        q, k, v = (torch.randn(B, S, n, D, device=dev, generator=gen).to(dt)
+                   for n in (H, KV, KV))
+        iters = (20, 3) if D <= 256 else (5, 1)
+        out[f"flash_{str(dt)[6:]}_{label}"] = events_ms(
+            lambda: fops.flash_attention_cuda(q, k, v, causal=True), *iters)
+        del q, k, v
     f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
     g = torch.Generator().manual_seed(4)
     n = 50

@@ -1,4 +1,5 @@
-// fp32 flash attention, SIMT, for head dims above 256: the instances of
+// fp32 flash attention, SIMT, for head dims above 2,048 (past the 3xTF32
+// kernel's largest cluster): the instances of
 // flash_simt.cuh's flash_fwd_wide_kernel (one for each column-group width
 // 160, 192, 224 and 256; the header documents the design), reached through
 // the entries of flash_attention.cu. A unit of its own, so that nvcc builds
@@ -37,18 +38,20 @@ cudaError_t attrs_wide(int* out) {
     out[1] = static_cast<int>(a.localSizeBytes);
     out[2] = static_cast<int>(a.sharedSizeBytes);
     out[3] = WideTile<GW>::kBytes;
+    out[4] = 1;      // no cluster
+    out[5] = 0;
   }
   return err;
 }
 
 }  // namespace
 
-// D > 256, a multiple of 4
+// D > 2,048, a multiple of 4
 extern "C" int flash_simt_wide_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int B, int Sq, int Skv,
                                    int H, int KV, int D, int causal, int window,
                                    float scale, void* stream) {
-  if (D <= kMaxWidth || D % 4) return cudaErrorInvalidValue;
+  if (D <= kMaxTf32 || D % 4) return cudaErrorInvalidValue;
   int ng, gw;
   column_groups(D, &ng, &gw);
   if (ng > 65535) return cudaErrorInvalidValue;   // grid z
@@ -63,7 +66,7 @@ extern "C" int flash_simt_wide_fwd(const void* q, const void* k, const void* v,
 }
 
 extern "C" int flash_simt_wide_attrs(int D, int* out) {
-  if (D <= kMaxWidth) return cudaErrorInvalidValue;
+  if (D <= kMaxTf32) return cudaErrorInvalidValue;
   int ng, gw;
   column_groups(D, &ng, &gw);
   switch (gw) {

@@ -1,14 +1,17 @@
 // Causal / sliding-window GQA flash attention (forward) in fp32, SIMT, for
 // Hopper (sm_90a): the kernels and their launchers; the translation units
 // instantiate them:
-//   flash_attention.cu       head dims 4..256 (the entries
-//                            flash_attention_fwd_f32 / _attrs_f32)
-//   flash_attention_wide.cu  head dims above 256
+//   flash_attention.cu       head dims 4..128 (the entries
+//                            flash_attention_fwd_f32 / _attrs_f32, which
+//                            send head dims 129..2,048 to the 3xTF32
+//                            tensor-core kernel of flash_tf32.cuh)
+//   flash_attention_wide.cu  head dims above 2,048
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:
-// _flash_kernel (entry flash_attention_pallas) for fp32 inputs; bf16 goes
-// to the tensor-core kernel of flash_attention_sm90.cu (wgmma takes no
-// fp32 operands, and TF32 would not hold fp32's 1e-5). In the port it runs
+// _flash_kernel (entry flash_attention_pallas) for fp32 inputs at head dims
+// up to 128 and past 2,048; bf16 goes to the tensor-core kernel of
+// flash_attention_sm90.cu, fp32 between them to the 3xTF32 one of
+// flash_tf32.cuh (the SIMT kernel ties SDPA up to 128). In the port it runs
 // on the flash branch of models/attention.attention_forward (sequences of
 // 2048 or more) for fp32 models, once per layer of a prefill.
 //
@@ -39,9 +42,8 @@
 // fp32 on the CUDA cores; 151 MB of q, k, v and o, 0.045 ms at 3.35 TB/s.
 // So the CUDA cores' FMA issue rate bounds it, and the design keeps them fed:
 //
-// - A CTA of 128 threads owns a 64-row query tile of one (batch, head)
-//   (32 rows above DP = 128, below); thread (ty, tx) = (tid / 8, tid % 8)
-//   owns rows ty + 16 j (j < 4) of it.
+// - A CTA of 128 threads owns a 64-row query tile of one (batch, head);
+//   thread (ty, tx) = (tid / 8, tid % 8) owns rows ty + 16 j (j < 4) of it.
 //   Q (scaled) stays in shared memory; K and V stream through it in tiles
 //   of BK keys (64 at D = 32, else 32), double-buffered: the next tile's
 //   16-byte cp.async copies are in flight while this one computes. At
@@ -64,7 +66,7 @@
 // - Rows of Q, K, V and P are padded by 4 floats, so the float4 reads of a
 //   warp fall on distinct banks.
 // - Head dims: the kernel is compiled for DP = D rounded up to 32 (32, 64,
-//   ..., 256) and takes D, a multiple of 4 (whole 16-byte copies), at run
+//   96, 128) and takes D, a multiple of 4 (whole 16-byte copies), at run
 //   time (each DP also has an EXACT instance for D == DP, whose D is a
 //   compile-time constant: a multiple of 32 runs the code of a kernel
 //   compiled for its D); the wrapper zero-pads q, k and v of any other D to the next
@@ -74,18 +76,14 @@
 //   d = 0..D-1 only, in order, so the order of its sum is that of every
 //   other D; O += P V runs over DP / 32 float4s a thread, the padded
 //   columns of O stay zero, and only the D real ones are stored.
-// - Above DP = 128 the 4 x DP / 8 accumulators of 4 rows would be 128 a
-//   thread at DP = 256, too many beside the scores: there a CTA owns 32
-//   query rows, thread (ty, tx) rows ty and ty + 16 (2 x DP / 8
-//   accumulators, 64 at DP = 256), P a float2 of 2 rows a key; the keys and
-//   columns of a thread, each score's d order and O's key order are those
-//   of the narrower widths. At DP = 256 a CTA holds 171 KB of shared memory
-//   (one an SM), at 160 110 KB (two).
-// - Above DP = 256 (flash_fwd_wide_kernel) O is cut into NG = ceil(D / 256)
+// - Above DP = 128 the fp32 entries take the 3xTF32 tensor-core kernel
+//   (flash_tf32.cuh) up to D = 2,048.
+// - Above D = 2,048 (flash_fwd_wide_kernel; past the tensor-core kernel's
+//   largest cluster, 8 groups of 256) O is cut into NG = ceil(D / 256)
 //   column groups of GW = ceil(D / NG) rounded up to 32 columns (160, 192,
 //   224 or 256: one instance each, whatever D), one group a CTA on grid z,
-//   the CTA's tiles those of DP = 256 (32 query rows, key tiles of 32, 2 x
-//   GW / 8 accumulators a thread). Q and K are not held whole: each key tile
+//   32 query rows a CTA, thread (ty, tx) rows ty and ty + 16 (2 x GW / 8
+//   accumulators a thread, P a float2 of 2 rows a key), key tiles of 32. Q and K are not held whole: each key tile
 //   walks D in chunks of 128 columns, Q's chunk and K's chunk copied
 //   together, double-buffered, and each score's fmaf chain goes on through
 //   the chunks in order, so it still sums d = 0..D-1 in order, the order of
@@ -95,7 +93,7 @@
 //   operations at D = 512). 72 KB of shared memory a CTA, two CTAs an SM.
 //   The grid is (B * H, ceil(Sq / 32), NG), NG up to 65,535.
 // B * H is on grid x (up to 2^31 - 1), the query tiles on y (up to 65,535:
-// Sq up to 4,194,240 rows at 64 a tile, 2,097,120 at 32).
+// Sq up to 4,194,240 rows at 64 a tile, 2,097,120 at 32 above D = 2,048).
 // The heavy (late) query tiles of a causal mask are scheduled first, over
 // every (batch, head). Every multiply-add is an explicit fmaf (the library
 // is built with --fmad=false).
@@ -106,7 +104,7 @@
 #include <stdint.h>
 
 // The wide instances (flash_attention_wide.cu) behind the fp32 entries;
-// D > 256.
+// D > 2,048.
 extern "C" int flash_simt_wide_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int B, int Sq, int Skv,
                                    int H, int KV, int D, int causal, int window,
@@ -117,16 +115,18 @@ namespace {
 
 constexpr int kThreads = 128;    // 16 row groups (ty) x 8 column groups (tx)
 constexpr float kMasked = -1e30f;
-constexpr int kMaxWidth = 256;   // the widest O (DP, GW) a CTA holds
+constexpr int kMaxWidth = 256;   // the widest O group (GW) a wide CTA holds
+constexpr int kMaxSimt = 128;    // the widest DP of flash_fwd_kernel
+constexpr int kMaxTf32 = 2048;   // the widest D of the 3xTF32 kernel
 
 template <int DP_>
 struct Tile {
-  static_assert(DP_ % 32 == 0 && DP_ <= 256, "DP: a multiple of 32 up to 256");
+  static_assert(DP_ % 32 == 0 && DP_ <= kMaxSimt, "DP: a multiple of 32 up to 128");
   static constexpr int DP = DP_;                 // columns of K, V and O held
-  static constexpr int kTM = DP <= 128 ? 4 : 2;  // query rows a thread: ty + 16 j
+  static constexpr int kTM = 4;                  // query rows a thread: ty + 16 j
   static constexpr int kBQ = 16 * kTM;           // query rows a CTA
   static constexpr int BK = DP <= 32 ? 64 : 32;  // keys a tile
-  static constexpr int kMinCtas = DP <= 64 ? 3 : DP <= 128 ? 2 : 1;  // CTAs an SM
+  static constexpr int kMinCtas = DP <= 64 ? 3 : 2;  // CTAs an SM
   static constexpr int TN = BK / 8;              // keys a thread: tx + 8 i
   static constexpr int DC = DP / 32;             // float4s of O a row: 4 tx + 32 c
   static constexpr int LD = DP + 4;              // row stride of Q, K, V (floats)
@@ -322,16 +322,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       l[j] = l[j] * corr[j] + sum;
     }
-    // P transposed: key i's kTM rows in one float4 (float2)
+    // P transposed: key i's 4 rows in one float4
 #pragma unroll
-    for (int i = 0; i < TN; ++i) {
-      if constexpr (kTM == 4)
-        *reinterpret_cast<float4*>(Ps + (tx + 8 * i) * LDP + 4 * ty) =
-            make_float4(s[0][i], s[1][i], s[2][i], s[3][i]);
-      else
-        *reinterpret_cast<float2*>(Ps + (tx + 8 * i) * LDP + 2 * ty) =
-            make_float2(s[0][i], s[1][i]);
-    }
+    for (int i = 0; i < TN; ++i)
+      *reinterpret_cast<float4*>(Ps + (tx + 8 * i) * LDP + 4 * ty) =
+          make_float4(s[0][i], s[1][i], s[2][i], s[3][i]);
 #pragma unroll
     for (int j = 0; j < kTM; ++j)
 #pragma unroll
@@ -341,14 +336,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // O += P V: a kTM x 4 DC micro-tile, keys in order (past Skv p = 0, V = 0)
 #pragma unroll 8
     for (int kk = 0; kk < BK; ++kk) {
-      float p[kTM];
-      if constexpr (kTM == 4) {
-        const float4 p4 = *reinterpret_cast<const float4*>(Ps + kk * LDP + 4 * ty);
-        p[0] = p4.x; p[1] = p4.y; p[2] = p4.z; p[3] = p4.w;
-      } else {
-        const float2 p2 = *reinterpret_cast<const float2*>(Ps + kk * LDP + 2 * ty);
-        p[0] = p2.x; p[1] = p2.y;
-      }
+      const float4 p4 = *reinterpret_cast<const float4*>(Ps + kk * LDP + 4 * ty);
+      const float p[kTM] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
         const float4 vv = *reinterpret_cast<const float4*>(Vs + kk * LD + 4 * tx + 32 * c);
@@ -388,7 +377,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 
-// ---- head dims above 256: column group blockIdx.z of O ----------------------
+// ---- head dims above 2,048: column group blockIdx.z of O --------------------
 template <int GW_>
 struct WideTile {
   static_assert(GW_ % 32 == 0 && GW_ >= 160 && GW_ <= kMaxWidth,
@@ -458,15 +447,15 @@ __device__ __forceinline__ void load_wide_step(float* st, const float* qb,
   }
 }
 
-// Above DP = 256 a CTA owns 32 query rows of one (batch, head) and the GW
+// Above D = 2,048 a CTA owns 32 query rows of one (batch, head) and the GW
 // columns c0 = blockIdx.z GW .. of O. Each key tile is NC + 1 steps of a
 // double-buffered cp.async walk: NC chunks of 128 columns of Q and K (each
 // score's fmaf chain continues through them, d in order 0..D-1, so the order
 // of its sum is that of every other D, and q is scaled by `scale` as it is
 // read, the same rounding as the narrow kernels' scaled Q), then the tile's
-// V columns of the group. The softmax, P and O's update are those of the
-// narrow kernel at kTM = 2 (threads, keys and columns as there); m and l are
-// the same in every group, and group 0 alone writes lse.
+// V columns of the group. The softmax, P and O's update are the narrow
+// kernel's with 2 rows a thread (ty, ty + 16; keys and columns as there); m
+// and l are the same in every group, and group 0 alone writes lse.
 template <int GW>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -698,12 +687,14 @@ cudaError_t attrs(int D, int* out) {
     out[1] = static_cast<int>(a.localSizeBytes);
     out[2] = static_cast<int>(a.sharedSizeBytes);
     out[3] = Tile<DP>::kBytes;
+    out[4] = 1;      // no cluster
+    out[5] = 0;
   }
   return err;
 }
 
-// O's column groups above 256: ng groups of gw columns (gw a multiple of 32
-// in 160..256), as ops.column_groups computes them
+// O's column groups above 2,048: ng groups of gw columns (gw a multiple of
+// 32 in 160..256), as ops.column_groups computes them
 inline void column_groups(int D, int* ng, int* gw) {
   *ng = (D + kMaxWidth - 1) / kMaxWidth;
   *gw = ((D + *ng - 1) / *ng + 31) / 32 * 32;

@@ -11,8 +11,9 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:
 // _flash_kernel (entry flash_attention_pallas) for bf16 and fp16 inputs;
-// fp32 keeps the SIMT kernel of flash_simt.cuh (wgmma takes no fp32
-// operands, and TF32 would not hold fp32's 1e-5). In the port it runs on the
+// fp32 takes the SIMT kernel of flash_simt.cuh and, past a head dim of 128,
+// the 3xTF32 kernel of flash_tf32.cuh (one TF32 product would not hold
+// fp32's 1e-5; three do). In the port it runs on the
 // flash branch of models/attention.attention_forward (sequences of 2048 or
 // more), once per layer of a bf16 or fp16 prefill.
 //

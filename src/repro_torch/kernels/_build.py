@@ -11,10 +11,10 @@ Flags: ``sm_90a`` (Hopper: ``wgmma`` and ``setmaxnreg`` exist only for
 that target), ``-O3``, precise math (no ``--use_fast_math``) and
 ``--fmad=false``: the dual-solve kernels must round every multiply and
 add as the plain PyTorch version's separate elementwise ops do, or
-near-tied argmins and selection tests could flip. The fp32 flash kernel
-asks for its fused multiply-adds explicitly (``fmaf``); the bf16 and
-fp16 ones multiply on the tensor cores and take their exponentials from
-``ex2.approx``. The TMA tensor maps are encoded through the runtime's
+near-tied argmins and selection tests could flip. The fp32 SIMT flash
+kernel asks for its fused multiply-adds explicitly (``fmaf``); the 3xTF32
+one and the bf16 and fp16 ones multiply on the tensor cores (the latter
+two take their exponentials from ``ex2.approx``). The TMA tensor maps are encoded through the runtime's
 driver entry-point query, so the link line needs no ``-lcuda``.
 
 Nothing here runs at import: the CPU tests import every module, on
@@ -64,14 +64,15 @@ SIGNATURES = {
     "topk_rows_attrs": (_I, _P),
     "topk_block_attrs": (_I, _I, _P),
     # (q, k, v, o, lse | null, B, Sq, Skv, H, KV, D, causal, window, scale,
-    # stream): the fp32 SIMT kernel and the bf16 and fp16 tensor-core kernel
+    # stream): the fp32 kernels and the bf16 and fp16 tensor-core kernel
     "flash_attention_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _F, _P),
     "flash_attention_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _F, _P),
     "flash_attention_fwd_f16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _F, _P),
-    # (D, out int[4]: registers, local bytes, static and dynamic shared bytes)
+    # (D, out int[4]: registers, local bytes, static and dynamic shared bytes;
+    # fp32 out int[6]: and the cluster size, the clusters the card holds)
     "flash_attention_attrs_f32": (_I, _P),
     "flash_attention_attrs_bf16": (_I, _P),
     "flash_attention_attrs_f16": (_I, _P),

@@ -7,23 +7,28 @@ sliding-window GQA attention, q ``[B, Sq, H, D]`` and k, v
 ``h // (H // KV)``. CUDA tensors launch, on the current stream, the kernel
 of their type or raise: bf16 and fp16 the tensor-core kernel
 (``csrc/flash_sm90.cuh``: ``wgmma`` fed by TMA, P rounded to the input's
-type before P V; one translation unit a type), fp32 the SIMT kernel
-(``csrc/flash_simt.cuh``). Neither falls back to the other. Both take every
+type before P V; one translation unit a type), fp32 by head dim
+(``f32_route``): up to 128 the SIMT kernel (``csrc/flash_simt.cuh``), up to
+2,048 the 3xTF32 tensor-core kernel (``csrc/flash_tf32.cuh``: mma.sync
+.tf32, each fp32 operand split into two TF32 parts, three products), above
+2,048 the wide SIMT kernel. None falls back to another. All take every
 head dim from 1 to ``MAX_HEAD_DIM``, D at run time when its rows are whole
 16-byte copies (D a multiple of 8 in bf16 and fp16, of 4 in fp32); for any
 other D the wrapper zero-pads q, k and v to the next such width
 (``pad_head_dim``), keeps the scale 1/sqrt(D), launches and slices o. Up
 to 256 each kernel is compiled for the widths of ``COMPILED_WIDTHS`` (D
-rounded up to 32); above 256 it cuts O into ``column_groups(D, dtype)``
+rounded up to 32); above 256 O is cut into ``column_groups(D, dtype)``
 groups of one of ``WIDE_GROUP_WIDTHS[dtype]`` columns (at most 224 on the
-tensor cores, 256 on the SIMT kernel), one group a CTA on grid z, each CTA
-computing the scores over all of D in chunks (``csrc/*_wide.cu``).
+tensor cores, 256 in fp32), one group a CTA on grid z. The bf16/fp16 CTAs
+and the wide SIMT ones each compute the scores over all of D in chunks
+(``csrc/*_wide.cu``); the 3xTF32 CTAs of a query tile are one thread-block
+cluster (at most 8: D up to 2,048) that computes each group's partial
+scores once and sums them through distributed shared memory.
 ``MAX_HEAD_DIM`` is the largest D whose column groups fit grid z on both
 kernels (65,535 groups of 224); the kernels' offsets are 64-bit wherever D
 multiplies a row index. ``check_grid`` holds a call to the kernels' grid
 limits: B * H on grid x (up to 2^31 - 1), the query tiles on y (up to
-65,535; 128 rows a tile on the tensor cores, 64 or, above a padded width
-of 128, 32 on the SIMT kernel), the column groups on z; a call past them
+65,535; ``query_tile_rows``), the column groups on z; a call past them
 raises.
 
 Without grad (serving) CPU tensors run ``ref.attention_ref`` and the
@@ -35,8 +40,11 @@ CPU tensors, and it saves (q, k, v, out, lse); its backward is
 recompute (plain JAX there), so the CPU tests run the card's backward.
 
 ``flash_attention.launches`` counts every launch; ``.launches_bf16``,
-``.launches_f16`` and ``.launches_f32`` count each route's,
-``.launches_lse`` those that wrote the log-sum-exp, and
+``.launches_f16`` and ``.launches_f32`` count each type's, and beside
+``.launches_f32`` the counters of ``F32_ROUTE_COUNTERS`` each fp32
+kernel's (``.launches_f32_simt``, ``.launches_f32_tf32``,
+``.launches_f32_tf32_cluster``, ``.launches_f32_simt_wide``);
+``.launches_lse`` counts those that wrote the log-sum-exp, and
 ``.backward_calls`` the backward's calls.
 """
 from __future__ import annotations
@@ -53,6 +61,9 @@ from .ref import attention_ref, flash_bwd_ref, flash_fwd_ref
 GRID_X_MAX = 2**31 - 1          # CUDA's grid limits
 GRID_YZ_MAX = 65535
 NARROW_MAX = 256                 # the widest head dim a CTA holds whole
+SIMT_MAX = 128                   # fp32: the widest head dim of the SIMT kernel
+TF32_MAX = 2048                  # fp32: the 3xTF32 kernel's largest cluster
+                                 # (8 CTAs, the portable size) of groups of 256
 # above it, the widest column group of O a CTA holds: on the tensor cores a
 # group of 256 spilled beside its chunk loop (csrc/flash_sm90.cuh)
 GROUP_MAX = {torch.float32: 256, torch.bfloat16: 224, torch.float16: 224}
@@ -69,6 +80,10 @@ _ROUTES = {torch.float32: ("flash_attention_fwd_f32", "flash_attention_attrs_f32
                             "launches_bf16"),
            torch.float16: ("flash_attention_fwd_f16", "flash_attention_attrs_f16",
                            "launches_f16")}
+# fp32's kernels by route (``f32_route``) -> their launch counters
+F32_ROUTE_COUNTERS = {"simt": "launches_f32_simt", "tf32": "launches_f32_tf32",
+                      "tf32_cluster": "launches_f32_tf32_cluster",
+                      "simt_wide": "launches_f32_simt_wide"}
 
 
 def _check_window(window) -> None:
@@ -96,13 +111,26 @@ def column_groups(D: int, dtype: torch.dtype) -> tuple[int, int]:
     return ng, -(-(-(-D // ng)) // 32) * 32
 
 
+def f32_route(D: int) -> str:
+    """The fp32 kernel of (padded) head dim D: ``"simt"`` up to 128 (the
+    SIMT kernel, which ties or beats SDPA there), ``"tf32"`` up to 256 (the
+    3xTF32 tensor-core kernel, one CTA a query tile), ``"tf32_cluster"`` up
+    to ``TF32_MAX`` (its column groups one cluster), ``"simt_wide"`` above
+    (the wide SIMT kernel, each group's CTA computing all of QK^T)."""
+    if D <= SIMT_MAX:
+        return "simt"
+    if D <= NARROW_MAX:
+        return "tf32"
+    return "tf32_cluster" if D <= TF32_MAX else "simt_wide"
+
+
 def query_tile_rows(dtype: torch.dtype, D: int) -> int:
     """The query rows a CTA of the kernel of ``dtype`` owns at (padded)
-    head dim D: 128 on the tensor cores; on the SIMT kernel 64 up to a
-    computed width of 128, else 32."""
+    head dim D: 128 on the tensor cores (bf16, fp16 and fp32's 3xTF32
+    kernel); on the SIMT kernel 64, on the wide SIMT kernel 32."""
     if dtype != torch.float32:
         return 128
-    return 64 if -(-D // 32) * 32 <= 128 else 32
+    return {"simt": 64, "simt_wide": 32}.get(f32_route(D), 128)
 
 
 def check_grid(B: int, H: int, Sq: int, D: int, dtype: torch.dtype) -> None:
@@ -163,6 +191,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _build.check(err, entry)
         flash_attention.launches += 1
         setattr(flash_attention, counter, getattr(flash_attention, counter) + 1)
+        if q.dtype == torch.float32:
+            route = F32_ROUTE_COUNTERS[f32_route(qk.shape[3])]
+            setattr(flash_attention, route, getattr(flash_attention, route) + 1)
         flash_attention.launches_lse += int(with_lse)
     if o.shape[3] != D:
         o = o[..., :D].contiguous()
@@ -241,6 +272,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.launches_f32 = 0
+for _name in F32_ROUTE_COUNTERS.values():
+    setattr(flash_attention, _name, 0)
 flash_attention.launches_bf16 = 0
 flash_attention.launches_f16 = 0
 flash_attention.launches_lse = 0
@@ -252,10 +285,15 @@ def kernel_attributes(dtype: torch.dtype, head_dim: int) -> dict:
     static and dynamic shared bytes a CTA of the compiled instance that
     takes (dtype, head_dim): up to 256 the one of width head_dim rounded up
     to 32, above it the wide one of ``column_groups(head_dim, dtype)``'s
-    width."""
-    out = (ctypes.c_int * 4)()
+    width. fp32 adds its route (``f32_route``), the cluster size (1: none)
+    and how many such clusters the card holds at once (0: no cluster)."""
+    out = (ctypes.c_int * 6)()
     entry = _ROUTES[dtype][1]
     err = getattr(_build.library(), entry)(head_dim, out)
     _build.check(err, entry)
-    return {"registers": out[0], "local_bytes": out[1],
-            "shared_bytes": out[2], "dynamic_shared_bytes": out[3]}
+    res = {"registers": out[0], "local_bytes": out[1],
+           "shared_bytes": out[2], "dynamic_shared_bytes": out[3]}
+    if dtype == torch.float32:
+        res.update(route=f32_route(head_dim), cluster=out[4],
+                   max_active_clusters=out[5])
+    return res

@@ -47,6 +47,20 @@ def daz(bits: Tensor) -> Tensor:
     return torch.where((bits & 0x7F800000) == 0, 0, bits)
 
 
+def widen_f16(x: Tensor) -> Tensor:
+    """fp16 ``x`` as the fp32 values the kernels compare, by integer
+    operations: a NaN quiet with its sign and payload kept (sign,
+    0x7fc00000, payload << 13), every other lane exact. Torch's conversion
+    does so for a NaN in its CPU vector loop but gives 0x7fffffff in the
+    loop's scalar tail, and on the card for every NaN (ROADMAP C-31); the
+    reference's XLA:CPU convert and the kernels widen as here."""
+    b = x.view(torch.int16).to(torch.int32) & 0xFFFF
+    nan = ((b & 0x7C00) == 0x7C00) & ((b & 0x3FF) != 0)
+    quiet = ((b & 0x8000) << 16) | 0x7FC00000 | ((b & 0x3FF) << 13)
+    return torch.where(nan, quiet, x.to(torch.float32).view(torch.int32)
+                       ).view(torch.float32)
+
+
 def topk_threshold_mask(x: Tensor, k) -> Tensor:
     """Keep-mask of the top-k magnitudes per row, ties to the lower index.
 
@@ -55,8 +69,10 @@ def topk_threshold_mask(x: Tensor, k) -> Tensor:
     reference's does. |x| is taken on the bits (clear the sign), which
     keeps a NaN's payload on every device, as XLA's abs does on the CPU;
     ``torch.abs`` on a CUDA tensor returns the canonical NaN instead. The
-    float tests see denormals as zero (``daz``), as the reference's do."""
-    bits = x.to(torch.float32).view(torch.int32) & 0x7FFFFFFF
+    float tests see denormals as zero (``daz``), as the reference's do.
+    fp16 widens by ``widen_f16``, wherever its NaNs fall."""
+    wide = widen_f16(x) if x.dtype == torch.float16 else x.to(torch.float32)
+    bits = wide.view(torch.int32) & 0x7FFFFFFF
     k = torch.as_tensor(k, dtype=torch.int32, device=x.device)
     k = k.expand(*bits.shape[:-1], 1)
 

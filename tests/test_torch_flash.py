@@ -9,11 +9,13 @@ mode as the JAX package's tests run it. The CUDA kernel is held against the
 same plain version on the card by ``chip_smoke.py``. A CPU emulation of the
 bf16 tensor-core kernel's numerics (``csrc/flash_attention_sm90.cu``: its
 tiles, masks and skipped tiles, P rounded to bf16 before P V) shows that
-its one numeric change fits the bf16 gate before it runs on a card; a CPU
-model of the fp32 SIMT kernel (``csrc/flash_attention.cu``: its tiles, the
-order of its sums and its per-tile rescale) holds its arithmetic to the
-fp32 gate the same way. Both run at head dims 16 to 256, zero-padded to
-the width each kernel computes on, as the kernels and their wrapper
+its one numeric change fits the bf16 gate before it runs on a card; CPU
+models of the fp32 kernels (``csrc/flash_attention.cu``, the SIMT kernel up
+to a head dim of 128: its tiles, the order of its sums and its per-tile
+rescale; above, the 3xTF32 tensor-core kernel of ``csrc/flash_tf32.cuh``,
+``tests/torch_flash_models.tf32_model``) hold their arithmetic to the fp32
+gate the same way. Both run at head dims 16 to 256, zero-padded to the
+width each kernel computes on, as the kernels and their wrapper
 (``ops.pad_head_dim``) pad.
 """
 import math
@@ -28,6 +30,7 @@ from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.flash_attention import ops
+from torch_flash_models import tf32_model
 
 TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 
@@ -331,8 +334,9 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def _simt_f32_emulated(q, k, v, *, causal, window):
-    """What ``csrc/flash_attention.cu`` computes, in torch ops: CTAs of 64
-    query rows (32 above DP = 128), key tiles of BK (64 for D = 32, else 32) from the CTA's
+    """What ``csrc/flash_attention.cu`` computes up to a head dim of 128, in
+    torch ops: CTAs of 64 query rows, key tiles of BK (64 for D = 32, else
+    32) from the CTA's
     first tile that can hold a visible key (every tile when some row sees
     none) to its last; q times 1/sqrt(D) in fp32; each score a chain of
     fmaf over d in order; masked scores -1e30, keys past Skv -inf; a row's
@@ -342,11 +346,11 @@ def _simt_f32_emulated(q, k, v, *, causal, window):
     of fmaf over the tile's keys in order; o = O / max(l, 1e-30). The
     rows of K and V in shared memory hold DP = D rounded up to 32 columns,
     D..DP-1 zero-filled: each score sums d = 0..D-1 only, O's padded
-    columns stay zero and D are stored. Above DP = 128 a CTA holds 32
-    query rows."""
+    columns stay zero and D are stored."""
     B, Sq, H, D = q.shape
     DP = -(-D // 32) * 32                                       # padded width
-    BQ = 64 if DP <= 128 else 32                                # rows a CTA
+    assert DP <= ops.SIMT_MAX
+    BQ = 64                                                     # rows a CTA
     Skv, KV = k.shape[1], k.shape[2]
     BK = 64 if D <= 32 else 32
     n_kt = -(-Skv // BK)
@@ -418,14 +422,18 @@ def _simt_f32_emulated(q, k, v, *, causal, window):
 def test_simt_f32_numerics_emulated_fit_the_fp32_gate(B, S, H, KV, D, causal,
                                                       window, Skv):
     """The fp32 FLASH_CASES of ``chip_smoke.py`` (S, batch and heads cut,
-    the card's unit-variance inputs), modelled as the SIMT kernel computes
-    them, against the plain version and the JAX package's oracle: within
+    the card's unit-variance inputs), modelled as the fp32 kernel of their
+    head dim computes them (the SIMT kernel up to 128, the 3xTF32 one
+    above), against the plain version and the JAX package's oracle: within
     the card's unchanged fp32 gate, 1e-5."""
     Skv = Skv or S
     rng = np.random.default_rng(12)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                for shape in ((B, S, H, D), (B, Skv, KV, D), (B, Skv, KV, D)))
-    got = _simt_f32_emulated(q, k, v, causal=causal, window=window)
+    if ops.f32_route(-(-D // 4) * 4) == "simt":
+        got = _simt_f32_emulated(q, k, v, causal=causal, window=window)
+    else:
+        got, _ = tf32_model(q, k, v, causal=causal, window=window)
     want = attention_ref(q, k, v, causal=causal, window=window)
     np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-5, rtol=0)
     oracle = j_attention_ref(*(jnp.asarray(t.numpy()) for t in (q, k, v)),

@@ -10,8 +10,11 @@ scores over all of D in chunks (``csrc/flash_sm90.cuh``,
   in fp32, bf16 and fp16 (fp32 atol 2e-6, as the JAX package holds its own
   kernel; the 16-bit types 2e-2, the bf16 bound of ``tests/test_kernels.py``);
 * CPU models of both kernels' column groups and D chunks
-  (``tests/torch_flash_models.py``) against the plain version and the JAX
-  package's oracle, at the card's gates (tensor cores 2e-2, SIMT 1e-5):
+  (``tests/torch_flash_models.py``; in fp32 the wide SIMT kernel, which
+  runs past D = 2,048, its arithmetic the same at any D: fp32 from 257 to
+  2,048 takes the 3xTF32 cluster kernel, ``test_torch_flash_tf32.py``)
+  against the plain version and the JAX package's oracle, at the card's
+  gates (tensor cores 2e-2, SIMT 1e-5):
   every group's running max and sum are equal, bit for bit, and the SIMT
   model's chunked scores equal the single chain over d = 0..D-1;
 * the smoke TinyLlama at ``head_dim=512`` against the reference at 2,048

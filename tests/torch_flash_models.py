@@ -13,14 +13,34 @@ up to 32 columns (BK 128 at DP <= 64, 64 up to 160, 32 above); above 256 on
 columns in order, runs the same softmax, and accumulates only its GW
 columns of O (BK 64 at GW = 160, 32 above).
 
-``simt_model`` is the fp32 SIMT kernel (``csrc/flash_simt.cuh``) above 256:
+``simt_model`` is the fp32 wide SIMT kernel (``csrc/flash_simt.cuh``, which
+runs above D = 2,048; its arithmetic is the same at any D above 256):
 32-row query tiles, key tiles of 32, q times 1/sqrt(D) in fp32, each score
 a chain of fmaf over d in order, taken through chunks of 128 columns; a
 row's max over the tile and one rescale a tile; l as 8 shares added in the
 shuffles' tree; O's group columns updated by a chain of fmaf over the
 tile's keys.
 
-Both record each group's running max and sum (``record``), which the
+``tf32_model`` is the fp32 kernel on the tensor cores in 3xTF32
+(``csrc/flash_tf32.cuh``), which runs head dims 129 to 2,048: 128-row query
+tiles, key tiles of 32 from the CTA's first visible tile; q times
+1/sqrt(D) in fp32; each operand x split into hi (x with its low 13 bits
+cleared) and lo = x - hi, lo read by the tensor core through its top 19
+bits (``tf32_split``); for every 8 columns of the summed index three
+products chained on an fp32 accumulator, lo hi, hi lo, hi hi, each the
+exact sum of 8 exact products and the accumulator rounded toward zero
+(``_mma``: one mma.sync as the card's tensor core rounds it, to within
+an ulp); a score's chain runs over one 32-column box on a fresh
+accumulator, the boxes added in float32, and a key tile's P V likewise
+added to O. Up to 256 the computed width is D
+rounded up to 32; above, each column group (one CTA of a cluster) sums
+its own columns' partial scores, and every group adds the partials in the
+order g = 0, 1, ... before its softmax; masked
+scores -1e30, keys past Skv -inf, exp, l as four shares of keys 8 j + 2 t
+and 8 j + 2 t + 1 (t < 4) added in the shuffles' tree; P split as above
+for O += P V.
+
+All record each group's running max and sum (``record``), which the
 kernels rely on being equal across groups: group 0 alone writes lse.
 """
 from __future__ import annotations
@@ -191,3 +211,120 @@ def simt_model(q, k, v, *, causal, window, record=None, chunked=True):
                 acc / torch.clamp(l, min=1e-30)[..., None])[:, :, :n]
     assert not out[..., D:].any()
     return out[..., :D].permute(0, 2, 1, 3)
+
+
+TF32_MASK = -8192            # 0xffffe000: a float32 pattern's top 19 bits
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    return (x.contiguous().view(torch.int32) & TF32_MASK).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 x as the 3xTF32 kernel feeds it to the tensor cores: hi = x
+    with its low 13 bits cleared, and lo = x - hi (exact in float32) as the
+    tensor core reads it, through its top 19 bits."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def round_to_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 x rounded to float32 toward zero."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _mma(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """acc + a @ b for an 8-deep a [..., M, 8] and b [..., 8, N]: the 8
+    products of TF32 values are exact and so is their sum with acc in
+    float64; rounded toward zero to float32, as the tensor core does (to
+    within an ulp: it aligns and truncates the terms before it adds them)."""
+    return round_to_zero(acc.double() + a.double() @ b.double())
+
+
+def _mma3(acc, a, b):
+    """The kernel's three products of one 8-deep step: lo hi, hi lo, hi hi."""
+    (ah, al), (bh, bl) = a, b
+    return _mma(_mma(_mma(acc, al, bh), ah, bl), ah, bh)
+
+
+def tf32_model(q, k, v, *, causal, window, record=None, box=32):
+    """What the 3xTF32 kernel computes for fp32 q, k, v at a head dim of
+    129 to 2,048 (the wrapper's padding to a multiple of 4 included):
+    ``(out, lse)``; ``record`` (a list) gets (group, q0, m, l) after each
+    query tile's last key tile. ``box``: the columns of a score's chain on
+    one accumulator (None: one chain over the group's columns)."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    Dp = -(-D // 4) * 4
+    ng, gw = ops.column_groups(Dp, torch.float32)
+    if ng == 1:
+        gw = -(-Dp // 32) * 32
+    BQ, BK = 128, 32
+    n_kt = -(-Skv // BK)
+    scale = torch.tensor(1.0 / D ** 0.5, dtype=torch.float32)
+    qf = _padded(q.float() * scale, ng * gw, -(-Sq // BQ) * BQ - Sq)
+    kf, vf = (_padded(t, ng * gw, n_kt * BK - Skv).repeat_interleave(H // KV, dim=1)
+              for t in (k, v))
+    qs, ks, vs = (tf32_split(t) for t in (qf, kf, vf))
+    # 8-column steps with a column < D, by group
+    steps = [range(g * gw, min((g + 1) * gw, Dp), 8) for g in range(ng)]
+    out = torch.zeros(B, H, Sq, ng * gw)
+    lse = torch.zeros(B, H, Sq)
+    for q0 in range(0, Sq, BQ):
+        k_begin, k_end, _ = _key_range(q0, min(q0 + BQ, Sq) - 1, Skv, causal,
+                                       window, BK)
+        rows = torch.arange(q0, q0 + BQ)
+        qt = [t[:, :, q0:q0 + BQ] for t in qs]
+        m = [torch.full((B, H, BQ), -1e30) for _ in range(ng)]
+        shares = [torch.zeros(B, H, BQ, 4) for _ in range(ng)]
+        acc = [torch.zeros(B, H, BQ, gw) for _ in range(ng)]
+        for k0 in range(k_begin, k_end, BK):
+            kt = [t[:, :, k0:k0 + BK] for t in ks]
+            part = []
+            for g in range(ng):
+                s = torch.zeros(B, H, BQ, BK)
+                cols = box or gw
+                for c0 in steps[g][::cols // 8]:          # a chain's columns
+                    chain = torch.zeros(B, H, BQ, BK)
+                    for c in [c for c in steps[g] if c0 <= c < c0 + cols]:
+                        chain = _mma3(chain, [t[..., c:c + 8] for t in qt],
+                                      [t[..., c:c + 8].transpose(-1, -2) for t in kt])
+                    s = s + chain
+                part.append(s)
+            for g in range(ng):
+                # every group sums the partials in the order 0, 1, ...
+                s = part[0]
+                for p_g in part[1:]:
+                    s = s + p_g
+                s = _visible(rows, torch.arange(k0, k0 + BK), Skv, causal, window, s)
+                m_new = torch.maximum(m[g], s.amax(-1))
+                corr = torch.exp(m[g] - m_new)
+                p = torch.exp(s - m_new[..., None])
+                own = torch.zeros(B, H, BQ, 4)
+                for j in range(BK // 8):
+                    own = own + p[..., 8 * j:8 * j + 8:2]
+                    own = own + p[..., 8 * j + 1:8 * j + 8:2]
+                shares[g] = shares[g] * corr[..., None] + own
+                acc[g] = acc[g] * corr[..., None]
+                ps = tf32_split(p)
+                cols = slice(g * gw, (g + 1) * gw)
+                tile = torch.zeros(B, H, BQ, gw)
+                for j in range(BK // 8):
+                    keys = slice(k0 + 8 * j, k0 + 8 * j + 8)
+                    tile = _mma3(tile, [t[..., 8 * j:8 * j + 8] for t in ps],
+                                 [t[:, :, keys, cols] for t in vs])
+                acc[g] = acc[g] + tile
+                m[g] = m_new
+        n = min(BQ, Sq - q0)
+        for g in range(ng):
+            sh = shares[g]
+            l = (sh[..., 0] + sh[..., 1]) + (sh[..., 2] + sh[..., 3])
+            if record is not None:
+                record.append((g, q0, m[g], l))
+            d = torch.clamp(l, min=1e-30)
+            out[:, :, q0:q0 + n, g * gw:(g + 1) * gw] = (acc[g] / d[..., None])[:, :, :n]
+            if g == 0:
+                lse[:, :, q0:q0 + n] = (m[g] + torch.log(d))[:, :, :n]
+    assert not out[..., Dp:].any()               # the padded columns stay zero
+    return out[..., :D].permute(0, 2, 1, 3), lse.reshape(B, KV, H // KV, Sq)
