@@ -299,15 +299,19 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    rows launch a round), and one ``make_round_engine`` round at 1,024.
 17. (a) both flash kernels at head dims 264, 288, 300, 320, 384, 512 and
    1,024 (column groups of O, one a CTA; bf16 and fp16 on the tensor
-   cores, fp32 on the SIMT kernel) against ``attention_ref`` and
-   ``flash_fwd_ref``'s lse, causal GQA, windowed and cross (Skv != Sq),
-   each call's route counted; each D timed at ``[4, 2048, 32 | 4, D]``
+   cores: a thread-block cluster from 321, and at 1,792 and 1,800 its
+   largest cluster and the wide kernel past it; fp32 on the 3xTF32
+   cluster, and at 2,048 and 2,056 its largest cluster and the wide SIMT
+   kernel past it) against ``attention_ref`` and ``flash_fwd_ref``'s lse,
+   causal GQA, windowed and cross (Skv != Sq), each call's route
+   counted; each D timed at ``[4, 2048, 32 | 4, D]``
    beside its operations bound, the plain version and SDPA (its backend
    named); (b) fp16 at D = 64, 80, 128 and 256 the same; (c) the smoke
    TinyLlama at ``head_dim=512``, one of its two layers, card against CPU
    under phase 15's gates
    (prefill and 4 greedy steps in fp32, bf16 and fp16, 3 fp32 AdamW steps
-   with 2 lse launches a layer a step); (d) TinyLlama-1.1B served in fp16
+   with 2 lse launches a layer a step; every fp32 launch on the 3xTF32
+   cluster, every bf16 and fp16 launch on the 16-bit cluster); (d) TinyLlama-1.1B served in fp16
    at phase 5's shape (22 fp16 launches, each held against the plain
    version; the first decode step within 5% of the forward's scale) and
    the smoke model in fp16 card against CPU, as phase 6; (e) the fp16
@@ -4150,34 +4154,36 @@ def head_dim_256_path(dev) -> dict:
     from repro_torch.configs import get_smoke
     arch = HEAD_DIM_256["arch"]
     cfg = dataclasses.replace(get_smoke(arch), head_dim=HEAD_DIM_256["head_dim"])
-    zero_f32_routes()
+    zero_routes()
     out = {"prefill": [family13_card_against_cpu(dev, arch, dtype, cfg=cfg,
                                                  label="phase 15")
                        for dtype in ("float32", "bfloat16")],
            "train": family13_train_card_against_cpu(
                dev, arch, FAMILY13_SMOKE["prompt"], cfg.n_layers,
                label="phase 15", cfg=cfg)}
-    out["f32_routes"] = read_f32_routes("tf32", "phase 15")
+    out["f32_routes"] = read_routes("tf32", "phase 15")
     return out
 
 
-def zero_f32_routes() -> None:
-    """Set the fp32 flash routes' counters to 0 (the runs between this and
-    ``read_f32_routes`` zero the per-type counters themselves)."""
-    from repro_torch.kernels.flash_attention.ops import (F32_ROUTE_COUNTERS,
-                                                         flash_attention)
-    for name in F32_ROUTE_COUNTERS.values():
-        setattr(flash_attention, name, 0)
+def zero_routes() -> None:
+    """Set the flash routes' counters (fp32's and the 16-bit kernels') to
+    0 (the runs between this and ``read_routes`` zero the per-type counters
+    themselves)."""
+    from repro_torch.kernels.flash_attention import ops
+    for name in (*ops.F32_ROUTE_COUNTERS.values(), *ops.SM90_ROUTE_COUNTERS.values()):
+        setattr(ops.flash_attention, name, 0)
 
 
-def read_f32_routes(route: str, what: str) -> dict:
-    """The fp32 routes' counts since ``zero_f32_routes``: every fp32 launch
-    on ``route``, and at least one."""
-    from repro_torch.kernels.flash_attention.ops import (F32_ROUTE_COUNTERS,
-                                                         flash_attention)
-    counts = {r: getattr(flash_attention, n) for r, n in F32_ROUTE_COUNTERS.items()}
+def read_routes(route: str, what: str, sixteen: bool = False) -> dict:
+    """The fp32 routes' counts (``sixteen``: the bf16/fp16 routes') since
+    ``zero_routes``: every launch of those kernels on ``route``, and at
+    least one."""
+    from repro_torch.kernels.flash_attention import ops
+    table = ops.SM90_ROUTE_COUNTERS if sixteen else ops.F32_ROUTE_COUNTERS
+    counts = {r: getattr(ops.flash_attention, n) for r, n in table.items()}
     if not counts[route] > 0 or sum(counts.values()) != counts[route]:
-        raise AssertionError(f"{what}: fp32 flash launches by route {counts}, "
+        kind = "bf16/fp16" if sixteen else "fp32"
+        raise AssertionError(f"{what}: {kind} flash launches by route {counts}, "
                              f"want all on {route}")
     return counts
 
@@ -5423,8 +5429,11 @@ WIDE_TIMED = (4, 2048, 32, 4)
 # and SDPA's math backend, beside the 16-bit ones, 22-54 ms
 WIDE_TIMED_ITERS = {torch.float32: 5, torch.bfloat16: 10, torch.float16: 10}
 # fp32 also at the 3xTF32 kernel's largest cluster (8 groups of 256) and
-# one past it, on the wide SIMT kernel
+# one past it, on the wide SIMT kernel; bf16 and fp16 at the tensor-core
+# kernel's largest cluster (8 groups of 224) and one past it, on its wide
+# kernel; each held as WIDE_DIMS and timed
 F32_EDGE_DIMS = (2048, 2056)
+SM90_EDGE_DIMS = (1792, 1800)
 # (b) fp16 at the head dims of the port's models, the same three calls
 F16_DIMS = (64, 80, 128, 256)
 # (c) the smoke TinyLlama at head_dim 512 (no config of the port has it),
@@ -5443,19 +5452,20 @@ PEAK = {torch.float32: PEAK_FP32_S, torch.bfloat16: PEAK_BF16_S,
 def hold_flash_cases(dev, dt, dims, seed: int) -> dict:
     """The kernel of ``dt`` at each head dim of ``dims`` on WIDE_CASES
     against ``attention_ref`` (out) and ``flash_fwd_ref`` (lse), under
-    FLASH_ATOL / FLASH_LSE_ATOL: each call launches the route of ``dt``
-    (fp32: and of the head dim, ``ops.f32_route``) twice (out; out and lse)
-    and nothing else, and out is the same both times. Returns the largest
-    errors."""
+    FLASH_ATOL / FLASH_LSE_ATOL: each call launches the route of ``dt`` and
+    of the head dim (``ops.f32_route``, ``ops.sm90_route``) twice (out; out
+    and lse) and nothing else, and out is the same both times. Returns the
+    largest errors."""
     from repro_torch.kernels.flash_attention import ops, ref
     fa = ops.flash_attention
     gen = torch.Generator(device=dev).manual_seed(seed)
     err = lse_err = 0.0
     for D in dims:
-        # fp32: also the counter of the head dim's route
-        counters = [ops._ROUTES[dt][2]] + (
-            [ops.F32_ROUTE_COUNTERS[ops.f32_route(-(-D // 4) * 4)]]
-            if dt == torch.float32 else [])
+        # also the counter of the head dim's route
+        route = (ops.F32_ROUTE_COUNTERS[ops.f32_route(-(-D // 4) * 4)]
+                 if dt == torch.float32 else
+                 ops.SM90_ROUTE_COUNTERS[ops.sm90_route(-(-D // 8) * 8)])
+        counters = [ops._ROUTES[dt][2], route]
         for B, S, H, KV, causal, window, Skv in WIDE_CASES:
             Skv = Skv or S
             q = torch.randn(B, S, H, D, device=dev, generator=gen).to(dt)
@@ -5570,17 +5580,20 @@ def check_grid_x(dev) -> dict:
 
 def phase17(dev) -> dict:
     """(a) the flash kernels past head dim 256 (bf16 and fp16 on the
-    tensor cores, fp32 on the 3xTF32 cluster kernel, and at F32_EDGE_DIMS
-    its largest cluster and the wide SIMT kernel past it) against their
-    plain versions and timed; (b) fp16 at D = 64, 80, 128, 256, the same;
-    (c) the smoke TinyLlama at head_dim 512 (one layer) card against CPU
-    (prefill and 4 serve steps in fp32, bf16 and fp16; 3 fp32 train steps
-    with lse; every fp32 launch on the cluster kernel); (d) TinyLlama-1.1B
-    served in fp16 at phase 5's shape (every prefill launch held) and the
-    smoke model in fp16 card against CPU, as phase 6; (e) the fp16 block
-    top-k; (f) a launch past B * H = 65,535. Each run's counts zeroed just
-    before it and read just after. Returns the fp16 kernel's entry, the
-    fp32 cluster kernel's, and the wide results."""
+    tensor cores' routes, ``ops.sm90_route``: the cluster kernel, and at
+    SM90_EDGE_DIMS its largest cluster and the wide kernel past it; fp32 on
+    the 3xTF32 cluster kernel, and at F32_EDGE_DIMS its largest cluster and
+    the wide SIMT kernel past it) against their plain versions and timed;
+    (b) fp16 at D = 64, 80, 128, 256, the same; (c) the smoke TinyLlama at
+    head_dim 512 (one layer) card against CPU (prefill and 4 serve steps in
+    fp32, bf16 and fp16; 3 fp32 train steps with lse; every fp32 launch on
+    the 3xTF32 cluster kernel, every bf16 and fp16 launch on the tensor
+    cores' cluster kernel); (d) TinyLlama-1.1B served in fp16 at phase 5's
+    shape (every prefill launch held) and the smoke model in fp16 card
+    against CPU, as phase 6; (e) the fp16 block top-k; (f) a launch past B
+    * H = 65,535. Each run's counts zeroed just before it and read just
+    after. Returns the fp16 kernel's entry, the fp32 cluster kernel's, the
+    16-bit cluster kernel's, and the wide results."""
     import dataclasses
 
     from repro_torch.configs import get_smoke
@@ -5588,17 +5601,20 @@ def phase17(dev) -> dict:
     attrs = {f"{str(dt)[6:]}/D{D}": ops.kernel_attributes(dt, D)
              for dt in (torch.bfloat16, torch.float16, torch.float32)
              for D in (320, 384, 512, 1024) + (F32_EDGE_DIMS if dt == torch.float32
-                                               else ())}
+                                               else SM90_EDGE_DIMS)}
     attrs.update({f"float16/DP{d}": ops.kernel_attributes(torch.float16, d)
                   for d in ops.COMPILED_WIDTHS})
     log(json.dumps({"phase17_instances": attrs}))
     wide = {}
     for dt in (torch.bfloat16, torch.float16, torch.float32):
-        held = hold_flash_cases(dev, dt, WIDE_DIMS, seed=31)
-        wide[str(dt)] = dict(held, timed=time_flash_dims(dev, dt, WIDE_DIMS))
+        dims = WIDE_DIMS + (() if dt == torch.float32 else SM90_EDGE_DIMS)
+        held = hold_flash_cases(dev, dt, dims, seed=31)
+        wide[str(dt)] = dict(held, timed=time_flash_dims(dev, dt, dims))
     wide["torch.float32"]["edges"] = {
         D: hold_flash_cases(dev, torch.float32, (D,), seed=41 + i)
         for i, D in enumerate(F32_EDGE_DIMS)}
+    wide["torch.float32"]["edges_timed"] = time_flash_dims(dev, torch.float32,
+                                                           F32_EDGE_DIMS)
     f16 = dict(hold_flash_cases(dev, torch.float16, F16_DIMS, seed=37),
                timed=time_flash_dims(dev, torch.float16, F16_DIMS))
     stamp("17 (a)-(b)")
@@ -5606,7 +5622,7 @@ def phase17(dev) -> dict:
     arch = HEAD_DIM_512["arch"]
     cfg = dataclasses.replace(get_smoke(arch), head_dim=HEAD_DIM_512["head_dim"],
                               n_layers=HEAD_DIM_512["n_layers"])
-    zero_f32_routes()
+    zero_routes()
     d512 = {"prefill": [family13_card_against_cpu(dev, arch, dtype, cfg=cfg,
                                                   label="phase 17 (c)")
                         for dtype in ("float32", "bfloat16", "float16")],
@@ -5615,7 +5631,8 @@ def phase17(dev) -> dict:
             "train": family13_train_card_against_cpu(
                 dev, arch, FAMILY13_SMOKE["prompt"], cfg.n_layers,
                 label="phase 17 (c)", flat_gate=1e-5, cfg=cfg)}
-    d512["f32_routes"] = read_f32_routes("tf32_cluster", "phase 17 (c)")
+    d512["f32_routes"] = read_routes("tf32_cluster", "phase 17 (c)")
+    d512["sm90_routes"] = read_routes("sm90_cluster", "phase 17 (c)", sixteen=True)
     stamp("17 (c)")
 
     serve = serve_path(dev, dtype="float16")
@@ -5659,8 +5676,28 @@ def phase17(dev) -> dict:
         ms_with_lse=t["ms_with_lse"], head_dims_past_256=w32["timed"],
         launches_phase17c={"prefill": d512["prefill"][0]["flash_launches"],
                            "train_with_lse": d512["train"]["flash_launches_with_lse"]},
+        edge_2048=w32["edges_timed"][2048],
         instances={k.split("/")[1]: a for k, a in attrs.items()
                    if k.startswith("float32")})
+    # bf16 and fp16 past 256: the tensor cores' cluster kernel's entry, timed
+    # at D = 1,024 in bf16
+    w16 = [wide["torch.bfloat16"], wide["torch.float16"]]
+    t = w16[0]["timed"][1024]
+    sm90_cluster = dict(
+        name="flash_attention_sm90_cluster", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_sm90_wide.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:25",
+        launches=d512["sm90_routes"]["sm90_cluster"],
+        max_abs_err=max(w["max_abs_err"] for w in w16),
+        lse_max_abs_err=max(w["lse_max_abs_err"] for w in w16),
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=t["library_ms"],
+        sdpa_backend=t["sdpa_backend"], ms_with_lse=t["ms_with_lse"],
+        routes={D: ops.sm90_route(D) for D in WIDE_DIMS + SM90_EDGE_DIMS},
+        head_dims_past_256={"bf16": w16[0]["timed"], "fp16": w16[1]["timed"]},
+        launches_phase17c={r["dtype"]: r["flash_launches"] for r in d512["prefill"][1:]},
+        instances={k: a for k, a in attrs.items()
+                   if a["route"] == "sm90_cluster"})
     log(json.dumps({"phase17_summary": {
         "wide_ms": {dt: {D: r["ms"] for D, r in w["timed"].items()}
                     for dt, w in wide.items()},
@@ -5669,7 +5706,8 @@ def phase17(dev) -> dict:
                                              "first_decode_vs_forward_max_abs",
                                              "logit_scale")},
         "topk_f16": topk, "grid_x": grid}}))
-    return {"entry": entry, "entry_f32_cluster": cluster, "wide": wide,
+    return {"entry": entry, "entry_f32_cluster": cluster,
+            "entry_sm90_cluster": sm90_cluster, "wide": wide,
             "d512": d512, "topk_f16": topk, "grid_x": grid}
 
 
@@ -5710,7 +5748,8 @@ def main(argv) -> int:
     if "--only" in argv and argv[argv.index("--only") + 1] == "17":
         # phase 17 alone (head dims past 256, fp16, the grid's x limit)
         p17 = phase17(dev)
-        log(json.dumps({"kernels": [p17["entry"], p17["entry_f32_cluster"]]}))
+        log(json.dumps({"kernels": [p17["entry"], p17["entry_f32_cluster"],
+                                    p17["entry_sm90_cluster"]]}))
         log(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
@@ -5962,13 +6001,14 @@ def main(argv) -> int:
     # the tensor-core kernel (its entry joins the kernels line) and the
     # block top-k, and a launch past B * H = 65,535
     p17 = phase17(dev)
-    kernels += [p17["entry"], p17["entry_f32_cluster"]]
+    kernels += [p17["entry"], p17["entry_f32_cluster"], p17["entry_sm90_cluster"]]
     w = p17["wide"]["torch.bfloat16"]
     flash["head_dims_past_256"] = dict(w["timed"], max_abs_err=w["max_abs_err"],
                                        lse_max_abs_err=w["lse_max_abs_err"])
     flash["launches_phase17c"] = {"prefill_bf16": p17["d512"]["prefill"][1]["flash_launches"]}
     # fp32 past 2,048 keeps the wide SIMT kernel (phase 17's edge dims)
-    flash_f32["past_2048"] = p17["wide"]["torch.float32"]["edges"][2056]
+    flash_f32["past_2048"] = dict(p17["wide"]["torch.float32"]["edges"][2056],
+                                  timed=p17["wide"]["torch.float32"]["edges_timed"][2056])
     block["fp16"] = p17["topk_f16"]
     stamp("17")
 

@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
-"""Probe the fp32 flash kernels on the card: build the library, print
-ptxas's registers and spills for the 3xTF32 units, hold every fp32 route
-(``ops.f32_route``: SIMT up to 128, 3xTF32 to 256, its clusters to 2,048,
-the wide SIMT kernel above) against the plain version at the head dims
-below, each at a causal GQA call, a window with a ragged S and a
-non-causal call with Skv != Sq, listing every failing case (out within
-``chip_smoke.FLASH_ATOL``, lse within ``FLASH_LSE_ATOL``, out the same with
-and without lse, one launch of the right route each; without a window also
-the kernel's and the plain version's distances to float64), then time the
-fp32 kernel at Gemma-7B's call and at ``[4, 2048, 32 | 4, D]``, and both
-types at phase 11's train shape ``[4, 4096, 32 | 4, 64]``, beside SDPA.
+"""Probe the flash kernels on the card: build the library, print ptxas's
+registers and spills for the units of the chosen type, hold every route of
+that type against the plain version at the head dims below, each at a
+causal GQA call, a window with a ragged S and a non-causal call with Skv
+!= Sq, listing every failing case (out within ``chip_smoke.FLASH_ATOL``,
+lse within ``FLASH_LSE_ATOL``, out the same with and without lse, two
+launches of the right route; without a window also the kernel's and the
+plain version's distances to float64), then time the kernel beside SDPA.
+fp32 (the default) goes by ``ops.f32_route`` (SIMT up to 128, 3xTF32 to
+256, its clusters to 2,048, the wide SIMT kernel above) and is timed at
+Gemma-7B's call, at ``[4, 2048, 32 | 4, D]`` and at phase 11's train
+shape; bf16 and fp16 (``--dtype``) go by ``ops.sm90_route`` (one CTA a
+query tile up to 256, the cluster kernel to 1,792, the wide kernel above)
+and are timed at ``[4, 2048, 32 | 4, D]`` for the head dims past 256
+checked.
 
-    python3 scripts/flash_probe.py                 # every head dim below
+    python3 scripts/flash_probe.py                 # every fp32 head dim below
     python3 scripts/flash_probe.py 160,256,1024    # these head dims
     python3 scripts/flash_probe.py 160 --no-time   # checks only
     python3 scripts/flash_probe.py 256 --smoke     # and the smoke TinyLlama
                                                    # at head_dim 256 and 512
                                                    # card against CPU in fp32
                                                    # (phases 15 and 17 (c))
+    python3 scripts/flash_probe.py --dtype bfloat16 264,512,1024,1792,1800
 """
 from __future__ import annotations
 
@@ -31,6 +36,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 DIMS = (64, 132, 160, 164, 192, 224, 256, 264, 300, 320, 384, 512, 1024,
         2048, 2056)
+DIMS_16 = (64, 256, 264, 300, 320, 384, 512, 1000, 1024, 1792, 1800)
+# the units of each type's kernels, whose ptxas lines are printed
+UNITS = {"float32": ("flash_attention_tf32.cu", "flash_attention_tf32_wide.cu"),
+         "bfloat16": ("flash_attention_sm90_wide.cu",),
+         "float16": ("flash_attention_sm90_wide.cu",)}
 CASES = ((1, 600, 8, 2, True, None, None),        # B, S, H, KV, causal, window, Skv
          (2, 333, 4, 4, True, 100, None),
          (1, 200, 4, 1, False, None, 150))
@@ -43,8 +53,9 @@ TIMED = {"gemma_7b": (2, 2048, 16, 16, 256, "float32"),
          "train_f32": (4, 4096, 32, 4, 64, "float32")}
 
 
-def ptxas_lines(_build) -> None:
-    for f in ("flash_attention_tf32.cu", "flash_attention_tf32_wide.cu"):
+def ptxas_lines(_build, dtype: str) -> None:
+    key = "tf32" if dtype == "float32" else "sm90"
+    for f in UNITS[dtype]:
         r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
                             "-c", str(ROOT / "src/repro_torch/csrc" / f),
                             "-o", str(_build.BUILD_DIR / f"{f}.probe.o")],
@@ -53,14 +64,14 @@ def ptxas_lines(_build) -> None:
         for line in (r.stdout + r.stderr).splitlines():
             if "Compiling entry function" in line:
                 name = line.split("'")[1]
-            elif "Used" in line and name and "tf32" in name:
+            elif "Used" in line and name and key in name:
                 print(f, name[:70], line.strip()[-90:], flush=True)
-            elif "spill" in line and name and "tf32" in name:
+            elif "spill" in line and name and key in name:
                 print(f, name[:70], line.strip(), flush=True)
 
 
 def _f64(torch, q, k, v, causal):
-    """Softmax attention of fp32 q, k, v in float64 (no window)."""
+    """Softmax attention of q, k, v in float64 (no window)."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     qd, kd, vd = (t.double().transpose(1, 2) for t in (q, k, v))
@@ -73,19 +84,26 @@ def _f64(torch, q, k, v, causal):
     return (torch.softmax(s, dim=-1) @ vd).transpose(1, 2)
 
 
-def check(cs, ops, ref, torch, dev, dims) -> list:
+def route_counter(ops, torch, dt, D) -> str:
+    """The launch counter of the route that takes head dim D in ``dt``."""
+    if dt == torch.float32:
+        return ops.F32_ROUTE_COUNTERS[ops.f32_route(-(-D // 4) * 4)]
+    return ops.SM90_ROUTE_COUNTERS[ops.sm90_route(-(-D // 8) * 8)]
+
+
+def check(cs, ops, ref, torch, dev, dims, dt) -> list:
     fa = ops.flash_attention
     fails = []
     gen = torch.Generator(device=dev).manual_seed(3)
     for D in dims:
-        route = ops.F32_ROUTE_COUNTERS[ops.f32_route(-(-D // 4) * 4)]
+        route = route_counter(ops, torch, dt, D)
         for B, S, H, KV, causal, window, Skv in CASES:
             Skv = Skv or S
             case = [B, S, H, KV, D, causal, window, Skv]
             try:
-                q = torch.randn(B, S, H, D, device=dev, generator=gen)
-                k = torch.randn(B, Skv, KV, D, device=dev, generator=gen)
-                v = torch.randn(B, Skv, KV, D, device=dev, generator=gen)
+                q = torch.randn(B, S, H, D, device=dev, generator=gen).to(dt)
+                k = torch.randn(B, Skv, KV, D, device=dev, generator=gen).to(dt)
+                v = torch.randn(B, Skv, KV, D, device=dev, generator=gen).to(dt)
                 before = getattr(fa, route)
                 got = ops.flash_attention_cuda(q, k, v, causal=causal, window=window)
                 got_l, lse = ops.flash_attention_cuda(q, k, v, causal=causal,
@@ -93,7 +111,7 @@ def check(cs, ops, ref, torch, dev, dims) -> list:
                 want = ref.attention_ref(q, k, v, causal=causal, window=window)
                 _, lse_want = ref.flash_fwd_ref(q, k, v, causal=causal, window=window)
                 torch.cuda.synchronize()
-                e = float((got - want).abs().max())
+                e = float((got.float() - want.float()).abs().max())
                 e_lse = float((lse - lse_want).abs().max())
                 far = {}
                 if window is None:
@@ -102,8 +120,7 @@ def check(cs, ops, ref, torch, dev, dims) -> list:
                     far = {"kernel_vs_f64": float((got.double() - exact).abs().max()),
                            "plain_vs_f64": float((want.double() - exact).abs().max())}
                     del exact
-                ok = (e <= cs.FLASH_ATOL[torch.float32]
-                      and e_lse <= cs.FLASH_LSE_ATOL[torch.float32]
+                ok = (e <= cs.FLASH_ATOL[dt] and e_lse <= cs.FLASH_LSE_ATOL[dt]
                       and torch.equal(got, got_l) and getattr(fa, route) - before == 2)
                 print(json.dumps({"case": case, "route": route, "max_abs_err": e,
                                   "lse_max_abs_err": e_lse, **far, "ok": ok}), flush=True)
@@ -113,19 +130,21 @@ def check(cs, ops, ref, torch, dev, dims) -> list:
                 fails.append(case)
                 traceback.print_exc()
                 torch.cuda.synchronize()
-        print(json.dumps({"D": D, "attributes": ops.kernel_attributes(torch.float32, D)}),
+        print(json.dumps({"D": D, "attributes": ops.kernel_attributes(dt, D)}),
               flush=True)
     return fails
 
 
-def timed(cs, torch, dev) -> None:
-    for label, (B, S, H, KV, D, dtype) in TIMED.items():
+def timed(cs, torch, dev, dt, dims) -> None:
+    runs = (TIMED if dt == torch.float32 else
+            {f"d{D}": (4, 2048, 32, 4, D, str(dt)[6:]) for D in dims if D > 256})
+    for label, (B, S, H, KV, D, dtype) in runs.items():
         dt = getattr(torch, dtype)
         gen = torch.Generator(device=dev).manual_seed(D)
         q, k, v = (torch.randn(B, S, n, D, device=dev, generator=gen).to(dt)
                    for n in (H, KV, KV))
         res = cs.time_flash(q, k, v, cs.PEAK[dt], iters=5 if D > 256 else 20)
-        print(json.dumps({"timed": label, **{k: res[k] for k in (
+        print(json.dumps({"timed": label, "dtype": dtype, **{k: res[k] for k in (
             "ms", "ms_with_lse", "library_ms", "sdpa_backend", "bound_ms")}}),
             flush=True)
         del q, k, v
@@ -161,18 +180,22 @@ def main(argv) -> int:
     t0 = time.time()
     _build.library()
     print("build_s", round(time.time() - t0, 1), flush=True)
-    ptxas_lines(_build)
+    dtype = argv[argv.index("--dtype") + 1] if "--dtype" in argv else "float32"
+    dt = getattr(torch, dtype)
+    ptxas_lines(_build, dtype)
     import chip_smoke as cs
     from repro_torch.kernels.flash_attention import ops, ref
     dev = torch.device("cuda")
-    args = [a for a in argv if not a.startswith("--")]
-    dims = [int(a) for a in args[0].split(",")] if args else DIMS
-    fails = check(cs, ops, ref, torch, dev, dims)
+    args = [a for i, a in enumerate(argv)
+            if not a.startswith("--") and (i == 0 or argv[i - 1] != "--dtype")]
+    dims = ([int(a) for a in args[0].split(",")] if args
+            else DIMS if dt == torch.float32 else DIMS_16)
+    fails = check(cs, ops, ref, torch, dev, dims, dt)
     print("FAILS", fails, flush=True)
     if "--smoke" in argv:
         smoke_models(cs, torch, dev)
     if "--no-time" not in argv:
-        timed(cs, torch, dev)
+        timed(cs, torch, dev, dt, dims)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())

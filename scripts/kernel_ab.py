@@ -6,6 +6,8 @@ prints every run's times and the medians by checkout.
 
     python3 scripts/kernel_ab.py --compare build/parent/src src
     python3 scripts/kernel_ab.py --src src          # one run, one JSON line
+    python3 scripts/kernel_ab.py --compare build/parent/src src --only flash16
+                                       # the 16-bit flash past 256 alone
 
 Times are CUDA events around back-to-back launches (flash: 20 after 3
 warm-up calls; 5 after 1 past a head dim of 256) and the profiler's device
@@ -14,7 +16,10 @@ phases 2 and 17: flash at the serve shape, zamba2's D = 80, phi-3-vision's
 D = 96 and the train shape, in bf16 and fp32, the serve shape in fp16; in
 fp32 also the head dims of phase 2's ``FLASH_HEAD_DIMS`` past 128 (160,
 192, 224 at ``[2, 2048, 16 | 16, D]``, Gemma-2B's and Gemma-7B's calls)
-and phase 17's ``WIDE_DIMS`` at ``[4, 2048, 32 | 4, D]``; the ascent on the paper's 10 gammas (L = 10) and x (8, 16, 32)
+and phase 17's ``WIDE_DIMS`` at ``[4, 2048, 32 | 4, D]``; bf16 and fp16 at
+``WIDE_DIMS`` and at the edges of the 16-bit cluster kernel's reach
+(``SM90_EDGE_DIMS``: 1,792 on the cluster, 1,800 on the wide kernel) at
+that shape; the ascent on the paper's 10 gammas (L = 10) and x (8, 16, 32)
 (L = 30) at N = 50; both top-k kernels at block widths ``TOPK_WIDTHS``, the
 rows kernel on phase 2's ``[50, 1,630,090]`` matrix at ks of the gamma
 grid, the block kernel on one row at gamma 0.25: the profiler's device time
@@ -38,11 +43,14 @@ FLASH_F32 = {"d160": (2, 2048, 16, 16, 160), "d192": (2, 2048, 16, 16, 192),
              "gemma_7b": (2, 2048, 16, 16, 256),
              **{f"wide_d{D}": (4, 2048, 32, 4, D)
                 for D in (264, 288, 300, 320, 384, 512, 1024)}}
+# bf16 and fp16 past 256: phase 17's WIDE_DIMS and SM90_EDGE_DIMS
+FLASH_16_WIDE = {f"wide_d{D}": (4, 2048, 32, 4, D)
+                 for D in (264, 288, 300, 320, 384, 512, 1024, 1792, 1800)}
 GRID = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
 TOPK_WIDTHS = (1, 100, 4096, 8192, 65536, 1_630_090)
 
 
-def one_run(src: str) -> dict:
+def one_run(src: str, only: str | None = None) -> dict:
     sys.path.insert(0, src)
     import torch
 
@@ -82,10 +90,13 @@ def one_run(src: str) -> dict:
 
     out = {}
     gen = torch.Generator(device=dev).manual_seed(0)
-    runs = [(label, shape, dt) for label, shape in FLASH.items()
-            for dt in (torch.bfloat16, torch.float32)]
-    runs += [("serve_d64", FLASH["serve_d64"], torch.float16)]
-    runs += [(label, shape, torch.float32) for label, shape in FLASH_F32.items()]
+    runs = [(label, shape, dt) for label, shape in FLASH_16_WIDE.items()
+            for dt in (torch.bfloat16, torch.float16)]
+    if only != "flash16":
+        runs += [(label, shape, dt) for label, shape in FLASH.items()
+                 for dt in (torch.bfloat16, torch.float32)]
+        runs += [("serve_d64", FLASH["serve_d64"], torch.float16)]
+        runs += [(label, shape, torch.float32) for label, shape in FLASH_F32.items()]
     for label, (B, S, H, KV, D), dt in runs:
         q, k, v = (torch.randn(B, S, n, D, device=dev, generator=gen).to(dt)
                    for n in (H, KV, KV))
@@ -93,6 +104,8 @@ def one_run(src: str) -> dict:
         out[f"flash_{str(dt)[6:]}_{label}"] = events_ms(
             lambda: fops.flash_attention_cuda(q, k, v, causal=True), *iters)
         del q, k, v
+    if only == "flash16":
+        return out
     f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
     g = torch.Generator().manual_seed(4)
     n = 50
@@ -130,14 +143,17 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
+    ap.add_argument("--only", choices=("flash16",),
+                    help="time bf16 and fp16 past a head dim of 256 alone")
     args = ap.parse_args(argv)
     if args.src:
-        print(json.dumps(one_run(args.src)), flush=True)
+        print(json.dumps(one_run(args.src, args.only)), flush=True)
         return 0
     a, b = args.compare
     runs = []
     for src in (a, b, b, a):
-        res = subprocess.run([sys.executable, __file__, "--src", src],
+        res = subprocess.run([sys.executable, __file__, "--src", src,
+                              *(["--only", args.only] if args.only else [])],
                              capture_output=True, text=True, check=True)
         line = json.loads(res.stdout.strip().splitlines()[-1])
         runs.append((src, line))

@@ -1,7 +1,8 @@
 // fp16 flash attention on Hopper's tensor cores, head dims 8..256: the fp16
 // instances of flash_sm90.cuh (which documents the kernel and its design:
 // wgmma .f32.f16.f16, P and o rounded to fp16) and the fp16 entries; head
-// dims above 256 go to the wide instances of flash_attention_sm90_wide.cu.
+// dims above 256 go to the cluster and wide instances of
+// flash_attention_sm90_wide.cu.
 // A unit of its own, so that nvcc builds it beside the bf16 one.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:

@@ -1,7 +1,9 @@
 // Flash attention on Hopper's tensor cores for head dims above 256, bf16
-// and fp16: the instances of flash_sm90.cuh's flash_fwd_sm90_wide (one for
-// each column-group width 160, 192 and 224 and type; the header
-// documents the design), reached through the entries of
+// and fp16: the instances of flash_sm90.cuh's flash_fwd_sm90_cluster (D =
+// 321 to 1,792: the column groups of a query tile one thread-block cluster
+// of at most 8 CTAs) and flash_fwd_sm90_wide (D up to 320, and above
+// 1,792), one for each column-group width 160, 192 and 224 and type (the
+// header documents the design), reached through the entries of
 // flash_attention_sm90.cu and flash_attention_sm90_f16.cu. A unit of its
 // own, so that nvcc builds it beside those.
 //
@@ -10,6 +12,47 @@
 #include "flash_sm90.cuh"
 
 namespace {
+
+// One launch of ng column groups of GW, the groups of a query tile one
+// cluster (1, 1, ng). A launch the card refuses returns its error: there is
+// no fallback to the wide kernel.
+template <typename E, int GW>
+cudaError_t launch_cluster(const void* q, const void* k, const void* v, void* o,
+                           void* lse, int B, int Sq, int Skv, int H, int KV, int D,
+                           int ng, int causal, int window, float scale,
+                           cudaStream_t stream) {
+  using C = ClusterCfg<GW>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_sm90_cluster<E, GW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::SMEM);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = make_map<E>(&mq, q, D, H, Sq, B, C::COLS, kRows);
+  if (err == cudaSuccess) err = make_map<E>(&mk, k, D, KV, Skv, B, C::COLS, C::BK);
+  if (err == cudaSuccess) err = make_map<E>(&mv, v, D, KV, Skv, B, C::COLS, C::BK);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * H, (Sq + kRows - 1) / kRows, ng);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = ng;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_fwd_sm90_cluster<E, GW>, mq, mk, mv,
+                           static_cast<E*>(o), static_cast<float*>(lse), Sq, Skv,
+                           H, KV, D, causal, window, scale);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
 
 template <typename E, int GW>
 cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
@@ -43,6 +86,14 @@ cudaError_t wide(const void* q, const void* k, const void* v, void* o,
                  int causal, int window, float scale, cudaStream_t s) {
   int ng, gw;
   column_groups(D, &ng, &gw);
+  if (D >= kMinClusterDim && D <= kMaxClusterDim) {
+    switch (gw) {
+      case 160: return launch_cluster<E, 160>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, ng, causal, window, scale, s);
+      case 192: return launch_cluster<E, 192>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, ng, causal, window, scale, s);
+      case 224: return launch_cluster<E, 224>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, ng, causal, window, scale, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   if (ng > 65535) return cudaErrorInvalidValue;   // grid z
   switch (gw) {
     case 160: return launch_wide<E, 160>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, ng, causal, window, scale, s);
@@ -50,6 +101,36 @@ cudaError_t wide(const void* q, const void* k, const void* v, void* o,
     case 224: return launch_wide<E, 224>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, ng, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// fill_attrs's six values of the cluster instance, with its cluster size
+// and how many such clusters the card holds at once
+template <typename E, int GW>
+cudaError_t attrs_cluster(int ng, int* out) {
+  using C = ClusterCfg<GW>;
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, flash_fwd_sm90_cluster<E, GW>);
+  if (err != cudaSuccess) return err;
+  fill_attrs(a, C::SMEM, out);
+  out[4] = ng;
+  err = cudaFuncSetAttribute(flash_fwd_sm90_cluster<E, GW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, 1, ng);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = ng;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, flash_fwd_sm90_cluster<E, GW>, &cfg);
+  out[5] = clusters;
+  return err;
 }
 
 template <typename E, int GW>
@@ -64,6 +145,14 @@ template <typename E>
 cudaError_t wide_attrs(int D, int* out) {
   int ng, gw;
   column_groups(D, &ng, &gw);
+  if (D >= kMinClusterDim && D <= kMaxClusterDim) {
+    switch (gw) {
+      case 160: return attrs_cluster<E, 160>(ng, out);
+      case 192: return attrs_cluster<E, 192>(ng, out);
+      case 224: return attrs_cluster<E, 224>(ng, out);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   switch (gw) {
     case 160: return attrs_wide<E, 160>(out);
     case 192: return attrs_wide<E, 192>(out);

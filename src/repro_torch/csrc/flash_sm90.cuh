@@ -7,7 +7,8 @@
 //                                 flash_attention_fwd_bf16 / _attrs_bf16)
 //   flash_attention_sm90_f16.cu   fp16, head dims 8..256 (the entries
 //                                 flash_attention_fwd_f16 / _attrs_f16)
-//   flash_attention_sm90_wide.cu  both types, head dims above 256
+//   flash_attention_sm90_wide.cu  both types, head dims above 256 (a
+//                                 cluster up to 1,792, the wide kernel above)
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:
 // _flash_kernel (entry flash_attention_pallas) for bf16 and fp16 inputs;
@@ -101,17 +102,65 @@
 // hold 16. At DP = 256 the Q tile (64 KB) and two stages of K and V tiles
 // (64 KB) fit the 227 KB of shared memory. At D < DP at most D / DP of the
 // bound's rate is reachable.
-// Head dims above 256 (flash_fwd_sm90_wide). wgmma caps P V's N at 256, O's
-// DP / 2 accumulators a thread fill the consumers' registers at 256, and a
-// resident Q tile grows with D past the shared memory. So:
-//   * O is cut into NG = ceil(D / 224) column groups of GW = ceil(D / NG)
-//     rounded up to 32 columns (160, 192 or 224: one instance each,
-//     whatever D), one group a CTA on grid z; the last group's columns past
-//     D are zero-filled V (their V chunks wholly past D are not loaded at
-//     all) and are not stored. (A group of 256 columns spilled 192 bytes
-//     a thread in its chunk loop, beside O's 128 accumulators, and ran
-//     D = 512 in 11.5 ms on an NVIDIA H100 80GB HBM3 at 700 W against the
-//     3.1 ms its operations scale to from D = 256: groups stop at 224);
+// Head dims above 256. wgmma caps P V's N at 256, O's DP / 2 accumulators a
+// thread fill the consumers' registers at 256, and a resident Q tile grows
+// with D past the shared memory. So O is cut into NG = ceil(D / 224) column
+// groups of GW = ceil(D / NG) rounded up to 32 columns (160, 192 or 224: one
+// instance each, whatever D), one group a CTA on grid z; the last group's
+// columns past D are zero-filled or never loaded, and are not stored. (A
+// group of 256 columns spilled 192 bytes a thread in the wide kernel's chunk
+// loop, beside O's 128 accumulators, and ran D = 512 in 11.5 ms on an NVIDIA
+// H100 80GB HBM3 at 700 W against the 3.1 ms its operations scale to from
+// D = 256; the DP = 256 instance above, with no chunk loop, still spills 128
+// bytes: groups stop at 224.)
+// From D = 321 to 1,792 (NG <= 8, the portable cluster size;
+// flash_fwd_sm90_cluster) the NG CTAs of a query tile are one thread-block
+// cluster (1, 1, NG), and S = Q K^T is computed once:
+//   * CTA g holds Q's GW columns of its group, resident (loaded once: at most
+//     56 KB), and streams the K and V tiles of its columns (32 x GW, the
+//     Cfg<GW> layout) through a ring of three stages. Chunks wholly past D
+//     are never loaded; Q's and K's are zeroed once, so QK^T reads zeros
+//     there, and V's reach only O columns that are not stored;
+//   * per key tile t, each consumer warpgroup computes its 64 x 32 partial
+//     scores over its group's columns (wgmma m64n32k16, GW / 16 k-steps on
+//     one accumulator), writes them to the next of four partial tiles in its
+//     shared memory, and (after a warpgroup barrier) one thread arrives on
+//     that tile's "full" mbarrier in every CTA of the cluster (mapa, then
+//     mbarrier.arrive.shared::cluster). Then it takes tile t - 1's S: it
+//     waits on its own barrier (acquire at cluster scope), reads the NG
+//     partials through ld.shared::cluster, adds them in the order g = 0, 1,
+//     ..., runs the online softmax and O += P V over its GW columns (wgmma
+//     m64n{GW}k16), and releases t - 1's stage. So the peers' arrivals
+//     travel while t's QK^T runs, and every CTA holds the same S, m, l and P,
+//     bit for bit; group 0 alone writes lse. A partial tile is reused four
+//     exchanges later: by then every peer has published the exchange two
+//     back, which it does only after it read the one four back, so no
+//     "empty" barrier is needed. The exchange runs per warpgroup, on the
+//     tiles it does not skip: warpgroup w of every CTA skips the same tiles
+//     (same q0), so its barriers' phases advance alike;
+//   * every thread, the producer warpgroup's too, meets a cluster barrier
+//     after the mbarriers are initialised and again before it exits: no CTA
+//     leaves while a peer may still read its partials or arrive on its
+//     barriers;
+//   * the arrivals are at CTA scope: a fence.acq_rel.cluster before them
+//     (the PTX model's cluster-scope release) took D = 1,024 from 15.24 to
+//     16.44 ms, and arrivals with release at cluster scope from every warp
+//     took it to 28.8 (NVIDIA H100 80GB HBM3, 700 W;
+//     scripts/flash16_variants.py); the partial tile is in the writer's
+//     shared memory once the warpgroup barrier has passed;
+//   * what bounds it: each partial tile (8 KB) is read by the NG - 1 other
+//     CTAs, (NG - 1) x 8 KB a warpgroup a tile over distributed shared
+//     memory. A reduce-scatter (each CTA summing 1 / NG of the tile in the
+//     fixed order, then everyone reading the sums) moves 2 (NG - 1) / NG of a
+//     tile but takes two exchanges a tile: on the same card it ran D = 264
+//     3.28 against 2.67 ms, 512 6.78 against 5.21, 1,024 14.77 against
+//     15.24, 1,792 24.97 against 28.29 (scripts/flash16_variants.py, A B B
+//     A; PERF.md), so the kernel reads every partial. Shared memory a CTA: Q,
+//     three stages of K and V, eight partial tiles (64 KB): 164 KB at GW =
+//     160, 184 KB at 192, 204 KB at 224;
+//   * up to D = 320 (two groups of 160) the wide kernel below ran faster
+//     (2.10 against 2.72 ms at D = 264), so it keeps those head dims.
+// Up to 320 and above 1,792 (flash_fwd_sm90_wide):
 //   * every CTA computes the full score tile S = Q K^T over all of D, in
 //     chunks of 64 columns taken in order (wgmma m64n{BK}k16, four k-steps
 //     a chunk, chained on one accumulator): Q's and K's chunks come through
@@ -122,7 +171,7 @@
 //   * every group computes the same S, m and l, bit for bit, and runs the
 //     same online softmax; each accumulates only its own GW columns of O
 //     (wgmma m64n{GW}k16 from a ring of kV V tiles of BK x GW), and group 0
-//     alone writes lse;
+//     alone writes lse; V chunks wholly past D are not loaded;
 //   * QK^T is repeated once a group, and Q is read again for every key tile:
 //     at D = 512 (three groups of 192) the products are 2x the bound's
 //     operations. Keys come in tiles of 64 at GW = 160 and of 32 above, as
@@ -136,9 +185,10 @@
 //   * D is taken at run time (a multiple of 8, as above); the grid is
 //     (B * H, ceil(Sq / 128), NG), NG up to 65,535 (D up to 14,679,840).
 // Left for later: ping-pong scheduling of the two consumers, overlap of the
-// softmax with the next tile's QK^T, one K/V tile shared by the query heads
-// of a GQA group, and (above 256) fewer waits in the chunk loop: a key tile
-// of 32 takes a barrier wait and a wgmma wait for every 64 columns of D.
+// softmax (and, in a cluster, the exchange) with the next tile's QK^T, one
+// K/V tile shared by the query heads of a GQA group, and (above 1,792)
+// fewer waits in the chunk loop: a key tile of 32 takes a barrier wait and a
+// wgmma wait for every 64 columns of D.
 //
 // A wait on an mbarrier that does not complete within ~2^31 cycles (about a
 // second) traps, so a protocol fault ends the launch with an error instead
@@ -153,8 +203,9 @@
 
 #include <type_traits>
 
-// The wide instances (flash_attention_sm90_wide.cu) behind the entries of
-// both types: dtype 0 = bf16, 1 = fp16; D > 256.
+// The instances past 256 (flash_attention_sm90_wide.cu: the cluster kernel
+// up to 1,792, the wide kernel above) behind the entries of both types:
+// dtype 0 = bf16, 1 = fp16; D > 256.
 extern "C" int flash_sm90_wide_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* o, void* lse, int B,
                                    int Sq, int Skv, int H, int KV, int D,
@@ -175,6 +226,11 @@ constexpr int kProducer = 128 * kConsumers;  // the thread that issues TMA
 constexpr int kStages = 2;
 constexpr int kMaxWidth = 256;              // the widest O (DP) a CTA holds
 constexpr int kMaxGroup = 224;              // the widest column group above it
+constexpr int kMaxCluster = 8;              // the portable cluster size
+constexpr int kMaxClusterDim = kMaxGroup * kMaxCluster;   // 1,792
+// Two groups of 160 (D <= 320) ran faster on the wide kernel than in a
+// cluster (scripts/kernel_ab.py): the cluster kernel takes D from 321.
+constexpr int kMinClusterDim = 321;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -196,9 +252,37 @@ struct Cfg {
   static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // wgmma swizzle code
 };
 
-// The wide kernel's tiles (D > 256): O's GW columns a CTA, S over D chunks
-// of 64 columns (128-byte rows, 128-byte swizzle) through a ring of kA
-// (Q chunk, K chunk) stages, V tiles of BK x GW through a ring of kV.
+// The cluster kernel's tiles (256 < D <= 1,792): Q's GW columns resident,
+// K and V tiles of BK x GW through a ring of three stages, and four partial
+// score tiles (64 x BK fp32) for each consumer warpgroup, used in turn. The
+// layout of Q, K and V is Cfg<GW>'s.
+template <int GW_>
+struct ClusterCfg {
+  static_assert(GW_ % 32 == 0 && GW_ >= 160 && GW_ <= kMaxGroup,
+                "GW: a multiple of 32 in 160..224");
+  static constexpr int GW = GW_;
+  static constexpr int BK = 32;                        // keys a tile
+  static constexpr int SW = GW % 64 == 0 ? 128 : 64;   // bytes per chunk row
+  static constexpr int COLS = SW / 2;                  // columns per chunk
+  static constexpr int CHUNKS = GW / COLS;
+  static constexpr int STAGES = 3;
+  static constexpr int SLOTS = 4;
+  static constexpr int Q_BYTES = kRows * GW * 2;
+  static constexpr int KV_BYTES = BK * GW * 2;         // one K or V tile
+  static constexpr int X_BYTES = kRowsWG * BK * 4;     // one partial tile
+  static constexpr int V_OFF = Q_BYTES + STAGES * KV_BYTES;
+  static constexpr int X_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int TILE_BYTES = X_OFF + SLOTS * kConsumers * X_BYTES;
+  // q_full, full and empty a stage, full a partial tile
+  static constexpr int N_BARS = 1 + 2 * STAGES + SLOTS * kConsumers;
+  static constexpr int SMEM = 1024 + TILE_BYTES + 8 * N_BARS;  // + alignment
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // wgmma swizzle code
+};
+
+// The wide kernel's tiles (256 < D <= 320 and D > 1,792): O's GW columns a
+// CTA, S over D chunks of 64 columns (128-byte rows, 128-byte swizzle)
+// through a ring of kA (Q chunk, K chunk) stages, V tiles of BK x GW
+// through a ring of kV.
 template <int GW_>
 struct WideCfg {
   static_assert(GW_ % 32 == 0 && GW_ >= 160 && GW_ <= kMaxGroup,
@@ -277,6 +361,59 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ---- the cluster's wrappers: barrier, distributed shared memory, remote
+// mbarrier arrivals
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the address of the same shared-memory byte in CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr) : "memory");
+  return v;
+}
+
+// one arrival on the mbarrier at `addr`, a shared::cluster address (this
+// CTA's or a peer's)
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t addr) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(addr) : "memory");
+}
+
+// the 128 threads of a warpgroup meet at named barrier `id` (1, 2, ...)
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: what the peers wrote before they
+// arrived is visible after it
+__device__ __forceinline__ bool mbar_try_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait_cluster(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait_cluster(bar, parity)) {
+    if (clock64() - t0 > (1LL << 31)) __trap();
+  }
 }
 
 // wgmma shared-memory matrix descriptor: start address, leading and stride
@@ -837,7 +974,235 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// ---- the kernel, head dims above 256: column group blockIdx.z of O ---------
+// ---- the kernel, head dims 257..1,792: column group blockIdx.z of O, the
+// NG groups of a query tile one thread-block cluster that computes S once --
+template <typename E, int GW_>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_sm90_cluster(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       E* __restrict__ o, float* __restrict__ lse, int Sq,
+                       int Skv, int H, int KV, int D, int causal, int window,
+                       float scale) {
+  using C = ClusterCfg<GW_>;
+  constexpr int BK = C::BK, SW = C::SW, COLS = C::COLS, GW = C::GW;
+  constexpr int STAGES = C::STAGES, SLOTS = C::SLOTS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;   // swizzle atoms: 1024 B
+  uint8_t* const sm = smem_raw + (base - raw);
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + C::Q_BYTES;                       // + s * KV_BYTES
+  const uint32_t v_s = base + C::V_OFF;                         // + s * KV_BYTES
+  const uint32_t bars = base + C::TILE_BYTES;
+  const uint32_t q_full = bars;
+  auto full = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + STAGES + s); };
+  // partial tile `slot` of consumer warpgroup w: its offset and barrier
+  auto x_buf = [&](int w, int slot) {
+    return C::X_OFF + (slot * kConsumers + w) * C::X_BYTES;
+  };
+  auto xfull = [&](int w, int slot) {
+    return bars + 8u * (1 + 2 * STAGES + slot * kConsumers + w);
+  };
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // late tiles first
+  // the cluster spans grid z: CTA rank g of the cluster holds group g
+  const int g = blockIdx.z, ng = gridDim.z;
+  const int c0 = g * GW;                                 // the group's first column
+  // chunks that hold a column < D: the ones loaded
+  const int n_ld = min(C::CHUNKS, (D - c0 + COLS - 1) / COLS);
+  const KeyRange kr = key_range(q0, Sq, Skv, causal, window, BK);
+  const int k_begin = kr.k_begin, n_tiles = kr.n_tiles;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * kConsumers);   // one arrival per consumer warp
+    }
+    for (int slot = 0; slot < SLOTS; ++slot)
+      for (int w = 0; w < kConsumers; ++w)
+        mbar_init(xfull(w, slot), ng);        // one arrival per CTA
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (n_ld < C::CHUNKS) {
+    // Q's and the K stages' chunks past D are never loaded: zeros for QK^T
+    auto zero = [&](int off, int bytes) {
+      for (int i = threadIdx.x; i < bytes / 16; i += kThreads)
+        reinterpret_cast<uint4*>(sm + off)[i] = make_uint4(0u, 0u, 0u, 0u);
+    };
+    zero(n_ld * kRows * SW, (C::CHUNKS - n_ld) * kRows * SW);
+    for (int s = 0; s < STAGES; ++s)
+      zero(C::Q_BYTES + s * C::KV_BYTES + n_ld * BK * SW, (C::CHUNKS - n_ld) * BK * SW);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  cluster_sync();   // every CTA's barriers initialised before any peer arrives
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ---- producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == kProducer) {
+      mbar_expect_tx(q_full, n_ld * kRows * SW);
+      for (int c = 0; c < n_ld; ++c)
+        tma_load_4d(q_s + c * kRows * SW, &tm_q, q_full, c0 + c * COLS, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(empty(s), ((t / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * n_ld * BK * SW);
+        const int k0 = k_begin + t * BK;
+        for (int c = 0; c < n_ld; ++c) {
+          tma_load_4d(k_s + s * C::KV_BYTES + c * BK * SW, &tm_k, full(s),
+                      c0 + c * COLS, kvh, k0, b);
+          tma_load_4d(v_s + s * C::KV_BYTES + c * BK * SW, &tm_v, full(s),
+                      c0 + c * COLS, kvh, k0, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroup wg: query rows q0 + 64 wg .. + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int r_lo = q0 + wg * kRowsWG;                 // the warpgroup's rows
+    const int r_hi = r_lo + kRowsWG - 1;
+    const int row0 = r_lo + warp * 16 + lane / 4;       // this thread's rows
+    const int row1 = row0 + 8;
+    const int col = 2 * (lane % 4);                     // + 8 j (+ 1)
+    const bool dead = r_lo >= Sq;
+
+    float acc[GW / 2];
+#pragma unroll
+    for (int i = 0; i < GW / 2; ++i) acc[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+    // exchanges published; the pending one (published, its S not yet
+    // taken): its index, stage and first key (ps < 0: none)
+    int xc = 0, px = 0, ps = -1, pk0 = 0;
+
+    mbar_wait(q_full, 0);
+    // Tile t's partial is published, then tile t - 1's S is taken: the
+    // peers' partials of t - 1 have been on their way while t's QK^T ran.
+    for (int t = 0; t <= n_tiles; ++t) {
+      bool published = false;
+      const int s = t % STAGES;
+      const int k0 = k_begin + t * BK;
+      if (t < n_tiles) {
+        mbar_wait(full(s), (t / STAGES) & 1);
+        const bool skip = dead || (!kr.orphans && ((causal && k0 > r_hi) ||
+                          (window > 0 && k0 + BK - 1 < r_lo - window + 1)));
+        if (!skip) {
+          // this group's partial S = Q_g K_g^T over its GW columns
+          float sc[BK / 2];
+          fence_regs(sc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < GW / 16; ++kk) {
+            const int c = (kk * 16) / COLS, off = (kk * 16) % COLS * 2;
+            const uint64_t da = make_desc(q_s + c * kRows * SW + wg * kRowsWG * SW + off,
+                                          16, 8 * SW, C::LAYOUT);
+            const uint64_t db = make_desc(k_s + s * C::KV_BYTES + c * BK * SW + off,
+                                          16, 8 * SW, C::LAYOUT);
+            wgmma_ss<E, BK>(sc, da, db, kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(sc);
+          // to partial tile xc % SLOTS, in the registers' own order (float4 j
+          // of thread tid at 16 (128 j + tid)); the tile it held four
+          // exchanges ago has been read by every peer, which has published
+          // exchange xc - 2 since; then one arrival on each CTA's barrier
+          const int slot = xc % SLOTS;
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j)
+            *reinterpret_cast<float4*>(sm + x_buf(wg, slot) + 16 * tid + 2048 * j) =
+                make_float4(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3]);
+          named_sync(1 + wg);
+          if (tid == 0) {
+            for (int r = 0; r < ng; ++r) mbar_arrive_remote(peer_addr(xfull(wg, slot), r));
+          }
+          published = true;
+        }
+      }
+      if (ps >= 0) {
+        // the pending tile's S: the partials of groups 0, 1, ..., ng - 1
+        // added in that order, each group's four float4 loads in flight
+        const int slot = px % SLOTS;
+        mbar_wait_cluster(xfull(wg, slot), (px / SLOTS) & 1);
+        const uint32_t xa = base + x_buf(wg, slot) + 16 * tid;
+        float sp[BK / 2];
+        for (int r = 0; r < ng; ++r) {
+          const uint32_t pa = peer_addr(xa, r);
+          float4 v[BK / 8];
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j) v[j] = ld_cluster_f4(pa + 2048 * j);
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j) {
+            if (r == 0) {
+              sp[4 * j] = v[j].x;
+              sp[4 * j + 1] = v[j].y;
+              sp[4 * j + 2] = v[j].z;
+              sp[4 * j + 3] = v[j].w;
+            } else {
+              sp[4 * j] += v[j].x;
+              sp[4 * j + 1] += v[j].y;
+              sp[4 * j + 2] += v[j].z;
+              sp[4 * j + 3] += v[j].w;
+            }
+          }
+        }
+        const bool need_mask = pk0 + BK > Skv || (causal && pk0 + BK - 1 > r_lo) ||
+                               (window > 0 && r_hi - pk0 >= window);
+        softmax_tile<BK>(sp, acc, m0, m1, l0, l1, need_mask, pk0, row0, row1, col,
+                         Skv, causal, window, scale);
+
+        // O[:, c0 .. c0 + GW) += P V_g
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          uint32_t pa[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            pa[r] = pack2<E>(sp[8 * kk + 2 * r], sp[8 * kk + 2 * r + 1]);
+          const uint64_t dv = make_desc(v_s + ps * C::KV_BYTES + kk * 16 * SW,
+                                        BK * SW, 8 * SW, C::LAYOUT);
+          wgmma_rs<E, GW>(acc, pa, dv);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(ps));   // this warp is done with stage ps
+        ps = -1;
+      }
+      if (published) {
+        px = xc++;
+        ps = s;
+        pk0 = k0;
+      } else if (t < n_tiles) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(s));    // a skipped tile's stage
+      }
+    }
+
+    const long long row_stride = static_cast<long long>(H) * D;
+    store_rows<E>(acc, m0, m1, l0, l1,
+                  o + (static_cast<long long>(b) * Sq * H + h) * D + c0,
+                  lse == nullptr || g != 0
+                      ? nullptr : lse + (static_cast<long long>(b) * H + h) * Sq,
+                  row0, row1, col, lane, Sq, row_stride, D - c0);
+  }
+  // no CTA leaves while a peer may still read its partials or arrive on its
+  // barriers
+  __syncwarp();
+  cluster_sync();
+}
+
+// ---- the kernel, head dims above 1,792: column group blockIdx.z of O -------
 template <typename E, int GW_>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_wide(const __grid_constant__ CUtensorMap tm_q,
@@ -1098,11 +1463,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       : launch_instance<E, DP, false>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, stream);
 }
 
+// registers, local bytes, static and dynamic shared bytes, the cluster size
+// (1: none) and the clusters the card holds at once (0: no cluster)
 inline void fill_attrs(const cudaFuncAttributes& a, int smem, int* out) {
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.localSizeBytes);
   out[2] = static_cast<int>(a.sharedSizeBytes);
   out[3] = smem;
+  out[4] = 1;
+  out[5] = 0;
 }
 
 template <typename E, int DP>

@@ -101,7 +101,8 @@
 // the cluster exchange with the next tile's products.
 #pragma once
 
-#include "flash_sm90.cuh"   // mbarrier and TMA wrappers, key_range, encode_tiled
+#include "flash_sm90.cuh"   // mbarrier, TMA and cluster wrappers, key_range,
+                            // encode_tiled
 
 // the cluster instances (flash_attention_tf32_wide.cu): 256 < D <= 2,048
 extern "C" int flash_tf32_wide_fwd(const void* q, const void* k, const void* v,
@@ -119,7 +120,6 @@ constexpr int BQ = 16 * kWarps;           // query rows a CTA (flash_sm90's kRow
 constexpr int BK = 32;                    // keys a tile
 constexpr int kRowBytes = 128;            // a box row: 32 fp32 columns
 constexpr int kMaxGroup = 256;            // the widest O a CTA holds
-constexpr int kMaxCluster = 8;            // the portable cluster size
 constexpr int kMaxWideDim = kMaxGroup * kMaxCluster;   // 2,048
 constexpr float kMasked = -1e30f;
 static_assert(BQ == kRows, "key_range takes flash_sm90's 128-row query tiles");
@@ -160,26 +160,6 @@ __device__ __forceinline__ void mma_tf32(float& d0, float& d1, float& d2, float&
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = __float_as_uint(x) & 0xFFFFE000u;
   lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// the address of the same shared-memory byte in CTA `rank` of the cluster
-__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out)
-               : "r"(addr), "r"(rank));
-  return out;
-}
-
-__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr) : "memory");
-  return v;
 }
 
 // ---- the kernel -------------------------------------------------------------

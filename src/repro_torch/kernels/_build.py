@@ -71,8 +71,8 @@ SIGNATURES = {
                                  _I, _I, _F, _P),
     "flash_attention_fwd_f16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _F, _P),
-    # (D, out int[4]: registers, local bytes, static and dynamic shared bytes;
-    # fp32 out int[6]: and the cluster size, the clusters the card holds)
+    # (D, out int[6]: registers, local bytes, static and dynamic shared bytes,
+    # the cluster size, the clusters the card holds)
     "flash_attention_attrs_f32": (_I, _P),
     "flash_attention_attrs_bf16": (_I, _P),
     "flash_attention_attrs_f16": (_I, _P),

@@ -5,25 +5,31 @@ sliding-window GQA attention, q ``[B, Sq, H, D]`` and k, v
 ``[B, Skv, KV, D]`` (fp32, bf16 or fp16, all the same type) ->
 ``[B, Sq, H, D]`` in q's type; query head h reads KV head
 ``h // (H // KV)``. CUDA tensors launch, on the current stream, the kernel
-of their type or raise: bf16 and fp16 the tensor-core kernel
-(``csrc/flash_sm90.cuh``: ``wgmma`` fed by TMA, P rounded to the input's
-type before P V; one translation unit a type), fp32 by head dim
-(``f32_route``): up to 128 the SIMT kernel (``csrc/flash_simt.cuh``), up to
-2,048 the 3xTF32 tensor-core kernel (``csrc/flash_tf32.cuh``: mma.sync
-.tf32, each fp32 operand split into two TF32 parts, three products), above
-2,048 the wide SIMT kernel. None falls back to another. All take every
-head dim from 1 to ``MAX_HEAD_DIM``, D at run time when its rows are whole
-16-byte copies (D a multiple of 8 in bf16 and fp16, of 4 in fp32); for any
-other D the wrapper zero-pads q, k and v to the next such width
-(``pad_head_dim``), keeps the scale 1/sqrt(D), launches and slices o. Up
-to 256 each kernel is compiled for the widths of ``COMPILED_WIDTHS`` (D
-rounded up to 32); above 256 O is cut into ``column_groups(D, dtype)``
-groups of one of ``WIDE_GROUP_WIDTHS[dtype]`` columns (at most 224 on the
-tensor cores, 256 in fp32), one group a CTA on grid z. The bf16/fp16 CTAs
-and the wide SIMT ones each compute the scores over all of D in chunks
-(``csrc/*_wide.cu``); the 3xTF32 CTAs of a query tile are one thread-block
-cluster (at most 8: D up to 2,048) that computes each group's partial
-scores once and sums them through distributed shared memory.
+of their type and head dim or raise. bf16 and fp16 take the tensor-core
+kernel (``csrc/flash_sm90.cuh``: ``wgmma`` fed by TMA, P rounded to the
+input's type before P V; one translation unit a type), by head dim
+(``sm90_route``): up to 256 one CTA a query tile, from 321 to
+``SM90_CLUSTER_MAX`` (1,792) the column groups of a query tile one
+thread-block cluster that computes QK^T once, up to 320 (two groups of
+160, where it measured faster) and above 1,792 the wide kernel, each
+group's CTA computing all of QK^T. fp32 goes by ``f32_route``: up to
+128 the SIMT kernel (``csrc/flash_simt.cuh``), up to 2,048 the 3xTF32
+tensor-core kernel (``csrc/flash_tf32.cuh``: mma.sync .tf32, each fp32
+operand split into two TF32 parts, three products), above 2,048 the wide
+SIMT kernel. None falls back to another: a launch the card refuses
+raises. All take every head dim from 1 to ``MAX_HEAD_DIM``, D at run time
+when its rows are whole 16-byte copies (D a multiple of 8 in bf16 and
+fp16, of 4 in fp32); for any other D the wrapper zero-pads q, k and v to
+the next such width (``pad_head_dim``), keeps the scale 1/sqrt(D),
+launches and slices o. Up to 256 each kernel is compiled for the widths of
+``COMPILED_WIDTHS`` (D rounded up to 32); above 256 O is cut into
+``column_groups(D, dtype)`` groups of one of ``WIDE_GROUP_WIDTHS[dtype]``
+columns (at most 224 on the 16-bit tensor cores, 256 in fp32), one group a
+CTA on grid z. The clusters (bf16/fp16 321 to 1,792, 3xTF32 to 2,048: at most
+8 CTAs, the portable size) compute each group's partial scores over its
+own columns once and sum them through distributed shared memory in the
+order g = 0, 1, ...; the wide kernels above (``csrc/*_wide.cu``) compute
+the scores over all of D in each group's CTA, in chunks.
 ``MAX_HEAD_DIM`` is the largest D whose column groups fit grid z on both
 kernels (65,535 groups of 224); the kernels' offsets are 64-bit wherever D
 multiplies a row index. ``check_grid`` holds a call to the kernels' grid
@@ -40,8 +46,10 @@ CPU tensors, and it saves (q, k, v, out, lse); its backward is
 recompute (plain JAX there), so the CPU tests run the card's backward.
 
 ``flash_attention.launches`` counts every launch; ``.launches_bf16``,
-``.launches_f16`` and ``.launches_f32`` count each type's, and beside
-``.launches_f32`` the counters of ``F32_ROUTE_COUNTERS`` each fp32
+``.launches_f16`` and ``.launches_f32`` count each type's; the counters of
+``SM90_ROUTE_COUNTERS`` count the 16-bit kernels' launches by route
+(``.launches_sm90``, ``.launches_sm90_cluster``, ``.launches_sm90_wide``,
+both types together) and those of ``F32_ROUTE_COUNTERS`` each fp32
 kernel's (``.launches_f32_simt``, ``.launches_f32_tf32``,
 ``.launches_f32_tf32_cluster``, ``.launches_f32_simt_wide``);
 ``.launches_lse`` counts those that wrote the log-sum-exp, and
@@ -64,6 +72,12 @@ NARROW_MAX = 256                 # the widest head dim a CTA holds whole
 SIMT_MAX = 128                   # fp32: the widest head dim of the SIMT kernel
 TF32_MAX = 2048                  # fp32: the 3xTF32 kernel's largest cluster
                                  # (8 CTAs, the portable size) of groups of 256
+SM90_CLUSTER_MAX = 1792          # bf16/fp16: the tensor-core kernel's largest
+                                 # cluster, 8 groups of 224 (a group of 256
+                                 # spills: csrc/flash_sm90.cuh)
+SM90_WIDE_PAIR_MAX = 320         # bf16/fp16: two groups of 160 ran faster on
+                                 # the wide kernel (scripts/kernel_ab.py on an
+                                 # H100: 2.10 against 2.72 ms at D = 264)
 # above it, the widest column group of O a CTA holds: on the tensor cores a
 # group of 256 spilled beside its chunk loop (csrc/flash_sm90.cuh)
 GROUP_MAX = {torch.float32: 256, torch.bfloat16: 224, torch.float16: 224}
@@ -84,6 +98,10 @@ _ROUTES = {torch.float32: ("flash_attention_fwd_f32", "flash_attention_attrs_f32
 F32_ROUTE_COUNTERS = {"simt": "launches_f32_simt", "tf32": "launches_f32_tf32",
                       "tf32_cluster": "launches_f32_tf32_cluster",
                       "simt_wide": "launches_f32_simt_wide"}
+# the bf16/fp16 tensor-core kernels by route (``sm90_route``) -> their
+# launch counters (both types together)
+SM90_ROUTE_COUNTERS = {"sm90": "launches_sm90", "sm90_cluster": "launches_sm90_cluster",
+                       "sm90_wide": "launches_sm90_wide"}
 
 
 def _check_window(window) -> None:
@@ -122,6 +140,19 @@ def f32_route(D: int) -> str:
     if D <= NARROW_MAX:
         return "tf32"
     return "tf32_cluster" if D <= TF32_MAX else "simt_wide"
+
+
+def sm90_route(D: int) -> str:
+    """The bf16/fp16 tensor-core kernel of (padded) head dim D: ``"sm90"``
+    up to 256 (one CTA a query tile holds all of D), ``"sm90_cluster"``
+    from ``SM90_WIDE_PAIR_MAX`` to ``SM90_CLUSTER_MAX`` (the column groups
+    of a query tile one cluster that computes QK^T once), ``"sm90_wide"``
+    up to ``SM90_WIDE_PAIR_MAX`` (two groups of 160, where it was faster)
+    and above ``SM90_CLUSTER_MAX`` (each group's CTA computing all of
+    QK^T)."""
+    if D <= NARROW_MAX:
+        return "sm90"
+    return "sm90_cluster" if SM90_WIDE_PAIR_MAX < D <= SM90_CLUSTER_MAX else "sm90_wide"
 
 
 def query_tile_rows(dtype: torch.dtype, D: int) -> int:
@@ -191,9 +222,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _build.check(err, entry)
         flash_attention.launches += 1
         setattr(flash_attention, counter, getattr(flash_attention, counter) + 1)
-        if q.dtype == torch.float32:
-            route = F32_ROUTE_COUNTERS[f32_route(qk.shape[3])]
-            setattr(flash_attention, route, getattr(flash_attention, route) + 1)
+        route = (F32_ROUTE_COUNTERS[f32_route(qk.shape[3])] if q.dtype == torch.float32
+                 else SM90_ROUTE_COUNTERS[sm90_route(qk.shape[3])])
+        setattr(flash_attention, route, getattr(flash_attention, route) + 1)
         flash_attention.launches_lse += int(with_lse)
     if o.shape[3] != D:
         o = o[..., :D].contiguous()
@@ -272,7 +303,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.launches_f32 = 0
-for _name in F32_ROUTE_COUNTERS.values():
+for _name in (*F32_ROUTE_COUNTERS.values(), *SM90_ROUTE_COUNTERS.values()):
     setattr(flash_attention, _name, 0)
 flash_attention.launches_bf16 = 0
 flash_attention.launches_f16 = 0
@@ -284,16 +315,16 @@ def kernel_attributes(dtype: torch.dtype, head_dim: int) -> dict:
     """Registers a thread (at launch), spill (local) bytes a thread, and
     static and dynamic shared bytes a CTA of the compiled instance that
     takes (dtype, head_dim): up to 256 the one of width head_dim rounded up
-    to 32, above it the wide one of ``column_groups(head_dim, dtype)``'s
-    width. fp32 adds its route (``f32_route``), the cluster size (1: none)
-    and how many such clusters the card holds at once (0: no cluster)."""
+    to 32, above it the cluster or wide one of ``column_groups(head_dim,
+    dtype)``'s width; its route (``f32_route``, ``sm90_route``), the
+    cluster size (1: none) and how many such clusters the card holds at
+    once (0: no cluster)."""
     out = (ctypes.c_int * 6)()
     entry = _ROUTES[dtype][1]
     err = getattr(_build.library(), entry)(head_dim, out)
     _build.check(err, entry)
     res = {"registers": out[0], "local_bytes": out[1],
            "shared_bytes": out[2], "dynamic_shared_bytes": out[3]}
-    if dtype == torch.float32:
-        res.update(route=f32_route(head_dim), cluster=out[4],
-                   max_active_clusters=out[5])
+    route = f32_route if dtype == torch.float32 else sm90_route
+    res.update(route=route(head_dim), cluster=out[4], max_active_clusters=out[5])
     return res

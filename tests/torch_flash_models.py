@@ -9,9 +9,13 @@ scores -1e30, keys past Skv -inf; online softmax with exp2((s - m) log2 e);
 l sums the fp32 P, and O += P V with P rounded to the input's type; o = O /
 max(l, 1e-30) in that type. Up to 256 the kernel computes on DP = D rounded
 up to 32 columns (BK 128 at DP <= 64, 64 up to 160, 32 above); above 256 on
-``ops.column_groups(D)``: each group (one CTA) sums S over chunks of 64
-columns in order, runs the same softmax, and accumulates only its GW
-columns of O (BK 64 at GW = 160, 32 above).
+``ops.column_groups(D)``, each group (one CTA) running the same softmax on
+the same S and accumulating only its GW columns of O. By ``ops.sm90_route``:
+on the cluster kernel (up to ``ops.SM90_CLUSTER_MAX``) each group's partial
+S over its own GW columns is a chain of 16-column wgmma k-steps on one
+accumulator, and the partials are added in the order g = 0, 1, ... (BK
+32); on the wide kernel above it every group sums S over all of D in
+chunks of 64 columns in order (BK 64 at GW = 160, 32 above).
 
 ``simt_model`` is the fp32 wide SIMT kernel (``csrc/flash_simt.cuh``, which
 runs above D = 2,048; its arithmetic is the same at any D above 256):
@@ -77,6 +81,29 @@ def _visible(rows, keys, Skv, causal, window, s):
     return torch.where(keys[None, :] >= Skv, -math.inf, s)
 
 
+def sm90_scores(qt, kt, route, ng, gw, Dp):
+    """A tile's raw scores on the tensor-core kernel's ``route``: qt [...,
+    64, W] and kt [..., BK, W] zero-padded to W columns."""
+    mm = lambda a, b: a @ b.transpose(-1, -2)        # noqa: E731
+    if route == "sm90":
+        return mm(qt, kt)
+    if route == "sm90_wide":
+        s = torch.zeros(*qt.shape[:-1], kt.shape[-2])
+        for c0 in range(0, Dp, 64):
+            s = s + mm(qt[..., c0:c0 + 64], kt[..., c0:c0 + 64])
+        return s
+    parts = []
+    for g in range(ng):
+        part = torch.zeros(*qt.shape[:-1], kt.shape[-2])
+        for c in range(g * gw, (g + 1) * gw, 16):
+            part = part + mm(qt[..., c:c + 16], kt[..., c:c + 16])
+        parts.append(part)
+    s = parts[0]
+    for part in parts[1:]:
+        s = s + part
+    return s
+
+
 def sm90_model(q, k, v, *, causal, window, record=None):
     """What the tensor-core kernel computes for q's type (bf16 or fp16) at
     any D (the wrapper's padding to a multiple of 8 included); ``record``
@@ -85,55 +112,54 @@ def sm90_model(q, k, v, *, causal, window, record=None):
     Skv, KV = k.shape[1], k.shape[2]
     Dp = -(-D // 8) * 8
     ng, gw = ops.column_groups(Dp, q.dtype)
-    if ng == 1:
+    route = ops.sm90_route(Dp)
+    if route == "sm90":
         DP = -(-Dp // 32) * 32
         BK = 128 if DP <= 64 else 64 if DP <= 160 else 32
-        width, chunk = DP, DP
+        width = gw = DP
     else:
-        BK = 64 if gw <= 160 else 32
-        width, chunk = ng * gw, 64
+        BK = 32 if route == "sm90_cluster" or gw > 160 else 64
+        width = ng * gw
     n_kt = -(-Skv // BK)
     qf = _padded(q, width)
     kf, vf = (_padded(t, width, n_kt * BK - Skv).repeat_interleave(H // KV, dim=1)
               for t in (k, v))
     scale = 1.0 / math.sqrt(D)
     out = torch.zeros(B, H, Sq, width)
-    for g in range(ng):
-        cols = slice(g * (width // ng), (g + 1) * (width // ng))
-        for q0 in range(0, Sq, 128):
-            k_begin, k_end, orphans = _key_range(q0, min(q0 + 128, Sq) - 1, Skv,
-                                                 causal, window, BK)
-            for r_lo in (q0, q0 + 64):
-                if r_lo >= Sq:
+    for q0 in range(0, Sq, 128):
+        k_begin, k_end, orphans = _key_range(q0, min(q0 + 128, Sq) - 1, Skv,
+                                             causal, window, BK)
+        for r_lo in (q0, q0 + 64):
+            if r_lo >= Sq:
+                continue
+            rows = torch.arange(r_lo, r_lo + 64)
+            m = [torch.full((B, H, 64), -1e30) for _ in range(ng)]
+            l = [torch.zeros(B, H, 64) for _ in range(ng)]
+            o = [torch.zeros(B, H, 64, gw) for _ in range(ng)]
+            qt = qf[:, :, r_lo:r_lo + 64]
+            qt = torch.nn.functional.pad(qt, (0, 0, 0, 64 - qt.shape[2]))
+            for k0 in range(k_begin, k_end, BK):
+                if not orphans and ((causal and k0 > r_lo + 63) or (
+                        window and k0 + BK - 1 < r_lo - window + 1)):
                     continue
-                rows = torch.arange(r_lo, r_lo + 64)
-                m = torch.full((B, H, 64), -1e30)
-                l = torch.zeros(B, H, 64)
-                o = torch.zeros(B, H, 64, width // ng)
-                qt = qf[:, :, r_lo:r_lo + 64]
-                qt = torch.nn.functional.pad(qt, (0, 0, 0, 64 - qt.shape[2]))
-                for k0 in range(k_begin, k_end, BK):
-                    if not orphans and ((causal and k0 > r_lo + 63) or (
-                            window and k0 + BK - 1 < r_lo - window + 1)):
-                        continue
-                    kt = kf[:, :, k0:k0 + BK]
-                    s = torch.zeros(B, H, 64, BK)
-                    for c0 in range(0, Dp if ng > 1 else width, chunk):
-                        s = s + qt[..., c0:c0 + chunk] @ kt[..., c0:c0 + chunk].transpose(-1, -2)
-                    s = _visible(rows, torch.arange(k0, k0 + BK), Skv, causal,
-                                 window, s * scale)
-                    m_new = torch.maximum(m, s.amax(-1))
-                    corr = torch.exp2((m - m_new) * LOG2E)
+                s = sm90_scores(qt, kf[:, :, k0:k0 + BK], route, ng, gw, Dp)
+                s = _visible(rows, torch.arange(k0, k0 + BK), Skv, causal, window,
+                             s * scale)
+                # every group (CTA) runs the same softmax on the same S
+                for g in range(ng):
+                    m_new = torch.maximum(m[g], s.amax(-1))
+                    corr = torch.exp2((m[g] - m_new) * LOG2E)
                     p = torch.exp2((s - m_new[..., None]) * LOG2E)
-                    l = l * corr + p.sum(-1)
-                    o = (o * corr[..., None]
-                         + p.to(q.dtype).float() @ vf[:, :, k0:k0 + BK, cols])
-                    m = m_new
+                    l[g] = l[g] * corr + p.sum(-1)
+                    o[g] = (o[g] * corr[..., None]
+                            + p.to(q.dtype).float() @ vf[:, :, k0:k0 + BK, g * gw:(g + 1) * gw])
+                    m[g] = m_new
+            n = min(64, Sq - r_lo)
+            for g in range(ng):
                 if record is not None:
-                    record.append((g, q0, r_lo, m, l))
-                n = min(64, Sq - r_lo)
-                out[:, :, r_lo:r_lo + n, cols] = (
-                    o / torch.clamp(l, min=1e-30)[..., None])[:, :, :n]
+                    record.append((g, q0, r_lo, m[g], l[g]))
+                out[:, :, r_lo:r_lo + n, g * gw:(g + 1) * gw] = (
+                    o[g] / torch.clamp(l[g], min=1e-30)[..., None])[:, :, :n]
     assert not out[..., D:].any()                # the padded columns stay zero
     return out[..., :D].permute(0, 2, 1, 3).to(q.dtype)
 
