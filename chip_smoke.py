@@ -299,14 +299,16 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    rows launch a round), and one ``make_round_engine`` round at 1,024.
 17. (a) both flash kernels at head dims 264, 288, 300, 320, 384, 512 and
    1,024 (column groups of O, one a CTA; bf16 and fp16 on the tensor
-   cores: a thread-block cluster from 321, and at 1,792 and 1,800 its
-   largest cluster and the wide kernel past it; fp32 on the 3xTF32
-   cluster, and at 2,048 and 2,056 its largest cluster and the wide SIMT
-   kernel past it) against ``attention_ref`` and ``flash_fwd_ref``'s lse,
-   causal GQA, windowed and cross (Skv != Sq), each call's route
-   counted; each D timed at ``[4, 2048, 32 | 4, D]``
+   cores: the wide kernel to 320, a thread-block cluster from 321, and at
+   1,792, 1,800 and 3,600 its largest cluster and the split route past it;
+   fp32 on the 3xTF32 cluster, and at 2,048, 2,056 and 4,104 its largest
+   cluster and the split route past it) against ``attention_ref`` and
+   ``flash_fwd_ref``'s lse, causal GQA, windowed and cross (Skv != Sq),
+   each call's route counted; each D timed at ``[4, 2048, 32 | 4, D]``
    beside its operations bound, the plain version and SDPA (its backend
-   named); (b) fp16 at D = 64, 80, 128 and 256 the same; (c) the smoke
+   named); the split route also held at that shape in fp32 (D = 2,056)
+   and bf16 (1,800), each call in two pieces of its workspace (counted);
+   (b) fp16 at D = 64, 80, 128 and 256 the same; (c) the smoke
    TinyLlama at ``head_dim=512``, one of its two layers, card against CPU
    under phase 15's gates
    (prefill and 4 greedy steps in fp32, bf16 and fp16, 3 fp32 AdamW steps
@@ -316,7 +318,10 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    version; the first decode step within 5% of the forward's scale) and
    the smoke model in fp16 card against CPU, as phase 6; (e) the fp16
    block top-k at widths 256, 4,096 and 65,536 bit for bit on the tricky
-   rows and fp16's subnormals and NaNs; (f) a launch with B * H = 65,600.
+   rows and fp16's subnormals and NaNs; (f) a launch with B * H = 65,600;
+   (g) the smoke TinyLlama at ``head_dim=2056``, one layer, card against
+   CPU (prefill and 4 greedy steps in fp32 and bf16; every launch on the
+   split route).
 
 ``--only 16`` and ``--only 17`` run that phase alone after the build. ``--cards K`` runs
 phase 7 alone across K cards (one NCCL rank a card,
@@ -5429,11 +5434,14 @@ WIDE_TIMED = (4, 2048, 32, 4)
 # and SDPA's math backend, beside the 16-bit ones, 22-54 ms
 WIDE_TIMED_ITERS = {torch.float32: 5, torch.bfloat16: 10, torch.float16: 10}
 # fp32 also at the 3xTF32 kernel's largest cluster (8 groups of 256) and
-# one past it, on the wide SIMT kernel; bf16 and fp16 at the tensor-core
-# kernel's largest cluster (8 groups of 224) and one past it, on its wide
-# kernel; each held as WIDE_DIMS and timed
-F32_EDGE_DIMS = (2048, 2056)
-SM90_EDGE_DIMS = (1792, 1800)
+# past it, on the split route (9 and 17 groups); bf16 and fp16 at the
+# tensor-core kernel's largest cluster (8 groups of 224) and past it, on
+# the split route; each held as WIDE_DIMS and timed
+F32_EDGE_DIMS = (2048, 2056, 4104)
+SM90_EDGE_DIMS = (1792, 1800, 3600)
+# the split route held at WIDE_TIMED, where its scores (2 GiB) take two
+# pieces of its workspace: (dtype, D)
+SPLIT_PIECES_CASES = ((torch.float32, 2056), (torch.bfloat16, 1800))
 # (b) fp16 at the head dims of the port's models, the same three calls
 F16_DIMS = (64, 80, 128, 256)
 # (c) the smoke TinyLlama at head_dim 512 (no config of the port has it),
@@ -5445,6 +5453,9 @@ F16_TOPK_WIDTHS = (256, 4096, 65536)
 # (f) B * H = 65,600 on grid x (past 65,535, where the wrapper's old check
 # stopped, ROADMAP C-30): B, S, H, KV, D
 GRID_X_CASE = (2050, 128, 32, 32, 32)
+# (g) the smoke TinyLlama at a head dim past both clusters' reach, one of
+# its two layers
+HEAD_DIM_SPLIT = dict(arch="tinyllama-1.1b", head_dim=2056, n_layers=1)
 PEAK = {torch.float32: PEAK_FP32_S, torch.bfloat16: PEAK_BF16_S,
         torch.float16: PEAK_BF16_S}      # fp16's dense tensor-core rate is bf16's
 
@@ -5508,6 +5519,44 @@ def time_flash_dims(dev, dt, dims) -> dict:
                    for n in (H, KV, KV))
         out[D] = time_flash(q, k, v, PEAK[dt], iters=WIDE_TIMED_ITERS[dt])
         del q, k, v
+    return out
+
+
+def hold_split_pieces(dev) -> dict:
+    """The split route at WIDE_TIMED for each of SPLIT_PIECES_CASES, one
+    call with lse, in at least two pieces of its workspace
+    (``ops.split_pieces``, each counted on ``flash_attention.split_pieces``),
+    against ``attention_ref`` (out) and ``flash_fwd_ref`` (lse) under
+    FLASH_ATOL / FLASH_LSE_ATOL."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    fa = ops.flash_attention
+    B, S, H, KV = WIDE_TIMED
+    out = {}
+    for dt, D in SPLIT_PIECES_CASES:
+        gen = torch.Generator(device=dev).manual_seed(D + 1)
+        q, k, v = (torch.randn(B, S, n, D, device=dev, generator=gen).to(dt)
+                   for n in (H, KV, KV))
+        pieces = len(ops.split_pieces(B, H, S, S))
+        before = (fa.split_pieces, fa.launches)
+        got, lse = ops.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+        counted = (fa.split_pieces - before[0], fa.launches - before[1])
+        want = ref.attention_ref(q, k, v, causal=True)
+        e = float((got.float() - want.float()).abs().max())
+        del want
+        _, lse_want = ref.flash_fwd_ref(q, k, v, causal=True)
+        e_lse = float((lse - lse_want).abs().max())
+        case = [B, S, H, KV, D, str(dt)]
+        log(json.dumps({"phase17_split_pieces": case, "pieces": counted[0],
+                        "max_abs_err": e, "lse_max_abs_err": e_lse}))
+        if pieces < 2 or counted != (pieces, 1):
+            raise AssertionError(f"phase 17: the split route at {case} ran "
+                                 f"{counted} (pieces, calls), want ({pieces}, 1)")
+        if not (e <= FLASH_ATOL[dt] and e_lse <= FLASH_LSE_ATOL[dt]):
+            raise AssertionError(f"phase 17: the split route differs from its plain "
+                                 f"version at {case}: out {e}, lse {e_lse}")
+        out[str(dt)] = {"D": D, "pieces": counted[0], "max_abs_err": e,
+                        "lse_max_abs_err": e_lse}
+        del q, k, v, got, lse, lse_want
     return out
 
 
@@ -5580,10 +5629,12 @@ def check_grid_x(dev) -> dict:
 
 def phase17(dev) -> dict:
     """(a) the flash kernels past head dim 256 (bf16 and fp16 on the
-    tensor cores' routes, ``ops.sm90_route``: the cluster kernel, and at
-    SM90_EDGE_DIMS its largest cluster and the wide kernel past it; fp32 on
-    the 3xTF32 cluster kernel, and at F32_EDGE_DIMS its largest cluster and
-    the wide SIMT kernel past it) against their plain versions and timed;
+    tensor cores' routes, ``ops.sm90_route``: the wide kernel, the cluster
+    kernel, and at SM90_EDGE_DIMS its largest cluster and the split route
+    past it; fp32 on the 3xTF32 cluster kernel, and at F32_EDGE_DIMS its
+    largest cluster and the split route past it) against their plain
+    versions and timed, and the split route in two pieces
+    (``hold_split_pieces``);
     (b) fp16 at D = 64, 80, 128, 256, the same; (c) the smoke TinyLlama at
     head_dim 512 (one layer) card against CPU (prefill and 4 serve steps in
     fp32, bf16 and fp16; 3 fp32 train steps with lse; every fp32 launch on
@@ -5591,9 +5642,12 @@ def phase17(dev) -> dict:
     cores' cluster kernel); (d) TinyLlama-1.1B served in fp16 at phase 5's
     shape (every prefill launch held) and the smoke model in fp16 card
     against CPU, as phase 6; (e) the fp16 block top-k; (f) a launch past B
-    * H = 65,535. Each run's counts zeroed just before it and read just
-    after. Returns the fp16 kernel's entry, the fp32 cluster kernel's, the
-    16-bit cluster kernel's, and the wide results."""
+    * H = 65,535; (g) the smoke TinyLlama at head_dim 2,056 (one layer)
+    card against CPU in fp32 and bf16 (prefill and 4 serve steps), every
+    launch on the split route. Each run's counts zeroed just before it and
+    read just after. Returns the fp16 kernel's entry, the fp32 cluster
+    kernel's, the 16-bit cluster kernel's, the split route's, and the wide
+    results."""
     import dataclasses
 
     from repro_torch.configs import get_smoke
@@ -5608,13 +5662,18 @@ def phase17(dev) -> dict:
     wide = {}
     for dt in (torch.bfloat16, torch.float16, torch.float32):
         dims = WIDE_DIMS + (() if dt == torch.float32 else SM90_EDGE_DIMS)
-        held = hold_flash_cases(dev, dt, dims, seed=31)
+        split = tuple(D for D in dims if ops.route_of(dt, D).endswith("split"))
+        held = hold_flash_cases(dev, dt, tuple(D for D in dims if D not in split),
+                                seed=31)
         wide[str(dt)] = dict(held, timed=time_flash_dims(dev, dt, dims))
+        if split:
+            wide[str(dt)]["split"] = hold_flash_cases(dev, dt, split, seed=43)
     wide["torch.float32"]["edges"] = {
         D: hold_flash_cases(dev, torch.float32, (D,), seed=41 + i)
         for i, D in enumerate(F32_EDGE_DIMS)}
     wide["torch.float32"]["edges_timed"] = time_flash_dims(dev, torch.float32,
                                                            F32_EDGE_DIMS)
+    pieces = hold_split_pieces(dev)
     f16 = dict(hold_flash_cases(dev, torch.float16, F16_DIMS, seed=37),
                timed=time_flash_dims(dev, torch.float16, F16_DIMS))
     stamp("17 (a)-(b)")
@@ -5640,6 +5699,17 @@ def phase17(dev) -> dict:
     stamp("17 (d)")
     topk = check_topk_block_f16(dev)
     grid = check_grid_x(dev)
+
+    cfg = dataclasses.replace(get_smoke(HEAD_DIM_SPLIT["arch"]),
+                              head_dim=HEAD_DIM_SPLIT["head_dim"],
+                              n_layers=HEAD_DIM_SPLIT["n_layers"])
+    zero_routes()
+    d_split = {"prefill": [family13_card_against_cpu(dev, HEAD_DIM_SPLIT["arch"], dtype,
+                                                     cfg=cfg, label="phase 17 (g)")
+                           for dtype in ("float32", "bfloat16")]}
+    d_split["f32_routes"] = read_routes("tf32_split", "phase 17 (g)")
+    d_split["sm90_routes"] = read_routes("sm90_split", "phase 17 (g)", sixteen=True)
+    stamp("17 (g)")
 
     t = f16["timed"][64]
     entry = dict(name="flash_attention_f16", route="cuda",
@@ -5698,6 +5768,37 @@ def phase17(dev) -> dict:
         launches_phase17c={r["dtype"]: r["flash_launches"] for r in d512["prefill"][1:]},
         instances={k: a for k, a in attrs.items()
                    if a["route"] == "sm90_cluster"})
+    # the split route's entry, timed at D = 2,056 in fp32 (against its 3xTF32
+    # bound), its launches those of (g)
+    w16s = [wide["torch.bfloat16"], wide["torch.float16"]]
+    t = w32["edges_timed"][2056]
+    split_dims = {dt: tuple(D for D in dims if ops.route_of(dt, D).endswith("split"))
+                  for dt, dims in ((torch.float32, F32_EDGE_DIMS),
+                                   (torch.bfloat16, SM90_EDGE_DIMS))}
+    held_split = ([w32["edges"][D] for D in split_dims[torch.float32]]
+                  + [w["split"] for w in w16s] + list(pieces.values()))
+    split_entry = dict(
+        name="flash_attention_split", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_split.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:25",
+        launches=d_split["f32_routes"]["tf32_split"] + d_split["sm90_routes"]["sm90_split"],
+        max_abs_err=max(h["max_abs_err"] for h in held_split),
+        lse_max_abs_err=max(h["lse_max_abs_err"] for h in held_split),
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_3xtf32_ms"],
+        bound_by=t["bound_3xtf32_by"], bound_fp32_cores_ms=t["bound_ms"],
+        library_ms=t["library_ms"], sdpa_backend=t["sdpa_backend"],
+        ms_with_lse=t["ms_with_lse"],
+        head_dims={"fp32": {D: w32["edges_timed"][D] for D in split_dims[torch.float32]},
+                   "bf16": {D: w16s[0]["timed"][D] for D in split_dims[torch.bfloat16]},
+                   "fp16": {D: w16s[1]["timed"][D] for D in split_dims[torch.bfloat16]}},
+        max_abs_err_by_type={"fp32": max(w32["edges"][D]["max_abs_err"]
+                                         for D in split_dims[torch.float32]),
+                             "bf16": w16s[0]["split"]["max_abs_err"],
+                             "fp16": w16s[1]["split"]["max_abs_err"]},
+        pieces=pieces,
+        launches_phase17g={"fp32": d_split["f32_routes"]["tf32_split"],
+                           "bf16": d_split["sm90_routes"]["sm90_split"]},
+        instances={k: a for k, a in attrs.items() if a["route"].endswith("split")})
     log(json.dumps({"phase17_summary": {
         "wide_ms": {dt: {D: r["ms"] for D, r in w["timed"].items()}
                     for dt, w in wide.items()},
@@ -5707,8 +5808,9 @@ def phase17(dev) -> dict:
                                              "logit_scale")},
         "topk_f16": topk, "grid_x": grid}}))
     return {"entry": entry, "entry_f32_cluster": cluster,
-            "entry_sm90_cluster": sm90_cluster, "wide": wide,
-            "d512": d512, "topk_f16": topk, "grid_x": grid}
+            "entry_sm90_cluster": sm90_cluster, "entry_split": split_entry,
+            "wide": wide, "d512": d512, "d_split": d_split, "topk_f16": topk,
+            "grid_x": grid}
 
 
 def main(argv) -> int:
@@ -5749,7 +5851,7 @@ def main(argv) -> int:
         # phase 17 alone (head dims past 256, fp16, the grid's x limit)
         p17 = phase17(dev)
         log(json.dumps({"kernels": [p17["entry"], p17["entry_f32_cluster"],
-                                    p17["entry_sm90_cluster"]]}))
+                                    p17["entry_sm90_cluster"], p17["entry_split"]]}))
         log(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
@@ -6001,12 +6103,13 @@ def main(argv) -> int:
     # the tensor-core kernel (its entry joins the kernels line) and the
     # block top-k, and a launch past B * H = 65,535
     p17 = phase17(dev)
-    kernels += [p17["entry"], p17["entry_f32_cluster"], p17["entry_sm90_cluster"]]
+    kernels += [p17["entry"], p17["entry_f32_cluster"], p17["entry_sm90_cluster"],
+                p17["entry_split"]]
     w = p17["wide"]["torch.bfloat16"]
     flash["head_dims_past_256"] = dict(w["timed"], max_abs_err=w["max_abs_err"],
                                        lse_max_abs_err=w["lse_max_abs_err"])
     flash["launches_phase17c"] = {"prefill_bf16": p17["d512"]["prefill"][1]["flash_launches"]}
-    # fp32 past 2,048 keeps the wide SIMT kernel (phase 17's edge dims)
+    # fp32 past 2,048 takes the split route (phase 17's edge dims)
     flash_f32["past_2048"] = dict(p17["wide"]["torch.float32"]["edges"][2056],
                                   timed=p17["wide"]["torch.float32"]["edges_timed"][2056])
     block["fp16"] = p17["topk_f16"]

@@ -8,6 +8,8 @@ prints every run's times and the medians by checkout.
     python3 scripts/kernel_ab.py --src src          # one run, one JSON line
     python3 scripts/kernel_ab.py --compare build/parent/src src --only flash16
                                        # the 16-bit flash past 256 alone
+    python3 scripts/kernel_ab.py --compare build/parent/src src --only split
+                                       # the head dims past the clusters alone
 
 Times are CUDA events around back-to-back launches (flash: 20 after 3
 warm-up calls; 5 after 1 past a head dim of 256) and the profiler's device
@@ -18,8 +20,10 @@ fp32 also the head dims of phase 2's ``FLASH_HEAD_DIMS`` past 128 (160,
 192, 224 at ``[2, 2048, 16 | 16, D]``, Gemma-2B's and Gemma-7B's calls)
 and phase 17's ``WIDE_DIMS`` at ``[4, 2048, 32 | 4, D]``; bf16 and fp16 at
 ``WIDE_DIMS`` and at the edges of the 16-bit cluster kernel's reach
-(``SM90_EDGE_DIMS``: 1,792 on the cluster, 1,800 on the wide kernel) at
-that shape; the ascent on the paper's 10 gammas (L = 10) and x (8, 16, 32)
+(``SM90_EDGE_DIMS``: 1,792 on the cluster, 1,800 and 3,600 past it) at
+that shape; the head dims past both clusters' reach (``FLASH_SPLIT``: fp32
+2,056 and 4,104, bf16 and fp16 1,800 and 3,600, the split route since it
+came); the ascent on the paper's 10 gammas (L = 10) and x (8, 16, 32)
 (L = 30) at N = 50; both top-k kernels at block widths ``TOPK_WIDTHS``, the
 rows kernel on phase 2's ``[50, 1,630,090]`` matrix at ks of the gamma
 grid, the block kernel on one row at gamma 0.25: the profiler's device time
@@ -43,9 +47,14 @@ FLASH_F32 = {"d160": (2, 2048, 16, 16, 160), "d192": (2, 2048, 16, 16, 192),
              "gemma_7b": (2, 2048, 16, 16, 256),
              **{f"wide_d{D}": (4, 2048, 32, 4, D)
                 for D in (264, 288, 300, 320, 384, 512, 1024)}}
-# bf16 and fp16 past 256: phase 17's WIDE_DIMS and SM90_EDGE_DIMS
+# bf16 and fp16 past 256: phase 17's WIDE_DIMS and the cluster's reach
 FLASH_16_WIDE = {f"wide_d{D}": (4, 2048, 32, 4, D)
-                 for D in (264, 288, 300, 320, 384, 512, 1024, 1792, 1800)}
+                 for D in (264, 288, 300, 320, 384, 512, 1024, 1792)}
+# past both clusters' reach: (label, shape, dtype)
+FLASH_SPLIT = [(f"wide_d{D}", (4, 2048, 32, 4, D), dt)
+               for dts, dims in ((("float32",), (2056, 4104)),
+                                 (("bfloat16", "float16"), (1800, 3600)))
+               for D in dims for dt in dts]
 GRID = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
 TOPK_WIDTHS = (1, 100, 4096, 8192, 65536, 1_630_090)
 
@@ -90,9 +99,12 @@ def one_run(src: str, only: str | None = None) -> dict:
 
     out = {}
     gen = torch.Generator(device=dev).manual_seed(0)
-    runs = [(label, shape, dt) for label, shape in FLASH_16_WIDE.items()
-            for dt in (torch.bfloat16, torch.float16)]
-    if only != "flash16":
+    runs = [(label, shape, getattr(torch, dt)) for label, shape, dt in FLASH_SPLIT
+            if only != "flash16" or dt != "float32"]
+    if only != "split":
+        runs += [(label, shape, dt) for label, shape in FLASH_16_WIDE.items()
+                 for dt in (torch.bfloat16, torch.float16)]
+    if only is None:
         runs += [(label, shape, dt) for label, shape in FLASH.items()
                  for dt in (torch.bfloat16, torch.float32)]
         runs += [("serve_d64", FLASH["serve_d64"], torch.float16)]
@@ -104,7 +116,7 @@ def one_run(src: str, only: str | None = None) -> dict:
         out[f"flash_{str(dt)[6:]}_{label}"] = events_ms(
             lambda: fops.flash_attention_cuda(q, k, v, causal=True), *iters)
         del q, k, v
-    if only == "flash16":
+    if only is not None:
         return out
     f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
     g = torch.Generator().manual_seed(4)
@@ -143,8 +155,9 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
-    ap.add_argument("--only", choices=("flash16",),
-                    help="time bf16 and fp16 past a head dim of 256 alone")
+    ap.add_argument("--only", choices=("flash16", "split"),
+                    help="time bf16 and fp16 past a head dim of 256 alone, "
+                         "or the head dims past the clusters' reach alone")
     args = ap.parse_args(argv)
     if args.src:
         print(json.dumps(one_run(args.src, args.only)), flush=True)

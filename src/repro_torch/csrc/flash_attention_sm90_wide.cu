@@ -1,11 +1,14 @@
-// Flash attention on Hopper's tensor cores for head dims above 256, bf16
+// Flash attention on Hopper's tensor cores for head dims 257 to 1,792, bf16
 // and fp16: the instances of flash_sm90.cuh's flash_fwd_sm90_cluster (D =
 // 321 to 1,792: the column groups of a query tile one thread-block cluster
-// of at most 8 CTAs) and flash_fwd_sm90_wide (D up to 320, and above
-// 1,792), one for each column-group width 160, 192 and 224 and type (the
-// header documents the design), reached through the entries of
-// flash_attention_sm90.cu and flash_attention_sm90_f16.cu. A unit of its
-// own, so that nvcc builds it beside those.
+// of at most 8 CTAs) and flash_fwd_sm90_wide (D = 257 to 320: two groups of
+// 160, where it ran faster than the cluster), one for each column-group
+// width 160, 192 and 224 and type (the header documents the design),
+// reached through the entries of flash_attention_sm90.cu and
+// flash_attention_sm90_f16.cu. Past 1,792 the split route
+// (flash_attention_split.cu, with the wrapper's workspace) computes QK^T
+// once; these entries refuse those head dims. A unit of its own, so that
+// nvcc builds it beside those.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:
 // _flash_kernel (entry flash_attention_pallas), which takes any D.
@@ -86,7 +89,7 @@ cudaError_t wide(const void* q, const void* k, const void* v, void* o,
                  int causal, int window, float scale, cudaStream_t s) {
   int ng, gw;
   column_groups(D, &ng, &gw);
-  if (D >= kMinClusterDim && D <= kMaxClusterDim) {
+  if (D >= kMinClusterDim) {
     switch (gw) {
       case 160: return launch_cluster<E, 160>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, ng, causal, window, scale, s);
       case 192: return launch_cluster<E, 192>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, ng, causal, window, scale, s);
@@ -94,7 +97,6 @@ cudaError_t wide(const void* q, const void* k, const void* v, void* o,
       default: return cudaErrorInvalidValue;
     }
   }
-  if (ng > 65535) return cudaErrorInvalidValue;   // grid z
   switch (gw) {
     case 160: return launch_wide<E, 160>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, ng, causal, window, scale, s);
     case 192: return launch_wide<E, 192>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, ng, causal, window, scale, s);
@@ -145,7 +147,7 @@ template <typename E>
 cudaError_t wide_attrs(int D, int* out) {
   int ng, gw;
   column_groups(D, &ng, &gw);
-  if (D >= kMinClusterDim && D <= kMaxClusterDim) {
+  if (D >= kMinClusterDim) {
     switch (gw) {
       case 160: return attrs_cluster<E, 160>(ng, out);
       case 192: return attrs_cluster<E, 192>(ng, out);
@@ -163,13 +165,13 @@ cudaError_t wide_attrs(int D, int* out) {
 
 }  // namespace
 
-// dtype 0 = bf16, 1 = fp16; D > 256, a multiple of 8
+// dtype 0 = bf16, 1 = fp16; 256 < D <= 1,792, a multiple of 8
 extern "C" int flash_sm90_wide_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* o, void* lse, int B,
                                    int Sq, int Skv, int H, int KV, int D,
                                    int causal, int window, float scale,
                                    void* stream) {
-  if (D <= kMaxWidth || D % 8) return cudaErrorInvalidValue;
+  if (D <= kMaxWidth || D > kMaxClusterDim || D % 8) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return wide<__nv_bfloat16>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, causal, window, scale, s);
@@ -179,7 +181,7 @@ extern "C" int flash_sm90_wide_fwd(int dtype, const void* q, const void* k,
 }
 
 extern "C" int flash_sm90_wide_attrs(int dtype, int D, int* out) {
-  if (D <= kMaxWidth) return cudaErrorInvalidValue;
+  if (D <= kMaxWidth || D > kMaxClusterDim) return cudaErrorInvalidValue;
   if (dtype == 0) return wide_attrs<__nv_bfloat16>(D, out);
   if (dtype == 1) return wide_attrs<__half>(D, out);
   return cudaErrorInvalidValue;

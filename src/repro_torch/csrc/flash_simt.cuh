@@ -5,13 +5,12 @@
 //                            flash_attention_fwd_f32 / _attrs_f32, which
 //                            send head dims 129..2,048 to the 3xTF32
 //                            tensor-core kernel of flash_tf32.cuh)
-//   flash_attention_wide.cu  head dims above 2,048
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:
 // _flash_kernel (entry flash_attention_pallas) for fp32 inputs at head dims
-// up to 128 and past 2,048; bf16 goes to the tensor-core kernel of
-// flash_attention_sm90.cu, fp32 between them to the 3xTF32 one of
-// flash_tf32.cuh (the SIMT kernel ties SDPA up to 128). In the port it runs
+// up to 128; bf16 goes to the tensor-core kernel of flash_attention_sm90.cu,
+// fp32 past 128 to the 3xTF32 kernels of flash_tf32.cuh and, past 2,048,
+// flash_split.cuh (the SIMT kernel ties SDPA up to 128). In the port it runs
 // on the flash branch of models/attention.attention_forward (sequences of
 // 2048 or more) for fp32 models, once per layer of a prefill.
 //
@@ -77,23 +76,10 @@
 //   other D; O += P V runs over DP / 32 float4s a thread, the padded
 //   columns of O stay zero, and only the D real ones are stored.
 // - Above DP = 128 the fp32 entries take the 3xTF32 tensor-core kernel
-//   (flash_tf32.cuh) up to D = 2,048.
-// - Above D = 2,048 (flash_fwd_wide_kernel; past the tensor-core kernel's
-//   largest cluster, 8 groups of 256) O is cut into NG = ceil(D / 256)
-//   column groups of GW = ceil(D / NG) rounded up to 32 columns (160, 192,
-//   224 or 256: one instance each, whatever D), one group a CTA on grid z,
-//   32 query rows a CTA, thread (ty, tx) rows ty and ty + 16 (2 x GW / 8
-//   accumulators a thread, P a float2 of 2 rows a key), key tiles of 32. Q and K are not held whole: each key tile
-//   walks D in chunks of 128 columns, Q's chunk and K's chunk copied
-//   together, double-buffered, and each score's fmaf chain goes on through
-//   the chunks in order, so it still sums d = 0..D-1 in order, the order of
-//   every other D. Then the tile's V columns of the group come in and O +=
-//   P V runs as above. Every group computes the same scores, m and l; group
-//   0 alone writes lse. QK^T is repeated once a group (1.5x the bound's
-//   operations at D = 512). 72 KB of shared memory a CTA, two CTAs an SM.
-//   The grid is (B * H, ceil(Sq / 32), NG), NG up to 65,535.
+//   (flash_tf32.cuh) up to D = 2,048; past it the split route
+//   (flash_split.cuh) has an entry of its own.
 // B * H is on grid x (up to 2^31 - 1), the query tiles on y (up to 65,535:
-// Sq up to 4,194,240 rows at 64 a tile, 2,097,120 at 32 above D = 2,048).
+// Sq up to 4,194,240 rows at 64 a tile).
 // The heavy (late) query tiles of a causal mask are scheduled first, over
 // every (batch, head). Every multiply-add is an explicit fmaf (the library
 // is built with --fmad=false).
@@ -103,19 +89,11 @@
 #include <math.h>
 #include <stdint.h>
 
-// The wide instances (flash_attention_wide.cu) behind the fp32 entries;
-// D > 2,048.
-extern "C" int flash_simt_wide_fwd(const void* q, const void* k, const void* v,
-                                   void* o, void* lse, int B, int Sq, int Skv,
-                                   int H, int KV, int D, int causal, int window,
-                                   float scale, void* stream);
-extern "C" int flash_simt_wide_attrs(int D, int* out);
-
 namespace {
 
 constexpr int kThreads = 128;    // 16 row groups (ty) x 8 column groups (tx)
 constexpr float kMasked = -1e30f;
-constexpr int kMaxWidth = 256;   // the widest O group (GW) a wide CTA holds
+constexpr int kMaxWidth = 256;   // the widest D of the 3xTF32 kernel's one CTA
 constexpr int kMaxSimt = 128;    // the widest DP of flash_fwd_kernel
 constexpr int kMaxTf32 = 2048;   // the widest D of the 3xTF32 kernel
 
@@ -376,279 +354,6 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-
-// ---- head dims above 2,048: column group blockIdx.z of O --------------------
-template <int GW_>
-struct WideTile {
-  static_assert(GW_ % 32 == 0 && GW_ >= 160 && GW_ <= kMaxWidth,
-                "GW: a multiple of 32 in 160..256");
-  static constexpr int GW = GW_;                 // O's columns a CTA
-  static constexpr int kTM = 2;                  // query rows a thread: ty, ty + 16
-  static constexpr int kBQ = 16 * kTM;           // query rows a CTA
-  static constexpr int BK = 32;                  // keys a tile
-  static constexpr int TN = BK / 8;              // keys a thread: tx + 8 i
-  static constexpr int SC = 128;                 // columns of a Q or K chunk
-  static constexpr int DC = GW / 32;             // float4s of O a row: 4 tx + 32 c
-  static constexpr int LDC = SC + 4;             // row stride of a Q or K chunk
-  static constexpr int LDV = GW + 4;             // row stride of a V tile
-  static constexpr int LDP = kBQ + 4;            // row stride of P
-  static constexpr int kQC = kBQ * LDC;
-  static constexpr int kKC = BK * LDC;
-  static constexpr int kV = BK * LDV;
-  // a stage holds a (Q chunk, K chunk) pair or a V tile
-  static constexpr int kStage = kQC + kKC > kV ? kQC + kKC : kV;
-  static constexpr int kP = BK * LDP;
-  static constexpr int kBytes = (2 * kStage + kP) * 4;
-};
-
-// Step n of a CTA's walk (tile t = n / (NC + 1), j = n % (NC + 1)): j < NC
-// copies chunk j of the query tile (rows q0.., unscaled) and of the key tile
-// (keys k0..) into `st`, the columns j SC .. j SC + SC - 1; j = NC copies the
-// key tile's V columns c0 .. c0 + GW - 1. Rows past Sq or Skv and columns
-// past D (a multiple of 4) are zero-filled.
-template <int GW>
-__device__ __forceinline__ void load_wide_step(float* st, const float* qb,
-                                               const float* kb, const float* vb,
-                                               int j, int n_chunks, int q0, int k0,
-                                               int c0, int Sq, int Skv, int D,
-                                               long long q_stride,
-                                               long long kv_stride) {
-  using T = WideTile<GW>;
-  constexpr int kCols = T::SC / 4;
-  if (j < n_chunks) {
-    const int d0 = j * T::SC;
-#pragma unroll
-    for (int it = 0; it < T::kBQ * kCols / kThreads; ++it) {
-      const int idx = it * kThreads + threadIdx.x;
-      const int r = idx / kCols, c = idx % kCols;
-      const bool in = q0 + r < Sq && d0 + 4 * c < D;
-      const long long off = in ? (q0 + r) * q_stride + d0 + 4 * c : 0;
-      cp_async16(st + r * T::LDC + 4 * c, qb + off, in);
-    }
-#pragma unroll
-    for (int it = 0; it < T::BK * kCols / kThreads; ++it) {
-      const int idx = it * kThreads + threadIdx.x;
-      const int r = idx / kCols, c = idx % kCols;
-      const bool in = k0 + r < Skv && d0 + 4 * c < D;
-      const long long off = in ? (k0 + r) * kv_stride + d0 + 4 * c : 0;
-      cp_async16(st + T::kQC + r * T::LDC + 4 * c, kb + off, in);
-    }
-  } else {
-    constexpr int kVCols = GW / 4;
-    static_assert(T::BK * kVCols % kThreads == 0, "whole copies a thread");
-#pragma unroll
-    for (int it = 0; it < T::BK * kVCols / kThreads; ++it) {
-      const int idx = it * kThreads + threadIdx.x;
-      const int r = idx / kVCols, c = idx % kVCols;
-      const bool in = k0 + r < Skv && c0 + 4 * c < D;
-      const long long off = in ? (k0 + r) * kv_stride + c0 + 4 * c : 0;
-      cp_async16(st + r * T::LDV + 4 * c, vb + off, in);
-    }
-  }
-}
-
-// Above D = 2,048 a CTA owns 32 query rows of one (batch, head) and the GW
-// columns c0 = blockIdx.z GW .. of O. Each key tile is NC + 1 steps of a
-// double-buffered cp.async walk: NC chunks of 128 columns of Q and K (each
-// score's fmaf chain continues through them, d in order 0..D-1, so the order
-// of its sum is that of every other D, and q is scaled by `scale` as it is
-// read, the same rounding as the narrow kernels' scaled Q), then the tile's
-// V columns of the group. The softmax, P and O's update are the narrow
-// kernel's with 2 rows a thread (ty, ty + 16; keys and columns as there); m
-// and l are the same in every group, and group 0 alone writes lse.
-template <int GW>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o,
-                      float* __restrict__ lse, int Sq, int Skv, int H, int KV,
-                      int D, int causal, int window, float scale) {
-  using T = WideTile<GW>;
-  constexpr int BK = T::BK, TN = T::TN, DC = T::DC, LDC = T::LDC, LDV = T::LDV;
-  constexpr int LDP = T::LDP, kTM = T::kTM, kBQ = T::kBQ;
-  extern __shared__ __align__(16) float smem[];
-  float* const Ps = smem + 2 * T::kStage;
-
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-  const int bh = blockIdx.x;
-  const int qt = gridDim.y - 1 - blockIdx.y;  // late (heavy) tiles first
-  const int b = bh / H, h = bh % H;
-  const int kvh = h / (H / KV);
-  const int q0 = qt * kBQ;
-  const int c0 = blockIdx.z * GW;
-  const int n_chunks = (D + T::SC - 1) / T::SC;
-
-  const int q_last = min(q0 + kBQ, Sq) - 1;
-  int k_end = Skv;
-  if (causal) k_end = min(k_end, q_last + 1);
-  int k_begin = 0;
-  if (window > 0 && q_last < Skv - 1 + window) k_begin = max(0, q0 - window + 1);
-  k_begin = (k_begin / BK) * BK;
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
-  const int n_steps = n_tiles * (n_chunks + 1);
-
-  const long long q_stride = static_cast<long long>(H) * D;
-  const long long kv_stride = static_cast<long long>(KV) * D;
-  const float* qb = q + (static_cast<long long>(b) * Sq * H + h) * D;
-  const float* kb = k + (static_cast<long long>(b) * Skv * KV + kvh) * D;
-  const float* vb = v + (static_cast<long long>(b) * Skv * KV + kvh) * D;
-
-  float acc[kTM][4 * DC];
-  float m[kTM], l[kTM], s[kTM][TN];
-#pragma unroll
-  for (int j = 0; j < kTM; ++j) {
-    m[j] = kMasked;
-    l[j] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * DC; ++c) acc[j][c] = 0.f;
-  }
-
-  if (n_steps > 0)
-    load_wide_step<GW>(smem, qb, kb, vb, 0, n_chunks, q0, k_begin, c0, Sq, Skv,
-                       D, q_stride, kv_stride);
-  cp_async_commit();
-
-  for (int n = 0; n < n_steps; ++n) {
-    const int t = n / (n_chunks + 1), j = n % (n_chunks + 1);
-    const int k0 = k_begin + t * BK;
-    const float* st = smem + (n & 1) * T::kStage;
-    if (n + 1 < n_steps) {
-      const int t1 = (n + 1) / (n_chunks + 1), j1 = (n + 1) % (n_chunks + 1);
-      load_wide_step<GW>(smem + ((n + 1) & 1) * T::kStage, qb, kb, vb, j1,
-                         n_chunks, q0, k_begin + t1 * BK, c0, Sq, Skv, D,
-                         q_stride, kv_stride);
-    }
-    cp_async_commit();     // an empty group on the last step
-    cp_async_wait_one();   // this step's copies (this thread's) have landed
-    __syncthreads();       // ... every thread's
-
-    if (j < n_chunks) {
-      // S += (q scale) K^T over this chunk's columns, d in order
-      if (j == 0) {
-#pragma unroll
-        for (int jj = 0; jj < kTM; ++jj)
-#pragma unroll
-          for (int i = 0; i < TN; ++i) s[jj][i] = 0.f;
-      }
-      const float* Qs = st;
-      const float* Ks = st + T::kQC;
-      const int d_end = min(T::SC, D - j * T::SC);
-#pragma unroll 4
-      for (int d = 0; d < d_end; d += 4) {
-        float4 qv[kTM], kv[TN];
-#pragma unroll
-        for (int jj = 0; jj < kTM; ++jj) {
-          qv[jj] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * jj) * LDC + d);
-          qv[jj].x *= scale;
-          qv[jj].y *= scale;
-          qv[jj].z *= scale;
-          qv[jj].w *= scale;
-        }
-#pragma unroll
-        for (int i = 0; i < TN; ++i)
-          kv[i] = *reinterpret_cast<const float4*>(Ks + (tx + 8 * i) * LDC + d);
-#pragma unroll
-        for (int jj = 0; jj < kTM; ++jj)
-#pragma unroll
-          for (int i = 0; i < TN; ++i) {
-            s[jj][i] = fmaf(qv[jj].x, kv[i].x, s[jj][i]);
-            s[jj][i] = fmaf(qv[jj].y, kv[i].y, s[jj][i]);
-            s[jj][i] = fmaf(qv[jj].z, kv[i].z, s[jj][i]);
-            s[jj][i] = fmaf(qv[jj].w, kv[i].w, s[jj][i]);
-          }
-      }
-    } else {
-      // masks, the online softmax of each row over its 8 threads, P, then
-      // O += P V over the group's columns
-      const bool masked = k0 + BK > Skv || (causal && k0 + BK - 1 > q0) ||
-                          (window > 0 && q_last - k0 >= window);
-      if (masked) {
-#pragma unroll
-        for (int jj = 0; jj < kTM; ++jj) {
-          const int row = q0 + ty + 16 * jj;
-#pragma unroll
-          for (int i = 0; i < TN; ++i) {
-            const int key = k0 + tx + 8 * i;
-            if (key >= Skv) {
-              s[jj][i] = -INFINITY;
-            } else if ((causal && key > row) || (window > 0 && row - key >= window)) {
-              s[jj][i] = kMasked;
-            }
-          }
-        }
-      }
-      float corr[kTM];
-#pragma unroll
-      for (int jj = 0; jj < kTM; ++jj) {
-        float mx = m[jj];
-#pragma unroll
-        for (int i = 0; i < TN; ++i) mx = fmaxf(mx, s[jj][i]);
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-        corr[jj] = expf(m[jj] - mx);
-        m[jj] = mx;
-        float sum = 0.f;
-#pragma unroll
-        for (int i = 0; i < TN; ++i) {
-          const float p = expf(s[jj][i] - mx);
-          s[jj][i] = p;
-          sum += p;
-        }
-        l[jj] = l[jj] * corr[jj] + sum;
-      }
-#pragma unroll
-      for (int i = 0; i < TN; ++i)
-        *reinterpret_cast<float2*>(Ps + (tx + 8 * i) * LDP + 2 * ty) =
-            make_float2(s[0][i], s[1][i]);
-#pragma unroll
-      for (int jj = 0; jj < kTM; ++jj)
-#pragma unroll
-        for (int c = 0; c < 4 * DC; ++c) acc[jj][c] *= corr[jj];
-      __syncthreads();
-
-      const float* Vs = st;
-#pragma unroll 8
-      for (int kk = 0; kk < BK; ++kk) {
-        const float2 p2 = *reinterpret_cast<const float2*>(Ps + kk * LDP + 2 * ty);
-        const float p[kTM] = {p2.x, p2.y};
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const float4 vv = *reinterpret_cast<const float4*>(Vs + kk * LDV + 4 * tx + 32 * c);
-#pragma unroll
-          for (int jj = 0; jj < kTM; ++jj) {
-            acc[jj][4 * c] = fmaf(p[jj], vv.x, acc[jj][4 * c]);
-            acc[jj][4 * c + 1] = fmaf(p[jj], vv.y, acc[jj][4 * c + 1]);
-            acc[jj][4 * c + 2] = fmaf(p[jj], vv.z, acc[jj][4 * c + 2]);
-            acc[jj][4 * c + 3] = fmaf(p[jj], vv.w, acc[jj][4 * c + 3]);
-          }
-        }
-      }
-    }
-    __syncthreads();       // this stage (and P) are free for the next steps
-  }
-
-#pragma unroll
-  for (int jj = 0; jj < kTM; ++jj) {
-    float lt = l[jj];
-    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
-    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-    lt += __shfl_xor_sync(0xffffffffu, lt, 4);
-    const int row = q0 + ty + 16 * jj;
-    if (row < Sq) {
-      const float l_safe = fmaxf(lt, 1e-30f);
-      float* op = o + ((static_cast<long long>(b) * Sq + row) * H + h) * D + c0;
-#pragma unroll
-      for (int c = 0; c < DC; ++c)
-        if (c0 + 4 * tx + 32 * c < D)   // a real column (D is a multiple of 4)
-          *reinterpret_cast<float4*>(op + 4 * tx + 32 * c) =
-              make_float4(acc[jj][4 * c] / l_safe, acc[jj][4 * c + 1] / l_safe,
-                          acc[jj][4 * c + 2] / l_safe, acc[jj][4 * c + 3] / l_safe);
-      if (lse != nullptr && blockIdx.z == 0 && tx == 0)
-        lse[(static_cast<long long>(b) * H + h) * Sq + row] = m[jj] + logf(l_safe);
-    }
-  }
-}
-
 template <int DP, bool EXACT>
 cudaError_t launch_instance(const void* q, const void* k, const void* v,
                             void* o, void* lse, int B, int Sq, int Skv, int H,
@@ -691,13 +396,6 @@ cudaError_t attrs(int D, int* out) {
     out[5] = 0;
   }
   return err;
-}
-
-// O's column groups above 2,048: ng groups of gw columns (gw a multiple of
-// 32 in 160..256), as ops.column_groups computes them
-inline void column_groups(int D, int* ng, int* gw) {
-  *ng = (D + kMaxWidth - 1) / kMaxWidth;
-  *gw = ((D + *ng - 1) / *ng + 31) / 32 * 32;
 }
 
 }  // namespace

@@ -7,8 +7,10 @@
 //                                 flash_attention_fwd_bf16 / _attrs_bf16)
 //   flash_attention_sm90_f16.cu   fp16, head dims 8..256 (the entries
 //                                 flash_attention_fwd_f16 / _attrs_f16)
-//   flash_attention_sm90_wide.cu  both types, head dims above 256 (a
-//                                 cluster up to 1,792, the wide kernel above)
+//   flash_attention_sm90_wide.cu  both types, head dims 257..1,792 (the
+//                                 wide kernel up to 320, a cluster above);
+//                                 past 1,792 the split route of
+//                                 flash_split.cuh
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:
 // _flash_kernel (entry flash_attention_pallas) for bf16 and fp16 inputs;
@@ -160,7 +162,7 @@
 //     160, 184 KB at 192, 204 KB at 224;
 //   * up to D = 320 (two groups of 160) the wide kernel below ran faster
 //     (2.10 against 2.72 ms at D = 264), so it keeps those head dims.
-// Up to 320 and above 1,792 (flash_fwd_sm90_wide):
+// Up to 320 (flash_fwd_sm90_wide):
 //   * every CTA computes the full score tile S = Q K^T over all of D, in
 //     chunks of 64 columns taken in order (wgmma m64n{BK}k16, four k-steps
 //     a chunk, chained on one accumulator): Q's and K's chunks come through
@@ -173,8 +175,9 @@
 //     (wgmma m64n{GW}k16 from a ring of kV V tiles of BK x GW), and group 0
 //     alone writes lse; V chunks wholly past D are not loaded;
 //   * QK^T is repeated once a group, and Q is read again for every key tile:
-//     at D = 512 (three groups of 192) the products are 2x the bound's
-//     operations. Keys come in tiles of 64 at GW = 160 and of 32 above, as
+//     at two groups the products are 1.5x the bound's operations (the kernel
+//     took D = 512, three groups of 192, at 2x until the cluster did). Keys
+//     come in tiles of 64 at GW = 160 and of 32 above, as
 //     for DP (O's GW / 2 accumulators beside S's BK / 2). Shared memory a
 //     CTA: kA = 4 chunk stages (20 KB each at BK = 32, 24 KB at BK = 64)
 //     and kV = 2 V stages (BK x GW x 2 bytes: 12 to 20 KB), 104 to 136 KB
@@ -183,12 +186,15 @@
 //     700 W, 6.46 against 6.32 ms: the L2 traffic of the streamed Q is not
 //     what bounds it);
 //   * D is taken at run time (a multiple of 8, as above); the grid is
-//     (B * H, ceil(Sq / 128), NG), NG up to 65,535 (D up to 14,679,840).
+//     (B * H, ceil(Sq / 128), 2).
+// Past 1,792 (more than 8 groups: no portable cluster) the split route
+// (flash_split.cuh) computes the scores once into a workspace in device
+// memory and P V by group from it.
 // Left for later: ping-pong scheduling of the two consumers, overlap of the
 // softmax (and, in a cluster, the exchange) with the next tile's QK^T, one
-// K/V tile shared by the query heads of a GQA group, and (above 1,792)
-// fewer waits in the chunk loop: a key tile of 32 takes a barrier wait and a
-// wgmma wait for every 64 columns of D.
+// K/V tile shared by the query heads of a GQA group, and fewer waits in the
+// wide kernel's chunk loop: a key tile of 32 takes a barrier wait and a wgmma
+// wait for every 64 columns of D.
 //
 // A wait on an mbarrier that does not complete within ~2^31 cycles (about a
 // second) traps, so a protocol fault ends the launch with an error instead
@@ -203,9 +209,10 @@
 
 #include <type_traits>
 
-// The instances past 256 (flash_attention_sm90_wide.cu: the cluster kernel
-// up to 1,792, the wide kernel above) behind the entries of both types:
-// dtype 0 = bf16, 1 = fp16; D > 256.
+// The instances past 256 (flash_attention_sm90_wide.cu: the wide kernel up
+// to 320, the cluster kernel to 1,792) behind the entries of both types:
+// dtype 0 = bf16, 1 = fp16; 256 < D <= 1,792 (the split route, past it, has
+// an entry of its own).
 extern "C" int flash_sm90_wide_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* o, void* lse, int B,
                                    int Sq, int Skv, int H, int KV, int D,
@@ -279,7 +286,7 @@ struct ClusterCfg {
   static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // wgmma swizzle code
 };
 
-// The wide kernel's tiles (256 < D <= 320 and D > 1,792): O's GW columns a
+// The wide kernel's tiles (256 < D <= 320): O's GW columns a
 // CTA, S over D chunks of 64 columns (128-byte rows, 128-byte swizzle)
 // through a ring of kA (Q chunk, K chunk) stages, V tiles of BK x GW
 // through a ring of kV.
@@ -1202,7 +1209,7 @@ flash_fwd_sm90_cluster(const __grid_constant__ CUtensorMap tm_q,
   cluster_sync();
 }
 
-// ---- the kernel, head dims above 1,792: column group blockIdx.z of O -------
+// ---- the kernel, head dims 257..320: column group blockIdx.z of O ----------
 template <typename E, int GW_>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_wide(const __grid_constant__ CUtensorMap tm_q,
@@ -1485,7 +1492,7 @@ cudaError_t attrs(int D, int* out) {
 }
 
 // The C entries of one type: head dims 8..256 (a multiple of 8) on the
-// instances of the including unit, D above 256 on the wide ones
+// instances of the including unit, 257..1,792 on the wide unit's
 template <typename E>
 int entry_attrs(int D, int* out) {
   if (D > kMaxWidth) return flash_sm90_wide_attrs(kIsHalf<E> ? 1 : 0, D, out);

@@ -6,8 +6,9 @@
 //   flash_attention_tf32_wide.cu  head dims 257..2,048 (a thread-block
 //                                 cluster of one CTA a column group)
 // Both are reached through the fp32 entries of flash_attention.cu, which
-// keeps DP <= 128 on the SIMT kernel (flash_simt.cuh) and, past 2,048, its
-// wide SIMT kernel.
+// keeps DP <= 128 on the SIMT kernel (flash_simt.cuh); past 2,048 the split
+// route (flash_split.cuh) runs this header's split and mma_tf32 in a scores
+// kernel and a P V kernel.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:
 // _flash_kernel (entry flash_attention_pallas) for fp32 inputs at these
@@ -83,7 +84,7 @@
 // CTA holds the same S, m, l and P bit for bit, and group 0 alone writes
 // lse. Q's slice is read once and scaled once; each of the 32 x 32 partial
 // tiles crosses the cluster NG - 1 times a CTA. Past 2,048 (NG > 8, the
-// portable cluster size) the wide SIMT kernel stays (flash_simt.cuh).
+// portable cluster size) the split route takes over (flash_split.cuh).
 // Shared memory a CTA: Q 512 * GW bytes, K and V tiles 128 * GW each, in a
 // cluster two 16 KB partial tiles: 192 KB at DP = 256, 224 KB in a cluster
 // of GW = 256; one CTA an SM.

@@ -76,6 +76,14 @@ SIGNATURES = {
     "flash_attention_attrs_f32": (_I, _P),
     "flash_attention_attrs_bf16": (_I, _P),
     "flash_attention_attrs_f16": (_I, _P),
+    # (dtype 0 bf16 / 1 fp16 / 2 fp32, q, k, v, o, lse | null, ws, maxes, B,
+    # Sq, Skv, H, KV, D, causal, window, scale, bh0, nbh, t0, nt, ld, stream):
+    # one piece of the split route
+    "flash_attention_split": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P),
+    # (dtype, D, out int[8]): the scores kernel's registers, local bytes,
+    # static and dynamic shared bytes, then the P V kernel's
+    "flash_attention_split_attrs": (_I, _I, _P),
 }
 
 

@@ -6,24 +6,25 @@ From a padded head dim of 321 to 1,792 (``ops.sm90_route``:
 (``csrc/flash_sm90.cuh``: ``flash_fwd_sm90_cluster``): each group's CTA
 computes the partial scores over its own columns, and every CTA adds the
 NG partials in the order g = 0, 1, ... . Two groups of 160 (D up to 320)
-and more than 8 groups (D past 1,792) stay on the wide kernel. Here, on the
-CPU:
+stay on the wide kernel, and more than 8 groups (D past 1,792) take the
+split route (``test_torch_flash_split.py``). Here, on the CPU:
 
 * the routes, the reach ``SM90_CLUSTER_MAX`` and the per-route launch
   counters on each side of 256, 320 and the reach;
 * ``tests/torch_flash_models.sm90_model`` (each group's partial a chain of
   16-column k-steps, the partials added in group order; the wide kernel's
-  64-column chunks past the reach): every group's running max and sum equal
-  bit for bit, and the output within the card's 16-bit gate, 2e-2, of
-  softmax attention in float64 and of the plain version, at D = 264, 512,
-  the reach and one step past it, with a window and Skv != Sq.
+  64-column chunks at 264) and, one step past the reach,
+  ``split_model``: every group's running max and sum equal bit for bit,
+  and the output within the card's 16-bit gate, 2e-2, of softmax attention
+  in float64 and of the plain version, at D = 264, 512, the reach and one
+  step past it, with a window and Skv != Sq.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention, ops
-from torch_flash_models import sm90_model
+from torch_flash_models import sm90_model, split_model
 
 GATE = 2e-2          # chip_smoke.FLASH_ATOL in bf16 and fp16
 
@@ -66,12 +67,12 @@ def _attention_f64(q, k, v, *, causal, window):
 def test_routes_reach_and_counters():
     """bf16/fp16 head dims (padded to 8) take one CTA a query tile to 256,
     the wide kernel for two groups of 160 (to 320), the cluster to 1,792 (8
-    groups of 224, the portable cluster size) and the wide kernel above; a
+    groups of 224, the portable cluster size) and the split route above; a
     CPU call counts no launch on any route."""
     route = {D: ops.sm90_route(D) for D in (8, 256, 264, 320, 328, 512, 1792, 1800)}
     assert route == {8: "sm90", 256: "sm90", 264: "sm90_wide", 320: "sm90_wide",
                      328: "sm90_cluster", 512: "sm90_cluster", 1792: "sm90_cluster",
-                     1800: "sm90_wide"}
+                     1800: "sm90_split"}
     assert ops.SM90_CLUSTER_MAX == 8 * ops.GROUP_MAX[torch.bfloat16] == 1792
     assert ops.SM90_WIDE_PAIR_MAX == 2 * 160
     for dt in (torch.bfloat16, torch.float16):
@@ -80,7 +81,8 @@ def test_routes_reach_and_counters():
         assert ops.column_groups(1792, dt) == (8, 224)
         assert ops.column_groups(1800, dt) == (9, 224)
         assert ops.query_tile_rows(dt, 1792) == ops.query_tile_rows(dt, 1800) == 128
-    assert set(ops.SM90_ROUTE_COUNTERS) == {"sm90", "sm90_cluster", "sm90_wide"}
+    assert set(ops.SM90_ROUTE_COUNTERS) == {"sm90", "sm90_cluster", "sm90_wide",
+                                            "sm90_split"}
     fa = ops.flash_attention
     names = ["launches", "launches_bf16", "launches_f16",
              *ops.SM90_ROUTE_COUNTERS.values()]
@@ -119,10 +121,14 @@ def test_cluster_groups_hold_the_same_max_and_sum(dtype):
 @pytest.mark.parametrize("D", [264, 512, 1792, 1800])
 def test_model_fits_the_16_bit_gate_of_float64(dtype, D):
     """The modelled kernel (the cluster at 512 and 1,792, the wide kernel at
-    264 and 1,800) within 2e-2 of softmax attention in float64 and of the
-    plain version: causal, a window of 40, Skv = 150 != Sq = 130."""
+    264, the split route at 1,800) within 2e-2 of softmax attention in
+    float64 and of the plain version: causal, a window of 40, Skv = 150 !=
+    Sq = 130."""
     q, k, v = _inputs(D, 1, 130, 2, 1, D, 150, dtype)
-    got = sm90_model(q, k, v, causal=True, window=40)
+    if ops.sm90_route(D) == "sm90_split":
+        got = split_model(q, k, v, causal=True, window=40)[0]
+    else:
+        got = sm90_model(q, k, v, causal=True, window=40)
     assert got.dtype == dtype and got.shape == q.shape
     exact = _attention_f64(q, k, v, causal=True, window=40)
     np.testing.assert_allclose(got.double().numpy(), exact.numpy(), atol=GATE, rtol=0)

@@ -128,23 +128,23 @@ def test_tf32_split_and_round_to_zero():
 def test_fp32_routes_tiles_and_counters():
     """fp32 head dims (padded to 4) take the SIMT kernel to 128, the 3xTF32
     kernel to 256 (128-row tiles, one group), its clusters to 2,048 (at
-    most 8 groups of 256) and the wide SIMT kernel above (32-row tiles); a
-    CPU call counts no launch on any route."""
+    most 8 groups of 256) and the split route above (128-row tiles:
+    test_torch_flash_split.py); a CPU call counts no launch on any route."""
     route = {D: ops.f32_route(D) for D in (4, 128, 132, 256, 260, 2048, 2052)}
     assert route == {4: "simt", 128: "simt", 132: "tf32", 256: "tf32",
-                     260: "tf32_cluster", 2048: "tf32_cluster", 2052: "simt_wide"}
+                     260: "tf32_cluster", 2048: "tf32_cluster", 2052: "tf32_split"}
     rows = {D: ops.query_tile_rows(torch.float32, D) for D in route}
     assert rows == {4: 64, 128: 64, 132: 128, 256: 128, 260: 128, 2048: 128,
-                    2052: 32}
+                    2052: 128}
     assert ops.column_groups(2048, torch.float32) == (8, 256)
     assert ops.column_groups(2052, torch.float32)[0] == 9
     assert ops.column_groups(260, torch.float32) == (2, 160)
     ops.check_grid(1, 1, 65535 * 128, 256, torch.float32)
     with pytest.raises(ValueError):
         ops.check_grid(1, 1, 65535 * 128 + 1, 256, torch.float32)
-    ops.check_grid(1, 1, 65535 * 32, 2052, torch.float32)
+    ops.check_grid(1, 1, 65535 * 128, 2052, torch.float32)
     with pytest.raises(ValueError):
-        ops.check_grid(1, 1, 65535 * 32 + 1, 2052, torch.float32)
+        ops.check_grid(1, 1, 65535 * 128 + 1, 2052, torch.float32)
     fa = ops.flash_attention
     names = ["launches", "launches_f32", *ops.F32_ROUTE_COUNTERS.values()]
     before = {n: getattr(fa, n) for n in names}

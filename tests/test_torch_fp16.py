@@ -196,18 +196,17 @@ def test_the_grid_rule_is_the_kernels_limits(dtype):
     """B * H is on grid x (both kernels: blockIdx.x = b H + h), up to 2^31 -
     1: B * H = 65,536 and 65,600 pass (the wrapper refused every B * H over
     65,535 before). The query tiles are on y, up to 65,535: 128 rows a tile
-    on the tensor cores (fp32's 3xTF32 kernel from a padded width of 129 to
-    2,048 among them), 64 on the SIMT kernel up to 128 and 32 on the wide
-    SIMT kernel above 2,048. The column groups of a head dim above 256 are
-    on z."""
+    on the tensor cores (fp32's 3xTF32 kernels from a padded width of 129
+    and its split route past 2,048 among them), 64 on the SIMT kernel up to
+    128. The column groups of a head dim above 256 are on z (the split
+    route, which puts them on x, keeps the rule)."""
     ops.check_grid(1, 65536, 128, 32, dtype)
     ops.check_grid(2050, 32, 128, 32, dtype)
     with pytest.raises(ValueError, match="x limit"):
         ops.check_grid(2**16, 2**15, 128, 32, dtype)
     for D in (32, 128, 160, 256, 512, 2048, 4096):
         rows = ops.query_tile_rows(dtype, D)
-        assert rows == (64 if dtype == torch.float32 and D <= 128 else
-                        32 if dtype == torch.float32 and D > 2048 else 128)
+        assert rows == (64 if dtype == torch.float32 and D <= 128 else 128)
         ops.check_grid(1, 1, 65535 * rows, D, dtype)
         with pytest.raises(ValueError, match="y limit"):
             ops.check_grid(1, 1, 65535 * rows + 1, D, dtype)

@@ -1,22 +1,19 @@
 """Head dims above 256 (ROADMAP B-8g) against the JAX package.
 
 The reference's Pallas flash kernel takes any D; the port's kernels take
-D > 256 by cutting O into column groups (one a CTA) that each sum the
-scores over all of D in chunks (``csrc/flash_sm90.cuh``,
-``csrc/flash_simt.cuh``). Here, on the CPU:
+D > 256 by cutting O into column groups (one a CTA; ``csrc/flash_sm90.cuh``,
+``csrc/flash_tf32.cuh``, ``csrc/flash_split.cuh``). Here, on the CPU:
 
 * the plain versions (``attention_ref`` serving, ``flash_fwd_ref`` under
   grad) against the interpreted Pallas kernel at D = 264, 300, 320 and 512
   in fp32, bf16 and fp16 (fp32 atol 2e-6, as the JAX package holds its own
   kernel; the 16-bit types 2e-2, the bf16 bound of ``tests/test_kernels.py``);
-* CPU models of both kernels' column groups and D chunks
-  (``tests/torch_flash_models.py``; in fp32 the wide SIMT kernel, which
-  runs past D = 2,048, its arithmetic the same at any D: fp32 from 257 to
-  2,048 takes the 3xTF32 cluster kernel, ``test_torch_flash_tf32.py``)
+* a CPU model of the 16-bit tensor-core kernel's column groups and D
+  chunks (``tests/torch_flash_models.py``; fp32 from 257 to 2,048 takes the
+  3xTF32 cluster kernel, ``test_torch_flash_tf32.py``, and past the
+  clusters both types the split route, ``test_torch_flash_split.py``)
   against the plain version and the JAX package's oracle, at the card's
-  gates (tensor cores 2e-2, SIMT 1e-5):
-  every group's running max and sum are equal, bit for bit, and the SIMT
-  model's chunked scores equal the single chain over d = 0..D-1;
+  gate (2e-2): every group's running max and sum are equal, bit for bit;
 * the smoke TinyLlama at ``head_dim=512`` against the reference at 2,048
   tokens (the flash branch): the forward's logits and one train step's
   gradients, as ``test_torch_head_dim.py`` holds D = 256 (and for the
@@ -39,7 +36,7 @@ from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
 from repro_torch.launch import train
 from repro_torch.models import transformer as ttfm
-from torch_flash_models import simt_model, simt_scores, sm90_model
+from torch_flash_models import sm90_model
 
 TOL = {"float32": 2e-6, "bfloat16": 2e-2, "float16": 2e-2}
 ARCH, HEAD_DIM, SEQ = "tinyllama-1.1b", 512, 2048
@@ -117,48 +114,6 @@ def test_sm90_column_groups_fit_the_16_bit_gate(dtype, B, S, H, KV, D, causal,
     oracle = j_attention_ref(*(jnp.asarray(t.float().numpy()).astype(dtype)
                                for t in (q, k, v)), causal=causal, window=window)
     np.testing.assert_allclose(_f32(got), _f32(oracle), atol=2e-2, rtol=0)
-
-
-@pytest.mark.parametrize("B,S,H,KV,D,causal,window,Skv", [
-    (1, 96, 2, 1, 264, True, None, None),       # 2 groups of 160
-    (1, 70, 2, 2, 300, True, 20, None),         # a window, ragged tiles
-    (1, 64, 2, 1, 512, False, None, 45),        # 2 groups of 256, cross
-])
-def test_simt_column_groups_fit_the_fp32_gate(B, S, H, KV, D, causal, window, Skv):
-    """The SIMT kernel's groups and 128-column chunks, modelled: within 1e-5
-    of the plain version and of the JAX oracle; each group's m and l equal,
-    and the same model with each score one chain over d = 0..D-1 gives the
-    same bits."""
-    _, (q, k, v) = _inputs(12, B, S, H, KV, D, Skv=Skv, scale=1.0)
-    record = []
-    got = simt_model(q, k, v, causal=causal, window=window, record=record)
-    ng = ops.column_groups(D, torch.float32)[0]
-    assert ng >= 2
-    by_tile = {}
-    for g, q0, m, l in record:
-        by_tile.setdefault(q0, []).append((m, l))
-    for stats in by_tile.values():
-        assert len(stats) == ng
-        for m, l in stats[1:]:
-            assert torch.equal(m, stats[0][0]) and torch.equal(l, stats[0][1])
-    want = attention_ref(q, k, v, causal=causal, window=window)
-    np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-5, rtol=0)
-    oracle = j_attention_ref(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
-                             causal=causal, window=window)
-    np.testing.assert_allclose(_f32(got), _f32(oracle), atol=1e-5, rtol=0)
-
-
-@pytest.mark.parametrize("D", [264, 300, 512])
-def test_simt_chunked_scores_are_the_single_chain(D):
-    """Each score taken through 128-column chunks, the chain carried from
-    one chunk to the next, is the single fmaf chain over d = 0..D-1 bit for
-    bit: the sum's order is that of every other D."""
-    _, (q, k, _) = _inputs(13, 1, 32, 2, 1, D, scale=1.0)
-    scale = torch.tensor(1.0 / D ** 0.5, dtype=torch.float32)
-    qt = (q.float() * scale).permute(0, 2, 1, 3)
-    kt = k.float().permute(0, 2, 1, 3).repeat_interleave(2, dim=1)
-    chunked = simt_scores(qt, kt, D, 128)
-    assert torch.equal(chunked, simt_scores(qt, kt, D, None))
 
 
 # ---- the smoke TinyLlama at head_dim 512 ---------------------------------

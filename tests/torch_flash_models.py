@@ -14,16 +14,9 @@ the same S and accumulating only its GW columns of O. By ``ops.sm90_route``:
 on the cluster kernel (up to ``ops.SM90_CLUSTER_MAX``) each group's partial
 S over its own GW columns is a chain of 16-column wgmma k-steps on one
 accumulator, and the partials are added in the order g = 0, 1, ... (BK
-32); on the wide kernel above it every group sums S over all of D in
-chunks of 64 columns in order (BK 64 at GW = 160, 32 above).
-
-``simt_model`` is the fp32 wide SIMT kernel (``csrc/flash_simt.cuh``, which
-runs above D = 2,048; its arithmetic is the same at any D above 256):
-32-row query tiles, key tiles of 32, q times 1/sqrt(D) in fp32, each score
-a chain of fmaf over d in order, taken through chunks of 128 columns; a
-row's max over the tile and one rescale a tile; l as 8 shares added in the
-shuffles' tree; O's group columns updated by a chain of fmaf over the
-tile's keys.
+32); on the wide kernel (up to ``ops.SM90_WIDE_PAIR_MAX``) every group sums
+S over all of D in chunks of 64 columns in order (BK 64 at GW = 160, 32
+above). Past the clusters' reach the split route runs (``split_model``).
 
 ``tf32_model`` is the fp32 kernel on the tensor cores in 3xTF32
 (``csrc/flash_tf32.cuh``), which runs head dims 129 to 2,048: 128-row query
@@ -43,6 +36,24 @@ order g = 0, 1, ... before its softmax; masked
 scores -1e30, keys past Skv -inf, exp, l as four shares of keys 8 j + 2 t
 and 8 j + 2 t + 1 (t < 4) added in the shuffles' tree; P split as above
 for O += P V.
+
+``split_model`` is the split route (``csrc/flash_split.cuh``), which runs
+fp32 past D = 2,048 and bf16 and fp16 past 1,792: per 128-row query tile,
+the scores over the key tiles of ``key_range`` (128 keys in 16 bits, 64 in
+fp32) computed once: in 16 bits as ``sm90_scores``' wide branch (64-column
+chunks added in order) times 1/sqrt(D), in fp32 on q times 1/sqrt(D) as
+``_split_scores_f32`` sums them (hi rounded to nearest, ``tf32_split_rn``;
+32-column boxes of mma each rounded toward zero, the boxes added with a
+compensation that starts each box's chain); keys
+past Skv -inf, masked scores -1e30; a row's m the maximum of its tile
+maxima (init -1e30); then for each column group, in key tiles of 32, P =
+exp2((s - m) log2 e) (16 bits) or exp(s - m) (fp32), l as four shares of
+the pair sums of keys 8 j + 2 t and 8 j + 2 t + 1 added in key order and
+then in the shuffles' tree, and O += P V (P rounded to the input's type in
+16 bits; in fp32 3xTF32 on ``tf32_split_rn``'s parts, each key tile's 12
+mma on a fresh accumulator added to O); o = O / max(l, 1e-30), group 0's
+lse = m + log(max(l,
+1e-30)). No online rescale: the tiles a row block skips add exact zeros.
 
 All record each group's running max and sum (``record``), which the
 kernels rely on being equal across groups: group 0 alone writes lse.
@@ -113,6 +124,7 @@ def sm90_model(q, k, v, *, causal, window, record=None):
     Dp = -(-D // 8) * 8
     ng, gw = ops.column_groups(Dp, q.dtype)
     route = ops.sm90_route(Dp)
+    assert route != "sm90_split", "the split route: split_model"
     if route == "sm90":
         DP = -(-Dp // 32) * 32
         BK = 128 if DP <= 64 else 64 if DP <= 160 else 32
@@ -164,81 +176,6 @@ def sm90_model(q, k, v, *, causal, window, record=None):
     return out[..., :D].permute(0, 2, 1, 3).to(q.dtype)
 
 
-def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """fmaf(a, b, c) in float32: the product is exact in float64, and the
-    sum is rounded once more to float32 (a double rounding that fmaf does
-    not do; it moves a result by an ulp at most, and rarely)."""
-    return (a.double() * b.double() + c.double()).float()
-
-
-def simt_scores(qt: torch.Tensor, kt: torch.Tensor, D: int, chunk: int | None):
-    """A tile's scores as the SIMT kernel sums them: qt [..., BQ, D'] (q
-    already scaled), kt [..., BK, D'], a chain of fmaf over d = 0..D-1; with
-    ``chunk``, taken through chunks of that many columns, the chain carried
-    from one chunk into the next."""
-    s = torch.zeros(*qt.shape[:-1], kt.shape[-2])
-    starts = range(0, D, chunk) if chunk else (0,)
-    for c0 in starts:
-        for d in range(c0, min(D, c0 + chunk) if chunk else D):
-            s = fma(qt[..., d, None], kt[..., None, :, d], s)
-    return s
-
-
-def simt_model(q, k, v, *, causal, window, record=None, chunked=True):
-    """What the fp32 SIMT kernel computes above D = 256 (D a multiple of 4):
-    the column groups of ``ops.column_groups``; each group's scores through
-    chunks of 128 columns (``chunked``) or in one chain; ``record`` gets
-    (group, q0, m, l) after each query tile's last key tile."""
-    B, Sq, H, D = q.shape
-    Skv, KV = k.shape[1], k.shape[2]
-    ng, gw = ops.column_groups(D, torch.float32)
-    BQ, BK = 32, 32
-    n_kt = -(-Skv // BK)
-    scale = torch.tensor(1.0 / D ** 0.5, dtype=torch.float32)
-    qf = (q.float() * scale).permute(0, 2, 1, 3)
-    kf, vf = (_padded(t, ng * gw, n_kt * BK - Skv).repeat_interleave(H // KV, dim=1)
-              for t in (k, v))
-    out = torch.zeros(B, H, Sq, ng * gw)
-    for g in range(ng):
-        cols = slice(g * gw, (g + 1) * gw)
-        for q0 in range(0, Sq, BQ):
-            q_last = min(q0 + BQ, Sq) - 1
-            k_end = min(Skv, q_last + 1) if causal else Skv
-            k_begin = (max(0, q0 - window + 1)
-                       if window and q_last < Skv - 1 + window else 0)
-            rows = torch.arange(q0, q0 + BQ)
-            qt = qf[:, :, q0:q0 + BQ]
-            qt = torch.nn.functional.pad(qt, (0, 0, 0, BQ - qt.shape[2]))
-            m = torch.full((B, H, BQ), -1e30)
-            shares = torch.zeros(B, H, BQ, 8)
-            acc = torch.zeros(B, H, BQ, gw)
-            for k0 in range(k_begin // BK * BK, k_end, BK):
-                s = simt_scores(qt, kf[:, :, k0:k0 + BK], D, 128 if chunked else None)
-                s = _visible(rows, torch.arange(k0, k0 + BK), Skv, causal, window, s)
-                m_new = torch.maximum(m, s.amax(-1))
-                corr = torch.exp(m - m_new)
-                p = torch.exp(s - m_new[..., None])
-                own = torch.zeros(B, H, BQ, 8)
-                for i in range(BK // 8):
-                    own = own + p[..., 8 * i:8 * i + 8]
-                shares = shares * corr[..., None] + own
-                acc = acc * corr[..., None]
-                vt = vf[:, :, k0:k0 + BK, cols]
-                for j in range(BK):
-                    acc = fma(p[..., j, None], vt[:, :, None, j], acc)
-                m = m_new
-            a = shares[..., 0::2] + shares[..., 1::2]           # xor 1
-            b = a[..., 0::2] + a[..., 1::2]                      # xor 2
-            l = b[..., 0] + b[..., 1]                            # xor 4
-            if record is not None:
-                record.append((g, q0, m, l))
-            n = min(BQ, Sq - q0)
-            out[:, :, q0:q0 + n, cols] = (
-                acc / torch.clamp(l, min=1e-30)[..., None])[:, :, :n]
-    assert not out[..., D:].any()
-    return out[..., :D].permute(0, 2, 1, 3)
-
-
 TF32_MASK = -8192            # 0xffffe000: a float32 pattern's top 19 bits
 
 
@@ -255,9 +192,25 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def round_to_zero(x: torch.Tensor) -> torch.Tensor:
-    """float64 x rounded to float32 toward zero."""
-    f = x.float()
-    return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+    """float64 x rounded to float32 toward zero: its significand cut to 24
+    bits, which float32 holds exactly in its normal range; below it (the
+    cast rounds to a subnormal) stepped toward zero where it rounded away."""
+    f = (x.view(torch.int64) & -(1 << 29)).view(torch.float64).float()
+    a = x.abs()
+    tiny = (a < 2.0 ** -126) & (a > 0)
+    if tiny.any():
+        away = tiny & (f.double().abs() > a)
+        f = torch.where(away, torch.nextafter(f, torch.zeros_like(f)), f)
+    return f
+
+
+def tf32_split_rn(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 x as the split route feeds it to the tensor cores: hi = x
+    rounded to the nearest TF32 pattern (the bits plus 0x1000, the low 13
+    cleared: ties away from zero), lo = x - hi read through its top 19
+    bits."""
+    hi = ((x.contiguous().view(torch.int32) + 0x1000) & TF32_MASK).view(torch.float32)
+    return hi, _tf32(x - hi)
 
 
 def _mma(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -354,3 +307,121 @@ def tf32_model(q, k, v, *, causal, window, record=None, box=32):
                 lse[:, :, q0:q0 + n] = (m[g] + torch.log(d))[:, :, :n]
     assert not out[..., Dp:].any()               # the padded columns stay zero
     return out[..., :D].permute(0, 2, 1, 3), lse.reshape(B, KV, H // KV, Sq)
+
+
+def _split_scores_f32(qs, ks, Dp, compensated=True, chunk=8):
+    """fp32 scores as the split route sums them: qs, ks the (hi, lo) splits
+    of q (scaled) [..., M, W] and k [..., N, W] (W a multiple of 32, zeros
+    past Dp); each 32-column box's four 8-column steps of three mma (lo hi,
+    hi lo, hi hi, each the exact products' sum with the accumulator rounded
+    toward zero) chained on c, the running compensation of the boxes' sum
+    s, then Fast2Sum (t = s + c, c = (s - t) + c, s = t); the score is
+    s + c. Not ``compensated``: each box's chain on a fresh accumulator and
+    the boxes added in float32 (the 3xTF32 kernels' scheme). (A step wholly
+    past Dp, which the kernel skips, adds exact zeros.) The products are
+    taken ``chunk`` boxes at a time."""
+    nbox = -(-Dp // 32)
+
+    def boxes(x):        # [..., R, W] -> [..., box, step, R, 8]
+        return x[..., :nbox * 32].unflatten(-1, (nbox, 4, 8)).movedim(-4, -2).double()
+
+    (qh, ql), (kh, kl) = [boxes(x) for x in qs], [boxes(x) for x in ks]
+    kh, kl = kh.transpose(-1, -2), kl.transpose(-1, -2)
+    s = torch.zeros(*qh.shape[:-4], qh.shape[-2], kh.shape[-1])
+    c = torch.zeros_like(s)
+    for b0 in range(0, nbox, chunk):
+        bs = slice(b0, b0 + chunk)
+        terms = (ql[..., bs, :, :, :] @ kh[..., bs, :, :, :],
+                 qh[..., bs, :, :, :] @ kl[..., bs, :, :, :],
+                 qh[..., bs, :, :, :] @ kh[..., bs, :, :, :])
+        for b in range(terms[0].shape[-4]):
+            if not compensated:
+                c = torch.zeros_like(s)
+            for i in range(4):
+                for term in terms:
+                    c = round_to_zero(c.double() + term[..., b, i, :, :])
+            total = s + c
+            c = (s - total) + c if compensated else torch.zeros_like(s)
+            s = total
+    return s + c
+
+
+def split_model(q, k, v, *, causal, window, record=None):
+    """What the split route computes for q's type at a head dim past 256
+    (the wrapper's padding included): ``(out, lse)``, lse ``[B, KV, G,
+    Sq]``; ``record`` (a list) gets (group, q0, m, l) of each query tile."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    f32 = q.dtype == torch.float32
+    Dp = -(-D // ops.ROW_MULTIPLE[q.dtype]) * ops.ROW_MULTIPLE[q.dtype]
+    ng, gw = ops.column_groups(Dp, q.dtype)
+    BN, BK = (64 if f32 else 128), 32
+    keys = ops.split_keys(Skv)
+    scale = torch.tensor(1.0 / D ** 0.5, dtype=torch.float32)
+    qf = _padded(q, ng * gw)
+    kf, vf = (_padded(t, ng * gw, keys - Skv).repeat_interleave(H // KV, dim=1)
+              for t in (k, v))
+    if f32:
+        qs, ks = tf32_split_rn(qf * scale), tf32_split_rn(kf)
+        # V by group: [group, B, H, keys, gw]
+        vs = [x.unflatten(-1, (ng, gw)).movedim(-2, 0) for x in tf32_split_rn(vf)]
+    out = torch.zeros(B, H, Sq, ng * gw)
+    lse = torch.zeros(B, H, Sq)
+    for q0 in range(0, Sq, 128):
+        # the tile's rows < Sq (each row's arithmetic is its own)
+        n = min(128, Sq - q0)
+        rows = torch.arange(q0, q0 + n)
+        q_last = q0 + n - 1
+        # kernel 1: the scores of the tiles of key_range, masked
+        k_begin, k_end, _ = _key_range(q0, q_last, Skv, causal, window, BN)
+        k_stop = k_begin + -(-(k_end - k_begin) // BN) * BN
+        cols = slice(k_begin, k_stop)
+        if f32:
+            s = _split_scores_f32([x[:, :, q0:q0 + n] for x in qs],
+                                  [x[:, :, cols] for x in ks], Dp)
+        else:
+            s = sm90_scores(qf[:, :, q0:q0 + n], kf[:, :, cols], "sm90_wide", ng,
+                            gw, Dp) * scale
+        s = _visible(rows, torch.arange(k_begin, k_stop), Skv, causal, window, s)
+        tile_max = s.reshape(*s.shape[:-1], -1, BN).amax(-1)
+        # kernel 2, a CTA a group (each group's m, l and P its own, from the
+        # same operations): the tiles of 32 keys from key_range's
+        k2_begin, k2_end, _ = _key_range(q0, q_last, Skv, causal, window, BK)
+        m = [torch.maximum(torch.full((B, H, n), -1e30), tile_max.amax(-1))
+             for _ in range(ng)]
+        shares = [torch.zeros(B, H, n, 4) for _ in range(ng)]
+        acc = torch.zeros(ng, B, H, n, gw)
+        for k0 in range(k2_begin, k2_end, BK):
+            st = s[..., k0 - k_begin:k0 - k_begin + BK]
+            p = []
+            for g in range(ng):
+                if f32:
+                    p.append(torch.exp(st - m[g][..., None]))
+                else:
+                    p.append(torch.exp2((st - m[g][..., None]) * LOG2E))
+                pairs = p[g][..., 0::2] + p[g][..., 1::2]      # keys 8 j + 2 t (+1)
+                for j in range(BK // 8):
+                    shares[g] = shares[g] + pairs[..., 4 * j:4 * j + 4]
+            p = torch.stack(p)
+            if f32:
+                ps = tf32_split_rn(p)
+                tile = torch.zeros_like(acc)
+                for j in range(BK // 8):
+                    kk = slice(k0 + 8 * j, k0 + 8 * j + 8)
+                    tile = _mma3(tile, [x[..., 8 * j:8 * j + 8] for x in ps],
+                                 [x[..., kk, :] for x in vs])
+                acc = acc + tile
+            else:
+                vt = vf[:, :, k0:k0 + BK].unflatten(-1, (ng, gw)).movedim(-2, 0)
+                acc = acc + p.to(q.dtype).float() @ vt
+        for g in range(ng):
+            sh = shares[g]
+            l = (sh[..., 0] + sh[..., 1]) + (sh[..., 2] + sh[..., 3])
+            if record is not None:
+                record.append((g, q0, m[g], l))
+            d = torch.clamp(l, min=1e-30)
+            out[:, :, q0:q0 + n, g * gw:(g + 1) * gw] = acc[g] / d[..., None]
+            if g == 0:
+                lse[:, :, q0:q0 + n] = m[g] + torch.log(d)
+    out = out[..., :D].permute(0, 2, 1, 3)
+    return (out if f32 else out.to(q.dtype)), lse.reshape(B, KV, H // KV, Sq)
